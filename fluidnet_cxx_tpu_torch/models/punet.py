@@ -1,0 +1,124 @@
+"""PUNet — the learned pressure projection's U-Net (twin of the JAX
+package's ``models/punet.py`` for ``refine_convs == 0``, the shipped
+flagship).
+
+space-to-depth(patch) -> 1x1 embed -> encoder (stride-2 3x3 downs, 3x3
+convs) -> bottleneck 3x3 convs (optionally dilated) -> decoder (1x1 expand +
+depth-to-space(2), skip concat [up | skip], 3x3 convs) -> 1x1 head ->
+depth-to-space(patch).
+
+Layouts follow flax so the converted weights drop in: the network takes and
+returns NHWC; space_to_depth orders channels (py, px, c) like flax (torch's
+pixel_unshuffle orders them (c, py, px)); padding is flax 'SAME', which on
+an even input pads a stride-2 conv (0, 1). Parameters are ``nn.Conv2d``s
+(OIHW) named as the flax modules are. This module's forward is the plain
+version of the conv kernel (ops/kernels/punet.py).
+"""
+import torch
+from torch import nn
+
+from ..ops.kernels.punet import conv2d_nhwc_plain
+
+
+def space_to_depth(x, p: int):
+    """(b, h, w, c) -> (b, h/p, w/p, p*p*c), channels ordered (py, px, c)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // p, w // p, p * p * c)
+
+
+def depth_to_space(x, p: int):
+    """(b, h, w, p*p*c) -> (b, h*p, w*p, c). Inverse of space_to_depth."""
+    b, h, w, cpp = x.shape
+    c = cpp // (p * p)
+    x = x.reshape(b, h, w, p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * p, w * p, c)
+
+
+def layer_table(in_ch, patch, widths, level_convs, bottleneck_convs,
+                bottleneck_dilation):
+    """[(name, c_in, c_out, kernel, stride, dilation)] in forward order."""
+    widths = tuple(widths)
+    t = [("embed", patch * patch * in_ch, widths[0], 1, 1, 1)]
+    for i, wd in enumerate(widths):
+        if i > 0:
+            t.append((f"down{i}", widths[i - 1], wd, 3, 2, 1))
+        for j in range(level_convs):
+            t.append((f"enc{i}_{j}", wd, wd, 3, 1, 1))
+    for j in range(bottleneck_convs):
+        t.append((f"mid{j}", widths[-1], widths[-1], 3, 1,
+                  bottleneck_dilation))
+    for i in range(len(widths) - 2, -1, -1):
+        wd = widths[i]
+        t.append((f"up{i}", widths[i + 1], 4 * wd, 1, 1, 1))
+        for j in range(level_convs):
+            t.append((f"dec{i}_{j}", 2 * wd if j == 0 else wd, wd, 3, 1, 1))
+    t.append(("head", widths[0], patch * patch, 1, 1, 1))
+    return t
+
+
+class PUNet(nn.Module):
+    """Learned Poisson solve: NHWC (b, h, w, in_ch) -> (b, h, w, 1).
+
+    h and w must be divisible by patch * 2**(len(widths)-1)."""
+
+    def __init__(self, in_ch: int = 2, patch: int = 8,
+                 widths=(128, 128), level_convs: int = 1,
+                 bottleneck_convs: int = 3, bottleneck_dilation: int = 1):
+        super().__init__()
+        self.in_ch = in_ch
+        self.patch = patch
+        self.widths = tuple(widths)
+        self.level_convs = level_convs
+        self.bottleneck_convs = bottleneck_convs
+        self.table = layer_table(in_ch, patch, widths, level_convs,
+                                 bottleneck_convs, bottleneck_dilation)
+        self.geometry = {name: (k, s, d)
+                         for name, _, _, k, s, d in self.table}
+        self.convs = nn.ModuleDict({
+            name: nn.Conv2d(ci, co, k, stride=s, dilation=d)
+            for name, ci, co, k, s, d in self.table})
+
+    @classmethod
+    def from_config(cls, cfg):
+        """Build from a ``ModelConfig`` (refine-free PUNet only)."""
+        if cfg.model != "PUNet" or cfg.punet_refine_convs != 0:
+            raise NotImplementedError(
+                "the port has the refine-free PUNet only; the refinement "
+                "stack and the other models are ROADMAP A.6")
+        return cls(in_ch=cfg.in_dims, patch=cfg.punet_patch,
+                   widths=cfg.punet_widths,
+                   level_convs=cfg.punet_level_convs,
+                   bottleneck_convs=cfg.punet_bottleneck_convs,
+                   bottleneck_dilation=cfg.punet_bottleneck_dilation)
+
+    def _plain_conv(self, name, x, x2=None, relu=True, in_scale=None,
+                    scale_mod=1):
+        c = self.convs[name]
+        _, stride, dil = self.geometry[name]
+        return conv2d_nhwc_plain(x, c.weight, c.bias, stride, dil, relu, x2,
+                                 in_scale, scale_mod)
+
+    def forward(self, x, inv_scale=None, conv=None):
+        """``inv_scale`` (b,) optionally multiplies input channel 0 (the
+        physical channel) before the embed conv. ``conv`` replaces the
+        per-layer convolution (the kernel path passes its own)."""
+        conv = conv or self._plain_conv
+        x = space_to_depth(x, self.patch)
+        x = conv("embed", x, in_scale=inv_scale, scale_mod=self.in_ch)
+        skips = []
+        for i in range(len(self.widths)):
+            if i > 0:
+                x = conv(f"down{i}", x)
+            for j in range(self.level_convs):
+                x = conv(f"enc{i}_{j}", x)
+            skips.append(x)
+        for j in range(self.bottleneck_convs):
+            x = conv(f"mid{j}", x)
+        for i in range(len(self.widths) - 2, -1, -1):
+            x = depth_to_space(conv(f"up{i}", x, relu=False), 2)
+            x = conv(f"dec{i}_0", x, x2=skips[i])
+            for j in range(1, self.level_convs):
+                x = conv(f"dec{i}_{j}", x)
+        x = conv("head", x, relu=False)
+        return depth_to_space(x, self.patch)
