@@ -6,18 +6,27 @@ Phases (each prints its elapsed seconds):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with one nvcc command, printing the
      -Xptxas -v register, shared-memory and spill lines;
-  3. each kernel (A advection, B PUNet conv, C projection tail) once at the
-     512^2 slice's shapes against its plain PyTorch version on the card
-     (TF32 off), with its tolerance, then CUDA-event times of the kernel,
-     the plain version and, for B, the same forward as cuDNN F.conv2d calls;
-  4. a small-input check: 3 steps of the 64^2 plume on the card against the
-     plain path on the CPU;
-  5. the main path: 20 steps of the 512^2 plume through run_plume with every
-     launch counter set to 0 just before and read just after; finite fields,
-     ms per step, mean|div| in and out of the last projection, the
-     `kernels` JSON line;
-  6. a torch.profiler window of 5 more steps: device time per step, the
-     device's idle share and the kernels that take the most device time.
+  3. each kernel (A advection, B PUNet conv, C projection tail, F Jacobi,
+     G multigrid solve, H multigrid projection) against its plain PyTorch
+     version on the card (TF32 off), with its tolerance, at the main
+     paths' shapes: 512^2 with 8% random obstacles and, for F, G and H,
+     also the 512x128 Rayleigh-Taylor box; at 512^2 G and H also no
+     further than twice the plain version's float32 rounding from its
+     float64 run; then CUDA-event times of the kernel, the plain version and, for B,
+     the same forward as cuDNN F.conv2d calls;
+  4. small-input checks, the card against the plain path on the CPU:
+     3 steps of the 64^2 plume with the learned projection, jacobi-28 and
+     mg-2v, and 3 steps of the 64x32 Rayleigh-Taylor scene under
+     multigrid;
+  5. the main paths, 20 steps each with every launch counter set to 0
+     just before and read just after: the 512^2 plume with the learned
+     projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), and the
+     128x512 Rayleigh-Taylor scene under jacobi-200 (A, F) and multigrid
+     (A, G); finite fields, ms per step, quality stats, launches per step;
+     then the `kernels` JSON line;
+  6. a torch.profiler window of 5 more steps of each main path: device
+     time per step, the device's idle share and the kernels that take the
+     most device time.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -38,6 +47,7 @@ WATCHDOG_S = 600
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 RES = 512
+RT_W, RT_H = 128, 512
 STEPS = 20
 SEED = 0
 
@@ -257,31 +267,245 @@ def phase_kernels(dev, results):
     done()
 
 
-def phase_small_check():
-    """3 steps of the 64^2 plume: kernels on the card vs plain on the CPU."""
-    from fluidnet_cxx_tpu_torch.run_plume import run_plume
+def check_rounding(name, got, want, exact):
+    """Hold the kernel's distance from ``exact`` (the plain version run in
+    float64) to twice the plain float32 version's own distance from it: a
+    kernel that only sums in another order is as close to the exact
+    arithmetic as the plain version."""
+    e_kernel, e_plain = max_err(got, exact), max_err(want, exact)
+    print(f"{name}: kernel vs float64 {e_kernel:.3e}, plain float32 vs "
+          f"float64 {e_plain:.3e}", flush=True)
+    if not e_kernel <= 2.0 * e_plain:
+        raise SystemExit(f"{name}: the kernel is further from float64 than "
+                         "float32 rounding explains")
 
-    done = phase("small-input check (64^2, 3 steps, card vs CPU)")
-    gpu = run_plume(64, 3, device="cuda", seed=SEED)["state"]
-    cpu = run_plume(64, 3, device="cpu", seed=SEED)["state"]
-    for name in ("U", "density", "p"):
-        g, c = getattr(gpu, name).cpu(), getattr(cpu, name)
-        check(f"64^2 step {name}", max_err([g], [c]), 1e-4 * scale_of([c]))
+
+def mg_ops(shapes, n_vcycles, pre=4, post=4, coarse=32):
+    """Operations of n_vcycles V-cycles over these levels, per cell of each
+    level: 13 a damped sweep, 12 the residual, 3 the compatibility
+    projection, 4 the fold and child sum, 10 the prolongation and add; 14
+    an extension pass on each coarse level; 3 per fine cell the gauge."""
+    n = [h * w for h, w in shapes]
+    per = sum(c * ((pre + post) * 13 + 12 + 3 + 4 + 10) + 2 * 14 * nc
+              for c, nc in zip(n[:-1], n[1:]))
+    per += n[-1] * (coarse * 13 + 3)
+    return n_vcycles * per + 3 * n[0]
+
+
+def phase_solvers(dev, results):
+    """Kernels F, G and H at the main paths' shapes."""
+    from fluidnet_cxx_tpu_torch.ops.jacobi import solve_jacobi_fixed
+    from fluidnet_cxx_tpu_torch.ops.kernels import jacobi, mg
+    from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
+    from fluidnet_cxx_tpu_torch.ops.multigrid import solve_mg as mg_plain
+    from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
+    from fluidnet_cxx_tpu_torch.sim.scenes import create_rayleigh_taylor_scene
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    flags, U, _ = stress_inputs(gen, dev, RES)
+    div = velocity_divergence(U, flags)
+    p0 = torch.randn((1, RES, RES), generator=gen).to(dev)
+    rt_flags = create_rayleigh_taylor_scene(RT_W, RT_H, device=dev).flags
+    rt_U = (2.0 * torch.randn((1, 2, RT_H, RT_W), generator=gen)).to(dev)
+    rt_div = velocity_divergence(rt_U, rt_flags)
+    rt_p0 = torch.randn((1, RT_H, RT_W), generator=gen).to(dev)
+    n, n_rt = RES * RES, RT_H * RT_W
+
+    def cont_cells(f):
+        inner = f[:, 1:-1, 1:-1]
+        return float((inner != 2).sum())
+
+    # ---- F: Jacobi ----
+    done = phase("kernel F solve_jacobi")
+    it = 200
+    got = jacobi.solve_jacobi(flags, div, it)
+    torch.cuda.synchronize()
+    want = solve_jacobi_fixed(flags, div, it)
+    # Same float32 operations in the same order as the plain sweep (built
+    # with -fmad=false): expected bit for bit; the tolerance is C's.
+    err, tol = max_err([got], [want]), 1e-5 * scale_of([want])
+    check(f"F solve_jacobi ({RES}^2, {it} sweeps)", err, tol)
+    want2 = solve_jacobi_fixed(flags, div, 13, p0=p0, damping=2.0 / 3.0)
+    check("F solve_jacobi (warm, 13 damped sweeps)",
+          max_err([jacobi.solve_jacobi(flags, div, 13, p0=p0,
+                                       damping=2.0 / 3.0)], [want2]),
+          1e-5 * scale_of([want2]))
+    want3 = solve_jacobi_fixed(rt_flags, rt_div, it)
+    check(f"F solve_jacobi ({RT_H}x{RT_W}, {it} sweeps)",
+          max_err([jacobi.solve_jacobi(rt_flags, rt_div, it)], [want3]),
+          1e-5 * scale_of([want3]))
+    ms = cuda_ms(lambda: jacobi.solve_jacobi(flags, div, it), 20)
+    plain_ms = cuda_ms(lambda: solve_jacobi_fixed(flags, div, it), 3,
+                       warmup=1)
+    rt_ms = cuda_ms(lambda: jacobi.solve_jacobi(rt_flags, rt_div, it), 20)
+    b_ms, b_by = bound(12 * n, 10.0 * it * cont_cells(flags))
+    results["F"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"F: kernel {ms:.4f} ms ({RT_H}x{RT_W}: {rt_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+
+    # ---- G: multigrid solve (its main path is the periodic RT box) ----
+    done = phase("kernel G solve_mg")
+    kw = dict(n_vcycles=2, p0=rt_p0)
+    got = mg.solve_mg(rt_flags, rt_div, **kw)
+    torch.cuda.synchronize()
+    want = mg_plain(rt_flags, rt_div, **kw)
+    # The compatibility projections, the gauge and the child sums add in
+    # another order than PyTorch's reductions.
+    err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
+    check(f"G solve_mg ({RT_H}x{RT_W}, 2 warm V-cycles)", err, tol)
+    # Fixed-order sums: a second run gives the same bits.
+    check("G solve_mg (repeat)",
+          max_err([mg.solve_mg(rt_flags, rt_div, **kw)], [got]), 0.0)
+    # At 512^2 with obstacles |p| reaches ~3.8e3 and the float32 plain
+    # version is itself ~1e-1 from its float64 run, so G is also held to
+    # that float64 run.
+    for start, args in (("cold", dict(n_vcycles=2)),
+                        ("warm", dict(n_vcycles=2, p0=p0))):
+        name = f"G solve_mg ({RES}^2 obstacles, 2 {start} V-cycles)"
+        g2, w2 = mg.solve_mg(flags, div, **args), mg_plain(flags, div, **args)
+        check(name, max_err([g2], [w2]), 1e-4 * scale_of([w2]))
+        args64 = {k: v.double() if torch.is_tensor(v) else v
+                  for k, v in args.items()}
+        check_rounding(name, [g2], [w2],
+                       [mg_plain(flags, div.double(), **args64)])
+    ms = cuda_ms(lambda: mg.solve_mg(rt_flags, rt_div, **kw), 20)
+    plain_ms = cuda_ms(lambda: mg_plain(rt_flags, rt_div, **kw), 3, warmup=1)
+    sq_ms = cuda_ms(lambda: mg.solve_mg(flags, div, n_vcycles=2, p0=p0), 20)
+    b_ms, b_by = bound(16 * n_rt, mg_ops(level_shapes(RT_H, RT_W), 2))
+    results["G"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"G: kernel {ms:.4f} ms ({RES}^2: {sq_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+
+    # ---- H: multigrid projection ----
+    done = phase("kernel H project_mg")
+    kw = dict(n_vcycles=2, p0=p0)
+    got = mg.project_mg(flags, U, **kw)
+    torch.cuda.synchronize()
+    want = mg.project_mg_plain(flags, U, **kw)
+    # Each output against its own largest value, and against the float64
+    # run of the plain version.
+    name = f"H project_mg ({RES}^2 obstacles, 2 warm V-cycles)"
+    exact = mg.project_mg_plain(flags, U.double(), p0=p0.double(),
+                                n_vcycles=2)
+    for i, field in enumerate(("p", "U'")):
+        check(f"{name} {field}", max_err(got[i:i + 1], want[i:i + 1]),
+              1e-4 * scale_of(want[i:i + 1]))
+        check_rounding(f"{name} {field}", got[i:i + 1], want[i:i + 1],
+                       exact[i:i + 1])
+    err = max_err(got, want)
+    check("H project_mg (repeat)",
+          max_err(mg.project_mg(flags, U, **kw), got), 0.0)
+    got2 = mg.project_mg(rt_flags, rt_U, rt_p0, n_vcycles=2)
+    want2 = mg.project_mg_plain(rt_flags, rt_U, rt_p0, n_vcycles=2)
+    for i, field in enumerate(("p", "U'")):
+        check(f"H project_mg ({RT_H}x{RT_W}, 2 warm V-cycles) {field}",
+              max_err(got2[i:i + 1], want2[i:i + 1]),
+              1e-4 * scale_of(want2[i:i + 1]))
+    ms = cuda_ms(lambda: mg.project_mg(flags, U, **kw), 20)
+    plain_ms = cuda_ms(lambda: mg.project_mg_plain(flags, U, **kw), 3,
+                       warmup=1)
+    b_ms, b_by = bound(28 * n, mg_ops(level_shapes(RES, RES), 2) + 12 * n)
+    results["H"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"H: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
     done()
 
 
-def phase_profile():
+def phase_small_check():
+    """3 steps of small scenes: kernels on the card vs plain on the CPU."""
+    from fluidnet_cxx_tpu_torch.run_plume import run_plume
+    from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import run_rayleigh_taylor
+
+    cases = {
+        "64^2 plume convnet": lambda d: run_plume(64, 3, device=d, seed=SEED),
+        "64^2 plume jacobi-28": lambda d: run_plume(
+            64, 3, device=d, seed=SEED, sim_method="jacobi", jacobi_iter=28),
+        "64^2 plume mg-2v": lambda d: run_plume(
+            64, 3, device=d, seed=SEED, sim_method="multigrid", mg_vcycles=2),
+        "64x32 RT multigrid": lambda d: run_rayleigh_taylor(
+            32, 64, 3, device=d, sim_method="multigrid"),
+    }
+    for name, run in cases.items():
+        done = phase(f"small-input check ({name}, 3 steps, card vs CPU)")
+        gpu, cpu = run("cuda")["state"], run("cpu")["state"]
+        for field in ("U", "density", "p"):
+            g, c = getattr(gpu, field).cpu(), getattr(cpu, field)
+            check(f"{name} {field}", max_err([g], [c]), 1e-4 * scale_of([c]))
+        done()
+
+
+def main_paths():
+    """name -> (run for n steps on the card, the (cfg, state, project_fn)
+    of its first step, the kernels it must launch)."""
+    from fluidnet_cxx_tpu_torch.run_plume import plume_case, run_plume
+    from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import (
+        rt_case, run_rayleigh_taylor)
+
+    def plume(**kw):
+        return (lambda n: run_plume(RES, n, "cuda", SEED, **kw),
+                lambda: plume_case(RES, "cuda", SEED, **kw))
+
+    def rt(method):
+        return (lambda n: run_rayleigh_taylor(RT_W, RT_H, n, "cuda", method),
+                lambda: rt_case(RT_W, RT_H, "cuda", method) + (None,))
+
+    return {
+        f"plume {RES}^2 convnet": plume() + ("ABC",),
+        f"plume {RES}^2 jacobi-200": plume(sim_method="jacobi",
+                                           jacobi_iter=200) + ("AF",),
+        f"plume {RES}^2 mg-2v": plume(sim_method="multigrid",
+                                      mg_vcycles=2) + ("AH",),
+        f"RT {RT_W}x{RT_H} jacobi-200": rt("jacobi") + ("AF",),
+        f"RT {RT_W}x{RT_H} multigrid": rt("multigrid") + ("AG",),
+    }
+
+
+def phase_main_paths(counters):
+    """Drive every main path with the counters set to 0 just before and
+    read just after; returns {path: {kernel: launches}}."""
+    seen = {}
+    for name, (run, _, kernels) in main_paths().items():
+        done = phase(f"main path ({name}, {STEPS} steps)")
+        for fn in counters.values():
+            fn.launches = 0
+        out = run(STEPS)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        st = out["state"]
+        for field in ("U", "density", "p"):
+            if not bool(torch.isfinite(getattr(st, field)).all()):
+                raise SystemExit(f"{name}: {field} is not finite")
+        if tuple(st.U.shape) != (1, 2) + tuple(st.flags.shape[1:]):
+            raise SystemExit(f"{name}: U has shape {tuple(st.U.shape)}")
+        missed = [k for k in kernels if launches[k] < 1]
+        if missed:
+            raise SystemExit(f"{name} missed kernels {missed}: {launches}")
+        stats = {k: v for k, v in out.items()
+                 if k not in ("state", "ms_per_step")}
+        per_step = {k: v / STEPS for k, v in launches.items() if v}
+        print(f"{name}: ms/step {out['ms_per_step']:.4f}; {stats}; "
+              f"launches {launches} (per step {per_step})", flush=True)
+        seen[name] = launches
+        done()
+    return seen
+
+
+def phase_profile(name, case):
     """Device time and idle share of 5 steps under torch.profiler (the
     profiler's own host cost makes the idle share an upper bound)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from fluidnet_cxx_tpu_torch.run_plume import plume_case
     from fluidnet_cxx_tpu_torch.sim.step import simulate_step
 
-    done = phase(f"profile ({RES}^2, 5 steps)")
+    done = phase(f"profile ({name}, 5 steps)")
     n = 5
     with torch.no_grad():
-        cfg, state, project = plume_case(RES, "cuda", SEED)
+        cfg, state, project = case()
         for _ in range(3):
             state = simulate_step(cfg, state, project)
         torch.cuda.synchronize()
@@ -304,10 +528,10 @@ def phase_profile():
     if not events:
         print("profiler: no device time recorded", flush=True)
     else:
-        print(f"profile: wall {wall_ms:.4f} ms/step, device busy "
+        print(f"profile {name}: wall {wall_ms:.4f} ms/step, device busy "
               f"{dev_ms:.4f} ms/step, idle share {1 - dev_ms / wall_ms:.3f}",
               flush=True)
-        for e in sorted(events, key=dev_us, reverse=True)[:10]:
+        for e in sorted(events, key=dev_us, reverse=True)[:8]:
             print(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step "
                   f"{e.count / n:6.1f} calls/step  {e.key[:70]}", flush=True)
     done()
@@ -337,37 +561,22 @@ def main():
     dev = torch.device("cuda")
     results = {}
     phase_kernels(dev, results)
+    phase_solvers(dev, results)
     phase_small_check()
 
-    from fluidnet_cxx_tpu_torch.ops.kernels import advect, proj_tail, punet
-    from fluidnet_cxx_tpu_torch.run_plume import run_plume
-
-    done = phase(f"main path ({RES}^2, {STEPS} steps)")
+    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, jacobi, mg,
+                                                    proj_tail, punet)
     counters = {"A": advect.advect_all, "B": punet.conv2d_nhwc,
-                "C": proj_tail.project_tail}
-    for fn in counters.values():
-        fn.launches = 0
-    out = run_plume(RES, STEPS, device="cuda", seed=SEED)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    st = out["state"]
-    for name in ("U", "density", "p"):
-        t = getattr(st, name)
-        if not bool(torch.isfinite(t).all()):
-            raise SystemExit(f"main path: {name} is not finite")
-    if tuple(st.U.shape) != (1, 2, RES, RES):
-        raise SystemExit(f"main path: U has shape {tuple(st.U.shape)}")
-    if min(launches.values()) < 1:
-        raise SystemExit(f"main path missed a kernel: {launches}")
-    print(f"ms/step {out['ms_per_step']:.4f}; mean|div| before projection "
-          f"{out['div_in']:.6e}, after {out['div_out']:.6e}; "
-          f"rho max {float(st.density.max()):.4f}; launches {launches} "
-          f"({ {k: v / STEPS for k, v in launches.items()} } per step)",
-          flush=True)
-    done()
+                "C": proj_tail.project_tail, "F": jacobi.solve_jacobi,
+                "G": mg.solve_mg, "H": mg.project_mg}
+    seen = phase_main_paths(counters)
+    paths = main_paths()
+    for name, (_, case, _) in paths.items():
+        phase_profile(name, case)
 
-    phase_profile()
-
+    # Launches of each kernel on the first main path that must launch it.
+    path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)
+               for k in counters}
     meta = {
         "A": ("advect_all", "fluidnet_cxx_tpu_torch/csrc/advect_all.cu",
               "fluidnet_cxx_tpu/ops/pallas/advect_pallas.py:715"),
@@ -375,12 +584,19 @@ def main():
               "fluidnet_cxx_tpu/ops/pallas/punet_pallas.py:366"),
         "C": ("project_tail", "fluidnet_cxx_tpu_torch/csrc/proj_tail.cu",
               "fluidnet_cxx_tpu/ops/pallas/proj_tail_pallas.py:164"),
+        "F": ("solve_jacobi", "fluidnet_cxx_tpu_torch/csrc/jacobi.cu",
+              "fluidnet_cxx_tpu/ops/pallas/jacobi_pallas.py:68"),
+        "G": ("solve_mg", "fluidnet_cxx_tpu_torch/csrc/mg.cu",
+              "fluidnet_cxx_tpu/ops/pallas/mg_pallas.py:190"),
+        "H": ("project_mg", "fluidnet_cxx_tpu_torch/csrc/mg.cu",
+              "fluidnet_cxx_tpu/ops/pallas/mg_pallas.py:340"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():
         r = results[k]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[k],
+                        "replaces": replaces,
+                        "launches": seen[path_of[k]][k],
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -25,14 +25,6 @@
 namespace {
 using namespace fnk;
 
-enum : uint8_t {
-  kCont = 1,   // interior, not obstacle: the sweep updates it
-  kObXm = 2,   // obstacle neighbours: Neumann substitution
-  kObXp = 4,
-  kObYm = 8,
-  kObYp = 16,
-};
-
 struct Inlet {
   const float* bc;    // (b, 2, h, w) or null
   const float* inv;   // (b, 2, h, w) or null
@@ -56,21 +48,14 @@ __global__ void tail_prologue(const int* __restrict__ flags_all,
   int i = y * w + x;
   const int* flags = flags_all + b * n;
   size_t ub = (size_t)b * 2 * n, vb = ub + n;
-  bool ob = flags[i] == kObstacle;
-  bool cont = interior(x, y, h, w) && !ob;
+  uint8_t m = cell_mask(flags, x, y, h, w);
   float rhs = 0.f;
-  uint8_t m = 0;
-  if (cont) {
+  if (m & kCont) {
     float u0 = in_bc.apply(U[ub + i], ub + i);
     float u1 = in_bc.apply(U[ub + i + 1], ub + i + 1);
     float v0 = in_bc.apply(U[vb + i], vb + i);
     float v1 = in_bc.apply(U[vb + i + w], vb + i + w);
     rhs = (u0 - u1) + (v0 - v1);
-    m = kCont;
-    if (flags[i - 1] == kObstacle) m |= kObXm;
-    if (flags[i + 1] == kObstacle) m |= kObXp;
-    if (flags[i - w] == kObstacle) m |= kObYm;
-    if (flags[i + w] == kObstacle) m |= kObYp;
   }
   rhs_all[b * n + i] = rhs;
   mask_all[b * n + i] = m;
@@ -89,19 +74,9 @@ __global__ void tail_sweep(const float* __restrict__ p_in_all,
   if (x >= w || y >= h) return;
   size_t n = (size_t)h * w;
   int i = y * w + x;
-  const float* p_in = p_in_all + b * n;
-  uint8_t m = mask_all[b * n + i];
-  float out = 0.f;
-  if (m & kCont) {
-    float p = p_in[i];
-    float p1 = (m & kObXm) ? p : p_in[i - 1];
-    float p2 = (m & kObXp) ? p : p_in[i + 1];
-    float p3 = (m & kObYm) ? p : p_in[i - w];
-    float p4 = (m & kObYp) ? p : p_in[i + w];
-    float upd = ((((p1 + p2) + p3) + p4) + rhs_all[b * n + i]) * 0.25f;
-    out = damped ? keep * p + damping * upd : upd;
-  }
-  p_out_all[b * n + i] = out;
+  p_out_all[b * n + i] =
+      jacobi_cell(p_in_all + b * n, i, w, mask_all[b * n + i],
+                  rhs_all[b * n + i], damped, keep, damping);
 }
 
 __global__ void tail_epilogue(const int* __restrict__ flags_all,
@@ -117,39 +92,12 @@ __global__ void tail_epilogue(const int* __restrict__ flags_all,
   const int* flags = flags_all + b * n;
   const float* p = p_all + b * n;
   size_t ub = (size_t)b * 2 * n, vb = ub + n;
-  float u = in_bc.apply(U[ub + i], ub + i);
-  float v = in_bc.apply(U[vb + i], vb + i);
-  int f = flags[i];
-  bool fl = f == kFluid, em = f == kEmpty, ob = f == kObstacle;
-
-  // Velocity update (fluid/empty face rules); border faces untouched.
-  float un = u, vn = v;
-  if (interior(x, y, h, w)) {
-    int fx = flags[i - 1], fy = flags[i - w];
-    bool flx = fx == kFluid, emx = fx == kEmpty;
-    bool fly = fy == kFluid, emy = fy == kEmpty;
-    float pc = p[i], px = p[i - 1], py = p[i - w];
-    un = (fl && flx) ? u - (pc - px)
-         : (fl && emx) ? u - pc
-         : (em && flx) ? u + px : 0.f;
-    vn = (fl && fly) ? v - (pc - py)
-         : (fl && emy) ? v - pc
-         : (em && fly) ? v + py : 0.f;
-  }
-  // Free-slip walls, left/down neighbour index clamped at 0.
-  int fxc = x > 0 ? flags[i - 1] : f;
-  int fyc = y > 0 ? flags[i - w] : f;
-  bool contw = fl || ob;
-  bool kill_u = contw && (fxc == kObstacle || (ob && fxc == kFluid));
-  bool kill_v = contw && (fyc == kObstacle || (ob && fyc == kFluid));
-  if (kill_u) un = 0.f;
-  if (kill_v) vn = 0.f;
+  float un, vn;
+  update_and_walls(
+      flags, [p](int j) { return p[j]; }, in_bc.apply(U[ub + i], ub + i),
+      in_bc.apply(U[vb + i], vb + i), x, y, h, w, &un, &vn);
   U_out[ub + i] = in_bc.apply(un, ub + i);
   U_out[vb + i] = in_bc.apply(vn, vb + i);
-}
-
-dim3 grid_for(int b, int h, int w, dim3 block) {
-  return dim3((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, b);
 }
 
 }  // namespace
@@ -161,7 +109,7 @@ extern "C" int fn_tail_prologue(const int* flags, const float* U,
                                 float* rhs, float* p, uint8_t* mask, int b,
                                 int h, int w, void* stream) {
   dim3 block(32, 8);
-  tail_prologue<<<grid_for(b, h, w, block), block, 0,
+  tail_prologue<<<fnk::grid2d(b, h, w, block), block, 0,
                   (cudaStream_t)stream>>>(flags, U, p0, scale,
                                           Inlet{U_bc, U_inv}, rhs, p, mask,
                                           h, w);
@@ -173,8 +121,9 @@ extern "C" int fn_tail_sweep(const float* p_in, const float* rhs,
                              int w, int damped, float keep, float damping,
                              void* stream) {
   dim3 block(32, 8);
-  tail_sweep<<<grid_for(b, h, w, block), block, 0, (cudaStream_t)stream>>>(
-      p_in, rhs, mask, p_out, h, w, damped, keep, damping);
+  tail_sweep<<<fnk::grid2d(b, h, w, block), block, 0,
+               (cudaStream_t)stream>>>(p_in, rhs, mask, p_out, h, w, damped,
+                                       keep, damping);
   return fnk::launch_status();
 }
 
@@ -183,7 +132,7 @@ extern "C" int fn_tail_epilogue(const int* flags, const float* U,
                                 const float* U_inv, float* U_out, int b,
                                 int h, int w, void* stream) {
   dim3 block(32, 8);
-  tail_epilogue<<<grid_for(b, h, w, block), block, 0,
+  tail_epilogue<<<fnk::grid2d(b, h, w, block), block, 0,
                   (cudaStream_t)stream>>>(flags, U, p, Inlet{U_bc, U_inv},
                                           U_out, h, w);
   return fnk::launch_status();

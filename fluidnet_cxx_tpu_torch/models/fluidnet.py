@@ -3,12 +3,14 @@
 ``make_project_fn_fused_forward``).
 
 assemble (divergence, occupancy, std normalisation) -> PUNet forward
-(ops/kernels/punet.py) -> projection tail (ops/kernels/proj_tail.py:
-RHS, warm damped-Jacobi polish, velocity update, wall BCs, with the inlet
-BCs folded in on the tail's input and output).
+(ops/kernels/punet.py) -> projection tail, with the inlet BCs folded in on
+the tail's input and output. The tail is ops/kernels/proj_tail.py (RHS,
+warm damped-Jacobi polish, velocity update, wall BCs) or, with
+``polish_impl="mg"``, one warm V-cycle of ops/kernels/mg.py::project_mg.
 """
 import torch
 
+from ..ops.kernels.mg import project_mg
 from ..ops.kernels.proj_tail import project_tail
 from ..ops.kernels.punet import pack_weights, punet_forward
 from ..ops.stencils import flags_to_occupancy, velocity_divergence
@@ -38,8 +40,6 @@ def make_project_fn(cfg, net):
     if cfg.input_u_div:
         raise ValueError("the projection assembles a 2-channel input; "
                          "input_u_div needs 3 channels")
-    if cfg.polish_impl == "mg":
-        raise NotImplementedError("multigrid polish is ROADMAP A.8, B.3")
     packed = pack_weights(net)
 
     @torch.no_grad()
@@ -56,6 +56,12 @@ def make_project_fn(cfg, net):
         feat0 = p if cfg.input_p_div else div
         x = torch.stack([feat0, flags_to_occupancy(flags)], dim=-1)
         p_hat = punet_forward(net, packed, x, inv_scale=1.0 / s)[..., 0]
+        if cfg.polish_impl == "mg":
+            p, U = project_mg(flags, U_in, p0=p_hat * s[:, None, None],
+                              n_vcycles=1)
+            if U_bc is not None:
+                U = U * U_bc_inv_mask + U_bc
+            return p, U
         return project_tail(flags, U, p_hat.contiguous(), cfg.polish_sweeps,
                             damping=cfg.polish_damping, scale=s, U_bc=U_bc,
                             U_bc_inv_mask=U_bc_inv_mask)

@@ -1,8 +1,13 @@
-"""Fixed-count Jacobi pressure sweeps (twin of the JAX package's
-``ops/jacobi.py::solve_jacobi_fixed``): pressure pinned to 0 on the border
-ring and in obstacles, obstacle neighbours replaced by the centre value
-(homogeneous Neumann), optional warm start ``p0`` and weighted-Jacobi
-``damping``."""
+"""Jacobi pressure sweeps (twin of the JAX package's ``ops/jacobi.py``):
+pressure pinned to 0 on the border ring and in obstacles, obstacle
+neighbours replaced by the centre value (homogeneous Neumann), optional
+warm start ``p0`` and weighted-Jacobi ``damping``; the residual is
+``max_b ||p - p_prev||_2``.
+
+``solve_jacobi_fixed`` runs a fixed count of sweeps (the plain version of
+kernel F, ``ops/kernels/jacobi.py``); ``solve_jacobi`` stops early once the
+residual drops below ``p_tol``. Both are plain tensor code, as in JAX.
+"""
 import torch
 
 from ..celltype import OBSTACLE
@@ -30,11 +35,39 @@ def _sweep_maker(flags, div, damping: float = 1.0):
     return sweep
 
 
-def solve_jacobi_fixed(flags, div, iters: int, p0=None,
-                       damping: float = 1.0):
-    """Run exactly ``iters`` sweeps from ``p0`` (default 0)."""
+def _residual(p_new, p_old):
+    d = (p_new - p_old).reshape(p_new.shape[0], -1)
+    return torch.sqrt(torch.sum(d * d, dim=1)).max()
+
+
+def solve_jacobi_fixed(flags, div, iters: int, with_residual: bool = False,
+                       p0=None, damping: float = 1.0):
+    """Run exactly ``iters`` sweeps from ``p0`` (default 0). With
+    ``with_residual`` returns ``(p, residual of the last sweep)`` (inf
+    after no sweep)."""
     sweep = _sweep_maker(flags, div, damping)
     p = torch.zeros_like(div) if p0 is None else p0
+    res = torch.tensor(float("inf"), dtype=torch.float32, device=div.device)
     for _ in range(iters):
-        p = sweep(p)
-    return p
+        p_new = sweep(p)
+        if with_residual:
+            res = _residual(p_new, p)
+        p = p_new
+    return (p, res) if with_residual else p
+
+
+def solve_jacobi(flags, div, p_tol: float = 1e-5, max_iter: int = 1000):
+    """Sweep from 0 until the residual drops below ``p_tol`` or
+    ``max_iter`` sweeps ran. Returns (p, residual). ``p_tol <= 0`` runs
+    all ``max_iter`` sweeps."""
+    if p_tol <= 0.0:
+        return solve_jacobi_fixed(flags, div, max_iter, with_residual=True)
+    sweep = _sweep_maker(flags, div)
+    p = torch.zeros_like(div)
+    res = torch.tensor(float("inf"), dtype=torch.float32, device=div.device)
+    it = 0
+    while it < max_iter and bool(res >= p_tol):
+        p_new = sweep(p)
+        res = _residual(p_new, p)
+        p, it = p_new, it + 1
+    return p, res

@@ -9,7 +9,10 @@ hash of the sources and flags changes.
 
 Every ``extern "C"`` entry launches one kernel on the stream it is given,
 returns its ``cudaError_t`` as an int, does not synchronise and allocates
-nothing; ``call`` raises if the status is not 0.
+nothing; ``call`` raises if the status is not 0. The entries in ``QUERIES``
+launch nothing: they answer a question of the kernels' own limits, so each
+such decision is written once, in the CUDA source, and ``query`` returns
+the answer.
 
 Run ``python -m fluidnet_cxx_tpu_torch.ops.kernels._build`` to build and
 print nvcc's ``-Xptxas -v`` report (registers, shared memory, spills).
@@ -45,6 +48,21 @@ SIGNATURES = {
     "fn_tail_sweep": [VP, VP, VP, VP, I, I, I, I, F, F, VP],
     "fn_tail_epilogue": [VP, VP, VP, VP, VP, VP, I, I, I, VP],
     "fn_conv2d_nhwc": [VP, VP, VP, VP, VP, VP] + [I] * 14 + [VP],
+    "fn_jacobi_mask": [VP, VP, I, I, I, VP],
+    "fn_jacobi_sweeps": [VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
+    "fn_mg_prologue": [VP, VP, VP, VP, I, I, I, VP],
+    "fn_mg_coarsen": [VP, VP, VP, I, I, I, VP],
+    "fn_mg_partials": [VP, VP, VP, I, I, I, VP],
+    "fn_mg_project": [VP, VP, VP, I, VP, I, I, I, VP],
+    "fn_mg_restrict": [VP, VP, VP, VP, VP, VP, I, I, I, VP],
+    "fn_mg_prolong": [VP, VP, VP, VP, I, I, I, VP],
+    "fn_mg_epilogue": [VP, VP, VP, VP, VP, I, VP, VP, I, I, I, VP],
+    "fn_mg_small": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
+}
+# extern "C" entries that launch nothing and return a number.
+QUERIES = {
+    "fn_jacobi_max_sweeps": [],
+    "fn_mg_cut_level": [I, VP, VP],
 }
 
 
@@ -102,7 +120,7 @@ def library():
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
+        for name, argtypes in {**SIGNATURES, **QUERIES}.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -115,6 +133,13 @@ def call(name: str, *args):
     status = getattr(library(), name)(*args)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")
+
+
+def query(name: str, *args) -> int:
+    """The answer of one of the ``QUERIES`` entries."""
+    if name not in QUERIES:
+        raise KeyError(f"{name} is not a query entry")
+    return getattr(library(), name)(*args)
 
 
 def ptr(t):

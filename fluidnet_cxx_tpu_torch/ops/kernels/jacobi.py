@@ -1,0 +1,65 @@
+"""Kernel F: fixed-count Jacobi pressure sweeps.
+
+Replaces ``fluidnet_cxx_tpu/ops/pallas/jacobi_pallas.py::
+solve_jacobi_pallas`` with the CUDA kernels in ``csrc/jacobi.cu``: one
+launch for the per-cell mask byte, then one launch per
+``fn_jacobi_max_sweeps()`` sweeps (temporal blocking in shared memory,
+ping-ponging two pressure buffers). No launch waits on another block. The plain version is
+``ops/jacobi.py::solve_jacobi_fixed``; a CPU tensor runs it, a CUDA tensor
+the kernels.
+"""
+import torch
+
+from ..jacobi import solve_jacobi_fixed
+from . import _build
+
+def sweep_args(damping: float):
+    """(damped, keep, damping) as the sweep kernels take them."""
+    w_ = float(damping)
+    return int(w_ != 1.0), 1.0 - w_, w_
+
+
+def sweeps(owner, p, rhs, mask, dst_pair, k: int, damping: float):
+    """``k`` sweeps on one level from ``p`` (None: zeros) through the
+    kernel; ``dst_pair`` are two (b, h, w) buffers, neither of them the
+    caller's ``p0``. Counts each launch on ``owner.launches``. Returns the
+    buffer holding the result (``p`` itself when k is 0)."""
+    b, h, w = rhs.shape
+    damped, keep, w_ = sweep_args(damping)
+    max_sweeps = _build.query("fn_jacobi_max_sweeps")
+    done = 0
+    while done < k:
+        n = min(max_sweeps, k - done)
+        dst = dst_pair[1] if p is dst_pair[0] else dst_pair[0]
+        _build.call("fn_jacobi_sweeps", _build.ptr(p), rhs.data_ptr(),
+                    mask.data_ptr(), dst.data_ptr(), b, h, w, n, damped,
+                    keep, w_, _build.stream())
+        owner.launches += 1
+        p, done = dst, done + n
+    return p
+
+
+def solve_jacobi(flags, div, iters: int, p0=None, damping: float = 1.0):
+    """``iters`` Jacobi sweeps. flags (b,h,w) int32, div (b,h,w) the RHS,
+    p0 (b,h,w) optional warm start (default 0). Returns p."""
+    if not _build.on_cuda(div):
+        return solve_jacobi_fixed(flags, div, iters, p0=p0, damping=damping)
+    b, h, w = flags.shape
+    dev = div.device
+    _build.check(flags, "flags", torch.int32, (b, h, w), dev)
+    _build.check(div, "div", torch.float32, (b, h, w), dev)
+    if p0 is not None:
+        _build.check(p0, "p0", torch.float32, (b, h, w), dev)
+    if iters < 0:
+        raise ValueError("solve_jacobi needs iters >= 0")
+    if iters == 0:
+        return torch.zeros_like(div) if p0 is None else p0
+    mask = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    _build.call("fn_jacobi_mask", flags.data_ptr(), mask.data_ptr(), b, h, w,
+                _build.stream())
+    solve_jacobi.launches += 1
+    pair = (torch.empty_like(div), torch.empty_like(div))
+    return sweeps(solve_jacobi, p0, div, mask, pair, iters, damping)
+
+
+solve_jacobi.launches = 0

@@ -1,0 +1,170 @@
+"""Geometric multigrid pressure solver, 2-D (twin of the JAX package's
+``ops/multigrid.py``; the reasons for each design choice are stated
+there). The plain version of kernels G and H (``ops/kernels/mg.py``).
+
+The operator is the one the Jacobi sweeps iterate: ``A p = 4 p - sum_n
+sel_n(p)`` with obstacle neighbours substituted by the centre value and p
+pinned to 0 on border/obstacle cells. A V-cycle: compatibility projection
+of the RHS, damped-Jacobi pre-smoothing, residual, border fold, 2x2
+child-sum restriction, recursion from a zero coarse correction, Neumann
+extension and bilinear prolongation of the correction, post-smoothing; the
+coarsest level only smooths. Coarse flags are OBSTACLE where all children
+are, with a forced obstacle border ring. ``solve_mg`` ends with the
+zero-mean gauge.
+
+Not ported: the learned coarse solve (``coarse_fn``), ``mg_cut_rhs`` and
+the 3-D functions.
+"""
+import torch
+
+from ..celltype import OBSTACLE
+from .common import border_mask, nb, where0
+from .jacobi import solve_jacobi_fixed
+
+_NEIGHBOURS = ((0, -1), (0, 1), (-1, 0), (1, 0))
+
+
+def _cont(flags):
+    _, h, w = flags.shape
+    return ~(border_mask(h, w, 1, flags.device)[None] | (flags == OBSTACLE))
+
+
+def apply_A(flags, p):
+    """A p on continuation cells, 0 elsewhere. The fixed point of the
+    Jacobi sweep satisfies A p = rhs."""
+    ob = flags == OBSTACLE
+    acc = torch.zeros_like(p)
+    for dy, dx in _NEIGHBOURS:
+        acc = acc + torch.where(nb(ob, dy, dx), p, nb(p, dy, dx))
+    return where0(_cont(flags), 4.0 * p - acc)
+
+
+def residual(flags, rhs, p):
+    return where0(_cont(flags), rhs - apply_A(flags, p))
+
+
+def _coarsen_flags(flags):
+    """OBSTACLE iff all four children are; otherwise the least cell-type id
+    of the non-obstacle children; an OBSTACLE border ring on every level."""
+    b, h, w = flags.shape
+    f = flags.reshape(b, h // 2, 2, w // 2, 2)
+    all_ob = (f == OBSTACLE).all(dim=4).all(dim=2)
+    big = torch.iinfo(torch.int32).max
+    rep = torch.where(f == OBSTACLE, big, f).amin(dim=(2, 4))
+    out = torch.where(all_ob, OBSTACLE, rep).to(torch.int32)
+    border = border_mask(h // 2, w // 2, 1, flags.device)[None]
+    return torch.where(border, OBSTACLE, out).to(torch.int32)
+
+
+def _fold_border(r):
+    """Move the residual of the border-layer rows and columns (1 and -2)
+    one cell inward; rows first, then columns."""
+    r = r.clone()
+    r[:, 2, :] += r[:, 1, :]
+    r[:, -3, :] += r[:, -2, :]
+    r[:, 1, :] = 0.0
+    r[:, -2, :] = 0.0
+    r[:, :, 2] += r[:, :, 1]
+    r[:, :, -3] += r[:, :, -2]
+    r[:, :, 1] = 0.0
+    r[:, :, -2] = 0.0
+    return r
+
+
+def _restrict_sum(r):
+    b, h, w = r.shape
+    r = _fold_border(r)
+    return r.reshape(b, h // 2, 2, w // 2, 2).sum(dim=(2, 4))
+
+
+def _prolong(e):
+    """Cell-centred bilinear prolongation: per axis (3/4, 1/4) toward the
+    containing coarse cell and its previous (even child) or next (odd
+    child) neighbour."""
+    b, hc, wc = e.shape
+    ey0 = 0.75 * e + 0.25 * nb(e, -1, 0)
+    ey1 = 0.75 * e + 0.25 * nb(e, 1, 0)
+    g = torch.stack([ey0, ey1], dim=2).reshape(b, 2 * hc, wc)
+    ex0 = 0.75 * g + 0.25 * nb(g, 0, -1)
+    ex1 = 0.75 * g + 0.25 * nb(g, 0, 1)
+    return torch.stack([ex0, ex1], dim=3).reshape(b, 2 * hc, 2 * wc)
+
+
+def _cont_mask(flags):
+    return _cont(flags).to(torch.float32)
+
+
+def _remove_incompatible(flags, rhs):
+    """Project the RHS onto the range of A: subtract its mean over
+    continuation cells."""
+    m = _cont_mask(flags)
+    mean = (torch.sum(rhs * m, dim=(1, 2), keepdim=True)
+            / torch.clamp(torch.sum(m, dim=(1, 2), keepdim=True), min=1.0))
+    return (rhs - mean) * m
+
+
+def _neumann_extend(flags, e):
+    """Fill dead cells with the mean of their live neighbours, two passes."""
+    live = _cont_mask(flags)
+    e = e * live
+    for _ in range(2):
+        num = torch.zeros_like(e)
+        den = torch.zeros_like(e)
+        for dy, dx in _NEIGHBOURS:
+            num = num + nb(e * live, dy, dx)
+            den = den + nb(live, dy, dx)
+        fill = num / torch.clamp(den, min=1.0)
+        e = torch.where(live > 0.5, e, fill)
+        live = torch.maximum(live, (den > 0.5).to(e.dtype))
+    return e
+
+
+def _vcycle(flags_lvls, rhs, p, lvl, pre, post, coarse_iters, damping):
+    flags = flags_lvls[lvl]
+    rhs = _remove_incompatible(flags, rhs)
+    if lvl + 1 == len(flags_lvls):
+        return solve_jacobi_fixed(flags, rhs, coarse_iters, p0=p,
+                                  damping=damping)
+    p = solve_jacobi_fixed(flags, rhs, pre, p0=p, damping=damping)
+    rhs_c = _restrict_sum(residual(flags, rhs, p))
+    e_c = _vcycle(flags_lvls, rhs_c, torch.zeros_like(rhs_c), lvl + 1, pre,
+                  post, coarse_iters, damping)
+    e_c = _neumann_extend(flags_lvls[lvl + 1], e_c)
+    p = p + where0(_cont(flags), _prolong(e_c))
+    return solve_jacobi_fixed(flags, rhs, post, p0=p, damping=damping)
+
+
+def level_shapes(h: int, w: int, min_size: int = 8):
+    """(h, w) of every level: halve while both sides are even and the
+    halved smaller side is at least ``min_size``."""
+    shapes = [(h, w)]
+    while (shapes[-1][0] % 2 == 0 and shapes[-1][1] % 2 == 0
+           and min(shapes[-1]) // 2 >= min_size):
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    return shapes
+
+
+def _levels(flags, min_size):
+    lvls = [flags]
+    for _ in level_shapes(*flags.shape[1:], min_size)[1:]:
+        lvls.append(_coarsen_flags(lvls[-1]))
+    return lvls
+
+
+def solve_mg(flags, div, n_vcycles: int = 2, pre: int = 4, post: int = 4,
+             coarse_iters: int = 32, damping: float = 2.0 / 3.0,
+             min_size: int = 8, p0=None, coarse_fn=None):
+    """V-cycle multigrid for the obstacle-aware pressure Poisson equation,
+    with ``solve_jacobi_fixed``'s (flags, div) contract; returns p in the
+    zero-mean gauge over continuation cells (0 on border/obstacle)."""
+    if coarse_fn is not None:
+        raise NotImplementedError("the learned coarse solve is ROADMAP A.8")
+    p = torch.zeros_like(div) if p0 is None else p0
+    lvls = _levels(flags, min_size)
+    for _ in range(n_vcycles):
+        p = _vcycle(lvls, div, p, 0, pre, post, coarse_iters, damping)
+    cont = _cont_mask(flags)
+    mean = (torch.sum(p * cont, dim=(1, 2), keepdim=True)
+            / torch.clamp(torch.sum(cont, dim=(1, 2), keepdim=True),
+                          min=1.0))
+    return cont * (p - mean)

@@ -1,15 +1,24 @@
-"""Run the 2-D buoyant plume with the learned projection.
+"""Run the 2-D buoyant plume.
 
     python -m fluidnet_cxx_tpu_torch.run_plume --res 512 --steps 20
+    python -m fluidnet_cxx_tpu_torch.run_plume --sim-method jacobi \
+        --jacobi-iter 200
+    python -m fluidnet_cxx_tpu_torch.run_plume --sim-method multigrid \
+        --mg-vcycles 2
 
-The case is the JAX package's ``bench.py`` "cnn" row: ``plume_config``
-(dt 0.1, MacCormack 0.6, buoyancy 0.25, ``max_disp`` 4, line trace and
-merged advection on, convnet projection), the plume scene with inlet speed
-2*res/128 and radius 0.145, and the PUNet of
-``trained_models/PUNetD2_128/model_config.json`` at its full widths.
-The weights are drawn from ``--seed`` with flax's initialiser: the trained
-checkpoint is an orbax file that only a JAX installation can read.
+The cases are the JAX package's ``bench.py`` rows: ``plume_config`` (dt
+0.1, MacCormack 0.6, buoyancy 0.25, ``max_disp`` 4, line trace and merged
+advection on) with the plume scene (inlet speed 2*res/128, radius 0.145)
+and one projection: "convnet" (the default, the "cnn" row) runs the PUNet
+of ``trained_models/PUNetD2_128/model_config.json`` at its full widths,
+"jacobi" ``--jacobi-iter`` sweeps (the jacobi-N rows), "multigrid"
+``--mg-vcycles`` warm V-cycles (the mg-2v row). The PUNet's weights are
+drawn from ``--seed`` with flax's initialiser: the trained checkpoint is
+an orbax file that only a JAX installation can read.
 
+Prints ms/step and ``bench.py``'s quality stats of the final state:
+mean|div| and max|div| over fluid cells outside the inlet rows, and the
+plume height (the highest row whose density exceeds 5% of the maximum).
 Runs on the card unless ``--device cpu`` is given.
 """
 import argparse
@@ -50,34 +59,59 @@ def build_punet(mcfg, seed: int = 0, device="cpu") -> PUNet:
 
 
 def plume_case(res: int = 512, device="cuda", seed: int = 0,
-               model_dir=MODEL_DIR):
-    """(SimConfig, initial SimState, project_fn) of the plume cnn case."""
+               model_dir=MODEL_DIR, sim_method: str = "convnet",
+               jacobi_iter: int = 200, mg_vcycles: int = 2):
+    """(SimConfig, initial SimState, project_fn) of a plume case;
+    project_fn is None for the classical projections."""
     dev = resolve_device(device)
     cfg = plume_config(dt=0.1, line_trace=True, max_disp=4,
-                       fuse_advection=True, sim_method="convnet")
+                       fuse_advection=True, sim_method=sim_method,
+                       jacobi_iter=jacobi_iter, mg_vcycles=mg_vcycles)
     state = create_plume_scene(res, res, density_val=0.1,
                                u_scale=2.0 * res / 128.0, rad=0.145,
                                device=dev)
+    if sim_method != "convnet":
+        return cfg, state, None
     mcfg = load_model_config(str(model_dir))
     project = make_project_fn(mcfg, build_punet(mcfg, seed, dev))
     return cfg, state, project
 
 
+def _fluid_abs_div(state, U):
+    """(|div U| masked to fluid cells outside the inlet rows, the mask)."""
+    fl = (state.flags == FLUID) & (state.U_bc_inv_mask[:, 1] > 0.5)
+    return velocity_divergence(U, state.flags).abs() * fl, fl
+
+
 def fluid_mean_abs_div(state, U):
     """mean |div U| over fluid cells outside the inlet rows."""
-    fl = (state.flags == FLUID) & (state.U_bc_inv_mask[:, 1] > 0.5)
-    div = velocity_divergence(U, state.flags).abs()
-    return float((div * fl).sum() / fl.sum())
+    div, fl = _fluid_abs_div(state, U)
+    return float(div.sum() / fl.sum())
+
+
+def quality(state):
+    """bench.py's quality stats of a plume state: mean and max |div U|
+    over fluid cells outside the inlet rows, and the plume height."""
+    div, fl = _fluid_abs_div(state, state.U)
+    rho = state.density[0]
+    present = rho.amax(dim=1) > 0.05 * rho.max()
+    rows = torch.arange(rho.shape[0], device=rho.device)
+    return {"mean_div": float(div.sum() / fl.sum()),
+            "max_div": float(div.max()),
+            "height": int(torch.where(present, rows, 0).max())}
 
 
 @torch.no_grad()
 def run_plume(res: int = 512, steps: int = 20, device="cuda", seed: int = 0,
-              model_dir=MODEL_DIR):
+              model_dir=MODEL_DIR, sim_method: str = "convnet",
+              jacobi_iter: int = 200, mg_vcycles: int = 2):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step (CUDA events on the card,
-    the host clock on the CPU) and the mean |div| of the last step's
-    projection input and output."""
-    cfg, state, project = plume_case(res, device, seed, model_dir)
+    the host clock on the CPU), ``quality(state)`` and, for the convnet
+    projection, the mean |div| of the last step's projection input
+    (``div_in``)."""
+    cfg, state, project = plume_case(res, device, seed, model_dir,
+                                     sim_method, jacobi_iter, mg_vcycles)
     on_card = state.U.device.type == "cuda"
     if on_card:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
@@ -91,18 +125,17 @@ def run_plume(res: int = 512, steps: int = 20, device="cuda", seed: int = 0,
         elapsed_ms = start.elapsed_time(end)
     else:
         elapsed_ms = 1e3 * (time.perf_counter() - t0)
-    seen = {}
+    seen = {"div_in": None}
 
     def observed(p, U, flags, density, U_bc, U_bc_inv_mask):
         seen["div_in"] = fluid_mean_abs_div(state, U * U_bc_inv_mask + U_bc)
         return project(p, U, flags, density, U_bc, U_bc_inv_mask)
 
     observed.handles_const_vals = True
-    state = simulate_step(cfg, state, observed)
+    state = simulate_step(cfg, state, observed if project else None)
     return {"state": state,
             "ms_per_step": elapsed_ms / max(steps - 1, 1),
-            "div_in": seen["div_in"],
-            "div_out": fluid_mean_abs_div(state, state.U)}
+            "div_in": seen["div_in"], **quality(state)}
 
 
 def main(argv=None):
@@ -111,15 +144,20 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sim-method", default="convnet",
+                    choices=("convnet", "jacobi", "multigrid"))
+    ap.add_argument("--jacobi-iter", type=int, default=200)
+    ap.add_argument("--mg-vcycles", type=int, default=2)
     args = ap.parse_args(argv)
-    out = run_plume(args.res, args.steps, args.device, args.seed)
-    st = out["state"]
+    out = run_plume(args.res, args.steps, args.device, args.seed,
+                    sim_method=args.sim_method, jacobi_iter=args.jacobi_iter,
+                    mg_vcycles=args.mg_vcycles)
+    st = out.pop("state")
     print(json.dumps({
-        "res": args.res, "steps": args.steps,
-        "ms_per_step": out["ms_per_step"],
-        "mean_abs_div_in": out["div_in"], "mean_abs_div_out": out["div_out"],
-        "rho_max": float(st.density.max()),
-        "finite": bool(torch.isfinite(st.U).all()),
+        "res": args.res, "steps": args.steps, "sim_method": args.sim_method,
+        **out, "rho_max": float(st.density.max()),
+        "finite": all(bool(torch.isfinite(t).all())
+                      for t in (st.U, st.p, st.density)),
     }))
 
 

@@ -1,5 +1,5 @@
-"""The buoyant-plume scene and its config (twins of the JAX package's
-``sim/scenes.py::create_plume_scene`` and ``plume_config``)."""
+"""The buoyant-plume and Rayleigh-Taylor scenes and their configs (twins of
+the JAX package's ``sim/scenes.py``)."""
 import math
 
 import numpy as np
@@ -54,6 +54,53 @@ def plume_config(**overrides) -> SimConfig:
         viscosity=0.0,
         p_tol=0.0,
         jacobi_iter=200,
+        sim_method="jacobi",
+    )
+    base.update(overrides)
+    return SimConfig(**base)
+
+
+def create_rayleigh_taylor_scene(res_x: int, res_y: int, rho1: float = -0.01,
+                                 rho2: float = 0.01,
+                                 perturb_thickness: float = 100.0,
+                                 perturb_amplitude: float = 0.01,
+                                 height: float = 0.5, batch: int = 1,
+                                 device="cpu"):
+    """tanh density interface at ``height`` with a cosine perturbation;
+    fluid at rest in a closed box, no inlet."""
+    state = create_state(batch, res_y, res_x, device=device)
+    X = np.arange(res_x, dtype=np.float32)[None, :]
+    Y = np.arange(res_y, dtype=np.float32)[:, None]
+    density = 0.5 * (
+        rho2 + rho1
+        + (rho2 - rho1)
+        * np.tanh(
+            perturb_thickness
+            * (
+                Y / res_y
+                - (
+                    height
+                    + perturb_amplitude * np.cos(2 * math.pi * X / res_x)
+                )
+            )
+        )
+    ).astype(np.float32)
+    density = np.repeat(density[None], batch, axis=0)
+    return state._replace(density=torch.from_numpy(density).to(device))
+
+
+def rayleigh_taylor_config(**overrides) -> SimConfig:
+    """Defaults of the shipped Rayleigh-Taylor config: periodic in y."""
+    base = dict(
+        dt=0.5,
+        maccormack_strength=0.6,
+        buoyancy_scale=1.0,
+        gravity_scale=0.0,
+        gravity_vec=(0.0, 1.0, 0.0),
+        p_tol=0.0,
+        jacobi_iter=200,
+        periodic_y=True,
+        periodic_x=False,
         sim_method="jacobi",
     )
     base.update(overrides)
