@@ -6,24 +6,29 @@ Phases (each prints its elapsed seconds):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with one nvcc command, printing the
      -Xptxas -v register, shared-memory and spill lines;
-  3. each kernel (A advection, B PUNet conv, C projection tail, F Jacobi,
-     G multigrid solve, H multigrid projection) against its plain PyTorch
-     version on the card (TF32 off), with its tolerance, at the main
-     paths' shapes: 512^2 with 8% random obstacles and, for F, G and H,
-     also the 512x128 Rayleigh-Taylor box; at 512^2 G and H also no
-     further than twice the plain version's float32 rounding from its
-     float64 run; then CUDA-event times of the kernel, the plain version and, for B,
-     the same forward as cuDNN F.conv2d calls;
+  3. each kernel (A merged advection, B PUNet conv, C projection tail,
+     D scalar advection, E velocity advection, F Jacobi, G multigrid
+     solve, H multigrid projection) against its plain PyTorch version on
+     the card (TF32 off), with its tolerance, at the main paths' shapes:
+     512^2 with 8% random obstacles (A and E also with an `orig` far from
+     U); E and F also at 800x8000 on the cylinder's flags, E with the
+     viscous field as `orig` (with the plain version's peak memory there);
+     F, G and H also on the 512x128 Rayleigh-Taylor box; at 512^2 G and H
+     also no further than twice the plain version's float32 rounding from
+     its float64 run; then CUDA-event times of the kernel, the plain
+     version and, for B, the same forward as cuDNN F.conv2d calls;
   4. small-input checks, the card against the plain path on the CPU:
-     3 steps of the 64^2 plume with the learned projection, jacobi-28 and
-     mg-2v, and 3 steps of the 64x32 Rayleigh-Taylor scene under
-     multigrid;
+     3 steps of the 64^2 plume with the learned projection, jacobi-28,
+     mg-2v and unfused jacobi-28, of the 64x32 Rayleigh-Taylor scene
+     under multigrid and of the 64x256 cylinder (radius 8 at x 40);
   5. the main paths, 20 steps each with every launch counter set to 0
      just before and read just after: the 512^2 plume with the learned
-     projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), and the
+     projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), the
      128x512 Rayleigh-Taylor scene under jacobi-200 (A, F) and multigrid
-     (A, G); finite fields, ms per step, quality stats, launches per step;
-     then the `kernels` JSON line;
+     (A, G), the 8000x800 cylinder under jacobi-34 (E, F) and the 512^2
+     plume with unfused advection under jacobi-200 (D, E, F); finite
+     fields, ms per step, quality stats, launches per step; then the
+     `kernels` JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share and the kernels that take the
      most device time.
@@ -48,6 +53,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 RES = 512
 RT_W, RT_H = 128, 512
+CYL_W, CYL_H = 8000, 800
 STEPS = 20
 SEED = 0
 
@@ -115,16 +121,27 @@ def stress_inputs(gen, dev, res):
     return flags.to(dev), U.to(dev), rho.to(dev)
 
 
-def advect_ops(flags, D):
-    """Operations of one advection call on these flags: ~300 per cell plus
+def advect_ops(flags, D, per_cell=300.0, trace=True):
+    """Operations of one advection call on these flags: ``per_cell`` (~150
+    for each of the scalar and the velocity half) plus, with the trace,
     two slab tests (~20 ops each) per blocked cell in each fluid cell's
     (2D+1)^2 trace window, for the forward and the backward trace."""
+    ops = per_cell * flags.numel()
+    if not trace:
+        return ops
     blocked = (flags != 1).float()[:, None]
     k = 2 * D + 1
     in_window = torch.nn.functional.conv2d(
         blocked, torch.ones((1, 1, k, k), device=flags.device), padding=D)
     fluid = (flags == 1)[:, None]
-    return 300.0 * flags.numel() + 2 * 20.0 * float(in_window[fluid].sum())
+    return ops + 2 * 20.0 * float(in_window[fluid].sum())
+
+
+def far_orig(gen, U):
+    """A field that U advects, far from U: U plus a seeded field of the
+    same scale (a kernel that read U where it must read orig fails)."""
+    noise = torch.rand(U.shape, generator=gen) - 0.5
+    return U + 100.0 * noise.to(U.device)
 
 
 def phase_kernels(dev, results):
@@ -156,6 +173,11 @@ def phase_kernels(dev, results):
     want2 = advect.advect_all_plain(*other)
     check("A advect_all (trace off, sample outside)",
           max_err(advect.advect_all(*other), want2), 1e-4 * scale_of(want2))
+    orig = far_orig(gen, U)
+    want3 = advect.advect_all_plain(*args, orig=orig)
+    check("A advect_all (orig far from U)",
+          max_err(advect.advect_all(*args, orig=orig), want3),
+          1e-4 * scale_of(want3))
     ms = cuda_ms(lambda: advect.advect_all(*args), 20)
     plain_ms = cuda_ms(lambda: advect.advect_all_plain(*args), 3, warmup=1)
     b_ms, b_by = bound(28 * n, advect_ops(flags, D))
@@ -264,6 +286,99 @@ def phase_kernels(dev, results):
                         bound_by=b_by, library_ms=None)
     print(f"C: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+    phase_split_advection(dev, gen, flags, U, rho, results)
+
+
+def phase_split_advection(dev, gen, flags, U, rho, results):
+    """Kernels D and E at 512^2 on the stress inputs, then E and F at
+    8000x800 on the cylinder's flags. D and E run A's device functions
+    in the plain version's float32 order (-fmad=false), so like A they are
+    expected to be bit-exact; the tolerance is A's."""
+    from fluidnet_cxx_tpu_torch.ops import advection
+    from fluidnet_cxx_tpu_torch.ops.jacobi import solve_jacobi_fixed
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect, jacobi
+    from fluidnet_cxx_tpu_torch.ops.source_terms import add_viscosity
+    from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
+    from fluidnet_cxx_tpu_torch.sim.scenes import create_cylinder_scene
+
+    n, D = RES * RES, 4
+
+    done = phase("kernel D advect_scalar")
+    args = (0.1, rho, U, flags, 0.6, False, D, True)
+    got = advect.advect_scalar(*args)
+    torch.cuda.synchronize()
+    want = advection.advect_scalar(0.1, rho, U, flags, False, 0.6, True, D)
+    err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
+    check("D advect_scalar", err, tol)
+    want2 = advection.advect_scalar(0.1, rho, U, flags, True, 0.6, False, D)
+    check("D advect_scalar (trace off, sample outside)",
+          max_err([advect.advect_scalar(0.1, rho, U, flags, 0.6, True, D,
+                                        False)], [want2]),
+          1e-4 * scale_of([want2]))
+    ms = cuda_ms(lambda: advect.advect_scalar(*args), 20)
+    plain_ms = cuda_ms(lambda: advection.advect_scalar(
+        0.1, rho, U, flags, False, 0.6, True, D), 3, warmup=1)
+    b_ms, b_by = bound(20 * n, advect_ops(flags, D, 150.0))
+    results["D"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"D: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+
+    done = phase("kernel E advect_velocity")
+    orig = far_orig(gen, U)
+    for name, o in (("orig = U", None), ("orig far from U", orig)):
+        want = advection.advect_velocity(0.1, U if o is None else o, U,
+                                         flags, 0.6, D)
+        check(f"E advect_velocity {RES}^2 ({name})",
+              max_err([advect.advect_velocity(0.1, U, flags, 0.6, D,
+                                              orig=o)], [want]),
+              1e-4 * scale_of([want]))
+    sq_ms = cuda_ms(lambda: advect.advect_velocity(0.1, U, flags, 0.6, D), 20)
+    sq_plain_ms = cuda_ms(lambda: advection.advect_velocity(
+        0.1, U, U, flags, 0.6, D), 3, warmup=1)
+    print(f"E {RES}^2 (no orig): kernel {sq_ms:.4f} ms, plain "
+          f"{sq_plain_ms:.3f} ms, bound {bound(20 * n, 150.0 * n)[0]:.4f} ms",
+          flush=True)
+
+    # The cylinder's own flags and shape, U with up to 5-cell
+    # displacements and its viscous field as orig.
+    state, nu = create_cylinder_scene(CYL_W, CYL_H, device=dev)
+    cflags, nc = state.flags, CYL_W * CYL_H
+    cU = state.U + 100.0 * (torch.rand(state.U.shape, generator=gen)
+                            - 0.5).to(dev)
+    corig = add_viscosity(0.1, cU, cflags, nu)
+    got = advect.advect_velocity(0.1, cU, cflags, 0.6, D, orig=corig)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    want = advection.advect_velocity(0.1, corig, cU, cflags, 0.6, D)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
+    check(f"E advect_velocity {CYL_W}x{CYL_H} (cylinder flags, viscous "
+          "orig)", err, tol)
+    ms = cuda_ms(lambda: advect.advect_velocity(0.1, cU, cflags, 0.6, D,
+                                                orig=corig), 20)
+    plain_ms = cuda_ms(lambda: advection.advect_velocity(
+        0.1, corig, cU, cflags, 0.6, D), 3, warmup=1)
+    b_ms, b_by = bound(28 * nc, advect_ops(cflags, D, 150.0, trace=False))
+    results["E"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"E {CYL_W}x{CYL_H} (orig): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms (peak {peak_gb:.2f} GB above its inputs), "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+
+    done = phase(f"kernel F at {CYL_W}x{CYL_H}")
+    div = velocity_divergence(corig, cflags)
+    want = solve_jacobi_fixed(cflags, div, 34)
+    check(f"F solve_jacobi ({CYL_W}x{CYL_H} cylinder, 34 sweeps)",
+          max_err([jacobi.solve_jacobi(cflags, div, 34)], [want]),
+          1e-5 * scale_of([want]))
+    f_ms = cuda_ms(lambda: jacobi.solve_jacobi(cflags, div, 34), 20)
+    print(f"F {CYL_W}x{CYL_H}, 34 sweeps: kernel {f_ms:.4f} ms", flush=True)
     done()
 
 
@@ -418,6 +533,7 @@ def phase_solvers(dev, results):
 
 def phase_small_check():
     """3 steps of small scenes: kernels on the card vs plain on the CPU."""
+    from fluidnet_cxx_tpu_torch.run_cylinder import run_cylinder
     from fluidnet_cxx_tpu_torch.run_plume import run_plume
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import run_rayleigh_taylor
 
@@ -427,8 +543,13 @@ def phase_small_check():
             64, 3, device=d, seed=SEED, sim_method="jacobi", jacobi_iter=28),
         "64^2 plume mg-2v": lambda d: run_plume(
             64, 3, device=d, seed=SEED, sim_method="multigrid", mg_vcycles=2),
+        "64^2 plume unfused jacobi-28": lambda d: run_plume(
+            64, 3, device=d, seed=SEED, sim_method="jacobi", jacobi_iter=28,
+            fuse_advection=False),
         "64x32 RT multigrid": lambda d: run_rayleigh_taylor(
             32, 64, 3, device=d, sim_method="multigrid"),
+        "64x256 cylinder jacobi-34": lambda d: run_cylinder(
+            256, 64, 3, device=d, radius=8.0, center_x=40.0),
     }
     for name, run in cases.items():
         done = phase(f"small-input check ({name}, 3 steps, card vs CPU)")
@@ -442,6 +563,7 @@ def phase_small_check():
 def main_paths():
     """name -> (run for n steps on the card, the (cfg, state, project_fn)
     of its first step, the kernels it must launch)."""
+    from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case, run_cylinder
     from fluidnet_cxx_tpu_torch.run_plume import plume_case, run_plume
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import (
         rt_case, run_rayleigh_taylor)
@@ -462,6 +584,12 @@ def main_paths():
                                       mg_vcycles=2) + ("AH",),
         f"RT {RT_W}x{RT_H} jacobi-200": rt("jacobi") + ("AF",),
         f"RT {RT_W}x{RT_H} multigrid": rt("multigrid") + ("AG",),
+        f"cylinder {CYL_W}x{CYL_H} jacobi-34": (
+            lambda n: run_cylinder(CYL_W, CYL_H, n, "cuda"),
+            lambda: cylinder_case(CYL_W, CYL_H, "cuda") + (None,), "EF"),
+        f"plume {RES}^2 unfused jacobi-200": plume(
+            sim_method="jacobi", jacobi_iter=200,
+            fuse_advection=False) + ("DEF",),
     }
 
 
@@ -567,7 +695,8 @@ def main():
     from fluidnet_cxx_tpu_torch.ops.kernels import (advect, jacobi, mg,
                                                     proj_tail, punet)
     counters = {"A": advect.advect_all, "B": punet.conv2d_nhwc,
-                "C": proj_tail.project_tail, "F": jacobi.solve_jacobi,
+                "C": proj_tail.project_tail, "D": advect.advect_scalar,
+                "E": advect.advect_velocity, "F": jacobi.solve_jacobi,
                 "G": mg.solve_mg, "H": mg.project_mg}
     seen = phase_main_paths(counters)
     paths = main_paths()
@@ -584,6 +713,10 @@ def main():
               "fluidnet_cxx_tpu/ops/pallas/punet_pallas.py:366"),
         "C": ("project_tail", "fluidnet_cxx_tpu_torch/csrc/proj_tail.cu",
               "fluidnet_cxx_tpu/ops/pallas/proj_tail_pallas.py:164"),
+        "D": ("advect_scalar", "fluidnet_cxx_tpu_torch/csrc/advect_all.cu",
+              "fluidnet_cxx_tpu/ops/pallas/advect_pallas.py:516"),
+        "E": ("advect_velocity", "fluidnet_cxx_tpu_torch/csrc/advect_all.cu",
+              "fluidnet_cxx_tpu/ops/pallas/advect_pallas.py:207"),
         "F": ("solve_jacobi", "fluidnet_cxx_tpu_torch/csrc/jacobi.cu",
               "fluidnet_cxx_tpu/ops/pallas/jacobi_pallas.py:68"),
         "G": ("solve_mg", "fluidnet_cxx_tpu_torch/csrc/mg.cu",

@@ -3,7 +3,7 @@
 ``SimConfig`` and ``ModelConfig`` keep the field names and defaults of the
 JAX package's ``config.py`` so a configuration reads the same in both.
 Only the JSON ``model_config.json`` reader is ported here; the YAML loader
-is still to come (ROADMAP A.1).
+is still to come (ROADMAP A.3).
 """
 import dataclasses
 import json

@@ -1,26 +1,39 @@
-// Kernel A: scalar + MAC-velocity MacCormack advection on the window
-// engine, both from the same pre-advection U.
+// Kernels A, D and E: MacCormack advection on the window engine.
 //
-// Replaces fluidnet_cxx_tpu/ops/pallas/advect_pallas.py::advect_all_pallas
-// (body _advect_all_kernel). Same semantics as the port's plain version
-// ops/advection.py (advect_scalar + advect_velocity, impl='window',
-// first-hit trace): the back-traced position is clamped to the cell centre
-// +- D, the fluid-aware bilinear of _interpol_fluid_window_tile, the scalar
-// 3x3 clamp, the Selle clamp of _clamp_mac_tile and the border zeroing of
-// _border_zero.
+//   A  scalar + MAC velocity from the same pre-advection U; replaces
+//      fluidnet_cxx_tpu/ops/pallas/advect_pallas.py::advect_all_pallas
+//      (body _advect_all_kernel);
+//   D  the scalar alone; replaces advect_pallas.py::advect_scalar_pallas
+//      (body _advect_scalar_kernel);
+//   E  the MAC velocity alone; replaces advect_pallas.py::
+//      advect_velocity_pallas (body _advect_vel_kernel).
 //
-// What bounds it on an H100: the bytes are few (rho, u, v, flags in and
-// rho', u', v' out: 28 B a cell, ~7 MB at 512^2, ~2 us at 3.35 TB/s); the
-// time goes to the per-cell window work — up to (2D+1)^2 slab tests of the
+// A and E take an optional `orig`, the field that U advects (the viscous
+// field of a step with viscosity): the MAC velocity vectors come from U;
+// the forward samples, the MacCormack correction and the Selle clamp's
+// extrema from orig (orig == U when it is not given).
+//
+// Same semantics as the port's plain versions ops/advection.py
+// (advect_scalar, advect_velocity; impl='window', first-hit trace): the
+// back-traced position is clamped to the cell centre +- D, the fluid-aware
+// bilinear of _interpol_fluid_window_tile, the scalar 3x3 clamp, the Selle
+// clamp of _clamp_mac_tile and the border zeroing of _border_zero.
+//
+// What bounds it on an H100: the bytes are few (A: rho, u, v, flags in and
+// rho', u', v' out, 28 B a cell; D: rho, u, v, flags in, rho' out, 20 B;
+// E: u, v, flags in, u', v' out, 20 B, and 28 B with orig); the time goes
+// to the per-cell window work — up to (2D+1)^2 slab tests of the
 // first-hit trace, run only for blocked cells in the window, twice per
 // cell. Design: one thread per cell reading its window straight from
 // global memory (the neighbourhood stays in L1/L2), two launches because
 // the backward pass samples the forward field at neighbouring cells:
-//   launch 1 (forward): rho_fwd, its back-traced position, u_fwd, v_fwd
-//            into scratch;
+//   launch 1 (forward): rho_fwd and its back-traced position (scalar
+//            half), u_fwd and v_fwd (velocity half) into scratch planes;
 //   launch 2 (backward): backward samples, MacCormack correction, clamps,
 //            border zeroing, outputs.
-// No block waits on another; every loop is bounded by D.
+// One template serves A, D and E: kScalar and kVel choose the halves, so
+// all three run the same device functions. No block waits on another;
+// every loop is bounded by D.
 #include "common.cuh"
 
 namespace {
@@ -230,8 +243,16 @@ __device__ float selle(float dst, const Field& orig, int x, int y, float vdx,
   return fmaxf(fminf(dst, mx), mn);
 }
 
+// Scratch plane k of sample b: the scalar half uses planes 0-2 (rho_fwd,
+// the back-traced x and y), the velocity half the next two (u_fwd, v_fwd).
+__device__ __forceinline__ size_t plane(int k, int b, int nb, int n) {
+  return (size_t)(k * nb + b) * n;
+}
+
+template <bool kScalar, bool kVel>
 __global__ void advect_forward(const float* __restrict__ rho,
                                const float* __restrict__ U,
+                               const float* __restrict__ orig,
                                const int* __restrict__ flags_all,
                                float* __restrict__ scratch, Params P) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -243,37 +264,37 @@ __global__ void advect_forward(const float* __restrict__ rho,
   const float* v = u + n;
   const int* flags = flags_all + (size_t)b * n;
   int nb = gridDim.z;
-  float* s_fwd = scratch + (size_t)b * n;
-  float* s_px = scratch + (size_t)(nb + b) * n;
-  float* s_py = scratch + (size_t)(2 * nb + b) * n;
-  float* u_fwd = scratch + (size_t)(3 * nb + b) * n;
-  float* v_fwd = scratch + (size_t)(4 * nb + b) * n;
   int i = y * w + x;
   bool fluid = flags[i] == kFluid;
   bool in = interior(x, y, h, w);
 
-  // Scalar forward sample.
-  float ccx = in ? 0.5f * (u[i] + u[i + 1]) : 0.f;
-  float ccy = in ? 0.5f * (v[i] + v[i + w]) : 0.f;
-  Field src{rho + (size_t)b * n, h, w};
-  float bx, by;
-  float f = scalar_sl(src, flags, fluid, x, y, ccx, ccy, P.dt, P, &bx, &by);
-  s_fwd[i] = in ? f : 0.f;
-  s_px[i] = fluid ? bx : (float)x + 0.5f;
-  s_py[i] = fluid ? by : (float)y + 0.5f;
-
-  // Velocity forward samples.
-  float mxu, mxv, myu, myv;
-  mac_vectors(u, v, x, y, h, w, &mxu, &mxv, &myu, &myv);
-  Field fu{u, h, w}, fv{v, h, w};
-  float su = vel_sl(fu, fluid, x, y, mxu, mxv, P.dt, P.D);
-  float sv = vel_sl(fv, fluid, x, y, myu, myv, P.dt, P.D);
-  u_fwd[i] = in ? su : 0.f;
-  v_fwd[i] = in ? sv : 0.f;
+  if (kScalar) {
+    float ccx = in ? 0.5f * (u[i] + u[i + 1]) : 0.f;
+    float ccy = in ? 0.5f * (v[i] + v[i + w]) : 0.f;
+    Field src{rho + (size_t)b * n, h, w};
+    float bx, by;
+    float f = scalar_sl(src, flags, fluid, x, y, ccx, ccy, P.dt, P, &bx, &by);
+    scratch[plane(0, b, nb, n) + i] = in ? f : 0.f;
+    scratch[plane(1, b, nb, n) + i] = fluid ? bx : (float)x + 0.5f;
+    scratch[plane(2, b, nb, n) + i] = fluid ? by : (float)y + 0.5f;
+  }
+  if (kVel) {
+    const int k = kScalar ? 3 : 0;
+    const float* ou = orig + (size_t)b * 2 * n;
+    float mxu, mxv, myu, myv;
+    mac_vectors(u, v, x, y, h, w, &mxu, &mxv, &myu, &myv);
+    Field fu{ou, h, w}, fv{ou + n, h, w};
+    float su = vel_sl(fu, fluid, x, y, mxu, mxv, P.dt, P.D);
+    float sv = vel_sl(fv, fluid, x, y, myu, myv, P.dt, P.D);
+    scratch[plane(k, b, nb, n) + i] = in ? su : 0.f;
+    scratch[plane(k + 1, b, nb, n) + i] = in ? sv : 0.f;
+  }
 }
 
+template <bool kScalar, bool kVel>
 __global__ void advect_backward(const float* __restrict__ rho,
                                 const float* __restrict__ U,
+                                const float* __restrict__ orig,
                                 const int* __restrict__ flags_all,
                                 const float* __restrict__ scratch,
                                 float* __restrict__ rho_out,
@@ -287,70 +308,77 @@ __global__ void advect_backward(const float* __restrict__ rho,
   const float* v = u + n;
   const int* flags = flags_all + (size_t)b * n;
   int nb = gridDim.z;
-  const float* s_fwd = scratch + (size_t)b * n;
-  const float* s_px = scratch + (size_t)(nb + b) * n;
-  const float* s_py = scratch + (size_t)(2 * nb + b) * n;
-  const float* u_fwd = scratch + (size_t)(3 * nb + b) * n;
-  const float* v_fwd = scratch + (size_t)(4 * nb + b) * n;
   int i = y * w + x;
   bool fluid = flags[i] == kFluid;
   bool in = interior(x, y, h, w);
-  const float* src = rho + (size_t)b * n;
 
   // ---- scalar: backward sample, correction, 3x3 fluid clamp ----
-  float ccx = in ? 0.5f * (u[i] + u[i + 1]) : 0.f;
-  float ccy = in ? 0.5f * (v[i] + v[i + w]) : 0.f;
-  Field fwdf{s_fwd, h, w};
-  float bx, by;
-  float bwd = scalar_sl(fwdf, flags, fluid, x, y, ccx, ccy, -P.dt, P, &bx,
-                        &by);
-  bwd = in ? bwd : 0.f;
-  float fwd = s_fwd[i];
-  float dst = fluid ? fwd + P.halfstr * (src[i] - bwd) : fwd;
-  float out;
-  if (!in) {
-    out = dst;
-  } else {
-    float cx = (float)x + 0.5f, cy = (float)y + 0.5f;
-    float px = clamp_win(s_px[i], cx, P.D), py = clamp_win(s_py[i], cy, P.D);
-    int i0 = min(max((int)truncf(px), 0), w - 1);
-    int j0 = min(max((int)truncf(py), 0), h - 1);
-    float mn = kInf, mx = -kInf;
-    int cnt = 0;
-    for (int dj = -1; dj <= 1; ++dj)
-      for (int di = -1; di <= 1; ++di) {
-        int X = i0 + di, Y = j0 + dj;
-        if (!inside(X, Y, h, w)) continue;
-        if (!P.sample_outside && flags[Y * w + X] != kFluid) continue;
-        float s = src[Y * w + X];
-        mn = fminf(mn, s);
-        mx = fmaxf(mx, s);
-        ++cnt;
-      }
-    out = cnt >= 1 ? fmaxf(mn, fminf(mx, dst)) : fwd;
+  if (kScalar) {
+    const float* s_fwd = scratch + plane(0, b, nb, n);
+    const float* s_px = scratch + plane(1, b, nb, n);
+    const float* s_py = scratch + plane(2, b, nb, n);
+    const float* src = rho + (size_t)b * n;
+    float ccx = in ? 0.5f * (u[i] + u[i + 1]) : 0.f;
+    float ccy = in ? 0.5f * (v[i] + v[i + w]) : 0.f;
+    Field fwdf{s_fwd, h, w};
+    float bx, by;
+    float bwd = scalar_sl(fwdf, flags, fluid, x, y, ccx, ccy, -P.dt, P, &bx,
+                          &by);
+    bwd = in ? bwd : 0.f;
+    float fwd = s_fwd[i];
+    float dst = fluid ? fwd + P.halfstr * (src[i] - bwd) : fwd;
+    float out;
+    if (!in) {
+      out = dst;
+    } else {
+      float cx = (float)x + 0.5f, cy = (float)y + 0.5f;
+      float px = clamp_win(s_px[i], cx, P.D), py = clamp_win(s_py[i], cy, P.D);
+      int i0 = min(max((int)truncf(px), 0), w - 1);
+      int j0 = min(max((int)truncf(py), 0), h - 1);
+      float mn = kInf, mx = -kInf;
+      int cnt = 0;
+      for (int dj = -1; dj <= 1; ++dj)
+        for (int di = -1; di <= 1; ++di) {
+          int X = i0 + di, Y = j0 + dj;
+          if (!inside(X, Y, h, w)) continue;
+          if (!P.sample_outside && flags[Y * w + X] != kFluid) continue;
+          float s = src[Y * w + X];
+          mn = fminf(mn, s);
+          mx = fmaxf(mx, s);
+          ++cnt;
+        }
+      out = cnt >= 1 ? fmaxf(mn, fminf(mx, dst)) : fwd;
+    }
+    rho_out[(size_t)b * n + i] = out;
   }
-  rho_out[(size_t)b * n + i] = out;
 
   // ---- velocity: backward samples, skip-masked correction, Selle ----
-  float* uo = U_out + (size_t)b * 2 * n;
-  float* vo = uo + n;
-  if (!in) {
-    uo[i] = 0.f;
-    vo[i] = 0.f;
-    return;
+  if (kVel) {
+    const int k = kScalar ? 3 : 0;
+    const float* u_fwd = scratch + plane(k, b, nb, n);
+    const float* v_fwd = scratch + plane(k + 1, b, nb, n);
+    const float* ou = orig + (size_t)b * 2 * n;
+    const float* ov = ou + n;
+    float* uo = U_out + (size_t)b * 2 * n;
+    float* vo = uo + n;
+    if (!in) {
+      uo[i] = 0.f;
+      vo[i] = 0.f;
+      return;
+    }
+    float mxu, mxv, myu, myv;
+    mac_vectors(u, v, x, y, h, w, &mxu, &mxv, &myu, &myv);
+    Field fu{u_fwd, h, w}, fv{v_fwd, h, w};
+    float bu = vel_sl(fu, fluid, x, y, mxu, mxv, -P.dt, P.D);
+    float bv = vel_sl(fv, fluid, x, y, myu, myv, -P.dt, P.D);
+    bool skip_u = !fluid || (x > 0 && flags[i - 1] != kFluid);
+    bool skip_v = !fluid || (y > 0 && flags[i - w] != kFluid);
+    float du = skip_u ? u_fwd[i] : u_fwd[i] + P.halfstr * (ou[i] - bu);
+    float dv = skip_v ? v_fwd[i] : v_fwd[i] + P.halfstr * (ov[i] - bv);
+    Field fou{ou, h, w}, fov{ov, h, w};
+    uo[i] = selle(du, fou, x, y, mxu * P.dt, mxv * P.dt, P.D);
+    vo[i] = selle(dv, fov, x, y, myu * P.dt, myv * P.dt, P.D);
   }
-  float mxu, mxv, myu, myv;
-  mac_vectors(u, v, x, y, h, w, &mxu, &mxv, &myu, &myv);
-  Field fu{u_fwd, h, w}, fv{v_fwd, h, w};
-  float bu = vel_sl(fu, fluid, x, y, mxu, mxv, -P.dt, P.D);
-  float bv = vel_sl(fv, fluid, x, y, myu, myv, -P.dt, P.D);
-  bool skip_u = !fluid || (x > 0 && flags[i - 1] != kFluid);
-  bool skip_v = !fluid || (y > 0 && flags[i - w] != kFluid);
-  float du = skip_u ? u_fwd[i] : u_fwd[i] + P.halfstr * (u[i] - bu);
-  float dv = skip_v ? v_fwd[i] : v_fwd[i] + P.halfstr * (v[i] - bv);
-  Field ou{u, h, w}, ov{v, h, w};
-  uo[i] = selle(du, ou, x, y, mxu * P.dt, mxv * P.dt, P.D);
-  vo[i] = selle(dv, ov, x, y, myu * P.dt, myv * P.dt, P.D);
 }
 
 Params make_params(int h, int w, float dt, float halfstr, float wm, float hm,
@@ -368,37 +396,100 @@ Params make_params(int h, int w, float dt, float halfstr, float wm, float hm,
   return P;
 }
 
-dim3 grid_for(int b, int h, int w, dim3 block) {
-  return dim3((w + block.x - 1) / block.x, (h + block.y - 1) / block.y, b);
+const dim3 kBlock(32, 8);
+
+template <bool kScalar, bool kVel>
+int forward(const float* rho, const float* U, const float* orig,
+            const int* flags, float* scratch, int b, const Params& P,
+            void* stream) {
+  advect_forward<kScalar, kVel>
+      <<<grid2d(b, P.h, P.w, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
+          rho, U, orig ? orig : U, flags, scratch, P);
+  return fnk::launch_status();
+}
+
+template <bool kScalar, bool kVel>
+int backward(const float* rho, const float* U, const float* orig,
+             const int* flags, const float* scratch, float* rho_out,
+             float* U_out, int b, const Params& P, void* stream) {
+  advect_backward<kScalar, kVel>
+      <<<grid2d(b, P.h, P.w, kBlock), kBlock, 0, (cudaStream_t)stream>>>(
+          rho, U, orig ? orig : U, flags, scratch, rho_out, U_out, P);
+  return fnk::launch_status();
 }
 
 }  // namespace
 
-// scratch: 5*b*h*w floats. wm/hm are float32(w - 1e-5), float32(h - 1e-5).
+// wm/hm are float32(w - 1e-5), float32(h - 1e-5); `orig` may be null
+// (U advects itself). Scratch: 5*b*h*w floats for A, 3 for D, 2 for E.
+
+// ---- A: scalar + velocity ----
 extern "C" int fn_advect_forward(const float* rho, const float* U,
-                                 const int* flags, float* scratch, int b,
-                                 int h, int w, float dt, float wm, float hm,
-                                 int D, int line_trace, int sample_outside,
+                                 const float* orig, const int* flags,
+                                 float* scratch, int b, int h, int w,
+                                 float dt, float wm, float hm, int D,
+                                 int line_trace, int sample_outside,
                                  void* stream) {
-  dim3 block(32, 8);
   Params P = make_params(h, w, dt, 0.f, wm, hm, D, line_trace,
                          sample_outside);
-  advect_forward<<<grid_for(b, h, w, block), block, 0,
-                   (cudaStream_t)stream>>>(rho, U, flags, scratch, P);
-  return fnk::launch_status();
+  return forward<true, true>(rho, U, orig, flags, scratch, b, P, stream);
 }
 
 extern "C" int fn_advect_backward(const float* rho, const float* U,
-                                  const int* flags, const float* scratch,
-                                  float* rho_out, float* U_out, int b, int h,
-                                  int w, float dt, float halfstr, float wm,
+                                  const float* orig, const int* flags,
+                                  const float* scratch, float* rho_out,
+                                  float* U_out, int b, int h, int w,
+                                  float dt, float halfstr, float wm,
                                   float hm, int D, int line_trace,
                                   int sample_outside, void* stream) {
-  dim3 block(32, 8);
   Params P = make_params(h, w, dt, halfstr, wm, hm, D, line_trace,
                          sample_outside);
-  advect_backward<<<grid_for(b, h, w, block), block, 0,
-                    (cudaStream_t)stream>>>(rho, U, flags, scratch, rho_out,
-                                            U_out, P);
-  return fnk::launch_status();
+  return backward<true, true>(rho, U, orig, flags, scratch, rho_out, U_out,
+                              b, P, stream);
+}
+
+// ---- D: scalar alone ----
+extern "C" int fn_advect_scalar_forward(const float* rho, const float* U,
+                                        const int* flags, float* scratch,
+                                        int b, int h, int w, float dt,
+                                        float wm, float hm, int D,
+                                        int line_trace, int sample_outside,
+                                        void* stream) {
+  Params P = make_params(h, w, dt, 0.f, wm, hm, D, line_trace,
+                         sample_outside);
+  return forward<true, false>(rho, U, nullptr, flags, scratch, b, P, stream);
+}
+
+extern "C" int fn_advect_scalar_backward(const float* rho, const float* U,
+                                         const int* flags,
+                                         const float* scratch,
+                                         float* rho_out, int b, int h, int w,
+                                         float dt, float halfstr, float wm,
+                                         float hm, int D, int line_trace,
+                                         int sample_outside, void* stream) {
+  Params P = make_params(h, w, dt, halfstr, wm, hm, D, line_trace,
+                         sample_outside);
+  return backward<true, false>(rho, U, nullptr, flags, scratch, rho_out,
+                               nullptr, b, P, stream);
+}
+
+// ---- E: velocity alone ----
+extern "C" int fn_advect_velocity_forward(const float* U, const float* orig,
+                                          const int* flags, float* scratch,
+                                          int b, int h, int w, float dt,
+                                          int D, void* stream) {
+  Params P = make_params(h, w, dt, 0.f, 0.f, 0.f, D, 0, 0);
+  return forward<false, true>(nullptr, U, orig, flags, scratch, b, P,
+                              stream);
+}
+
+extern "C" int fn_advect_velocity_backward(const float* U, const float* orig,
+                                           const int* flags,
+                                           const float* scratch,
+                                           float* U_out, int b, int h, int w,
+                                           float dt, float halfstr, int D,
+                                           void* stream) {
+  Params P = make_params(h, w, dt, halfstr, 0.f, 0.f, D, 0, 0);
+  return backward<false, true>(nullptr, U, orig, flags, scratch, nullptr,
+                               U_out, b, P, stream);
 }

@@ -36,7 +36,7 @@ def make_project_fn(cfg, net):
     if cfg.model != "PUNet" or cfg.punet_refine_convs != 0:
         raise NotImplementedError(
             "the port's projection runs the refine-free PUNet only "
-            "(ROADMAP A.6)")
+            "(ROADMAP A.4)")
     if cfg.input_u_div:
         raise ValueError("the projection assembles a 2-channel input; "
                          "input_u_div needs 3 channels")

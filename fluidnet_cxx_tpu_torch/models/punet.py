@@ -81,11 +81,16 @@ class PUNet(nn.Module):
 
     @classmethod
     def from_config(cls, cfg):
-        """Build from a ``ModelConfig`` (refine-free PUNet only)."""
+        """Build from a ``ModelConfig`` (refine-free float32 PUNet only)."""
         if cfg.model != "PUNet" or cfg.punet_refine_convs != 0:
             raise NotImplementedError(
                 "the port has the refine-free PUNet only; the refinement "
-                "stack and the other models are ROADMAP A.6")
+                "stack and the other models are ROADMAP A.4")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {cfg.compute_dtype!r}: the port's PUNet "
+                "runs float32 only; the bfloat16 checkpoints are 3-D "
+                "(ROADMAP A.7)")
         return cls(in_ch=cfg.in_dims, patch=cfg.punet_patch,
                    widths=cfg.punet_widths,
                    level_convs=cfg.punet_level_convs,

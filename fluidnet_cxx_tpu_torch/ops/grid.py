@@ -1,5 +1,6 @@
-"""MAC-grid face/centre resampling (the subset of the JAX package's
-``ops/grid.py`` that the window advection engine uses)."""
+"""MAC-grid face/centre resampling and the centred curl (the subset of the
+JAX package's ``ops/grid.py`` that the window advection engine and the
+vorticity confinement use)."""
 import torch
 
 from .common import border_mask, nb, where0
@@ -41,3 +42,13 @@ def interp1d_with_fluid(va, fa, vb, fb, ta, tb):
     m2 = fa & (~fb)
     val = torch.where(m1, vb, torch.where(m2, va, va * ta + vb * tb))
     return where0(~m0, val), ~m0
+
+
+def curl2d(U):
+    """z-vorticity at cell centres, dv/dx - du/dy by central differences,
+    zero on the border ring."""
+    _, _, h, w = U.shape
+    u, v = U[:, 0], U[:, 1]
+    dvdx = 0.5 * (nb(v, 0, 1) - nb(v, 0, -1))
+    dudy = 0.5 * (nb(u, 1, 0) - nb(u, -1, 0))
+    return where0(~border_mask(h, w, 1, U.device), dvdx - dudy)

@@ -41,9 +41,17 @@ I = ctypes.c_int
 F = ctypes.c_float
 # extern "C" signatures, all returning the launch's cudaError_t.
 SIGNATURES = {
-    "fn_advect_forward": [VP, VP, VP, VP, I, I, I, F, F, F, I, I, I, VP],
-    "fn_advect_backward": [VP, VP, VP, VP, VP, VP, I, I, I, F, F, F, F, I,
-                           I, I, VP],
+    "fn_advect_forward": [VP, VP, VP, VP, VP, I, I, I, F, F, F, I, I, I,
+                          VP],
+    "fn_advect_backward": [VP, VP, VP, VP, VP, VP, VP, I, I, I, F, F, F, F,
+                           I, I, I, VP],
+    "fn_advect_scalar_forward": [VP, VP, VP, VP, I, I, I, F, F, F, I, I, I,
+                                 VP],
+    "fn_advect_scalar_backward": [VP, VP, VP, VP, VP, I, I, I, F, F, F, F,
+                                  I, I, I, VP],
+    "fn_advect_velocity_forward": [VP, VP, VP, VP, I, I, I, F, I, VP],
+    "fn_advect_velocity_backward": [VP, VP, VP, VP, VP, I, I, I, F, F, I,
+                                    VP],
     "fn_tail_prologue": [VP, VP, VP, VP, VP, VP, VP, VP, VP, I, I, I, VP],
     "fn_tail_sweep": [VP, VP, VP, VP, I, I, I, I, F, F, VP],
     "fn_tail_epilogue": [VP, VP, VP, VP, VP, VP, I, I, I, VP],

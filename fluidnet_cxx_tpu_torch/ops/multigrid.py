@@ -158,7 +158,7 @@ def solve_mg(flags, div, n_vcycles: int = 2, pre: int = 4, post: int = 4,
     with ``solve_jacobi_fixed``'s (flags, div) contract; returns p in the
     zero-mean gauge over continuation cells (0 on border/obstacle)."""
     if coarse_fn is not None:
-        raise NotImplementedError("the learned coarse solve is ROADMAP A.8")
+        raise NotImplementedError("the learned coarse solve is ROADMAP A.2")
     p = torch.zeros_like(div) if p0 is None else p0
     lvls = _levels(flags, min_size)
     for _ in range(n_vcycles):

@@ -12,7 +12,7 @@ import torch
 
 from ..celltype import FLUID
 from .common import F32, I32, cell_index_grid, nb, where0
-from .grid import interp1d_with_fluid
+from .grid import get_centered, interp1d_with_fluid
 
 
 def _clip(a, lo, hi):
@@ -164,3 +164,10 @@ def clamp_component_mac_window(dst_c, orig_c, vel_mac_dt, D: int = 4):
             minv = torch.where(m, torch.minimum(minv, s), minv)
             maxv = torch.where(m, torch.maximum(maxv, s), maxv)
     return torch.maximum(torch.minimum(dst_c, maxv), minv)
+
+
+def max_displacement(U, dt):
+    """Largest per-axis back-trace displacement, in cells, that advection
+    will attempt this step: dt * max|centred velocity| (a 0-d tensor). The
+    run loop's CFL guard compares it with ``max_disp``."""
+    return dt * get_centered(U).abs().max()

@@ -1,0 +1,128 @@
+"""Run the 2-D flow past a cylinder.
+
+    python -m fluidnet_cxx_tpu_torch.run_cylinder --steps 20
+    python -m fluidnet_cxx_tpu_torch.run_cylinder --res-x 256 --res-y 64 \\
+        --radius 8 --center-x 40 --steps 5 --device cpu
+
+The case is the JAX package's ``scripts/run_cylinder.py --fast``: the
+reference's 8000 x 800 channel with a no-slip (stick) disc of radius 80.5
+at x = 500 on the centre line, a left-wall inlet at speed 1, Re 100 (so
+nu = |u| * 2 radius / Re = 1.61), ``cylinder_config`` (dt 0.1, MacCormack
+0.6, no density field) and 34 Jacobi sweeps. A step runs the viscosity,
+kernel E with the viscous field, the wall BCs with the stick disc and
+kernel F. The run loop is ``sim/driver.py::run_simulation`` with its CFL
+guard, without plotting or restarts. ``--sim-method multigrid`` and
+``convnet`` are not ported for this scene yet.
+
+Prints ms/step (CUDA events on the card, the host clock on the CPU, over
+the whole run loop), mean|div| and max|div| over fluid cells after the
+last projection, max|U|, the largest back-trace displacement the CFL guard
+saw and whether every field is finite. Runs on the card unless
+``--device cpu`` is given.
+"""
+import argparse
+import json
+import time
+
+import torch
+
+from .celltype import FLUID
+from .ops.stencils import velocity_divergence
+from .ops.window import max_displacement
+from .run_plume import resolve_device
+from .sim.driver import run_simulation
+from .sim.scenes import create_cylinder_scene, cylinder_config
+
+
+def cylinder_case(res_x: int = 8000, res_y: int = 800, device="cuda",
+                  reynolds: float = 100.0, radius: float = 80.5,
+                  center_x: float = 500.0, inlet_vel: float = 1.0,
+                  jacobi_iter: int = 34, sim_method: str = "jacobi"):
+    """(SimConfig, initial SimState) of the cylinder case."""
+    if sim_method == "multigrid":
+        raise NotImplementedError(
+            "not ported yet: the cylinder under multigrid, never checked at "
+            "8000x800 (ROADMAP A.3)")
+    if sim_method == "convnet":
+        raise NotImplementedError(
+            "not ported yet: the cylinder under the learned projection, "
+            "which needs the unfused projection (ROADMAP A.2)")
+    dev = resolve_device(device)
+    state, viscosity = create_cylinder_scene(
+        res_x, res_y, center_x=center_x, radius=radius, inlet_vel=inlet_vel,
+        reynolds=reynolds, device=dev)
+    cfg = cylinder_config(viscosity, jacobi_iter=jacobi_iter,
+                          use_pallas=True)
+    return cfg, state
+
+
+@torch.no_grad()
+def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
+                 device="cuda", reynolds: float = 100.0,
+                 radius: float = 80.5, center_x: float = 500.0,
+                 inlet_vel: float = 1.0, jacobi_iter: int = 34,
+                 sim_method: str = "jacobi", stat_iter: int = 50,
+                 verbose: bool = False):
+    """Run ``steps`` steps; returns a dict with the final ``state``,
+    ``ms_per_step`` and the diagnostics."""
+    cfg, state = cylinder_case(res_x, res_y, device, reynolds, radius,
+                               center_x, inlet_vel, jacobi_iter, sim_method)
+    disp = []
+
+    def on_stats(st, it):
+        disp.append(float(max_displacement(st.U, cfg.dt)))
+
+    on_card = state.U.device.type == "cuda"
+    if on_card:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+    t0 = time.perf_counter()
+    state = run_simulation(cfg, state, steps, stat_iter, on_stats=on_stats,
+                           verbose=verbose)
+    if on_card:
+        end.record()
+        end.synchronize()
+        elapsed_ms = start.elapsed_time(end)
+    else:
+        elapsed_ms = 1e3 * (time.perf_counter() - t0)
+    fluid = state.flags == FLUID
+    div = velocity_divergence(state.U, state.flags).abs() * fluid
+    return {
+        "state": state,
+        "ms_per_step": elapsed_ms / max(steps, 1),
+        "mean_div": float(div.sum() / fluid.sum()),
+        "max_div": float(div.max()),
+        "max_U": float(state.U.abs().max()),
+        "max_disp": max(disp, default=0.0),
+        "finite": all(bool(torch.isfinite(t).all())
+                      for t in (state.U, state.p)),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--res-x", type=int, default=8000)
+    ap.add_argument("--res-y", type=int, default=800)
+    ap.add_argument("--re", type=float, default=100.0)
+    ap.add_argument("--radius", type=float, default=80.5)
+    ap.add_argument("--center-x", type=float, default=500.0)
+    ap.add_argument("--inlet-vel", type=float, default=1.0)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--stat-iter", type=int, default=50)
+    ap.add_argument("--jacobi-iter", type=int, default=34)
+    ap.add_argument("--sim-method", default="jacobi",
+                    choices=("jacobi", "multigrid", "convnet"))
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    out = run_cylinder(args.res_x, args.res_y, args.steps, args.device,
+                       args.re, args.radius, args.center_x, args.inlet_vel,
+                       args.jacobi_iter, args.sim_method, args.stat_iter,
+                       verbose=True)
+    out.pop("state")
+    print(json.dumps({"res_x": args.res_x, "res_y": args.res_y,
+                      "steps": args.steps, "sim_method": args.sim_method,
+                      **out}))
+
+
+if __name__ == "__main__":
+    main()

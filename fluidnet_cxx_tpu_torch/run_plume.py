@@ -5,6 +5,8 @@
         --jacobi-iter 200
     python -m fluidnet_cxx_tpu_torch.run_plume --sim-method multigrid \
         --mg-vcycles 2
+    python -m fluidnet_cxx_tpu_torch.run_plume --sim-method jacobi \
+        --no-fuse-advection
 
 The cases are the JAX package's ``bench.py`` rows: ``plume_config`` (dt
 0.1, MacCormack 0.6, buoyancy 0.25, ``max_disp`` 4, line trace and merged
@@ -12,7 +14,9 @@ advection on) with the plume scene (inlet speed 2*res/128, radius 0.145)
 and one projection: "convnet" (the default, the "cnn" row) runs the PUNet
 of ``trained_models/PUNetD2_128/model_config.json`` at its full widths,
 "jacobi" ``--jacobi-iter`` sweeps (the jacobi-N rows), "multigrid"
-``--mg-vcycles`` warm V-cycles (the mg-2v row). The PUNet's weights are
+``--mg-vcycles`` warm V-cycles (the mg-2v row). ``--no-fuse-advection``
+advects the density and the velocity separately (kernels D and E in place
+of A; ``bench.py``'s ``BENCH_FUSE_ADV=0``). The PUNet's weights are
 drawn from ``--seed`` with flax's initialiser: the trained checkpoint is
 an orbax file that only a JAX installation can read.
 
@@ -60,12 +64,13 @@ def build_punet(mcfg, seed: int = 0, device="cpu") -> PUNet:
 
 def plume_case(res: int = 512, device="cuda", seed: int = 0,
                model_dir=MODEL_DIR, sim_method: str = "convnet",
-               jacobi_iter: int = 200, mg_vcycles: int = 2):
+               jacobi_iter: int = 200, mg_vcycles: int = 2,
+               fuse_advection: bool = True):
     """(SimConfig, initial SimState, project_fn) of a plume case;
     project_fn is None for the classical projections."""
     dev = resolve_device(device)
-    cfg = plume_config(dt=0.1, line_trace=True, max_disp=4,
-                       fuse_advection=True, sim_method=sim_method,
+    cfg = plume_config(dt=0.1, line_trace=True, max_disp=4, use_pallas=True,
+                       fuse_advection=fuse_advection, sim_method=sim_method,
                        jacobi_iter=jacobi_iter, mg_vcycles=mg_vcycles)
     state = create_plume_scene(res, res, density_val=0.1,
                                u_scale=2.0 * res / 128.0, rad=0.145,
@@ -104,14 +109,16 @@ def quality(state):
 @torch.no_grad()
 def run_plume(res: int = 512, steps: int = 20, device="cuda", seed: int = 0,
               model_dir=MODEL_DIR, sim_method: str = "convnet",
-              jacobi_iter: int = 200, mg_vcycles: int = 2):
+              jacobi_iter: int = 200, mg_vcycles: int = 2,
+              fuse_advection: bool = True):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step (CUDA events on the card,
     the host clock on the CPU), ``quality(state)`` and, for the convnet
     projection, the mean |div| of the last step's projection input
     (``div_in``)."""
     cfg, state, project = plume_case(res, device, seed, model_dir,
-                                     sim_method, jacobi_iter, mg_vcycles)
+                                     sim_method, jacobi_iter, mg_vcycles,
+                                     fuse_advection)
     on_card = state.U.device.type == "cuda"
     if on_card:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
@@ -148,13 +155,17 @@ def main(argv=None):
                     choices=("convnet", "jacobi", "multigrid"))
     ap.add_argument("--jacobi-iter", type=int, default=200)
     ap.add_argument("--mg-vcycles", type=int, default=2)
+    ap.add_argument("--no-fuse-advection", dest="fuse_advection",
+                    action="store_false")
     args = ap.parse_args(argv)
     out = run_plume(args.res, args.steps, args.device, args.seed,
                     sim_method=args.sim_method, jacobi_iter=args.jacobi_iter,
-                    mg_vcycles=args.mg_vcycles)
+                    mg_vcycles=args.mg_vcycles,
+                    fuse_advection=args.fuse_advection)
     st = out.pop("state")
     print(json.dumps({
         "res": args.res, "steps": args.steps, "sim_method": args.sim_method,
+        "fuse_advection": args.fuse_advection,
         **out, "rho_max": float(st.density.max()),
         "finite": all(bool(torch.isfinite(t).all())
                       for t in (st.U, st.p, st.density)),

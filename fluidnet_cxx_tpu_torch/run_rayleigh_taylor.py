@@ -50,7 +50,7 @@ def rt_case(res_x: int = 128, res_y: int = 512, device="cuda",
             mg_vcycles: int = 2):
     """(SimConfig, initial SimState) of the Rayleigh-Taylor case."""
     dev = resolve_device(device)
-    cfg = rayleigh_taylor_config(sim_method=sim_method,
+    cfg = rayleigh_taylor_config(sim_method=sim_method, use_pallas=True,
                                  jacobi_iter=jacobi_iter,
                                  mg_vcycles=mg_vcycles)
     return cfg, create_rayleigh_taylor_scene(res_x, res_y, device=dev)

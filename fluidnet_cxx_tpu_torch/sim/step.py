@@ -1,32 +1,38 @@
 """One simulation step (the port of the JAX package's ``sim/step.py::
-simulate_step``), limited to the branches of the plume and Rayleigh-Taylor
-scenes:
+simulate_step``), in the JAX step's order:
 
-merged MacCormack advection of density and velocity from the same
-pre-advection U (ops/kernels/advect.py; window engine, first-hit trace —
-what the JAX step runs with ``use_pallas=True``) -> inlet/const BCs ->
-buoyancy -> gravity -> pressure projection, one of:
+viscosity (the viscous field ``orig`` that U advects) -> MacCormack
+advection on the window engine (ops/kernels/advect.py; first-hit trace —
+what the JAX step runs with ``use_pallas=True``), either merged (kernel A,
+``fuse_advection`` with ``advect_density``) or separate (kernel D for the
+density when ``advect_density``, then kernel E for the velocity) -> scalar
+correction -> inlet/const BCs -> buoyancy -> gravity -> vorticity
+confinement -> pressure projection, one of:
 
 * ``convnet`` with a projection that folds in the inlet BCs
-  (``project_fn.handles_const_vals``);
-* ``jacobi``: wall BCs (with the periodic overrides) -> const BCs ->
-  divergence -> Jacobi (kernel F, ops/kernels/jacobi.py; the early-exit
-  ``solve_jacobi`` when ``p_tol > 0``) -> velocity update -> wall BCs ->
-  const BCs;
+  (``project_fn.handles_const_vals``) and no stick walls;
+* ``jacobi``: wall BCs -> const BCs -> divergence -> Jacobi (kernel F,
+  ops/kernels/jacobi.py; the early-exit ``solve_jacobi`` when
+  ``p_tol > 0``) -> velocity update -> wall BCs -> const BCs;
 * ``multigrid``: the same frame around kernel H (ops/kernels/mg.py::
   project_mg: RHS, V-cycles, velocity update and wall BCs) or, with a
   periodic axis, divergence -> kernel G (``solve_mg``) -> velocity update.
 
-Every other branch raises ``NotImplementedError`` naming its ROADMAP item.
+The wall BCs are free-slip with the periodic overrides, then the stick
+walls where the scene has ``flags_stick`` (in every projection, as in the
+JAX package; PARITY.md). Every other branch raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 import numpy as np
 
 from ..ops.jacobi import solve_jacobi as solve_jacobi_tol
-from ..ops.kernels.advect import advect_all
+from ..ops.kernels.advect import advect_all, advect_scalar, advect_velocity
 from ..ops.kernels.jacobi import solve_jacobi
 from ..ops.kernels.mg import project_mg, solve_mg
-from ..ops.source_terms import add_buoyancy, add_gravity
-from ..ops.stencils import set_wall_bcs, velocity_divergence, velocity_update
+from ..ops.source_terms import (add_buoyancy, add_gravity, add_viscosity,
+                                add_vorticity_confinement, correct_scalar)
+from ..ops.stencils import (set_wall_bcs, set_wall_bcs_stick,
+                            velocity_divergence, velocity_update)
 
 
 def apply_const_vals(state, U, density):
@@ -39,22 +45,22 @@ def apply_const_vals(state, U, density):
 
 
 def _unsupported(cfg, state, project_fn):
-    if cfg.viscosity > 0:
-        return "viscosity (ROADMAP A.2)"
-    if cfg.vorticity_confinement > 0 or cfg.correct_scalar:
-        return "vorticity confinement / scalar correction (ROADMAP A.2)"
     if cfg.advection_method != "maccormackFluidNet" or \
             cfg.advection_impl != "window":
-        return "Euler or gather advection (ROADMAP A.3)"
-    if not (cfg.fuse_advection and cfg.advect_density):
-        return "separate scalar/velocity advection kernels (ROADMAP B.1)"
+        return "Euler or gather advection (ROADMAP A.6)"
+    if (cfg.advect_density and cfg.line_trace
+            and cfg.line_trace_impl == "march" and not cfg.use_pallas):
+        # What the JAX step runs on its XLA path; the kernels run the
+        # first-hit trace, which the JAX step runs with use_pallas=True.
+        return "the march line trace of the XLA path (ROADMAP A.6)"
     if cfg.sim_method not in ("convnet", "jacobi", "multigrid"):
-        return f"the {cfg.sim_method} projection (ROADMAP A.8)"
-    if cfg.sim_method == "convnet" and \
-            not getattr(project_fn, "handles_const_vals", False):
-        return "an unfused projection function (ROADMAP A.5)"
-    if state.flags_stick is not None:
-        return "stick walls (ROADMAP A.2)"
+        return f"the {cfg.sim_method} projection (ROADMAP A.2)"
+    if cfg.sim_method == "convnet":
+        if not getattr(project_fn, "handles_const_vals", False):
+            return "an unfused projection function (ROADMAP A.2)"
+        if state.flags_stick is not None:
+            return ("the learned projection with stick walls, which runs "
+                    "unfused (ROADMAP A.2)")
     return None
 
 
@@ -64,17 +70,41 @@ def _scaled_gravity(cfg, scale):
 
 
 def _wall_bcs(cfg, state, U):
-    """Free-slip walls, then the periodic overrides of the Rayleigh-Taylor
+    """Free-slip walls; the periodic overrides of the Rayleigh-Taylor
     scene: the first interior column's v (periodic_x) or row's u
     (periodic_y) takes the last column's or row's value from before the
-    wall BCs. (The convnet projection applies its own walls.)"""
+    wall BCs; then the stick walls where the scene has them."""
     U_before = U
     U = set_wall_bcs(U, state.flags)
     if cfg.periodic_x:
         U[:, 1, :, 1] = U_before[:, 1, :, -1]
     if cfg.periodic_y:
         U[:, 0, 1, :] = U_before[:, 0, -1, :]
+    if state.flags_stick is not None:
+        U = set_wall_bcs_stick(U, state.flags, state.flags_stick)
     return U
+
+
+def _advect(cfg, state, orig):
+    """Advected (rho, U): kernel A, or D (when the density is advected)
+    and E."""
+    flags, U, rho = state.flags, state.U, state.density
+    kw = dict(maccormack_strength=cfg.maccormack_strength,
+              max_disp=cfg.max_disp)
+    scalar_kw = dict(kw, sample_outside_fluid=cfg.sample_outside_fluid,
+                     line_trace=cfg.line_trace)
+    if cfg.advect_density and cfg.fuse_advection:
+        rho, U_new = advect_all(cfg.dt, rho, U, flags, orig=orig,
+                                **scalar_kw)
+    else:
+        if cfg.advect_density:
+            rho = advect_scalar(cfg.dt, rho, U, flags, **scalar_kw)
+        U_new = advect_velocity(cfg.dt, U, flags, orig=orig, **kw)
+    if cfg.advect_density and cfg.correct_scalar:
+        # The correction's divergence is the pre-advection U's.
+        rho = correct_scalar(cfg.dt, rho, velocity_divergence(U, flags),
+                             flags)
+    return rho, U_new
 
 
 def _project_classical(cfg, state, U, flags):
@@ -103,10 +133,9 @@ def simulate_step(cfg, state, project_fn=None):
     if why is not None:
         raise NotImplementedError(f"not ported yet: {why}")
     flags = state.flags
-    rho, U = advect_all(cfg.dt, state.density, state.U, flags,
-                        maccormack_strength=cfg.maccormack_strength,
-                        sample_outside_fluid=cfg.sample_outside_fluid,
-                        max_disp=cfg.max_disp, line_trace=cfg.line_trace)
+    orig = (add_viscosity(cfg.dt, state.U, flags, cfg.viscosity)
+            if cfg.viscosity > 0 else None)
+    rho, U = _advect(cfg, state, orig)
     U, rho = apply_const_vals(state, U, rho)
     if cfg.buoyancy_scale > 0:
         U = add_buoyancy(U, flags, rho,
@@ -115,6 +144,9 @@ def simulate_step(cfg, state, project_fn=None):
     if cfg.gravity_scale > 0:
         U = add_gravity(U, flags, _scaled_gravity(cfg, cfg.gravity_scale),
                         cfg.dt)
+    if cfg.vorticity_confinement > 0:
+        U = add_vorticity_confinement(U, flags, cfg.vorticity_confinement,
+                                      cfg.dt)
     if cfg.sim_method == "convnet":
         # The projection applies U's const BCs on its input and output;
         # rho's were applied above and are idempotent.
