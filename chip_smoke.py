@@ -8,27 +8,38 @@ Phases (each prints its elapsed seconds):
      -Xptxas -v register, shared-memory and spill lines;
   3. each kernel (A merged advection, B PUNet conv, C projection tail,
      D scalar advection, E velocity advection, F Jacobi, G multigrid
-     solve, H multigrid projection) against its plain PyTorch version on
+     solve, H multigrid projection, I 3-D Jacobi, K 3-D scalar advection,
+     L 3-D merged advection, M 3-D velocity advection) against its plain
+     PyTorch version on
      the card (TF32 off), with its tolerance, at the main paths' shapes:
      512^2 with 8% random obstacles (A and E also with an `orig` far from
      U); E and F also at 800x8000 on the cylinder's flags, E with the
      viscous field as `orig` (with the plain version's peak memory there);
      F, G and H also on the 512x128 Rayleigh-Taylor box; at 512^2 G and H
      also no further than twice the plain version's float32 rounding from
-     its float64 run; then CUDA-event times of the kernel, the plain
-     version and, for B, the same forward as cuDNN F.conv2d calls;
+     its float64 run; I, K, L and M at 128^3 with 8% random obstacles
+     and displacements up to 3 cells (past the 3-D window clamp of 2), K
+     and L with the first-hit trace on and off, L also against K and M,
+     I cold and warm with damping 6/7; then CUDA-event times of the
+     kernel, the plain version and, for B, the same forward as cuDNN
+     F.conv2d calls;
   4. small-input checks, the card against the plain path on the CPU:
      3 steps of the 64^2 plume with the learned projection, jacobi-28,
      mg-2v and unfused jacobi-28, of the 64x32 Rayleigh-Taylor scene
-     under multigrid and of the 64x256 cylinder (radius 8 at x 40);
+     under multigrid, of the 64x256 cylinder (radius 8 at x 40) and of
+     the 32^3 plume under jacobi-60, merged with the trace and separate
+     without it;
   5. the main paths, 20 steps each with every launch counter set to 0
      just before and read just after: the 512^2 plume with the learned
      projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), the
      128x512 Rayleigh-Taylor scene under jacobi-200 (A, F) and multigrid
      (A, G), the 8000x800 cylinder under jacobi-34 (E, F) and the 512^2
-     plume with unfused advection under jacobi-200 (D, E, F); finite
-     fields, ms per step, quality stats, launches per step; then the
-     `kernels` JSON line;
+     plume with unfused advection under jacobi-200 (D, E, F), and the
+     128^3 3-D plume under jacobi-60 (scripts/bench3d.py's classical
+     case) with separate advection and no trace (K, M, I) and with merged
+     advection and the first-hit trace (L, I); finite fields, ms per
+     step, quality stats, launches per step; then the `kernels` JSON
+     line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share and the kernels that take the
      most device time.
@@ -52,6 +63,7 @@ WATCHDOG_S = 600
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 RES = 512
+RES3 = 128
 RT_W, RT_H = 128, 512
 CYL_W, CYL_H = 8000, 800
 STEPS = 20
@@ -531,10 +543,160 @@ def phase_solvers(dev, results):
     done()
 
 
+def stress_inputs3(gen, dev, res):
+    """128^3 inputs that exercise every branch of the 3-D kernels: the
+    border shell plus 8% random obstacles, velocities up to 3 cells a step
+    at dt 0.25 (past the 3-D window clamp of 2)."""
+    from fluidnet_cxx_tpu_torch.celltype import OBSTACLE
+    from fluidnet_cxx_tpu_torch.ops.ops3d import empty_domain3
+
+    flags = empty_domain3(1, res, res, res)
+    flags[torch.rand(flags.shape, generator=gen) < 0.08] = OBSTACLE
+    U = 24.0 * (torch.rand((1, 3, res, res, res), generator=gen) - 0.5)
+    rho = torch.rand((1, res, res, res), generator=gen)
+    return flags.to(dev), U.to(dev), rho.to(dev)
+
+
+def advect3_ops(flags, D, per_cell, trace):
+    """Operations of one 3-D advection call on these flags: ``per_cell``
+    (~150 for the scalar half, ~140 for each velocity component: window
+    clamps, two trilinear samples, correction, clamp) plus, with the
+    trace, three slab tests (~30 operations) per blocked cell in each
+    fluid cell's (2D+1)^3 window, for the forward and the backward
+    trace."""
+    ops = per_cell * flags.numel()
+    if not trace:
+        return ops
+    blocked = (flags != 1).float()[:, None]
+    k = 2 * D + 1
+    in_window = torch.nn.functional.conv3d(
+        blocked, torch.ones((1, 1, k, k, k), device=flags.device), padding=D)
+    fluid = (flags == 1)[:, None]
+    return ops + 2 * 30.0 * float(in_window[fluid].sum())
+
+
+def phase_kernels3d(dev, results):
+    """Kernels I, K, L and M at 128^3 on the 3-D stress inputs. All four
+    run their plain versions' float32 operations in the same order
+    (-fmad=false), so they are expected to be bit-exact; the tolerances
+    are those of A and F."""
+    from fluidnet_cxx_tpu_torch.ops import ops3d
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect3, jacobi3
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    flags, U, rho = stress_inputs3(gen, dev, RES3)
+    n, D, dt = RES3 ** 3, 2, 0.25
+    p0 = torch.randn(flags.shape, generator=gen).to(dev)
+    div = ops3d.velocity_divergence3(U, flags)
+    per_scalar, per_component = 150.0, 140.0
+
+    done = phase("kernel I solve_jacobi3")
+    it = 60
+    got = jacobi3.solve_jacobi3(flags, div, it)
+    torch.cuda.synchronize()
+    want = ops3d.solve_jacobi_fixed3(flags, div, it)
+    err, tol = max_err([got], [want]), 1e-5 * scale_of([want])
+    check(f"I solve_jacobi3 ({RES3}^3, {it} sweeps)", err, tol)
+    kw = dict(p0=p0, damping=6.0 / 7.0)
+    want2 = ops3d.solve_jacobi_fixed3(flags, div, 13, **kw)
+    check("I solve_jacobi3 (warm, 13 sweeps damped 6/7)",
+          max_err([jacobi3.solve_jacobi3(flags, div, 13, **kw)], [want2]),
+          1e-5 * scale_of([want2]))
+    ms = cuda_ms(lambda: jacobi3.solve_jacobi3(flags, div, it), 20)
+    plain_ms = cuda_ms(lambda: ops3d.solve_jacobi_fixed3(flags, div, it), 3,
+                       warmup=1)
+    cont = float(ops3d.jacobi3_masks(flags)[0].sum())
+    b_ms, b_by = bound(12 * n, 14.0 * it * cont)
+    results["I"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"I: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+
+    def scalar_plain(trace):
+        return ops3d.advect_scalar3(dt, rho, U, flags, 0.6, max_disp=D,
+                                    line_trace=trace)
+
+    def velocity_plain():
+        return ops3d.advect_velocity3(dt, U, flags, 0.6, max_disp=D)
+
+    done = phase("kernel K advect_scalar3")
+    for trace in (True, False):
+        got = advect3.advect_scalar3(dt, rho, U, flags, 0.6, D, trace)
+        torch.cuda.synchronize()
+        want = scalar_plain(trace)
+        e = max_err([got], [want])
+        check(f"K advect_scalar3 ({RES3}^3, trace {'on' if trace else 'off'})",
+              e, 1e-4 * scale_of([want]))
+        if not trace:
+            err = e
+    ms = cuda_ms(lambda: advect3.advect_scalar3(dt, rho, U, flags, 0.6, D,
+                                                False), 20)
+    trace_ms = cuda_ms(lambda: advect3.advect_scalar3(dt, rho, U, flags, 0.6,
+                                                      D, True), 20)
+    plain_ms = cuda_ms(lambda: scalar_plain(False), 3, warmup=1)
+    plain_trace_ms = cuda_ms(lambda: scalar_plain(True), 2, warmup=1)
+    b_ms, b_by = bound(24 * n, advect3_ops(flags, D, per_scalar, False))
+    bt_ms, bt_by = bound(24 * n, advect3_ops(flags, D, per_scalar, True))
+    results["K"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"K: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); with the trace: kernel {trace_ms:.4f} "
+          f"ms, plain {plain_trace_ms:.3f} ms, bound {bt_ms:.4f} ms "
+          f"({bt_by})", flush=True)
+    done()
+
+    done = phase("kernel M advect_velocity3")
+    got = advect3.advect_velocity3(dt, U, flags, 0.6, D)
+    torch.cuda.synchronize()
+    want = velocity_plain()
+    err = max_err([got], [want])
+    check(f"M advect_velocity3 ({RES3}^3)", err, 1e-4 * scale_of([want]))
+    ms = cuda_ms(lambda: advect3.advect_velocity3(dt, U, flags, 0.6, D), 20)
+    plain_ms = cuda_ms(velocity_plain, 3, warmup=1)
+    b_ms, b_by = bound(28 * n, advect3_ops(flags, D, 3 * per_component,
+                                           False))
+    results["M"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"M: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+
+    done = phase("kernel L advect_all3")
+    per_all = per_scalar + 3 * per_component
+    for trace in (True, False):
+        name = f"L advect_all3 ({RES3}^3, trace {'on' if trace else 'off'})"
+        got = advect3.advect_all3(dt, rho, U, flags, 0.6, D, trace)
+        torch.cuda.synchronize()
+        want = (scalar_plain(trace), velocity_plain())
+        e = max_err(got, want)
+        check(name, e, 1e-4 * scale_of(want))
+        split = (advect3.advect_scalar3(dt, rho, U, flags, 0.6, D, trace),
+                 advect3.advect_velocity3(dt, U, flags, 0.6, D))
+        check(f"{name} against K and M", max_err(got, split), 0.0)
+        if trace:   # the fused main path runs the trace
+            err = e
+    ms = cuda_ms(lambda: advect3.advect_all3(dt, rho, U, flags, 0.6, D,
+                                             True), 20)
+    off_ms = cuda_ms(lambda: advect3.advect_all3(dt, rho, U, flags, 0.6, D,
+                                                 False), 20)
+    plain_ms = cuda_ms(lambda: (scalar_plain(True), velocity_plain()), 2,
+                       warmup=1)
+    b_ms, b_by = bound(36 * n, advect3_ops(flags, D, per_all, True))
+    bo_ms, bo_by = bound(36 * n, advect3_ops(flags, D, per_all, False))
+    results["L"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"L (trace on): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}); trace off: kernel {off_ms:.4f} "
+          f"ms, bound {bo_ms:.4f} ms ({bo_by})", flush=True)
+    done()
+
+
 def phase_small_check():
     """3 steps of small scenes: kernels on the card vs plain on the CPU."""
     from fluidnet_cxx_tpu_torch.run_cylinder import run_cylinder
     from fluidnet_cxx_tpu_torch.run_plume import run_plume
+    from fluidnet_cxx_tpu_torch.run_plume3d import run_plume3d
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import run_rayleigh_taylor
 
     cases = {
@@ -550,6 +712,10 @@ def phase_small_check():
             32, 64, 3, device=d, sim_method="multigrid"),
         "64x256 cylinder jacobi-34": lambda d: run_cylinder(
             256, 64, 3, device=d, radius=8.0, center_x=40.0),
+        "32^3 plume3d fused trace jacobi-60": lambda d: run_plume3d(
+            32, 3, device=d, fuse_advection=True, line_trace=True),
+        "32^3 plume3d unfused jacobi-60": lambda d: run_plume3d(
+            32, 3, device=d),
     }
     for name, run in cases.items():
         done = phase(f"small-input check ({name}, 3 steps, card vs CPU)")
@@ -565,6 +731,7 @@ def main_paths():
     of its first step, the kernels it must launch)."""
     from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case, run_cylinder
     from fluidnet_cxx_tpu_torch.run_plume import plume_case, run_plume
+    from fluidnet_cxx_tpu_torch.run_plume3d import plume3d_case, run_plume3d
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import (
         rt_case, run_rayleigh_taylor)
 
@@ -575,6 +742,10 @@ def main_paths():
     def rt(method):
         return (lambda n: run_rayleigh_taylor(RT_W, RT_H, n, "cuda", method),
                 lambda: rt_case(RT_W, RT_H, "cuda", method) + (None,))
+
+    def plume3d(**kw):
+        return (lambda n: run_plume3d(RES3, n, "cuda", **kw),
+                lambda: plume3d_case(RES3, "cuda", **kw) + (None,))
 
     return {
         f"plume {RES}^2 convnet": plume() + ("ABC",),
@@ -590,6 +761,9 @@ def main_paths():
         f"plume {RES}^2 unfused jacobi-200": plume(
             sim_method="jacobi", jacobi_iter=200,
             fuse_advection=False) + ("DEF",),
+        f"plume3d {RES3}^3 unfused jacobi-60": plume3d() + ("KMI",),
+        f"plume3d {RES3}^3 fused trace jacobi-60": plume3d(
+            fuse_advection=True, line_trace=True) + ("LI",),
     }
 
 
@@ -608,13 +782,14 @@ def phase_main_paths(counters):
         for field in ("U", "density", "p"):
             if not bool(torch.isfinite(getattr(st, field)).all()):
                 raise SystemExit(f"{name}: {field} is not finite")
-        if tuple(st.U.shape) != (1, 2) + tuple(st.flags.shape[1:]):
+        dims = st.flags.dim() - 1   # 2 or 3 velocity components
+        if tuple(st.U.shape) != (1, dims) + tuple(st.flags.shape[1:]):
             raise SystemExit(f"{name}: U has shape {tuple(st.U.shape)}")
         missed = [k for k in kernels if launches[k] < 1]
         if missed:
             raise SystemExit(f"{name} missed kernels {missed}: {launches}")
         stats = {k: v for k, v in out.items()
-                 if k not in ("state", "ms_per_step")}
+                 if k not in ("state", "ms_per_step", "launches_per_step")}
         per_step = {k: v / STEPS for k, v in launches.items() if v}
         print(f"{name}: ms/step {out['ms_per_step']:.4f}; {stats}; "
               f"launches {launches} (per step {per_step})", flush=True)
@@ -629,19 +804,21 @@ def phase_profile(name, case):
     from torch.profiler import ProfilerActivity, profile
 
     from fluidnet_cxx_tpu_torch.sim.step import simulate_step
+    from fluidnet_cxx_tpu_torch.sim.step3d import simulate_step3
 
     done = phase(f"profile ({name}, 5 steps)")
     n = 5
     with torch.no_grad():
         cfg, state, project = case()
+        step = simulate_step3 if state.flags.dim() == 4 else simulate_step
         for _ in range(3):
-            state = simulate_step(cfg, state, project)
+            state = step(cfg, state, project)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                state = simulate_step(cfg, state, project)
+                state = step(cfg, state, project)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / n
 
@@ -690,14 +867,18 @@ def main():
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
+    phase_kernels3d(dev, results)
     phase_small_check()
 
-    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, jacobi, mg,
-                                                    proj_tail, punet)
+    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, advect3, jacobi,
+                                                    jacobi3, mg, proj_tail,
+                                                    punet)
     counters = {"A": advect.advect_all, "B": punet.conv2d_nhwc,
                 "C": proj_tail.project_tail, "D": advect.advect_scalar,
                 "E": advect.advect_velocity, "F": jacobi.solve_jacobi,
-                "G": mg.solve_mg, "H": mg.project_mg}
+                "G": mg.solve_mg, "H": mg.project_mg,
+                "I": jacobi3.solve_jacobi3, "K": advect3.advect_scalar3,
+                "L": advect3.advect_all3, "M": advect3.advect_velocity3}
     seen = phase_main_paths(counters)
     paths = main_paths()
     for name, (_, case, _) in paths.items():
@@ -723,6 +904,14 @@ def main():
               "fluidnet_cxx_tpu/ops/pallas/mg_pallas.py:190"),
         "H": ("project_mg", "fluidnet_cxx_tpu_torch/csrc/mg.cu",
               "fluidnet_cxx_tpu/ops/pallas/mg_pallas.py:340"),
+        "I": ("solve_jacobi3", "fluidnet_cxx_tpu_torch/csrc/jacobi3.cu",
+              "fluidnet_cxx_tpu/ops/pallas/jacobi3_pallas.py:76"),
+        "K": ("advect_scalar3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
+              "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:285"),
+        "L": ("advect_all3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
+              "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:491"),
+        "M": ("advect_velocity3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
+              "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:693"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():

@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-One ``nvcc`` command compiles every ``csrc/*.cu`` into one shared library
-with a plain C interface under ``<checkout>/build/kernels/`` (listed in
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+each source to an object; one more links them into one shared library with
+a plain C interface under ``<checkout>/build/kernels/`` (listed in
 ``.gitignore``); ``ctypes`` loads it. No PyTorch headers are compiled, so a
 build takes seconds, and there is no lock file: the library is written under
 a temporary name and renamed into place. A rebuild happens only when the
 hash of the sources and flags changes.
 
-Every ``extern "C"`` entry launches one kernel on the stream it is given,
-returns its ``cudaError_t`` as an int, does not synchronise and allocates
+Every ``extern "C"`` entry launches its kernel (``fn_jacobi3_solve``: the
+launches of a whole solve) on the stream it is given, returns the first
+``cudaError_t`` as an int, does not synchronise and allocates
 nothing; ``call`` raises if the status is not 0. The entries in ``QUERIES``
 launch nothing: they answer a question of the kernels' own limits, so each
 such decision is written once, in the CUDA source, and ``query`` returns
@@ -31,8 +33,7 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: products and sums round separately, as in the plain PyTorch
 # versions; the conv kernel asks for its fused multiply-adds with fmaf().
-FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-         "-fmad=false"]
+FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 _LIB = None
 
@@ -66,6 +67,11 @@ SIGNATURES = {
     "fn_mg_prolong": [VP, VP, VP, VP, I, I, I, VP],
     "fn_mg_epilogue": [VP, VP, VP, VP, VP, I, VP, VP, I, I, I, VP],
     "fn_mg_small": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
+    "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
+    "fn_advect3_forward": [I, VP, VP, VP, VP, I, I, I, I, F, F, F, F, I, I,
+                           VP],
+    "fn_advect3_backward": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, F, F, F,
+                            F, F, I, I, VP],
 }
 # extern "C" entries that launch nothing and return a number.
 QUERIES = {
@@ -97,6 +103,25 @@ def nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _run(procs):
+    """Wait for every (name, Popen) and return their stderr, joined; raise
+    on the first that failed. No process outlives the call."""
+    try:
+        errs = []
+        for name, proc in procs:
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} "
+                                   f"({proc.returncode}):\n{err}")
+            errs.append(err)
+        return "".join(errs)
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build(ptxas_verbose: bool = False) -> Path:
     """Compile the library if its sources changed; return its path. With
     ``ptxas_verbose`` the build always runs and prints nvcc's
@@ -105,18 +130,28 @@ def build(ptxas_verbose: bool = False) -> Path:
     if lib.exists() and not ptxas_verbose:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc()] + ARCH + FLAGS + (["-Xptxas", "-v"] if ptxas_verbose
-                                     else [])
-    cmd += ["-o", str(tmp)] + [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    tag = f"{lib.stem}.{os.getpid()}"
+    compile_cmd = [nvcc()] + ARCH + FLAGS + (["-Xptxas", "-v"]
+                                             if ptxas_verbose else [])
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            compile_cmd + ["-c", "-o", str(obj), str(src)],
+            stderr=subprocess.PIPE, text=True)))
+    report = _run(procs)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    _run([("link", subprocess.Popen(
+        [nvcc()] + ARCH + ["-shared", "-o", str(tmp)] + [str(o) for o in objs],
+        stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib)
     if ptxas_verbose:
         print(f"nvcc build {time.perf_counter() - t0:.1f} s")
-        for line in res.stderr.splitlines():
+        for line in report.splitlines():
             if any(k in line for k in ("registers", "spill", "smem",
                                        "Compiling entry")):
                 print(line.strip())

@@ -1,0 +1,161 @@
+"""One 3-D simulation step (the port of the JAX package's
+``sim/step3d.py::simulate_step3``), classical projection only, in the JAX
+step's order:
+
+MacCormack advection on the window engine with the per-axis displacement
+bound ``min(max_disp, 2)``: merged (kernel L, ``fuse_advection`` with
+``advect_density``) or separate (kernel K for the density when
+``advect_density``, then kernel M for the velocity), all in
+ops/kernels/advect3.py -> scalar correction -> inlet/const BCs ->
+buoyancy -> gravity -> wall BCs (free-slip with the periodic overrides)
+-> const BCs -> divergence -> Jacobi (kernel I, ops/kernels/jacobi3.py;
+every ``sim_method`` but convnet and multigrid, as in the JAX step) ->
+velocity update -> wall BCs -> const BCs.
+
+The kernels run the first-hit trace at every shape (what the JAX step runs
+with ``use_pallas=True`` on its TPU-aligned shapes). Every other branch
+raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+import warnings
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..ops.kernels.advect3 import (advect_all3, advect_scalar3,
+                                   advect_velocity3)
+from ..ops.kernels.jacobi3 import solve_jacobi3
+from ..ops.ops3d import (add_buoyancy3, add_gravity3, correct_scalar3,
+                         empty_domain3, set_wall_bcs3, velocity_divergence3,
+                         velocity_update3)
+from .step import _scaled_gravity, apply_const_vals
+
+# The 3-D window engine's largest per-axis displacement, in cells.
+MAX_DISP3 = 2
+_warned_max_disp = False
+
+
+class SimState3(NamedTuple):
+    p: torch.Tensor        # (b, d, h, w)
+    U: torch.Tensor        # (b, 3, d, h, w)
+    flags: torch.Tensor    # (b, d, h, w) int32
+    density: torch.Tensor  # (b, d, h, w)
+    flags_stick: Optional[torch.Tensor] = None
+    U_bc: Optional[torch.Tensor] = None
+    U_bc_inv_mask: Optional[torch.Tensor] = None
+    density_bc: Optional[torch.Tensor] = None
+    density_bc_inv_mask: Optional[torch.Tensor] = None
+
+
+def create_state3(b: int, d: int, h: int, w: int, device="cpu") -> SimState3:
+    """Zeroed fields over an empty domain (fluid interior, obstacle wall)."""
+    z = dict(dtype=torch.float32, device=device)
+    return SimState3(p=torch.zeros((b, d, h, w), **z),
+                     U=torch.zeros((b, 3, d, h, w), **z),
+                     flags=empty_domain3(b, d, h, w, device=device),
+                     density=torch.zeros((b, d, h, w), **z))
+
+
+# Re-impose inlet/constant BCs, x = x * inv_mask + bc: the 2-D rule.
+apply_const_vals3 = apply_const_vals
+
+
+def _wall_bcs3(cfg, state, U):
+    """Free-slip walls, then the periodic overrides: at the first interior
+    layer of a periodic axis both tangential components take the last
+    layer's values from before the wall BCs."""
+    U_before = U
+    U = set_wall_bcs3(U, state.flags)
+    if cfg.periodic_x:
+        U[:, 1:3, :, :, 1] = U_before[:, 1:3, :, :, -1]
+    if cfg.periodic_y:
+        for c in (0, 2):
+            U[:, c, :, 1, :] = U_before[:, c, :, -1, :]
+    if cfg.periodic_z:
+        U[:, 0:2, 1, :, :] = U_before[:, 0:2, -1, :, :]
+    return U
+
+
+def _unsupported(cfg, state, project_fn):
+    if cfg.advection_method != "maccormackFluidNet" or \
+            cfg.advection_impl != "window":
+        return "3-D Euler or gather advection (ROADMAP A.6)"
+    if (cfg.advect_density and cfg.line_trace
+            and cfg.line_trace_impl == "march" and not cfg.use_pallas):
+        # What the JAX step runs on its XLA path; the kernels run the
+        # first-hit trace, which the JAX step runs with use_pallas=True.
+        return "the 3-D march line trace of the XLA path (ROADMAP A.6)"
+    if cfg.sim_method == "convnet" or project_fn is not None:
+        return ("the 3-D learned projection, kernels J and N (ROADMAP "
+                "A.7.1)")
+    if cfg.sim_method == "multigrid":
+        return "the 3-D multigrid solve_mg3 (ROADMAP A.7.2)"
+    if cfg.viscosity > 0:
+        return "3-D viscosity (ROADMAP A.7.3)"
+    if state.flags_stick is not None:
+        return "3-D stick walls (ROADMAP A.7.3)"
+    if cfg.vorticity_confinement > 0:
+        return "3-D vorticity confinement (ROADMAP A.7.4)"
+    return None
+
+
+def _warn_max_disp(cfg):
+    """Warn once per process, as the JAX step does, that the 3-D window
+    engine clamps per-axis displacements to 2 cells when ``max_disp`` asks
+    for more."""
+    global _warned_max_disp
+    if cfg.max_disp > MAX_DISP3 and not _warned_max_disp:
+        warnings.warn(
+            f"3-D window advection bounds per-axis displacements to "
+            f"{MAX_DISP3} cells (configured max_disp={cfg.max_disp}); "
+            f"trajectories moving faster are clamped. Set max_disp="
+            f"{MAX_DISP3} to silence.", stacklevel=3)
+        _warned_max_disp = True
+
+
+def _advect3(cfg, state):
+    """Advected (rho, U): kernel L, or K (when the density is advected)
+    and M."""
+    flags, U, rho = state.flags, state.U, state.density
+    kw = dict(maccormack_strength=cfg.maccormack_strength,
+              max_disp=min(cfg.max_disp, MAX_DISP3))
+    if cfg.advect_density and cfg.fuse_advection:
+        rho, U_new = advect_all3(cfg.dt, rho, U, flags,
+                                 line_trace=cfg.line_trace, **kw)
+    else:
+        if cfg.advect_density:
+            rho = advect_scalar3(cfg.dt, rho, U, flags,
+                                 line_trace=cfg.line_trace, **kw)
+        U_new = advect_velocity3(cfg.dt, U, flags, **kw)
+    if cfg.advect_density and cfg.correct_scalar:
+        # The correction's divergence is the pre-advection U's.
+        rho = correct_scalar3(cfg.dt, rho, velocity_divergence3(U, flags),
+                              flags)
+    return rho, U_new
+
+
+def simulate_step3(cfg, state, project_fn=None, output_div: bool = False):
+    """Advance by one dt. Returns the new state."""
+    why = _unsupported(cfg, state, project_fn)
+    if why is None and output_div:
+        why = "output_div, the 3-D training input (ROADMAP A.7.5)"
+    if why is not None:
+        raise NotImplementedError(f"not ported yet: {why}")
+    _warn_max_disp(cfg)
+    flags = state.flags
+    rho, U = _advect3(cfg, state)
+    U, rho = apply_const_vals3(state, U, rho)
+    if cfg.buoyancy_scale > 0:
+        U = add_buoyancy3(U, flags, rho,
+                          _scaled_gravity(cfg, cfg.buoyancy_scale),
+                          cfg.operating_density, cfg.dt)
+    if cfg.gravity_scale > 0:
+        U = add_gravity3(U, flags, _scaled_gravity(cfg, cfg.gravity_scale),
+                         cfg.dt)
+    U = _wall_bcs3(cfg, state, U)
+    U, rho = apply_const_vals3(state, U, rho)
+    p = solve_jacobi3(flags, velocity_divergence3(U, flags),
+                      cfg.jacobi_iter)
+    U = velocity_update3(p, U, flags)
+    U = _wall_bcs3(cfg, state, U)
+    U, rho = apply_const_vals3(state, U, rho)
+    return state._replace(p=p, U=U, density=rho)

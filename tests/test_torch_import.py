@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of fluidnet_cxx_tpu_torch
-loads neither JAX nor the JAX package, and its entry point refuses to run
-without a card unless the CPU is asked for. Each check runs in a fresh
+loads neither JAX nor the JAX package, and each of its entry points refuses
+to run without a card unless the CPU is asked for. Each check runs in a fresh
 interpreter, since the test process itself has both packages loaded."""
 import os
 import subprocess
@@ -20,22 +20,32 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fluidnet_cxx_tpu'))
 print(len(names), bad)
-assert len(names) >= 19 and not bad, bad
+assert len(names) >= 39 and not bad, bad
 print('IMPORT_OK')
 """
 
+# Each entry point at a small size; without a card each must refuse.
+ENTRY_POINTS = {
+    "run_plume": "run_plume(res=64, steps=1)",
+    "run_rayleigh_taylor": "run_rayleigh_taylor(res_x=32, res_y=64, steps=1)",
+    "run_cylinder": "run_cylinder(res_x=256, res_y=64, steps=1, radius=8.0, "
+                    "center_x=40.0)",
+    "run_plume3d": "run_plume3d(res=16, steps=1)",
+}
+
 RUN_WITHOUT_CARD = """
 import torch
-from fluidnet_cxx_tpu_torch.run_plume import run_plume
 assert not torch.cuda.is_available()
+""" + "".join(f"""
+from fluidnet_cxx_tpu_torch.{name} import {name}
 try:
-    run_plume(res=64, steps=1)
+    {call}
 except RuntimeError as e:
     assert 'CUDA' in str(e), e
+    print('CARD_OK {name}')
 else:
-    raise SystemExit('run_plume ran without a card')
-print('CARD_OK')
-"""
+    raise SystemExit('{name} ran without a card')
+""" for name, call in ENTRY_POINTS.items())
 
 
 @pytest.fixture(scope="module")
@@ -53,5 +63,8 @@ def test_port_imports_no_jax(fresh_python):
     assert "IMPORT_OK" in fresh_python, fresh_python
 
 
-def test_run_plume_needs_a_card_by_default(fresh_python):
-    assert "CARD_OK" in fresh_python, fresh_python
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_run_plume_needs_a_card_by_default(fresh_python, entry):
+    """Each entry point (run_plume and its siblings) raises without a card
+    unless the CPU is asked for."""
+    assert f"CARD_OK {entry}\n" in fresh_python, fresh_python
