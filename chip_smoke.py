@@ -8,9 +8,9 @@ Phases (each prints its elapsed seconds):
      -Xptxas -v register, shared-memory and spill lines;
   3. each kernel (A merged advection, B PUNet conv, C projection tail,
      D scalar advection, E velocity advection, F Jacobi, G multigrid
-     solve, H multigrid projection, I 3-D Jacobi, K 3-D scalar advection,
-     L 3-D merged advection, M 3-D velocity advection) against its plain
-     PyTorch version on
+     solve, H multigrid projection, I 3-D Jacobi, J 3-D projection tail,
+     K 3-D scalar advection, L 3-D merged advection, M 3-D velocity
+     advection, N PUNet3 conv) against its plain PyTorch version on
      the card (TF32 off), with its tolerance, at the main paths' shapes:
      512^2 with 8% random obstacles (A and E also with an `orig` far from
      U); E and F also at 800x8000 on the cylinder's flags, E with the
@@ -20,15 +20,20 @@ Phases (each prints its elapsed seconds):
      its float64 run; I, K, L and M at 128^3 with 8% random obstacles
      and displacements up to 3 cells (past the 3-D window clamp of 2), K
      and L with the first-hit trace on and off, L also against K and M,
-     I cold and warm with damping 6/7; then CUDA-event times of the
-     kernel, the plain version and, for B, the same forward as cuDNN
-     F.conv2d calls;
+     I cold and warm with damping 6/7; J at 128^3 with 8% obstacles,
+     cold and warm, damping 2/3, 16 and 8 sweeps, bit-exact; N each layer
+     kind alone (1x1, 3x3x3, stride 2, the decoder's concat, the up and
+     head layers) at the p8 main path's shapes in float32 and bfloat16,
+     then the whole PUNet3 forward at 128^3 with patch 8 (g0 16) and patch
+     4 (g0 32) in both; then CUDA-event times of the kernel, the plain
+     version and, for B and N, the same forward as cuDNN F.conv2d/F.conv3d
+     calls (N: in bfloat16 with channels_last_3d, and in float32);
   4. small-input checks, the card against the plain path on the CPU:
      3 steps of the 64^2 plume with the learned projection, jacobi-28,
      mg-2v and unfused jacobi-28, of the 64x32 Rayleigh-Taylor scene
      under multigrid, of the 64x256 cylinder (radius 8 at x 40) and of
      the 32^3 plume under jacobi-60, merged with the trace and separate
-     without it;
+     without it, and under the learned projection with patch 8 and 4;
   5. the main paths, 20 steps each with every launch counter set to 0
      just before and read just after: the 512^2 plume with the learned
      projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), the
@@ -37,9 +42,11 @@ Phases (each prints its elapsed seconds):
      plume with unfused advection under jacobi-200 (D, E, F), and the
      128^3 3-D plume under jacobi-60 (scripts/bench3d.py's classical
      case) with separate advection and no trace (K, M, I) and with merged
-     advection and the first-hit trace (L, I); finite fields, ms per
-     step, quality stats, launches per step; then the `kernels` JSON
-     line;
+     advection and the first-hit trace (L, I), and bench3d's learned case
+     at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
+     J, N) at full widths, weights from seed 0; finite fields, ms per
+     step, quality stats, launches per step (J and N held to their exact
+     counts); then the `kernels` JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share and the kernels that take the
      most device time.
@@ -49,7 +56,8 @@ exit with a traceback. Imports nothing of JAX.
 
 Bounds (`bound_ms`) are the larger of bytes moved (each input read once,
 each output written once) over 3.35 TB/s and operations over 67 TFLOP/s
-(H100 SXM fp32 without tensor cores), counted from this run's inputs.
+(H100 SXM fp32 without tensor cores) or, for N's bfloat16 products, 989
+TFLOP/s (dense bf16 tensor cores), counted from this run's inputs.
 """
 import faulthandler
 import json
@@ -62,12 +70,15 @@ import torch
 WATCHDOG_S = 600
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 RES = 512
 RES3 = 128
 RT_W, RT_H = 128, 512
 CYL_W, CYL_H = 8000, 800
 STEPS = 20
 SEED = 0
+MODEL_P8 = "trained_models/PUNet3p8_64"
+MODEL_P4 = "trained_models/PUNet3_32"
 
 
 def phase(name):
@@ -98,8 +109,8 @@ def cuda_ms(fn, reps, warmup=2):
     return e0.elapsed_time(e1) / reps
 
 
-def bound(nbytes, nops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+def bound(nbytes, nops, ops_per_s=FP32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -165,8 +176,6 @@ def phase_kernels(dev, results):
     from fluidnet_cxx_tpu_torch.config import load_model_config
     from fluidnet_cxx_tpu_torch.sim.scenes import create_plume_scene
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(SEED)
     flags, U, rho = stress_inputs(gen, dev, RES)
     n = RES * RES
@@ -692,8 +701,223 @@ def phase_kernels3d(dev, results):
     done()
 
 
+def check_bf16(name, got, want):
+    """Hold a bfloat16 output to its plain version: each value within one
+    bfloat16 ulp of the plain value, or within 1e-5 of the largest output
+    where cancellation leaves the value near zero (a sum taken in another
+    order may round to the neighbouring bfloat16). Returns the largest
+    absolute error."""
+    w = want.float()
+    d = (got.float() - w).abs()
+    a = w.abs()
+    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                      torch.zeros_like(a))
+    tol = torch.clamp(ulp, min=1e-5 * float(a.max()))
+    excess, err = float((d - tol).max()), float(d.max())
+    print(f"{name}: max_abs_err {err:.3e}; largest excess over max(1 ulp, "
+          f"1e-5 of the largest output) {excess:.3e}", flush=True)
+    if not excess <= 0:
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return err
+
+
+def punet3_work(net, x):
+    """(bytes, operations) of one PUNet3 forward of ``x`` (b, d, h, w, C):
+    the float32 input read and the float32 output written once, the
+    weights (in the compute dtype) and biases read once; two operations per
+    multiply-add of each layer at its output size (a stride-2 down halves
+    the side, each up's depth-to-space doubles it)."""
+    side = x.shape[1] // net.patch
+    macs = 0
+    for name, ci, co, k, stride in net.table:
+        if stride == 2:
+            side //= 2
+        macs += x.shape[0] * side ** 3 * k ** 3 * ci * co
+        if name.startswith("up"):
+            side *= 2
+    wbytes = sum(c.weight.numel() * net.act_dtype.itemsize
+                 + 4 * c.bias.numel() for c in net.convs.values())
+    return 4 * x.numel() + 4 * x[..., 0].numel() + wbytes, 2.0 * macs
+
+
+def conv3d_library(net, dtype):
+    """The PUNet3 forward as cuDNN F.conv3d calls on NCDHW tensors in
+    ``dtype`` (bfloat16 in channels_last_3d, or float32 with TF32 off),
+    weights cast once; returns ``forward(x)``. A yardstick only: it rounds
+    every layer's output to ``dtype``."""
+    from fluidnet_cxx_tpu_torch.models.punet3d import (depth_to_space3,
+                                                       space_to_depth3)
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
+
+    fmt = (torch.channels_last_3d if dtype == torch.bfloat16
+           else torch.contiguous_format)
+    params = {name: (c.weight.detach().to(dtype).contiguous(
+                         memory_format=fmt), c.bias.detach().to(dtype))
+              for name, c in net.convs.items()}
+
+    def conv(name, h, relu=True):
+        w, b = params[name]
+        stride = net.strides[name]
+        lo, hi = same_pads(h.shape[-1], w.shape[-1], stride, 1)
+        h = torch.nn.functional.conv3d(
+            torch.nn.functional.pad(h, (lo, hi) * 3), w, b, stride=stride)
+        return torch.relu(h) if relu else h
+
+    def d2s(h, p):
+        return depth_to_space3(h.permute(0, 2, 3, 4, 1), p).permute(
+            0, 4, 1, 2, 3)
+
+    def forward(x):
+        h = space_to_depth3(x, net.patch).permute(0, 4, 1, 2, 3).to(dtype)
+        h = conv("embed", h.contiguous(memory_format=fmt))
+        skips = []
+        for i in range(len(net.widths)):
+            if i > 0:
+                h = conv(f"down{i}", h)
+            h = conv(f"enc{i}_0", h)
+            skips.append(h)
+        for j in range(net.bottleneck_convs):
+            h = conv(f"mid{j}", h)
+        for i in range(len(net.widths) - 2, -1, -1):
+            h = d2s(conv(f"up{i}", h, relu=False), 2)
+            h = conv(f"dec{i}_0", torch.cat([h, skips[i]], dim=1).contiguous(
+                memory_format=fmt))
+        return d2s(conv("head", h, relu=False), net.patch)
+
+    return forward
+
+
+def phase_learned3d(dev, results):
+    """Kernels J and N at the learned 3-D main paths' shapes. J runs its
+    plain version's float32 operations in the same order (-fmad=false), so
+    it is held bit-exact. N sums each output in another order than
+    F.conv3d: a float32 layer is held to 1e-5 of its largest output, a
+    bfloat16 one to one bfloat16 ulp (check_bf16); the whole float32
+    forward to 1e-4 of its largest output, and the whole bfloat16 forward
+    to 1e-2: there a sum taken in another order can round an activation
+    to the neighbouring bfloat16 and the next layers carry that on (on the
+    CPU, summing in float64 instead of float32 at the same rounding points
+    moves the p4 forward at 32^3 by 2.1e-3 of its largest output)."""
+    import dataclasses
+
+    from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.ops.kernels import proj_tail3, punet3
+    from fluidnet_cxx_tpu_torch.run_plume3d import build_punet3
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+    flags, U, _ = stress_inputs3(gen, dev, RES3)
+    n = RES3 ** 3
+
+    done = phase("kernel J project_tail3")
+    p0 = torch.randn(flags.shape, generator=gen).to(dev)
+    for start, p in (("cold", torch.zeros_like(p0)), ("warm", p0)):
+        for it in (16, 8):
+            got = proj_tail3.project_tail3(flags, U, p, it, 2.0 / 3.0)
+            torch.cuda.synchronize()
+            want = proj_tail3.project_tail3_plain(flags, U, p, it, 2.0 / 3.0)
+            e = max_err(got, want)
+            check(f"J project_tail3 ({RES3}^3, {start}, {it} sweeps damped "
+                  "2/3)", e, 0.0)
+            if start == "warm" and it == 16:
+                err = e
+    ms = cuda_ms(lambda: proj_tail3.project_tail3(flags, U, p0, 16,
+                                                  2.0 / 3.0), 20)
+    ms8 = cuda_ms(lambda: proj_tail3.project_tail3(flags, U, p0, 8,
+                                                   2.0 / 3.0), 20)
+    plain_ms = cuda_ms(lambda: proj_tail3.project_tail3_plain(
+        flags, U, p0, 16, 2.0 / 3.0), 3, warmup=1)
+    b_ms, b_by = bound(36 * n, (14.0 * 16 + 60) * n)
+    results["J"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"J (16 sweeps): kernel {ms:.4f} ms (8 sweeps: {ms8:.4f} ms), "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
+    done()
+
+    def net_of(model_dir, dtype):
+        mcfg = dataclasses.replace(load_model_config(str(model_dir)),
+                                   compute_dtype=dtype)
+        net = build_punet3(mcfg, SEED, dev)
+        return net, punet3.pack_weights3(net)
+
+    done = phase("kernel N punet3 conv, each layer kind")
+    g0 = RES3 // 8
+    for dtype in ("float32", "bfloat16"):
+        net, packed = net_of(MODEL_P8, dtype)
+        act = net.act_dtype
+
+        def rand(c, dt=act, side=g0):
+            return torch.randn((1, side, side, side, c),
+                               generator=gen).to(dev, dt)
+
+        cases = {"1x1 (embed)": ("embed", rand(2 * 8 ** 3), None),
+                 "3x3x3 (enc0_0)": ("enc0_0", rand(96), None),
+                 "stride 2 (down1)": ("down1", rand(96), None),
+                 "1x1 to float32 (up0)": ("up0", rand(128, side=g0 // 2),
+                                          None),
+                 "concat (dec0_0)": ("dec0_0", rand(96, torch.float32),
+                                     rand(96)),
+                 "1x1 to float32 (head)": ("head", rand(96), None)}
+        with torch.no_grad():
+            for label, (name, x, x2) in cases.items():
+                relu = name != "head" and not name.startswith("up")
+                w, b = packed[name]
+                args = (b, net.strides[name], relu, x2, net.out_dtype(relu))
+                got = punet3.conv3d_ndhwc(x, w, *args)
+                torch.cuda.synchronize()
+                want = punet3.conv3d_ndhwc_plain(
+                    x, w.permute(4, 3, 0, 1, 2), *args)
+                name = f"N {label} {dtype}"
+                if want.dtype == torch.bfloat16:
+                    check_bf16(name, got, want)
+                else:
+                    check(name, max_err([got], [want]),
+                          1e-5 * float(want.abs().max()))
+    done()
+
+    x = torch.stack([torch.randn((1, RES3, RES3, RES3), generator=gen),
+                     (torch.rand((1, RES3, RES3, RES3), generator=gen)
+                      < 0.08).float()], dim=-1).to(dev)
+    for label, model_dir in (("p8", MODEL_P8), ("p4", MODEL_P4)):
+        for dtype in ("bfloat16", "float32"):
+            done = phase(f"kernel N punet3 forward ({label}, {dtype})")
+            net, packed = net_of(model_dir, dtype)
+            with torch.no_grad():
+                got = punet3.punet3_forward(net, packed, x)
+                torch.cuda.synchronize()
+                want = net(x)
+                rel = 1e-2 if dtype == "bfloat16" else 1e-4
+                err = max_err([got], [want])
+                check(f"N punet3 forward {RES3}^3 {label} {dtype}", err,
+                      rel * float(want.abs().max()))
+                lib = conv3d_library(net, net.act_dtype)
+                lib_err = max_err([lib(x).float().permute(0, 2, 3, 4, 1)],
+                                  [want])
+                ms = cuda_ms(lambda: punet3.punet3_forward(net, packed, x),
+                             10)
+                plain_ms = cuda_ms(lambda: net(x), 5)
+                library_ms = cuda_ms(lambda: lib(x), 10)
+            nbytes, nops = punet3_work(net, x)
+            b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+            f_ms, _ = bound(nbytes, nops)
+            print(f"N {label} {dtype}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.3f} ms, library {library_ms:.4f} ms "
+                  f"(cuDNN {dtype}; vs plain {lib_err:.3e}), bound "
+                  f"{b_ms:.4f} ms ({b_by}, bf16 tensor cores; fp32 "
+                  f"{f_ms:.4f} ms), {nops / 1e9:.3f} GFLOP", flush=True)
+            if label == "p8" and dtype == "bfloat16":
+                results["N"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=library_ms)
+            done()
+
+
 def phase_small_check():
-    """3 steps of small scenes: kernels on the card vs plain on the CPU."""
+    """3 steps of small scenes: kernels on the card vs plain on the CPU,
+    each field within 1e-4 of its largest value; the learned 3-D
+    projection within 1e-3, since its bfloat16 activations round a sum
+    taken in another order to the neighbouring bfloat16 now and then (on
+    an H100 these checks read 3.3e-5 of the largest value at most)."""
     from fluidnet_cxx_tpu_torch.run_cylinder import run_cylinder
     from fluidnet_cxx_tpu_torch.run_plume import run_plume
     from fluidnet_cxx_tpu_torch.run_plume3d import run_plume3d
@@ -716,13 +940,18 @@ def phase_small_check():
             32, 3, device=d, fuse_advection=True, line_trace=True),
         "32^3 plume3d unfused jacobi-60": lambda d: run_plume3d(
             32, 3, device=d),
+        "32^3 plume3d convnet p8": lambda d: run_plume3d(
+            32, 3, device=d, sim_method="convnet", model_dir=MODEL_P8),
+        "32^3 plume3d convnet p4": lambda d: run_plume3d(
+            32, 3, device=d, sim_method="convnet", model_dir=MODEL_P4),
     }
     for name, run in cases.items():
         done = phase(f"small-input check ({name}, 3 steps, card vs CPU)")
         gpu, cpu = run("cuda")["state"], run("cpu")["state"]
+        rel = 1e-3 if "convnet" in name and "3d" in name else 1e-4
         for field in ("U", "density", "p"):
             g, c = getattr(gpu, field).cpu(), getattr(cpu, field)
-            check(f"{name} {field}", max_err([g], [c]), 1e-4 * scale_of([c]))
+            check(f"{name} {field}", max_err([g], [c]), rel * scale_of([c]))
         done()
 
 
@@ -731,7 +960,8 @@ def main_paths():
     of its first step, the kernels it must launch)."""
     from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case, run_cylinder
     from fluidnet_cxx_tpu_torch.run_plume import plume_case, run_plume
-    from fluidnet_cxx_tpu_torch.run_plume3d import plume3d_case, run_plume3d
+    from fluidnet_cxx_tpu_torch.run_plume3d import (learned3d_case,
+                                                    plume3d_case, run_plume3d)
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import (
         rt_case, run_rayleigh_taylor)
 
@@ -746,6 +976,11 @@ def main_paths():
     def plume3d(**kw):
         return (lambda n: run_plume3d(RES3, n, "cuda", **kw),
                 lambda: plume3d_case(RES3, "cuda", **kw) + (None,))
+
+    def learned3d(model_dir):
+        return (lambda n: run_plume3d(RES3, n, "cuda", sim_method="convnet",
+                                      model_dir=model_dir),
+                lambda: learned3d_case(RES3, "cuda", model_dir))
 
     return {
         f"plume {RES}^2 convnet": plume() + ("ABC",),
@@ -764,7 +999,16 @@ def main_paths():
         f"plume3d {RES3}^3 unfused jacobi-60": plume3d() + ("KMI",),
         f"plume3d {RES3}^3 fused trace jacobi-60": plume3d(
             fuse_advection=True, line_trace=True) + ("LI",),
+        f"plume3d {RES3}^3 convnet p8": learned3d(MODEL_P8) + ("KMJN",),
+        f"plume3d {RES3}^3 convnet p4": learned3d(MODEL_P4) + ("KMJN",),
     }
+
+
+# Launches per step that a main path must show exactly: N's 9 convs, and
+# J's prologue, epilogue and one launch per polish sweep (16 for p8, 8
+# for p4).
+EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 18, "N": 9},
+                  f"plume3d {RES3}^3 convnet p4": {"J": 10, "N": 9}}
 
 
 def phase_main_paths(counters):
@@ -788,6 +1032,10 @@ def phase_main_paths(counters):
         missed = [k for k in kernels if launches[k] < 1]
         if missed:
             raise SystemExit(f"{name} missed kernels {missed}: {launches}")
+        for k, per_step in EXACT_LAUNCHES.get(name, {}).items():
+            if launches[k] != per_step * STEPS:
+                raise SystemExit(f"{name}: {k} launched {launches[k]} "
+                                 f"times, not {per_step} a step")
         stats = {k: v for k, v in out.items()
                  if k not in ("state", "ms_per_step", "launches_per_step")}
         per_step = {k: v / STEPS for k, v in launches.items() if v}
@@ -864,21 +1112,26 @@ def main():
     done()
 
     dev = torch.device("cuda")
+    # The plain versions and the float32 library chains in full float32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
     phase_kernels3d(dev, results)
+    phase_learned3d(dev, results)
     phase_small_check()
 
     from fluidnet_cxx_tpu_torch.ops.kernels import (advect, advect3, jacobi,
                                                     jacobi3, mg, proj_tail,
-                                                    punet)
+                                                    proj_tail3, punet, punet3)
     counters = {"A": advect.advect_all, "B": punet.conv2d_nhwc,
                 "C": proj_tail.project_tail, "D": advect.advect_scalar,
                 "E": advect.advect_velocity, "F": jacobi.solve_jacobi,
                 "G": mg.solve_mg, "H": mg.project_mg,
-                "I": jacobi3.solve_jacobi3, "K": advect3.advect_scalar3,
-                "L": advect3.advect_all3, "M": advect3.advect_velocity3}
+                "I": jacobi3.solve_jacobi3, "J": proj_tail3.project_tail3,
+                "K": advect3.advect_scalar3, "L": advect3.advect_all3,
+                "M": advect3.advect_velocity3, "N": punet3.conv3d_ndhwc}
     seen = phase_main_paths(counters)
     paths = main_paths()
     for name, (_, case, _) in paths.items():
@@ -906,12 +1159,16 @@ def main():
               "fluidnet_cxx_tpu/ops/pallas/mg_pallas.py:340"),
         "I": ("solve_jacobi3", "fluidnet_cxx_tpu_torch/csrc/jacobi3.cu",
               "fluidnet_cxx_tpu/ops/pallas/jacobi3_pallas.py:76"),
+        "J": ("project_tail3", "fluidnet_cxx_tpu_torch/csrc/proj_tail3.cu",
+              "fluidnet_cxx_tpu/ops/pallas/proj_tail3_pallas.py:135"),
         "K": ("advect_scalar3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
               "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:285"),
         "L": ("advect_all3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
               "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:491"),
         "M": ("advect_velocity3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
               "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:693"),
+        "N": ("punet3_conv3d", "fluidnet_cxx_tpu_torch/csrc/conv3d.cu",
+              "fluidnet_cxx_tpu/ops/pallas/punet3_pallas.py:358"),
     }
     kernels = []
     for k, (name, source, replaces) in meta.items():

@@ -24,29 +24,9 @@
 // All 1 + iters launches are issued by one C call (fn_jacobi3_solve), so
 // the host pays one ctypes call per solve. Threads run x fastest; cell
 // indices are size_t.
-#include <stdint.h>
-
-#include "common.cuh"
+#include "jacobi3.cuh"
 
 namespace {
-using namespace fnk;
-
-const dim3 kBlock(32, 8);
-
-struct Dims {
-  int d, h, w;
-};
-
-// Cell (x, y, z, b) of this thread, or false past the grid's edge.
-__device__ __forceinline__ bool cell_of(const Dims& D, int* x, int* y,
-                                        int* z, size_t* base) {
-  *x = blockIdx.x * blockDim.x + threadIdx.x;
-  *y = blockIdx.y * blockDim.y + threadIdx.y;
-  *z = blockIdx.z % D.d;
-  size_t b = blockIdx.z / D.d;
-  *base = b * (size_t)D.d * D.h * D.w;
-  return *x < D.w && *y < D.h;
-}
 
 __global__ void jacobi3_mask(const int* __restrict__ flags,
                              const float* __restrict__ p0,
@@ -55,56 +35,9 @@ __global__ void jacobi3_mask(const int* __restrict__ flags,
   int x, y, z;
   size_t base;
   if (!cell_of(D, &x, &y, &z, &base)) return;
-  const size_t hw = (size_t)D.h * D.w;
-  const size_t i = base + z * hw + (size_t)y * D.w + x;
-  const bool ob = flags[i] == kObstacle;
-  if (p0) p_init[i] = ob ? 0.f : p0[i];
-  bool in = x >= 1 && x <= D.w - 2 && y >= 1 && y <= D.h - 2 && z >= 1 &&
-            z <= D.d - 2;
-  if (!in || ob) {
-    mask[i] = 0;
-    return;
-  }
-  int cnt = (flags[i - 1] == kObstacle) + (flags[i + 1] == kObstacle) +
-            (flags[i - D.w] == kObstacle) + (flags[i + D.w] == kObstacle) +
-            (flags[i - hw] == kObstacle) + (flags[i + hw] == kObstacle);
-  mask[i] = (uint8_t)(1 | (cnt << 1));
-}
-
-// One sweep from p_in (null: zeros) into p_out (a distinct buffer).
-__global__ void __launch_bounds__(256)
-    jacobi3_sweep(const float* __restrict__ p_in,
-                  const float* __restrict__ div,
-                  const uint8_t* __restrict__ mask,
-                  float* __restrict__ p_out, Dims D, int damped, float keep,
-                  float damping) {
-  int x, y, z;
-  size_t base;
-  if (!cell_of(D, &x, &y, &z, &base)) return;
-  const size_t hw = (size_t)D.h * D.w;
-  const size_t i = base + z * hw + (size_t)y * D.w + x;
-  const uint8_t m = mask[i];
-  if (!(m & 1)) {
-    p_out[i] = 0.f;
-    return;
-  }
-  const float sixth = (float)(1.0 / 6.0);
-  float pc = 0.f, acc;
-  if (p_in) {
-    pc = p_in[i];
-    acc = div[i] + (float)(m >> 1) * pc;
-    acc = acc + p_in[i - 1];
-    acc = acc + p_in[i + 1];
-    acc = acc + p_in[i - D.w];
-    acc = acc + p_in[i + D.w];
-    acc = acc + p_in[i - hw];
-    acc = acc + p_in[i + hw];
-  } else {
-    // p == 0: the same sums of zeros, div + 0 + ... + 0 == div.
-    acc = div[i];
-  }
-  float upd = acc * sixth;
-  p_out[i] = damped ? keep * pc + damping * upd : upd;
+  const size_t i = base + z * (size_t)D.h * D.w + (size_t)y * D.w + x;
+  if (p0) p_init[i] = flags[i] == kObstacle ? 0.f : p0[i];
+  mask[i] = mask_byte3(flags, x, y, z, i, D);
 }
 
 }  // namespace
@@ -118,30 +51,14 @@ extern "C" int fn_jacobi3_solve(const int* flags, const float* div,
                                 float* p_out, int b, int d, int h, int w,
                                 int iters, int damped, float keep,
                                 float damping, void* stream) {
-  if (iters < 1 || b < 1 || d < 3 || h < 3 || w < 3 || tmp == p_out ||
-      (size_t)b * d > 65535)
+  if (iters < 1 || bad_args3(b, d, h, w, iters, tmp, p_out))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = (cudaStream_t)stream;
   Dims D{d, h, w};
-  dim3 grid((w + kBlock.x - 1) / kBlock.x, (h + kBlock.y - 1) / kBlock.y,
-            b * d);
-  // Ping-pong so that the last sweep writes p_out: an odd count starts
-  // writing p_out, an even one tmp; the warm start sits in the other.
-  float* first_dst = (iters % 2) ? p_out : tmp;
-  float* init = (iters % 2) ? tmp : p_out;
-  jacobi3_mask<<<grid, kBlock, 0, s>>>(flags, p0, mask, init, D);
+  float* init = warm_buffer3(iters, tmp, p_out);
+  jacobi3_mask<<<grid3(b, D), kBlock3, 0, s>>>(flags, p0, mask, init, D);
   int status = fnk::launch_status();
   if (status) return status;
-  const float* src = p0 ? init : nullptr;
-  float* dst = first_dst;
-  for (int k = 0; k < iters; ++k) {
-    jacobi3_sweep<<<grid, kBlock, 0, s>>>(src, div, mask, dst, D, damped,
-                                          keep, damping);
-    status = fnk::launch_status();
-    if (status) return status;
-    float* next = (dst == p_out) ? tmp : p_out;
-    src = dst;
-    dst = next;
-  }
-  return 0;
+  return jacobi3_sweeps(p0 ? init : nullptr, div, mask, tmp, p_out, b, D,
+                        iters, damped, keep, damping, s);
 }

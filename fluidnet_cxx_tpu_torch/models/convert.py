@@ -1,9 +1,10 @@
-"""Flax PUNet parameters -> the port's PUNet ``state_dict``.
+"""Flax PUNet and PUNet3 parameters -> the port's ``state_dict``s.
 
-Input: the flax ``PUNet_0`` param subtree as numpy arrays,
-``{"embed": {"kernel": (k, k, c_in, c_out), "bias": (c_out,)}, ...}``
-(from an orbax checkpoint read where JAX is installed, or from
-``random_flax_params``). Three layout traps, each handled once:
+Input: the flax ``PUNet_0`` (or ``PUNet3_0``) param subtree as numpy
+arrays, ``{"embed": {"kernel": (k, k, c_in, c_out), "bias": (c_out,)},
+...}`` (3-D kernels are (k, k, k, c_in, c_out)), from an orbax checkpoint
+read where JAX is installed, or from ``random_flax_params``/
+``random_flax_params3``. Three layout traps, each handled once:
 
 1. flax's space_to_depth orders channels (py, px, c), torch's
    pixel_unshuffle (c, py, px): the port's ``space_to_depth`` keeps flax's
@@ -11,7 +12,8 @@ Input: the flax ``PUNet_0`` param subtree as numpy arrays,
 2. flax 'SAME' on an even input pads a stride-2 conv (0, 1): the port pads
    with ``same_pads`` and convolves with padding 0, so the weights carry
    over unchanged.
-3. flax kernels are HWIO, torch's OIHW: transposed here.
+3. flax kernels are HWIO (DHWIO in 3-D), torch's OIHW (OIDHW):
+   transposed here.
 """
 import numpy as np
 import torch
@@ -21,17 +23,43 @@ import torch
 _TRUNC_STD = 0.87962566103423978
 
 
-def flax_to_state_dict(params):
-    """Flax PUNet param tree (numpy) -> {``convs.<name>.weight``: OIHW,
+def _to_state_dict(params, order):
+    """{``convs.<name>.weight``: the kernel transposed by ``order``,
     ``convs.<name>.bias``} float32 tensors."""
     sd = {}
     for name, leaf in params.items():
         k = np.asarray(leaf["kernel"], np.float32)
         sd[f"convs.{name}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+            np.ascontiguousarray(k.transpose(order)))
         sd[f"convs.{name}.bias"] = torch.from_numpy(
             np.asarray(leaf["bias"], np.float32).copy())
     return sd
+
+
+def flax_to_state_dict(params):
+    """Flax PUNet param tree (numpy) -> {``convs.<name>.weight``: OIHW,
+    ``convs.<name>.bias``} float32 tensors."""
+    return _to_state_dict(params, (3, 2, 0, 1))
+
+
+def flax_to_state_dict3(params):
+    """Flax PUNet3 param tree (numpy) -> {``convs.<name>.weight``: OIDHW,
+    ``convs.<name>.bias``} float32 tensors."""
+    return _to_state_dict(params, (4, 3, 0, 1, 2))
+
+
+def _lecun_params(rng, shape):
+    """One flax-initialised layer: a lecun-normal kernel of ``shape``
+    (truncated normal, std sqrt(1/fan_in), fan_in = all but the last axis)
+    and a zero bias."""
+    z = rng.standard_normal(shape)
+    bad = np.abs(z) > 2.0
+    while bad.any():
+        z[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(z) > 2.0
+    std = np.sqrt(1.0 / np.prod(shape[:-1])) / _TRUNC_STD
+    return {"kernel": (z * std).astype(np.float32),
+            "bias": np.zeros((shape[-1],), np.float32)}
 
 
 def random_flax_params(table, seed: int = 0):
@@ -39,15 +67,14 @@ def random_flax_params(table, seed: int = 0):
     kernels (truncated normal, std sqrt(1/fan_in)) and zero biases, for the
     layers of ``models.punet.layer_table``."""
     rng = np.random.default_rng(seed)
-    params = {}
-    for name, ci, co, k, _, _ in table:
-        shape = (k, k, ci, co)
-        z = rng.standard_normal(shape)
-        bad = np.abs(z) > 2.0
-        while bad.any():
-            z[bad] = rng.standard_normal(int(bad.sum()))
-            bad = np.abs(z) > 2.0
-        std = np.sqrt(1.0 / (k * k * ci)) / _TRUNC_STD
-        params[name] = {"kernel": (z * std).astype(np.float32),
-                        "bias": np.zeros((co,), np.float32)}
-    return params
+    return {name: _lecun_params(rng, (k, k, ci, co))
+            for name, ci, co, k, _, _ in table}
+
+
+def random_flax_params3(table, seed: int = 0):
+    """Flax-initialised PUNet3 parameters from a numpy seed, for the layers
+    of ``models.punet3d.layer_table3``: lecun-normal (k, k, k, c_in, c_out)
+    kernels (fan_in 27 c_in, or c_in for a 1x1x1 conv) and zero biases."""
+    rng = np.random.default_rng(seed)
+    return {name: _lecun_params(rng, (k, k, k, ci, co))
+            for name, ci, co, k, _ in table}

@@ -8,13 +8,13 @@ build takes seconds, and there is no lock file: the library is written under
 a temporary name and renamed into place. A rebuild happens only when the
 hash of the sources and flags changes.
 
-Every ``extern "C"`` entry launches its kernel (``fn_jacobi3_solve``: the
-launches of a whole solve) on the stream it is given, returns the first
-``cudaError_t`` as an int, does not synchronise and allocates
-nothing; ``call`` raises if the status is not 0. The entries in ``QUERIES``
-launch nothing: they answer a question of the kernels' own limits, so each
-such decision is written once, in the CUDA source, and ``query`` returns
-the answer.
+Every ``extern "C"`` entry launches its kernel (``fn_jacobi3_solve`` and
+``fn_tail3``: the launches of a whole solve) on the stream it is given,
+returns the first ``cudaError_t`` as an int, does not synchronise and
+allocates nothing; ``call`` raises if the status is not 0. The entries in
+``QUERIES`` launch nothing: they answer a question of the kernels' own
+limits, so each such decision is written once, in the CUDA source, and
+``query`` returns the answer.
 
 Run ``python -m fluidnet_cxx_tpu_torch.ops.kernels._build`` to build and
 print nvcc's ``-Xptxas -v`` report (registers, shared memory, spills).
@@ -68,6 +68,8 @@ SIGNATURES = {
     "fn_mg_epilogue": [VP, VP, VP, VP, VP, I, VP, VP, I, I, I, VP],
     "fn_mg_small": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
+    "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
+    "fn_conv3d_ndhwc": [VP] * 5 + [I] * 15 + [VP],
     "fn_advect3_forward": [I, VP, VP, VP, VP, I, I, I, I, F, F, F, F, I, I,
                            VP],
     "fn_advect3_backward": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, F, F, F,

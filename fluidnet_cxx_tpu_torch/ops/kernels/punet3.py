@@ -1,0 +1,122 @@
+"""Kernel N: one NDHWC 3-D convolution with fused bias and ReLU, and the
+PUNet3 forward that launches it once per layer.
+
+Replaces ``fluidnet_cxx_tpu/ops/pallas/punet3_pallas.py::
+punet3_forward_pallas`` (the whole 3-D U-Net in one Pallas kernel) with the
+CUDA kernel in ``csrc/conv3d.cu``. The space-to-depth/depth-to-space
+reshapes (the patchify, the up conv's ``depth_to_space3(2)`` and the
+head's ``depth_to_space3(patch)``) stay PyTorch, as the JAX wrapper keeps
+them in XLA. Plain versions: ``conv3d_ndhwc_plain`` for one layer
+(F.conv3d) and the ``PUNet3`` module's own forward for the network; a CPU
+tensor runs them, a CUDA tensor the kernel.
+
+Rounding (``compute_dtype="bfloat16"``, as the TPU kernel rounds): the
+input and every weight are bfloat16, each product is taken in float32 and
+summed in float32, the bias is added in float32, a ReLU layer rounds its
+output to bfloat16, and the layers without a ReLU (the decoder's up conv
+and the head) keep float32 outputs. Tensors carry those dtypes between the
+layers; with ``"float32"`` nothing is rounded.
+"""
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .punet import same_pads
+
+# Bits of the kernel's ``types`` argument: which operands are bfloat16.
+_X1_BF16, _X2_BF16, _W_BF16, _OUT_BF16 = 1, 2, 4, 8
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _pads3(x, k: int, stride: int):
+    """flax 'SAME' (lo, hi) pads of the three spatial axes of NDHWC ``x``."""
+    return [same_pads(x.shape[1 + a], k, stride, 1) for a in range(3)]
+
+
+def conv3d_ndhwc_plain(x, weight, bias, stride=1, relu=False, x2=None,
+                       out_dtype=torch.float32):
+    """Plain version: SAME conv of NDHWC ``x`` (and ``x2`` concatenated on
+    channels) with an OIDHW ``weight``, products and sums in float32;
+    returns NDHWC in ``out_dtype``."""
+    h = x.float()
+    if x2 is not None:
+        h = torch.cat([h, x2.float()], dim=-1)
+    (d0, d1), (h0, h1), (w0, w1) = _pads3(x, weight.shape[-1], stride)
+    hn = F.pad(h.permute(0, 4, 1, 2, 3), (w0, w1, h0, h1, d0, d1))
+    y = F.conv3d(hn, weight.float(), bias.float(), stride=stride)
+    if relu:
+        y = torch.relu(y)
+    return y.permute(0, 2, 3, 4, 1).to(out_dtype).contiguous()
+
+
+def conv3d_ndhwc(x, w_dhwio, bias, stride=1, relu=False, x2=None,
+                 out_dtype=torch.float32):
+    """SAME conv of NDHWC ``x`` (channels [x | x2]) with a DHWIO weight
+    (k, k, k, c_in, c_out); bias and ReLU fused. ``x``, ``x2`` and the
+    weight are float32 or bfloat16 (each product in float32), the bias
+    float32. Returns NDHWC in ``out_dtype`` (float32 or bfloat16). The
+    kernel takes the dtype sets of the PUNet3 forward (all float32, or
+    bfloat16 weights: csrc/conv3d.cu::launch_types) and refuses others."""
+    if not _build.on_cuda(x):
+        return conv3d_ndhwc_plain(x, w_dhwio.permute(4, 3, 0, 1, 2), bias,
+                                  stride, relu, x2, out_dtype)
+    n, di, hi, wi, c1 = x.shape
+    k, _, _, cin, co = w_dhwio.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    dev = x.device
+    for name, t in (("x", x), ("x2", x2), ("weight", w_dhwio)):
+        if t is not None and t.dtype not in _DTYPES:
+            raise ValueError(f"{name} has dtype {t.dtype}; conv3d_ndhwc "
+                             "takes float32 or bfloat16")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"out_dtype {out_dtype}: float32 or bfloat16")
+    _build.check(x, "x", x.dtype, (n, di, hi, wi, c1), dev)
+    if x2 is not None:
+        _build.check(x2, "x2", x2.dtype, (n, di, hi, wi, c2), dev)
+    _build.check(w_dhwio, "weight", w_dhwio.dtype, (k, k, k, c1 + c2, co),
+                 dev)
+    _build.check(bias, "bias", torch.float32, (co,), dev)
+    if c1 % 16 or c2 % 16 or k not in (1, 3) or stride not in (1, 2):
+        raise ValueError("conv3d_ndhwc needs input channel counts that are "
+                         "multiples of 16, k 1 or 3 and stride 1 or 2")
+    pads = _pads3(x, k, stride)
+    if len({p[0] for p in pads}) != 1:
+        raise ValueError("conv3d_ndhwc needs the same low pad on every axis")
+    do, ho, wo = (-(-s // stride) for s in (di, hi, wi))
+    out = torch.empty((n, do, ho, wo, co), dtype=out_dtype, device=dev)
+    types = ((_X1_BF16 if x.dtype == torch.bfloat16 else 0)
+             | (_X2_BF16 if x2 is not None and x2.dtype == torch.bfloat16
+                else 0)
+             | (_W_BF16 if w_dhwio.dtype == torch.bfloat16 else 0)
+             | (_OUT_BF16 if out_dtype == torch.bfloat16 else 0))
+    _build.call("fn_conv3d_ndhwc", x.data_ptr(), _build.ptr(x2),
+                w_dhwio.data_ptr(), bias.data_ptr(), out.data_ptr(), c1, c2,
+                n, di, hi, wi, do, ho, wo, co, k, stride, pads[0][0],
+                int(relu), types, _build.stream())
+    conv3d_ndhwc.launches += 1
+    return out
+
+
+conv3d_ndhwc.launches = 0
+
+
+def pack_weights3(net):
+    """DHWIO copies of the PUNet3's conv weights in its compute dtype
+    (rounded to bfloat16 once, here, for a bfloat16 net) and float32
+    biases, made once for the kernel."""
+    return {name: (conv.weight.detach().to(net.act_dtype)
+                   .permute(2, 3, 4, 1, 0).contiguous(),
+                   conv.bias.detach().float().contiguous())
+            for name, conv in net.convs.items()}
+
+
+def punet3_forward(net, packed, x):
+    """PUNet3 forward of NDHWC ``x`` (b, d, h, w, C) float32 -> (b, d, h,
+    w, 1) float32, every conv through ``conv3d_ndhwc``. ``packed`` is
+    ``pack_weights3(net)``."""
+    def conv(name, h, x2=None, relu=True):
+        w_dhwio, b = packed[name]
+        return conv3d_ndhwc(h, w_dhwio, b, net.strides[name], relu, x2,
+                            net.out_dtype(relu))
+
+    return net(x, conv=conv)

@@ -1,8 +1,11 @@
-"""Run the 3-D buoyant plume under the classical Jacobi projection.
+"""Run the 3-D buoyant plume under the classical Jacobi projection or the
+learned one.
 
     python -m fluidnet_cxx_tpu_torch.run_plume3d --res 128 --steps 20
     python -m fluidnet_cxx_tpu_torch.run_plume3d --fuse-advection \\
         --line-trace
+    python -m fluidnet_cxx_tpu_torch.run_plume3d --sim-method convnet \\
+        --model-dir trained_models/PUNet3p8_64
     python -m fluidnet_cxx_tpu_torch.run_plume3d --res 32 --steps 5 \\
         --device cpu
 
@@ -16,6 +19,16 @@ kernels K (density), M (velocity) and I (60 Jacobi sweeps);
 the first-hit obstacle trace in the density's advection (bench3d's
 ``--fuseAdvection`` and ``--lineTrace``).
 
+``--sim-method convnet`` is bench3d's learned row (``--modelDir``): the
+same scene and config with the PUNet3 of ``--model-dir``'s
+``model_config.json`` at its full widths (``PUNet3p8_64`` by default:
+patch 8, widths 96/128, bfloat16, 16 polish sweeps; ``PUNet3_32``: patch
+4, 8 sweeps; ``--polish-sweeps`` overrides the count), projecting with
+kernels N (the PUNet3 forward, 9 conv launches) and J (the tail: RHS,
+polish sweeps, velocity update, walls) after K and M. The weights are
+drawn from ``--weight-seed`` with flax's initialiser: the trained
+checkpoints are orbax files that only a JAX installation can read.
+
 Prints ms/step (CUDA events on the card, the host clock on the CPU, over
 all but the last step), the launches of each kernel per step and the
 final state's quality: max|div| over interior cells (what bench3d
@@ -23,13 +36,18 @@ prints), mean|div| over fluid cells, the density sum and max|U|. Runs on
 the card unless ``--device cpu`` is given.
 """
 import argparse
+import dataclasses
 import json
 import time
+from pathlib import Path
 
 import torch
 
 from .celltype import FLUID
-from .ops.kernels import advect3, jacobi3
+from .config import load_model_config
+from .models.convert import flax_to_state_dict3, random_flax_params3
+from .models.punet3d import PUNet3, make_project_fn3
+from .ops.kernels import advect3, jacobi3, proj_tail3, punet3
 from .ops.ops3d import velocity_divergence3
 from .run_plume import resolve_device
 from .sim.scenes import plume_config
@@ -37,21 +55,49 @@ from .sim.scenes3 import create_plume_scene3
 from .sim.step3d import simulate_step3
 
 # The kernels of the 3-D step, by their letter in the kernel table.
-KERNELS = {"I": jacobi3.solve_jacobi3, "K": advect3.advect_scalar3,
-           "L": advect3.advect_all3, "M": advect3.advect_velocity3}
+KERNELS = {"I": jacobi3.solve_jacobi3, "J": proj_tail3.project_tail3,
+           "K": advect3.advect_scalar3, "L": advect3.advect_all3,
+           "M": advect3.advect_velocity3, "N": punet3.conv3d_ndhwc}
+
+MODELS = Path(__file__).resolve().parent.parent / "trained_models"
+MODEL_DIR3 = MODELS / "PUNet3p8_64"
 
 
 def plume3d_case(res: int = 128, device="cuda", jacobi_iter: int = 60,
-                 fuse_advection: bool = False, line_trace: bool = False):
-    """(SimConfig, initial SimState3) of bench3d's classical plume case."""
+                 fuse_advection: bool = False, line_trace: bool = False,
+                 sim_method: str = "jacobi"):
+    """(SimConfig, initial SimState3) of bench3d's plume case."""
     dev = resolve_device(device)
     cfg = plume_config(dt=0.25, jacobi_iter=jacobi_iter, buoyancy_scale=0.5,
                        gravity_vec=(0.0, -1.0, 0.0), line_trace=line_trace,
                        max_disp=2, advection_impl="window", use_pallas=True,
-                       fuse_advection=fuse_advection)
+                       fuse_advection=fuse_advection, sim_method=sim_method)
     state = create_plume_scene3(res, res, res, density_val=0.1,
                                 u_scale=0.6 * res / 64.0, device=dev)
     return cfg, state
+
+
+def build_punet3(mcfg, seed: int = 0, device="cpu") -> PUNet3:
+    """The configured PUNet3 with flax-initialised weights from ``seed``."""
+    net = PUNet3.from_config(mcfg)
+    net.load_state_dict(flax_to_state_dict3(random_flax_params3(net.table,
+                                                                seed)))
+    return net.to(device).eval()
+
+
+def learned3d_case(res: int = 128, device="cuda", model_dir=MODEL_DIR3,
+                   polish_sweeps=None, weight_seed: int = 0,
+                   fuse_advection: bool = False, line_trace: bool = False):
+    """(SimConfig, initial SimState3, project_fn) of bench3d's learned
+    plume case: the PUNet3 of ``model_dir`` (``polish_sweeps`` overriding
+    its count) with weights from ``weight_seed``."""
+    cfg, state = plume3d_case(res, device, fuse_advection=fuse_advection,
+                              line_trace=line_trace, sim_method="convnet")
+    mcfg = load_model_config(str(model_dir))
+    if polish_sweeps is not None:
+        mcfg = dataclasses.replace(mcfg, polish_sweeps=polish_sweeps)
+    net = build_punet3(mcfg, weight_seed, state.U.device)
+    return cfg, state, make_project_fn3(mcfg, net)
 
 
 def quality3(state):
@@ -68,12 +114,20 @@ def quality3(state):
 @torch.no_grad()
 def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
                 jacobi_iter: int = 60, fuse_advection: bool = False,
-                line_trace: bool = False):
+                line_trace: bool = False, sim_method: str = "jacobi",
+                model_dir=MODEL_DIR3, polish_sweeps=None,
+                weight_seed: int = 0):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step, the kernel launches per
     step and ``quality3(state)``."""
-    cfg, state = plume3d_case(res, device, jacobi_iter, fuse_advection,
-                              line_trace)
+    if sim_method == "convnet":
+        cfg, state, project = learned3d_case(
+            res, device, model_dir, polish_sweeps, weight_seed,
+            fuse_advection, line_trace)
+    else:
+        cfg, state = plume3d_case(res, device, jacobi_iter, fuse_advection,
+                                  line_trace, sim_method)
+        project = None
     on_card = state.U.device.type == "cuda"
     before = {k: fn.launches for k, fn in KERNELS.items()}
     if on_card:
@@ -81,14 +135,14 @@ def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
         start.record()
     t0 = time.perf_counter()
     for _ in range(steps - 1):
-        state = simulate_step3(cfg, state)
+        state = simulate_step3(cfg, state, project)
     if on_card:
         end.record()
         end.synchronize()
         elapsed_ms = start.elapsed_time(end)
     else:
         elapsed_ms = 1e3 * (time.perf_counter() - t0)
-    state = simulate_step3(cfg, state)
+    state = simulate_step3(cfg, state, project)
     per_step = {k: (fn.launches - before[k]) / steps
                 for k, fn in KERNELS.items() if fn.launches > before[k]}
     return {"state": state,
@@ -103,14 +157,25 @@ def main(argv=None):
     ap.add_argument("--jacobi-iter", type=int, default=60)
     ap.add_argument("--fuse-advection", action="store_true")
     ap.add_argument("--line-trace", action="store_true")
+    ap.add_argument("--sim-method", default="jacobi",
+                    choices=("jacobi", "convnet"))
+    ap.add_argument("--model-dir", default=str(MODEL_DIR3))
+    ap.add_argument("--polish-sweeps", type=int, default=None)
+    ap.add_argument("--weight-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run_plume3d(args.res, args.steps, args.device, args.jacobi_iter,
-                      args.fuse_advection, args.line_trace)
+                      args.fuse_advection, args.line_trace, args.sim_method,
+                      args.model_dir, args.polish_sweeps, args.weight_seed)
     st = out.pop("state")
+    method = ({"jacobi_iter": args.jacobi_iter}
+              if args.sim_method == "jacobi" else
+              {"model_dir": args.model_dir,
+               "polish_sweeps": args.polish_sweeps,
+               "weight_seed": args.weight_seed})
     print(json.dumps({
         "res": args.res, "steps": args.steps,
-        "jacobi_iter": args.jacobi_iter,
+        "sim_method": args.sim_method, **method,
         "fuse_advection": args.fuse_advection,
         "line_trace": args.line_trace, **out,
         "finite": all(bool(torch.isfinite(t).all())

@@ -1,6 +1,5 @@
 """One 3-D simulation step (the port of the JAX package's
-``sim/step3d.py::simulate_step3``), classical projection only, in the JAX
-step's order:
+``sim/step3d.py::simulate_step3``), in the JAX step's order:
 
 MacCormack advection on the window engine with the per-axis displacement
 bound ``min(max_disp, 2)``: merged (kernel L, ``fuse_advection`` with
@@ -8,9 +7,13 @@ bound ``min(max_disp, 2)``: merged (kernel L, ``fuse_advection`` with
 ``advect_density``, then kernel M for the velocity), all in
 ops/kernels/advect3.py -> scalar correction -> inlet/const BCs ->
 buoyancy -> gravity -> wall BCs (free-slip with the periodic overrides)
--> const BCs -> divergence -> Jacobi (kernel I, ops/kernels/jacobi3.py;
-every ``sim_method`` but convnet and multigrid, as in the JAX step) ->
-velocity update -> wall BCs -> const BCs.
+-> const BCs -> projection -> wall BCs -> const BCs. The projection is
+divergence -> Jacobi (kernel I, ops/kernels/jacobi3.py; every
+``sim_method`` but convnet and multigrid, as in the JAX step) -> velocity
+update, or for ``convnet`` the caller's ``project_fn`` (models/punet3d.py::
+make_project_fn3: kernels N and J), which applies the free-slip walls
+itself: under convnet the step's own wall BCs are skipped, as the JAX
+step skips them.
 
 The kernels run the first-hit trace at every shape (what the JAX step runs
 with ``use_pallas=True`` on its TPU-aligned shapes). Every other branch
@@ -62,7 +65,10 @@ apply_const_vals3 = apply_const_vals
 def _wall_bcs3(cfg, state, U):
     """Free-slip walls, then the periodic overrides: at the first interior
     layer of a periodic axis both tangential components take the last
-    layer's values from before the wall BCs."""
+    layer's values from before the wall BCs. None of them under convnet
+    (the projection's tail applies the walls)."""
+    if cfg.sim_method == "convnet":
+        return U
     U_before = U
     U = set_wall_bcs3(U, state.flags)
     if cfg.periodic_x:
@@ -75,7 +81,7 @@ def _wall_bcs3(cfg, state, U):
     return U
 
 
-def _unsupported(cfg, state, project_fn):
+def _unsupported(cfg, state):
     if cfg.advection_method != "maccormackFluidNet" or \
             cfg.advection_impl != "window":
         return "3-D Euler or gather advection (ROADMAP A.6)"
@@ -84,9 +90,6 @@ def _unsupported(cfg, state, project_fn):
         # What the JAX step runs on its XLA path; the kernels run the
         # first-hit trace, which the JAX step runs with use_pallas=True.
         return "the 3-D march line trace of the XLA path (ROADMAP A.6)"
-    if cfg.sim_method == "convnet" or project_fn is not None:
-        return ("the 3-D learned projection, kernels J and N (ROADMAP "
-                "A.7.1)")
     if cfg.sim_method == "multigrid":
         return "the 3-D multigrid solve_mg3 (ROADMAP A.7.2)"
     if cfg.viscosity > 0:
@@ -134,8 +137,10 @@ def _advect3(cfg, state):
 
 
 def simulate_step3(cfg, state, project_fn=None, output_div: bool = False):
-    """Advance by one dt. Returns the new state."""
-    why = _unsupported(cfg, state, project_fn)
+    """Advance by one dt. Returns the new state. ``project_fn(p, U, flags,
+    density) -> (p, U)`` is the convnet projection (ignored by the other
+    methods, as in the JAX step)."""
+    why = _unsupported(cfg, state)
     if why is None and output_div:
         why = "output_div, the 3-D training input (ROADMAP A.7.5)"
     if why is not None:
@@ -153,9 +158,14 @@ def simulate_step3(cfg, state, project_fn=None, output_div: bool = False):
                          cfg.dt)
     U = _wall_bcs3(cfg, state, U)
     U, rho = apply_const_vals3(state, U, rho)
-    p = solve_jacobi3(flags, velocity_divergence3(U, flags),
-                      cfg.jacobi_iter)
-    U = velocity_update3(p, U, flags)
+    if cfg.sim_method == "convnet":
+        if project_fn is None:
+            raise ValueError("the convnet projection needs a project_fn")
+        p, U = project_fn(state.p, U, flags, rho)
+    else:
+        p = solve_jacobi3(flags, velocity_divergence3(U, flags),
+                          cfg.jacobi_iter)
+        U = velocity_update3(p, U, flags)
     U = _wall_bcs3(cfg, state, U)
     U, rho = apply_const_vals3(state, U, rho)
     return state._replace(p=p, U=U, density=rho)

@@ -20,24 +20,27 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fluidnet_cxx_tpu'))
 print(len(names), bad)
-assert len(names) >= 39 and not bad, bad
+assert len(names) >= 42 and not bad, bad
 print('IMPORT_OK')
 """
 
-# Each entry point at a small size; without a card each must refuse.
+# Each entry point at a small size; without a card each must refuse. The
+# key names the case, its module is the key's part before the first '.'.
 ENTRY_POINTS = {
     "run_plume": "run_plume(res=64, steps=1)",
     "run_rayleigh_taylor": "run_rayleigh_taylor(res_x=32, res_y=64, steps=1)",
     "run_cylinder": "run_cylinder(res_x=256, res_y=64, steps=1, radius=8.0, "
                     "center_x=40.0)",
     "run_plume3d": "run_plume3d(res=16, steps=1)",
+    "run_plume3d.convnet": "run_plume3d(res=16, steps=1, "
+                           "sim_method='convnet')",
 }
 
 RUN_WITHOUT_CARD = """
 import torch
 assert not torch.cuda.is_available()
 """ + "".join(f"""
-from fluidnet_cxx_tpu_torch.{name} import {name}
+from fluidnet_cxx_tpu_torch.{name.split('.')[0]} import {name.split('.')[0]}
 try:
     {call}
 except RuntimeError as e:

@@ -25,6 +25,8 @@ import torch
 from fluidnet_cxx_tpu.sim import plume_config as j_config
 from fluidnet_cxx_tpu.sim.scenes3 import create_plume_scene3 as j_scene3
 from fluidnet_cxx_tpu.sim.step3d import simulate_step3 as j_step3
+from fluidnet_cxx_tpu_torch.config import ModelConfig
+from fluidnet_cxx_tpu_torch.models.punet3d import PUNet3, make_project_fn3
 from fluidnet_cxx_tpu_torch.run_plume3d import plume3d_case, run_plume3d
 from fluidnet_cxx_tpu_torch.sim.step3d import SimState3, simulate_step3
 
@@ -100,12 +102,18 @@ def test_run_plume3d_on_cpu():
     "vorticity", "output_div", "gather", "euler", "march"])
 def test_unported_branches_raise(branch):
     """Every branch of the JAX step that the port does not implement
-    raises NotImplementedError naming its ROADMAP item."""
+    raises NotImplementedError naming its ROADMAP item. The learned
+    projection runs (tests/test_torch_learned3d.py) except on the JAX
+    package's flax path: with no polish sweeps ("convnet") or a refinement
+    stack ("project_fn"), building the projection raises."""
     cfg, state = plume3d_case(6, device="cpu", jacobi_iter=2)
     assert simulate_step3(cfg, state) is not None
     kw, item = {
-        "convnet": (dict(cfg=dict(sim_method="convnet")), "A.7"),
-        "project_fn": (dict(project_fn=lambda *a: a), "A.7"),
+        "convnet": (dict(cfg=dict(sim_method="convnet"),
+                         model=dict(polish_sweeps=0)), "A.4"),
+        "project_fn": (dict(cfg=dict(sim_method="convnet"),
+                            model=dict(polish_sweeps=8,
+                                       punet_refine_convs=1)), "A.4"),
         "multigrid": (dict(cfg=dict(sim_method="multigrid")), "A.7"),
         "viscosity": (dict(cfg=dict(viscosity=0.1)), "A.7"),
         "flags_stick": (dict(stick=True), "A.7"),
@@ -119,5 +127,10 @@ def test_unported_branches_raise(branch):
     bad_state = (state._replace(flags_stick=state.flags) if "stick" in kw
                  else state)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        simulate_step3(bad_cfg, bad_state, kw.get("project_fn"),
+        project = None
+        if "model" in kw:
+            mcfg = ModelConfig(model="PUNet3", punet_patch=2,
+                               punet_widths=(16, 16), **kw["model"])
+            project = make_project_fn3(mcfg, PUNet3(2, 2, (16, 16)))
+        simulate_step3(bad_cfg, bad_state, project,
                        output_div=kw.get("output_div", False))
