@@ -21,13 +21,22 @@ Phases (each prints its elapsed seconds):
      and displacements up to 3 cells (past the 3-D window clamp of 2), K
      and L with the first-hit trace on and off, L also against K and M,
      I cold and warm with damping 6/7; J at 128^3 with 8% obstacles,
-     cold and warm, damping 2/3, 16 and 8 sweeps, bit-exact; N each layer
-     kind alone (1x1, 3x3x3, stride 2, the decoder's concat, the up and
-     head layers) at the p8 main path's shapes in float32 and bfloat16,
-     then the whole PUNet3 forward at 128^3 with patch 8 (g0 16) and patch
-     4 (g0 32) in both; then CUDA-event times of the kernel, the plain
-     version and, for B and N, the same forward as cuDNN F.conv2d/F.conv3d
-     calls (N: in bfloat16 with channels_last_3d, and in float32);
+     cold and warm, damping 2/3, 16 and 8 sweeps, bit-exact; B each layer
+     of the 512^2 forward on the activations the forward hands it, with
+     the planner's split-K and with the 16^2 level's, then the whole
+     forward; N each layer kind alone (1x1, 3x3x3, stride 2, 3x3x3 at
+     8^3, the decoder's concat, the up and head layers) at the p8 main
+     path's shapes in float32 and bfloat16, with the planner's split and
+     with the 8^3 level's, then the whole PUNet3 forward at 128^3 with
+     patch 8 (g0 16) and patch 4 (g0 32) in both, and each layer of the
+     bfloat16 forwards on their own activations; B's and N's forwards
+     called twice give the same bits; then CUDA-event times of the
+     kernel, the plain version and, for B and N, the same forward as cuDNN
+     F.conv2d/F.conv3d calls (N: in bfloat16 with channels_last_3d, and
+     in float32), B and N and their cuDNN chains as device time (the
+     forward captured in a CUDA graph; the eager time beside it), and the
+     per-layer tables of B (512^2) and N (p8, p4 in bfloat16): each
+     layer's plan, blocks, device time, cuDNN's same layer and its bound;
   4. small-input checks, the card against the plain path on the CPU:
      3 steps of the 64^2 plume with the learned projection, jacobi-28,
      mg-2v and unfused jacobi-28, of the 64x32 Rayleigh-Taylor scene
@@ -57,7 +66,9 @@ exit with a traceback. Imports nothing of JAX.
 Bounds (`bound_ms`) are the larger of bytes moved (each input read once,
 each output written once) over 3.35 TB/s and operations over 67 TFLOP/s
 (H100 SXM fp32 without tensor cores) or, for N's bfloat16 products, 989
-TFLOP/s (dense bf16 tensor cores), counted from this run's inputs.
+TFLOP/s (dense bf16 tensor cores), counted from this run's inputs; B's
+line also prints its 3xTF32 figure (three TF32 products a multiply-add at
+495 TFLOP/s).
 """
 import faulthandler
 import json
@@ -71,6 +82,7 @@ WATCHDOG_S = 600
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
 RES = 512
 RES3 = 128
 RT_W, RT_H = 128, 512
@@ -104,6 +116,27 @@ def cuda_ms(fn, reps, warmup=2):
     e0.record()
     for _ in range(reps):
         fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device milliseconds of one call of ``fn``: ``reps`` calls captured
+    in one CUDA graph, replayed once between CUDA events (the host's
+    launches of each call are not in the time)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
@@ -168,12 +201,7 @@ def far_orig(gen, U):
 
 
 def phase_kernels(dev, results):
-    from fluidnet_cxx_tpu_torch.models.punet import depth_to_space
-    from fluidnet_cxx_tpu_torch.models.punet import space_to_depth
-    from fluidnet_cxx_tpu_torch.ops.kernels import advect, proj_tail, punet
-    from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
-    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_punet
-    from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect, proj_tail
     from fluidnet_cxx_tpu_torch.sim.scenes import create_plume_scene
 
     gen = torch.Generator().manual_seed(SEED)
@@ -208,8 +236,90 @@ def phase_kernels(dev, results):
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     done()
 
-    # ---- B: PUNet forward through the conv kernel ----
+    phase_conv2d(dev, gen, results)
+
+    # ---- C: projection tail ----
+    done = phase("kernel C project_tail")
+    scene = create_plume_scene(RES, RES, 0.1, 8.0, 0.145, device=dev)
+    p0 = torch.randn((1, RES, RES), generator=gen).to(dev)
+    scale = torch.tensor([0.37], device=dev)
+    kw = dict(damping=2.0 / 3.0, scale=scale, U_bc=scene.U_bc,
+              U_bc_inv_mask=scene.U_bc_inv_mask)
+    got = proj_tail.project_tail(flags, U, p0, 32, **kw)
+    torch.cuda.synchronize()
+    want = proj_tail.project_tail_plain(flags, U, p0, 32, **kw)
+    err, tol = max_err(got, want), 1e-5 * scale_of(want)
+    check("C project_tail", err, tol)
+    # Odd sweep count (the other ping-pong parity), no scale, no inlet.
+    want2 = proj_tail.project_tail_plain(flags, U, p0, 3)
+    check("C project_tail (3 sweeps, no scale/inlet)",
+          max_err(proj_tail.project_tail(flags, U, p0, 3), want2),
+          1e-5 * scale_of(want2))
+    ms = cuda_ms(lambda: proj_tail.project_tail(flags, U, p0, 32, **kw), 20)
+    plain_ms = cuda_ms(
+        lambda: proj_tail.project_tail_plain(flags, U, p0, 32, **kw), 5)
+    b_ms, b_by = bound(44 * n, (32 * 10 + 30) * n)
+    results["C"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=None)
+    print(f"C: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    done()
+    phase_split_advection(dev, gen, flags, U, rho, results)
+
+
+def check_repeat(name, fn):
+    """Two calls of ``fn`` give the same bits (fixed-order sums, no
+    atomics)."""
+    a, b = fn(), fn()
+    same = torch.equal(a, b)
+    print(f"{name}: two calls bit-equal {same}", flush=True)
+    if not same:
+        raise SystemExit(f"{name} is not deterministic")
+
+
+def record_layers(run, wrapper):
+    """Run a forward whose ``conv`` hook calls ``wrapper``; return [(name,
+    args, kwargs)] of each conv call in forward order."""
+    calls = []
+
+    def hook(name, args, kwargs):
+        calls.append((name, args, kwargs))
+        return wrapper(*args, **kwargs)
+
+    run(hook)
+    return calls
+
+
+def conv_table(title, rows):
+    """Print the per-layer table: kernel and cuDNN device ms of each layer
+    in the same run (graph_ms), its bound, its plan and blocks."""
+    print(f"{title}: layer, M, co, K, plan (bm x bn, splits), blocks, "
+          "kernel ms, cuDNN ms, bound ms", flush=True)
+    for r in rows:
+        print(f"  {r['name']:8s} M {r['m']:6d} co {r['co']:4d} K {r['k']:5d} "
+              f"{r['bm']:3d}x{r['bn']:<3d} S {r['splits']:2d} blocks "
+              f"{r['blocks']:4d}  kernel {r['ms']:.4f}  cuDNN "
+              f"{r['lib_ms']:.4f}  bound {r['bound_ms']:.4f}", flush=True)
+    tot = {k: sum(r[k] for r in rows) for k in ("ms", "lib_ms", "bound_ms")}
+    print(f"  sum of layers: kernel {tot['ms']:.4f}  cuDNN "
+          f"{tot['lib_ms']:.4f}  bound {tot['bound_ms']:.4f}", flush=True)
+
+
+def phase_conv2d(dev, gen, results):
+    """Kernel B at the 512^2 plume's shapes: each layer of the PUNetD2_128
+    forward on the activations the forward hands it, with the planner's
+    split and with the 16^2 level's split; the whole forward; repeats; the
+    per-layer table beside cuDNN's same layer (float32, TF32 off)."""
+    from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.models.punet import (depth_to_space,
+                                                     space_to_depth)
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
+    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_punet
+
     done = phase("kernel B punet conv")
+    n = RES * RES
     mcfg = load_model_config(str(MODEL_DIR))
     net = build_punet(mcfg, SEED, dev)
     packed = punet.pack_weights(net)
@@ -217,13 +327,60 @@ def phase_kernels(dev, results):
                      (torch.rand((1, RES, RES), generator=gen) < 0.1).float()],
                     dim=-1).to(dev)
     inv = torch.tensor([3.0], device=dev)
+    # The same net at 128^2: its first level is the 512^2 net's 16^2 one.
+    gen128 = torch.Generator().manual_seed(SEED + 6)
+    x128 = torch.stack([
+        torch.randn((1, RES // 4, RES // 4), generator=gen128),
+        (torch.rand((1, RES // 4, RES // 4), generator=gen128) < 0.1).float()],
+        dim=-1).to(dev)
+
+    def run_on(xin):
+        def run(hook):
+            def conv(name, h, x2=None, relu=True, in_scale=None,
+                     scale_mod=1):
+                w, b = packed[name]
+                _, stride, dil = net.geometry[name]
+                return hook(name, (h, w, b, stride, dil, relu, x2, in_scale,
+                                   scale_mod), {})
+            return net(xin, inv_scale=inv, conv=conv)
+        return run
+
+    def geometry(args):
+        h, w, _, stride, _, _, x2, _, _ = args
+        m = h.shape[0] * (-(-h.shape[1] // stride)) ** 2
+        c2 = 0 if x2 is None else x2.shape[-1]
+        return m, w.shape[3], w.shape[0] ** 2, h.shape[-1], c2
+
     with torch.no_grad():
+        layers = record_layers(run_on(x), punet.conv2d_nhwc)
+        torch.cuda.synchronize()
+        # Each layer within 1e-5 of its largest output: 3xTF32 drops the
+        # small x small term (below 2^-21 of each product) and the sum runs
+        # in another order than cuDNN's float32 conv. At 512^2 and at
+        # 128^2, where every layer kind runs at the 16^2 level's size with
+        # the split the planner gives it there.
+        for side, recs in ((RES, layers), (RES // 4, record_layers(
+                run_on(x128), punet.conv2d_nhwc))):
+            for name, args, _ in recs:
+                h, w, *rest = args
+                want = punet.conv2d_nhwc_plain(h, w.permute(3, 2, 0, 1),
+                                               *rest)
+                got = punet.conv2d_nhwc(*args)
+                torch.cuda.synchronize()
+                plan = plan_conv(*geometry(args), "tf32x3")
+                check(f"B layer {name} at {side}^2 (plan {plan.bm}x{plan.bn},"
+                      f" {plan.splits} splits)", max_err([got], [want]),
+                      1e-5 * float(want.abs().max()))
         got = punet.punet_forward(net, packed, x, inv)
         torch.cuda.synchronize()
         want = net(x, inv_scale=inv)
         err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
         check("B punet conv", err, tol)
-        ms = cuda_ms(lambda: punet.punet_forward(net, packed, x, inv), 20)
+        check_repeat("B punet forward",
+                     lambda: punet.punet_forward(net, packed, x, inv))
+        ms = graph_ms(lambda: punet.punet_forward(net, packed, x, inv))
+        eager_ms = cuda_ms(lambda: punet.punet_forward(net, packed, x, inv),
+                           20)
         plain_ms = cuda_ms(lambda: net(x, inv_scale=inv), 20)
 
         # library: the same forward as cuDNN F.conv2d calls on NCHW tensors.
@@ -261,7 +418,36 @@ def phase_kernels(dev, results):
 
         lib_err = max_err([library().permute(0, 2, 3, 1)], [want])
         print(f"B library forward vs plain: max_abs_err {lib_err:.3e}")
-        library_ms = cuda_ms(library, 20)
+        library_ms = graph_ms(library)
+        library_eager_ms = cuda_ms(library, 20)
+
+        rows = []
+        for name, args, _ in layers:
+            h, w, b, stride, dil, relu, x2, in_scale, scale_mod = args
+            m, co, taps, c1, c2 = geometry(args)
+            hn = punet._scaled(h, in_scale, scale_mod)
+            if x2 is not None:
+                hn = torch.cat([hn, x2], dim=-1)
+            p = same_pads(h.shape[1], w.shape[0], stride, dil)
+            hn = torch.nn.functional.pad(hn.permute(0, 3, 1, 2),
+                                         (p[0], p[1], p[0], p[1]))
+            wn = w.permute(3, 2, 0, 1).contiguous()
+
+            def lib(hn=hn, wn=wn, b=b, stride=stride, dil=dil, relu=relu):
+                y = torch.nn.functional.conv2d(hn, wn, b, stride=stride,
+                                               dilation=dil)
+                return torch.relu(y) if relu else y
+
+            plan = plan_conv(m, co, taps, c1, c2, "tf32x3")
+            ops = 2.0 * m * co * taps * (c1 + c2)
+            nbytes = 4 * (h.numel() + (0 if x2 is None else x2.numel())
+                          + w.numel() + co + m * co)
+            rows.append(dict(
+                name=name, m=m, co=co, k=taps * (c1 + c2), bm=plan.bm,
+                bn=plan.bn, splits=plan.splits, blocks=plan.blocks,
+                ms=graph_ms(lambda: punet.conv2d_nhwc(*args)),
+                lib_ms=graph_ms(lib), bound_ms=bound(nbytes, ops)[0]))
+        conv_table(f"B per layer at {RES}^2 (bound: fp32 rate)", rows)
     # Output side of each layer in forward order (s2d by the patch first,
     # stride-2 downs halve it, each up's depth-to-space doubles it).
     sizes, side = {}, RES // net.patch
@@ -277,38 +463,12 @@ def phase_kernels(dev, results):
     b_ms, b_by = bound(4 * x.numel() + wbytes + 4 * n, 2.0 * macs)
     results["B"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms)
-    print(f"B: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
-          f"{library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+    print(f"B: kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
+          f"{plain_ms:.3f} ms, library {library_ms:.4f} ms (eager "
+          f"{library_eager_ms:.4f}), bound {b_ms:.4f} ms ({b_by}; 3xTF32 "
+          f"{1e3 * 6.0 * macs / TF32_OPS_PER_S:.4f} ms), "
           f"{2.0 * macs / 1e9:.3f} GFLOP", flush=True)
     done()
-
-    # ---- C: projection tail ----
-    done = phase("kernel C project_tail")
-    scene = create_plume_scene(RES, RES, 0.1, 8.0, 0.145, device=dev)
-    p0 = torch.randn((1, RES, RES), generator=gen).to(dev)
-    scale = torch.tensor([0.37], device=dev)
-    kw = dict(damping=2.0 / 3.0, scale=scale, U_bc=scene.U_bc,
-              U_bc_inv_mask=scene.U_bc_inv_mask)
-    got = proj_tail.project_tail(flags, U, p0, 32, **kw)
-    torch.cuda.synchronize()
-    want = proj_tail.project_tail_plain(flags, U, p0, 32, **kw)
-    err, tol = max_err(got, want), 1e-5 * scale_of(want)
-    check("C project_tail", err, tol)
-    # Odd sweep count (the other ping-pong parity), no scale, no inlet.
-    want2 = proj_tail.project_tail_plain(flags, U, p0, 3)
-    check("C project_tail (3 sweeps, no scale/inlet)",
-          max_err(proj_tail.project_tail(flags, U, p0, 3), want2),
-          1e-5 * scale_of(want2))
-    ms = cuda_ms(lambda: proj_tail.project_tail(flags, U, p0, 32, **kw), 20)
-    plain_ms = cuda_ms(
-        lambda: proj_tail.project_tail_plain(flags, U, p0, 32, **kw), 5)
-    b_ms, b_by = bound(44 * n, (32 * 10 + 30) * n)
-    results["C"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"C: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
-    done()
-    phase_split_advection(dev, gen, flags, U, rho, results)
 
 
 def phase_split_advection(dev, gen, flags, U, rho, results):
@@ -840,39 +1000,74 @@ def phase_learned3d(dev, results):
         net = build_punet3(mcfg, SEED, dev)
         return net, punet3.pack_weights3(net)
 
+    phase_punet3(dev, gen, results, net_of)
+
+
+def phase_punet3(dev, gen, results, net_of):
+    """Kernel N: each layer kind alone at the p8 main path's shapes, with
+    the planner's plan and with the 8^3 level's split; the whole forwards;
+    repeats; the per-layer tables of the bfloat16 forwards beside cuDNN's
+    same layers (bfloat16, channels_last_3d)."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet3
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
+
+    def geometry(x, w, stride, x2):
+        m = x.shape[0] * (-(-x.shape[1] // stride)) ** 3
+        c2 = 0 if x2 is None else x2.shape[-1]
+        return m, w.shape[4], w.shape[0] ** 3, x.shape[-1], c2
+
     done = phase("kernel N punet3 conv, each layer kind")
     g0 = RES3 // 8
+    gen8 = torch.Generator().manual_seed(SEED + 5)
     for dtype in ("float32", "bfloat16"):
         net, packed = net_of(MODEL_P8, dtype)
         act = net.act_dtype
+        route = "bf16" if dtype == "bfloat16" else "simt"
 
-        def rand(c, dt=act, side=g0):
+        def rand(c, dt=act, side=g0, g=gen):
             return torch.randn((1, side, side, side, c),
-                               generator=gen).to(dev, dt)
+                               generator=g).to(dev, dt)
 
-        cases = {"1x1 (embed)": ("embed", rand(2 * 8 ** 3), None),
-                 "3x3x3 (enc0_0)": ("enc0_0", rand(96), None),
-                 "stride 2 (down1)": ("down1", rand(96), None),
-                 "1x1 to float32 (up0)": ("up0", rand(128, side=g0 // 2),
+        # Each kind at its main-path shape, then again with every input
+        # side halved: at the 8^3 level's size, with the split the planner
+        # gives it there.
+        for level, side, g in (("main-path shape", g0, gen),
+                               ("8^3 level", g0 // 2, gen8)):
+            cases = {
+                "1x1 (embed)": ("embed", rand(2 * 8 ** 3, side=side, g=g),
+                                None),
+                "3x3x3 (enc0_0)": ("enc0_0", rand(96, side=side, g=g), None),
+                "stride 2 (down1)": ("down1", rand(96, side=side, g=g),
+                                     None),
+                "1x1 to float32 (up0)": ("up0",
+                                         rand(128, side=side // 2, g=g),
+                                         None),
+                "concat (dec0_0)": ("dec0_0",
+                                    rand(96, torch.float32, side, g),
+                                    rand(96, side=side, g=g)),
+                "1x1 to float32 (head)": ("head", rand(96, side=side, g=g),
                                           None),
-                 "concat (dec0_0)": ("dec0_0", rand(96, torch.float32),
-                                     rand(96)),
-                 "1x1 to float32 (head)": ("head", rand(96), None)}
-        with torch.no_grad():
-            for label, (name, x, x2) in cases.items():
-                relu = name != "head" and not name.startswith("up")
-                w, b = packed[name]
-                args = (b, net.strides[name], relu, x2, net.out_dtype(relu))
-                got = punet3.conv3d_ndhwc(x, w, *args)
-                torch.cuda.synchronize()
-                want = punet3.conv3d_ndhwc_plain(
-                    x, w.permute(4, 3, 0, 1, 2), *args)
-                name = f"N {label} {dtype}"
-                if want.dtype == torch.bfloat16:
-                    check_bf16(name, got, want)
-                else:
-                    check(name, max_err([got], [want]),
-                          1e-5 * float(want.abs().max()))
+                "3x3x3 (enc1_0)": ("enc1_0", rand(128, side=g0 // 2,
+                                                  g=gen8), None)}
+            with torch.no_grad():
+                for label, (name, x, x2) in cases.items():
+                    relu = name != "head" and not name.startswith("up")
+                    w, b = packed[name]
+                    args = (b, net.strides[name], relu, x2,
+                            net.out_dtype(relu))
+                    want = punet3.conv3d_ndhwc_plain(
+                        x, w.permute(4, 3, 0, 1, 2), *args)
+                    got = punet3.conv3d_ndhwc(x, w, *args)
+                    torch.cuda.synchronize()
+                    plan = plan_conv(*geometry(x, w, net.strides[name], x2),
+                                     route)
+                    tag = (f"N {label} {dtype}, {level} {x.shape[1]}^3 (plan"
+                           f" {plan.bm}x{plan.bn}, {plan.splits} splits)")
+                    if want.dtype == torch.bfloat16:
+                        check_bf16(tag, got, want)
+                    else:
+                        check(tag, max_err([got], [want]),
+                              1e-5 * float(want.abs().max()))
     done()
 
     x = torch.stack([torch.randn((1, RES3, RES3, RES3), generator=gen),
@@ -890,19 +1085,27 @@ def phase_learned3d(dev, results):
                 err = max_err([got], [want])
                 check(f"N punet3 forward {RES3}^3 {label} {dtype}", err,
                       rel * float(want.abs().max()))
+                check_repeat(f"N punet3 forward {label} {dtype}",
+                             lambda: punet3.punet3_forward(net, packed, x))
                 lib = conv3d_library(net, net.act_dtype)
                 lib_err = max_err([lib(x).float().permute(0, 2, 3, 4, 1)],
                                   [want])
-                ms = cuda_ms(lambda: punet3.punet3_forward(net, packed, x),
-                             10)
+                ms = graph_ms(lambda: punet3.punet3_forward(net, packed, x),
+                              10)
+                eager_ms = cuda_ms(
+                    lambda: punet3.punet3_forward(net, packed, x), 10)
                 plain_ms = cuda_ms(lambda: net(x), 5)
-                library_ms = cuda_ms(lambda: lib(x), 10)
+                library_ms = graph_ms(lambda: lib(x), 10)
+                library_eager_ms = cuda_ms(lambda: lib(x), 10)
+                if dtype == "bfloat16":
+                    punet3_table(net, packed, x, label, geometry)
             nbytes, nops = punet3_work(net, x)
             b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
             f_ms, _ = bound(nbytes, nops)
-            print(f"N {label} {dtype}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.3f} ms, library {library_ms:.4f} ms "
-                  f"(cuDNN {dtype}; vs plain {lib_err:.3e}), bound "
+            print(f"N {label} {dtype}: kernel {ms:.4f} ms (eager "
+                  f"{eager_ms:.4f}), plain {plain_ms:.3f} ms, library "
+                  f"{library_ms:.4f} ms (eager {library_eager_ms:.4f}; "
+                  f"cuDNN {dtype}; vs plain {lib_err:.3e}), bound "
                   f"{b_ms:.4f} ms ({b_by}, bf16 tensor cores; fp32 "
                   f"{f_ms:.4f} ms), {nops / 1e9:.3f} GFLOP", flush=True)
             if label == "p8" and dtype == "bfloat16":
@@ -910,6 +1113,68 @@ def phase_learned3d(dev, results):
                                     bound_ms=b_ms, bound_by=b_by,
                                     library_ms=library_ms)
             done()
+
+
+def punet3_table(net, packed, x, label, geometry):
+    """Each layer of one bfloat16 PUNet3 forward of ``x`` on the
+    activations the forward hands it: held to its plain version (one
+    bfloat16 ulp, or 1e-5 of the largest float32 output), then the
+    per-layer table of its kernel time beside cuDNN's F.conv3d of the same
+    layer in bfloat16 (channels_last_3d, the concat's float32 half rounded
+    to bfloat16, as the library chain does) and its bound at the bf16
+    tensor-core rate."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet3
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
+
+    def run(hook):
+        def conv(name, h, x2=None, relu=True):
+            w, b = packed[name]
+            return hook(name, (h, w, b, net.strides[name], relu, x2,
+                               net.out_dtype(relu)), {})
+        return net(x, conv=conv)
+
+    cl = torch.channels_last_3d
+    rows = []
+    for name, args, _ in record_layers(run, punet3.conv3d_ndhwc):
+        h, w, b, stride, relu, x2, _ = args
+        m, co, taps, c1, c2 = geometry(h, w, stride, x2)
+        plan = plan_conv(m, co, taps, c1, c2, "bf16")
+        got = punet3.conv3d_ndhwc(*args)
+        want = punet3.conv3d_ndhwc_plain(h, w.permute(4, 3, 0, 1, 2),
+                                         *args[2:])
+        tag = (f"N {label} layer {name} (plan {plan.bm}x{plan.bn}, warp "
+               f"tile {plan.warp_m} rows, {plan.splits} splits)")
+        if want.dtype == torch.bfloat16:
+            check_bf16(tag, got, want)
+        else:
+            check(tag, max_err([got], [want]), 1e-5 * float(want.abs().max()))
+        hn = h.to(torch.bfloat16)
+        if x2 is not None:
+            hn = torch.cat([hn, x2], dim=-1)
+        lo, hi = same_pads(h.shape[1], w.shape[0], stride, 1)
+        hn = torch.nn.functional.pad(hn.permute(0, 4, 1, 2, 3),
+                                     (lo, hi) * 3).contiguous(
+                                         memory_format=cl)
+        wn = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=cl)
+        bn = b.to(torch.bfloat16)
+
+        def lib(hn=hn, wn=wn, bn=bn, stride=stride, relu=relu):
+            y = torch.nn.functional.conv3d(hn, wn, bn, stride=stride)
+            return torch.relu(y) if relu else y
+
+        ops = 2.0 * m * co * taps * (c1 + c2)
+        nbytes = (h.numel() * h.element_size() + 2 * w.numel() + 4 * co
+                  + (0 if x2 is None else 2 * x2.numel())
+                  + m * co * args[6].itemsize)
+        rows.append(dict(
+            name=name, m=m, co=co, k=taps * (c1 + c2), bm=plan.bm,
+            bn=plan.bn, splits=plan.splits, blocks=plan.blocks,
+            ms=graph_ms(lambda: punet3.conv3d_ndhwc(*args)),
+            lib_ms=graph_ms(lib),
+            bound_ms=bound(nbytes, ops, BF16_OPS_PER_S)[0]))
+    conv_table(f"N per layer, {label} bfloat16 at {RES3}^3 (bound: bf16 "
+               "rate)", rows)
 
 
 def phase_small_check():

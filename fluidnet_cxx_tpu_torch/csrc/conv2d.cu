@@ -1,150 +1,197 @@
 // Kernel B: one NHWC 2-D convolution (kernel 1 or 3, stride 1 or 2,
-// dilation 1 or 2, flax SAME padding) with fused bias and ReLU, fp32
-// accumulate. The PUNet forward launches it once per layer
-// (ops/kernels/punet.py::punet_forward).
+// dilation 1 or 2, flax SAME padding) with fused bias and ReLU, float32
+// products and sums. The PUNet forward launches it once per layer, 14
+// times at PUNetD2_128's widths (ops/kernels/punet.py::punet_forward).
 //
 // Replaces fluidnet_cxx_tpu/ops/pallas/punet_pallas.py::punet_forward_pallas
 // (body _punet_kernel), which computes every conv of the U-Net as MXU
-// matmuls inside one kernel. Its plain version is the port's PUNet module
-// (models/punet.py, F.conv2d per layer).
+// matmuls inside one kernel (float32 operands through `_mm`). Its plain
+// version is the port's PUNet module (models/punet.py, F.conv2d per
+// layer).
 //
-// What bounds it on an H100: operations. The 512^2 forward is ~3.8 GFLOP
-// of fp32 multiply-adds (~57 us at 67 TFLOP/s without tensor cores) over
-// activations of at most 64x64x192 floats (3 MB) and 1.6 MB of weights.
-// Design: an implicit GEMM, M = output pixels, N = output channels,
-// K = taps x input channels. Each 256-thread block owns a 64x64 output
-// tile and walks K in chunks of 16: the input patch chunk (gathered with
-// the padding mask, so no padded copy is made) and a shared-memory tile
-// of the weight panel are staged in shared memory, and each thread
-// accumulates a 4x4 micro-tile with fmaf. The skip concat is a second
-// input pointer (channels [x1 | x2], as punet.py concatenates
-// [upsampled, skip]); the input normalisation multiplies x1's channels
-// c % scale_mod == 0 by in_scale[n] as they are loaded.
-// Tensor cores (TF32/bf16 wgmma) are a later step.
-#include "common.cuh"
+// What bounds it on an H100: operations. The 512^2 forward is 3.834 GFLOP
+// of float32 multiply-adds, 57 us at 67 TFLOP/s without tensor cores, or
+// 3 x 3.834 GFLOP at the 495 TFLOP/s TF32 tensor-core rate (23 us) in the
+// 3xTF32 form below; its activations are at most 64x64x192 floats (3 MB)
+// and its weights 1.6 MB. What sets its time in practice is filling 132
+// SMs: the 16^2 level has 256 output pixels.
+//
+// Design (csrc/conv_mma.cuh, shared with kernel N): an implicit GEMM on
+// the tile and split-K plan of ops/kernels/conv_plan.py, so every layer
+// launches at least a wave of blocks (the 16^2 layers split K 18 ways and
+// add the float32 partials in a fixed order), K staged 32 channels at a
+// time through a 4-stage cp.async ring whose zero-fill copies stand for
+// the SAME padding; the dilation is in the gather. The products run on the
+// tensor cores in 3xTF32, which keeps float32 accuracy (plain TF32 keeps
+// 11 significand bits, not this function): each operand x is split as it
+// leaves shared memory into big = tf32(x) and small = tf32(x - big)
+// (cvt.rna; x - big is exact, and -fmad=false keeps it so), and mma.sync
+// m16n8k8 tf32 accumulates small*big + big*small + big*big in float32;
+// the dropped small*small term is below 2^-21 of the product. The tensor
+// cores sum each 32-channel chunk from zero and the chunk's sum joins the
+// float32 accumulator by an ordinary add: summed in the tensor cores over
+// all of K (1728 at the 64^2 concat) the layer missed the check at 1e-5
+// of its largest output that it passes at 1e-6 this way. The input
+// normalisation (in_scale on x1's channels c % scale_mod == 0) multiplies
+// before the split, as the plain version multiplies before its conv. The
+// skip concat is a second input pointer (channels [x1 | x2], as punet.py
+// concatenates [upsampled, skip]).
+#include "conv_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
+using namespace fnk::conv;
 
-struct ConvArgs {
-  const float* x1;
-  const float* x2;
-  const float* wgt;   // (k*k*(c1+c2), co): HWIO, flattened
-  const float* bias;  // (co)
-  const float* in_scale;
-  float* out;         // (n, ho, wo, co)
-  int c1, c2, scale_mod;
-  int n, hi, wi, ho, wo, co;
-  int k, stride, dil, pad, relu;
-};
+// Shared-memory rows of one stage: an A row of kChunk floats + 16 bytes
+// (36 floats: the fragment loads of a warp fall on 32 distinct banks), a
+// weight row of bn floats + 32 bytes (bn + 8: likewise).
+constexpr int kRowA = kChunk * 4 + 16;
+__host__ __device__ constexpr int row_w(int bn) { return bn * 4 + 32; }
+__host__ __device__ constexpr int stage_bytes(int bm, int bn) {
+  return bm * kRowA + kChunk * row_w(bn);
+}
 
-__global__ void __launch_bounds__(kThreads)
-conv2d_nhwc(ConvArgs A) {
-  // +4 floats a row: the transposed A-tile stores spread over banks.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int M = A.n * A.ho * A.wo;
-  const int cin = A.c1 + A.c2;
-  const int Ktot = A.k * A.k * cin;
+__global__ void __launch_bounds__(kMaxThreads)
+    conv2d_tf32x3(Args A, Plan P) {
+  extern __shared__ __align__(16) char smem[];
+  const Geom& g = A.g;
+  const int bm = P.bm, bn = P.bn, rw = row_w(bn);
+  const int stage = stage_bytes(bm, bn);
+  int4* rows = reinterpret_cast<int4*>(smem + kStages * stage);
+  float* rscale = reinterpret_cast<float*>(rows + bm);
+  const int m0 = blockIdx.x * bm, n0 = blockIdx.y * bn, split = blockIdx.z;
+  fill_rows(A, m0, bm, rows, rscale);
+  __syncthreads();
 
-  // The four A-tile rows this thread loads (fixed over the K loop).
-  int a_kk = tid % BK;
-  int a_row[4], a_n[4], a_oy[4], a_ox[4];
-  bool a_ok[4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / (bn / 32), wn = warp % (bn / 32);
+  const int kb = P.kbeg[split];
+  const int nk = (P.kbeg[split + 1] - kb) / kChunk;
+  const WSlot wslot = w_slot<4>(bn);
+
+  TapIter taps(g, kb);
+  auto load = [&](int kc) {
+    const int k0 = kb + kc * kChunk;
+    char* st = smem + (kc % kStages) * stage;
+    const Tap t = taps.next(g);  // chunks load in order
+    if (t.c < g.c1)
+      load_a<4>(g, rows, bm, A.x1, g.c1, t.c, t, st, kRowA);
+    else
+      load_a<4>(g, rows, bm, A.x2, g.c2, t.c - g.c1, t, st, kRowA);
+    load_w<4>(A.wgt, g.co, k0, n0, wslot, st + bm * kRowA, rw);
+  };
+
+  float acc[2][4][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    int mm = tid / BK + r * (kThreads / BK);
-    int m = m0 + mm;
-    a_row[r] = mm;
-    a_ok[r] = m < M;
-    int mc = a_ok[r] ? m : 0;
-    a_ox[r] = mc % A.wo;
-    a_oy[r] = (mc / A.wo) % A.ho;
-    a_n[r] = mc / (A.wo * A.ho);
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
   }
+  const int cin = g.c1 + g.c2;
+  int c0 = kb % cin;  // the first channel of the chunk the warps multiply
+  constexpr int kStrideA = kRowA / 4;
+  const int stride_w = rw / 4;
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    if (kc + kStages - 1 < nk) load(kc + kStages - 1);
+    cp_async_commit();
 
-  float acc[TM][TN];
+    const float* af = reinterpret_cast<const float*>(
+        smem + (kc % kStages) * stage);
+    const float* wf = af + bm * kStrideA;
+    // in_scale applies to x1's channels.
+    const bool scaled = A.in_scale != nullptr && c0 < g.c1;
+    // The tensor cores sum the chunk from zero; its sum joins acc by a
+    // float32 add (their own accumulation over a long K is less exact).
+    float part[2][4][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Ktot; k0 += BK) {
-    // Chunk k0..k0+15 lies inside one tap and one input (c1, c2 and cin
-    // are multiples of 16, checked by the wrapper).
-    int tap = k0 / cin, c0 = k0 % cin;
-    int ky = tap / A.k, kx = tap % A.k;
-    int c = c0 + a_kk;
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      float val = 0.f;
-      int iy = a_oy[r] * A.stride - A.pad + ky * A.dil;
-      int ix = a_ox[r] * A.stride - A.pad + kx * A.dil;
-      if (a_ok[r] && iy >= 0 && iy < A.hi && ix >= 0 && ix < A.wi) {
-        size_t pix = ((size_t)a_n[r] * A.hi + iy) * A.wi + ix;
-        if (c < A.c1) {
-          val = A.x1[pix * A.c1 + c];
-          if (A.in_scale && c % A.scale_mod == 0) val *= A.in_scale[a_n[r]];
-        } else {
-          val = A.x2[pix * A.c2 + (c - A.c1)];
+        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 8; ++ks) {
+      const int kq = ks * 8 + lane % 4;
+      uint32_t bb[4][2], bs[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wn * 32 + nt * 8 + lane / 4;
+        split_tf32(wf[kq * stride_w + col], bb[nt][0], bs[nt][0]);
+        split_tf32(wf[(kq + 4) * stride_w + col], bb[nt][1], bs[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r = wm * 32 + mt * 16 + lane / 4;
+        float a[4] = {af[r * kStrideA + kq], af[(r + 8) * kStrideA + kq],
+                      af[r * kStrideA + kq + 4],
+                      af[(r + 8) * kStrideA + kq + 4]};
+        if (scaled) {
+          if ((c0 + kq) % A.scale_mod == 0) {
+            a[0] = a[0] * rscale[r];
+            a[1] = a[1] * rscale[r + 8];
+          }
+          if ((c0 + kq + 4) % A.scale_mod == 0) {
+            a[2] = a[2] * rscale[r];
+            a[3] = a[3] * rscale[r + 8];
+          }
+        }
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(a[i], ab[i], as[i]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          mma_tf32(part[mt][nt], as, bb[nt]);
+          mma_tf32(part[mt][nt], ab, bs[nt]);
+          mma_tf32(part[mt][nt], ab, bb[nt]);
         }
       }
-      As[a_kk][a_row[r]] = val;
     }
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      int idx = tid + r * kThreads;
-      int kk = idx / BN, nn = idx % BN;
-      int col = n0 + nn;
-      Bs[kk][nn] = col < A.co ? A.wgt[(size_t)(k0 + kk) * A.co + col] : 0.f;
-    }
-    __syncthreads();
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      float a[TM] = {a4.x, a4.y, a4.z, a4.w};
-      float b[TN] = {b4.x, b4.y, b4.z, b4.w};
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+        for (int e = 0; e < 4; ++e)
+          acc[i][j][e] = acc[i][j][e] + part[i][j][e];
+    c0 = c0 + kChunk == cin ? 0 : c0 + kChunk;
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int col = n0 + tx * TN + j;
-      if (col >= A.co) continue;
-      float y = acc[i][j] + A.bias[col];
-      A.out[(size_t)m * A.co + col] = A.relu ? fmaxf(y, 0.f) : y;
-    }
-  }
+  store_tile<float, 2, 4>(A, P.splits, split, m0 + wm * 32, n0 + wn * 32,
+                          acc);
 }
 
 }  // namespace
 
-// x2 and in_scale may be null. Output (n, ho, wo, co) NHWC.
+// x2 and in_scale may be null. The plan (bm, bn, warp_m 32, splits, kbeg:
+// splits + 1 K offsets, a host array) is ops/kernels/conv_plan.py's; `ws` is a
+// (splits, M, co) float32 workspace when splits > 1, else null. Output
+// (n, ho, wo, co) NHWC.
 extern "C" int fn_conv2d_nhwc(const float* x1, const float* x2,
                               const float* wgt, const float* bias,
-                              const float* in_scale, float* out, int c1,
-                              int c2, int scale_mod, int n, int hi, int wi,
-                              int ho, int wo, int co, int k, int stride,
-                              int dil, int pad, int relu, void* stream) {
-  ConvArgs A{x1, x2, wgt, bias, in_scale, out, c1, c2, scale_mod,
-             n, hi, wi, ho, wo, co, k, stride, dil, pad, relu};
-  int M = n * ho * wo;
-  dim3 grid((co + BN - 1) / BN, (M + BM - 1) / BM);
-  conv2d_nhwc<<<grid, kThreads, 0, (cudaStream_t)stream>>>(A);
-  return fnk::launch_status();
+                              const float* in_scale, float* out, float* ws,
+                              int c1, int c2, int scale_mod, int n, int hi,
+                              int wi, int ho, int wo, int co, int k,
+                              int stride, int dil, int pad, int relu, int bm,
+                              int bn, int warp_m, int splits,
+                              const int* kbeg, void* stream) {
+  static int smem_set = 48 * 1024;
+  Plan P;
+  Geom g{n, 1, hi, wi, 1, ho, wo, co, 1, k, stride, dil, pad, 0, c1, c2};
+  if (!read_plan(P, bm, bn, warp_m, splits, kbeg) ||
+      (c2 > 0) != (x2 != nullptr) ||
+      scale_mod < 1 || co < 1 || co % 4 || !plan_ok(g, P, kChunk, 0, false) ||
+      (splits > 1) != (ws != nullptr) || !aligned16(x1) ||
+      (x2 && !aligned16(x2)) || !aligned16(wgt) || (ws && !aligned16(ws)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args A{x1, x2, wgt, bias, in_scale, out, ws, g, relu, scale_mod};
+  const int smem = kStages * stage_bytes(bm, bn) + bm * 20;
+  return launch_plan<float>(conv2d_tf32x3, smem_set, A, P, plan_threads(P),
+                            smem, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,6 @@
 // Kernel N: one NDHWC 3-D convolution (kernel 1 or 3, stride 1 or 2, flax
-// SAME padding) with fused bias and ReLU, float32 products and sums. The
-// PUNet3 forward launches it once per layer, 9 times
-// (ops/kernels/punet3.py::punet3_forward).
+// SAME padding) with fused bias and ReLU. The PUNet3 forward launches it
+// once per layer, 9 times (ops/kernels/punet3.py::punet3_forward).
 //
 // Replaces fluidnet_cxx_tpu/ops/pallas/punet3_pallas.py::
 // punet3_forward_pallas (body _punet3_kernel), which computes the whole
@@ -12,99 +11,242 @@
 // the port's PUNet3 module (models/punet3d.py, F.conv3d per layer).
 //
 // Rounding, as the TPU kernel's: each operand is float32 or bfloat16 as
-// the wrapper says (template parameters T1, T2 for the two inputs, TW
-// for the weights, TO for the output); a bfloat16 value widens to float32
-// exactly, so a product of two bfloat16 values is exact in float32 and
-// the f32 x bf16 products of the decoder's up half round once (fmaf).
-// The bias is added in float32, then the ReLU, then the rounding to TO
-// (round to nearest even, as XLA's and torch's casts).
+// the wrapper says (`types`); every product is exact or rounded once in
+// float32 and summed in float32; the bias is added in float32, then the
+// ReLU, then the rounding to the output type (round to nearest even, as
+// XLA's and torch's casts).
 //
 // What bounds it on an H100: operations. The p8 forward at 128^3 (g0 16)
 // is 9.1 GFLOP, the p4 forward (g0 32) 64.5 GFLOP, over activations of at
-// most 32^3 x 192 values; against the dense bf16 tensor-core rate (989
-// TFLOP/s) that is 9.2 and 65 us, against the fp32 rate without tensor
-// cores (67 TFLOP/s) 0.136 and 0.963 ms. Design (B's, csrc/conv2d.cu, in
-// 3-D): an implicit GEMM, M = output cells, N = output channels, K = taps
-// x input channels. Each 256-thread block owns a 64x64 output tile and
-// walks K in chunks of 16 that lie inside one tap and one input (the
-// wrapper checks the channel counts are multiples of 16): the input patch
-// chunk (gathered with the padding mask, so no padded copy is made; the
-// decoder's [up | skip] concat is a second input pointer) and the weight
-// panel's chunk are widened to float32 in shared memory, and each thread
-// accumulates a 4x4 micro-tile with fmaf on the CUDA cores. Tensor cores
-// (mma/wgmma on bf16 tiles) are a later step.
+// most 32^3 x 192 values: 9.2 and 65 us at the dense bf16 tensor-core rate
+// (989 TFLOP/s). What sets its time in practice is filling 132 SMs (p8's
+// 8^3 levels have 512 output cells), the issue rate of mma.sync and, in
+// the concat, the three products its exact float32 half costs.
+//
+// Design (csrc/conv_mma.cuh, shared with kernel B): an implicit GEMM on
+// the tile and split-K plan of ops/kernels/conv_plan.py, about four
+// blocks an SM on every layer of the main paths (the 8^3 layers split K
+// 32 ways and add the float32 partials in a fixed order). The bf16 layers
+// (bf16 input and weights) run on the tensor cores: mma.sync m16n8k16 bf16
+// with float32 accumulators, fragments from shared memory by ldmatrix (the
+// weight panel, K-major rows of the DHWIO layout, through ldmatrix.trans),
+// K staged 32 channels (64 bytes of one NDHWC cell) at a time through a
+// 4-stage cp.async ring whose zero-fill copies stand for the SAME padding.
+// Warp tiles are 32x32, or 64 x bn/2 (the wide tile, four warps a block)
+// on layers with many output cells. A product of two bf16 values is exact
+// in float32. The decoder's concat has a float32 up half, whose products
+// must stay float32 (the TPU kernel's _mm of an f32 operand): once a
+// float32 chunk has landed in shared memory the block splits each value
+// into hi + mid + lo, three bf16 values by round-to-nearest steps whose
+// sum is the value exactly (conv_mma.cuh::split_bf16x3), and three MMAs on
+// one accumulator take the three exact products (bf16 x bf16 has 16
+// significand bits); rounding the up half to bf16 instead moved 994 cells
+// of a 32^3 forward by more than 1e-3 of its largest output. The skip
+// half is plain bf16. The all-float32 net (`types` 0, compute_dtype
+// "float32", on no main path) keeps a SIMT body of fmaf on 64x64 tiles,
+// with the same planner.
 #include <cuda_bf16.h>
 
-#include "common.cuh"
+#include <type_traits>
+
+#include "conv_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4;
-constexpr int kThreads = (BM / TM) * (BN / TN);  // 256
+using namespace fnk::conv;
+using bf16 = __nv_bfloat16;
 
 // Bits of `types`: which operands are bfloat16 (ops/kernels/punet3.py).
 constexpr int kX1Bf16 = 1, kX2Bf16 = 2, kWBf16 = 4, kOutBf16 = 8;
 
-struct Conv3dArgs {
-  const void* x1;    // (n, di, hi, wi, c1)
-  const void* x2;    // (n, di, hi, wi, c2) or null
-  const void* wgt;   // (k^3 * (c1 + c2), co): DHWIO, flattened
-  const float* bias; // (co)
-  void* out;         // (n, do, ho, wo, co)
-  int c1, c2;
-  int n, di, hi, wi, dout, ho, wo, co;
-  int k, stride, pad, relu;
-};
+// Shared-memory rows of one stage: a bf16 A row of kChunk channels is 64
+// bytes + 16 of padding (ldmatrix's eight rows then fall on distinct
+// banks), a float32 one 128 + 16; a weight row is bn bf16 values + 16
+// bytes. With a float32 x1 the block also holds the chunk's bf16x3 split:
+// three bf16 A tiles (hi, mid, lo) after the stages.
+constexpr int kRowA16 = kChunk * 2 + 16;
+constexpr int kRowA32 = kChunk * 4 + 16;
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+template <class T1>
+__host__ __device__ constexpr bool f32_x1() {
+  return std::is_same<T1, float>::value;
+}
+template <class T1>
+__host__ __device__ constexpr int row_a() {
+  return f32_x1<T1>() ? kRowA32 : kRowA16;
+}
+__host__ __device__ constexpr int row_w(int bn) { return bn * 2 + 16; }
+template <class T1>
+__host__ __device__ constexpr int stage_bytes(int bm, int bn) {
+  return bm * row_a<T1>() + kChunk * row_w(bn);
+}
+template <class T1>
+__host__ __device__ constexpr int smem_bytes(int bm, int bn, int stages) {
+  return stages * stage_bytes<T1>(bm, bn) +
+         (f32_x1<T1>() ? 3 * bm * kRowA16 : 0) + bm * (16 + 4);
 }
 
-template <class T>
-__device__ __forceinline__ T narrow(float v);
-template <>
-__device__ __forceinline__ float narrow<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// acc += A (bf16, from `a_tile`, kRowA16 rows, the warp's rows from
+// `row0`) x B fragments of one k16 step.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_a_tile(float (&acc)[MT][NT][4],
+                                           const char* a_tile, int ks,
+                                           int row0, int lane,
+                                           const uint32_t (&b)[NT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t a[4];
+    ldsm_x4(a, a_tile + (row0 + mt * 16 + (lane & 15)) * kRowA16 +
+                   (ks * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+  }
 }
 
-template <class T1, class T2, class TW, class TO>
-__global__ void __launch_bounds__(kThreads) conv3d_ndhwc(Conv3dArgs A) {
+// A block of warps with (16 MT) x (8 NT) warp tiles over a bm x bn tile
+// (MT 2, NT 4: 32x32; MT 4, NT bn/16: the wide 64 x bn/2), K through a
+// STAGES-deep ring.
+template <class T1, class TO, int MT, int NT, int STAGES>
+__global__ void __launch_bounds__(kMaxThreads)
+    conv3d_tc(Args A, Plan P) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr bool kF32 = f32_x1<T1>();
+  const Geom& g = A.g;
+  const int bm = P.bm, bn = P.bn, rw = row_w(bn);
+  const int stage = stage_bytes<T1>(bm, bn);
+  char* x3 = smem + STAGES * stage;  // the bf16x3 tiles (float32 x1)
+  int4* rows = reinterpret_cast<int4*>(x3 + (kF32 ? 3 * bm * kRowA16 : 0));
+  float* rscale = reinterpret_cast<float*>(rows + bm);
+  const int m0 = blockIdx.x * bm, n0 = blockIdx.y * bn, split = blockIdx.z;
+  fill_rows(A, m0, bm, rows, rscale);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps_n = bn / (8 * NT);
+  const int row0 = (warp / warps_n) * 16 * MT;
+  const int col0 = (warp % warps_n) * 8 * NT;
+  const int kb = P.kbeg[split];
+  const int nk = (P.kbeg[split + 1] - kb) / kChunk;
+  const WSlot wslot = w_slot<2>(bn);
+
+  TapIter taps(g, kb);
+  auto load = [&](int kc) {
+    const int k0 = kb + kc * kChunk;
+    char* st = smem + (kc % STAGES) * stage;
+    const Tap t = taps.next(g);  // chunks load in order
+    if (t.c < g.c1)
+      load_a<(int)sizeof(T1)>(g, rows, bm, A.x1, g.c1, t.c, t, st,
+                              row_a<T1>());
+    else
+      load_a<2>(g, rows, bm, A.x2, g.c2, t.c - g.c1, t, st, kRowA16);
+    load_w<2>(A.wgt, g.co, k0, n0, wslot, st + bm * row_a<T1>(), rw);
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  const int cin = g.c1 + g.c2;
+  int c_mma = kb % cin;  // the first channel of the chunk the warps multiply
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kc + STAGES - 1 < nk) load(kc + STAGES - 1);
+    cp_async_commit();
+
+    const char* st = smem + (kc % STAGES) * stage;
+    const char* wt = st + bm * row_a<T1>();
+    const bool f32_chunk = kF32 && c_mma < g.c1;
+    c_mma = c_mma + kChunk == cin ? 0 : c_mma + kChunk;
+    if (f32_chunk) {
+      // Split the float32 tile once for the block: hi, mid, lo tiles.
+      for (int i = threadIdx.x; i < bm * (kChunk / 4); i += blockDim.x) {
+        const int r = i / (kChunk / 4), q = i % (kChunk / 4);
+        const float4 v =
+            *reinterpret_cast<const float4*>(st + r * kRowA32 + q * 16);
+        uint2 hi, mid, lo;
+        split_bf16x3(make_float2(v.x, v.y), hi.x, mid.x, lo.x);
+        split_bf16x3(make_float2(v.z, v.w), hi.y, mid.y, lo.y);
+        char* d = x3 + r * kRowA16 + q * 8;
+        *reinterpret_cast<uint2*>(d) = hi;
+        *reinterpret_cast<uint2*>(d + bm * kRowA16) = mid;
+        *reinterpret_cast<uint2*>(d + 2 * bm * kRowA16) = lo;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 16; ++ks) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4_t(r, wt + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * rw +
+                         (col0 + np * 16 + (lane >> 4) * 8) * 2);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+      if (f32_chunk) {  // lo, mid, hi: three exact products
+        mma_a_tile<MT, NT>(acc, x3 + 2 * bm * kRowA16, ks, row0, lane, b);
+        mma_a_tile<MT, NT>(acc, x3 + bm * kRowA16, ks, row0, lane, b);
+        mma_a_tile<MT, NT>(acc, x3, ks, row0, lane, b);
+      } else {
+        mma_a_tile<MT, NT>(acc, st, ks, row0, lane, b);
+      }
+    }
+  }
+  store_tile<TO, MT, NT>(A, P.splits, split, m0 + row0, n0 + col0, acc);
+}
+
+// The all-float32 route: 256 threads on a 64x64 tile, K in chunks of 16
+// staged through shared memory, 4x4 fmaf micro-tiles, over the plan's K
+// range.
+constexpr int kSimtTile = 64, kSimtK = 16, TM = 4, TN = 4;
+constexpr int kSimtThreads = (kSimtTile / TM) * (kSimtTile / TN);  // 256
+
+__global__ void __launch_bounds__(kSimtThreads)
+    conv3d_simt(Args A, Plan P) {
   // +4 floats a row: the transposed A-tile stores spread over banks.
-  __shared__ __align__(16) float As[BK][BM + 4];
-  __shared__ __align__(16) float Bs[BK][BN];
-  const T1* x1 = static_cast<const T1*>(A.x1);
-  const T2* x2 = static_cast<const T2*>(A.x2);
-  const TW* wgt = static_cast<const TW*>(A.wgt);
+  __shared__ __align__(16) float As[kSimtK][kSimtTile + 4];
+  __shared__ __align__(16) float Bs[kSimtK][kSimtTile];
+  const Geom& g = A.g;
+  const float* x1 = static_cast<const float*>(A.x1);
+  const float* x2 = static_cast<const float*>(A.x2);
+  const float* wgt = static_cast<const float*>(A.wgt);
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = A.n * A.dout * A.ho * A.wo;
-  const int cin = A.c1 + A.c2;
-  const int Ktot = A.k * A.k * A.k * cin;
+  const int tx = tid % (kSimtTile / TN), ty = tid / (kSimtTile / TN);
+  const int m0 = blockIdx.x * kSimtTile, n0 = blockIdx.y * kSimtTile;
+  const int split = blockIdx.z;
+  const int M = cells(g);
+  const int cin = g.c1 + g.c2;
 
   // The four A-tile rows this thread loads (fixed over the K loop): the
   // sample and the input corner (output cell * stride - pad) of each.
-  const int a_kk = tid % BK;
+  const int a_kk = tid % kSimtK;
   int a_row[4], a_n[4], a_z[4], a_y[4], a_x[4];
   bool a_ok[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    int mm = tid / BK + r * (kThreads / BK);
+    int mm = tid / kSimtK + r * (kSimtThreads / kSimtK);
     int m = m0 + mm;
     a_row[r] = mm;
     a_ok[r] = m < M;
     int mc = a_ok[r] ? m : 0;
-    a_x[r] = (mc % A.wo) * A.stride - A.pad;
-    mc /= A.wo;
-    a_y[r] = (mc % A.ho) * A.stride - A.pad;
-    mc /= A.ho;
-    a_z[r] = (mc % A.dout) * A.stride - A.pad;
-    a_n[r] = mc / A.dout;
+    a_x[r] = (mc % g.wo) * g.stride - g.pad;
+    mc /= g.wo;
+    a_y[r] = (mc % g.ho) * g.stride - g.pad;
+    mc /= g.ho;
+    a_z[r] = (mc % g.dout) * g.stride - g.pad;
+    a_n[r] = mc / g.dout;
   }
 
   float acc[TM][TN];
@@ -113,35 +255,33 @@ __global__ void __launch_bounds__(kThreads) conv3d_ndhwc(Conv3dArgs A) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < Ktot; k0 += BK) {
+  for (int k0 = P.kbeg[split]; k0 < P.kbeg[split + 1]; k0 += kSimtK) {
     // Chunk k0..k0+15 lies inside one tap and one input.
     const int tap = k0 / cin, c0 = k0 % cin;
-    const int kz = tap / (A.k * A.k), ky = (tap / A.k) % A.k,
-              kx = tap % A.k;
+    const int kz = tap / (g.k * g.k), ky = (tap / g.k) % g.k,
+              kx = tap % g.k;
     const int c = c0 + a_kk;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       float val = 0.f;
       const int iz = a_z[r] + kz, iy = a_y[r] + ky, ix = a_x[r] + kx;
-      if (a_ok[r] && iz >= 0 && iz < A.di && iy >= 0 && iy < A.hi &&
-          ix >= 0 && ix < A.wi) {
-        size_t pix = (((size_t)a_n[r] * A.di + iz) * A.hi + iy) * A.wi + ix;
-        val = c < A.c1 ? widen(x1[pix * A.c1 + c])
-                       : widen(x2[pix * A.c2 + (c - A.c1)]);
+      if (a_ok[r] && iz >= 0 && iz < g.di && iy >= 0 && iy < g.hi &&
+          ix >= 0 && ix < g.wi) {
+        size_t pix = (((size_t)a_n[r] * g.di + iz) * g.hi + iy) * g.wi + ix;
+        val = c < g.c1 ? x1[pix * g.c1 + c] : x2[pix * g.c2 + (c - g.c1)];
       }
       As[a_kk][a_row[r]] = val;
     }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      int idx = tid + r * kThreads;
-      int kk = idx / BN, nn = idx % BN;
+      int idx = tid + r * kSimtThreads;
+      int kk = idx / kSimtTile, nn = idx % kSimtTile;
       int col = n0 + nn;
-      Bs[kk][nn] =
-          col < A.co ? widen(wgt[(size_t)(k0 + kk) * A.co + col]) : 0.f;
+      Bs[kk][nn] = col < g.co ? wgt[(size_t)(k0 + kk) * g.co + col] : 0.f;
     }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
+    for (int kk = 0; kk < kSimtK; ++kk) {
       float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
       float4 b4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
       float a[TM] = {a4.x, a4.y, a4.z, a4.w};
@@ -154,7 +294,7 @@ __global__ void __launch_bounds__(kThreads) conv3d_ndhwc(Conv3dArgs A) {
     __syncthreads();
   }
 
-  TO* out = static_cast<TO*>(A.out);
+  float* out = static_cast<float*>(A.out);
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     int m = m0 + ty * TM + i;
@@ -162,65 +302,89 @@ __global__ void __launch_bounds__(kThreads) conv3d_ndhwc(Conv3dArgs A) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       int col = n0 + tx * TN + j;
-      if (col >= A.co) continue;
+      if (col >= g.co) continue;
+      if (P.splits > 1) {
+        A.ws[((size_t)split * M + m) * g.co + col] = acc[i][j];
+        continue;
+      }
       float y = acc[i][j] + A.bias[col];
       if (A.relu) y = fmaxf(y, 0.f);
-      out[(size_t)m * A.co + col] = narrow<TO>(y);
+      out[(size_t)m * g.co + col] = y;
     }
   }
 }
 
-using bf16 = __nv_bfloat16;
-
-// The operand types the PUNet3 forward uses (ops/kernels/punet3.py): all
-// float32; or bfloat16 weights with a bfloat16 input and a bfloat16 (ReLU
-// layers) or float32 (the up conv, the head) output; or the decoder's
-// concat, a float32 up half and a bfloat16 skip half. Other `types` values
-// are refused.
-template <class T1, class T2, class TW, class TO>
-void launch(const Conv3dArgs& A, dim3 grid, cudaStream_t s) {
-  conv3d_ndhwc<T1, T2, TW, TO><<<grid, kThreads, 0, s>>>(A);
+template <class T1, class TO, int MT, int NT, int STAGES>
+int launch_tiles(const Args& A, const Plan& P, cudaStream_t s) {
+  static int smem_set = 48 * 1024;
+  return launch_plan<TO>(conv3d_tc<T1, TO, MT, NT, STAGES>, smem_set, A, P,
+                         plan_threads(P), smem_bytes<T1>(P.bm, P.bn, STAGES),
+                         s);
 }
 
-bool launch_types(int types, const Conv3dArgs& A, dim3 grid,
-                  cudaStream_t s) {
+// The 32x32 warp tiles, or the wide ones (3 stages with a float32 x1, so
+// that two blocks of the ring and the bf16x3 tiles fit an SM).
+template <class T1, class TO>
+int launch_tc(const Args& A, const Plan& P, cudaStream_t s) {
+  constexpr int kWideStages = f32_x1<T1>() ? 3 : kStages;
+  if (P.warp_m == 32) return launch_tiles<T1, TO, 2, 4, kStages>(A, P, s);
+  switch (P.bn) {
+    case 64:
+      return launch_tiles<T1, TO, 4, 4, kWideStages>(A, P, s);
+    case 96:
+      return launch_tiles<T1, TO, 4, 6, kWideStages>(A, P, s);
+    default:
+      return launch_tiles<T1, TO, 4, 8, kWideStages>(A, P, s);
+  }
+}
+
+// The operand types the PUNet3 forward uses (ops/kernels/punet3.py): all
+// float32 (the SIMT route); or bfloat16 weights with a bfloat16 input and
+// a bfloat16 (ReLU layers) or float32 (the up conv, the head) output; or
+// the decoder's concat, a float32 up half and a bfloat16 skip half. Other
+// `types` values are refused.
+int launch_types(int types, const Args& A, const Plan& P, cudaStream_t s) {
+  static int simt_smem = 48 * 1024;
   switch (types) {
     case 0:
-      launch<float, float, float, float>(A, grid, s);
-      return true;
+      return launch_plan<float>(conv3d_simt, simt_smem, A, P, kSimtThreads,
+                                0, s);
     case kX1Bf16 | kWBf16:
-      launch<bf16, float, bf16, float>(A, grid, s);
-      return true;
+      return launch_tc<bf16, float>(A, P, s);
     case kX1Bf16 | kWBf16 | kOutBf16:
-      launch<bf16, float, bf16, bf16>(A, grid, s);
-      return true;
+      return launch_tc<bf16, bf16>(A, P, s);
     case kX2Bf16 | kWBf16 | kOutBf16:
-      launch<float, bf16, bf16, bf16>(A, grid, s);
-      return true;
+      return launch_tc<float, bf16>(A, P, s);
     default:
-      return false;
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // x2 may be null (c2 0). `types` says which operands are bfloat16 (bits
-// above, one of launch_types' cases); the rest are float32. Output (n,
-// dout, ho, wo, co) NDHWC.
+// above, one of launch_types' cases); the rest are float32. The plan (bm,
+// bn, warp_m, splits, kbeg: splits + 1 K offsets, a host array) is
+// ops/kernels/conv_plan.py's; `ws` is a (splits, M, co) float32 workspace
+// when splits > 1, else null. Output (n, dout, ho, wo, co) NDHWC.
 extern "C" int fn_conv3d_ndhwc(const void* x1, const void* x2,
                                const void* wgt, const float* bias, void* out,
-                               int c1, int c2, int n, int di, int hi, int wi,
-                               int dout, int ho, int wo, int co, int k,
-                               int stride, int pad, int relu, int types,
-                               void* stream) {
-  if (c1 % BK || c2 % BK || c1 < BK || (c2 > 0) != (x2 != nullptr) ||
-      (k != 1 && k != 3) || (stride != 1 && stride != 2) || co < 1)
+                               float* ws, int c1, int c2, int n, int di,
+                               int hi, int wi, int dout, int ho, int wo,
+                               int co, int k, int stride, int pad, int relu,
+                               int types, int bm, int bn, int warp_m,
+                               int splits, const int* kbeg, void* stream) {
+  const bool simt = types == 0;
+  Plan P;
+  Geom g{n, di, hi, wi, dout, ho, wo, co, k, k, stride, 1, pad, pad, c1, c2};
+  if (!read_plan(P, bm, bn, warp_m, splits, kbeg) ||
+      (c2 > 0) != (x2 != nullptr) ||
+      (k != 1 && k != 3) || (stride != 1 && stride != 2) || co < 1 ||
+      co % (simt ? 4 : 8) ||
+      !plan_ok(g, P, simt ? kSimtK : kChunk, simt ? kSimtTile : 0, !simt) ||
+      (splits > 1) != (ws != nullptr) || !aligned16(x1) ||
+      (x2 && !aligned16(x2)) || !aligned16(wgt) || (ws && !aligned16(ws)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Conv3dArgs A{x1, x2, wgt, bias, out, c1, c2, n, di, hi, wi,
-               dout, ho, wo, co, k, stride, pad, relu};
-  const long long M = (long long)n * dout * ho * wo;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (co + BN - 1) / BN);
-  if (!launch_types(types, A, grid, (cudaStream_t)stream))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return fnk::launch_status();
+  Args A{x1, x2, wgt, bias, nullptr, out, ws, g, relu, 1};
+  return launch_types(types, A, P, static_cast<cudaStream_t>(stream));
 }

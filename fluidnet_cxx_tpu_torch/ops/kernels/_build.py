@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: products and sums round separately, as in the plain PyTorch
-# versions; the conv kernel asks for its fused multiply-adds with fmaf().
+# versions (and kernel B's 3xTF32 split x - tf32(x) stays exact); the SIMT
+# conv asks for its fused multiply-adds with fmaf().
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 _LIB = None
@@ -56,7 +57,7 @@ SIGNATURES = {
     "fn_tail_prologue": [VP, VP, VP, VP, VP, VP, VP, VP, VP, I, I, I, VP],
     "fn_tail_sweep": [VP, VP, VP, VP, I, I, I, I, F, F, VP],
     "fn_tail_epilogue": [VP, VP, VP, VP, VP, VP, I, I, I, VP],
-    "fn_conv2d_nhwc": [VP, VP, VP, VP, VP, VP] + [I] * 14 + [VP],
+    "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
     "fn_jacobi_mask": [VP, VP, I, I, I, VP],
     "fn_jacobi_sweeps": [VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
     "fn_mg_prologue": [VP, VP, VP, VP, I, I, I, VP],
@@ -69,7 +70,7 @@ SIGNATURES = {
     "fn_mg_small": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
-    "fn_conv3d_ndhwc": [VP] * 5 + [I] * 15 + [VP],
+    "fn_conv3d_ndhwc": [VP] * 6 + [I] * 19 + [VP, VP],
     "fn_advect3_forward": [I, VP, VP, VP, VP, I, I, I, I, F, F, F, F, I, I,
                            VP],
     "fn_advect3_backward": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, F, F, F,

@@ -3,16 +3,20 @@ forward that launches it once per layer.
 
 Replaces ``fluidnet_cxx_tpu/ops/pallas/punet_pallas.py::punet_forward_pallas``
 (the whole U-Net in one Pallas kernel) with the CUDA kernel in
-``csrc/conv2d.cu``. The space-to-depth/depth-to-space reshapes and the
-skip routing stay PyTorch, as the JAX wrapper keeps s2d(8)/d2s(8) outside
-its kernel. Plain versions: ``conv2d_nhwc_plain`` for one layer
-(F.conv2d) and the ``PUNet`` module's own forward for the network; a CPU
-tensor runs them, a CUDA tensor the kernel.
+``csrc/conv2d.cu``: 3xTF32 tensor-core products (float32 accuracy) on the
+tile and split-K plan of ``conv_plan.py``, a split layer's partial sums in
+a ``torch.empty`` workspace added in a fixed order (bit-equal repeats).
+The space-to-depth/depth-to-space reshapes and the skip routing stay
+PyTorch, as the JAX wrapper keeps s2d(8)/d2s(8) outside its kernel. Plain
+versions: ``conv2d_nhwc_plain`` for one layer (F.conv2d) and the ``PUNet``
+module's own forward for the network; a CPU tensor runs them, a CUDA
+tensor the kernel.
 """
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_plan import plan_conv
 
 
 def same_pads(size: int, k: int, stride: int, dil: int):
@@ -68,19 +72,24 @@ def conv2d_nhwc(x, w_hwio, bias, stride=1, dil=1, relu=False, x2=None,
     _build.check(bias, "bias", torch.float32, (co,), dev)
     if in_scale is not None:
         _build.check(in_scale, "in_scale", torch.float32, (n,), dev)
-    if c1 % 16 or c2 % 16 or scale_mod < 1:
-        raise ValueError("conv2d_nhwc needs input channel counts that are "
-                         "multiples of 16")
+    if co % 4 or scale_mod < 1:
+        raise ValueError("conv2d_nhwc needs co a multiple of 4")
     ph = same_pads(hi, k, stride, dil)
     pw = same_pads(wi, k, stride, dil)
     if ph != pw:
         raise ValueError("conv2d_nhwc takes square inputs")
     ho, wo = -(-hi // stride), -(-wi // stride)
+    m = n * ho * wo
+    plan = plan_conv(m, co, k * k, c1, c2, "tf32x3")
     out = torch.empty((n, ho, wo, co), dtype=torch.float32, device=dev)
+    ws = (torch.empty((plan.splits, m, co), dtype=torch.float32, device=dev)
+          if plan.splits > 1 else None)
     _build.call("fn_conv2d_nhwc", x.data_ptr(), _build.ptr(x2),
                 w_hwio.data_ptr(), bias.data_ptr(), _build.ptr(in_scale),
-                out.data_ptr(), c1, c2, scale_mod, n, hi, wi, ho, wo, co, k,
-                stride, dil, ph[0], int(relu), _build.stream())
+                out.data_ptr(), _build.ptr(ws), c1, c2, scale_mod, n, hi, wi,
+                ho, wo, co, k, stride, dil, ph[0], int(relu), plan.bm,
+                plan.bn, plan.warp_m, plan.splits, plan.c_bounds,
+                _build.stream())
     conv2d_nhwc.launches += 1
     return out
 

@@ -3,10 +3,15 @@ PUNet3 forward that launches it once per layer.
 
 Replaces ``fluidnet_cxx_tpu/ops/pallas/punet3_pallas.py::
 punet3_forward_pallas`` (the whole 3-D U-Net in one Pallas kernel) with the
-CUDA kernel in ``csrc/conv3d.cu``. The space-to-depth/depth-to-space
-reshapes (the patchify, the up conv's ``depth_to_space3(2)`` and the
-head's ``depth_to_space3(patch)``) stay PyTorch, as the JAX wrapper keeps
-them in XLA. Plain versions: ``conv3d_ndhwc_plain`` for one layer
+CUDA kernel in ``csrc/conv3d.cu``: bf16 tensor cores (the concat's float32
+half through an exact bf16x3 split) on the tile and split-K plan of
+``conv_plan.py``; the all-float32 net takes a SIMT route. A layer with
+more than one split gets a float32 workspace (splits, cells, co) from
+``torch.empty`` and its partial sums are added in a fixed order, so repeats
+are bit-equal. The space-to-depth/depth-to-space reshapes (the patchify,
+the up conv's ``depth_to_space3(2)`` and the head's
+``depth_to_space3(patch)``) stay PyTorch, as the JAX wrapper keeps them in
+XLA. Plain versions: ``conv3d_ndhwc_plain`` for one layer
 (F.conv3d) and the ``PUNet3`` module's own forward for the network; a CPU
 tensor runs them, a CUDA tensor the kernel.
 
@@ -21,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_plan import plan_conv
 from .punet import same_pads
 
 # Bits of the kernel's ``types`` argument: which operands are bfloat16.
@@ -76,23 +82,30 @@ def conv3d_ndhwc(x, w_dhwio, bias, stride=1, relu=False, x2=None,
     _build.check(w_dhwio, "weight", w_dhwio.dtype, (k, k, k, c1 + c2, co),
                  dev)
     _build.check(bias, "bias", torch.float32, (co,), dev)
-    if c1 % 16 or c2 % 16 or k not in (1, 3) or stride not in (1, 2):
-        raise ValueError("conv3d_ndhwc needs input channel counts that are "
-                         "multiples of 16, k 1 or 3 and stride 1 or 2")
+    if k not in (1, 3) or stride not in (1, 2):
+        raise ValueError("conv3d_ndhwc needs k 1 or 3 and stride 1 or 2")
     pads = _pads3(x, k, stride)
     if len({p[0] for p in pads}) != 1:
         raise ValueError("conv3d_ndhwc needs the same low pad on every axis")
-    do, ho, wo = (-(-s // stride) for s in (di, hi, wi))
-    out = torch.empty((n, do, ho, wo, co), dtype=out_dtype, device=dev)
     types = ((_X1_BF16 if x.dtype == torch.bfloat16 else 0)
              | (_X2_BF16 if x2 is not None and x2.dtype == torch.bfloat16
                 else 0)
              | (_W_BF16 if w_dhwio.dtype == torch.bfloat16 else 0)
              | (_OUT_BF16 if out_dtype == torch.bfloat16 else 0))
+    if co % (4 if types == 0 else 8):
+        raise ValueError(f"conv3d_ndhwc needs co a multiple of 8 (4 in "
+                         f"float32), got {co}")
+    do, ho, wo = (-(-s // stride) for s in (di, hi, wi))
+    m = n * do * ho * wo
+    plan = plan_conv(m, co, k ** 3, c1, c2, "simt" if types == 0 else "bf16")
+    out = torch.empty((n, do, ho, wo, co), dtype=out_dtype, device=dev)
+    ws = (torch.empty((plan.splits, m, co), dtype=torch.float32, device=dev)
+          if plan.splits > 1 else None)
     _build.call("fn_conv3d_ndhwc", x.data_ptr(), _build.ptr(x2),
-                w_dhwio.data_ptr(), bias.data_ptr(), out.data_ptr(), c1, c2,
-                n, di, hi, wi, do, ho, wo, co, k, stride, pads[0][0],
-                int(relu), types, _build.stream())
+                w_dhwio.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                _build.ptr(ws), c1, c2, n, di, hi, wi, do, ho, wo, co, k,
+                stride, pads[0][0], int(relu), types, plan.bm, plan.bn,
+                plan.warp_m, plan.splits, plan.c_bounds, _build.stream())
     conv3d_ndhwc.launches += 1
     return out
 
