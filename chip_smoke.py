@@ -20,6 +20,9 @@ Phases (each prints its elapsed seconds):
      its float64 run; I, K, L and M at 128^3 with 8% random obstacles
      and displacements up to 3 cells (past the 3-D window clamp of 2), K
      and L with the first-hit trace on and off, L also against K and M,
+     K, L and M also on the plume scene's flags (the border shell alone)
+     with the same U, K and L timed with the trace on and off on both
+     flag sets with the share of rays that walked their pruned box,
      I cold and warm with damping 6/7; J at 128^3 with 8% obstacles,
      cold and warm, damping 2/3, 16 and 8 sweeps, bit-exact; B each layer
      of the 512^2 forward on the activations the forward hands it, with
@@ -42,7 +45,8 @@ Phases (each prints its elapsed seconds):
      mg-2v and unfused jacobi-28, of the 64x32 Rayleigh-Taylor scene
      under multigrid, of the 64x256 cylinder (radius 8 at x 40) and of
      the 32^3 plume under jacobi-60, merged with the trace and separate
-     without it, and under the learned projection with patch 8 and 4;
+     with and without it, and under the learned projection with patch 8
+     and 4;
   5. the main paths, 20 steps each with every launch counter set to 0
      just before and read just after: the 512^2 plume with the learned
      projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), the
@@ -50,15 +54,16 @@ Phases (each prints its elapsed seconds):
      (A, G), the 8000x800 cylinder under jacobi-34 (E, F) and the 512^2
      plume with unfused advection under jacobi-200 (D, E, F), and the
      128^3 3-D plume under jacobi-60 (scripts/bench3d.py's classical
-     case) with separate advection and no trace (K, M, I) and with merged
-     advection and the first-hit trace (L, I), and bench3d's learned case
+     case) with separate advection without the trace (K, M, I) and with
+     it (K, M, I; bench3d's --lineTrace), and with merged advection and
+     the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
      J, N) at full widths, weights from seed 0; finite fields, ms per
      step, quality stats, launches per step (J and N held to their exact
      counts); then the `kernels` JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
-     time per step, the device's idle share and the kernels that take the
-     most device time.
+     time per step, the device's idle share, the 8 kernels that take the
+     most device time and every other kernel of the port's.
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -745,10 +750,14 @@ def advect3_ops(flags, D, per_cell, trace):
 
 
 def phase_kernels3d(dev, results):
-    """Kernels I, K, L and M at 128^3 on the 3-D stress inputs. All four
-    run their plain versions' float32 operations in the same order
-    (-fmad=false), so they are expected to be bit-exact; the tolerances
-    are those of A and F."""
+    """Kernels I, K, L and M at 128^3 on the 3-D stress inputs, and K, L
+    and M also on the plume scene's flags (the border shell alone) with
+    the stress U. All four run their plain versions' float32 operations in
+    the same order (-fmad=false), so they are expected to be bit-exact;
+    the tolerances are those of A and F. K and L are timed with the trace
+    on and off on both flag sets, beside their bounds (advect3_ops's, and
+    one that counts only the blocked cells of the pruned boxes), with how
+    the pruned trace walks there (walk_stats)."""
     from fluidnet_cxx_tpu_torch.ops import ops3d
     from fluidnet_cxx_tpu_torch.ops.kernels import advect3, jacobi3
 
@@ -782,83 +791,157 @@ def phase_kernels3d(dev, results):
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     done()
 
-    def scalar_plain(trace):
-        return ops3d.advect_scalar3(dt, rho, U, flags, 0.6, max_disp=D,
+    def scalar_plain(trace, f=flags):
+        return ops3d.advect_scalar3(dt, rho, U, f, 0.6, max_disp=D,
                                     line_trace=trace)
 
-    def velocity_plain():
-        return ops3d.advect_velocity3(dt, U, flags, 0.6, max_disp=D)
+    def velocity_plain(f=flags):
+        return ops3d.advect_velocity3(dt, U, f, 0.6, max_disp=D)
 
-    done = phase("kernel K advect_scalar3")
-    for trace in (True, False):
-        got = advect3.advect_scalar3(dt, rho, U, flags, 0.6, D, trace)
+    def scalar(trace, f=flags):
+        return advect3.advect_scalar3(dt, rho, U, f, 0.6, D, trace)
+
+    def velocity(f=flags):
+        return advect3.advect_velocity3(dt, U, f, 0.6, D)
+
+    def merged(trace, f=flags):
+        return advect3.advect_all3(dt, rho, U, f, 0.6, D, trace)
+
+    def check_klm(label, f):
+        """K and L with the trace on and off, and M, against their plain
+        versions on flags ``f``, and L against K and M; returns K's error
+        without the trace and L's with it (the main paths' settings)."""
+        errs = {}
+        for trace in (True, False):
+            on = "on" if trace else "off"
+            got = scalar(trace, f)
+            torch.cuda.synchronize()
+            want = scalar_plain(trace, f)
+            errs["K", trace] = max_err([got], [want])
+            check(f"K advect_scalar3 ({label}, trace {on})", errs["K", trace],
+                  1e-4 * scale_of([want]))
+            got = merged(trace, f)
+            torch.cuda.synchronize()
+            want = (scalar_plain(trace, f), velocity_plain(f))
+            errs["L", trace] = max_err(got, want)
+            check(f"L advect_all3 ({label}, trace {on})", errs["L", trace],
+                  1e-4 * scale_of(want))
+            check(f"L advect_all3 ({label}, trace {on}) against K and M",
+                  max_err(got, (scalar(trace, f), velocity(f))), 0.0)
+        got = velocity(f)
         torch.cuda.synchronize()
-        want = scalar_plain(trace)
-        e = max_err([got], [want])
-        check(f"K advect_scalar3 ({RES3}^3, trace {'on' if trace else 'off'})",
-              e, 1e-4 * scale_of([want]))
-        if not trace:
-            err = e
-    ms = cuda_ms(lambda: advect3.advect_scalar3(dt, rho, U, flags, 0.6, D,
-                                                False), 20)
-    trace_ms = cuda_ms(lambda: advect3.advect_scalar3(dt, rho, U, flags, 0.6,
-                                                      D, True), 20)
-    plain_ms = cuda_ms(lambda: scalar_plain(False), 3, warmup=1)
-    plain_trace_ms = cuda_ms(lambda: scalar_plain(True), 2, warmup=1)
-    b_ms, b_by = bound(24 * n, advect3_ops(flags, D, per_scalar, False))
-    bt_ms, bt_by = bound(24 * n, advect3_ops(flags, D, per_scalar, True))
-    results["K"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"K: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); with the trace: kernel {trace_ms:.4f} "
-          f"ms, plain {plain_trace_ms:.3f} ms, bound {bt_ms:.4f} ms "
-          f"({bt_by})", flush=True)
+        want = velocity_plain(f)
+        errs["M"] = max_err([got], [want])
+        check(f"M advect_velocity3 ({label})", errs["M"],
+              1e-4 * scale_of([want]))
+        return errs
+
+    scene = ops3d.empty_domain3(1, RES3, RES3, RES3, device=dev)
+    flag_sets = {"stress": flags, "scene": scene}
+    done = phase("kernels K, L, M against their plain versions")
+    errs = {name: check_klm(f"{RES3}^3, {name} flags", f)
+            for name, f in flag_sets.items()}
     done()
 
-    done = phase("kernel M advect_velocity3")
-    got = advect3.advect_velocity3(dt, U, flags, 0.6, D)
-    torch.cuda.synchronize()
-    want = velocity_plain()
-    err = max_err([got], [want])
-    check(f"M advect_velocity3 ({RES3}^3)", err, 1e-4 * scale_of([want]))
-    ms = cuda_ms(lambda: advect3.advect_velocity3(dt, U, flags, 0.6, D), 20)
-    plain_ms = cuda_ms(velocity_plain, 3, warmup=1)
-    b_ms, b_by = bound(28 * n, advect3_ops(flags, D, 3 * per_component,
-                                           False))
-    results["M"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"M: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
-    done()
-
-    done = phase("kernel L advect_all3")
+    done = phase("kernels K, L, M timed")
+    times = {}
+    for name, f in flag_sets.items():
+        for trace in (True, False):
+            times["K", name, trace] = cuda_ms(lambda: scalar(trace, f), 20)
+            times["L", name, trace] = cuda_ms(lambda: merged(trace, f), 20)
+        times["M", name] = cuda_ms(lambda: velocity(f), 20)
+    stats = {name: walk_stats(f, U, D, dt) for name, f in flag_sets.items()}
     per_all = per_scalar + 3 * per_component
-    for trace in (True, False):
-        name = f"L advect_all3 ({RES3}^3, trace {'on' if trace else 'off'})"
-        got = advect3.advect_all3(dt, rho, U, flags, 0.6, D, trace)
-        torch.cuda.synchronize()
-        want = (scalar_plain(trace), velocity_plain())
-        e = max_err(got, want)
-        check(name, e, 1e-4 * scale_of(want))
-        split = (advect3.advect_scalar3(dt, rho, U, flags, 0.6, D, trace),
-                 advect3.advect_velocity3(dt, U, flags, 0.6, D))
-        check(f"{name} against K and M", max_err(got, split), 0.0)
-        if trace:   # the fused main path runs the trace
-            err = e
-    ms = cuda_ms(lambda: advect3.advect_all3(dt, rho, U, flags, 0.6, D,
-                                             True), 20)
-    off_ms = cuda_ms(lambda: advect3.advect_all3(dt, rho, U, flags, 0.6, D,
-                                                 False), 20)
-    plain_ms = cuda_ms(lambda: (scalar_plain(True), velocity_plain()), 2,
-                       warmup=1)
-    b_ms, b_by = bound(36 * n, advect3_ops(flags, D, per_all, True))
-    bo_ms, bo_by = bound(36 * n, advect3_ops(flags, D, per_all, False))
-    results["L"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"L (trace on): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}); trace off: kernel {off_ms:.4f} "
-          f"ms, bound {bo_ms:.4f} ms ({bo_by})", flush=True)
+    plain_ms = {"K": cuda_ms(lambda: scalar_plain(False), 3, warmup=1),
+                "K trace": cuda_ms(lambda: scalar_plain(True), 2, warmup=1),
+                "M": cuda_ms(velocity_plain, 3, warmup=1),
+                "L": cuda_ms(lambda: (scalar_plain(True), velocity_plain()),
+                             2, warmup=1)}
+    for k, nbytes, ops_cell, trace in (("K", 24, per_scalar, False),
+                                       ("L", 36, per_all, True),
+                                       ("M", 28, 3 * per_component, False)):
+        b_ms, b_by = bound(nbytes * n, advect3_ops(flags, D, ops_cell, trace))
+        err = errs["stress"][k, trace] if k != "M" else errs["stress"]["M"]
+        ms = (times[k, "stress", trace] if k != "M"
+              else times["M", "stress"])
+        plain = plain_ms[k]
+        results[k] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+        print(f"{k}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
+    for k, nbytes, ops_cell in (("K", 24, per_scalar), ("L", 36, per_all)):
+        for name, f in flag_sets.items():
+            on_ms, on_by = bound(nbytes * n, advect3_ops(f, D, ops_cell,
+                                                         True))
+            off_ms, off_by = bound(nbytes * n, advect3_ops(f, D, ops_cell,
+                                                           False))
+            box_ms, box_by = bound(nbytes * n, ops_cell * n
+                                   + 30.0 * stats[name]["tested"])
+            print(f"{k} on the {name} flags: trace on "
+                  f"{times[k, name, True]:.4f} ms (bound {on_ms:.4f} "
+                  f"({on_by}); pruned-box bound "
+                  f"{box_ms:.4f} ({box_by})), trace off "
+                  f"{times[k, name, False]:.4f} ms (bound {off_ms:.4f} "
+                  f"({off_by}))", flush=True)
+    print(f"K plain with the trace {plain_ms['K trace']:.3f} ms; M on the "
+          f"scene flags {times['M', 'scene']:.4f} ms", flush=True)
+    for name, st in stats.items():
+        print(f"trace walk on the {name} flags (forward and backward rays): "
+              f"{st['rays']} rays, {st['walked']:.4f} walked (a blocked "
+              f"cell in the box), {st['offsets']:.3f} offsets a ray and "
+              f"{st['offsets_walk']:.3f} a walking ray (window "
+              f"{(2 * D + 1) ** 3 - 1}), {st['tested'] / st['rays']:.3f} "
+              "blocked cells tested a ray", flush=True)
     done()
+
+
+def walk_stats(flags, U, D, dt):
+    """How kernels K and L's pruned trace walks on ``flags``, counted from
+    ``line_trace3.firsthit_box3`` for the scalar's forward and backward
+    rays (fluid cells, displacement -/+dt times the centred velocity
+    clipped to +-D, of length > 1e-12): the rays, the share whose box
+    holds a blocked cell (only those run slab tests), the mean offsets of
+    the box within the grid (the ray's own cell left out) over all rays
+    and over those that walked, and the blocked cells tested in all."""
+    from fluidnet_cxx_tpu_torch.celltype import FLUID
+    from fluidnet_cxx_tpu_torch.ops import ops3d
+    from fluidnet_cxx_tpu_torch.ops.line_trace3 import (firsthit_box3,
+                                                        firsthit_slack3)
+
+    b, d, h, w = flags.shape
+    fluid = flags == FLUID
+    blocked = torch.nn.functional.pad((~fluid).float(), (D,) * 6) > 0.5
+    border = ops3d.border_mask3(d, h, w, 1, flags.device)
+    cc = ops3d.where0(~border[None, None], ops3d.get_centered3(U))
+    slack = firsthit_slack3((d, h, w), D)
+    zz, yy, xx = ops3d.index_grids3(b, d, h, w, flags.device)
+    rays = walked = offsets = offsets_walk = tested = 0
+    for sdt in (dt, -dt):
+        disp = torch.clamp(-sdt * cc, -D, D)
+        ray = fluid & (disp.square().sum(1).sqrt() > 1e-12)
+        box = firsthit_box3(disp, D, slack)
+        (xl, xh), (yl, yh), (zl, zh) = box
+        cells = 1
+        for (lo, hi), ii, dim in zip(box, (xx, yy, zz), (w, h, d)):
+            cells = cells * (torch.minimum(hi, dim - 1 - ii)
+                             - torch.maximum(lo, -ii) + 1)
+        vol = cells - 1
+        hits = torch.zeros_like(vol)
+        for oz in range(-D, D + 1):
+            for oy in range(-D, D + 1):
+                for ox in range(-D, D + 1):
+                    nb = blocked[:, D + oz:D + oz + d, D + oy:D + oy + h,
+                                 D + ox:D + ox + w]
+                    hits += (nb & (xl <= ox) & (ox <= xh) & (yl <= oy)
+                             & (oy <= yh) & (zl <= oz) & (oz <= zh)).int()
+        walks = ray & (hits > 0)
+        rays += int(ray.sum())
+        walked += int(walks.sum())
+        offsets += float(vol[ray].sum())
+        offsets_walk += float(vol[walks].sum())
+        tested += float(hits[ray].sum())
+    return dict(rays=rays, walked=walked / rays, offsets=offsets / rays,
+                offsets_walk=offsets_walk / max(walked, 1), tested=tested)
 
 
 def check_bf16(name, got, want):
@@ -1205,6 +1288,8 @@ def phase_small_check():
             32, 3, device=d, fuse_advection=True, line_trace=True),
         "32^3 plume3d unfused jacobi-60": lambda d: run_plume3d(
             32, 3, device=d),
+        "32^3 plume3d unfused trace jacobi-60": lambda d: run_plume3d(
+            32, 3, device=d, line_trace=True),
         "32^3 plume3d convnet p8": lambda d: run_plume3d(
             32, 3, device=d, sim_method="convnet", model_dir=MODEL_P8),
         "32^3 plume3d convnet p4": lambda d: run_plume3d(
@@ -1262,6 +1347,8 @@ def main_paths():
             sim_method="jacobi", jacobi_iter=200,
             fuse_advection=False) + ("DEF",),
         f"plume3d {RES3}^3 unfused jacobi-60": plume3d() + ("KMI",),
+        f"plume3d {RES3}^3 unfused trace jacobi-60": plume3d(
+            line_trace=True) + ("KMI",),
         f"plume3d {RES3}^3 fused trace jacobi-60": plume3d(
             fuse_advection=True, line_trace=True) + ("LI",),
         f"plume3d {RES3}^3 convnet p8": learned3d(MODEL_P8) + ("KMJN",),
@@ -1349,7 +1436,12 @@ def phase_profile(name, case):
         print(f"profile {name}: wall {wall_ms:.4f} ms/step, device busy "
               f"{dev_ms:.4f} ms/step, idle share {1 - dev_ms / wall_ms:.3f}",
               flush=True)
-        for e in sorted(events, key=dev_us, reverse=True)[:8]:
+        ranked = sorted(events, key=dev_us, reverse=True)
+        # The top 8, then the port's own kernels below them.
+        for i, e in enumerate(ranked):
+            if i >= 8 and not ("(anonymous namespace)::" in e.key
+                               or "fnk::" in e.key):
+                continue
             print(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step "
                   f"{e.count / n:6.1f} calls/step  {e.key[:70]}", flush=True)
     done()

@@ -21,24 +21,59 @@
 // idx -/+ vel*dt. Each velocity component is sampled from the cell centre
 // idx + 0.5 along its face's vector, as the reference does.
 //
-// What bounds it on an H100: with the trace off, bytes (K: rho, u, v, w,
-// flags in and rho' out, 24 B a cell; L: 36 B; M: 28 B, ~0.015-0.023 ms
-// at 128^3); the trilinear samples and clamps are ~150 operations a cell
-// per half, well under the fp32 rate. With the trace on, operations: each
-// fluid cell tests every blocked cell of its (2D+1)^3 window with three
-// slab tests (~20 operations each), twice (forward and backward).
-// Design: one thread per cell, x fastest, reading its window straight from
-// global memory (neighbourhoods stay in L1/L2), the trace a plain loop
-// over the 124 offsets that skips fluid cells. Two launches, because the
-// backward samples read the forward field at neighbours up to D cells
-// away, which other blocks write, and no block waits on another:
+// What bounds it on an H100: bytes (K: rho, u, v, w, flags in and rho'
+// out, 24 B a cell; L: 36 B; M: 28 B, ~0.015-0.023 ms at 128^3); the
+// trilinear samples and clamps are ~150 operations a cell per half and
+// the trace three slab tests (~30 operations) per blocked cell it tests,
+// well under the fp32 rate. What holds it back is latency and issue: each
+// cell gathers ~60-160 values from L1/L2 and, with the trace, walks its
+// obstacles, with 4-8 blocks of 256 threads an SM.
+//
+// Design: one thread per cell, x fastest, 32 x 8 cells of one z-plane a
+// block, reading neighbourhoods straight from global memory (L1/L2). Two
+// launches, because the backward samples read the forward field at
+// neighbours up to D cells away, which other blocks write, and no block
+// waits on another:
 //   launch 1 (forward): rho_fwd and its back-traced position (scalar
 //            half), u_fwd, v_fwd and w_fwd (velocity half) into scratch;
 //   launch 2 (backward): backward samples, MacCormack correction, clamps,
 //            border zeroing, outputs.
 // One template serves K, L and M: kScalar and kVel choose the halves, so
-// all three run the same device functions and agree bit for bit. Built
-// with -fmad=false in the plain versions' float32 order.
+// all three run the same device functions and agree bit for bit; kTrace
+// compiles the trace only into the kernels that run it, so the others keep
+// their registers; each kernel has the register budget that ran fastest
+// (min_blocks). Built with -fmad=false in the plain versions' float32
+// order. Staging a block's flags in shared memory (a byte or a bit a
+// cell, one plane a block or a 16-plane march) was built and was slower
+// on the card: the pruned walk reads a few flags a ray, which L1 holds
+// already, and the tile's loads and barrier cost more than they save.
+//
+// The first-hit trace walks an exact pruned box instead of the whole
+// (2D+1)^3 window. A blocked cell can lower the stopping parameter t only
+// if its expanded box meets the segment [c, c + t dir] at 0 <= t_in < t
+// <= len, and a min is exact and order-free, so leaving out cells that
+// cannot meet the segment changes no bit. The ray starts at the cell
+// centre x + 0.5; along an axis a with disp_a > 0 the cells behind it (o <
+// 0) end at x + 1e-5 < c, so their exit t_hi < 0 and the hit test fails,
+// and cells past floor(0.5 + disp_a + slack) start more than disp_a past c
+// (slack covers the 1e-5 margin, the rounding of lo = x - 1e-5 at this
+// grid's coordinates and of 0.5 + disp_a, and the ~4 ulp of inv = 1/dir
+// against len/disp), so their entry t_lo >= len >= t; mirrored for disp_a
+// < 0; for disp_a == 0 (or |dir_a| <= 1e-12) only the ray's own column has
+// its coordinate inside the slab. The box is thus, per axis, [floor(0.5 +
+// disp_a - slack), 0] or [0, floor(0.5 + disp_a + slack)] within [-D, D]
+// and the grid: the own cell alone for a ray that stays in it, at most 27
+// cells when every |disp_a| < 1.5. The domain's margin planes are the
+// faces of the cells just outside the grid, so by the same argument a box
+// inside the grid keeps t = len, and only a box that reaches past the grid
+// computes them. slack = 2^-12 + (max(d, h, w) + D) 2^-21 comes from the
+// wrapper (ops/line_trace3.py::firsthit_slack3; tests/test_torch_trace3_
+// prune.py holds this walk to the full one bit for bit). The walk reads one
+// flag a cell of the box and runs the slab tests only for blocked ones: a
+// ray with no blocked cell in reach tests nothing. The three reciprocals
+// 1/dir_a, the same values the plain version divides for each test, are
+// taken once a ray, and only when a margin plane or a blocked cell needs
+// them.
 #include "common.cuh"
 
 namespace {
@@ -51,12 +86,21 @@ constexpr float kBig = 3e38f;
 constexpr float kExtent = (float)(1.0 + 2.0 * 1e-5);
 #define kInf __int_as_float(0x7f800000)
 
+// A block: 32 x 8 cells of one z-plane, a thread a cell, x fastest.
+constexpr int kBlockX = 32, kBlockY = 8;
+// Blocks of 256 threads an SM must hold, for each kernel: 4 (64
+// registers), 6 (40) or 8 (32), the budgets that ran fastest on an H100.
+constexpr int min_blocks(bool backward, bool scalar, bool vel, bool trace) {
+  if (backward) return vel ? 4 : trace ? 6 : 8;
+  return trace ? 4 : scalar && vel ? 6 : 8;
+}
+
 struct Params {
-  int d, h, w, D, line_trace;
+  int d, h, w, D;
   float dt, halfstr;
   float dim_m[3];   // float32(dim - HIT_MARGIN) for x, y, z
+  float slack;      // the pruned trace box's margin (see the note above)
 };
-
 
 // One thread's cell: its coordinates, its index within the sample and the
 // sample's strides along x, y, z.
@@ -104,9 +148,10 @@ __device__ float trilinear(const float* f, const Params& P, const float c[3],
   return a0[2] * pl[0] + a1[2] * pl[1];
 }
 
-__device__ __forceinline__ float border_t(float p0, float d, float dim_m) {
-  bool ok = fabsf(d) > kEps;
-  float inv = 1.f / (ok ? d : 1.f);
+// The ray's parameter at the domain's margin planes along one axis; inv is
+// 1 / (ok ? dir : 1), ok = |dir| > 1e-12.
+__device__ __forceinline__ float border_t(float p0, bool ok, float inv,
+                                          float dim_m) {
   float t1 = (kHitMargin - p0) * inv;
   float t2 = (dim_m - p0) * inv;
   t1 = (ok && t1 >= 0.f) ? t1 : kBig;
@@ -114,10 +159,12 @@ __device__ __forceinline__ float border_t(float p0, float d, float dim_m) {
   return fminf(t1, t2);
 }
 
-__device__ __forceinline__ void slabs(float p0, float d, float lo, float hi,
+// Entry and exit parameters of the ray against cell coordinate X's
+// expanded slab along one axis.
+__device__ __forceinline__ void slabs(float p0, bool ok, float inv, int X,
                                       float* t_lo, float* t_hi) {
-  bool ok = fabsf(d) > kEps;
-  float inv = 1.f / (ok ? d : 1.f);
+  float lo = (float)X - kHitMargin;
+  float hi = lo + kExtent;
   float t1 = (lo - p0) * inv;
   float t2 = (hi - p0) * inv;
   bool in = p0 >= lo && p0 <= hi;
@@ -126,7 +173,11 @@ __device__ __forceinline__ void slabs(float p0, float d, float lo, float hi,
 }
 
 // Continuous first-hit trace from the centre c of fluid cell C along
-// disp (ops/line_trace3.py::line_trace_firsthit3).
+// disp (ops/line_trace3.py::line_trace_firsthit3) over the pruned box. A
+// box that stays inside the grid cannot reach the border planes either
+// (they are the faces of the cells just outside), so t starts at len
+// there; the reciprocals are taken only when a border plane or a blocked
+// cell needs them.
 __device__ void trace3(const Cell& C, const float c[3], const float disp[3],
                        const int* flags, const Params& P, float out[3]) {
   float len = sqrtf((disp[0] * disp[0] + disp[1] * disp[1]) +
@@ -134,36 +185,56 @@ __device__ void trace3(const Cell& C, const float c[3], const float disp[3],
   for (int a = 0; a < 3; ++a) out[a] = c[a];
   if (!(len > kEps)) return;
   float inv_len = 1.f / fmaxf(len, kEps);
-  float dir[3];
-  for (int a = 0; a < 3; ++a) dir[a] = disp[a] * inv_len;
-  float t = fminf(fminf(border_t(c[0], dir[0], P.dim_m[0]),
-                        border_t(c[1], dir[1], P.dim_m[1])),
-                  border_t(c[2], dir[2], P.dim_m[2]));
-  t = fminf(t, len);
-  const int D = P.D;
-  for (int oz = -D; oz <= D; ++oz) {
-    int Z = C.z + oz;
-    if (Z < 0 || Z >= P.d) continue;
-    for (int oy = -D; oy <= D; ++oy) {
-      int Y = C.y + oy;
-      if (Y < 0 || Y >= P.h) continue;
-      for (int ox = -D; ox <= D; ++ox) {
-        int X = C.x + ox;
-        if ((ox == 0 && oy == 0 && oz == 0) || X < 0 || X >= P.w) continue;
-        if (flags[idx3(P, X, Y, Z)] == kFluid) continue;
-        const int cell[3] = {X, Y, Z};
-        float t_in, t_out;
-        for (int a = 0; a < 3; ++a) {
-          float lo = (float)cell[a] - kHitMargin;
-          float tl, th;
-          slabs(c[a], dir[a], lo, lo + kExtent, &tl, &th);
-          t_in = a ? fmaxf(t_in, tl) : tl;
-          t_out = a ? fminf(t_out, th) : th;
-        }
+  const int idx[3] = {C.x, C.y, C.z};
+  const int dims[3] = {P.w, P.h, P.d};
+  float dir[3], inv[3];
+  bool ok[3];
+  int lo[3], hi[3];
+  bool edge = false;
+  for (int a = 0; a < 3; ++a) {
+    dir[a] = disp[a] * inv_len;
+    const float e = 0.5f + disp[a];
+    lo[a] = idx[a] + (disp[a] < 0.f ? max((int)floorf(e - P.slack), -P.D)
+                                     : 0);
+    hi[a] = idx[a] + (disp[a] > 0.f ? min((int)floorf(e + P.slack), P.D)
+                                     : 0);
+    edge |= lo[a] < 0 || hi[a] >= dims[a];
+    lo[a] = max(lo[a], 0);
+    hi[a] = min(hi[a], dims[a] - 1);
+  }
+  bool have_inv = false;
+  auto reciprocals = [&]() {
+    for (int a = 0; a < 3; ++a) {
+      ok[a] = fabsf(dir[a]) > kEps;
+      inv[a] = 1.f / (ok[a] ? dir[a] : 1.f);
+    }
+    have_inv = true;
+  };
+  float t = len;
+  if (edge) {
+    reciprocals();
+    t = fminf(fminf(fminf(border_t(c[0], ok[0], inv[0], P.dim_m[0]),
+                          border_t(c[1], ok[1], inv[1], P.dim_m[1])),
+                    border_t(c[2], ok[2], inv[2], P.dim_m[2])),
+              len);
+  }
+  for (int Z = lo[2]; Z <= hi[2]; ++Z)
+    for (int Y = lo[1]; Y <= hi[1]; ++Y) {
+      const int* row = flags + idx3(P, 0, Y, Z);
+      for (int X = lo[0]; X <= hi[0]; ++X) {
+        if (row[X] == kFluid) continue;
+        if (!have_inv) reciprocals();
+        float t_in, t_out, tl, th;
+        slabs(c[0], ok[0], inv[0], X, &t_in, &t_out);
+        slabs(c[1], ok[1], inv[1], Y, &tl, &th);
+        t_in = fmaxf(t_in, tl);
+        t_out = fminf(t_out, th);
+        slabs(c[2], ok[2], inv[2], Z, &tl, &th);
+        t_in = fmaxf(t_in, tl);
+        t_out = fminf(t_out, th);
         if (t_in <= t_out && t_in >= 0.f) t = fminf(t, t_in);
       }
     }
-  }
   t = fmaxf(t, 0.f);
   for (int a = 0; a < 3; ++a) out[a] = c[a] + t * dir[a];
 }
@@ -238,10 +309,11 @@ __device__ void mac_vector(const float* const U3[3], const Cell& C, int c,
 // The scalar's back-traced position for step sdt: the first-hit trace of
 // the displacement clipped to +-D (fluid cells; others stay at the
 // centre), or the straight back-trace.
+template <bool kTrace>
 __device__ void scalar_back(const Cell& C, const float c[3],
                             const float cc[3], float sdt, const int* flags,
                             const Params& P, float back[3]) {
-  if (!P.line_trace) {
+  if (!kTrace) {
     for (int a = 0; a < 3; ++a) back[a] = c[a] - sdt * cc[a];
     return;
   }
@@ -271,11 +343,13 @@ __device__ __forceinline__ size_t plane(int k, int b, int nb, size_t n) {
   return ((size_t)k * nb + b) * n;
 }
 
-template <bool kScalar, bool kVel>
-__global__ void advect3_forward(const float* __restrict__ rho,
-                                const float* __restrict__ U,
-                                const int* __restrict__ flags_all,
-                                float* __restrict__ scratch, Params P) {
+template <bool kScalar, bool kVel, bool kTrace>
+__global__ void __launch_bounds__(kBlockX * kBlockY,
+                                  min_blocks(false, kScalar, kVel, kTrace))
+    advect3_forward(const float* __restrict__ rho,
+                    const float* __restrict__ U,
+                    const int* __restrict__ flags_all,
+                    float* __restrict__ scratch, Params P) {
   int b;
   Cell C;
   const int* flags;
@@ -289,7 +363,7 @@ __global__ void advect3_forward(const float* __restrict__ rho,
   if (kScalar) {
     float cc[3], back[3];
     centred(U3, C, cc);
-    scalar_back(C, c, cc, P.dt, flags, P, back);
+    scalar_back<kTrace>(C, c, cc, P.dt, flags, P, back);
     scratch[plane(0, b, nb, C.n) + C.i] =
         sl(rho + (size_t)b * C.n, C, c, back, P);
     for (int a = 0; a < 3; ++a)
@@ -306,13 +380,15 @@ __global__ void advect3_forward(const float* __restrict__ rho,
   }
 }
 
-template <bool kScalar, bool kVel>
-__global__ void advect3_backward(const float* __restrict__ rho,
-                                 const float* __restrict__ U,
-                                 const int* __restrict__ flags_all,
-                                 const float* __restrict__ scratch,
-                                 float* __restrict__ rho_out,
-                                 float* __restrict__ U_out, Params P) {
+template <bool kScalar, bool kVel, bool kTrace>
+__global__ void __launch_bounds__(kBlockX * kBlockY,
+                                  min_blocks(true, kScalar, kVel, kTrace))
+    advect3_backward(const float* __restrict__ rho,
+                     const float* __restrict__ U,
+                     const int* __restrict__ flags_all,
+                     const float* __restrict__ scratch,
+                     float* __restrict__ rho_out,
+                     float* __restrict__ U_out, Params P) {
   int b;
   Cell C;
   const int* flags;
@@ -329,7 +405,7 @@ __global__ void advect3_backward(const float* __restrict__ rho,
     const float* src = rho + (size_t)b * C.n;
     float cc[3], back[3];
     centred(U3, C, cc);
-    scalar_back(C, c, cc, -P.dt, flags, P, back);
+    scalar_back<kTrace>(C, c, cc, -P.dt, flags, P, back);
     float bwd = sl(s_fwd, C, c, back, P);
     float fwd = s_fwd[C.i];
     float dst = C.fluid ? fwd + P.halfstr * (src[C.i] - bwd) : fwd;
@@ -406,21 +482,19 @@ __global__ void advect3_backward(const float* __restrict__ rho,
   }
 }
 
-const dim3 kBlock(32, 8);
-
 Params make_params(int d, int h, int w, float dt, float halfstr, float wm,
-                   float hm, float dm, int D, int line_trace) {
+                   float hm, float dm, float slack, int D) {
   Params P;
   P.d = d;
   P.h = h;
   P.w = w;
   P.D = D;
-  P.line_trace = line_trace;
   P.dt = dt;
   P.halfstr = halfstr;
   P.dim_m[0] = wm;
   P.dim_m[1] = hm;
   P.dim_m[2] = dm;
+  P.slack = slack;
   return P;
 }
 
@@ -429,38 +503,48 @@ bool bad_shape(int b, int d, int h, int w, int D) {
          (long long)b * d > 65535;
 }
 
-dim3 grid_of(int b, const Params& P) {
-  return dim3((P.w + kBlock.x - 1) / kBlock.x,
-              (P.h + kBlock.y - 1) / kBlock.y, b * P.d);
+// Launch one kernel over b samples.
+template <class Kernel, class... Args>
+int launch(Kernel kern, int b, const Params& P, cudaStream_t s,
+           Args... args) {
+  const dim3 grid((P.w + kBlockX - 1) / kBlockX,
+                  (P.h + kBlockY - 1) / kBlockY, b * P.d);
+  kern<<<grid, dim3(kBlockX, kBlockY), 0, s>>>(args...);
+  return fnk::launch_status();
 }
 
 }  // namespace
 
-// `parts`: 1 the scalar (K), 2 the velocity (M), 3 both (L). wm, hm, dm
-// are float32(w - 1e-5), float32(h - 1e-5), float32(d - 1e-5). Scratch:
-// b*d*h*w floats times 4 for K, 3 for M, 7 for L. rho and rho_out may be
-// null without the scalar, U_out without the velocity.
+// `parts`: 1 the scalar (K), 2 the velocity (M), 3 both (L); the velocity
+// alone never traces. wm, hm, dm are float32(w - 1e-5), float32(h - 1e-5),
+// float32(d - 1e-5); slack the trace box's margin
+// (ops/line_trace3.py::firsthit_slack3). Scratch: b*d*h*w floats times 4
+// for K, 3 for M, 7 for L. rho and rho_out may be null without the scalar,
+// U_out without the velocity.
 extern "C" int fn_advect3_forward(int parts, const float* rho,
                                   const float* U, const int* flags,
                                   float* scratch, int b, int d, int h, int w,
                                   float dt, float wm, float hm, float dm,
-                                  int D, int line_trace, void* stream) {
+                                  float slack, int D, int line_trace,
+                                  void* stream) {
   if (bad_shape(b, d, h, w, D)) return static_cast<int>(cudaErrorInvalidValue);
-  Params P = make_params(d, h, w, dt, 0.f, wm, hm, dm, D, line_trace);
+  const Params P = make_params(d, h, w, dt, 0.f, wm, hm, dm, slack, D);
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = grid_of(b, P);
+  const bool tr = line_trace != 0;
   if (parts == 1)
-    advect3_forward<true, false><<<g, kBlock, 0, s>>>(rho, U, flags, scratch,
-                                                      P);
-  else if (parts == 2)
-    advect3_forward<false, true><<<g, kBlock, 0, s>>>(rho, U, flags, scratch,
-                                                      P);
-  else if (parts == 3)
-    advect3_forward<true, true><<<g, kBlock, 0, s>>>(rho, U, flags, scratch,
-                                                     P);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return fnk::launch_status();
+    return tr ? launch(advect3_forward<true, false, true>, b, P, s, rho, U,
+                       flags, scratch, P)
+              : launch(advect3_forward<true, false, false>, b, P, s, rho, U,
+                       flags, scratch, P);
+  if (parts == 2)
+    return launch(advect3_forward<false, true, false>, b, P, s, rho, U,
+                  flags, scratch, P);
+  if (parts == 3)
+    return tr ? launch(advect3_forward<true, true, true>, b, P, s, rho, U,
+                       flags, scratch, P)
+              : launch(advect3_forward<true, true, false>, b, P, s, rho, U,
+                       flags, scratch, P);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int fn_advect3_backward(int parts, const float* rho,
@@ -468,22 +552,24 @@ extern "C" int fn_advect3_backward(int parts, const float* rho,
                                    const float* scratch, float* rho_out,
                                    float* U_out, int b, int d, int h, int w,
                                    float dt, float halfstr, float wm,
-                                   float hm, float dm, int D, int line_trace,
-                                   void* stream) {
+                                   float hm, float dm, float slack, int D,
+                                   int line_trace, void* stream) {
   if (bad_shape(b, d, h, w, D)) return static_cast<int>(cudaErrorInvalidValue);
-  Params P = make_params(d, h, w, dt, halfstr, wm, hm, dm, D, line_trace);
+  const Params P = make_params(d, h, w, dt, halfstr, wm, hm, dm, slack, D);
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 g = grid_of(b, P);
+  const bool tr = line_trace != 0;
   if (parts == 1)
-    advect3_backward<true, false><<<g, kBlock, 0, s>>>(rho, U, flags, scratch,
-                                                       rho_out, U_out, P);
-  else if (parts == 2)
-    advect3_backward<false, true><<<g, kBlock, 0, s>>>(rho, U, flags, scratch,
-                                                       rho_out, U_out, P);
-  else if (parts == 3)
-    advect3_backward<true, true><<<g, kBlock, 0, s>>>(rho, U, flags, scratch,
-                                                      rho_out, U_out, P);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return fnk::launch_status();
+    return tr ? launch(advect3_backward<true, false, true>, b, P, s, rho, U,
+                       flags, scratch, rho_out, U_out, P)
+              : launch(advect3_backward<true, false, false>, b, P, s, rho, U,
+                       flags, scratch, rho_out, U_out, P);
+  if (parts == 2)
+    return launch(advect3_backward<false, true, false>, b, P, s, rho, U,
+                  flags, scratch, rho_out, U_out, P);
+  if (parts == 3)
+    return tr ? launch(advect3_backward<true, true, true>, b, P, s, rho, U,
+                       flags, scratch, rho_out, U_out, P)
+              : launch(advect3_backward<true, true, false>, b, P, s, rho, U,
+                       flags, scratch, rho_out, U_out, P);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

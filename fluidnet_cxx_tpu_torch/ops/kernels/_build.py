@@ -71,10 +71,10 @@ SIGNATURES = {
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
     "fn_conv3d_ndhwc": [VP] * 6 + [I] * 19 + [VP, VP],
-    "fn_advect3_forward": [I, VP, VP, VP, VP, I, I, I, I, F, F, F, F, I, I,
-                           VP],
+    "fn_advect3_forward": [I, VP, VP, VP, VP, I, I, I, I, F, F, F, F, F, I,
+                           I, VP],
     "fn_advect3_backward": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, F, F, F,
-                            F, F, I, I, VP],
+                            F, F, F, I, I, VP],
 }
 # extern "C" entries that launch nothing and return a number.
 QUERIES = {

@@ -9,13 +9,16 @@
 
 All three run the CUDA kernels of ``csrc/advect3.cu`` in two launches
 (forward samples into scratch, then backward samples, correction and
-clamps). Their plain versions are the window engine of ``ops/ops3d.py``
+clamps); the first-hit trace walks the pruned box of
+``line_trace3.firsthit_box3``, whose margin the wrapper passes. Their
+plain versions are the window engine of ``ops/ops3d.py``
 (``advect_scalar3``, ``advect_velocity3``): a CPU tensor runs it, a CUDA
 tensor the kernel.
 """
 import torch
 
 from .. import ops3d
+from ..line_trace3 import firsthit_slack3
 from . import _build
 
 _SCALAR, _VELOCITY = 1, 2
@@ -51,15 +54,16 @@ def _launch(owner, parts, dt, rho, U, flags, maccormack_strength, max_disp,
     rho_out = torch.empty_like(rho) if parts & _SCALAR else None
     U_out = torch.empty_like(U) if parts & _VELOCITY else None
     dims_m = (w - 1e-5, h - 1e-5, d - 1e-5)
+    slack = firsthit_slack3((d, h, w), max_disp)
     s = _build.stream()
     _build.call("fn_advect3_forward", parts, _build.ptr(rho), U.data_ptr(),
                 flags.data_ptr(), scratch.data_ptr(), b, d, h, w, float(dt),
-                *dims_m, int(max_disp), int(line_trace), s)
+                *dims_m, slack, int(max_disp), int(line_trace), s)
     owner.launches += 1
     _build.call("fn_advect3_backward", parts, _build.ptr(rho), U.data_ptr(),
                 flags.data_ptr(), scratch.data_ptr(), _build.ptr(rho_out),
                 _build.ptr(U_out), b, d, h, w, float(dt),
-                maccormack_strength * 0.5, *dims_m, int(max_disp),
+                maccormack_strength * 0.5, *dims_m, slack, int(max_disp),
                 int(line_trace), s)
     owner.launches += 1
     return rho_out, U_out
