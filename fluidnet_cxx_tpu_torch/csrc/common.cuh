@@ -56,22 +56,33 @@ __device__ __forceinline__ uint8_t cell_mask(const int* flags, int x, int y,
   return m;
 }
 
-// One Jacobi update of cell i of a row-major field p with row stride
-// `stride` (ops/jacobi.py::_sweep_maker, same float32 operation order):
-// obstacle neighbours read the centre value, non-continuation cells are
-// pinned to 0, `damped` blends keep * p + damping * update.
+// One Jacobi update of a cell with mask byte m from its own value pc and
+// its neighbours' values at x-1, x+1, y-1, y+1 (ops/jacobi.py::
+// _sweep_maker, same float32 operation order): obstacle neighbours read
+// the centre value, non-continuation cells are pinned to 0, `damped`
+// blends keep * p + damping * update.
+__device__ __forceinline__ float jacobi_update(uint8_t m, float pc, float xm,
+                                               float xp, float ym, float yp,
+                                               float rhs, int damped,
+                                               float keep, float damping) {
+  if (!(m & kCont)) return 0.f;
+  float p1 = (m & kObXm) ? pc : xm;
+  float p2 = (m & kObXp) ? pc : xp;
+  float p3 = (m & kObYm) ? pc : ym;
+  float p4 = (m & kObYp) ? pc : yp;
+  float upd = ((((p1 + p2) + p3) + p4) + rhs) * 0.25f;
+  return damped ? keep * pc + damping * upd : upd;
+}
+
+// jacobi_update of cell i of a row-major field p with row stride
+// `stride` (a continuation cell is interior: its neighbours are in p).
 __device__ __forceinline__ float jacobi_cell(const float* p, int i,
                                              int stride, uint8_t m, float rhs,
                                              int damped, float keep,
                                              float damping) {
   if (!(m & kCont)) return 0.f;
-  float pc = p[i];
-  float p1 = (m & kObXm) ? pc : p[i - 1];
-  float p2 = (m & kObXp) ? pc : p[i + 1];
-  float p3 = (m & kObYm) ? pc : p[i - stride];
-  float p4 = (m & kObYp) ? pc : p[i + stride];
-  float upd = ((((p1 + p2) + p3) + p4) + rhs) * 0.25f;
-  return damped ? keep * pc + damping * upd : upd;
+  return jacobi_update(m, p[i], p[i - 1], p[i + 1], p[i - stride],
+                       p[i + stride], rhs, damped, keep, damping);
 }
 
 // Pressure-gradient velocity update (fluid/empty face rules, border faces

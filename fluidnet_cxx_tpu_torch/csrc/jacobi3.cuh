@@ -1,9 +1,11 @@
-// Kernel I's sweep and mask code, shared by kernel I (csrc/jacobi3.cu) and
-// kernel J (csrc/proj_tail3.cu): the 3-D Jacobi pressure sweep (6
-// neighbours) with the obstacle-Neumann substitution folded into
-// cnt * p_c, in the float32 order of ops/ops3d.py::solve_jacobi_fixed3:
-// acc = div + cnt * p_c, then + x-1, + x+1, + y-1, + y+1, + z-1, + z+1,
-// times float32(1/6), then the weighted-Jacobi blend.
+// The 3-D Jacobi code shared by kernel I (csrc/jacobi3.cu) and kernel J
+// (csrc/proj_tail3.cu): the mask byte, the argument checks, and the
+// one-sweep launch that J runs (I runs several sweeps a launch, in
+// jacobi3.cu): the 3-D Jacobi pressure sweep (6 neighbours) with the
+// obstacle-Neumann substitution folded into cnt * p_c, in the float32
+// order of ops/ops3d.py::solve_jacobi_fixed3: acc = div + cnt * p_c, then
+// + x-1, + x+1, + y-1, + y+1, + z-1, + z+1, times float32(1/6), then the
+// weighted-Jacobi blend.
 //
 // Threads run x fastest, one z-slice of one sample per blockIdx.z; cell
 // indices are size_t.
@@ -92,10 +94,11 @@ __global__ void __launch_bounds__(256)
   p_out[i] = damped ? keep * pc + damping * upd : upd;
 }
 
-// The buffer a warm start goes into so that the last of `iters` sweeps
-// lands in p_out: an odd count starts writing p_out, an even one tmp.
-inline float* warm_buffer3(int iters, float* tmp, float* p_out) {
-  return (iters % 2) ? tmp : p_out;
+// The buffer a warm start goes into so that the last of `launches`
+// ping-ponging launches lands in p_out: an odd count starts writing p_out,
+// an even one tmp.
+inline float* warm_buffer3(int launches, float* tmp, float* p_out) {
+  return (launches % 2) ? tmp : p_out;
 }
 
 // `iters` sweep launches from src (null: zeros; else warm_buffer3's

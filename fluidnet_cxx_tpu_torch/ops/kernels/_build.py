@@ -20,6 +20,7 @@ Run ``python -m fluidnet_cxx_tpu_torch.ops.kernels._build`` to build and
 print nvcc's ``-Xptxas -v`` report (registers, shared memory, spills).
 """
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -79,6 +80,7 @@ SIGNATURES = {
 # extern "C" entries that launch nothing and return a number.
 QUERIES = {
     "fn_jacobi_max_sweeps": [],
+    "fn_jacobi3_max_sweeps": [],
     "fn_mg_cut_level": [I, VP, VP],
 }
 
@@ -186,6 +188,13 @@ def query(name: str, *args) -> int:
     if name not in QUERIES:
         raise KeyError(f"{name} is not a query entry")
     return getattr(library(), name)(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(name: str) -> int:
+    """The answer of a ``QUERIES`` entry that takes no arguments: a constant
+    of the built library, asked once a process."""
+    return query(name)
 
 
 def ptr(t):

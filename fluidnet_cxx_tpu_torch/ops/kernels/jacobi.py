@@ -26,7 +26,7 @@ def sweeps(owner, p, rhs, mask, dst_pair, k: int, damping: float):
     buffer holding the result (``p`` itself when k is 0)."""
     b, h, w = rhs.shape
     damped, keep, w_ = sweep_args(damping)
-    max_sweeps = _build.query("fn_jacobi_max_sweeps")
+    max_sweeps = _build.constant("fn_jacobi_max_sweeps")
     done = 0
     while done < k:
         n = min(max_sweeps, k - done)

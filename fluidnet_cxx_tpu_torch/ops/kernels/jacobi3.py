@@ -3,8 +3,10 @@
 Replaces ``fluidnet_cxx_tpu/ops/pallas/jacobi3_pallas.py::
 solve_jacobi3_pallas`` with the CUDA kernels in ``csrc/jacobi3.cu``: one
 launch that builds the per-cell mask byte (and zeroes a warm start on
-obstacles), then one launch per sweep, ping-ponging two pressure buffers,
-all issued by one C call. No launch waits on another block. The plain
+obstacles), then one launch per ``fn_jacobi3_max_sweeps()`` sweeps (a
+z-march that keeps each sweep's planes in registers and shared memory),
+ping-ponging two pressure buffers, all issued by one C call. No launch
+waits on another block. The plain
 version is ``ops/ops3d.py::solve_jacobi_fixed3``, in the same float32
 order; a CPU tensor runs it, a CUDA tensor the kernels.
 """
@@ -37,7 +39,8 @@ def solve_jacobi3(flags, div, iters: int, p0=None, damping: float = 1.0):
                 _build.ptr(p0), mask.data_ptr(), tmp.data_ptr(),
                 p.data_ptr(), b, d, h, w, iters, *sweep_args(damping),
                 _build.stream())
-    solve_jacobi3.launches += 1 + iters
+    per_launch = _build.constant("fn_jacobi3_max_sweeps")
+    solve_jacobi3.launches += 1 + -(-iters // per_launch)
     return p
 
 
