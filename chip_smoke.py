@@ -15,9 +15,10 @@ Phases (each prints its elapsed seconds):
      512^2 with 8% random obstacles (A and E also with an `orig` far from
      U); E and F also at 800x8000 on the cylinder's flags, E with the
      viscous field as `orig` (with the plain version's peak memory there);
-     F, G and H also on the 512x128 Rayleigh-Taylor box; at 512^2 G and H
-     also no further than twice the plain version's float32 rounding from
-     its float64 run; I, K, L and M at 128^3 with 8% random obstacles
+     F, G and H also on the 512x128 Rayleigh-Taylor box (G and H cold and
+     warm on both, each bit-equal on a repeat); at 512^2 G and H also no
+     further than twice the plain version's float32 rounding from its
+     float64 run; I, K, L and M at 128^3 with 8% random obstacles
      and displacements up to 3 cells (past the 3-D window clamp of 2), K
      and L with the first-hit trace on and off, L also against K and M,
      K, L and M also on the plume scene's flags (the border shell alone)
@@ -36,11 +37,13 @@ Phases (each prints its elapsed seconds):
      called twice give the same bits; then CUDA-event times of the
      kernel, the plain version and, for B and N, the same forward as cuDNN
      F.conv2d/F.conv3d calls (N: in bfloat16 with channels_last_3d, and
-     in float32), B, C, F (also at 512x128 and 8000x800), G, H, I, J (16
-     and 8 sweeps), N and the cuDNN chains as device time (the call
-     captured in a CUDA graph; the eager time beside it), F, G, H and I
-     beside their device time before F's and I's redesign (STEP0_MS) and
-     with their launches a call, and the
+     in float32), B, C, F (also at 512x128 and 8000x800), G, H (cold and
+     warm at 512^2 and 512x128), I, J (16 and 8 sweeps), N and the cuDNN
+     chains as device time (the call captured in a CUDA graph; the eager
+     time beside it), G and H beside their times before their redesign
+     (STEP0_MS) with their launches a call and their device time split
+     into the single-block tail, the per-level launches and the rest, F,
+     G, H and I with their launches a call, and the
      per-layer tables of B (512^2) and N (p8, p4 in bfloat16): each
      layer's plan, blocks, device time, cuDNN's same layer and its bound;
   4. small-input checks, the card against the plain path on the CPU:
@@ -62,11 +65,13 @@ Phases (each prints its elapsed seconds):
      the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
      J, N) at full widths, weights from seed 0; finite fields, ms per
-     step, quality stats, launches per step (J and N held to their exact
-     counts); then the `kernels` JSON line;
+     step, quality stats, launches per step (J, N, and H on mg-2v and G on
+     the RT multigrid path held to their exact counts); then the `kernels`
+     JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's.
+`python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -99,11 +104,16 @@ STEPS = 20
 SEED = 0
 MODEL_P8 = "trained_models/PUNet3p8_64"
 MODEL_P4 = "trained_models/PUNet3_32"
-# Device ms (graph_ms) of kernels F, G, H and I before F's and I's
-# redesign, printed beside this run's: this script's run on the parent
-# kernels, NVIDIA H100 80GB HBM3 at 700 W.
-STEP0_MS = {"F 512^2": 0.4007, "F RT": 0.3532, "F cylinder": 0.9128,
-            "G": 0.2013, "H": 0.2786, "I": 0.6601}
+# (device ms, eager ms) of kernels G and H in each case of mg_cases
+# before their redesign (Step 0), printed beside this run's:
+# `chip_smoke.py --mg-only` run in a checkout of the parent kernels,
+# NVIDIA H100 80GB HBM3 at 700 W.
+STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
+            "H 512^2 cold": (0.2404, 0.7435),
+            "G 512^2 warm": (0.2397, 0.8818),
+            "H 512^2 warm": (0.2487, 0.8891),
+            "G RT cold": (0.1818, 0.4410), "H RT cold": (0.1820, 0.4298),
+            "G RT warm": (0.1815, 0.5678), "H RT warm": (0.1819, 0.4367)}
 
 
 def phase(name):
@@ -593,7 +603,7 @@ def phase_split_advection(dev, gen, flags, U, rho, results):
     f_ms, f_eager = device_and_eager(run)
     b_ms, b_by = bound(12 * nc, 10.0 * 34 * cont_cells(cflags))
     print(f"F {CYL_W}x{CYL_H}, 34 sweeps: kernel {f_ms:.4f} ms device (eager "
-          f"{f_eager:.4f}; Step 0 {STEP0_MS['F cylinder']}), "
+          f"{f_eager:.4f}), "
           f"{launches_of(jacobi.solve_jacobi, run)} launches, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     done()
@@ -624,26 +634,98 @@ def mg_ops(shapes, n_vcycles, pre=4, post=4, coarse=32):
     return n_vcycles * per + 3 * n[0]
 
 
-def phase_solvers(dev, results):
-    """Kernels F, G and H at the main paths' shapes."""
-    from fluidnet_cxx_tpu_torch.ops.jacobi import solve_jacobi_fixed
-    from fluidnet_cxx_tpu_torch.ops.kernels import jacobi, mg
-    from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
-    from fluidnet_cxx_tpu_torch.ops.multigrid import solve_mg as mg_plain
+def solver_inputs(dev):
+    """The 512^2 stress flags (8% obstacles), U, its divergence and a warm
+    start, and the same four on the 512x128 Rayleigh-Taylor box."""
     from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
     from fluidnet_cxx_tpu_torch.sim.scenes import create_rayleigh_taylor_scene
 
     gen = torch.Generator().manual_seed(SEED + 1)
     flags, U, _ = stress_inputs(gen, dev, RES)
-    div = velocity_divergence(U, flags)
     p0 = torch.randn((1, RES, RES), generator=gen).to(dev)
     rt_flags = create_rayleigh_taylor_scene(RT_W, RT_H, device=dev).flags
     rt_U = (2.0 * torch.randn((1, 2, RT_H, RT_W), generator=gen)).to(dev)
-    rt_div = velocity_divergence(rt_U, rt_flags)
     rt_p0 = torch.randn((1, RT_H, RT_W), generator=gen).to(dev)
+    return {f"{RES}^2": (flags, U, velocity_divergence(U, flags), p0),
+            "RT": (rt_flags, rt_U, velocity_divergence(rt_U, rt_flags),
+                   rt_p0)}
+
+
+def mg_cases(inputs):
+    """name -> (kernel call, plain call) of G and H, 2 V-cycles cold and
+    warm, at 512^2 with obstacles and on the 512x128 box."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import mg
+    from fluidnet_cxx_tpu_torch.ops.multigrid import solve_mg as mg_plain
+
+    cases = {}
+    for where, (flags, U, div, p0) in inputs.items():
+        for start, kw in (("cold", dict(n_vcycles=2)),
+                          ("warm", dict(n_vcycles=2, p0=p0))):
+            cases[f"G {where} {start}"] = (
+                lambda f=flags, d=div, kw=kw: [mg.solve_mg(f, d, **kw)],
+                lambda f=flags, d=div, kw=kw: [mg_plain(f, d, **kw)])
+            cases[f"H {where} {start}"] = (
+                lambda f=flags, u=U, kw=kw: list(mg.project_mg(f, u, **kw)),
+                lambda f=flags, u=U, kw=kw: list(mg.project_mg_plain(f, u,
+                                                                     **kw)))
+    return cases
+
+
+def mg_times(inputs):
+    """Device and eager ms of every case of mg_cases (the Step 0
+    measurement: run it on any version of the package)."""
+    return {name: device_and_eager(run)
+            for name, (run, _) in mg_cases(inputs).items()}
+
+
+def dev_us(e):
+    return getattr(e, "self_device_time_total", 0.0) or 0.0
+
+
+def device_split(fn, reps=5):
+    """{kernel name: (device ms, launches)} per call of ``fn`` under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: (dev_us(e) / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0}
+
+
+def print_split(name, split):
+    """G's or H's device time split into the single-block tail, the
+    per-level down and up launches and the rest (set-up, epilogue)."""
+    groups = {"tail": ("mg_tail",), "down": ("mg_down",), "up": ("mg_up",)}
+    parts = {g: [0.0, 0.0] for g in list(groups) + ["rest"]}
+    for key, (ms, n) in split.items():
+        g = next((g for g, ks in groups.items()
+                  if any(k in key for k in ks)), "rest")
+        parts[g][0] += ms
+        parts[g][1] += n
+    print(f"{name} split: " + ", ".join(
+        f"{g} {ms:.4f} ms ({n:g} launches)" for g, (ms, n) in parts.items()),
+        flush=True)
+    for key, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:9.4f} ms {n:5.1f} launches  {key[:70]}", flush=True)
+
+
+def phase_solvers(dev, results):
+    """Kernel F at the main paths' shapes."""
+    from fluidnet_cxx_tpu_torch.ops.jacobi import solve_jacobi_fixed
+    from fluidnet_cxx_tpu_torch.ops.kernels import jacobi
+
+    inputs = solver_inputs(dev)
+    flags, _, div, p0 = inputs[f"{RES}^2"]
+    rt_flags, _, rt_div, _ = inputs["RT"]
     n, n_rt = RES * RES, RT_H * RT_W
 
-    # ---- F: Jacobi ----
     done = phase("kernel F solve_jacobi")
     it = 200
     got = jacobi.solve_jacobi(flags, div, it)
@@ -667,94 +749,84 @@ def phase_solvers(dev, results):
     b_ms, b_by = bound(12 * n, 10.0 * it * cont_cells(flags))
     results["F"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
-    print(f"F: kernel {ms:.4f} ms device (eager {eager_ms:.4f}; Step 0 "
-          f"{STEP0_MS['F 512^2']}), {launches_of(jacobi.solve_jacobi, run)} "
+    print(f"F: kernel {ms:.4f} ms device (eager {eager_ms:.4f}), "
+          f"{launches_of(jacobi.solve_jacobi, run)} "
           f"launches, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
           flush=True)
     run = lambda: jacobi.solve_jacobi(rt_flags, rt_div, it)
     rt_ms, rt_eager = device_and_eager(run)
     rt_b, rt_by = bound(12 * n_rt, 10.0 * it * cont_cells(rt_flags))
     print(f"F {RT_H}x{RT_W}, {it} sweeps: kernel {rt_ms:.4f} ms device "
-          f"(eager {rt_eager:.4f}; Step 0 {STEP0_MS['F RT']}), "
+          f"(eager {rt_eager:.4f}), "
           f"{launches_of(jacobi.solve_jacobi, run)} launches, bound "
           f"{rt_b:.4f} ms ({rt_by})", flush=True)
     done()
 
-    # ---- G: multigrid solve (its main path is the periodic RT box) ----
-    done = phase("kernel G solve_mg")
-    kw = dict(n_vcycles=2, p0=rt_p0)
-    got = mg.solve_mg(rt_flags, rt_div, **kw)
-    torch.cuda.synchronize()
-    want = mg_plain(rt_flags, rt_div, **kw)
-    # The compatibility projections, the gauge and the child sums add in
-    # another order than PyTorch's reductions.
-    err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
-    check(f"G solve_mg ({RT_H}x{RT_W}, 2 warm V-cycles)", err, tol)
-    # Fixed-order sums: a second run gives the same bits.
-    check("G solve_mg (repeat)",
-          max_err([mg.solve_mg(rt_flags, rt_div, **kw)], [got]), 0.0)
-    # At 512^2 with obstacles |p| reaches ~3.8e3 and the float32 plain
-    # version is itself ~1e-1 from its float64 run, so G is also held to
-    # that float64 run.
-    for start, args in (("cold", dict(n_vcycles=2)),
-                        ("warm", dict(n_vcycles=2, p0=p0))):
-        name = f"G solve_mg ({RES}^2 obstacles, 2 {start} V-cycles)"
-        g2, w2 = mg.solve_mg(flags, div, **args), mg_plain(flags, div, **args)
-        check(name, max_err([g2], [w2]), 1e-4 * scale_of([w2]))
-        args64 = {k: v.double() if torch.is_tensor(v) else v
-                  for k, v in args.items()}
-        check_rounding(name, [g2], [w2],
-                       [mg_plain(flags, div.double(), **args64)])
-    run = lambda: mg.solve_mg(rt_flags, rt_div, **kw)
-    ms, eager_ms = device_and_eager(run)
-    plain_ms = cuda_ms(lambda: mg_plain(rt_flags, rt_div, **kw), 3, warmup=1)
-    sq_ms, sq_eager = device_and_eager(
-        lambda: mg.solve_mg(flags, div, n_vcycles=2, p0=p0))
-    b_ms, b_by = bound(16 * n_rt, mg_ops(level_shapes(RT_H, RT_W), 2))
-    results["G"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"G: kernel {ms:.4f} ms device (eager {eager_ms:.4f}; Step 0 "
-          f"{STEP0_MS['G']}), {launches_of(mg.solve_mg, run)} launches "
-          f"({RES}^2: {sq_ms:.4f} ms device, eager {sq_eager:.4f}), plain "
-          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+
+def phase_mg(dev, results):
+    """Kernels G and H: every case of mg_cases against its plain version
+    (1e-4 of each output's largest value: the compatibility projections,
+    the gauge and the partial sums add in another order than PyTorch's
+    reductions) and bit-equal on a repeat; at 512^2 (|p| ~3.8e3, where
+    the float32 plain version is itself ~1e-1 from its float64 run) also
+    against the plain version's float64 run. Then device and eager time
+    beside Step 0's (the parent kernels), launches a call and the split
+    of device time by launch kind."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build, mg
+    from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
+
+    inputs = solver_inputs(dev)
+    cases = mg_cases(inputs)
+    done = phase("kernels G solve_mg and H project_mg")
+    errs = {}
+    for name, (run, plain) in cases.items():
+        got, want = run(), plain()
+        fields = ("p", "U'")[:len(got)]
+        for i, field in enumerate(fields):
+            check(f"{name} {field}", max_err(got[i:i + 1], want[i:i + 1]),
+                  1e-4 * scale_of(want[i:i + 1]))
+        errs[name] = max_err(got, want)
+        check(f"{name} (repeat)", max_err(run(), got), 0.0)
+        if f"{RES}^2" in name:
+            flags, U, div, p0 = inputs[f"{RES}^2"]
+            warm = {"p0": p0.double()} if "warm" in name else {}
+            exact = (mg.project_mg_plain(flags, U.double(), n_vcycles=2,
+                                         **warm) if name[0] == "H" else
+                     [mg.solve_mg_plain(flags, div.double(), n_vcycles=2,
+                                        **warm)])
+            for i, field in enumerate(fields):
+                check_rounding(f"{name} {field}", got[i:i + 1],
+                               want[i:i + 1], exact[i:i + 1])
     done()
 
-    # ---- H: multigrid projection ----
-    done = phase("kernel H project_mg")
-    kw = dict(n_vcycles=2, p0=p0)
-    got = mg.project_mg(flags, U, **kw)
-    torch.cuda.synchronize()
-    want = mg.project_mg_plain(flags, U, **kw)
-    # Each output against its own largest value, and against the float64
-    # run of the plain version.
-    name = f"H project_mg ({RES}^2 obstacles, 2 warm V-cycles)"
-    exact = mg.project_mg_plain(flags, U.double(), p0=p0.double(),
-                                n_vcycles=2)
-    for i, field in enumerate(("p", "U'")):
-        check(f"{name} {field}", max_err(got[i:i + 1], want[i:i + 1]),
-              1e-4 * scale_of(want[i:i + 1]))
-        check_rounding(f"{name} {field}", got[i:i + 1], want[i:i + 1],
-                       exact[i:i + 1])
-    err = max_err(got, want)
-    check("H project_mg (repeat)",
-          max_err(mg.project_mg(flags, U, **kw), got), 0.0)
-    got2 = mg.project_mg(rt_flags, rt_U, rt_p0, n_vcycles=2)
-    want2 = mg.project_mg_plain(rt_flags, rt_U, rt_p0, n_vcycles=2)
-    for i, field in enumerate(("p", "U'")):
-        check(f"H project_mg ({RT_H}x{RT_W}, 2 warm V-cycles) {field}",
-              max_err(got2[i:i + 1], want2[i:i + 1]),
-              1e-4 * scale_of(want2[i:i + 1]))
-    run = lambda: mg.project_mg(flags, U, **kw)
-    ms, eager_ms = device_and_eager(run)
-    plain_ms = cuda_ms(lambda: mg.project_mg_plain(flags, U, **kw), 3,
-                       warmup=1)
-    b_ms, b_by = bound(28 * n, mg_ops(level_shapes(RES, RES), 2) + 12 * n)
-    results["H"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"H: kernel {ms:.4f} ms device (eager {eager_ms:.4f}; Step 0 "
-          f"{STEP0_MS['H']}), {launches_of(mg.project_mg, run)} launches, "
-          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
-          flush=True)
+    done = phase("kernels G and H timed")
+    times = mg_times(inputs)
+    counters = {"G": mg.solve_mg, "H": mg.project_mg}
+    for name, (ms, eager) in times.items():
+        step0 = STEP0_MS[name]
+        print(f"{name}: kernel {ms:.4f} ms device (eager {eager:.4f}); Step 0 "
+              f"{step0[0]:.4f} (eager {step0[1]:.4f}); "
+              f"{launches_of(counters[name[0]], cases[name][0])} launches",
+              flush=True)
+    for name, (h, w) in (("G RT warm", (RT_H, RT_W)),
+                         (f"H {RES}^2 warm", (RES, RES))):
+        cut = _build.query("fn_mg_cut_level", h, w, 8)
+        print(f"{name}: the single-block tail runs levels "
+              f"{level_shapes(h, w)[cut:]}", flush=True)
+        print_split(name, device_split(cases[name][0]))
+    n, n_rt = RES * RES, RT_H * RT_W
+    # G's main path is the periodic RT box, H's the 512^2 plume.
+    for k, name, nbytes, nops in (
+            ("G", "G RT warm", 16 * n_rt, mg_ops(level_shapes(RT_H, RT_W), 2)),
+            ("H", f"H {RES}^2 warm", 28 * n,
+             mg_ops(level_shapes(RES, RES), 2) + 12 * n)):
+        plain_ms = cuda_ms(cases[name][1], 3, warmup=1)
+        b_ms, b_by = bound(nbytes, nops)
+        results[k] = dict(err=errs[name], ms=times[name][0],
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+        print(f"{k} ({name}): plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
     done()
 
 
@@ -829,8 +901,8 @@ def phase_kernels3d(dev, results):
     b_ms, b_by = bound(12 * n, 14.0 * it * cont)
     results["I"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
-    print(f"I: kernel {ms:.4f} ms device (eager {eager_ms:.4f}; Step 0 "
-          f"{STEP0_MS['I']}), {launches_of(jacobi3.solve_jacobi3, run)} "
+    print(f"I: kernel {ms:.4f} ms device (eager {eager_ms:.4f}), "
+          f"{launches_of(jacobi3.solve_jacobi3, run)} "
           f"launches, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})",
           flush=True)
     done()
@@ -1402,11 +1474,15 @@ def main_paths():
     }
 
 
-# Launches per step that a main path must show exactly: N's 9 convs, and
-# J's prologue, epilogue and one launch per polish sweep (16 for p8, 8
-# for p4).
+# Launches per step that a main path must show exactly: N's 9 convs; J's
+# prologue, epilogue and one launch per polish sweep (16 for p8, 8 for
+# p4); H's and G's two set-up launches, 7 (512^2: three levels down, the
+# single-block tail, three up) or 5 (512x128) a V-cycle, and the
+# epilogue, for 2 V-cycles.
 EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 18, "N": 9},
-                  f"plume3d {RES3}^3 convnet p4": {"J": 10, "N": 9}}
+                  f"plume3d {RES3}^3 convnet p4": {"J": 10, "N": 9},
+                  f"plume {RES}^2 mg-2v": {"H": 17},
+                  f"RT {RT_W}x{RT_H} multigrid": {"G": 13}}
 
 
 def phase_main_paths(counters):
@@ -1468,9 +1544,6 @@ def phase_profile(name, case):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / n
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0.0) or 0.0
-
     # Device-side events only: an aten op's own row repeats the time of
     # the kernels it launched.
     events = [e for e in prof.key_averages()
@@ -1491,6 +1564,33 @@ def phase_profile(name, case):
             print(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step "
                   f"{e.count / n:6.1f} calls/step  {e.key[:70]}", flush=True)
     done()
+
+
+def mg_only(dev):
+    """`python3 chip_smoke.py --mg-only`: kernels G and H alone, on the
+    version of the package beside this script (Step 0: a checkout of the
+    parent commit with this script copied in; a variant: a copy of the
+    checkout with one constant of csrc/mg.cu changed). G's and H's
+    (device, eager) ms in every case of mg_cases, as a STEP0_MS literal,
+    their split, then the two multigrid main paths' ms/step and device
+    busy. No checks: the full run holds the kernels to their plain
+    versions."""
+    done = phase("kernels G and H timed")
+    inputs = solver_inputs(dev)
+    times = mg_times(inputs)
+    print("STEP0_MS = " + repr({k: (round(d, 4), round(e, 4))
+                                for k, (d, e) in times.items()}), flush=True)
+    cases = mg_cases(inputs)
+    for name in ("G RT warm", f"H {RES}^2 warm"):
+        print_split(name, device_split(cases[name][0]))
+    done()
+    for name, (run, case, _) in main_paths().items():
+        if "mg-2v" not in name and "multigrid" not in name:
+            continue
+        done = phase(f"{name}, {STEPS} steps")
+        print(f"{name}: ms/step {run(STEPS)['ms_per_step']:.4f}", flush=True)
+        done()
+        phase_profile(name, case)
 
 
 def main():
@@ -1518,9 +1618,13 @@ def main():
     # The plain versions and the float32 library chains in full float32.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if sys.argv[1:] == ["--mg-only"]:
+        mg_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
+    phase_mg(dev, results)
     phase_kernels3d(dev, results)
     phase_learned3d(dev, results)
     phase_small_check()

@@ -15,26 +15,46 @@
 // cell, 1.3-2.2 us at 512^2); its ~180 operations per fine cell per
 // V-cycle take ~1.4 us at the fp32 rate. A grid-resident V-cycle would
 // need grid-wide waits between its stages, which this port never uses, so
-// the design splits the levels:
-//   * levels too large for one block run one launch per stage: the
-//     compatibility projection (every block sums the per-block partials of
-//     the stage that produced the RHS, in a fixed order, so runs repeat
-//     bit for bit), the pre- and post-smoothing sweeps (kernel F's
-//     temporally blocked jacobi_sweeps), residual + border fold + 2x2
-//     child-sum restriction fused with the next level's partial sums, and
-//     Neumann extension + bilinear prolongation fused per fine tile;
+// one C call (fn_mg_solve, fn_mg_project) issues a short chain of fat
+// launches on the caller's stream, with its scratch in one workspace:
+//   * set-up: one launch builds level 0's mask bytes (and H's divergence
+//     RHS) with the RHS's per-block partial sums, and the coarse flags of
+//     levels 1-6 per 64^2 fine tile (a coarse flag depends only on its
+//     children and its position); one more builds every coarse level's
+//     mask bytes (a level below the sixth adds one launch);
+//   * each level too large for the tail runs one down launch a V-cycle
+//     (the compatibility projection, the pre-sweeps, the residual, the
+//     border fold and the 2x2 child-sum restriction into the coarse RHS,
+//     with the coarse RHS's per-block partials) and one up launch (Neumann
+//     extension of the coarse correction, prolongation added onto p, the
+//     post-sweeps) on square tiles with an even halo: kernel F's design, a
+//     thread owning a column strip of 8 cells in registers, sweeps reading
+//     x-neighbours and strip ends from shared memory, no index division.
+//     Tiles are 64^2 where a level has enough of them to fill the card,
+//     else 32^2 (more blocks, less work an SM: these launches are bound by
+//     one SM's issue rate, not by the card's);
 //   * the first level whose remaining hierarchy fits in one block's shared
 //     memory (64^2 and below at 512^2; 128x32 and below at 512x128) runs
-//     the whole rest of the V-cycle in ONE single-block launch per sample,
-//     with __syncthreads between stages.
-// At 512^2 one V-cycle is 15 launches (2 V-cycles and the set-up: 41),
-// against ~70 per V-cycle for a launch per operation. The TPU kernel's
-// MXU restriction/prolongation matrices are a TPU device: here restriction
-// is a child sum and prolongation the (3/4, 1/4) stencil, both in the
-// plain version's float32 order; the sweeps use the plain version's
-// obstacle substitution (jacobi_cell), so p0 needs no masking. The sums
-// (projections, gauge, the 2x2 child sum) are taken in another order than
-// PyTorch's, so results agree with the plain version to rounding.
+//     the rest of the V-cycle in one single-block launch per sample: each
+//     level on a group of whole warps (a cell a thread; a named barrier or
+//     __syncwarp for a group smaller than the block), sweeps ping-ponging p
+//     with one scratch field (one barrier a sweep), each level's mean from
+//     warp-shuffle sums that the stage writing its RHS leaves behind, the
+//     stages out of line and their loops rolled (each runs once a launch:
+//     a compact kernel keeps its code in the instruction cache);
+//   * one epilogue: the zero-mean gauge (and H's velocity update and
+//     walls).
+// Means over a level come from per-block partial sums that the next launch
+// adds in one fixed order, so a repeat gives the same bits. At 512^2 one
+// V-cycle is 7 launches (2 V-cycles and the set-up: 17).
+//
+// The per-cell operators keep the plain version's float32 order (built
+// with -fmad=false): the sweep is common.cuh::jacobi_cell/jacobi_update,
+// the residual, _fold_border, the child sum (a + b) + (c + d),
+// _neumann_extend's passes and the (3/4, 1/4) prolongation; indices wrap
+// where the plain version's rolls wrap. The sums of the compatibility
+// projections and the gauge run in another order than PyTorch's, so
+// results agree with the plain version to rounding.
 #include <limits.h>
 #include <stdint.h>
 
@@ -44,71 +64,95 @@ namespace {
 using namespace fnk;
 
 constexpr int kMaxLevels = 16;
-constexpr int kSmallThreads = 1024;
-// Dynamic shared memory the single-block launch may take (a block may use
-// 227 KB); fn_mg_cut_level picks the first level that fits.
-constexpr int kSmallBudget = 160 * 1024;
-constexpr int kPT = 32;               // prolongation: fine tile side
-constexpr int kPR = kPT / 2 + 6;      // its coarse region side (halo 3)
 
-__device__ __forceinline__ int wrap(int v, int n) {
-  return v < 0 ? v + n : (v >= n ? v - n : v);
-}
+// ---- the per-level launches: square tiles with a halo ----
+constexpr int kMaxSweeps = 8;    // sweeps a per-level launch runs
+constexpr int kRY = 8;           // rows a thread owns
+// The residual's ring around a down launch's output: the fold reads one
+// cell further only next to the border ring, whose p every sweep pins to 0.
+constexpr int kResidHalo = 1;
+constexpr int kExtHalo = 3;      // coarse halo: prolongation 1, extension 2
+// A level's launches take 64^2 tiles when its down launch has at least
+// kWideBlocks of them (they fill the card), else 32^2 tiles.
+constexpr int kWideBlocks = 96;
+// The smallest output side of a tile (32^2, kMaxSweeps and the residual).
+constexpr int kMinOut = 32 - 2 * (kMaxSweeps + kResidHalo);
+
+// ---- set-up ----
+constexpr int kSetupLevels = 6;               // coarse levels from one tile
+constexpr int kSetupTile = 1 << kSetupLevels; // its side, fine cells
+
+// ---- the single-block tail ----
+constexpr int kTailThreads = 1024;
+constexpr int kTailWarps = kTailThreads / 32;
+constexpr int kLaneCells = 1;    // cells a thread, which sizes a level's group
+// Dynamic shared memory the tail may take (a block may use 227 KB).
+constexpr int kTailBudget = 160 * 1024;
+constexpr uint8_t kLive1 = 32;   // mask bit: live after extension pass 1
 
 __device__ __forceinline__ int thread_rank() {
   return threadIdx.y * blockDim.x + threadIdx.x;
-}
-
-__device__ __forceinline__ int block_threads() {
-  return blockDim.x * blockDim.y;
 }
 
 __device__ __forceinline__ float cont_f(uint8_t m) {
   return (m & kCont) ? 1.f : 0.f;
 }
 
-// Sums of (a, c) over the block in a fixed tree order (blockDim a power of
-// two, sa/sc one float per thread); every thread gets the totals. Every
-// thread of the block must call it.
-__device__ void block_sum2(float& a, float& c, float* sa, float* sc) {
-  int tid = thread_rank(), nt = block_threads();
-  sa[tid] = a;
-  sc[tid] = c;
-  __syncthreads();
-  for (int s = nt / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      sa[tid] = sa[tid] + sa[tid + s];
-      sc[tid] = sc[tid] + sc[tid + s];
-    }
-    __syncthreads();
-  }
-  a = sa[0];
-  c = sc[0];
-  __syncthreads();
+// v mod n in [0, n).
+__device__ __forceinline__ int wrap(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
 }
 
-// Mean sum/max(count, 1) of a level from its per-block (sum, count)
-// partials. Every thread of the block must call it.
-__device__ float partials_mean(const float* parts, int nparts, float* sa,
-                               float* sc) {
+// Sums of (a, c) over the warp in a fixed xor-tree order; every lane gets
+// the same bits (each step adds the same two values in either order).
+__device__ __forceinline__ void warp_sum2(float& a, float& c) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a = a + __shfl_xor_sync(0xffffffffu, a, o);
+    c = c + __shfl_xor_sync(0xffffffffu, c, o);
+  }
+}
+
+// Sums of (a, c) over the block's nw warps: a warp tree, one barrier, then
+// every thread adds the warps' sums in order. Every thread of the block
+// calls it; a later call needs a barrier between (slots are reused).
+__device__ float2 block_sum2(float a, float c, float2* slots, int nw) {
+  warp_sum2(a, c);
+  const int tid = thread_rank();
+  if ((tid & 31) == 0) slots[tid >> 5] = make_float2(a, c);
+  __syncthreads();
+  a = 0.f;
+  c = 0.f;
+  for (int k = 0; k < nw; ++k) {
+    a = a + slots[k].x;
+    c = c + slots[k].y;
+  }
+  return make_float2(a, c);
+}
+
+// Mean sum/max(count, 1) of a level from its nparts per-block (sum, count)
+// partials. Every block with the same thread count gets the same bits.
+__device__ float partials_mean(const float* parts, int nparts, float2* slots) {
+  const int nt = blockDim.x * blockDim.y;
   float a = 0.f, c = 0.f;
-  for (int j = thread_rank(); j < nparts; j += block_threads()) {
+  for (int j = thread_rank(); j < nparts; j += nt) {
     a = a + parts[2 * j];
     c = c + parts[2 * j + 1];
   }
-  block_sum2(a, c, sa, sc);
-  return a / fmaxf(c, 1.f);
+  float2 s = block_sum2(a, c, slots, nt >> 5);
+  return s.x / fmaxf(s.y, 1.f);
 }
 
-// Thread 0 stores the block's (sum, count) partial of sample b.
-__device__ void store_partial(float a, float c, float* parts_all, float* sa,
-                              float* sc) {
-  block_sum2(a, c, sa, sc);
+// Thread 0 stores the block's partial (a, c) of sample blockIdx.z.
+__device__ void store_partial(float a, float c, float* parts_all,
+                              float2* slots) {
+  float2 s = block_sum2(a, c, slots, (blockDim.x * blockDim.y) >> 5);
   if (thread_rank() == 0) {
     int nblk = gridDim.x * gridDim.y;
     int j = blockIdx.z * nblk + blockIdx.y * gridDim.x + blockIdx.x;
-    parts_all[2 * j] = a;
-    parts_all[2 * j + 1] = c;
+    parts_all[2 * j] = s.x;
+    parts_all[2 * j + 1] = s.y;
   }
 }
 
@@ -128,57 +172,25 @@ __device__ __forceinline__ float resid(const float* p, const float* rhs,
   return rhs[i] - (4.f * pc - acc);
 }
 
-// Residual of cell (x, y) after _fold_border's row step.
-__device__ float resid_rows(const float* p, const float* rhs,
-                            const uint8_t* mask, int x, int y, int h, int w) {
+// _fold_border of a residual field R at index li of cell (x, y) of a
+// level (h, w), R's rows `stride` apart: the row step, then the column
+// step.
+__device__ __forceinline__ float fold_rows(const float* R, int li, int stride,
+                                           int y, int h) {
   if (y == 1 || y == h - 2) return 0.f;
-  float r = resid(p, rhs, mask, y * w + x, w);
-  if (y == 2) r = r + resid(p, rhs, mask, w + x, w);
-  if (y == h - 3) r = r + resid(p, rhs, mask, (h - 2) * w + x, w);
+  float r = R[li];
+  if (y == 2) r = r + R[li - stride];
+  if (y == h - 3) r = r + R[li + stride];
   return r;
 }
 
-// Residual of cell (x, y) after both steps of _fold_border.
-__device__ float folded(const float* p, const float* rhs, const uint8_t* mask,
-                        int x, int y, int h, int w) {
+__device__ __forceinline__ float fold(const float* R, int li, int stride,
+                                      int x, int y, int h, int w) {
   if (x == 1 || x == w - 2) return 0.f;
-  float r = resid_rows(p, rhs, mask, x, y, h, w);
-  if (x == 2) r = r + resid_rows(p, rhs, mask, 1, y, h, w);
-  if (x == w - 3) r = r + resid_rows(p, rhs, mask, w - 2, y, h, w);
+  float r = fold_rows(R, li, stride, y, h);
+  if (x == 2) r = r + fold_rows(R, li - 1, stride, y, h);
+  if (x == w - 3) r = r + fold_rows(R, li + 1, stride, y, h);
   return r;
-}
-
-// Coarse cell (X, Y) of _restrict_sum(residual) of a fine level (h, w).
-__device__ float restrict_cell(const float* p, const float* rhs,
-                               const uint8_t* mask, int X, int Y, int h,
-                               int w) {
-  int x = 2 * X, y = 2 * Y;
-  return (folded(p, rhs, mask, x, y, h, w) +
-          folded(p, rhs, mask, x + 1, y, h, w)) +
-         (folded(p, rhs, mask, x, y + 1, h, w) +
-          folded(p, rhs, mask, x + 1, y + 1, h, w));
-}
-
-// One pass of _neumann_extend at cell c with neighbours (x-1, x+1, y-1,
-// y+1) at jxm, jxp, jym, jyp; stores the pass's live flag if asked.
-__device__ __forceinline__ float extend_cell(const float* e,
-                                             const uint8_t* live, int c,
-                                             int jxm, int jxp, int jym,
-                                             int jyp, uint8_t* live_out) {
-  float lxm = live[jxm], lxp = live[jxp], lym = live[jym], lyp = live[jyp];
-  float num = 0.f;
-  num = num + e[jxm] * lxm;
-  num = num + e[jxp] * lxp;
-  num = num + e[jym] * lym;
-  num = num + e[jyp] * lyp;
-  float den = 0.f;
-  den = den + lxm;
-  den = den + lxp;
-  den = den + lym;
-  den = den + lyp;
-  float fill = num / fmaxf(den, 1.f);
-  if (live_out) live_out[c] = (live[c] || den > 0.5f) ? 1 : 0;
-  return live[c] ? e[c] : fill;
 }
 
 // Cell-centred bilinear prolongation (_prolong) of fine child (2i+a,
@@ -191,174 +203,881 @@ __device__ __forceinline__ float prolong_val(const float* E, int s, int i,
   return 0.75f * g + 0.25f * g2;
 }
 
-// ---- multi-block stages ----
-
-// H's prologue: the mask byte and the divergence RHS of level 0.
-__global__ void mg_prologue(const int* __restrict__ flags_all,
-                            const float* __restrict__ U,
-                            uint8_t* __restrict__ mask_all,
-                            float* __restrict__ rhs_all, int h, int w) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  int b = blockIdx.z;
-  if (x >= w || y >= h) return;
-  size_t n = (size_t)h * w;
-  int i = y * w + x;
-  size_t ub = (size_t)b * 2 * n, vb = ub + n;
-  uint8_t m = cell_mask(flags_all + b * n, x, y, h, w);
-  float rhs = 0.f;
-  if (m & kCont)
-    rhs = (U[ub + i] - U[ub + i + 1]) + (U[vb + i] - U[vb + i + w]);
-  mask_all[b * n + i] = m;
-  rhs_all[b * n + i] = rhs;
-}
-
-// Flags of coarse cell (X, Y) (_coarsen_flags): OBSTACLE on the border
-// ring and where all four children are; else the least non-obstacle child.
-__device__ int coarse_flag(const int* ff, int X, int Y, int hf, int wf) {
-  if (!interior(X, Y, hf / 2, wf / 2)) return kObstacle;
+// Flags of coarse cell (X, Y) of level (hc, wc) (_coarsen_flags) from its
+// children at (2X, 2Y) of a field f with row stride s: OBSTACLE on the
+// border ring and where all four children are; else the least
+// non-obstacle child.
+__device__ __forceinline__ int coarse_flag(const int* f, int s, int X, int Y,
+                                           int x0, int y0, int hc, int wc) {
+  if (!interior(X, Y, hc, wc)) return kObstacle;
   int rep = INT_MAX;
   for (int a = 0; a < 2; ++a)
     for (int c = 0; c < 2; ++c) {
-      int f = ff[(2 * Y + a) * wf + 2 * X + c];
-      if (f != kObstacle) rep = min(rep, f);
+      int v = f[(y0 + a) * s + x0 + c];
+      if (v != kObstacle) rep = min(rep, v);
     }
   return rep == INT_MAX ? kObstacle : rep;
 }
 
-__global__ void mg_coarsen(const int* __restrict__ flags_f_all,
-                           int* __restrict__ flags_c_all,
-                           uint8_t* __restrict__ mask_c_all, int hf, int wf) {
-  int X = blockIdx.x * blockDim.x + threadIdx.x;
-  int Y = blockIdx.y * blockDim.y + threadIdx.y;
-  int b = blockIdx.z;
-  int hc = hf / 2, wc = wf / 2;
-  if (X >= wc || Y >= hc) return;
-  const int* ff = flags_f_all + (size_t)b * hf * wf;
-  int f = coarse_flag(ff, X, Y, hf, wf);
-  uint8_t m = 0;
-  if (interior(X, Y, hc, wc) && f != kObstacle) {
-    m = kCont;
-    if (coarse_flag(ff, X - 1, Y, hf, wf) == kObstacle) m |= kObXm;
-    if (coarse_flag(ff, X + 1, Y, hf, wf) == kObstacle) m |= kObXp;
-    if (coarse_flag(ff, X, Y - 1, hf, wf) == kObstacle) m |= kObYm;
-    if (coarse_flag(ff, X, Y + 1, hf, wf) == kObstacle) m |= kObYp;
+// ---- set-up ----
+
+// Every level's shape, flags (level 0: the input) and mask bytes.
+struct Levels {
+  int n;
+  int h[kMaxLevels], w[kMaxLevels];
+  int* flags[kMaxLevels];
+  uint8_t* mask[kMaxLevels];
+};
+
+// One 64^2 fine tile: level 0's mask bytes and RHS (H: the divergence of
+// U; G: div as given) with the RHS's per-block partial sums, and the
+// coarse flags of levels 1..min(n-1, 6) over the tile, each level reduced
+// from the one before in shared memory.
+template <bool kProject>
+__global__ void __launch_bounds__(512)
+    mg_setup(Levels L, const float* __restrict__ U,
+             const float* __restrict__ rhs_in, float* __restrict__ rhs0_all,
+             float* __restrict__ parts_all) {
+  __shared__ int fl[2][(kSetupTile / 2) * (kSetupTile / 2)];
+  __shared__ float2 slots[16];
+  const int b = blockIdx.z, h = L.h[0], w = L.w[0];
+  const size_t n = (size_t)h * w;
+  const int* flags = L.flags[0] + b * n;
+  const int x = blockIdx.x * kSetupTile + threadIdx.x;
+  float a = 0.f, c = 0.f;
+  for (int ty = threadIdx.y; ty < kSetupTile; ty += blockDim.y) {
+    const int y = blockIdx.y * kSetupTile + ty;
+    if (x >= w || y >= h) continue;
+    const int i = y * w + x;
+    const uint8_t m = cell_mask(flags, x, y, h, w);
+    float rhs;
+    if (kProject) {
+      const size_t ub = (size_t)b * 2 * n, vb = ub + n;
+      rhs = (m & kCont)
+                ? (U[ub + i] - U[ub + i + 1]) + (U[vb + i] - U[vb + i + w])
+                : 0.f;
+      rhs0_all[b * n + i] = rhs;
+    } else {
+      rhs = rhs_in[b * n + i];
+    }
+    L.mask[0][b * n + i] = m;
+    const float cf = cont_f(m);
+    a = a + rhs * cf;
+    c = c + cf;
   }
-  size_t j = (size_t)b * hc * wc + Y * wc + X;
-  flags_c_all[j] = f;
-  mask_c_all[j] = m;
+  store_partial(a, c, parts_all, slots);
+
+  const int top = min(L.n - 1, kSetupLevels);
+  for (int j = 1; j <= top; ++j) {
+    const int side = kSetupTile >> j, hc = L.h[j], wc = L.w[j];
+    const int X0 = blockIdx.x * side, Y0 = blockIdx.y * side;
+    int* out = fl[j & 1];
+    const int* prev = fl[(j - 1) & 1];
+    const int lx = threadIdx.x, X = X0 + lx;
+    for (int ly = threadIdx.y; lx < side && ly < side; ly += blockDim.y) {
+      const int Y = Y0 + ly;
+      if (X >= wc || Y >= hc) continue;
+      const int f = j == 1 ? coarse_flag(flags, w, X, Y, 2 * X, 2 * Y, hc, wc)
+                           : coarse_flag(prev, 2 * side, X, Y, 2 * lx, 2 * ly,
+                                         hc, wc);
+      out[ly * side + lx] = f;
+      L.flags[j][(size_t)b * hc * wc + Y * wc + X] = f;
+    }
+    __syncthreads();
+  }
 }
 
-// Per-block partial sums (field * cont, cont) of a level.
+// Coarse flags of one level below kSetupLevels, from the level above.
+__global__ void mg_coarsen(const int* __restrict__ flags_f_all,
+                           int* __restrict__ flags_c_all, int hf, int wf) {
+  const int X = blockIdx.x * blockDim.x + threadIdx.x;
+  const int Y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int hc = hf / 2, wc = wf / 2;
+  if (X >= wc || Y >= hc) return;
+  const size_t b = blockIdx.z;
+  flags_c_all[b * hc * wc + Y * wc + X] = coarse_flag(
+      flags_f_all + b * hf * wf, wf, X, Y, 2 * X, 2 * Y, hc, wc);
+}
+
+// Mask bytes of every coarse level: blockIdx.z = sample * (n-1) + level-1,
+// the grid sized for level 1.
+__global__ void mg_masks(Levels L) {
+  const int nl = L.n - 1;
+  const int j = 1 + blockIdx.z % nl, b = blockIdx.z / nl;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int h = L.h[j], w = L.w[j];
+  if (x >= w || y >= h) return;
+  const size_t off = (size_t)b * h * w;
+  L.mask[j][off + y * w + x] = cell_mask(L.flags[j] + off, x, y, h, w);
+}
+
+// Per-block partial sums (p * cont, cont) of level 0 (p null: zeros): the
+// gauge's sums when no V-cycle runs.
 __global__ void __launch_bounds__(256)
-    mg_partials(const float* __restrict__ field_all,
+    mg_partials(const float* __restrict__ p_all,
                 const uint8_t* __restrict__ mask_all,
                 float* __restrict__ parts_all, int h, int w) {
-  __shared__ float sa[256], sc[256];
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  size_t j = blockIdx.z * (size_t)h * w + y * w + x;
+  __shared__ float2 slots[8];
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const size_t j = blockIdx.z * (size_t)h * w + y * w + x;
   float a = 0.f, c = 0.f;
   if (x < w && y < h) {
     c = cont_f(mask_all[j]);
-    a = field_all[j] * c;
+    a = (p_all ? p_all[j] : 0.f) * c;
   }
-  store_partial(a, c, parts_all, sa, sc);
+  store_partial(a, c, parts_all, slots);
 }
 
-// out = (field - mean) * cont, the mean over continuation cells taken from
-// the level's partials: the compatibility projection of a RHS
-// (_remove_incompatible) and G's zero-mean gauge of p.
-__global__ void __launch_bounds__(256)
-    mg_project(const float* __restrict__ field_all,
-               const uint8_t* __restrict__ mask_all,
-               const float* __restrict__ parts_all, int nparts,
-               float* __restrict__ out_all, int h, int w) {
-  __shared__ float sa[256], sc[256];
-  float mean = partials_mean(parts_all + 2 * blockIdx.z * nparts, nparts,
-                             sa, sc);
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  size_t j = blockIdx.z * (size_t)h * w + y * w + x;
-  out_all[j] = (field_all[j] - mean) * cont_f(mask_all[j]);
+// ---- the per-level launches ----
+
+// A tile of T x T cells (T = 32 or 64): T/kRY rows of T threads, each
+// owning a column strip of kRY cells; two copies of p with a row and a
+// cell of padding at each end, so that the tile's edge cells read in
+// bounds (values that are never exact); the up launch's coarse region
+// (T/2 + 2 kExtHalo a side, two fields and two live-flag fields) after
+// them.
+template <int T>
+struct Tile {
+  static constexpr int kThreads = T * (T / kRY);
+  static constexpr int kPad = T + 1;
+  static constexpr int kCopy = T * T + 2 * kPad;
+  static constexpr int kCR = T / 2 + 2 * kExtHalo;
+  static constexpr int kDownSmem = 2 * kCopy * (int)sizeof(float);
+  static constexpr int kUpSmem = kDownSmem + 2 * kCR * kCR * 5;
+  static_assert(T % 32 == 0 && T % kRY == 0 && kRY % 2 == 0,
+                "whole warps and even strips");
+};
+
+struct LevelArgs {
+  const float* p_in;      // start of the level (null: zeros)
+  const float* rhs;       // the level's RHS before its projection
+  const float* parts;     // the RHS's per-block partials, nparts a sample
+  int nparts;
+  const uint8_t* mask;
+  float* p_out;           // the output tiles' p
+  int h, w, k, halo;      // level shape, sweeps, tile halo
+  // Down launch: the coarse RHS (restriction) and its partials; else null.
+  float* rhs_c;
+  const uint8_t* mask_c;
+  // Restriction: the coarse RHS's partials; else the partials of p * cont
+  // over the output (the gauge's), or null.
+  float* parts_out;
+};
+
+// The strip of a thread: p (null: zeros) and the RHS of rows gy0 .. gy0 +
+// kRY - 1 of column gx, with the mask bytes four to a word. Cells off the
+// grid read 0. load_strip issues the loads; project_strip applies the
+// compatibility projection once the level's mean is known (its partials
+// are summed while the loads are in flight).
+struct Strip {
+  float cur[kRY], rhs[kRY];
+  uint32_t mw[(kRY + 3) / 4];
+  __device__ uint8_t m(int r) const {
+    return (uint8_t)(mw[r / 4] >> (8 * (r % 4)));
+  }
+};
+
+__device__ __forceinline__ void load_strip(Strip& S, const LevelArgs& L,
+                                           size_t base, int gx, int gy0) {
+  const bool col_in = gx >= 0 && gx < L.w;
+#pragma unroll
+  for (int q = 0; q < (kRY + 3) / 4; ++q) S.mw[q] = 0;
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) {
+    const int gy = gy0 + r;
+    const bool in = col_in && gy >= 0 && gy < L.h;
+    const size_t gi = base + (size_t)(in ? gy : 0) * L.w + (in ? gx : 0);
+    const uint8_t m = in ? L.mask[gi] : 0;
+    S.cur[r] = (in && L.p_in) ? L.p_in[gi] : 0.f;
+    S.rhs[r] = in ? L.rhs[gi] : 0.f;
+    S.mw[r / 4] |= (uint32_t)m << (8 * (r % 4));
+  }
 }
 
-// Residual, border fold and child-sum restriction of fine level (h, w)
-// into the coarse RHS, with the coarse level's per-block partial sums.
-__global__ void __launch_bounds__(256)
-    mg_restrict(const float* __restrict__ p_all,
-                const float* __restrict__ rhsp_all,
-                const uint8_t* __restrict__ mask_all, int h, int w,
-                float* __restrict__ rhs_c_all,
-                const uint8_t* __restrict__ mask_c_all,
-                float* __restrict__ parts_all) {
-  __shared__ float sa[256], sc[256];
-  int X = blockIdx.x * blockDim.x + threadIdx.x;
-  int Y = blockIdx.y * blockDim.y + threadIdx.y;
-  int b = blockIdx.z;
-  int hc = h / 2, wc = w / 2;
-  float a = 0.f, c = 0.f;
-  if (X < wc && Y < hc) {
-    size_t n = (size_t)h * w;
-    float r = restrict_cell(p_all + b * n, rhsp_all + b * n,
-                            mask_all + b * n, X, Y, h, w);
-    size_t jc = (size_t)b * hc * wc + Y * wc + X;
-    rhs_c_all[jc] = r;
-    c = cont_f(mask_c_all[jc]);
-    a = r * c;
-  }
-  store_partial(a, c, parts_all, sa, sc);
+__device__ __forceinline__ void project_strip(Strip& S, float mean) {
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) S.rhs[r] = (S.rhs[r] - mean) * cont_f(S.m(r));
 }
 
-// p += cont * prolong(neumann_extend(e_c)) on one 32x32 fine tile of level
-// (h, w); e_c is the correction on level (h/2, w/2). The tile's coarse
-// region (16x16 plus a 3-cell halo, indices wrapped as the plain
-// version's rolls wrap) is extended in shared memory.
-__global__ void __launch_bounds__(256)
-    mg_prolong(const float* __restrict__ e_c_all,
-               const uint8_t* __restrict__ mask_c_all,
-               float* __restrict__ p_all,
-               const uint8_t* __restrict__ mask_all, int h, int w) {
-  __shared__ float e0[kPR * kPR], e1[kPR * kPR];
-  __shared__ uint8_t l0[kPR * kPR], l1[kPR * kPR];
-  const int tid = thread_rank(), nt = block_threads();
-  const int b = blockIdx.z;
-  const int hc = h / 2, wc = w / 2;
-  const size_t nc = (size_t)hc * wc, n = (size_t)h * w;
-  const int cy0 = blockIdx.y * (kPT / 2) - 3;
-  const int cx0 = blockIdx.x * (kPT / 2) - 3;
-  for (int t = tid; t < kPR * kPR; t += nt) {
-    int ly = t / kPR, lx = t % kPR;
-    size_t j = b * nc + wrap(cy0 + ly, hc) * wc + wrap(cx0 + lx, wc);
-    uint8_t live = mask_c_all[j] & kCont;
-    l0[t] = live;
-    e0[t] = e_c_all[j] * (live ? 1.f : 0.f);
-  }
-  __syncthreads();
-  for (int t = tid; t < (kPR - 2) * (kPR - 2); t += nt) {
-    int c = (1 + t / (kPR - 2)) * kPR + 1 + t % (kPR - 2);
-    e1[c] = extend_cell(e0, l0, c, c - 1, c + 1, c - kPR, c + kPR, l1);
-  }
-  __syncthreads();
-  for (int t = tid; t < (kPR - 4) * (kPR - 4); t += nt) {
-    int c = (2 + t / (kPR - 4)) * kPR + 2 + t % (kPR - 4);
-    e0[c] = extend_cell(e1, l1, c, c - 1, c + 1, c - kPR, c + kPR, nullptr);
-  }
-  __syncthreads();
-  for (int t = tid; t < kPT * kPT; t += nt) {
-    int ty = t / kPT, tx = t % kPT;
-    int y = blockIdx.y * kPT + ty, x = blockIdx.x * kPT + tx;
-    if (y >= h || x >= w) continue;
-    size_t i = b * n + (size_t)y * w + x;
-    float v = 0.f;
-    if (mask_all[i] & kCont) {
-      int ly = (ty >> 1) + 3, lx = (tx >> 1) + 3;
-      v = prolong_val(e0, kPR, ly, lx, (ty & 1) ? ly + 1 : ly - 1,
-                      (tx & 1) ? lx + 1 : lx - 1);
+// k sweeps of the strips (kernel F's loop): src holds the strips' p on
+// entry. With keep_shared the last sweep's p is also left in src (behind
+// a barrier); otherwise only in the registers.
+template <int T, bool kDamped>
+__device__ __forceinline__ void sweep_strips(Strip& S, float*& src,
+                                             float*& dst, int li0, int k,
+                                             bool keep_shared, float keep,
+                                             float damping) {
+  for (int s = 1; s <= k; ++s) {
+    // Every shared-memory read of the sweep first, then the arithmetic,
+    // then the stores (the compiler may not move a read above a store).
+    float xm[kRY], xp[kRY];
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) {
+      xm[r] = src[li0 + r * T - 1];
+      xp[r] = src[li0 + r * T + 1];
     }
-    p_all[i] = p_all[i] + v;
+    float above = src[li0 - T];
+    const float last = src[li0 + kRY * T];
+    const bool store = s < k || keep_shared;
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) {
+      const float pc = S.cur[r];
+      const float below = r < kRY - 1 ? S.cur[r + 1] : last;
+      S.cur[r] = jacobi_update(S.m(r), pc, xm[r], xp[r], above, below,
+                               S.rhs[r], kDamped, keep, damping);
+      above = pc;
+    }
+    if (!store) break;
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) dst[li0 + r * T] = S.cur[r];
+    __syncthreads();
+    float* tmp = src;
+    src = dst;
+    dst = tmp;
   }
+}
+
+// Writes the output tile's p and, if asked, the block's partial of
+// p * cont over it (every thread calls it).
+template <int T>
+__device__ __forceinline__ void store_output(const Strip& S,
+                                             const LevelArgs& L, size_t base,
+                                             int lx, int ly0, int gx, int gy0,
+                                             float2* slots) {
+  float a = 0.f, c = 0.f;
+  const bool col_out = gx >= 0 && gx < L.w && lx >= L.halo &&
+                       lx < T - L.halo;
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) {
+    const int ly = ly0 + r, gy = gy0 + r;
+    if (col_out && ly >= L.halo && ly < T - L.halo && gy >= 0 && gy < L.h) {
+      L.p_out[base + (size_t)gy * L.w + gx] = S.cur[r];
+      const float cf = cont_f(S.m(r));
+      a = a + S.cur[r] * cf;
+      c = c + cf;
+    }
+  }
+  if (L.parts_out) store_partial(a, c, L.parts_out, slots);
+}
+
+// The down launch of a level (rhs_c set) or a smoothing launch: the
+// compatibility projection, k sweeps from p_in, and either the residual,
+// border fold and child-sum restriction of the output tile into the coarse
+// RHS with its partials, or the output p (with the gauge's partials).
+// Exact where it is written if halo >= k + kResidHalo (restriction, halo
+// even) or halo >= k (smoothing).
+template <int T, bool kDamped>
+__global__ void __launch_bounds__(Tile<T>::kThreads)
+    mg_down(LevelArgs L, float keep, float damping) {
+  using G = Tile<T>;
+  extern __shared__ float smem[];
+  __shared__ float2 slots[G::kThreads / 32];
+  float* src = smem + G::kPad;
+  float* dst = smem + G::kCopy + G::kPad;
+  const int lx = threadIdx.x, ly0 = threadIdx.y * kRY;
+  const int li0 = ly0 * T + lx;
+  const int out = T - 2 * L.halo;
+  const int gx = blockIdx.x * out - L.halo + lx;
+  const int gy0 = blockIdx.y * out - L.halo + ly0;
+  const size_t base = blockIdx.z * (size_t)L.h * L.w;
+  const bool restrict_ = L.rhs_c != nullptr;
+  const int hc = L.h / 2, wc = L.w / 2;
+  const size_t base_c = blockIdx.z * (size_t)hc * wc;
+  const bool col_out = gx >= 0 && gx < L.w && lx >= L.halo &&
+                       lx < T - L.halo;
+
+  Strip S;
+  load_strip(S, L, base, gx, gy0);
+  // The coarse cells' mask bytes: rows r, r+1 of an even lane's columns
+  // lx, lx+1 (a down launch's halo and origin are even).
+  uint8_t mc[kRY / 2];
+#pragma unroll
+  for (int q = 0; q < kRY / 2; ++q) {
+    const int ly = ly0 + 2 * q, gy = gy0 + 2 * q;
+    const bool out_c = restrict_ && col_out && !(lx & 1) && ly >= L.halo &&
+                       ly < T - L.halo && gy >= 0 && gy < L.h;
+    mc[q] = out_c ? L.mask_c[base_c + (size_t)(gy >> 1) * wc + (gx >> 1)]
+                  : 0;
+  }
+  const float mean =
+      partials_mean(L.parts + 2 * blockIdx.z * L.nparts, L.nparts, slots);
+  project_strip(S, mean);
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) src[li0 + r * T] = S.cur[r];
+  __syncthreads();
+  sweep_strips<T, kDamped>(S, src, dst, li0, L.k, restrict_, keep, damping);
+
+  if (!restrict_) {
+    store_output<T>(S, L, base, lx, ly0, gx, gy0, slots);
+    return;
+  }
+  // The residual of every strip cell into dst (src holds p).
+  {
+    float xm[kRY], xp[kRY], res[kRY];
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) {
+      xm[r] = src[li0 + r * T - 1];
+      xp[r] = src[li0 + r * T + 1];
+    }
+    float above = src[li0 - T];
+    const float last = src[li0 + kRY * T];
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) {
+      const float pc = S.cur[r];
+      const float below = r < kRY - 1 ? S.cur[r + 1] : last;
+      const uint8_t m = S.m(r);
+      res[r] = 0.f;
+      if (m & kCont) {
+        float acc = 0.f;
+        acc = acc + ((m & kObXm) ? pc : xm[r]);
+        acc = acc + ((m & kObXp) ? pc : xp[r]);
+        acc = acc + ((m & kObYm) ? pc : above);
+        acc = acc + ((m & kObYp) ? pc : below);
+        res[r] = S.rhs[r] - (4.f * pc - acc);
+      }
+      above = pc;
+    }
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) dst[li0 + r * T] = res[r];
+  }
+  __syncthreads();
+  // Fold, then the 2x2 child sum of the output tile: rows r, r+1 of this
+  // strip and columns lx, lx+1 (the next lane).
+  float a = 0.f, c = 0.f;
+#pragma unroll
+  for (int r = 0; r < kRY; r += 2) {
+    const int li = li0 + r * T, gy = gy0 + r;
+    const float f00 = fold(dst, li, T, gx, gy, L.h, L.w);
+    const float f01 = fold(dst, li + T, T, gx, gy + 1, L.h, L.w);
+    const float f10 = __shfl_down_sync(0xffffffffu, f00, 1);
+    const float f11 = __shfl_down_sync(0xffffffffu, f01, 1);
+    const int ly = ly0 + r;
+    if (col_out && !(lx & 1) && ly >= L.halo && ly < T - L.halo &&
+        gy >= 0 && gy < L.h) {
+      const float v = (f00 + f10) + (f01 + f11);
+      const size_t jc = base_c + (size_t)(gy >> 1) * wc + (gx >> 1);
+      L.rhs_c[jc] = v;
+      const float cf = cont_f(mc[r / 2]);
+      a = a + v * cf;
+      c = c + cf;
+    }
+  }
+  // The output tile's p.
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) {
+    const int ly = ly0 + r, gy = gy0 + r;
+    if (col_out && ly >= L.halo && ly < T - L.halo && gy >= 0 && gy < L.h)
+      L.p_out[base + (size_t)gy * L.w + gx] = S.cur[r];
+  }
+  store_partial(a, c, L.parts_out, slots);
+}
+
+// One _neumann_extend pass over the cells [lo, kCR - lo)^2 of a coarse
+// region (lo = pass): column lx, rows ty, ty + ny, ...; reads first, then
+// the arithmetic and the stores.
+template <int kCR, int kRows>
+__device__ __forceinline__ void extend_region(const float* e,
+                                              const uint8_t* live, float* out,
+                                              uint8_t* live_out, int lx,
+                                              int ty, int ny, int lo) {
+  float v[kRows][5];
+  uint8_t l[kRows][5];
+  const bool col = lx >= lo && lx < kCR - lo;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int cy = ty + q * ny;
+    const int c = (col && cy >= lo && cy < kCR - lo) ? cy * kCR + lx
+                                                    : kCR + 1;
+    const int js[5] = {c, c - 1, c + 1, c - kCR, c + kCR};
+#pragma unroll
+    for (int t = 0; t < 5; ++t) {
+      v[q][t] = e[js[t]];
+      l[q][t] = live[js[t]];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int cy = ty + q * ny;
+    if (!col || cy < lo || cy >= kCR - lo) continue;
+    const float lxm = l[q][1], lxp = l[q][2], lym = l[q][3], lyp = l[q][4];
+    float num = 0.f;
+    num = num + v[q][1] * lxm;
+    num = num + v[q][2] * lxp;
+    num = num + v[q][3] * lym;
+    num = num + v[q][4] * lyp;
+    float den = 0.f;
+    den = den + lxm;
+    den = den + lxp;
+    den = den + lym;
+    den = den + lyp;
+    const int c = cy * kCR + lx;
+    if (live_out) live_out[c] = (l[q][0] || den > 0.5f) ? 1 : 0;
+    out[c] = l[q][0] ? v[q][0] : num / fmaxf(den, 1.f);
+  }
+}
+
+// The up launch of a level: both _neumann_extend passes over the tile's
+// coarse region (kExtHalo coarse cells around it, indices wrapped as the
+// plain version's rolls wrap), the prolongation added onto p_in on the
+// continuation cells of the tile and its halo, k post-sweeps, the output
+// tile's p (with the gauge's partials if asked). Exact where written if
+// halo >= k (halo even).
+template <int T, bool kDamped>
+__global__ void __launch_bounds__(Tile<T>::kThreads)
+    mg_up(LevelArgs L, const float* __restrict__ e_c_all,
+          const uint8_t* __restrict__ mask_c_all, float keep, float damping) {
+  using G = Tile<T>;
+  constexpr int kCR = G::kCR;
+  extern __shared__ float smem[];
+  __shared__ float2 slots[G::kThreads / 32];
+  float* src = smem + G::kPad;
+  float* dst = smem + G::kCopy + G::kPad;
+  float* e0 = smem + 2 * G::kCopy;
+  float* e1 = e0 + kCR * kCR;
+  uint8_t* l0 = reinterpret_cast<uint8_t*>(e1 + kCR * kCR);
+  uint8_t* l1 = l0 + kCR * kCR;
+  const int lx = threadIdx.x, ly0 = threadIdx.y * kRY;
+  const int li0 = ly0 * T + lx;
+  const int out = T - 2 * L.halo;
+  const int ox = blockIdx.x * out - L.halo, oy = blockIdx.y * out - L.halo;
+  const int gx = ox + lx, gy0 = oy + ly0;
+  const size_t base = blockIdx.z * (size_t)L.h * L.w;
+  const int hc = L.h / 2, wc = L.w / 2;
+  const size_t base_c = blockIdx.z * (size_t)hc * wc;
+  const int cx0 = ox / 2 - kExtHalo, cy0 = oy / 2 - kExtHalo;
+  const int ny = blockDim.y;
+
+  // The strip's loads, then the coarse region's (column lx, kCR < T; rows
+  // ty, ty + ny, ...), all issued before the first store.
+  Strip S;
+  load_strip(S, L, base, gx, gy0);
+  constexpr int kRows = (kCR + G::kThreads / T - 1) / (G::kThreads / T);
+  {
+    float ev[kRows];
+    uint8_t lv[kRows];
+    const int cxw = wrap(cx0 + lx, wc);
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int cy = threadIdx.y + q * ny;
+      const bool in = lx < kCR && cy < kCR;
+      const size_t j = base_c + (size_t)wrap(cy0 + (in ? cy : 0), hc) * wc +
+                       cxw;
+      lv[q] = in ? (mask_c_all[j] & kCont) : 0;
+      ev[q] = in ? e_c_all[j] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int cy = threadIdx.y + q * ny;
+      if (lx < kCR && cy < kCR) {
+        l0[cy * kCR + lx] = lv[q];
+        e0[cy * kCR + lx] = ev[q] * (lv[q] ? 1.f : 0.f);
+      }
+    }
+  }
+  const float mean =
+      partials_mean(L.parts + 2 * blockIdx.z * L.nparts, L.nparts, slots);
+  project_strip(S, mean);
+  extend_region<kCR, kRows>(e0, l0, e1, l1, lx, threadIdx.y, ny, 1);
+  __syncthreads();
+  extend_region<kCR, kRows>(e1, l1, e0, nullptr, lx, threadIdx.y, ny, 2);
+  __syncthreads();
+
+  const bool col_in = gx >= 0 && gx < L.w;
+  const int lxc = (lx >> 1) + kExtHalo;
+  const int lxc2 = (gx & 1) ? lxc + 1 : lxc - 1;
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) {
+    const int gy = gy0 + r;
+    if (col_in && gy >= 0 && gy < L.h) {
+      float v = 0.f;
+      if (S.m(r) & kCont) {
+        const int lyc = ((ly0 + r) >> 1) + kExtHalo;
+        v = prolong_val(e0, kCR, lyc, lxc, (gy & 1) ? lyc + 1 : lyc - 1,
+                        lxc2);
+      }
+      S.cur[r] = S.cur[r] + v;
+    }
+    src[li0 + r * T] = S.cur[r];
+  }
+  __syncthreads();
+  sweep_strips<T, kDamped>(S, src, dst, li0, L.k, false, keep, damping);
+  store_output<T>(S, L, base, lx, ly0, gx, gy0, slots);
+}
+
+// ---- the single-block rest of the V-cycle ----
+
+// The tail's levels first .. n-1: shapes, offsets of p and r (floats) and
+// of the mask bytes (live bits packed beside them) in the dynamic shared
+// memory, each level's group of threads, the masks in device memory.
+// Computed on the host; the kernel reads it from its parameters.
+struct TailArgs {
+  int first, n, bytes, scratch;
+  int h[kMaxLevels], w[kMaxLevels], nt[kMaxLevels];
+  int p[kMaxLevels], r[kMaxLevels], m[kMaxLevels];
+  const uint8_t* mask[kMaxLevels];
+};
+
+// Threads of the group that runs a level of n cells: whole warps, about
+// kLaneCells cells each, at most the block.
+int group_threads(int n) {
+  int t = ((n + kLaneCells - 1) / kLaneCells + 31) & ~31;
+  return t > kTailThreads ? kTailThreads : t;
+}
+
+TailArgs tail_args(const Levels& L, int first) {
+  TailArgs A{};
+  A.first = first;
+  A.n = L.n;
+  int f = 0;
+  for (int j = first; j < L.n; ++j) {
+    const int n = L.h[j] * L.w[j];
+    A.h[j] = L.h[j];
+    A.w[j] = L.w[j];
+    A.nt[j] = group_threads(n);
+    A.mask[j] = L.mask[j];
+    A.p[j] = f;
+    A.r[j] = f + n;
+    f += 2 * n;
+  }
+  A.scratch = f;
+  f += L.h[first] * L.w[first];
+  int byte = 4 * f;
+  for (int j = first; j < L.n; ++j) {
+    A.m[j] = byte;
+    byte += (L.h[j] * L.w[j] + 3) & ~3;
+  }
+  A.bytes = (byte + 15) & ~15;
+  return A;
+}
+
+// The tail's dynamic shared memory and its reduction slots. The stages
+// below are out-of-line functions that address it by offsets: each runs
+// once or a few times a launch, and a compact kernel keeps its code in
+// the instruction cache.
+extern __shared__ float4 tail_smem[];
+__shared__ float2 tail_slots[kTailWarps];
+
+__device__ __forceinline__ float* tf() {
+  return reinterpret_cast<float*>(tail_smem);
+}
+__device__ __forceinline__ uint8_t* tb() {
+  return reinterpret_cast<uint8_t*>(tail_smem);
+}
+
+// One level of the tail: offsets of p, r and the mask bytes, its shape,
+// cell count and group size.
+struct Lvl {
+  int p, r, m, h, w, n, nt;
+};
+
+__device__ __forceinline__ Lvl tail_level(const TailArgs& A, int j) {
+  return Lvl{A.p[j], A.r[j], A.m[j], A.h[j], A.w[j], A.h[j] * A.w[j],
+             A.nt[j]};
+}
+
+// A barrier over the group of threads 0 .. nt-1 (only they call it).
+__device__ __forceinline__ void group_sync(int nt) {
+  if (nt >= kTailThreads) {
+    __syncthreads();
+  } else if (nt <= 32) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync 1, %0;" ::"r"(nt) : "memory");
+  }
+}
+
+// The cells thread tid owns of a level of width w run by nt threads: tid,
+// tid + nt, ... walked with their (x, y) and no division per cell.
+struct Walk {
+  int i, x, y, dx, dy, step;
+  __device__ Walk(int tid, int w, int nt) {
+    i = tid;
+    y = tid / w;
+    x = tid - y * w;
+    step = nt;
+    dy = nt / w;
+    dx = nt - dy * w;
+  }
+  __device__ void next(int w) {
+    i += step;
+    x += dx;
+    y += dy;
+    if (x >= w) {
+      x -= w;
+      ++y;
+    }
+  }
+};
+
+// v - 1 or v + 1 wrapped into [0, n).
+__device__ __forceinline__ int wrap1(int v, int n) {
+  return v < 0 ? v + n : (v >= n ? v - n : v);
+}
+
+// Sum over the group of (a, c): warp trees, one group barrier, the warps'
+// sums in order. The group's threads call it; the slots are free to
+// write (a barrier separates two calls).
+__device__ __noinline__ float2 group_sum2(float a, float c, int tid, int nt) {
+  warp_sum2(a, c);
+  if ((tid & 31) == 0) tail_slots[tid >> 5] = make_float2(a, c);
+  group_sync(nt);
+  a = 0.f;
+  c = 0.f;
+  for (int k = 0; k < (nt >> 5); ++k) {
+    a = a + tail_slots[k].x;
+    c = c + tail_slots[k].y;
+  }
+  return make_float2(a, c);
+}
+
+// The warps' sums of (a, c) into the slots (every lane of the warps of
+// the stage calls it; a barrier follows before they are read).
+__device__ __forceinline__ void warp_partial(float a, float c, int tid) {
+  warp_sum2(a, c);
+  if ((tid & 31) == 0) tail_slots[tid >> 5] = make_float2(a, c);
+}
+
+// The compatibility projection of the level's RHS on the thread's cells,
+// its mean from the nw warps' sums of (RHS * cont, cont) that the stage
+// writing the RHS left in the slots (the sweeps read only their own
+// cells' RHS; the restriction reads others' after a barrier).
+__device__ __noinline__ void tail_project(Lvl L, int nw, int tid) {
+  float* r = tf() + L.r;
+  const uint8_t* m = tb() + L.m;
+  float a = 0.f, c = 0.f;
+  for (int k = 0; k < nw; ++k) {
+    a = a + tail_slots[k].x;
+    c = c + tail_slots[k].y;
+  }
+  const float mean = a / fmaxf(c, 1.f);
+  for (int i = tid; i < L.n; i += L.nt) r[i] = (r[i] - mean) * cont_f(m[i]);
+}
+
+// k sweeps of the level, ping-ponging p and the scratch field (one group
+// barrier a sweep); an odd k copies the result back.
+__device__ __noinline__ void tail_smooth(Lvl L, int scratch, int tid, int k,
+                                         int damped, float keep,
+                                         float damping) {
+  const float* r = tf() + L.r;
+  const uint8_t* m = tb() + L.m;
+  float* cur = tf() + L.p;
+  float* nxt = tf() + scratch;
+  for (int s = 0; s < k; ++s) {
+    for (int i = tid; i < L.n; i += L.nt)
+      nxt[i] = jacobi_cell(cur, i, L.w, m[i], r[i], damped, keep, damping);
+    group_sync(L.nt);
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  if (k & 1) {
+    for (int i = tid; i < L.n; i += L.nt) nxt[i] = cur[i];
+    group_sync(L.nt);
+  }
+}
+
+// The restriction of level F's residual into level C's RHS on the cells
+// of C the thread owns (F's group), C's p set to 0, and the warps' sums of
+// (RHS * cont, cont) of C into the slots. The residual of F's cells goes
+// through the scratch field first.
+__device__ __noinline__ void tail_restrict(Lvl F, Lvl C, int scratch,
+                                           int tid) {
+  const float* p = tf() + F.p;
+  const float* r = tf() + F.r;
+  const uint8_t* m = tb() + F.m;
+  float* R = tf() + scratch;
+  for (int i = tid; i < F.n; i += F.nt) R[i] = resid(p, r, m, i, F.w);
+  group_sync(F.nt);
+  float* rc = tf() + C.r;
+  float* pc = tf() + C.p;
+  const uint8_t* mc = tb() + C.m;
+  float a = 0.f, c = 0.f;
+  Walk q(tid, C.w, F.nt);
+#pragma unroll 1
+  for (; q.i < C.n; q.next(C.w)) {
+    const int x = 2 * q.x, y = 2 * q.y, i = y * F.w + x;
+    const float v = (fold(R, i, F.w, x, y, F.h, F.w) +
+                     fold(R, i + 1, F.w, x + 1, y, F.h, F.w)) +
+                    (fold(R, i + F.w, F.w, x, y + 1, F.h, F.w) +
+                     fold(R, i + F.w + 1, F.w, x + 1, y + 1, F.h, F.w));
+    rc[q.i] = v;
+    pc[q.i] = 0.f;
+    const float cf = cont_f(mc[q.i]);
+    a = a + v * cf;
+    c = c + cf;
+  }
+  warp_partial(a, c, tid);
+}
+
+// One _neumann_extend pass over the whole level, neighbours wrapped. Pass
+// 0 reads e = p times the cont bits and writes into r (free once the
+// level's post-sweeps are done) with the live bits kLive1; pass 1 reads
+// them and writes p.
+__device__ __noinline__ void tail_extend(Lvl L, int tid, int pass) {
+  const float* e = tf() + (pass ? L.r : L.p);
+  float* out = tf() + (pass ? L.p : L.r);
+  uint8_t* m = tb() + L.m;
+  const uint8_t bit = pass ? kLive1 : kCont;
+  Walk c(tid, L.w, L.nt);
+#pragma unroll 1
+  for (; c.i < L.n; c.next(L.w)) {
+    const int row = c.y * L.w;
+    const int jxm = row + wrap1(c.x - 1, L.w);
+    const int jxp = row + wrap1(c.x + 1, L.w);
+    const int jym = wrap1(c.y - 1, L.h) * L.w + c.x;
+    const int jyp = wrap1(c.y + 1, L.h) * L.w + c.x;
+    const float lxm = (m[jxm] & bit) ? 1.f : 0.f;
+    const float lxp = (m[jxp] & bit) ? 1.f : 0.f;
+    const float lym = (m[jym] & bit) ? 1.f : 0.f;
+    const float lyp = (m[jyp] & bit) ? 1.f : 0.f;
+    // Pass 0 reads e * live, the plain version's e = e * live.
+    const float exm = pass ? e[jxm] : e[jxm] * lxm;
+    const float exp_ = pass ? e[jxp] : e[jxp] * lxp;
+    const float eym = pass ? e[jym] : e[jym] * lym;
+    const float eyp = pass ? e[jyp] : e[jyp] * lyp;
+    float num = 0.f;
+    num = num + exm * lxm;
+    num = num + exp_ * lxp;
+    num = num + eym * lym;
+    num = num + eyp * lyp;
+    float den = 0.f;
+    den = den + lxm;
+    den = den + lxp;
+    den = den + lym;
+    den = den + lyp;
+    const bool live = m[c.i] & bit;
+    out[c.i] = live ? e[c.i] : num / fmaxf(den, 1.f);
+    if (!pass)
+      m[c.i] = (m[c.i] & ~kLive1) | ((live || den > 0.5f) ? kLive1 : 0);
+  }
+  group_sync(L.nt);
+}
+
+// p += cont * prolong(e) on level F's cells the thread owns, e level C's
+// extended correction.
+__device__ __noinline__ void tail_prolong(Lvl F, Lvl C, int tid) {
+  float* p = tf() + F.p;
+  const float* e = tf() + C.p;
+  const uint8_t* m = tb() + F.m;
+  Walk c(tid, F.w, F.nt);
+#pragma unroll 1
+  for (; c.i < F.n; c.next(F.w)) {
+    if (!(m[c.i] & kCont)) continue;
+    const int cy = c.y >> 1, cx = c.x >> 1;
+    p[c.i] = p[c.i] + prolong_val(e, C.w, cy, cx,
+                                  wrap1((c.y & 1) ? cy + 1 : cy - 1, C.h),
+                                  wrap1((c.x & 1) ? cx + 1 : cx - 1, C.w));
+  }
+}
+
+__global__ void __launch_bounds__(kTailThreads)
+    mg_tail(TailArgs A, const float* __restrict__ p_in_all,
+            const float* __restrict__ rhs_all, float* __restrict__ p_out_all,
+            float* __restrict__ gauge_all, int pre, int post, int coarse,
+            int damped, float keep, float damping) {
+  const int b = blockIdx.x, tid = threadIdx.x;
+  for (int j = A.first; j < A.n; ++j) {
+    const Lvl L = tail_level(A, j);
+    // Mask bytes four at a time (the workspace aligns each level).
+    const uint8_t* mg = A.mask[j] + (size_t)b * L.n;
+    if ((L.n & 3) == 0) {
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(mg);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(tb() + L.m);
+      for (int i = tid; i < L.n / 4; i += kTailThreads) dst[i] = src[i];
+    } else {
+      for (int i = tid; i < L.n; i += kTailThreads) tb()[L.m + i] = mg[i];
+    }
+  }
+  const Lvl top = tail_level(A, A.first);
+  {
+    float a = 0.f, c = 0.f;
+    for (int i = tid; i < top.n; i += kTailThreads) {
+      const float v = rhs_all[(size_t)b * top.n + i];
+      tf()[top.r + i] = v;
+      tf()[top.p + i] = p_in_all ? p_in_all[(size_t)b * top.n + i] : 0.f;
+      const float cf = cont_f(A.mask[A.first][(size_t)b * top.n + i]);
+      a = a + v * cf;
+      c = c + cf;
+    }
+    warp_partial(a, c, tid);
+  }
+  __syncthreads();
+
+  // Down: project, pre-smooth, restrict into a zero-started coarser level.
+  // nw: the warps whose sums of the level's RHS are in the slots.
+  int nw = kTailWarps;
+  for (int j = A.first; j + 1 < A.n; ++j) {
+    const Lvl F = tail_level(A, j);
+    if (tid < F.nt) {
+      tail_project(F, nw, tid);
+      tail_smooth(F, A.scratch, tid, pre, damped, keep, damping);
+      if (pre == 0) group_sync(F.nt);
+      tail_restrict(F, tail_level(A, j + 1), A.scratch, tid);
+    }
+    nw = F.nt >> 5;
+    __syncthreads();
+  }
+  {
+    const Lvl C = tail_level(A, A.n - 1);
+    if (tid < C.nt) {
+      tail_project(C, nw, tid);
+      tail_smooth(C, A.scratch, tid, coarse, damped, keep, damping);
+    }
+  }
+  // Up: extend the coarse correction, prolong it onto p, post-smooth.
+  for (int j = A.n - 2; j >= A.first; --j) {
+    const Lvl F = tail_level(A, j);
+    const Lvl C = tail_level(A, j + 1);
+    if (tid < C.nt) {
+      tail_extend(C, tid, 0);
+      tail_extend(C, tid, 1);
+    }
+    __syncthreads();
+    if (tid < F.nt) {
+      tail_prolong(F, C, tid);
+      group_sync(F.nt);
+      tail_smooth(F, A.scratch, tid, post, damped, keep, damping);
+    }
+    __syncthreads();
+  }
+  __syncthreads();
+  if (tid < top.nt) {
+    float a = 0.f, c = 0.f;
+    for (int i = tid; i < top.n; i += top.nt) {
+      const float v = tf()[top.p + i];
+      p_out_all[(size_t)b * top.n + i] = v;
+      const float cf = cont_f(tb()[top.m + i]);
+      a = a + v * cf;
+      c = c + cf;
+    }
+    if (gauge_all) {
+      const float2 s = group_sum2(a, c, tid, top.nt);
+      if (tid == 0) {
+        gauge_all[2 * b] = s.x;
+        gauge_all[2 * b + 1] = s.y;
+      }
+    }
+  }
+}
+
+// ---- epilogues ----
+
+// G's zero-mean gauge: out = (p - mean) * cont (p null: zeros).
+__global__ void __launch_bounds__(256)
+    mg_gauge(const float* __restrict__ p_all,
+             const uint8_t* __restrict__ mask_all,
+             const float* __restrict__ parts_all, int nparts,
+             float* __restrict__ out_all, int h, int w) {
+  __shared__ float2 slots[8];
+  const float mean =
+      partials_mean(parts_all + 2 * blockIdx.z * nparts, nparts, slots);
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t j = blockIdx.z * (size_t)h * w + y * w + x;
+  out_all[j] = ((p_all ? p_all[j] : 0.f) - mean) * cont_f(mask_all[j]);
 }
 
 // H's epilogue: the gauge, the velocity update and the free-slip walls.
@@ -369,20 +1088,20 @@ __global__ void __launch_bounds__(256)
                 const float* __restrict__ parts_all, int nparts,
                 float* __restrict__ p_out_all, float* __restrict__ U_out,
                 int h, int w) {
-  __shared__ float sa[256], sc[256];
-  int b = blockIdx.z;
-  float mean = partials_mean(parts_all + 2 * b * nparts, nparts, sa, sc);
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  __shared__ float2 slots[8];
+  const int b = blockIdx.z;
+  const float mean = partials_mean(parts_all + 2 * b * nparts, nparts, slots);
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= w || y >= h) return;
-  size_t n = (size_t)h * w;
-  int i = y * w + x;
-  const float* p = p_all + b * n;
+  const size_t n = (size_t)h * w;
+  const int i = y * w + x;
+  const float* p = p_all ? p_all + b * n : nullptr;
   const uint8_t* mask = mask_all + b * n;
   auto pv = [p, mask, mean](int j) {
-    return cont_f(mask[j]) * (p[j] - mean);
+    return cont_f(mask[j]) * ((p ? p[j] : 0.f) - mean);
   };
-  size_t ub = (size_t)b * 2 * n, vb = ub + n;
+  const size_t ub = (size_t)b * 2 * n, vb = ub + n;
   p_out_all[b * n + i] = pv(i);
   float un, vn;
   update_and_walls(flags_all + b * n, pv, U[ub + i], U[vb + i], x, y, h, w,
@@ -391,290 +1110,441 @@ __global__ void __launch_bounds__(256)
   U_out[vb + i] = vn;
 }
 
-// ---- the single-block rest of the V-cycle ----
+// ---- the plan of one call, computed on the host ----
 
-struct Small {
-  int n;                              // levels, the first is the cut
-  int h[kMaxLevels], w[kMaxLevels];
-  const uint8_t* mask[kMaxLevels];    // (b, h, w) each
+// Levels of (h, w) (ops/multigrid.py::level_shapes): halve while both
+// sides are even and the halved smaller side is at least min_size. False
+// if there are more than kMaxLevels.
+bool level_shapes(int h, int w, int min_size, Levels* L) {
+  L->n = 1;
+  L->h[0] = h;
+  L->w[0] = w;
+  for (;;) {
+    const int hh = L->h[L->n - 1], ww = L->w[L->n - 1];
+    if (hh % 2 || ww % 2 || min(hh, ww) / 2 < min_size) return true;
+    if (L->n == kMaxLevels) return false;
+    L->h[L->n] = hh / 2;
+    L->w[L->n] = ww / 2;
+    ++L->n;
+  }
+}
+
+// The first level whose remaining hierarchy fits the tail's shared
+// memory; L.n if none does.
+int tail_cut(const Levels& L) {
+  for (int j = 0; j < L.n; ++j)
+    if (tail_args(L, j).bytes <= kTailBudget) return j;
+  return L.n;
+}
+
+int tiles(int n, int out) { return (n + out - 1) / out; }
+
+// Upper bound of the per-block partials of a level (the smallest tile
+// output of any launch).
+int max_parts(int h, int w) { return tiles(h, kMinOut) * tiles(w, kMinOut); }
+
+struct Workspace {
+  size_t flags[kMaxLevels], mask[kMaxLevels], rhs[kMaxLevels];
+  size_t pa[kMaxLevels], pb[kMaxLevels], parts[kMaxLevels], gauge;
+  size_t bytes;
 };
 
-// Offsets into the dynamic shared memory: per level p and r (floats) and
-// the mask (bytes); one float scratch field and two live-flag fields the
-// size of the first level.
-struct SmallLayout {
-  int p[kMaxLevels], r[kMaxLevels], m[kMaxLevels];
-  int scratch, live_a, live_b, bytes;
-};
-
-__host__ __device__ SmallLayout small_layout(const Small& L) {
-  SmallLayout o;
-  int f = 0;
+// Offsets of the call's scratch: coarse flags and masks of every level;
+// the RHS (level 0 only for H), two p buffers and the RHS partials of
+// every level down to the tail's; the gauge's partials.
+Workspace workspace(const Levels& L, int cut, int b, bool project) {
+  Workspace o{};
+  size_t at = 0;
+  auto take = [&at](size_t nbytes) {
+    size_t off = at;
+    at += (nbytes + 255) & ~(size_t)255;
+    return off;
+  };
   for (int j = 0; j < L.n; ++j) {
-    o.p[j] = f;
-    f += L.h[j] * L.w[j];
-    o.r[j] = f;
-    f += L.h[j] * L.w[j];
+    const size_t n = (size_t)b * L.h[j] * L.w[j];
+    if (j > 0) o.flags[j] = take(4 * n);
+    o.mask[j] = take(n);
+    if (j > cut) continue;
+    if (j > 0 || project) o.rhs[j] = take(4 * n);
+    o.pa[j] = take(4 * n);
+    o.pb[j] = take(4 * n);
+    o.parts[j] = take((size_t)8 * b * max_parts(L.h[j], L.w[j]));
   }
-  int n0 = L.h[0] * L.w[0];
-  o.scratch = f;
-  f += n0;
-  int byte = 4 * f;
-  for (int j = 0; j < L.n; ++j) {
-    o.m[j] = byte;
-    byte += L.h[j] * L.w[j];
-  }
-  o.live_a = byte;
-  byte += n0;
-  o.live_b = byte;
-  byte += n0;
-  o.bytes = (byte + 15) & ~15;
+  o.gauge = take((size_t)8 * b * max_parts(L.h[0], L.w[0]));
+  o.bytes = at;
   return o;
 }
 
-__device__ void project_level(float* r, const uint8_t* m, int n, float* sa,
-                              float* sc) {
-  float a = 0.f, c = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float mf = cont_f(m[i]);
-    a = a + r[i] * mf;
-    c = c + mf;
-  }
-  block_sum2(a, c, sa, sc);
-  float mean = a / fmaxf(c, 1.f);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    r[i] = (r[i] - mean) * cont_f(m[i]);
-  __syncthreads();
+struct Problem {
+  int b, h, w, min_size, n_vcycles, pre, post, coarse, damped;
+  float keep, damping;
+};
+
+bool bad_problem(const Problem& P) {
+  return P.b < 1 || P.h < 3 || P.w < 3 || P.n_vcycles < 0 || P.pre < 0 ||
+         P.post < 0 || P.coarse < 0;
 }
 
-// k sweeps on p in place (tmp: a scratch field of the level's size).
-__device__ void smooth_level(float* p, float* tmp, const float* r,
-                             const uint8_t* m, int h, int w, int k,
-                             int damped, float keep, float damping) {
-  int n = h * w;
-  float* cur = p;
-  float* nxt = tmp;
-  for (int s = 0; s < k; ++s) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x)
-      nxt[i] = jacobi_cell(cur, i, w, m[i], r[i], damped, keep, damping);
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  if (cur != p) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = cur[i];
-    __syncthreads();
-  }
+template <int T>
+int launch_down(dim3 grid, const LevelArgs& a, const Problem& P,
+                cudaStream_t s) {
+  dim3 block(T, T / kRY);
+  constexpr int smem = Tile<T>::kDownSmem;
+  static_assert(smem <= 48 * 1024, "no opt-in shared memory");
+  if (P.damped)
+    mg_down<T, true><<<grid, block, smem, s>>>(a, P.keep, P.damping);
+  else
+    mg_down<T, false><<<grid, block, smem, s>>>(a, P.keep, P.damping);
+  return 0;
 }
 
-// Both passes of _neumann_extend on a whole level, neighbours wrapped.
-__device__ void extend_level(float* e, const uint8_t* m, float* tmp,
-                             uint8_t* la, uint8_t* lb, int h, int w) {
-  int n = h * w;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    la[i] = m[i] & kCont;
-    e[i] = e[i] * (la[i] ? 1.f : 0.f);
-  }
-  __syncthreads();
-  for (int pass = 0; pass < 2; ++pass) {
-    const float* src = pass ? tmp : e;
-    float* dst = pass ? e : tmp;
-    const uint8_t* live = pass ? lb : la;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      int y = i / w, x = i - y * w;
-      int row = y * w;
-      dst[i] = extend_cell(src, live, i, row + wrap(x - 1, w),
-                           row + wrap(x + 1, w), wrap(y - 1, h) * w + x,
-                           wrap(y + 1, h) * w + x, pass ? nullptr : lb);
+// Opts the up launches into their shared memory once a process.
+template <int T>
+int up_smem_status() {
+  static const int status = [] {
+    constexpr int smem = Tile<T>::kUpSmem;
+    if (smem <= 48 * 1024) return 0;
+    cudaError_t e = cudaFuncSetAttribute(
+        mg_up<T, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(mg_up<T, false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    return static_cast<int>(e);
+  }();
+  return status;
+}
+
+template <int T>
+int launch_up(dim3 grid, const LevelArgs& a, const float* e_c,
+              const uint8_t* mask_c, const Problem& P, cudaStream_t s) {
+  const int status = up_smem_status<T>();
+  if (status) return status;
+  dim3 block(T, T / kRY);
+  constexpr int smem = Tile<T>::kUpSmem;
+  if (P.damped)
+    mg_up<T, true><<<grid, block, smem, s>>>(a, e_c, mask_c, P.keep,
+                                            P.damping);
+  else
+    mg_up<T, false><<<grid, block, smem, s>>>(a, e_c, mask_c, P.keep,
+                                             P.damping);
+  return 0;
+}
+
+// One solve: with issue false it only counts the launches it would make.
+class Solve {
+ public:
+  Solve(const Problem& P, bool project, char* work, const int* flags,
+        const float* rhs_in, const float* U, const float* p0,
+        cudaStream_t s, bool issue)
+      : P_(P), project_(project), work_(work), flags_(flags),
+        rhs_in_(rhs_in), U_(U), p0_(p0), s_(s), issue_(issue) {
+    ok_ = !bad_problem(P) && level_shapes(P.h, P.w, P.min_size, &L_);
+    if (!ok_) return;
+    cut_ = tail_cut(L_);
+    W_ = workspace(L_, cut_, P.b, project);
+    for (int j = 0; j < L_.n; ++j) {
+      L_.flags[j] = j ? reinterpret_cast<int*>(work_ + W_.flags[j])
+                      : const_cast<int*>(flags_);
+      L_.mask[j] = reinterpret_cast<uint8_t*>(work_ + W_.mask[j]);
     }
-    __syncthreads();
   }
-}
 
-__global__ void __launch_bounds__(kSmallThreads)
-    mg_small(Small L, const float* __restrict__ p_in_all,
-             const float* __restrict__ rhs_all, float* __restrict__ p_out_all,
-             int pre, int post, int coarse, int damped, float keep,
-             float damping) {
-  extern __shared__ float4 smem4[];
-  __shared__ float sa[kSmallThreads], sc[kSmallThreads];
-  float* sf = reinterpret_cast<float*>(smem4);
-  uint8_t* sb = reinterpret_cast<uint8_t*>(smem4);
-  const SmallLayout o = small_layout(L);
-  const int b = blockIdx.x;
-  const int n0 = L.h[0] * L.w[0];
-  float* scratch = sf + o.scratch;
+  bool ok() const { return ok_; }
+  int launches() const { return launches_; }
+  int status() const { return status_; }
+  size_t bytes() const { return W_.bytes; }
+  int cut() const { return cut_; }
 
-  for (int j = 0; j < L.n; ++j) {
-    int n = L.h[j] * L.w[j];
-    const uint8_t* mg = L.mask[j] + (size_t)b * n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) sb[o.m[j] + i] = mg[i];
-  }
-  for (int i = threadIdx.x; i < n0; i += blockDim.x) {
-    sf[o.r[0] + i] = rhs_all[(size_t)b * n0 + i];
-    sf[o.p[0] + i] = p_in_all ? p_in_all[(size_t)b * n0 + i] : 0.f;
-  }
-  __syncthreads();
-
-  // Down: project, pre-smooth, restrict into a zero-started coarser level.
-  for (int j = 0; j + 1 < L.n; ++j) {
-    int h = L.h[j], w = L.w[j], hc = L.h[j + 1], wc = L.w[j + 1];
-    float* p = sf + o.p[j];
-    float* r = sf + o.r[j];
-    const uint8_t* m = sb + o.m[j];
-    project_level(r, m, h * w, sa, sc);
-    smooth_level(p, scratch, r, m, h, w, pre, damped, keep, damping);
-    for (int i = threadIdx.x; i < hc * wc; i += blockDim.x) {
-      int Y = i / wc, X = i - Y * wc;
-      sf[o.r[j + 1] + i] = restrict_cell(p, r, m, X, Y, h, w);
-      sf[o.p[j + 1] + i] = 0.f;
+  // Set-up, the V-cycles, the gauge; G's output in out, H's in out and
+  // U_out.
+  void run(float* out, float* U_out) {
+    setup();
+    const float* p = p0_;
+    for (int v = 0; v < P_.n_vcycles; ++v)
+      p = vcycle(0, p, v + 1 == P_.n_vcycles);
+    if (P_.n_vcycles == 0) {
+      dim3 block(32, 8);
+      dim3 grid = grid2d(P_.b, P_.h, P_.w, block);
+      gauge_nparts_ = grid.x * grid.y;
+      if (go())
+        mg_partials<<<grid, block, 0, s_>>>(p, L_.mask[0], f(W_.gauge),
+                                            P_.h, P_.w);
+      note();
     }
-    __syncthreads();
-  }
-  {
-    int j = L.n - 1;
-    project_level(sf + o.r[j], sb + o.m[j], L.h[j] * L.w[j], sa, sc);
-    smooth_level(sf + o.p[j], scratch, sf + o.r[j], sb + o.m[j], L.h[j],
-                 L.w[j], coarse, damped, keep, damping);
-  }
-  // Up: extend the coarse correction, prolong it onto p, post-smooth.
-  for (int j = L.n - 2; j >= 0; --j) {
-    int h = L.h[j], w = L.w[j], hc = L.h[j + 1], wc = L.w[j + 1];
-    float* e = sf + o.p[j + 1];
-    float* p = sf + o.p[j];
-    const uint8_t* m = sb + o.m[j];
-    extend_level(e, sb + o.m[j + 1], scratch, sb + o.live_a, sb + o.live_b,
-                 hc, wc);
-    for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
-      float v = 0.f;
-      if (m[i] & kCont) {
-        int y = i / w, x = i - y * w;
-        int cy = y >> 1, cx = x >> 1;
-        v = prolong_val(e, wc, cy, cx, wrap((y & 1) ? cy + 1 : cy - 1, hc),
-                        wrap((x & 1) ? cx + 1 : cx - 1, wc));
-      }
-      p[i] = p[i] + v;
+    dim3 block(32, 8);
+    dim3 grid = grid2d(P_.b, P_.h, P_.w, block);
+    if (go()) {
+      if (project_)
+        mg_epilogue<<<grid, block, 0, s_>>>(flags_, U_, p, L_.mask[0],
+                                            f(W_.gauge), gauge_nparts_, out,
+                                            U_out, P_.h, P_.w);
+      else
+        mg_gauge<<<grid, block, 0, s_>>>(p, L_.mask[0], f(W_.gauge),
+                                         gauge_nparts_, out, P_.h, P_.w);
     }
-    __syncthreads();
-    smooth_level(p, scratch, sf + o.r[j], m, h, w, post, damped, keep,
-                 damping);
+    note();
   }
-  for (int i = threadIdx.x; i < n0; i += blockDim.x)
-    p_out_all[(size_t)b * n0 + i] = sf[o.p[0] + i];
-}
+
+ private:
+  float* f(size_t off) { return reinterpret_cast<float*>(work_ + off); }
+
+  // Counts a launch; true if it is to be issued.
+  bool go() {
+    ++launches_;
+    return issue_ && status_ == 0;
+  }
+  void note() {
+    if (issue_ && status_ == 0) status_ = launch_status();
+  }
+
+  const float* rhs(int j) {
+    return (j == 0 && !project_) ? rhs_in_ : f(W_.rhs[j]);
+  }
+
+  void setup() {
+    dim3 block(kSetupTile, 512 / kSetupTile);
+    dim3 grid(tiles(P_.w, kSetupTile), tiles(P_.h, kSetupTile), P_.b);
+    nparts_[0] = grid.x * grid.y;
+    if (go()) {
+      if (project_)
+        mg_setup<true><<<grid, block, 0, s_>>>(L_, U_, nullptr, f(W_.rhs[0]),
+                                              f(W_.parts[0]));
+      else
+        mg_setup<false><<<grid, block, 0, s_>>>(L_, nullptr, rhs_in_,
+                                               nullptr, f(W_.parts[0]));
+    }
+    note();
+    dim3 b2(32, 8);
+    for (int j = kSetupLevels + 1; j < L_.n; ++j) {
+      if (go())
+        mg_coarsen<<<grid2d(P_.b, L_.h[j], L_.w[j], b2), b2, 0, s_>>>(
+            L_.flags[j - 1], L_.flags[j], L_.h[j - 1], L_.w[j - 1]);
+      note();
+    }
+    if (L_.n > 1) {
+      dim3 g2 = grid2d(P_.b * (L_.n - 1), L_.h[1], L_.w[1], b2);
+      if (go()) mg_masks<<<g2, b2, 0, s_>>>(L_);
+      note();
+    }
+  }
+
+  LevelArgs level_args(int j, const float* p_in, float* p_out, int k,
+                       int halo) {
+    LevelArgs a{};
+    a.p_in = p_in;
+    a.rhs = rhs(j);
+    a.parts = f(W_.parts[j]);
+    a.nparts = nparts_[j];
+    a.mask = L_.mask[j];
+    a.p_out = p_out;
+    a.h = L_.h[j];
+    a.w = L_.w[j];
+    a.k = k;
+    a.halo = halo;
+    return a;
+  }
+
+  // The tile side of level j's launches (kWideBlocks).
+  int tile_of(int j) const {
+    const int out = 64 - 2 * ((min(P_.pre, kMaxSweeps) + kResidHalo + 1) & ~1);
+    return P_.b * tiles(L_.w[j], out) * tiles(L_.h[j], out) >= kWideBlocks
+               ? 64 : 32;
+  }
+
+  dim3 level_grid(int j, int t, int halo) const {
+    const int out = t - 2 * halo;
+    return dim3(tiles(L_.w[j], out), tiles(L_.h[j], out), P_.b);
+  }
+
+  // A smoothing launch (k sweeps), or the down launch with restrict.
+  void down(int j, const float* p_in, float* p_out, int k, bool restrict_,
+            bool gauge) {
+    const int halo = restrict_ ? ((k + kResidHalo + 1) & ~1) : k;
+    const int t = tile_of(j);
+    LevelArgs a = level_args(j, p_in, p_out, k, halo);
+    dim3 grid = level_grid(j, t, halo);
+    if (restrict_) {
+      a.rhs_c = f(W_.rhs[j + 1]);
+      a.mask_c = L_.mask[j + 1];
+      a.parts_out = f(W_.parts[j + 1]);
+      nparts_[j + 1] = grid.x * grid.y;
+    } else if (gauge) {
+      a.parts_out = f(W_.gauge);
+      gauge_nparts_ = grid.x * grid.y;
+    }
+    if (go())
+      status_ = t == 64 ? launch_down<64>(grid, a, P_, s_)
+                        : launch_down<32>(grid, a, P_, s_);
+    note();
+  }
+
+  void up(int j, const float* p_in, const float* e_c, float* p_out, int k,
+          bool gauge) {
+    const int halo = (k + 1) & ~1;
+    const int t = tile_of(j);
+    LevelArgs a = level_args(j, p_in, p_out, k, halo);
+    dim3 grid = level_grid(j, t, halo);
+    if (gauge) {
+      a.parts_out = f(W_.gauge);
+      gauge_nparts_ = grid.x * grid.y;
+    }
+    if (go())
+      status_ = t == 64 ? launch_up<64>(grid, a, e_c, L_.mask[j + 1], P_, s_)
+                        : launch_up<32>(grid, a, e_c, L_.mask[j + 1], P_, s_);
+    note();
+  }
+
+  void tail(int j, const float* p_in, float* p_out, bool gauge) {
+    if (gauge) gauge_nparts_ = 1;
+    const TailArgs A = tail_args(L_, j);
+    if (go()) {
+      status_ = static_cast<int>(cudaFuncSetAttribute(
+          mg_tail, cudaFuncAttributeMaxDynamicSharedMemorySize, A.bytes));
+      if (status_ == 0)
+        mg_tail<<<P_.b, kTailThreads, A.bytes, s_>>>(
+            A, p_in, rhs(j), p_out, gauge ? f(W_.gauge) : nullptr,
+            P_.pre, P_.post, P_.coarse, P_.damped, P_.keep, P_.damping);
+    }
+    note();
+  }
+
+  // One V-cycle of level j from src (null: zeros); returns the buffer
+  // that holds the level's result. `last`: the solve's last V-cycle (its
+  // final launch of level 0 writes the gauge's partials).
+  const float* vcycle(int j, const float* src, bool last) {
+    float* A = f(W_.pa[j]);
+    float* B = f(W_.pb[j]);
+    auto other = [A, B](const float* q) { return q == A ? B : A; };
+    const bool gauge = last && j == 0;
+    if (j == cut_) {
+      float* o = other(src);
+      tail(j, src, o, gauge);
+      return o;
+    }
+    const float* q = src;
+    if (j + 1 == L_.n) {  // the coarsest level, too large for the tail
+      int k = P_.coarse;
+      do {
+        const int kk = min(k, kMaxSweeps);
+        float* o = other(q);
+        down(j, q, o, kk, false, gauge && k == kk);
+        q = o;
+        k -= kk;
+      } while (k > 0);
+      return q;
+    }
+    int k = P_.pre;
+    for (; k > kMaxSweeps; k -= kMaxSweeps) {
+      float* o = other(q);
+      down(j, q, o, kMaxSweeps, false, false);
+      q = o;
+    }
+    float* o = other(q);
+    down(j, q, o, k, true, false);
+    q = o;
+    const float* e = vcycle(j + 1, nullptr, false);
+    const int kp = min(P_.post, kMaxSweeps);
+    o = other(q);
+    up(j, q, e, o, kp, gauge && kp == P_.post);
+    q = o;
+    for (k = P_.post - kp; k > 0;) {
+      const int kk = min(k, kMaxSweeps);
+      o = other(q);
+      down(j, q, o, kk, false, gauge && k == kk);
+      q = o;
+      k -= kk;
+    }
+    return q;
+  }
+
+  Problem P_;
+  bool project_;
+  char* work_;
+  const int* flags_;
+  const float* rhs_in_;
+  const float* U_;
+  const float* p0_;
+  cudaStream_t s_;
+  bool issue_;
+  bool ok_ = false;
+  Levels L_{};
+  int cut_ = 0;
+  Workspace W_{};
+  int nparts_[kMaxLevels] = {};
+  int gauge_nparts_ = 0;
+  int launches_ = 0;
+  int status_ = 0;
+};
+
+int clamp_int(size_t v) { return v > (size_t)INT_MAX ? -1 : (int)v; }
 
 }  // namespace
 
-extern "C" int fn_mg_prologue(const int* flags, const float* U,
-                              uint8_t* mask, float* rhs, int b, int h, int w,
-                              void* stream) {
-  dim3 block(32, 8);
-  mg_prologue<<<fnk::grid2d(b, h, w, block), block, 0,
-                (cudaStream_t)stream>>>(flags, U, mask, rhs, h, w);
-  return fnk::launch_status();
+// Bytes of device workspace fn_mg_solve (project 0) or fn_mg_project
+// (project 1) needs; -1 for arguments it refuses. Launches nothing.
+extern "C" int fn_mg_workspace(int b, int h, int w, int min_size, int pre,
+                               int post, int coarse, int project) {
+  Problem P{b, h, w, min_size, 0, pre, post, coarse, 0, 0.f, 0.f};
+  Solve S(P, project != 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+          nullptr, false);
+  return S.ok() ? clamp_int(S.bytes()) : -1;
 }
 
-extern "C" int fn_mg_coarsen(const int* flags_f, int* flags_c,
-                             uint8_t* mask_c, int b, int hf, int wf,
+// Kernel launches one such call issues; -1 for arguments it refuses.
+// Launches nothing.
+extern "C" int fn_mg_launches(int b, int h, int w, int min_size,
+                              int n_vcycles, int pre, int post, int coarse,
+                              int project) {
+  Problem P{b, h, w, min_size, n_vcycles, pre, post, coarse, 0, 0.f, 0.f};
+  Solve S(P, project != 0, nullptr, nullptr, nullptr, nullptr, nullptr,
+          nullptr, false);
+  if (!S.ok()) return -1;
+  S.run(nullptr, nullptr);
+  return S.launches();
+}
+
+// Index of the first level of (h, w) that the single-block tail runs (the
+// levels above it run per-level launches); the number of levels if none.
+// Launches nothing.
+extern "C" int fn_mg_cut_level(int h, int w, int min_size) {
+  Levels L;
+  if (!level_shapes(h, w, min_size, &L)) return -1;
+  return tail_cut(L);
+}
+
+// Kernel G: n_vcycles V-cycles of (flags, div) from p0 (null: zeros) and
+// the zero-mean gauge into out; `work` holds fn_mg_workspace(..., 0)
+// bytes. Issues every launch on `stream`; returns the first launch error,
+// or cudaErrorInvalidValue for bad arguments.
+extern "C" int fn_mg_solve(const int* flags, const float* div,
+                           const float* p0, float* out, void* work, int b,
+                           int h, int w, int min_size, int n_vcycles,
+                           int pre, int post, int coarse, int damped,
+                           float keep, float damping, void* stream) {
+  Problem P{b, h, w, min_size, n_vcycles, pre, post, coarse, damped, keep,
+            damping};
+  Solve S(P, false, static_cast<char*>(work), flags, div, nullptr, p0,
+          (cudaStream_t)stream, true);
+  if (!S.ok() || !work) return static_cast<int>(cudaErrorInvalidValue);
+  S.run(out, nullptr);
+  return S.status();
+}
+
+// Kernel H: the divergence RHS of U (b, 2, h, w), n_vcycles V-cycles from
+// p0 (null: zeros), the gauge into p_out, the velocity update and the
+// free-slip walls into U_out; `work` holds fn_mg_workspace(..., 1) bytes.
+extern "C" int fn_mg_project(const int* flags, const float* U,
+                             const float* p0, float* p_out, float* U_out,
+                             void* work, int b, int h, int w, int min_size,
+                             int n_vcycles, int pre, int post, int coarse,
+                             int damped, float keep, float damping,
                              void* stream) {
-  dim3 block(32, 8);
-  mg_coarsen<<<fnk::grid2d(b, hf / 2, wf / 2, block), block, 0,
-               (cudaStream_t)stream>>>(flags_f, flags_c, mask_c, hf, wf);
-  return fnk::launch_status();
-}
-
-// parts: b * nblk (sum, count) pairs, nblk = ceil(w/32) * ceil(h/8).
-extern "C" int fn_mg_partials(const float* field, const uint8_t* mask,
-                              float* parts, int b, int h, int w,
-                              void* stream) {
-  dim3 block(32, 8);
-  mg_partials<<<fnk::grid2d(b, h, w, block), block, 0,
-                (cudaStream_t)stream>>>(field, mask, parts, h, w);
-  return fnk::launch_status();
-}
-
-extern "C" int fn_mg_project(const float* field, const uint8_t* mask,
-                             const float* parts, int nparts, float* out,
-                             int b, int h, int w, void* stream) {
-  dim3 block(32, 8);
-  mg_project<<<fnk::grid2d(b, h, w, block), block, 0,
-               (cudaStream_t)stream>>>(field, mask, parts, nparts, out, h, w);
-  return fnk::launch_status();
-}
-
-// parts: the coarse level's partials, nblk = ceil(w/64) * ceil(h/16).
-extern "C" int fn_mg_restrict(const float* p, const float* rhsp,
-                              const uint8_t* mask, float* rhs_c,
-                              const uint8_t* mask_c, float* parts, int b,
-                              int h, int w, void* stream) {
-  dim3 block(32, 8);
-  mg_restrict<<<fnk::grid2d(b, h / 2, w / 2, block), block, 0,
-                (cudaStream_t)stream>>>(p, rhsp, mask, h, w, rhs_c, mask_c,
-                                        parts);
-  return fnk::launch_status();
-}
-
-extern "C" int fn_mg_prolong(const float* e_c, const uint8_t* mask_c,
-                             float* p, const uint8_t* mask, int b, int h,
-                             int w, void* stream) {
-  dim3 block(32, 8);
-  mg_prolong<<<fnk::grid2d(b, h, w, dim3(kPT, kPT)), block, 0,
-               (cudaStream_t)stream>>>(e_c, mask_c, p, mask, h, w);
-  return fnk::launch_status();
-}
-
-extern "C" int fn_mg_epilogue(const int* flags, const float* U,
-                              const float* p, const uint8_t* mask,
-                              const float* parts, int nparts, float* p_out,
-                              float* U_out, int b, int h, int w,
-                              void* stream) {
-  dim3 block(32, 8);
-  mg_epilogue<<<fnk::grid2d(b, h, w, block), block, 0,
-                (cudaStream_t)stream>>>(flags, U, p, mask, parts, nparts,
-                                        p_out, U_out, h, w);
-  return fnk::launch_status();
-}
-
-// Index of the first of the n levels hs[j] x ws[j] whose remaining
-// hierarchy fits the single-block launch's shared memory, or -1. Launches
-// nothing.
-extern "C" int fn_mg_cut_level(int n, const int* hs, const int* ws) {
-  for (int j = 0; j < n; ++j) {
-    if (n - j > kMaxLevels) continue;
-    Small L;
-    L.n = n - j;
-    for (int i = j; i < n; ++i) {
-      L.h[i - j] = hs[i];
-      L.w[i - j] = ws[i];
-    }
-    if (small_layout(L).bytes <= kSmallBudget) return j;
-  }
-  return -1;
-}
-
-// The rest of a V-cycle from level hs[0] x ws[0] down, one block per
-// sample: masks[j] is level j's mask, rhs the first level's RHS before
-// its compatibility projection, p_in its start (null: zeros).
-extern "C" int fn_mg_small(int n, const int* hs, const int* ws,
-                           const void* const* masks, const float* p_in,
-                           const float* rhs, float* p_out, int b, int pre,
-                           int post, int coarse, int damped, float keep,
-                           float damping, void* stream) {
-  if (n < 1 || n > kMaxLevels)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Small L;
-  L.n = n;
-  for (int j = 0; j < n; ++j) {
-    L.h[j] = hs[j];
-    L.w[j] = ws[j];
-    L.mask[j] = static_cast<const uint8_t*>(masks[j]);
-  }
-  int bytes = small_layout(L).bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      mg_small, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  mg_small<<<b, kSmallThreads, bytes, (cudaStream_t)stream>>>(
-      L, p_in, rhs, p_out, pre, post, coarse, damped, keep, damping);
-  return fnk::launch_status();
+  Problem P{b, h, w, min_size, n_vcycles, pre, post, coarse, damped, keep,
+            damping};
+  Solve S(P, true, static_cast<char*>(work), flags, nullptr, U, p0,
+          (cudaStream_t)stream, true);
+  if (!S.ok() || !work) return static_cast<int>(cudaErrorInvalidValue);
+  S.run(p_out, U_out);
+  return S.status();
 }

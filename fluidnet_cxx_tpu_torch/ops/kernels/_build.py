@@ -8,8 +8,9 @@ build takes seconds, and there is no lock file: the library is written under
 a temporary name and renamed into place. A rebuild happens only when the
 hash of the sources and flags changes.
 
-Every ``extern "C"`` entry launches its kernel (``fn_jacobi3_solve`` and
-``fn_tail3``: the launches of a whole solve) on the stream it is given,
+Every ``extern "C"`` entry launches its kernel (``fn_jacobi3_solve``,
+``fn_tail3``, ``fn_mg_solve`` and ``fn_mg_project``: the launches of a
+whole solve) on the stream it is given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
 ``QUERIES`` launch nothing: they answer a question of the kernels' own
@@ -61,14 +62,8 @@ SIGNATURES = {
     "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
     "fn_jacobi_mask": [VP, VP, I, I, I, VP],
     "fn_jacobi_sweeps": [VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
-    "fn_mg_prologue": [VP, VP, VP, VP, I, I, I, VP],
-    "fn_mg_coarsen": [VP, VP, VP, I, I, I, VP],
-    "fn_mg_partials": [VP, VP, VP, I, I, I, VP],
-    "fn_mg_project": [VP, VP, VP, I, VP, I, I, I, VP],
-    "fn_mg_restrict": [VP, VP, VP, VP, VP, VP, I, I, I, VP],
-    "fn_mg_prolong": [VP, VP, VP, VP, I, I, I, VP],
-    "fn_mg_epilogue": [VP, VP, VP, VP, VP, I, VP, VP, I, I, I, VP],
-    "fn_mg_small": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
+    "fn_mg_solve": [VP] * 5 + [I] * 9 + [F, F, VP],
+    "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
     "fn_conv3d_ndhwc": [VP] * 6 + [I] * 19 + [VP, VP],
@@ -81,7 +76,9 @@ SIGNATURES = {
 QUERIES = {
     "fn_jacobi_max_sweeps": [],
     "fn_jacobi3_max_sweeps": [],
-    "fn_mg_cut_level": [I, VP, VP],
+    "fn_mg_workspace": [I] * 8,
+    "fn_mg_launches": [I] * 9,
+    "fn_mg_cut_level": [I] * 3,
 }
 
 

@@ -19,26 +19,6 @@ def sweep_args(damping: float):
     return int(w_ != 1.0), 1.0 - w_, w_
 
 
-def sweeps(owner, p, rhs, mask, dst_pair, k: int, damping: float):
-    """``k`` sweeps on one level from ``p`` (None: zeros) through the
-    kernel; ``dst_pair`` are two (b, h, w) buffers, neither of them the
-    caller's ``p0``. Counts each launch on ``owner.launches``. Returns the
-    buffer holding the result (``p`` itself when k is 0)."""
-    b, h, w = rhs.shape
-    damped, keep, w_ = sweep_args(damping)
-    max_sweeps = _build.constant("fn_jacobi_max_sweeps")
-    done = 0
-    while done < k:
-        n = min(max_sweeps, k - done)
-        dst = dst_pair[1] if p is dst_pair[0] else dst_pair[0]
-        _build.call("fn_jacobi_sweeps", _build.ptr(p), rhs.data_ptr(),
-                    mask.data_ptr(), dst.data_ptr(), b, h, w, n, damped,
-                    keep, w_, _build.stream())
-        owner.launches += 1
-        p, done = dst, done + n
-    return p
-
-
 def solve_jacobi(flags, div, iters: int, p0=None, damping: float = 1.0):
     """``iters`` Jacobi sweeps. flags (b,h,w) int32, div (b,h,w) the RHS,
     p0 (b,h,w) optional warm start (default 0). Returns p."""
@@ -58,8 +38,20 @@ def solve_jacobi(flags, div, iters: int, p0=None, damping: float = 1.0):
     _build.call("fn_jacobi_mask", flags.data_ptr(), mask.data_ptr(), b, h, w,
                 _build.stream())
     solve_jacobi.launches += 1
+    # Two buffers to ping-pong, neither of them the caller's p0.
     pair = (torch.empty_like(div), torch.empty_like(div))
-    return sweeps(solve_jacobi, p0, div, mask, pair, iters, damping)
+    damped, keep, w_ = sweep_args(damping)
+    max_sweeps = _build.constant("fn_jacobi_max_sweeps")
+    p, done = p0, 0
+    while done < iters:
+        n = min(max_sweeps, iters - done)
+        dst = pair[1] if p is pair[0] else pair[0]
+        _build.call("fn_jacobi_sweeps", _build.ptr(p), div.data_ptr(),
+                    mask.data_ptr(), dst.data_ptr(), b, h, w, n, damped,
+                    keep, w_, _build.stream())
+        solve_jacobi.launches += 1
+        p, done = dst, done + n
+    return p
 
 
 solve_jacobi.launches = 0
