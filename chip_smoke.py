@@ -5,7 +5,8 @@
 Phases (each prints its elapsed seconds):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with one nvcc command, printing the
-     -Xptxas -v register, shared-memory and spill lines;
+     -Xptxas -v register, shared-memory and spill lines, and the dynamic
+     shared memory of kernel M's backward march at each max_disp;
   3. each kernel (A merged advection, B PUNet conv, C projection tail,
      D scalar advection, E velocity advection, F Jacobi, G multigrid
      solve, H multigrid projection, I 3-D Jacobi, J 3-D projection tail,
@@ -20,7 +21,8 @@ Phases (each prints its elapsed seconds):
      further than twice the plain version's float32 rounding from its
      float64 run; I, K, L and M at 128^3 with 8% random obstacles
      and displacements up to 3 cells (past the 3-D window clamp of 2), K
-     and L with the first-hit trace on and off, L also against K and M,
+     and L with the first-hit trace on and off, L also against K and M, M
+     also at max_disp 1, 3 and 4 (bit for bit),
      K, L and M also on the plume scene's flags (the border shell alone)
      with the same U, K and L timed with the trace on and off on both
      flag sets with the share of rays that walked their pruned box,
@@ -38,12 +40,13 @@ Phases (each prints its elapsed seconds):
      kernel, the plain version and, for B and N, the same forward as cuDNN
      F.conv2d/F.conv3d calls (N: in bfloat16 with channels_last_3d, and
      in float32), B, C, F (also at 512x128 and 8000x800), G, H (cold and
-     warm at 512^2 and 512x128), I, J (16 and 8 sweeps), N and the cuDNN
-     chains as device time (the call captured in a CUDA graph; the eager
-     time beside it), G and H beside their times before their redesign
-     (STEP0_MS) with their launches a call and their device time split
-     into the single-block tail, the per-level launches and the rest, F,
-     G, H and I with their launches a call, and the
+     warm at 512^2 and 512x128), I, J (16 and 8 sweeps), M (stress and
+     scene flags), N and the cuDNN chains as device time (the call
+     captured in a CUDA graph; the eager time beside it), G, H, J and M
+     beside their times before their redesign (STEP0_MS), G and H with
+     their device time split into the single-block tail, the per-level
+     launches and the rest, F, G, H, I and J with their launches a call,
+     and the
      per-layer tables of B (512^2) and N (p8, p4 in bfloat16): each
      layer's plan, blocks, device time, cuDNN's same layer and its bound;
   4. small-input checks, the card against the plain path on the CPU:
@@ -71,7 +74,8 @@ Phases (each prints its elapsed seconds):
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's.
-`python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only).
+`python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
+`python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -104,16 +108,22 @@ STEPS = 20
 SEED = 0
 MODEL_P8 = "trained_models/PUNet3p8_64"
 MODEL_P4 = "trained_models/PUNet3_32"
-# (device ms, eager ms) of kernels G and H in each case of mg_cases
-# before their redesign (Step 0), printed beside this run's:
-# `chip_smoke.py --mg-only` run in a checkout of the parent kernels,
-# NVIDIA H100 80GB HBM3 at 700 W.
+# (device ms, eager ms) of kernels before their redesign (Step 0), printed
+# beside this run's, NVIDIA H100 80GB HBM3 at 700 W: G and H in each case
+# of mg_cases (`chip_smoke.py --mg-only` in a checkout of the commit before
+# their redesign), J, M, K and L in each case of cases3d (`chip_smoke.py
+# --3d-only` in a checkout of the commit before J's and M's; K and L were
+# not redesigned then, their times there are the spread's reference).
 STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
             "H 512^2 cold": (0.2404, 0.7435),
             "G 512^2 warm": (0.2397, 0.8818),
             "H 512^2 warm": (0.2487, 0.8891),
             "G RT cold": (0.1818, 0.4410), "H RT cold": (0.1820, 0.4298),
-            "G RT warm": (0.1815, 0.5678), "H RT warm": (0.1819, 0.4367)}
+            "G RT warm": (0.1815, 0.5678), "H RT warm": (0.1819, 0.4367),
+            "J 16 warm": (0.2400, 0.2858), "J 8 warm": (0.1522, 0.1770),
+            "M stress": (0.2228, 0.2261), "M scene": (0.2187, 0.2225),
+            "K stress": (0.1600, 0.1637),
+            "L stress trace": (0.5919, 0.6021)}
 
 
 def phase(name):
@@ -862,6 +872,51 @@ def advect3_ops(flags, D, per_cell, trace):
     return ops + 2 * 30.0 * float(in_window[fluid].sum())
 
 
+def cases3d(dev):
+    """name -> (kernel call, plain call) of the 3-D cases timed beside
+    Step 0, at 128^3: J with 16 and 8 warm sweeps damped 2/3 on J's stress
+    inputs (seed SEED + 4, as phase_learned3d), M on the stress and the
+    scene's flags, K without the trace and L with it on the stress flags
+    (seed SEED + 3, as phase_kernels3d)."""
+    from fluidnet_cxx_tpu_torch.ops import ops3d
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect3, proj_tail3
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    flags, U, rho = stress_inputs3(gen, dev, RES3)
+    scene = ops3d.empty_domain3(1, RES3, RES3, RES3, device=dev)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    j_flags, j_U, _ = stress_inputs3(gen, dev, RES3)
+    p0 = torch.randn(j_flags.shape, generator=gen).to(dev)
+    D, dt = 2, 0.25
+    cases = {}
+    for it in (16, 8):
+        cases[f"J {it} warm"] = (
+            lambda it=it: proj_tail3.project_tail3(j_flags, j_U, p0, it,
+                                                   2.0 / 3.0),
+            lambda it=it: proj_tail3.project_tail3_plain(j_flags, j_U, p0,
+                                                         it, 2.0 / 3.0))
+    for name, f in (("stress", flags), ("scene", scene)):
+        cases[f"M {name}"] = (
+            lambda f=f: [advect3.advect_velocity3(dt, U, f, 0.6, D)],
+            lambda f=f: [ops3d.advect_velocity3(dt, U, f, 0.6, max_disp=D)])
+    cases["K stress"] = (
+        lambda: [advect3.advect_scalar3(dt, rho, U, flags, 0.6, D, False)],
+        lambda: [ops3d.advect_scalar3(dt, rho, U, flags, 0.6, max_disp=D)])
+    cases["L stress trace"] = (
+        lambda: list(advect3.advect_all3(dt, rho, U, flags, 0.6, D, True)),
+        lambda: list(advect3.advect_all3_plain(dt, rho, U, flags, 0.6, D,
+                                               True)))
+    return cases
+
+
+def print_step0(name, ms, eager):
+    step0 = STEP0_MS.get(name)
+    before = (f"; Step 0 {step0[0]:.4f} (eager {step0[1]:.4f})" if step0
+              else "")
+    print(f"{name}: kernel {ms:.4f} ms device (eager {eager:.4f}){before}",
+          flush=True)
+
+
 def phase_kernels3d(dev, results):
     """Kernels I, K, L and M at 128^3 on the 3-D stress inputs, and K, L
     and M also on the plume scene's flags (the border shell alone) with
@@ -957,6 +1012,15 @@ def phase_kernels3d(dev, results):
     done = phase("kernels K, L, M against their plain versions")
     errs = {name: check_klm(f"{RES3}^3, {name} flags", f)
             for name, f in flag_sets.items()}
+    # M's rings are built for each max_disp up to 4: the other instances,
+    # with displacements past each clamp (up to 3 and 6 cells).
+    for d_other, dt_other in ((1, dt), (3, 2 * dt), (4, 2 * dt)):
+        got = advect3.advect_velocity3(dt_other, U, flags, 0.6, d_other)
+        torch.cuda.synchronize()
+        want = ops3d.advect_velocity3(dt_other, U, flags, 0.6,
+                                      max_disp=d_other)
+        check(f"M advect_velocity3 ({RES3}^3, stress flags, max_disp "
+              f"{d_other})", max_err([got], [want]), 0.0)
     done()
 
     done = phase("kernels K, L, M timed")
@@ -965,7 +1029,7 @@ def phase_kernels3d(dev, results):
         for trace in (True, False):
             times["K", name, trace] = cuda_ms(lambda: scalar(trace, f), 20)
             times["L", name, trace] = cuda_ms(lambda: merged(trace, f), 20)
-        times["M", name] = cuda_ms(lambda: velocity(f), 20)
+        times["M", name] = device_and_eager(lambda: velocity(f))
     stats = {name: walk_stats(f, U, D, dt) for name, f in flag_sets.items()}
     per_all = per_scalar + 3 * per_component
     plain_ms = {"K": cuda_ms(lambda: scalar_plain(False), 3, warmup=1),
@@ -979,11 +1043,12 @@ def phase_kernels3d(dev, results):
         b_ms, b_by = bound(nbytes * n, advect3_ops(flags, D, ops_cell, trace))
         err = errs["stress"][k, trace] if k != "M" else errs["stress"]["M"]
         ms = (times[k, "stress", trace] if k != "M"
-              else times["M", "stress"])
+              else times["M", "stress"][0])
         plain = plain_ms[k]
         results[k] = dict(err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                           bound_by=b_by, library_ms=None)
-        print(f"{k}: kernel {ms:.4f} ms, plain {plain:.3f} ms, bound "
+        kind = " device" if k == "M" else ""
+        print(f"{k}: kernel {ms:.4f} ms{kind}, plain {plain:.3f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})", flush=True)
     for k, nbytes, ops_cell in (("K", 24, per_scalar), ("L", 36, per_all)):
         for name, f in flag_sets.items():
@@ -999,8 +1064,9 @@ def phase_kernels3d(dev, results):
                   f"{box_ms:.4f} ({box_by})), trace off "
                   f"{times[k, name, False]:.4f} ms (bound {off_ms:.4f} "
                   f"({off_by}))", flush=True)
-    print(f"K plain with the trace {plain_ms['K trace']:.3f} ms; M on the "
-          f"scene flags {times['M', 'scene']:.4f} ms", flush=True)
+    print(f"K plain with the trace {plain_ms['K trace']:.3f} ms", flush=True)
+    for name in flag_sets:
+        print_step0(f"M {name}", *times["M", name])
     for name, st in stats.items():
         print(f"trace walk on the {name} flags (forward and backward rays): "
               f"{st['rays']} rays, {st['walked']:.4f} walked (a blocked "
@@ -1179,20 +1245,21 @@ def phase_learned3d(dev, results):
                   "2/3)", e, 0.0)
             if start == "warm" and it == 16:
                 err = e
-    ms, eager_ms = device_and_eager(
-        lambda: proj_tail3.project_tail3(flags, U, p0, 16, 2.0 / 3.0))
-    ms8, eager8 = device_and_eager(
-        lambda: proj_tail3.project_tail3(flags, U, p0, 8, 2.0 / 3.0))
+    run = lambda: proj_tail3.project_tail3(flags, U, p0, 16, 2.0 / 3.0)
+    ms, eager_ms = device_and_eager(run)
+    print_step0("J 16 warm", ms, eager_ms)
+    run8 = lambda: proj_tail3.project_tail3(flags, U, p0, 8, 2.0 / 3.0)
+    print_step0("J 8 warm", *device_and_eager(run8))
     plain_ms = cuda_ms(lambda: proj_tail3.project_tail3_plain(
         flags, U, p0, 16, 2.0 / 3.0), 3, warmup=1)
     b_ms, b_by = bound(36 * n, (14.0 * 16 + 60) * n)
     b8_ms, b8_by = bound(36 * n, (14.0 * 8 + 60) * n)
     results["J"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
-    print(f"J (16 sweeps): kernel {ms:.4f} ms device (eager {eager_ms:.4f}), "
-          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); 8 sweeps: "
-          f"{ms8:.4f} ms device (eager {eager8:.4f}), bound {b8_ms:.4f} ms "
-          f"({b8_by})", flush=True)
+    print(f"J: {launches_of(proj_tail3.project_tail3, run)} launches (16 "
+          f"sweeps), {launches_of(proj_tail3.project_tail3, run8)} (8); "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); 8 "
+          f"sweeps: bound {b8_ms:.4f} ms ({b8_by})", flush=True)
     done()
 
     def net_of(model_dir, dtype):
@@ -1475,12 +1542,12 @@ def main_paths():
 
 
 # Launches per step that a main path must show exactly: N's 9 convs; J's
-# prologue, epilogue and one launch per polish sweep (16 for p8, 8 for
-# p4); H's and G's two set-up launches, 7 (512^2: three levels down, the
-# single-block tail, three up) or 5 (512x128) a V-cycle, and the
-# epilogue, for 2 V-cycles.
-EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 18, "N": 9},
-                  f"plume3d {RES3}^3 convnet p4": {"J": 10, "N": 9},
+# prologue, epilogue and one z-march per 3 polish sweeps (16 for p8: 6
+# marches, 8 for p4: 3); H's and G's two set-up launches, 7 (512^2: three
+# levels down, the single-block tail, three up) or 5 (512x128) a V-cycle,
+# and the epilogue, for 2 V-cycles.
+EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 8, "N": 9},
+                  f"plume3d {RES3}^3 convnet p4": {"J": 5, "N": 9},
                   f"plume {RES}^2 mg-2v": {"H": 17},
                   f"RT {RT_W}x{RT_H} multigrid": {"G": 13}}
 
@@ -1593,6 +1660,46 @@ def mg_only(dev):
         phase_profile(name, case)
 
 
+def threed_only(dev):
+    """`python3 chip_smoke.py --3d-only`: kernels J, M, K and L alone, on
+    the version of the package beside this script (Step 0: a checkout of
+    the parent commit with this script copied in; a variant: a copy of
+    the checkout with one constant changed). Each case of cases3d held to
+    its plain version (J and M bit for bit, K and L within 1e-4 of the
+    largest output, as the full run holds them), its (device, eager) ms as
+    a STEP0_MS literal, the device time of J's and M's launches by
+    kernel, then the four 128^3 main paths that run J or M: ms/step and
+    the profiler's window."""
+    done = phase("kernels J, M, K, L checked and timed")
+    cases = cases3d(dev)
+    for name, (run, plain) in cases.items():
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        tol = 0.0 if name[0] in "JM" else 1e-4 * scale_of(want)
+        check(name, max_err(got, want), tol)
+    times = {name: device_and_eager(run) for name, (run, _) in cases.items()}
+    for name, (ms, eager) in times.items():
+        print_step0(name, ms, eager)
+    print("STEP0_MS 3-D = " + repr({k: (round(d, 4), round(e, 4))
+                                    for k, (d, e) in times.items()}),
+          flush=True)
+    for name in ("J 16 warm", "M stress"):
+        print(f"{name} by kernel:", flush=True)
+        for key, (ms, n) in sorted(device_split(cases[name][0]).items(),
+                                   key=lambda kv: -kv[1][0]):
+            print(f"  {ms:9.4f} ms {n:5.1f} launches  {key[:90]}",
+                  flush=True)
+    done()
+    for name, (run, case, kernels) in main_paths().items():
+        if "3d" not in name or not set(kernels) & set("JM"):
+            continue
+        done = phase(f"{name}, {STEPS} steps")
+        print(f"{name}: ms/step {run(STEPS)['ms_per_step']:.4f}", flush=True)
+        done()
+        phase_profile(name, case)
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -1612,6 +1719,14 @@ def main():
     from fluidnet_cxx_tpu_torch.ops.kernels import _build
     _build.build(ptxas_verbose=True)
     _build.library()
+    # M's march takes its rings as dynamic shared memory, which -Xptxas -v
+    # does not count (a checkout from before the march has no such query).
+    if "fn_advect3_velocity_smem" in _build.QUERIES:
+        print("M (vel3_march<D, true>, the backward rings) dynamic shared "
+              "memory a block: " + ", ".join(
+                  f"D={d} {_build.query('fn_advect3_velocity_smem', d)} B"
+                  for d in range(1, _build.constant(
+                      "fn_advect3_velocity_max_disp") + 1)), flush=True)
     done()
 
     dev = torch.device("cuda")
@@ -1620,6 +1735,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     if sys.argv[1:] == ["--mg-only"]:
         mg_only(dev)
+        return
+    if sys.argv[1:] == ["--3d-only"]:
+        threed_only(dev)
         return
     results = {}
     phase_kernels(dev, results)
@@ -1666,7 +1784,7 @@ def main():
               "fluidnet_cxx_tpu/ops/pallas/mg_pallas.py:340"),
         "I": ("solve_jacobi3", "fluidnet_cxx_tpu_torch/csrc/jacobi3.cu",
               "fluidnet_cxx_tpu/ops/pallas/jacobi3_pallas.py:76"),
-        "J": ("project_tail3", "fluidnet_cxx_tpu_torch/csrc/proj_tail3.cu",
+        "J": ("project_tail3", "fluidnet_cxx_tpu_torch/csrc/jacobi3.cu",
               "fluidnet_cxx_tpu/ops/pallas/proj_tail3_pallas.py:135"),
         "K": ("advect_scalar3", "fluidnet_cxx_tpu_torch/csrc/advect3.cu",
               "fluidnet_cxx_tpu/ops/pallas/advect3_pallas.py:285"),

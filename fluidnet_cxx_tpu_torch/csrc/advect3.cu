@@ -25,28 +25,49 @@
 // out, 24 B a cell; L: 36 B; M: 28 B, ~0.015-0.023 ms at 128^3); the
 // trilinear samples and clamps are ~150 operations a cell per half and
 // the trace three slab tests (~30 operations) per blocked cell it tests,
-// well under the fp32 rate. What holds it back is latency and issue: each
-// cell gathers ~60-160 values from L1/L2 and, with the trace, walks its
-// obstacles, with 4-8 blocks of 256 threads an SM.
+// well under the fp32 rate. What holds them back is latency and issue:
+// each cell gathers ~60-160 values and, with the trace, walks its
+// obstacles.
 //
-// Design: one thread per cell, x fastest, 32 x 8 cells of one z-plane a
-// block, reading neighbourhoods straight from global memory (L1/L2). Two
-// launches, because the backward samples read the forward field at
-// neighbours up to D cells away, which other blocks write, and no block
-// waits on another:
+// Two launches, because the backward samples read the forward field at
+// neighbours up to D + 1 cells away, which other blocks write, and no
+// block waits on another:
 //   launch 1 (forward): rho_fwd and its back-traced position (scalar
 //            half), u_fwd, v_fwd and w_fwd (velocity half) into scratch;
 //   launch 2 (backward): backward samples, MacCormack correction, clamps,
 //            border zeroing, outputs.
-// One template serves K, L and M: kScalar and kVel choose the halves, so
-// all three run the same device functions and agree bit for bit; kTrace
+//
+// K and L: one thread per cell, x fastest, 32 x 8 cells of one z-plane a
+// block, reading neighbourhoods straight from global memory (L1/L2). One
+// template serves them: kScalar and kVel choose the halves; kTrace
 // compiles the trace only into the kernels that run it, so the others keep
 // their registers; each kernel has the register budget that ran fastest
-// (min_blocks). Built with -fmad=false in the plain versions' float32
-// order. Staging a block's flags in shared memory (a byte or a bit a
+// (min_blocks). Staging a block's flags in shared memory (a byte or a bit a
 // cell, one plane a block or a 16-plane march) was built and was slower
 // on the card: the pruned walk reads a few flags a ray, which L1 holds
 // already, and the tile's loads and barrier cost more than they save.
+//
+// M: each launch marches a kVTX x kVTY column tile along z over a segment
+// of kVSegZ output planes (vel3_march), as the TPU kernel keeps its whole
+// neighbourhood in VMEM. Every value a cell of the tile reads lies within
+// [idx - D, idx + D + 1] on each axis (the window-clamped trilinear
+// corners, the Selle corners, the MAC neighbours), so shared memory holds
+// rings of planes: the tile plus D cells before and D + 1 after it in x and
+// y, u, v and w of each, planes z-D .. z+D+1 around output plane z and
+// kVAhead more in flight; the forward launch keeps U's ring, the backward
+// one U's and the forward field's. Each step waits for its plane's
+// cp.async copies, passes one barrier, issues the copies of the plane
+// kVAhead steps ahead into the slot no thread reads any more, and computes
+// a plane from shared memory alone, at 32-bit offsets (flags come from
+// global memory); the three components of a cell are branch-free, so
+// their chains interleave. One thread owns a column, so each cell's MAC
+// vectors are computed once a launch. The backward pair of rings at D = 2
+// takes 92 KB (two blocks an SM); the rings are built for D up to kVMaxD
+// (196 KB at D = 4), and the wrapper refuses a larger D.
+//
+// K, L and M run the same device functions on accessors (Field, UAt for
+// global memory; RingField, RingAt for the rings), so all three agree bit
+// for bit, built with -fmad=false in the plain versions' float32 order.
 //
 // The first-hit trace walks an exact pruned box instead of the whole
 // (2D+1)^3 window. A blocked cell can lower the stopping parameter t only
@@ -121,11 +142,27 @@ __device__ __forceinline__ float clamp_win(float p, float c, int D) {
   return fminf(fmaxf(p, c - (float)D), c + (float)D);
 }
 
-// Trilinear sample of one sample's field f at an absolute position,
-// after the window clamp around centre c: pos-0.5, trunc, weights clamped
-// to [0, 1], lower corner clamped to [0, dim-2]; lerp along x, then y,
-// then z (ops/window3.py::interpol_window3).
-__device__ float trilinear(const float* f, const Params& P, const float c[3],
+// One sample's field in global memory, read at cell (X, Y, Z).
+struct Field {
+  const float* f;
+  int h, w;
+  __device__ __forceinline__ float operator()(int X, int Y, int Z) const {
+    return f[((size_t)Z * h + Y) * w + X];
+  }
+};
+
+__device__ __forceinline__ Field field(const float* f, const Params& P) {
+  return Field{f, P.h, P.w};
+}
+
+// Trilinear sample of one sample's field f (an accessor: Field, or the
+// velocity march's RingField) at an absolute position, after the window
+// clamp around centre c: pos-0.5, trunc, weights clamped to [0, 1], lower
+// corner clamped to [0, dim-2]; lerp along x, then y, then z
+// (ops/window3.py::interpol_window3). The corners lie within [idx - D,
+// idx + D + 1] of the cell idx a clamp is centred on.
+template <class F>
+__device__ float trilinear(F f, const Params& P, const float c[3],
                            const float pos[3]) {
   const int dims[3] = {P.w, P.h, P.d};
   int lo[3];
@@ -139,10 +176,10 @@ __device__ float trilinear(const float* f, const Params& P, const float c[3],
   }
   float pl[2];
   for (int k = 0; k < 2; ++k) {
-    size_t r0 = idx3(P, lo[0], lo[1], lo[2] + k);
-    size_t r1 = r0 + P.w;
-    float v0 = a0[0] * f[r0] + a1[0] * f[r0 + 1];
-    float v1 = a0[0] * f[r1] + a1[0] * f[r1 + 1];
+    const int Z = lo[2] + k;
+    float v0 = a0[0] * f(lo[0], lo[1], Z) + a1[0] * f(lo[0] + 1, lo[1], Z);
+    float v1 = a0[0] * f(lo[0], lo[1] + 1, Z) +
+               a1[0] * f(lo[0] + 1, lo[1] + 1, Z);
     pl[k] = a0[1] * v0 + a1[1] * v1;
   }
   return a0[2] * pl[0] + a1[2] * pl[1];
@@ -273,36 +310,54 @@ __device__ __forceinline__ void centred(const float* const U3[3],
     cc[a] = C.in ? 0.5f * (U3[a][C.i] + U3[a][C.i + C.s[a]]) : 0.f;
 }
 
-// 0.25 * (((a[i] + a[i+o1]) + a[i+o2]) + a[i+o3]) with signed offsets.
-__device__ __forceinline__ float avg4(const float* a, long long i,
-                                      long long o1, long long o2,
-                                      long long o3) {
-  return 0.25f * (((a[i] + a[i + o1]) + a[i + o2]) + a[i + o3]);
+// 0.25 * (((a + b) + c) + d)
+__device__ __forceinline__ float avg4(float a, float b, float c, float d) {
+  return 0.25f * (((a + b) + c) + d);
+}
+
+// U of one sample in global memory around cell C: at(k, dx, dy, dz) is
+// component k at the cell's neighbour (x + dx, y + dy, z + dz).
+struct UAt {
+  const float* const* U3;
+  long long i, sy, sz;
+  __device__ __forceinline__ float operator()(int k, int dx, int dy,
+                                              int dz) const {
+    return U3[k][i + dx + dy * sy + dz * sz];
+  }
+};
+
+__device__ __forceinline__ UAt u_at(const float* const U3[3], const Cell& C) {
+  return UAt{U3, (long long)C.i, (long long)C.s[1], (long long)C.s[2]};
 }
 
 // The full velocity vector at the face of component c
-// (ops3d.mac_vectors3), zero on the border shell.
-__device__ void mac_vector(const float* const U3[3], const Cell& C, int c,
-                           float m[3]) {
+// (ops3d.mac_vectors3), zero on the border shell; `at` reads U around the
+// cell (UAt, or the velocity march's RingAt).
+template <class At>
+__device__ __forceinline__ void mac_vector(At at, const Cell& C, int c,
+                                           float m[3]) {
   if (!C.in) {
     m[0] = m[1] = m[2] = 0.f;
     return;
   }
-  const long long sx = 1, sy = (long long)C.s[1], sz = (long long)C.s[2];
-  const long long i = (long long)C.i;
-  const float *u = U3[0], *v = U3[1], *W = U3[2];
   if (c == 0) {
-    m[0] = u[i];
-    m[1] = avg4(v, i, -sx, sy, sy - sx);
-    m[2] = avg4(W, i, -sx, sz, sz - sx);
+    m[0] = at(0, 0, 0, 0);
+    m[1] = avg4(at(1, 0, 0, 0), at(1, -1, 0, 0), at(1, 0, 1, 0),
+                at(1, -1, 1, 0));
+    m[2] = avg4(at(2, 0, 0, 0), at(2, -1, 0, 0), at(2, 0, 0, 1),
+                at(2, -1, 0, 1));
   } else if (c == 1) {
-    m[0] = avg4(u, i, -sy, sx, sx - sy);
-    m[1] = v[i];
-    m[2] = avg4(W, i, -sy, sz, sz - sy);
+    m[0] = avg4(at(0, 0, 0, 0), at(0, 0, -1, 0), at(0, 1, 0, 0),
+                at(0, 1, -1, 0));
+    m[1] = at(1, 0, 0, 0);
+    m[2] = avg4(at(2, 0, 0, 0), at(2, 0, -1, 0), at(2, 0, 0, 1),
+                at(2, 0, -1, 1));
   } else {
-    m[0] = avg4(u, i, -sz, sx, sx - sz);
-    m[1] = avg4(v, i, -sz, sy, sy - sz);
-    m[2] = W[i];
+    m[0] = avg4(at(0, 0, 0, 0), at(0, 0, 0, -1), at(0, 1, 0, 0),
+                at(0, 1, 0, -1));
+    m[1] = avg4(at(1, 0, 0, 0), at(1, 0, 0, -1), at(1, 0, 1, 0),
+                at(1, 0, 1, -1));
+    m[2] = at(2, 0, 0, 0);
   }
 }
 
@@ -329,11 +384,68 @@ __device__ void scalar_back(const Cell& C, const float c[3],
 
 // Semi-Lagrangian sample of f at pos, guarded by where(fluid, sample, f)
 // and zeroed on the border shell.
-__device__ __forceinline__ float sl(const float* f, const Cell& C,
-                                    const float c[3], const float pos[3],
-                                    const Params& P) {
-  float val = C.fluid ? trilinear(f, P, c, pos) : f[C.i];
+template <class F>
+__device__ __forceinline__ float sl(F f, const Cell& C, const float c[3],
+                                    const float pos[3], const Params& P) {
+  float val = C.fluid ? trilinear(f, P, c, pos) : f(C.x, C.y, C.z);
   return C.in ? val : 0.f;
+}
+
+// Component comp of the velocity's forward half at cell C: component comp
+// of U (orig) sampled at c - dt * its face's MAC vector (sl, with the
+// sample taken in every cell so that the three components' chains hold no
+// branch).
+template <class At, class F>
+__device__ __forceinline__ float vel_forward(At at, F orig, const Cell& C,
+                                             const float c[3], int comp,
+                                             const Params& P) {
+  float m[3], pos[3];
+  mac_vector(at, C, comp, m);
+  for (int a = 0; a < 3; ++a) pos[a] = c[a] - P.dt * m[a];
+  const float t = trilinear(orig, P, c, pos);
+  const float val = C.fluid ? t : orig(C.x, C.y, C.z);
+  return C.in ? val : 0.f;
+}
+
+// Component comp of the velocity's backward half at interior cell C: the
+// forward field f_fwd sampled at c + dt * the MAC vector, the correction
+// unless `skip` (the face does not lie between fluid cells; sl's
+// where(fluid, sample, f_fwd) matters only where the cell is fluid, so the
+// sample is taken in every cell), and the Selle clamp to the extrema of
+// orig over the 8 corners of each of idx -/+ the MAC vector * dt (clipped
+// to +-D, truncated, lower corner clamped to [0, dim-2]: within
+// [idx - D, idx + D + 1]).
+template <class At, class F, class O>
+__device__ __forceinline__ float vel_backward(At at, F f_fwd, O orig,
+                                              const Cell& C, const float c[3],
+                                              int comp, bool skip,
+                                              const Params& P) {
+  const int idx[3] = {C.x, C.y, C.z};
+  const int dims[3] = {P.w, P.h, P.d};
+  float m[3], pos[3];
+  mac_vector(at, C, comp, m);
+  for (int a = 0; a < 3; ++a) pos[a] = c[a] - (-P.dt) * m[a];
+  float bwd = trilinear(f_fwd, P, c, pos);
+  float fwd = f_fwd(C.x, C.y, C.z);
+  float dst = skip ? fwd : fwd + P.halfstr * (orig(C.x, C.y, C.z) - bwd);
+  float vel[3];
+  for (int a = 0; a < 3; ++a)
+    vel[a] = fminf(fmaxf(m[a] * P.dt, (float)-P.D), (float)P.D);
+  float mn = kInf, mx = -kInf;
+  for (int s = 0; s < 2; ++s) {
+    const float sgn = s ? 1.f : -1.f;
+    int lo[3];
+    for (int a = 0; a < 3; ++a)
+      lo[a] = min(max((int)((float)idx[a] + sgn * vel[a]), 0), dims[a] - 2);
+    for (int dk = 0; dk <= 1; ++dk)
+      for (int dj = 0; dj <= 1; ++dj)
+        for (int di = 0; di <= 1; ++di) {
+          float o = orig(lo[0] + di, lo[1] + dj, lo[2] + dk);
+          mn = fminf(mn, o);
+          mx = fmaxf(mx, o);
+        }
+  }
+  return fmaxf(fminf(dst, mx), mn);
 }
 
 // Scratch plane k of sample b: the scalar half uses planes 0-3 (rho_fwd
@@ -365,18 +477,15 @@ __global__ void __launch_bounds__(kBlockX * kBlockY,
     centred(U3, C, cc);
     scalar_back<kTrace>(C, c, cc, P.dt, flags, P, back);
     scratch[plane(0, b, nb, C.n) + C.i] =
-        sl(rho + (size_t)b * C.n, C, c, back, P);
+        sl(field(rho + (size_t)b * C.n, P), C, c, back, P);
     for (int a = 0; a < 3; ++a)
       scratch[plane(1 + a, b, nb, C.n) + C.i] = C.fluid ? back[a] : c[a];
   }
   if (kVel) {
     const int k = kScalar ? 4 : 0;
-    for (int comp = 0; comp < 3; ++comp) {
-      float m[3], pos[3];
-      mac_vector(U3, C, comp, m);
-      for (int a = 0; a < 3; ++a) pos[a] = c[a] - P.dt * m[a];
-      scratch[plane(k + comp, b, nb, C.n) + C.i] = sl(U3[comp], C, c, pos, P);
-    }
+    for (int comp = 0; comp < 3; ++comp)
+      scratch[plane(k + comp, b, nb, C.n) + C.i] =
+          vel_forward(u_at(U3, C), field(U3[comp], P), C, c, comp, P);
   }
 }
 
@@ -406,7 +515,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY,
     float cc[3], back[3];
     centred(U3, C, cc);
     scalar_back<kTrace>(C, c, cc, -P.dt, flags, P, back);
-    float bwd = sl(s_fwd, C, c, back, P);
+    float bwd = sl(field(s_fwd, P), C, c, back, P);
     float fwd = s_fwd[C.i];
     float dst = C.fluid ? fwd + P.halfstr * (src[C.i] - bwd) : fwd;
     float out = dst;
@@ -442,44 +551,259 @@ __global__ void __launch_bounds__(kBlockX * kBlockY,
     const int k = kScalar ? 4 : 0;
     float* uo = U_out + (size_t)b * 3 * C.n;
     const int idx[3] = {C.x, C.y, C.z};
-    const int dims[3] = {P.w, P.h, P.d};
     for (int comp = 0; comp < 3; ++comp) {
       if (!C.in) {
         uo[comp * C.n + C.i] = 0.f;
         continue;
       }
-      const float* f_fwd = scratch + plane(k + comp, b, nb, C.n);
-      const float* orig = U3[comp];
-      float m[3], pos[3];
-      mac_vector(U3, C, comp, m);
-      for (int a = 0; a < 3; ++a) pos[a] = c[a] - (-P.dt) * m[a];
-      float bwd = sl(f_fwd, C, c, pos, P);
-      float fwd = f_fwd[C.i];
-      bool skip = !C.fluid ||
-                  (idx[comp] > 0 && flags[C.i - C.s[comp]] != kFluid);
-      float dst = skip ? fwd : fwd + P.halfstr * (orig[C.i] - bwd);
-      // Selle clamp: extrema of orig over the corners of idx -/+ m*dt.
-      float vel[3];
-      for (int a = 0; a < 3; ++a)
-        vel[a] = fminf(fmaxf(m[a] * P.dt, (float)-P.D), (float)P.D);
-      float mn = kInf, mx = -kInf;
-      for (int s = 0; s < 2; ++s) {
-        const float sgn = s ? 1.f : -1.f;
-        int lo[3];
-        for (int a = 0; a < 3; ++a)
-          lo[a] = min(max((int)((float)idx[a] + sgn * vel[a]), 0),
-                      dims[a] - 2);
-        for (int dk = 0; dk <= 1; ++dk)
-          for (int dj = 0; dj <= 1; ++dj)
-            for (int di = 0; di <= 1; ++di) {
-              float o = orig[idx3(P, lo[0] + di, lo[1] + dj, lo[2] + dk)];
-              mn = fminf(mn, o);
-              mx = fmaxf(mx, o);
-            }
-      }
-      uo[comp * C.n + C.i] = fmaxf(fminf(dst, mx), mn);
+      const bool skip = !C.fluid ||
+                        (idx[comp] > 0 && flags[C.i - C.s[comp]] != kFluid);
+      uo[comp * C.n + C.i] = vel_backward(
+          u_at(U3, C), field(scratch + plane(k + comp, b, nb, C.n), P),
+          field(U3[comp], P), C, c, comp, skip, P);
     }
   }
+}
+
+// ---- Kernel M: the velocity alone, as z-marches over column tiles ----
+
+// A block's x-y tile, the output planes of its z segment, the planes a
+// ring loads ahead of their first use, and the largest D the rings are
+// built for (the backward ring pair at D = 4 takes 196 KB of the 227 KB a
+// block may have).
+constexpr int kVTX = 32;        // tile columns: one warp a row
+constexpr int kVTY = 8;         // tile rows
+constexpr int kVSegZ = 32;      // output planes a block
+constexpr int kVAhead = 2;      // planes in flight
+constexpr int kVMaxD = 4;
+
+// Shared memory a block may have (after the opt-in above 48 KB).
+constexpr int kSmemMax = 232448;
+
+constexpr int pow2_at_least(int n) {
+  return n <= 1 ? 1 : 2 * pow2_at_least((n + 1) / 2);
+}
+
+// The geometry of a ring of planes: columns x0-D .. x0+kVTX+D and rows
+// y0-D .. y0+kVTY+D of a tile at (x0, y0) (every corner and MAC neighbour
+// of its cells: [idx - D, idx + D + 1]), u, v and w of each plane, and
+// planes z-D .. z+D+1 around output plane z plus kVAhead in flight: at
+// least kMinDepth slots, rounded up to a power of two where the backward
+// pair still fits a block (the slot of plane Z is then Z & (kDepth - 1)).
+template <int kD>
+struct Ring {
+  static constexpr int kW = kVTX + 2 * kD + 1;
+  static constexpr int kH = kVTY + 2 * kD + 1;
+  static constexpr int kPlane = kW * kH;                // one component
+  static constexpr int kSlot = 3 * kPlane;              // one z plane
+  static constexpr int kMinDepth = 2 * kD + 2 + kVAhead;
+  static constexpr int kDepth =
+      2 * pow2_at_least(kMinDepth) * kSlot * 4 <= kSmemMax
+          ? pow2_at_least(kMinDepth)
+          : kMinDepth;
+  static constexpr int kFloats = kDepth * kSlot;
+  static constexpr int kLoads = (kPlane + kVTX * kVTY - 1) / (kVTX * kVTY);
+};
+static_assert(2 * Ring<kVMaxD>::kFloats * sizeof(float) <= kSmemMax,
+              "the backward rings at kVMaxD exceed a block's shared memory");
+
+// The rings of the block: kernel M's dynamic shared memory.
+extern __shared__ float vel3_rings[];
+
+// One component of a ring: plane Z lives in slot Z % kDepth, cell (X, Y)
+// at (Y - y0) * kW + (X - x0) of it (x0, y0: the ring's first column and
+// row). Offsets into vel3_rings are 32-bit; Z >= 0 for every cell a march
+// reads.
+template <int kD>
+struct RingField {
+  int base;  // the component's plane in slot 0
+  int x0, y0;
+  __device__ __forceinline__ float operator()(int X, int Y, int Z) const {
+    using G = Ring<kD>;
+    return vel3_rings[base + (int)((unsigned)Z % G::kDepth) * G::kSlot +
+                      (Y - y0) * G::kW + (X - x0)];
+  }
+};
+
+// U's ring around cell (x, y, z), as UAt reads U in global memory: `own`
+// is the ring's offset plus the cell's offset within a plane, zo the slot
+// offsets of planes z-1, z, z+1 (a MAC vector's dz is a constant once the
+// component loop is unrolled, so each read is one add and a load).
+template <int kD>
+struct RingAt {
+  int own;
+  int zo[3];
+  __device__ __forceinline__ float operator()(int k, int dx, int dy,
+                                              int dz) const {
+    return vel3_rings[own + k * Ring<kD>::kPlane + zo[dz + 1] +
+                      dy * Ring<kD>::kW + dx];
+  }
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One half of kernel M over a kVTX x kVTY tile and a z segment of kVSegZ
+// output planes. Forward: U's ring; each cell's u_fwd, v_fwd, w_fwd into
+// the scratch planes 0-2. Backward: U's ring and the forward field's
+// (rings[0, kFloats) and [kFloats, 2 kFloats)); U' out. At the step of
+// output plane z, it waits for plane z + D + 1's copies, passes one
+// barrier, issues plane z + D + 1 + kVAhead's cp.async copies (into the
+// slot of a plane no thread reads any more: z - D - 1 or older) and
+// computes plane z from shared memory alone;
+// flags come from global memory. Cells of the ring off the grid are never
+// loaded and never read. Grid: x and y tiles, b * segs z segments.
+template <int kD, bool kBackward>
+__global__ void __launch_bounds__(kVTX * kVTY, kBackward ? 2 : 4)
+    vel3_march(const float* __restrict__ U,
+               const int* __restrict__ flags_all,
+               const float* __restrict__ scratch, float* __restrict__ out,
+               Params P, int segs) {
+  using G = Ring<kD>;
+  constexpr int ru = 0, rf = G::kFloats;  // U's ring, the forward field's
+  const int tid = threadIdx.y * kVTX + threadIdx.x;
+  const int seg = blockIdx.z % segs, b = blockIdx.z / segs;
+  const int nb = gridDim.z / segs;
+  const int x0 = blockIdx.x * kVTX - kD, y0 = blockIdx.y * kVTY - kD;
+  const int z0 = seg * kVSegZ, z1 = min(z0 + kVSegZ, P.d);
+  const size_t hw = (size_t)P.h * P.w, n = hw * P.d;
+  const float* const u = U + (size_t)b * 3 * n;
+  const int* const flags = flags_all + (size_t)b * n;
+
+  // This thread's share of a plane: ring cell tid + j * threads, at offset
+  // goff[j] of a grid plane, or -1 off the grid.
+  int goff[G::kLoads];
+#pragma unroll
+  for (int j = 0; j < G::kLoads; ++j) {
+    const int e = tid + j * kVTX * kVTY;
+    const int X = x0 + e % G::kW, Y = y0 + e / G::kW;
+    goff[j] = e < G::kPlane && X >= 0 && X < P.w && Y >= 0 && Y < P.h
+                  ? Y * P.w + X
+                  : -1;
+  }
+  // One commit group a plane, empty off the grid and past the segment's
+  // last plane read (z1 - 1 + D + 1).
+  auto load = [&](int Z) {
+    if (Z >= 0 && Z < P.d && Z <= z1 + kD) {
+      const int slot = (int)((unsigned)Z % G::kDepth) * G::kSlot;
+      const size_t zo = (size_t)Z * hw;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int j = 0; j < G::kLoads; ++j) {
+          if (goff[j] < 0) continue;
+          const int e = slot + k * G::kPlane + tid + j * kVTX * kVTY;
+          cp_async4(vel3_rings + ru + e, u + k * n + zo + goff[j]);
+          if (kBackward)
+            cp_async4(vel3_rings + rf + e,
+                      scratch + ((size_t)k * nb + b) * n + zo + goff[j]);
+        }
+    }
+    cp_async_commit();
+  };
+
+  for (int Z = z0 - kD; Z <= z0 + kD + kVAhead; ++Z) load(Z);
+  Cell C;
+  C.x = x0 + kD + threadIdx.x;
+  C.y = y0 + kD + threadIdx.y;
+  const bool owns = C.x < P.w && C.y < P.h;
+  float c[3] = {(float)C.x + 0.5f, (float)C.y + 0.5f, 0.f};
+  for (int z = z0; z < z1; ++z) {
+    cp_async_wait<kVAhead - 1>();
+    __syncthreads();
+    load(z + kD + 1 + kVAhead);
+    if (!owns) continue;
+    C.z = z;
+    c[2] = (float)z + 0.5f;
+    const size_t i = z * hw + (size_t)C.y * P.w + C.x;
+    C.fluid = flags[i] == kFluid;
+    C.in = C.x >= 1 && C.x <= P.w - 2 && C.y >= 1 && C.y <= P.h - 2 &&
+           z >= 1 && z <= P.d - 2;
+    RingAt<kD> at;
+    at.own = ru + (C.y - y0) * G::kW + (C.x - x0);
+#pragma unroll
+    for (int dz = -1; dz <= 1; ++dz)
+      at.zo[dz + 1] = (int)((unsigned)(z + dz) % G::kDepth) * G::kSlot;
+    // The three components of an interior cell hold no branch, so their
+    // chains interleave.
+    float r[3] = {0.f, 0.f, 0.f};
+    if (C.in) {
+      const size_t stride[3] = {1, (size_t)P.w, hw};
+#pragma unroll
+      for (int comp = 0; comp < 3; ++comp) {
+        const RingField<kD> orig{ru + comp * G::kPlane, x0, y0};
+        if (kBackward) {
+          const bool skip = !C.fluid || flags[i - stride[comp]] != kFluid;
+          r[comp] = vel_backward(
+              at, RingField<kD>{rf + comp * G::kPlane, x0, y0}, orig, C, c,
+              comp, skip, P);
+        } else {
+          r[comp] = vel_forward(at, orig, C, c, comp, P);
+        }
+      }
+    }
+#pragma unroll
+    for (int comp = 0; comp < 3; ++comp)
+      out[(kBackward ? (size_t)b * 3 + comp : (size_t)comp * nb + b) * n +
+          i] = r[comp];
+  }
+  cp_async_wait<0>();
+}
+
+// Bytes of dynamic shared memory of one half's block at max_disp kD.
+template <int kD, bool kBackward>
+constexpr size_t march_bytes() {
+  return (kBackward ? 2 : 1) * Ring<kD>::kFloats * sizeof(float);
+}
+
+template <int kD, bool kBackward>
+int launch_vel3_march(const float* U, const int* flags, const float* scratch,
+                      float* out, int b, const Params& P, cudaStream_t s) {
+  const int segs = (P.d + kVSegZ - 1) / kVSegZ;
+  if ((long long)b * segs > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = vel3_march<kD, kBackward>;
+  constexpr size_t bytes = march_bytes<kD, kBackward>();
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((P.w + kVTX - 1) / kVTX, (P.h + kVTY - 1) / kVTY,
+                  b * segs);
+  kern<<<grid, dim3(kVTX, kVTY), bytes, s>>>(U, flags, scratch, out, P,
+                                             segs);
+  return fnk::launch_status();
+}
+
+// The march of one half at max_disp P.D (1..kVMaxD).
+template <bool kBackward>
+int launch_vel3(const float* U, const int* flags, const float* scratch,
+                float* out, int b, const Params& P, cudaStream_t s) {
+  static_assert(kVMaxD == 4, "launch_vel3 dispatches D = 1..4");
+  switch (P.D) {
+    case 1:
+      return launch_vel3_march<1, kBackward>(U, flags, scratch, out, b, P, s);
+    case 2:
+      return launch_vel3_march<2, kBackward>(U, flags, scratch, out, b, P, s);
+    case 3:
+      return launch_vel3_march<3, kBackward>(U, flags, scratch, out, b, P, s);
+    case 4:
+      return launch_vel3_march<4, kBackward>(U, flags, scratch, out, b, P, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 Params make_params(int d, int h, int w, float dt, float halfstr, float wm,
@@ -537,8 +861,7 @@ extern "C" int fn_advect3_forward(int parts, const float* rho,
               : launch(advect3_forward<true, false, false>, b, P, s, rho, U,
                        flags, scratch, P);
   if (parts == 2)
-    return launch(advect3_forward<false, true, false>, b, P, s, rho, U,
-                  flags, scratch, P);
+    return launch_vel3<false>(U, flags, nullptr, scratch, b, P, s);
   if (parts == 3)
     return tr ? launch(advect3_forward<true, true, true>, b, P, s, rho, U,
                        flags, scratch, P)
@@ -564,12 +887,26 @@ extern "C" int fn_advect3_backward(int parts, const float* rho,
               : launch(advect3_backward<true, false, false>, b, P, s, rho, U,
                        flags, scratch, rho_out, U_out, P);
   if (parts == 2)
-    return launch(advect3_backward<false, true, false>, b, P, s, rho, U,
-                  flags, scratch, rho_out, U_out, P);
+    return launch_vel3<true>(U, flags, scratch, U_out, b, P, s);
   if (parts == 3)
     return tr ? launch(advect3_backward<true, true, true>, b, P, s, rho, U,
                        flags, scratch, rho_out, U_out, P)
               : launch(advect3_backward<true, true, false>, b, P, s, rho, U,
                        flags, scratch, rho_out, U_out, P);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The largest max_disp kernel M's rings are built for. Launches nothing.
+extern "C" int fn_advect3_velocity_max_disp() { return kVMaxD; }
+
+// Bytes of dynamic shared memory a block of M's backward march takes at
+// max_disp D (1..kVMaxD; 0 otherwise). Launches nothing.
+extern "C" int fn_advect3_velocity_smem(int D) {
+  switch (D) {
+    case 1: return (int)march_bytes<1, true>();
+    case 2: return (int)march_bytes<2, true>();
+    case 3: return (int)march_bytes<3, true>();
+    case 4: return (int)march_bytes<4, true>();
+  }
+  return 0;
 }

@@ -1,46 +1,112 @@
-// Kernel I: fixed-count 3-D Jacobi pressure sweeps (6 neighbours) with the
+// Kernels I and J: the 3-D Jacobi pressure sweeps (6 neighbours) with the
 // obstacle-Neumann substitution folded into cnt * p_c, pressure pinned to
 // 0 on the border shell and in obstacles, optional warm start p0 and
-// weighted-Jacobi damping.
+// weighted-Jacobi damping; J wraps the same sweeps in the learned 3-D
+// projection's tail.
 //
-// Replaces fluidnet_cxx_tpu/ops/pallas/jacobi3_pallas.py::
-// solve_jacobi3_pallas (body _jacobi3_kernel), whose TPU version keeps the
-// whole volume in VMEM and loops every sweep inside one kernel. Its plain
-// version is ops/ops3d.py::solve_jacobi_fixed3, in the same float32 order:
-// acc = div + cnt * p_c, then + x-1, + x+1, + y-1, + y+1, + z-1, + z+1,
-// times float32(1/6).
+//   I  replaces fluidnet_cxx_tpu/ops/pallas/jacobi3_pallas.py::
+//      solve_jacobi3_pallas (body _jacobi3_kernel); plain version
+//      ops/ops3d.py::solve_jacobi_fixed3.
+//   J  replaces fluidnet_cxx_tpu/ops/pallas/proj_tail3_pallas.py::
+//      project_tail3_pallas (body _tail3_kernel): the divergence RHS, warm
+//      damped sweeps, the pressure-gradient velocity update (border faces
+//      untouched) and the free-slip wall BCs; plain version
+//      ops/kernels/proj_tail3.py::project_tail3_plain, the unfused chain
+//      of ops/ops3d.py.
 //
-// What bounds it on an H100: operations. The function reads flags and the
-// RHS once and writes p once (12 bytes a cell: 25 MB, ~7.5 us at 3.35 TB/s
-// for 128^3), but does 14 operations per cell per sweep: 60 sweeps at
-// 128^3 are ~1.76 GFLOP, ~26 us at the 67 TFLOP/s fp32 rate. No block
-// waits on another, and one launch per sweep costs a pass over p, p', the
-// RHS and the mask (~27 MB, in the 50 MB L2) plus a launch gap each. So a
-// launch runs up to kMaxSweeps3 sweeps by 2.5-D temporal blocking: a block
-// of kTX x kTY threads owns one (x, y) column each of an output tile plus
-// a kMaxSweeps3-cell halo, and marches along z over its segment of
-// kSegZ output planes plus k planes at each end. At the step that loads
-// plane t, sweep s computes plane t - s from sweep s-1's planes t-s-1,
-// t-s (held in registers) and t-s+1 (computed a moment before in the same
-// step), with its x and y neighbours read from a shared-memory copy of
-// sweep s-1's plane t-s written at the previous step (two copies, one
-// barrier a step). The exact region shrinks by one cell a sweep in x and
-// y and by one plane at each segment end; only exact cells of the output
-// tile are written. Each cell's p, RHS and mask are read once a launch
-// (two planes ahead of their use) and the RHS and mask kept in registers
-// for the k sweeps that use them; a warp skips the sweeps whose exact
-// band its row has left. One launch first builds a byte per cell (bit
-// 0: the sweep updates the cell; bits 1-3: cnt, the number of obstacle
-// neighbours) and zeroes a warm start on obstacles (the cnt * p_c identity
-// needs p == 0 there). All 1 + ceil(iters / kMaxSweeps3) launches are
-// issued by one C call (fn_jacobi3_solve). No index is divided at run
-// time inside the march. Kernel J keeps the one-sweep launches of
-// jacobi3.cuh.
-#include "jacobi3.cuh"
+// Both TPU kernels keep the whole volume in VMEM and loop every sweep
+// inside one kernel (J falls back to the unfused chain above its VMEM
+// budget; this port runs at every size). Each sweep here is the plain
+// version's float32 order (-fmad=false): acc = div + cnt * p_c, then
+// + x-1, + x+1, + y-1, + y+1, + z-1, + z+1, times float32(1/6), then the
+// weighted-Jacobi blend; I and J run the same march, so one sweep body
+// carries that order, and both agree with their plain versions bit for
+// bit.
+//
+// What bounds them on an H100. I: operations. It reads flags and the RHS
+// once and writes p once (12 bytes a cell: 25 MB, ~7.5 us at 3.35 TB/s for
+// 128^3), but does 14 operations per cell per sweep: 60 sweeps at 128^3
+// are ~1.76 GFLOP, ~26 us at the 67 TFLOP/s fp32 rate. J: bytes. It reads
+// flags, U and p0 once and writes p and U' once (36 bytes a cell: 75 MB,
+// ~22 us at 128^3); its 16 sweeps are ~0.47 GFLOP, ~7 us.
+//
+// Design. No block waits on another, and one launch per sweep costs a
+// pass over p, p', the RHS and the mask (~27 MB, in the 50 MB L2) plus a
+// launch gap each. So a launch runs up to kMaxSweeps3 sweeps by 2.5-D
+// temporal blocking: a block of kTX x kTY threads owns one (x, y) column
+// each of an output tile plus a kMaxSweeps3-cell halo, and marches along
+// z over its segment of kSegZ output planes plus k planes at each end. At
+// the step that loads plane t, sweep s computes plane t - s from sweep
+// s-1's planes t-s-1, t-s (held in registers) and t-s+1 (computed a
+// moment before in the same step), with its x and y neighbours read from
+// a shared-memory copy of sweep s-1's plane t-s written at the previous
+// step (two copies, one barrier a step). The exact region shrinks by one
+// cell a sweep in x and y and by one plane at each segment end; only
+// exact cells of the output tile are written. Each cell's p, RHS and mask
+// are read once a launch (two planes ahead of their use) and the RHS and
+// mask kept in registers for the k sweeps that use them; a warp skips the
+// sweeps whose exact band its row has left. No index is divided at run
+// time inside the march.
+//
+// Around the marches: I's first launch builds a byte per cell (bit 0: the
+// sweep updates the cell; bits 1-3: cnt, the number of obstacle
+// neighbours) and zeroes a warm start on obstacles (the cnt * p_c
+// identity needs p == 0 there); J's prologue does the same and adds the
+// divergence RHS of U, and J's epilogue applies the velocity update and
+// the walls from the final p. One C call issues all of a solve's launches:
+// I 1 + ceil(iters / kMaxSweeps3) (fn_jacobi3_solve), J 2 + ceil(iters /
+// kMaxSweeps3) (fn_tail3).
+#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
+using namespace fnk;
 
-// The tile, the sweeps a launch and the z segment: the fastest settings
+// The mask, prologue and epilogue launches: threads x fastest, one z-slice
+// of one sample per blockIdx.z; cell indices are size_t.
+const dim3 kBlock3(32, 8);
+
+struct Dims {
+  int d, h, w;
+};
+
+inline dim3 grid3(int b, const Dims& D) {
+  return dim3((D.w + kBlock3.x - 1) / kBlock3.x,
+              (D.h + kBlock3.y - 1) / kBlock3.y, b * D.d);
+}
+
+// Cell (x, y, z, b) of this thread, or false past the grid's edge.
+__device__ __forceinline__ bool cell_of(const Dims& D, int* x, int* y,
+                                        int* z, size_t* base) {
+  *x = blockIdx.x * blockDim.x + threadIdx.x;
+  *y = blockIdx.y * blockDim.y + threadIdx.y;
+  *z = blockIdx.z % D.d;
+  size_t b = blockIdx.z / D.d;
+  *base = b * (size_t)D.d * D.h * D.w;
+  return *x < D.w && *y < D.h;
+}
+
+__device__ __forceinline__ bool interior3(int x, int y, int z,
+                                          const Dims& D) {
+  return x >= 1 && x <= D.w - 2 && y >= 1 && y <= D.h - 2 && z >= 1 &&
+         z <= D.d - 2;
+}
+
+// Mask byte of cell i = (x, y, z): bit 0 the sweep updates it (interior,
+// not obstacle); bits 1-3 cnt, the number of obstacle neighbours.
+__device__ __forceinline__ uint8_t mask_byte3(const int* __restrict__ flags,
+                                              int x, int y, int z, size_t i,
+                                              const Dims& D) {
+  if (!interior3(x, y, z, D) || flags[i] == kObstacle) return 0;
+  const size_t hw = (size_t)D.h * D.w;
+  int cnt = (flags[i - 1] == kObstacle) + (flags[i + 1] == kObstacle) +
+            (flags[i - D.w] == kObstacle) + (flags[i + D.w] == kObstacle) +
+            (flags[i - hw] == kObstacle) + (flags[i + hw] == kObstacle);
+  return (uint8_t)(1 | (cnt << 1));
+}
+
+// The march's tile, the sweeps a launch and the z segment: the fastest settings
 // measured at 128^3 (PERF.md).
 constexpr int kTX = 32;                       // tile columns: one warp a row
 constexpr int kTY = 16;                       // tile rows, one thread each
@@ -216,16 +282,123 @@ int launch_sweeps3(int k, const float* src, const float* div,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// The buffer a warm start goes into so that the last of `launches`
+// ping-ponging launches lands in p_out: an odd count starts writing p_out,
+// an even one tmp.
+inline float* warm_buffer3(int launches, float* tmp, float* p_out) {
+  return (launches % 2) ? tmp : p_out;
+}
+
+inline int march_launches(int iters) {
+  return (iters + kMaxSweeps3 - 1) / kMaxSweeps3;
+}
+
+// `iters` sweeps in march_launches(iters) launches from src (null: zeros;
+// else warm_buffer3's buffer), ping-ponging tmp and p_out; the result
+// lands in p_out.
+inline int jacobi3_marches(const float* src, const float* div,
+                           const uint8_t* mask, float* tmp, float* p_out,
+                           int b, const Dims& D, int iters, int damped,
+                           float keep, float damping, cudaStream_t s) {
+  float* dst = (march_launches(iters) % 2) ? p_out : tmp;
+  for (int done = 0; done < iters;) {
+    const int k = min(kMaxSweeps3, iters - done);
+    const int status = launch_sweeps3<kMaxSweeps3>(
+        k, src, div, mask, dst, b, D, damped, keep, damping, s);
+    if (status) return status;
+    done += k;
+    src = dst;
+    dst = (dst == p_out) ? tmp : p_out;
+  }
+  return 0;
+}
+
+// Arguments every 3-D solve entry checks: sizes, a distinct scratch
+// buffer, and b*d slices within the grid's z limit.
+inline bool bad_args3(int b, int d, int h, int w, int iters, const float* tmp,
+                      const float* p_out) {
+  return iters < 0 || b < 1 || d < 3 || h < 3 || w < 3 || tmp == p_out ||
+         (size_t)b * d > 65535;
+}
+
+// J's prologue: the RHS of U, the mask byte and the warm start zeroed on
+// obstacles.
+__global__ void tail3_prologue(const int* __restrict__ flags,
+                               const float* __restrict__ U,
+                               const float* __restrict__ p0,
+                               float* __restrict__ rhs,
+                               uint8_t* __restrict__ mask,
+                               float* __restrict__ p_init, Dims D) {
+  int x, y, z;
+  size_t base;
+  if (!cell_of(D, &x, &y, &z, &base)) return;
+  const size_t hw = (size_t)D.h * D.w, n = D.d * hw;
+  const size_t cell = z * hw + (size_t)y * D.w + x;
+  const size_t i = base + cell;
+  const bool ob = flags[i] == kObstacle;
+  p_init[i] = ob ? 0.f : p0[i];
+  mask[i] = mask_byte3(flags, x, y, z, i, D);
+  float r = 0.f;
+  if (interior3(x, y, z, D) && !ob) {
+    // ops3d.velocity_divergence3: (u - u[x+1]) + (v - v[y+1]) + (w - w[z+1])
+    const float* u = U + 3 * base + cell;
+    const float* v = u + n;
+    const float* wz = v + n;
+    r = ((u[0] - u[1]) + (v[0] - v[D.w])) + (wz[0] - wz[hw]);
+  }
+  rhs[i] = r;
+}
+
+// J's epilogue: the velocity update from the final p and the walls.
+__global__ void tail3_epilogue(const int* __restrict__ flags,
+                               const float* __restrict__ U,
+                               const float* __restrict__ p,
+                               float* __restrict__ U_out, Dims D) {
+  int x, y, z;
+  size_t base;
+  if (!cell_of(D, &x, &y, &z, &base)) return;
+  const size_t hw = (size_t)D.h * D.w, n = D.d * hw;
+  const size_t cell = z * hw + (size_t)y * D.w + x;
+  const size_t i = base + cell;
+  const int f = flags[i];
+  const bool fl = f == kFluid, em = f == kEmpty, ob = f == kObstacle;
+  const bool in = interior3(x, y, z, D);
+  const size_t stride[3] = {1, (size_t)D.w, hw};
+  const int idx[3] = {x, y, z};
+  const float pc = p[i];
+  for (int c = 0; c < 3; ++c) {
+    const size_t ui = 3 * base + c * n + cell;
+    const float vel = U[ui];
+    // ops3d.velocity_update3; border faces keep their velocity.
+    float val = vel;
+    if (in) {
+      const size_t j = i - stride[c];
+      const int fm = flags[j];
+      const float pm = p[j];
+      val = (fl && fm == kFluid)   ? vel - (pc - pm)
+            : (fl && fm == kEmpty) ? vel - pc
+            : (em && fm == kFluid) ? vel + pm
+                                   : 0.f;
+    }
+    // ops3d.set_wall_bcs3, the lower neighbour's index clamped at 0.
+    const int fb = idx[c] > 0 ? flags[i - stride[c]] : f;
+    const bool kill =
+        (fl || ob) && (fb == kObstacle || (ob && fb == kFluid));
+    U_out[ui] = kill ? 0.f : val;
+  }
+}
+
 }  // namespace
 
-// Sweeps one launch of fn_jacobi3_solve runs. Launches nothing.
+// Sweeps one march launch runs. Launches nothing.
 extern "C" int fn_jacobi3_max_sweeps() { return kMaxSweeps3; }
 
-// iters (>= 1) sweeps; the result lands in p_out. p0 may be null (a cold
-// start from p = 0); `mask` holds b*d*h*w bytes and `tmp` b*d*h*w floats
-// of scratch. Issues 1 + ceil(iters / kMaxSweeps3) launches on `stream`,
-// ping-ponging tmp and p_out; returns the first launch error, or
-// cudaErrorInvalidValue for bad arguments.
+// Kernel I: iters (>= 1) sweeps; the result lands in p_out. p0 may be null
+// (a cold start from p = 0); `mask` holds b*d*h*w bytes and `tmp`
+// b*d*h*w floats of scratch. Issues 1 + ceil(iters / kMaxSweeps3)
+// launches on `stream`, ping-ponging tmp and p_out; returns the first
+// launch error, or cudaErrorInvalidValue for bad arguments.
 extern "C" int fn_jacobi3_solve(const int* flags, const float* div,
                                 const float* p0, uint8_t* mask, float* tmp,
                                 float* p_out, int b, int d, int h, int w,
@@ -235,21 +408,37 @@ extern "C" int fn_jacobi3_solve(const int* flags, const float* div,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = (cudaStream_t)stream;
   Dims D{d, h, w};
-  const int launches = (iters + kMaxSweeps3 - 1) / kMaxSweeps3;
-  float* init = warm_buffer3(launches, tmp, p_out);
+  float* init = warm_buffer3(march_launches(iters), tmp, p_out);
   jacobi3_mask<<<grid3(b, D), kBlock3, 0, s>>>(flags, p0, mask, init, D);
+  const int status = fnk::launch_status();
+  if (status) return status;
+  return jacobi3_marches(p0 ? init : nullptr, div, mask, tmp, p_out, b, D,
+                         iters, damped, keep, damping, s);
+}
+
+// Kernel J, the tail of one projection: RHS of U, `iters` (>= 0) warm
+// sweeps from p0 (zeroed on obstacles) with the weighted-Jacobi blend, U'
+// from the final p. `rhs` and `tmp` are b*d*h*w floats and `mask`
+// b*d*h*w bytes of scratch; p lands in p_out, U' in U_out. Issues 2 +
+// ceil(iters / kMaxSweeps3) launches on `stream`; returns the first
+// launch error, or cudaErrorInvalidValue for bad arguments.
+extern "C" int fn_tail3(const int* flags, const float* U, const float* p0,
+                        float* rhs, uint8_t* mask, float* tmp, float* p_out,
+                        float* U_out, int b, int d, int h, int w, int iters,
+                        int damped, float keep, float damping,
+                        void* stream) {
+  if (bad_args3(b, d, h, w, iters, tmp, p_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = (cudaStream_t)stream;
+  Dims D{d, h, w};
+  float* init = warm_buffer3(march_launches(iters), tmp, p_out);
+  tail3_prologue<<<grid3(b, D), kBlock3, 0, s>>>(flags, U, p0, rhs, mask,
+                                                 init, D);
   int status = fnk::launch_status();
   if (status) return status;
-  const float* src = p0 ? init : nullptr;
-  float* dst = (launches % 2) ? p_out : tmp;
-  for (int done = 0; done < iters;) {
-    const int k = min(kMaxSweeps3, iters - done);
-    status = launch_sweeps3<kMaxSweeps3>(k, src, div, mask, dst, b, D,
-                                         damped, keep, damping, s);
-    if (status) return status;
-    done += k;
-    src = dst;
-    dst = (dst == p_out) ? tmp : p_out;
-  }
-  return 0;
+  status = jacobi3_marches(init, rhs, mask, tmp, p_out, b, D, iters, damped,
+                           keep, damping, s);
+  if (status) return status;
+  tail3_epilogue<<<grid3(b, D), kBlock3, 0, s>>>(flags, U, p_out, U_out, D);
+  return fnk::launch_status();
 }

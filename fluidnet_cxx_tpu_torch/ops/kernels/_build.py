@@ -79,6 +79,8 @@ QUERIES = {
     "fn_mg_workspace": [I] * 8,
     "fn_mg_launches": [I] * 9,
     "fn_mg_cut_level": [I] * 3,
+    "fn_advect3_velocity_max_disp": [],
+    "fn_advect3_velocity_smem": [I],
 }
 
 

@@ -9,11 +9,14 @@
 
 All three run the CUDA kernels of ``csrc/advect3.cu`` in two launches
 (forward samples into scratch, then backward samples, correction and
-clamps); the first-hit trace walks the pruned box of
-``line_trace3.firsthit_box3``, whose margin the wrapper passes. Their
-plain versions are the window engine of ``ops/ops3d.py``
-(``advect_scalar3``, ``advect_velocity3``): a CPU tensor runs it, a CUDA
-tensor the kernel.
+clamps). K and L run one thread a cell; their first-hit trace walks the
+pruned box of ``line_trace3.firsthit_box3``, whose margin the wrapper
+passes. M's two launches march each column tile along z with U (and, in
+the backward launch, the forward field) in rings of planes in shared
+memory, built for ``max_disp`` up to ``fn_advect3_velocity_max_disp()``;
+a larger one raises. Their plain versions are the window engine of
+``ops/ops3d.py`` (``advect_scalar3``, ``advect_velocity3``): a CPU tensor
+runs it, a CUDA tensor the kernel.
 """
 import torch
 
@@ -48,6 +51,12 @@ def _launch(owner, parts, dt, rho, U, flags, maccormack_strength, max_disp,
         _build.check(rho, "rho", torch.float32, (b, d, h, w), dev)
     if min(d, h, w) < 3 or max_disp < 1:
         raise ValueError("3-D advection needs d, h, w >= 3 and max_disp >= 1")
+    if parts == _VELOCITY:
+        most = _build.constant("fn_advect3_velocity_max_disp")
+        if max_disp > most:
+            raise ValueError(
+                f"advect_velocity3: max_disp {max_disp} exceeds {most}, the "
+                "largest its shared-memory rings are built for")
     planes = (4 if parts & _SCALAR else 0) + (3 if parts & _VELOCITY else 0)
     scratch = torch.empty((planes, b, d, h, w), dtype=torch.float32,
                           device=dev)

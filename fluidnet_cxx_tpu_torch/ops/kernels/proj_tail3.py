@@ -1,10 +1,11 @@
 """Kernel J: the learned 3-D projection's tail.
 
 Replaces ``fluidnet_cxx_tpu/ops/pallas/proj_tail3_pallas.py::
-project_tail3_pallas`` with the CUDA kernels in ``csrc/proj_tail3.cu``:
-one prologue launch (the divergence RHS, the per-cell mask byte, the warm
-start zeroed on obstacles), one launch per damped Jacobi sweep (kernel I's
-sweep, ping-ponging two pressure buffers) and one epilogue launch (velocity
+project_tail3_pallas`` with the CUDA kernels in ``csrc/jacobi3.cu``: one
+prologue launch (the divergence RHS, the per-cell mask byte, the warm
+start zeroed on obstacles), one z-march launch per
+``fn_jacobi3_max_sweeps()`` damped Jacobi sweeps (kernel I's march,
+ping-ponging two pressure buffers) and one epilogue launch (velocity
 update and free-slip walls), all issued by one C call. No launch waits on
 another block. The plain version, ``project_tail3_plain``, is the unfused
 chain of ``ops/ops3d.py`` that the TPU kernel's docstring names; a CPU
@@ -47,7 +48,8 @@ def project_tail3(flags, U, p0, iters: int, damping: float = 6.0 / 7.0):
                 rhs.data_ptr(), mask.data_ptr(), tmp.data_ptr(),
                 p.data_ptr(), U_out.data_ptr(), b, d, h, w, iters,
                 *sweep_args(damping), _build.stream())
-    project_tail3.launches += 2 + iters
+    per_launch = _build.constant("fn_jacobi3_max_sweeps")
+    project_tail3.launches += 2 + -(-iters // per_launch)
     return p, U_out
 
 
