@@ -6,16 +6,21 @@ Phases (each prints its elapsed seconds):
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from csrc/ with one nvcc command, printing the
      -Xptxas -v register, shared-memory and spill lines, and the dynamic
-     shared memory of kernel M's backward march at each max_disp;
+     shared memory of kernel M's backward march at each max_disp and of
+     kernel E's tiles at max_disp 4 and the built limit;
   3. each kernel (A merged advection, B PUNet conv, C projection tail,
      D scalar advection, E velocity advection, F Jacobi, G multigrid
      solve, H multigrid projection, I 3-D Jacobi, J 3-D projection tail,
      K 3-D scalar advection, L 3-D merged advection, M 3-D velocity
      advection, N PUNet3 conv) against its plain PyTorch version on
      the card (TF32 off), with its tolerance, at the main paths' shapes:
-     512^2 with 8% random obstacles (A and E also with an `orig` far from
-     U); E and F also at 800x8000 on the cylinder's flags, E with the
-     viscous field as `orig` (with the plain version's peak memory there);
+     512^2 with 8% random obstacles; A, D and E bit for bit on the 512^2
+     stress inputs, A also on the plume scene's flags and the 128x512
+     Rayleigh-Taylor box, E on the 8000x800 cylinder with its viscous field
+     as `orig` (and at max_disp 1-4), A at max_disp 1-4 with the trace on
+     and off, A and E with an `orig` far from U, D and A with the trace
+     off and sample_outside on, E past its built max_disp (which must
+     raise); F also at 800x8000 on the cylinder's flags;
      F, G and H also on the 512x128 Rayleigh-Taylor box (G and H cold and
      warm on both, each bit-equal on a repeat); at 512^2 G and H also no
      further than twice the plain version's float32 rounding from its
@@ -39,11 +44,13 @@ Phases (each prints its elapsed seconds):
      called twice give the same bits; then CUDA-event times of the
      kernel, the plain version and, for B and N, the same forward as cuDNN
      F.conv2d/F.conv3d calls (N: in bfloat16 with channels_last_3d, and
-     in float32), B, C, F (also at 512x128 and 8000x800), G, H (cold and
-     warm at 512^2 and 512x128), I, J (16 and 8 sweeps), M (stress and
-     scene flags), N and the cuDNN chains as device time (the call
-     captured in a CUDA graph; the eager time beside it), G, H, J and M
-     beside their times before their redesign (STEP0_MS), G and H with
+     in float32), A (stress, scene and RT flags), B, C, D, E (cylinder
+     and 512^2), F (also at 512x128 and 8000x800), G, H (cold and warm at
+     512^2 and 512x128), I, J (16 and 8 sweeps), M (stress and scene
+     flags), N and the cuDNN chains as device time (the call captured in
+     a CUDA graph; the eager time beside it), A, D, E, G, H, J and M
+     beside their times before their redesign (STEP0_MS), A and D with
+     their pruned trace's walk and bound, G and H with
      their device time split into the single-block tail, the per-level
      launches and the rest, F, G, H, I and J with their launches a call,
      and the
@@ -68,14 +75,16 @@ Phases (each prints its elapsed seconds):
      the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
      J, N) at full widths, weights from seed 0; finite fields, ms per
-     step, quality stats, launches per step (J, N, and H on mg-2v and G on
-     the RT multigrid path held to their exact counts); then the `kernels`
+     step, quality stats, launches per step (J, N, H on mg-2v, G on the
+     RT multigrid path, E on the cylinder and D and E on the unfused plume
+     held to their exact counts); then the `kernels`
      JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
-`python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only).
+`python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
+`python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -113,7 +122,9 @@ MODEL_P4 = "trained_models/PUNet3_32"
 # of mg_cases (`chip_smoke.py --mg-only` in a checkout of the commit before
 # their redesign), J, M, K and L in each case of cases3d (`chip_smoke.py
 # --3d-only` in a checkout of the commit before J's and M's; K and L were
-# not redesigned then, their times there are the spread's reference).
+# not redesigned then, their times there are the spread's reference), A,
+# D and E in each case of adv_cases (`chip_smoke.py --adv-only` in a
+# checkout of the commit before A's, D's trace and E's).
 STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
             "H 512^2 cold": (0.2404, 0.7435),
             "G 512^2 warm": (0.2397, 0.8818),
@@ -123,7 +134,10 @@ STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
             "J 16 warm": (0.2400, 0.2858), "J 8 warm": (0.1522, 0.1770),
             "M stress": (0.2228, 0.2261), "M scene": (0.2187, 0.2225),
             "K stress": (0.1600, 0.1637),
-            "L stress trace": (0.5919, 0.6021)}
+            "L stress trace": (0.5919, 0.6021),
+            "A stress": (0.0976, 0.1006), "A scene": (0.0627, 0.0660),
+            "A RT": (0.0286, 0.0312), "D stress": (0.0897, 0.0924),
+            "E cylinder": (0.2154, 0.2192), "E 512^2": (0.0117, 0.0242)}
 
 
 def phase(name):
@@ -252,40 +266,12 @@ def far_orig(gen, U):
 
 
 def phase_kernels(dev, results):
-    from fluidnet_cxx_tpu_torch.ops.kernels import advect, proj_tail
+    from fluidnet_cxx_tpu_torch.ops.kernels import proj_tail
     from fluidnet_cxx_tpu_torch.sim.scenes import create_plume_scene
 
     gen = torch.Generator().manual_seed(SEED)
     flags, U, rho = stress_inputs(gen, dev, RES)
     n = RES * RES
-    D = 4
-
-    # ---- A: advection ----
-    done = phase("kernel A advect_all")
-    args = (0.1, rho, U, flags, 0.6, False, D, True)
-    got = advect.advect_all(*args)
-    torch.cuda.synchronize()
-    want = advect.advect_all_plain(*args)
-    err, tol = max_err(got, want), 1e-4 * scale_of(want)
-    check("A advect_all", err, tol)
-    # The branches the main path does not take: no trace, plain bilinear.
-    other = (0.1, rho, U, flags, 0.6, True, D, False)
-    want2 = advect.advect_all_plain(*other)
-    check("A advect_all (trace off, sample outside)",
-          max_err(advect.advect_all(*other), want2), 1e-4 * scale_of(want2))
-    orig = far_orig(gen, U)
-    want3 = advect.advect_all_plain(*args, orig=orig)
-    check("A advect_all (orig far from U)",
-          max_err(advect.advect_all(*args, orig=orig), want3),
-          1e-4 * scale_of(want3))
-    ms = cuda_ms(lambda: advect.advect_all(*args), 20)
-    plain_ms = cuda_ms(lambda: advect.advect_all_plain(*args), 3, warmup=1)
-    b_ms, b_by = bound(28 * n, advect_ops(flags, D))
-    results["A"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"A: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
-    done()
 
     phase_conv2d(dev, gen, results)
 
@@ -316,7 +302,8 @@ def phase_kernels(dev, results):
     print(f"C: kernel {ms:.4f} ms device (eager {eager_ms:.4f}), plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     done()
-    phase_split_advection(dev, gen, flags, U, rho, results)
+    phase_advection(dev, results)
+    phase_f_cylinder(dev)
 
 
 def check_repeat(name, fn):
@@ -523,87 +510,16 @@ def phase_conv2d(dev, gen, results):
     done()
 
 
-def phase_split_advection(dev, gen, flags, U, rho, results):
-    """Kernels D and E at 512^2 on the stress inputs, then E and F at
-    8000x800 on the cylinder's flags. D and E run A's device functions
-    in the plain version's float32 order (-fmad=false), so like A they are
-    expected to be bit-exact; the tolerance is A's."""
-    from fluidnet_cxx_tpu_torch.ops import advection
+def phase_f_cylinder(dev):
+    """Kernel F at 8000x800 on the cylinder's flags, 34 sweeps, on the
+    divergence of the viscous field of adv_inputs' cylinder U."""
     from fluidnet_cxx_tpu_torch.ops.jacobi import solve_jacobi_fixed
-    from fluidnet_cxx_tpu_torch.ops.kernels import advect, jacobi
-    from fluidnet_cxx_tpu_torch.ops.source_terms import add_viscosity
+    from fluidnet_cxx_tpu_torch.ops.kernels import jacobi
     from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
-    from fluidnet_cxx_tpu_torch.sim.scenes import create_cylinder_scene
 
-    n, D = RES * RES, 4
-
-    done = phase("kernel D advect_scalar")
-    args = (0.1, rho, U, flags, 0.6, False, D, True)
-    got = advect.advect_scalar(*args)
-    torch.cuda.synchronize()
-    want = advection.advect_scalar(0.1, rho, U, flags, False, 0.6, True, D)
-    err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
-    check("D advect_scalar", err, tol)
-    want2 = advection.advect_scalar(0.1, rho, U, flags, True, 0.6, False, D)
-    check("D advect_scalar (trace off, sample outside)",
-          max_err([advect.advect_scalar(0.1, rho, U, flags, 0.6, True, D,
-                                        False)], [want2]),
-          1e-4 * scale_of([want2]))
-    ms = cuda_ms(lambda: advect.advect_scalar(*args), 20)
-    plain_ms = cuda_ms(lambda: advection.advect_scalar(
-        0.1, rho, U, flags, False, 0.6, True, D), 3, warmup=1)
-    b_ms, b_by = bound(20 * n, advect_ops(flags, D, 150.0))
-    results["D"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"D: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
-    done()
-
-    done = phase("kernel E advect_velocity")
-    orig = far_orig(gen, U)
-    for name, o in (("orig = U", None), ("orig far from U", orig)):
-        want = advection.advect_velocity(0.1, U if o is None else o, U,
-                                         flags, 0.6, D)
-        check(f"E advect_velocity {RES}^2 ({name})",
-              max_err([advect.advect_velocity(0.1, U, flags, 0.6, D,
-                                              orig=o)], [want]),
-              1e-4 * scale_of([want]))
-    sq_ms = cuda_ms(lambda: advect.advect_velocity(0.1, U, flags, 0.6, D), 20)
-    sq_plain_ms = cuda_ms(lambda: advection.advect_velocity(
-        0.1, U, U, flags, 0.6, D), 3, warmup=1)
-    print(f"E {RES}^2 (no orig): kernel {sq_ms:.4f} ms, plain "
-          f"{sq_plain_ms:.3f} ms, bound {bound(20 * n, 150.0 * n)[0]:.4f} ms",
-          flush=True)
-
-    # The cylinder's own flags and shape, U with up to 5-cell
-    # displacements and its viscous field as orig.
-    state, nu = create_cylinder_scene(CYL_W, CYL_H, device=dev)
-    cflags, nc = state.flags, CYL_W * CYL_H
-    cU = state.U + 100.0 * (torch.rand(state.U.shape, generator=gen)
-                            - 0.5).to(dev)
-    corig = add_viscosity(0.1, cU, cflags, nu)
-    got = advect.advect_velocity(0.1, cU, cflags, 0.6, D, orig=corig)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    want = advection.advect_velocity(0.1, corig, cU, cflags, 0.6, D)
-    torch.cuda.synchronize()
-    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
-    check(f"E advect_velocity {CYL_W}x{CYL_H} (cylinder flags, viscous "
-          "orig)", err, tol)
-    ms = cuda_ms(lambda: advect.advect_velocity(0.1, cU, cflags, 0.6, D,
-                                                orig=corig), 20)
-    plain_ms = cuda_ms(lambda: advection.advect_velocity(
-        0.1, corig, cU, cflags, 0.6, D), 3, warmup=1)
-    b_ms, b_by = bound(28 * nc, advect_ops(cflags, D, 150.0, trace=False))
-    results["E"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=None)
-    print(f"E {CYL_W}x{CYL_H} (orig): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms (peak {peak_gb:.2f} GB above its inputs), "
-          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
-    done()
-
+    cflags, _, corig = cylinder_inputs(
+        torch.Generator().manual_seed(SEED + 5), dev)
+    nc = CYL_W * CYL_H
     done = phase(f"kernel F at {CYL_W}x{CYL_H}")
     div = velocity_divergence(corig, cflags)
     want = solve_jacobi_fixed(cflags, div, 34)
@@ -617,6 +533,194 @@ def phase_split_advection(dev, gen, flags, U, rho, results):
           f"{launches_of(jacobi.solve_jacobi, run)} launches, bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     done()
+
+
+def cylinder_inputs(gen, dev):
+    """The cylinder's own flags and shape, U with up to 5-cell
+    displacements at dt 0.1 and its viscous field as orig."""
+    from fluidnet_cxx_tpu_torch.ops.source_terms import add_viscosity
+    from fluidnet_cxx_tpu_torch.sim.scenes import create_cylinder_scene
+
+    state, nu = create_cylinder_scene(CYL_W, CYL_H, device=dev)
+    cU = state.U + 100.0 * (torch.rand(state.U.shape, generator=gen)
+                            - 0.5).to(dev)
+    return state.flags, cU, add_viscosity(0.1, cU, state.flags, nu)
+
+
+def adv_inputs(dev):
+    """Inputs of kernels A, D and E at the main paths' shapes: the 512^2
+    stress inputs (8% obstacles, up to 5-cell displacements at dt 0.1),
+    the plume scene's own flags (the border shell alone, as the plume
+    paths run them) with the same U and rho, the 128x512 Rayleigh-Taylor
+    box with U and rho of the stress kind, and the cylinder's
+    (cylinder_inputs)."""
+    from fluidnet_cxx_tpu_torch.sim.scenes import (
+        create_plume_scene, create_rayleigh_taylor_scene)
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    flags, U, rho = stress_inputs(gen, dev, RES)
+    scene = create_plume_scene(RES, RES, 0.1, 8.0, 0.145, device=dev).flags
+    rt_flags = create_rayleigh_taylor_scene(RT_W, RT_H, device=dev).flags
+    rt_U = (100.0 * (torch.rand((1, 2, RT_H, RT_W), generator=gen)
+                     - 0.5)).to(dev)
+    rt_rho = torch.rand((1, RT_H, RT_W), generator=gen).to(dev)
+    return dict(stress=(flags, U, rho), scene=(scene, U, rho),
+                RT=(rt_flags, rt_U, rt_rho),
+                cylinder=cylinder_inputs(gen, dev))
+
+
+def adv_cases(inputs):
+    """name -> (kernel call, plain call, the wrapper that counts its
+    launches, flags, bytes a cell, operations a cell, traced) of A, D and
+    E at max_disp 4, dt 0.1, MacCormack 0.6: A with the trace on the
+    stress, the plume scene's and the RT flags, D with the trace on the
+    stress flags, E on the cylinder with its viscous orig and on the
+    512^2 stress flags without one."""
+    from fluidnet_cxx_tpu_torch.ops import advection
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect
+
+    D, cases = 4, {}
+    for where in ("stress", "scene", "RT"):
+        f, U, rho = inputs[where]
+        args = (0.1, rho, U, f, 0.6, False, D, True)
+        cases[f"A {where}"] = (
+            lambda a=args: list(advect.advect_all(*a)),
+            lambda a=args: list(advect.advect_all_plain(*a)),
+            advect.advect_all, f, 28, 300.0, True)
+    f, U, rho = inputs["stress"]
+    cases["D stress"] = (
+        lambda: [advect.advect_scalar(0.1, rho, U, f, 0.6, False, D, True)],
+        lambda: [advection.advect_scalar(0.1, rho, U, f, False, 0.6, True,
+                                         D)],
+        advect.advect_scalar, f, 20, 150.0, True)
+    cf, cU, corig = inputs["cylinder"]
+    cases["E cylinder"] = (
+        lambda: [advect.advect_velocity(0.1, cU, cf, 0.6, D, orig=corig)],
+        lambda: [advection.advect_velocity(0.1, corig, cU, cf, 0.6, D)],
+        advect.advect_velocity, cf, 28, 150.0, False)
+    cases[f"E {RES}^2"] = (
+        lambda: [advect.advect_velocity(0.1, U, f, 0.6, D)],
+        lambda: [advection.advect_velocity(0.1, U, U, f, 0.6, D)],
+        advect.advect_velocity, f, 20, 150.0, False)
+    return cases
+
+
+def check_adv_branches(inputs):
+    """The branches and max_disp values the main paths do not take, each
+    bit for bit: A with the trace off and sample_outside on, A and E with
+    an orig far from U, A at max_disp 1-4 with the trace on and off
+    (512^2 stress inputs: displacements past each clamp), E on the
+    cylinder at max_disp 1-4; D with the trace off and sample_outside on;
+    then one call of E past its built max_disp limit, which must raise."""
+    from fluidnet_cxx_tpu_torch.ops import advection
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build, advect
+
+    f, U, rho = inputs["stress"]
+    orig = far_orig(torch.Generator().manual_seed(SEED + 6), U)
+    other = (0.1, rho, U, f, 0.6, True, 4, False)
+    check("A advect_all (trace off, sample outside)",
+          max_err(advect.advect_all(*other),
+                  advect.advect_all_plain(*other)), 0.0)
+    args = (0.1, rho, U, f, 0.6, False, 4, True)
+    check("A advect_all (orig far from U)",
+          max_err(advect.advect_all(*args, orig=orig),
+                  advect.advect_all_plain(*args, orig=orig)), 0.0)
+    check("E advect_velocity (orig far from U)",
+          max_err([advect.advect_velocity(0.1, U, f, 0.6, 4, orig=orig)],
+                  [advection.advect_velocity(0.1, orig, U, f, 0.6, 4)]), 0.0)
+    check("D advect_scalar (trace off, sample outside)",
+          max_err([advect.advect_scalar(0.1, rho, U, f, 0.6, True, 4,
+                                        False)],
+                  [advection.advect_scalar(0.1, rho, U, f, True, 0.6, False,
+                                           4)]), 0.0)
+    for D in (1, 2, 3, 4):
+        for trace in (True, False):
+            a = (0.1, rho, U, f, 0.6, False, D, trace)
+            check(f"A advect_all (max_disp {D}, trace "
+                  f"{'on' if trace else 'off'})",
+                  max_err(advect.advect_all(*a), advect.advect_all_plain(*a)),
+                  0.0)
+    cf, cU, corig = inputs["cylinder"]
+    for D in (1, 2, 3, 4):
+        got = advect.advect_velocity(0.1, cU, cf, 0.6, D, orig=corig)
+        torch.cuda.synchronize()
+        check(f"E advect_velocity ({CYL_W}x{CYL_H} cylinder, orig, "
+              f"max_disp {D})",
+              max_err([got], [advection.advect_velocity(0.1, corig, cU, cf,
+                                                        0.6, D)]), 0.0)
+    most = _build.constant("fn_advect_max_disp")
+    try:
+        advect.advect_velocity(0.1, U, f, 0.6, most + 1)
+    except ValueError as e:
+        print(f"E at max_disp {most + 1} raises: {e}", flush=True)
+    else:
+        raise SystemExit(f"E ran past its built max_disp {most}")
+
+
+def phase_advection(dev, results):
+    """Kernels A, D and E against their plain versions (bit for bit) on
+    every case of adv_cases and check_adv_branches, then timed: device
+    time (CUDA graph) with the eager time and Step 0 beside it, launches
+    a call, the plain version's time and the bounds (advect_ops's, and
+    one that counts only the blocked cells of the pruned boxes), with how
+    the pruned trace walks on each flag set (walk_stats)."""
+    from fluidnet_cxx_tpu_torch.ops.advection import get_centered
+    from fluidnet_cxx_tpu_torch.ops.common import border_mask, where0
+
+    inputs = adv_inputs(dev)
+    cases = adv_cases(inputs)
+    done = phase("kernels A, D, E against their plain versions")
+    errs = {}
+    for name, (run, plain, *_) in cases.items():
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = max_err(got, plain())
+        check(name, errs[name], 0.0)
+    check_adv_branches(inputs)
+    done()
+
+    done = phase("kernels A, D, E timed")
+    times = adv_times(cases)
+    for name, (run, plain, counter, f, nbytes, per_cell, trace) in \
+            cases.items():
+        n = f.numel()
+        b_ms, b_by = bound(nbytes * n, advect_ops(f, 4, per_cell, trace))
+        line = f"{b_ms:.4f} ({b_by})"
+        if trace:
+            h, w = f.shape[1:]
+            U = next(v[1] for v in inputs.values() if v[0] is f)
+            cc = where0(~border_mask(h, w, 1, f.device)[None, None],
+                        get_centered(U))
+            st = walk_stats(f, cc, 4, 0.1)
+            box_ms, box_by = bound(nbytes * n, per_cell * n
+                                   + 20.0 * st["tested"])
+            line += (f"; pruned box {box_ms:.4f} ({box_by}); trace walk: "
+                     f"{st['rays']} rays, {st['walked']:.4f} walked, "
+                     f"{st['offsets']:.3f} offsets a ray (window "
+                     f"{(2 * 4 + 1) ** 2 - 1}), "
+                     f"{st['tested'] / st['rays']:.3f} blocked cells "
+                     "tested a ray")
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        ms = times[name][0]
+        print(f"{name}: {launches_of(counter, run)} launches a call, plain "
+              f"{plain_ms:.3f} ms, bound {line}", flush=True)
+        key = {"A stress": "A", "D stress": "D", "E cylinder": "E"}.get(name)
+        if key:
+            results[key] = dict(err=errs[name], ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    done()
+
+
+def adv_times(cases):
+    """(device, eager) ms of every case of adv_cases, each printed beside
+    Step 0, and the STEP0_MS literal of this run."""
+    times = {name: device_and_eager(c[0]) for name, c in cases.items()}
+    for name, (ms, eager) in times.items():
+        print_step0(name, ms, eager)
+    print("STEP0_MS 2-D advection = " + repr(
+        {k: (round(d, 4), round(e, 4)) for k, (d, e) in times.items()}),
+        flush=True)
+    return times
 
 
 def check_rounding(name, got, want, exact):
@@ -1030,7 +1134,9 @@ def phase_kernels3d(dev, results):
             times["K", name, trace] = cuda_ms(lambda: scalar(trace, f), 20)
             times["L", name, trace] = cuda_ms(lambda: merged(trace, f), 20)
         times["M", name] = device_and_eager(lambda: velocity(f))
-    stats = {name: walk_stats(f, U, D, dt) for name, f in flag_sets.items()}
+    border = ops3d.border_mask3(RES3, RES3, RES3, 1, flags.device)
+    cc = ops3d.where0(~border[None, None], ops3d.get_centered3(U))
+    stats = {name: walk_stats(f, cc, D, dt) for name, f in flag_sets.items()}
     per_all = per_scalar + 3 * per_component
     plain_ms = {"K": cuda_ms(lambda: scalar_plain(False), 3, warmup=1),
                 "K trace": cuda_ms(lambda: scalar_plain(True), 2, warmup=1),
@@ -1077,45 +1183,50 @@ def phase_kernels3d(dev, results):
     done()
 
 
-def walk_stats(flags, U, D, dt):
-    """How kernels K and L's pruned trace walks on ``flags``, counted from
-    ``line_trace3.firsthit_box3`` for the scalar's forward and backward
-    rays (fluid cells, displacement -/+dt times the centred velocity
-    clipped to +-D, of length > 1e-12): the rays, the share whose box
-    holds a blocked cell (only those run slab tests), the mean offsets of
-    the box within the grid (the ray's own cell left out) over all rays
-    and over those that walked, and the blocked cells tested in all."""
-    from fluidnet_cxx_tpu_torch.celltype import FLUID
-    from fluidnet_cxx_tpu_torch.ops import ops3d
-    from fluidnet_cxx_tpu_torch.ops.line_trace3 import (firsthit_box3,
-                                                        firsthit_slack3)
+def walk_stats(flags, cc, D, dt):
+    """How the pruned first-hit trace of kernels A, D, K and L walks on
+    ``flags`` (b, h, w) or (b, d, h, w), counted from
+    ``line_trace.firsthit_box`` for the scalar's forward and backward rays
+    (fluid cells, displacement -/+dt times the centred velocity ``cc``
+    (zero on the border) clipped to +-D, of length > 1e-12): the rays,
+    the share whose box holds a blocked cell (only those run slab tests),
+    the mean offsets of the box within the grid (the ray's own cell left
+    out) over all rays and over those that walked, and the blocked cells
+    tested in all."""
+    import itertools
 
-    b, d, h, w = flags.shape
+    from fluidnet_cxx_tpu_torch.celltype import FLUID
+    from fluidnet_cxx_tpu_torch.ops.line_trace import (firsthit_box,
+                                                       firsthit_slack2)
+
+    dims = flags.shape[1:]            # (h, w) or (d, h, w)
+    k = len(dims)
     fluid = flags == FLUID
-    blocked = torch.nn.functional.pad((~fluid).float(), (D,) * 6) > 0.5
-    border = ops3d.border_mask3(d, h, w, 1, flags.device)
-    cc = ops3d.where0(~border[None, None], ops3d.get_centered3(U))
-    slack = firsthit_slack3((d, h, w), D)
-    zz, yy, xx = ops3d.index_grids3(b, d, h, w, flags.device)
+    blocked = torch.nn.functional.pad((~fluid).float(), (D,) * 2 * k) > 0.5
+    idx = torch.meshgrid(*[torch.arange(n, device=flags.device)
+                           for n in dims], indexing="ij")
+    idx = [i.expand(flags.shape) for i in reversed(idx)]   # x, y (, z)
+    sizes = list(reversed(dims))
+    slack = firsthit_slack2(dims, D)
     rays = walked = offsets = offsets_walk = tested = 0
     for sdt in (dt, -dt):
         disp = torch.clamp(-sdt * cc, -D, D)
         ray = fluid & (disp.square().sum(1).sqrt() > 1e-12)
-        box = firsthit_box3(disp, D, slack)
-        (xl, xh), (yl, yh), (zl, zh) = box
+        box = firsthit_box(disp, D, slack)
         cells = 1
-        for (lo, hi), ii, dim in zip(box, (xx, yy, zz), (w, h, d)):
-            cells = cells * (torch.minimum(hi, dim - 1 - ii)
+        for (lo, hi), ii, n in zip(box, idx, sizes):
+            cells = cells * (torch.minimum(hi, n - 1 - ii)
                              - torch.maximum(lo, -ii) + 1)
         vol = cells - 1
         hits = torch.zeros_like(vol)
-        for oz in range(-D, D + 1):
-            for oy in range(-D, D + 1):
-                for ox in range(-D, D + 1):
-                    nb = blocked[:, D + oz:D + oz + d, D + oy:D + oy + h,
-                                 D + ox:D + ox + w]
-                    hits += (nb & (xl <= ox) & (ox <= xh) & (yl <= oy)
-                             & (oy <= yh) & (zl <= oz) & (oz <= zh)).int()
+        for off in itertools.product(range(-D, D + 1), repeat=k):
+            # off is (.., oy, ox) in the order of dims; box is (x, y, ..).
+            nb = blocked[(slice(None),) + tuple(
+                slice(D + o, D + o + n) for o, n in zip(off, dims))]
+            inb = nb
+            for (lo, hi), o in zip(box, reversed(off)):
+                inb = inb & (lo <= o) & (o <= hi)
+            hits += inb.int()
         walks = ray & (hits > 0)
         rays += int(ray.sum())
         walked += int(walks.sum())
@@ -1545,11 +1656,13 @@ def main_paths():
 # prologue, epilogue and one z-march per 3 polish sweeps (16 for p8: 6
 # marches, 8 for p4: 3); H's and G's two set-up launches, 7 (512^2: three
 # levels down, the single-block tail, three up) or 5 (512x128) a V-cycle,
-# and the epilogue, for 2 V-cycles.
+# and the epilogue, for 2 V-cycles; E's one launch and D's two.
 EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 8, "N": 9},
                   f"plume3d {RES3}^3 convnet p4": {"J": 5, "N": 9},
                   f"plume {RES}^2 mg-2v": {"H": 17},
-                  f"RT {RT_W}x{RT_H} multigrid": {"G": 13}}
+                  f"RT {RT_W}x{RT_H} multigrid": {"G": 13},
+                  f"cylinder {CYL_W}x{CYL_H} jacobi-34": {"E": 1},
+                  f"plume {RES}^2 unfused jacobi-200": {"D": 2, "E": 1}}
 
 
 def phase_main_paths(counters):
@@ -1700,6 +1813,62 @@ def threed_only(dev):
         phase_profile(name, case)
 
 
+def tile_sweep(cases):
+    """Device ms of E's cases at every tile of the planner's TILES (the
+    planner's own pick marked), to check its choice."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect
+
+    plan = advect.plan_tile
+    try:
+        for name, (run, _, counter, f, *_) in cases.items():
+            if counter is not advect.advect_velocity:
+                continue
+            pick = plan(*f.shape, 4)
+            row = []
+            for tile in advect.TILES:
+                advect.plan_tile = lambda *a, t=tile: t
+                mark = "*" if tile == pick else ""
+                row.append(f"{tile[0]}x{tile[1]}{mark} {graph_ms(run):.4f}")
+            print(f"tiles {name}: " + ", ".join(row), flush=True)
+    finally:
+        advect.plan_tile = plan
+
+
+def adv_only(dev):
+    """`python3 chip_smoke.py --adv-only`: kernels A, D and E alone, on the
+    version of the package beside this script (Step 0: a checkout of the
+    parent commit with this script copied in). Each case of adv_cases held
+    to its plain version bit for bit, with check_adv_branches where the
+    package has a built max_disp limit; its (device, eager) ms beside
+    Step 0 and as a STEP0_MS literal, launches a call; then the 2-D main
+    paths that run A, D or E: ms/step and the profiler's window."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build
+
+    done = phase("kernels A, D, E checked and timed")
+    inputs = adv_inputs(dev)
+    cases = adv_cases(inputs)
+    for name, (run, plain, *_) in cases.items():
+        got = run()
+        torch.cuda.synchronize()
+        check(name, max_err(got, plain()), 0.0)
+    if "fn_advect_max_disp" in _build.QUERIES:
+        check_adv_branches(inputs)
+    adv_times(cases)
+    for name, (run, _, counter, *_) in cases.items():
+        print(f"{name}: {launches_of(counter, run)} launches a call",
+              flush=True)
+    if "fn_advect_max_disp" in _build.QUERIES:
+        tile_sweep(cases)
+    done()
+    for name, (run, case, kernels) in main_paths().items():
+        if "3d" in name or not set(kernels) & set("ADE"):
+            continue
+        done = phase(f"{name}, {STEPS} steps")
+        print(f"{name}: ms/step {run(STEPS)['ms_per_step']:.4f}", flush=True)
+        done()
+        phase_profile(name, case)
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -1727,6 +1896,13 @@ def main():
                   f"D={d} {_build.query('fn_advect3_velocity_smem', d)} B"
                   for d in range(1, _build.constant(
                       "fn_advect3_velocity_max_disp") + 1)), flush=True)
+    if "fn_advect_tile_smem" in _build.QUERIES:
+        from fluidnet_cxx_tpu_torch.ops.kernels.advect import TILES
+        print("E (advect_tile) dynamic shared memory a block: " + "; ".join(
+            f"max_disp {D} " + ", ".join(
+                f"{tw}x{th} {_build.query('fn_advect_tile_smem', tw, th, D)}"
+                for tw, th in TILES)
+            for D in (4, _build.constant("fn_advect_max_disp"))), flush=True)
     done()
 
     dev = torch.device("cuda")
@@ -1738,6 +1914,9 @@ def main():
         return
     if sys.argv[1:] == ["--3d-only"]:
         threed_only(dev)
+        return
+    if sys.argv[1:] == ["--adv-only"]:
+        adv_only(dev)
         return
     results = {}
     phase_kernels(dev, results)

@@ -45,17 +45,13 @@ I = ctypes.c_int
 F = ctypes.c_float
 # extern "C" signatures, all returning the launch's cudaError_t.
 SIGNATURES = {
-    "fn_advect_forward": [VP, VP, VP, VP, VP, I, I, I, F, F, F, I, I, I,
-                          VP],
-    "fn_advect_backward": [VP, VP, VP, VP, VP, VP, VP, I, I, I, F, F, F, F,
-                           I, I, I, VP],
-    "fn_advect_scalar_forward": [VP, VP, VP, VP, I, I, I, F, F, F, I, I, I,
-                                 VP],
+    "fn_advect_forward": [VP] * 5 + [I, I, I, F, F, F, F, I, I, I, VP],
+    "fn_advect_backward": [VP] * 7 + [I, I, I, F, F, F, F, F, I, I, I, VP],
+    "fn_advect_scalar_forward": [VP, VP, VP, VP, I, I, I, F, F, F, F, I, I,
+                                 I, VP],
     "fn_advect_scalar_backward": [VP, VP, VP, VP, VP, I, I, I, F, F, F, F,
-                                  I, I, I, VP],
-    "fn_advect_velocity_forward": [VP, VP, VP, VP, I, I, I, F, I, VP],
-    "fn_advect_velocity_backward": [VP, VP, VP, VP, VP, I, I, I, F, F, I,
-                                    VP],
+                                  F, I, I, I, VP],
+    "fn_advect_velocity": [VP] * 4 + [I, I, I, F, F, I, I, I, VP],
     "fn_tail_prologue": [VP, VP, VP, VP, VP, VP, VP, VP, VP, I, I, I, VP],
     "fn_tail_sweep": [VP, VP, VP, VP, I, I, I, I, F, F, VP],
     "fn_tail_epilogue": [VP, VP, VP, VP, VP, VP, I, I, I, VP],
@@ -79,6 +75,8 @@ QUERIES = {
     "fn_mg_workspace": [I] * 8,
     "fn_mg_launches": [I] * 9,
     "fn_mg_cut_level": [I] * 3,
+    "fn_advect_max_disp": [],
+    "fn_advect_tile_smem": [I] * 3,
     "fn_advect3_velocity_max_disp": [],
     "fn_advect3_velocity_smem": [I],
 }

@@ -8,17 +8,70 @@
 * E ``advect_velocity``: the MAC velocity alone; replaces
   ``advect_pallas.py::advect_velocity_pallas``.
 
-All three run the CUDA kernels of ``csrc/advect_all.cu`` in two launches
-(forward samples into scratch, then backward samples, correction and
-clamps). A and E take an optional ``orig``, the field that U advects (the
-viscous field); without it U advects itself. Their plain versions are the
-window engine of ``ops/advection.py``: a CPU tensor runs it, a CUDA tensor
-the kernel.
+E runs ``csrc/advect_all.cu::advect_tile`` in one launch: a block copies
+the halo its output tile reads into shared memory, computes the forward
+field over the tile and D + 1 cells around it, and runs the backward
+samples, correction and Selle clamp from there. The tile comes from
+``plan_tile``; the kernel is built for ``max_disp`` up to
+``fn_advect_max_disp()`` (8), and a larger one raises. A and D run two
+launches (forward samples into scratch, then backward samples,
+correction and clamps), one thread a cell; their first-hit trace walks
+the pruned box of ``line_trace.firsthit_box2``, whose margin the wrapper
+passes. A and E take an optional ``orig``, the field that U advects (the
+viscous field); without it U advects itself. Their plain versions are
+the window engine of ``ops/advection.py``: a CPU tensor runs it, a CUDA
+tensor the kernel.
 """
+import math
+
 import torch
 
 from .. import advection
+from ..line_trace import firsthit_slack2
 from . import _build
+
+SMS = 132  # an H100's SMs: each main path's grid gets at least this many
+# Output tiles (width, height) of advect_tile, largest first: widths are
+# multiples of 32 (a warp a row), heights of 8 (the block's 8 warps).
+TILES = ((64, 32), (64, 16), (32, 16), (32, 8))
+# csrc/advect_all.cu's halos (a, lo, hi): a * D + lo cells before the
+# tile, a * D + hi after it; the columns a copied row starts and ends on;
+# the shared memory a block may have.
+IN_HALO, FWD_HALO = (2, 0, 2), (1, 0, 1)
+ALIGN = 4
+SMEM_MAX = 232448
+
+
+def _region(halo, tw, th, D, copied):
+    """(width, height) of a halo's region (``csrc/advect_all.cu::region``):
+    a copied one's rows start and end on multiples of ALIGN columns."""
+    a, lo, hi = halo
+    before, after = a * D + lo, a * D + hi
+    side = (lambda n: -(-n // ALIGN) * ALIGN) if copied else (lambda n: n)
+    return tw + side(before) + side(after), th + before + after
+
+
+def tile_smem(tw, th, D):
+    """Bytes of dynamic shared memory of one block of kernel E
+    (``csrc/advect_all.cu::layout``): orig's two components copied over
+    IN_HALO and the forward field's two over FWD_HALO, 4 bytes a cell,
+    then the fluid bytes over FWD_HALO, widened as a copied region."""
+    return (4 * 2 * (math.prod(_region(IN_HALO, tw, th, D, True))
+                     + math.prod(_region(FWD_HALO, tw, th, D, False)))
+            + math.prod(_region(FWD_HALO, tw, th, D, True)))
+
+
+def plan_tile(b, h, w, D):
+    """The output tile (tw, th) of kernel E for a (b, h, w) grid: the
+    largest of TILES whose grid has at least SMS blocks and whose shared
+    memory fits a block, else the smallest that fits. A larger tile
+    recomputes less of the forward field in its halo (64 x 32: 1.46x at
+    D = 4; 32 x 8: 2.7x); a grid short of SMS blocks leaves SMs idle."""
+    fits = [t for t in TILES if tile_smem(*t, D) <= SMEM_MAX]
+    for tw, th in fits:
+        if b * -(-w // tw) * -(-h // th) >= SMS:
+            return tw, th
+    return fits[-1]
 
 
 def _check(U, flags, max_disp, orig=None):
@@ -64,16 +117,17 @@ def advect_all(dt, rho, U, flags, maccormack_strength=0.75,
     rho_out = torch.empty_like(rho)
     U_out = torch.empty_like(U)
     wm, hm = w - 1e-5, h - 1e-5
+    slack = firsthit_slack2((h, w), max_disp)
     s = _build.stream()
     _build.call("fn_advect_forward", rho.data_ptr(), U.data_ptr(),
                 _build.ptr(orig), flags.data_ptr(), scratch.data_ptr(), b, h,
-                w, float(dt), wm, hm, int(max_disp), int(line_trace),
+                w, float(dt), wm, hm, slack, int(max_disp), int(line_trace),
                 int(sample_outside_fluid), s)
     advect_all.launches += 1
     _build.call("fn_advect_backward", rho.data_ptr(), U.data_ptr(),
                 _build.ptr(orig), flags.data_ptr(), scratch.data_ptr(),
                 rho_out.data_ptr(), U_out.data_ptr(), b, h, w, float(dt),
-                maccormack_strength * 0.5, wm, hm, int(max_disp),
+                maccormack_strength * 0.5, wm, hm, slack, int(max_disp),
                 int(line_trace), int(sample_outside_fluid), s)
     advect_all.launches += 1
     return rho_out, U_out
@@ -93,16 +147,17 @@ def advect_scalar(dt, src, U, flags, maccormack_strength=0.75,
     scratch = torch.empty((3, b, h, w), dtype=torch.float32, device=U.device)
     out = torch.empty_like(src)
     wm, hm = w - 1e-5, h - 1e-5
+    slack = firsthit_slack2((h, w), max_disp)
     s = _build.stream()
     _build.call("fn_advect_scalar_forward", src.data_ptr(), U.data_ptr(),
                 flags.data_ptr(), scratch.data_ptr(), b, h, w, float(dt), wm,
-                hm, int(max_disp), int(line_trace),
+                hm, slack, int(max_disp), int(line_trace),
                 int(sample_outside_fluid), s)
     advect_scalar.launches += 1
     _build.call("fn_advect_scalar_backward", src.data_ptr(), U.data_ptr(),
                 flags.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, h, w,
-                float(dt), maccormack_strength * 0.5, wm, hm, int(max_disp),
-                int(line_trace), int(sample_outside_fluid), s)
+                float(dt), maccormack_strength * 0.5, wm, hm, slack,
+                int(max_disp), int(line_trace), int(sample_outside_fluid), s)
     advect_scalar.launches += 1
     return out
 
@@ -116,17 +171,16 @@ def advect_velocity(dt, U, flags, maccormack_strength=0.75, max_disp=4,
             dt, U if orig is None else orig, U, flags,
             maccormack_strength=maccormack_strength, max_disp=max_disp)
     b, h, w = _check(U, flags, max_disp, orig)
-    scratch = torch.empty((2, b, h, w), dtype=torch.float32, device=U.device)
+    most = _build.constant("fn_advect_max_disp")
+    if max_disp > most:
+        raise ValueError(f"advect_velocity: max_disp {max_disp} exceeds "
+                         f"{most}, the largest its tiles are built for")
+    tw, th = plan_tile(b, h, w, max_disp)
     out = torch.empty_like(U)
-    s = _build.stream()
-    _build.call("fn_advect_velocity_forward", U.data_ptr(), _build.ptr(orig),
-                flags.data_ptr(), scratch.data_ptr(), b, h, w, float(dt),
-                int(max_disp), s)
-    advect_velocity.launches += 1
-    _build.call("fn_advect_velocity_backward", U.data_ptr(),
-                _build.ptr(orig), flags.data_ptr(), scratch.data_ptr(),
-                out.data_ptr(), b, h, w, float(dt),
-                maccormack_strength * 0.5, int(max_disp), s)
+    _build.call("fn_advect_velocity", U.data_ptr(), _build.ptr(orig),
+                flags.data_ptr(), out.data_ptr(), b, h, w, float(dt),
+                maccormack_strength * 0.5, int(max_disp), tw, th,
+                _build.stream())
     advect_velocity.launches += 1
     return out
 

@@ -5,6 +5,11 @@ The stopping point of a ray from a cell centre is the first intersection of
 the segment [pos, pos+delta] with a blocked cell's HIT_MARGIN-expanded box
 inside the (2D+1)^2 window or with the domain's margin planes. Positions in
 non-fluid cells, and zero-length rays, return ``pos`` unchanged.
+
+Kernels A and D (``csrc/advect_all.cu``) trace from cell centres and walk
+only the pruned box of ``firsthit_box2`` instead of the whole window; the
+cells they leave out cannot lower the stopping point, so the result is
+the same to the bit (the proof is in the kernel's note).
 """
 import torch
 
@@ -47,6 +52,45 @@ def firsthit_border_t(p0, d, dim: int):
     t1 = torch.where(ok & (t1 >= 0), t1, inf)
     t2 = torch.where(ok & (t2 >= 0), t2, inf)
     return torch.minimum(t1, t2)
+
+
+def firsthit_slack2(dims, D: int) -> float:
+    """The pruned box's margin for a grid of ``dims`` (h, w) and window D:
+    2^-12 + (max(dims) + D) * 2^-21. It must exceed the 1e-5 hit margin
+    plus the rounding of lo = x - 1e-5 (half an ulp of x: up to x * 2^-24,
+    2^-12 at x = 8000, where the 1e-5 rounds away entirely), of 0.5 + disp
+    and of lo - (x + 0.5), and the few ulp of 1/dir against len/disp:
+    with max(dims) up to 2^23 it does, by more than 2^-12 - 1e-5. The
+    wrapper of kernels A and D passes it to the kernel as a float32."""
+    return 2.0 ** -12 + (max(dims) + D) * 2.0 ** -21
+
+
+def firsthit_box(delta, D: int, slack: float):
+    """The cells that the pruned first-hit walk visits for a ray from a
+    cell centre along ``delta`` (b, k, ...), clipped to +-D: for each of
+    the k components the (lowest, highest) offset from the ray's cell as
+    int32 tensors, [floor(0.5 + delta - slack), 0] for delta < 0 and [0,
+    floor(0.5 + delta + slack)] for delta > 0, within [-D, D]; [0, 0] for
+    delta == 0 (the kernels also clip the box to the grid). Same float32
+    expressions as the kernels'."""
+    s = torch.tensor(slack, dtype=F32, device=delta.device)
+    zero = torch.zeros((), dtype=F32, device=delta.device)
+    box = []
+    for c in range(delta.shape[1]):
+        dc = delta[:, c]
+        e = 0.5 + dc
+        lo = torch.where(dc < 0, torch.clamp(torch.floor(e - s), min=-D),
+                         zero)
+        hi = torch.where(dc > 0, torch.clamp(torch.floor(e + s), max=D),
+                         zero)
+        box.append((lo.to(torch.int32), hi.to(torch.int32)))
+    return box
+
+
+def firsthit_box2(delta, D: int, slack: float):
+    """``firsthit_box`` of 2-D rays ``delta`` (b, 2, h, w): the x and y
+    offset ranges that kernels A and D walk."""
+    return firsthit_box(delta, D, slack)
 
 
 def line_trace_firsthit(pos, delta, flags, D: int = 4):

@@ -18,7 +18,7 @@ import torch
 from ..celltype import FLUID
 from .common import F32
 from .line_trace import (EPSILON, HIT_MARGIN, firsthit_axis_slabs,
-                         firsthit_border_t)
+                         firsthit_border_t, firsthit_box, firsthit_slack2)
 from .ops3d import index_grids3, nb3
 
 # The slab's extent: float32(1 + 2 * HIT_MARGIN), added to its lower face.
@@ -27,33 +27,17 @@ EXTENT = 1.0 + 2.0 * HIT_MARGIN
 
 def firsthit_slack3(dims, D: int) -> float:
     """The pruned box's margin for a grid of ``dims`` (d, h, w) and window
-    D: 2^-12 + (max(dims) + D) * 2^-21, more than the 1e-5 hit margin plus
-    the rounding of x - 1e-5 at these coordinates, of 0.5 + disp and of
-    1/dir against len/disp. The wrapper of kernels K and L passes it to
-    the kernel as a float32."""
-    return 2.0 ** -12 + (max(dims) + D) * 2.0 ** -21
+    D: ``line_trace.firsthit_slack2``'s 2^-12 + (max(dims) + D) * 2^-21,
+    by the same argument (the third axis adds one more slab of the same
+    kind). The wrapper of kernels K and L passes it to the kernel as a
+    float32."""
+    return firsthit_slack2(dims, D)
 
 
 def firsthit_box3(delta, D: int, slack: float):
-    """The cells that kernels K and L walk for a ray from a cell centre
-    along ``delta`` (b, 3, d, h, w), clipped to +-D: per axis x, y, z the
-    (lowest, highest) offset from the ray's cell as int32 (b, d, h, w)
-    tensors, [floor(0.5 + delta - slack), 0] for delta < 0 and [0,
-    floor(0.5 + delta + slack)] for delta > 0, within [-D, D]; [0, 0] for
-    delta == 0 (the kernel also clips the box to the grid). Same float32
-    expressions as the kernel's."""
-    s = torch.tensor(slack, dtype=F32, device=delta.device)
-    zero = torch.zeros((), dtype=F32, device=delta.device)
-    box = []
-    for c in range(3):
-        dc = delta[:, c]
-        e = 0.5 + dc
-        lo = torch.where(dc < 0, torch.clamp(torch.floor(e - s), min=-D),
-                         zero)
-        hi = torch.where(dc > 0, torch.clamp(torch.floor(e + s), max=D),
-                         zero)
-        box.append((lo.to(torch.int32), hi.to(torch.int32)))
-    return box
+    """``line_trace.firsthit_box`` of 3-D rays ``delta`` (b, 3, d, h, w):
+    the x, y and z offset ranges that kernels K and L walk."""
+    return firsthit_box(delta, D, slack)
 
 
 def line_trace_firsthit3(pos, delta, flags, D: int = 2):
