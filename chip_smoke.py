@@ -14,12 +14,15 @@ Phases (each prints its elapsed seconds):
      K 3-D scalar advection, L 3-D merged advection, M 3-D velocity
      advection, N PUNet3 conv) against its plain PyTorch version on
      the card (TF32 off), with its tolerance, at the main paths' shapes:
-     512^2 with 8% random obstacles; A, D and E bit for bit on the 512^2
-     stress inputs, A also on the plume scene's flags and the 128x512
-     Rayleigh-Taylor box, E on the 8000x800 cylinder with its viscous field
-     as `orig` (and at max_disp 1-4), A at max_disp 1-4 with the trace on
-     and off, A and E with an `orig` far from U, D and A with the trace
-     off and sample_outside on, E past its built max_disp (which must
+     512^2 with 8% random obstacles; C bit for bit at 32 sweeps with
+     scale and inlet, at 3 with neither, at 0, 1, 7, 8, 9 and at 9 with
+     two samples; A, D and E bit for bit on the 512^2 stress inputs, A and
+     D also on the plume scene's flags and the 128x512 Rayleigh-Taylor
+     box (D with the trace on and off on all three), E on the 8000x800
+     cylinder with its viscous field as `orig` (and at max_disp 1-4), A
+     at max_disp 1-4 and D also at its built limit with the trace on and
+     off, A and E with an `orig` far from U, D and A with the trace off
+     and sample_outside on, D and E past their built max_disp (which must
      raise); F also at 800x8000 on the cylinder's flags;
      F, G and H also on the 512x128 Rayleigh-Taylor box (G and H cold and
      warm on both, each bit-equal on a repeat); at 512^2 G and H also no
@@ -48,12 +51,12 @@ Phases (each prints its elapsed seconds):
      and 512^2), F (also at 512x128 and 8000x800), G, H (cold and warm at
      512^2 and 512x128), I, J (16 and 8 sweeps), M (stress and scene
      flags), N and the cuDNN chains as device time (the call captured in
-     a CUDA graph; the eager time beside it), A, D, E, G, H, J and M
+     a CUDA graph; the eager time beside it), A, C, D, E, G, H, J and M
      beside their times before their redesign (STEP0_MS), A and D with
      their pruned trace's walk and bound, G and H with
      their device time split into the single-block tail, the per-level
-     launches and the rest, F, G, H, I and J with their launches a call,
-     and the
+     launches and the rest, C into its prologue, sweeps and epilogue,
+     C, F, G, H, I and J with their launches a call, and the
      per-layer tables of B (512^2) and N (p8, p4 in bfloat16): each
      layer's plan, blocks, device time, cuDNN's same layer and its bound;
   4. small-input checks, the card against the plain path on the CPU:
@@ -75,16 +78,19 @@ Phases (each prints its elapsed seconds):
      the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
      J, N) at full widths, weights from seed 0; finite fields, ms per
-     step, quality stats, launches per step (J, N, H on mg-2v, G on the
-     RT multigrid path, E on the cylinder and D and E on the unfused plume
-     held to their exact counts); then the `kernels`
-     JSON line;
+     step, quality stats, launches per step (J, N, C on the 512^2
+     convnet step, F on the jacobi paths, H on mg-2v, G on the RT
+     multigrid path, E on the cylinder and D and E on the unfused plume
+     held to their exact counts) and C entry (ctypes) calls per step (C's
+     fn_tail and F's fn_jacobi_solve held to one a step); then the
+     `kernels` JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
-`python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only).
+`python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
+`python3 chip_smoke.py --tail-only` kernels C and F (tail_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -122,9 +128,11 @@ MODEL_P4 = "trained_models/PUNet3_32"
 # of mg_cases (`chip_smoke.py --mg-only` in a checkout of the commit before
 # their redesign), J, M, K and L in each case of cases3d (`chip_smoke.py
 # --3d-only` in a checkout of the commit before J's and M's; K and L were
-# not redesigned then, their times there are the spread's reference), A,
-# D and E in each case of adv_cases (`chip_smoke.py --adv-only` in a
-# checkout of the commit before A's, D's trace and E's).
+# not redesigned then, their times there are the spread's reference), A
+# and E in each case of adv_cases (`chip_smoke.py --adv-only` in a
+# checkout of the commit before A's trace and E's), C and F in each case
+# of tail_cases and D in adv_cases' (`--tail-only` and `--adv-only` in a
+# checkout of the commit before C's and D's; F was not redesigned then).
 STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
             "H 512^2 cold": (0.2404, 0.7435),
             "G 512^2 warm": (0.2397, 0.8818),
@@ -136,8 +144,11 @@ STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
             "K stress": (0.1600, 0.1637),
             "L stress trace": (0.5919, 0.6021),
             "A stress": (0.0976, 0.1006), "A scene": (0.0627, 0.0660),
-            "A RT": (0.0286, 0.0312), "D stress": (0.0897, 0.0924),
-            "E cylinder": (0.2154, 0.2192), "E 512^2": (0.0117, 0.0242)}
+            "A RT": (0.0286, 0.0312),
+            "E cylinder": (0.2154, 0.2192), "E 512^2": (0.0117, 0.0242),
+            "C 32": (0.0668, 0.2268), "F 200": (0.1864, 0.3202),
+            "D stress": (0.0342, 0.0373), "D scene": (0.0264, 0.0426),
+            "D RT": (0.0137, 0.0274)}
 
 
 def phase(name):
@@ -267,43 +278,114 @@ def far_orig(gen, U):
 
 def phase_kernels(dev, results):
     from fluidnet_cxx_tpu_torch.ops.kernels import proj_tail
-    from fluidnet_cxx_tpu_torch.sim.scenes import create_plume_scene
 
     gen = torch.Generator().manual_seed(SEED)
-    flags, U, rho = stress_inputs(gen, dev, RES)
     n = RES * RES
 
     phase_conv2d(dev, gen, results)
 
     # ---- C: projection tail ----
     done = phase("kernel C project_tail")
-    scene = create_plume_scene(RES, RES, 0.1, 8.0, 0.145, device=dev)
-    p0 = torch.randn((1, RES, RES), generator=gen).to(dev)
-    scale = torch.tensor([0.37], device=dev)
-    kw = dict(damping=2.0 / 3.0, scale=scale, U_bc=scene.U_bc,
-              U_bc_inv_mask=scene.U_bc_inv_mask)
-    got = proj_tail.project_tail(flags, U, p0, 32, **kw)
-    torch.cuda.synchronize()
-    want = proj_tail.project_tail_plain(flags, U, p0, 32, **kw)
-    err, tol = max_err(got, want), 1e-5 * scale_of(want)
-    check("C project_tail", err, tol)
-    # Odd sweep count (the other ping-pong parity), no scale, no inlet.
-    want2 = proj_tail.project_tail_plain(flags, U, p0, 3)
-    check("C project_tail (3 sweeps, no scale/inlet)",
-          max_err(proj_tail.project_tail(flags, U, p0, 3), want2),
-          1e-5 * scale_of(want2))
-    ms, eager_ms = device_and_eager(
-        lambda: proj_tail.project_tail(flags, U, p0, 32, **kw))
-    plain_ms = cuda_ms(
-        lambda: proj_tail.project_tail_plain(flags, U, p0, 32, **kw), 5)
+    inputs = tail_inputs(dev)
+    cases = tail_cases(inputs)
+    err = check_tail(inputs, cases)
+    run, plain = cases["C 32"][:2]
+    ms, eager_ms = device_and_eager(run)
+    print_step0("C 32", ms, eager_ms)
+    plain_ms = cuda_ms(plain, 5)
     b_ms, b_by = bound(44 * n, (32 * 10 + 30) * n)
     results["C"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=None)
-    print(f"C: kernel {ms:.4f} ms device (eager {eager_ms:.4f}), plain "
+    print(f"C: kernel {ms:.4f} ms device (eager {eager_ms:.4f}), "
+          f"{launches_of(proj_tail.project_tail, run)} launches, plain "
           f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print_tail_split(device_split(run))
     done()
     phase_advection(dev, results)
     phase_f_cylinder(dev)
+
+
+def tail_inputs(dev):
+    """Kernel C's inputs at 512^2 as the convnet step hands them over: the
+    stress flags (8% obstacles) and U, a warm start, a scale and the plume
+    scene's inlet fields; the divergence of U for kernel F."""
+    from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
+    from fluidnet_cxx_tpu_torch.sim.scenes import create_plume_scene
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    flags, U, _ = stress_inputs(gen, dev, RES)
+    scene = create_plume_scene(RES, RES, 0.1, 8.0, 0.145, device=dev)
+    p0 = torch.randn((1, RES, RES), generator=gen).to(dev)
+    kw = dict(damping=2.0 / 3.0, scale=torch.tensor([0.37], device=dev),
+              U_bc=scene.U_bc, U_bc_inv_mask=scene.U_bc_inv_mask)
+    return dict(flags=flags, U=U, p0=p0, kw=kw,
+                div=velocity_divergence(U, flags))
+
+
+def tail_cases(inputs):
+    """name -> (kernel call, plain call, the wrapper that counts its
+    launches) of C at 512^2 with 32 damped sweeps, scale and inlet (the
+    convnet step's), and of F at 512^2 with 200 sweeps."""
+    from fluidnet_cxx_tpu_torch.ops.jacobi import solve_jacobi_fixed
+    from fluidnet_cxx_tpu_torch.ops.kernels import jacobi, proj_tail
+
+    flags, U, p0, kw, div = (inputs[k] for k in ("flags", "U", "p0", "kw",
+                                                 "div"))
+    return {
+        "C 32": (lambda: list(proj_tail.project_tail(flags, U, p0, 32, **kw)),
+                 lambda: list(proj_tail.project_tail_plain(flags, U, p0, 32,
+                                                           **kw)),
+                 proj_tail.project_tail),
+        "F 200": (lambda: [jacobi.solve_jacobi(flags, div, 200)],
+                  lambda: [solve_jacobi_fixed(flags, div, 200)],
+                  jacobi.solve_jacobi)}
+
+
+def check_tail(inputs, cases):
+    """C bit for bit against its plain version: 32 sweeps with scale and
+    inlet, 3 with neither, 0, 1, 7, 8 and 9 with both (each parity of the
+    ping-pong, a launch's last sweep and one past it) and two samples at 9;
+    F at 200 sweeps. Returns C's error at 32 sweeps."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import proj_tail
+
+    flags, U, p0, kw = (inputs[k] for k in ("flags", "U", "p0", "kw"))
+    errs = {}
+    for name, (run, plain, _) in cases.items():
+        got = run()
+        torch.cuda.synchronize()
+        errs[name] = max_err(got, plain())
+        check(name, errs[name], 0.0)
+    cat = lambda t: torch.cat([t, t.flip(-1)]).contiguous()
+    two = dict(damping=kw["damping"], scale=torch.cat([kw["scale"],
+                                                       2 * kw["scale"]]),
+               U_bc=cat(kw["U_bc"]), U_bc_inv_mask=cat(kw["U_bc_inv_mask"]))
+    for iters, args in ((3, (flags, U, p0)), (0, None), (1, None), (7, None),
+                        (8, None), (9, None), (9, "b2")):
+        if args == "b2":
+            a, k, what = (cat(flags), cat(U), cat(p0)), two, ", b = 2"
+        elif args is None:
+            a, k, what = (flags, U, p0), kw, ""
+        else:
+            a, k, what = args, {}, ", no scale or inlet"
+        check(f"C {iters} sweeps{what}",
+              max_err(proj_tail.project_tail(*a, iters, **k),
+                      proj_tail.project_tail_plain(*a, iters, **k)), 0.0)
+    return errs["C 32"]
+
+
+def print_tail_split(split):
+    """C's device time by launch kind: prologue, sweeps, epilogue (a
+    folded launch counts as sweeps), then each kernel."""
+    parts = {g: [0.0, 0.0] for g in ("prologue", "sweeps", "epilogue")}
+    for key, (ms, n) in split.items():
+        g = next((g for g in ("prologue", "epilogue") if g in key), "sweeps")
+        parts[g][0] += ms
+        parts[g][1] += n
+    print("C split: " + ", ".join(f"{g} {ms:.4f} ms ({n:g} launches)"
+                                  for g, (ms, n) in parts.items()),
+          flush=True)
+    for key, (ms, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:9.4f} ms {n:5.1f} launches  {key[:90]}", flush=True)
 
 
 def check_repeat(name, fn):
@@ -572,10 +654,9 @@ def adv_inputs(dev):
 def adv_cases(inputs):
     """name -> (kernel call, plain call, the wrapper that counts its
     launches, flags, bytes a cell, operations a cell, traced) of A, D and
-    E at max_disp 4, dt 0.1, MacCormack 0.6: A with the trace on the
-    stress, the plume scene's and the RT flags, D with the trace on the
-    stress flags, E on the cylinder with its viscous orig and on the
-    512^2 stress flags without one."""
+    E at max_disp 4, dt 0.1, MacCormack 0.6: A and D with the trace on the
+    stress, the plume scene's and the RT flags, E on the cylinder with its
+    viscous orig and on the 512^2 stress flags without one."""
     from fluidnet_cxx_tpu_torch.ops import advection
     from fluidnet_cxx_tpu_torch.ops.kernels import advect
 
@@ -587,12 +668,15 @@ def adv_cases(inputs):
             lambda a=args: list(advect.advect_all(*a)),
             lambda a=args: list(advect.advect_all_plain(*a)),
             advect.advect_all, f, 28, 300.0, True)
+    for where in ("stress", "scene", "RT"):
+        f, U, rho = inputs[where]
+        cases[f"D {where}"] = (
+            lambda a=(0.1, rho, U, f, 0.6, False, D, True):
+                [advect.advect_scalar(*a)],
+            lambda a=(0.1, rho, U, f, False, 0.6, True, D):
+                [advection.advect_scalar(*a)],
+            advect.advect_scalar, f, 20, 150.0, True)
     f, U, rho = inputs["stress"]
-    cases["D stress"] = (
-        lambda: [advect.advect_scalar(0.1, rho, U, f, 0.6, False, D, True)],
-        lambda: [advection.advect_scalar(0.1, rho, U, f, False, 0.6, True,
-                                         D)],
-        advect.advect_scalar, f, 20, 150.0, True)
     cf, cU, corig = inputs["cylinder"]
     cases["E cylinder"] = (
         lambda: [advect.advect_velocity(0.1, cU, cf, 0.6, D, orig=corig)],
@@ -610,8 +694,10 @@ def check_adv_branches(inputs):
     bit for bit: A with the trace off and sample_outside on, A and E with
     an orig far from U, A at max_disp 1-4 with the trace on and off
     (512^2 stress inputs: displacements past each clamp), E on the
-    cylinder at max_disp 1-4; D with the trace off and sample_outside on;
-    then one call of E past its built max_disp limit, which must raise."""
+    cylinder at max_disp 1-4; D with the trace off and sample_outside on,
+    with the trace off on the stress, scene and RT flags, and at max_disp
+    1-4 and its built limit with the trace on and off; then one call each
+    of E and D past that limit, which must raise."""
     from fluidnet_cxx_tpu_torch.ops import advection
     from fluidnet_cxx_tpu_torch.ops.kernels import _build, advect
 
@@ -633,13 +719,29 @@ def check_adv_branches(inputs):
                                         False)],
                   [advection.advect_scalar(0.1, rho, U, f, True, 0.6, False,
                                            4)]), 0.0)
-    for D in (1, 2, 3, 4):
+    for where in ("stress", "scene", "RT"):
+        fw, Uw, rw = inputs[where]
+        check(f"D advect_scalar ({where}, trace off)",
+              max_err([advect.advect_scalar(0.1, rw, Uw, fw, 0.6, False, 4,
+                                            False)],
+                      [advection.advect_scalar(0.1, rw, Uw, fw, False, 0.6,
+                                               False, 4)]), 0.0)
+    most = _build.constant("fn_advect_max_disp")
+    # D is held to E's built limit (a checkout from before the limit takes
+    # any max_disp).
+    d_most = hasattr(advect, "_check_max_disp")
+    for D in (1, 2, 3, 4) + ((most,) if d_most else ()):
         for trace in (True, False):
             a = (0.1, rho, U, f, 0.6, False, D, trace)
-            check(f"A advect_all (max_disp {D}, trace "
-                  f"{'on' if trace else 'off'})",
-                  max_err(advect.advect_all(*a), advect.advect_all_plain(*a)),
-                  0.0)
+            on = "on" if trace else "off"
+            if D <= 4:
+                check(f"A advect_all (max_disp {D}, trace {on})",
+                      max_err(advect.advect_all(*a),
+                              advect.advect_all_plain(*a)), 0.0)
+            check(f"D advect_scalar (max_disp {D}, trace {on})",
+                  max_err([advect.advect_scalar(*a)],
+                          [advection.advect_scalar(0.1, rho, U, f, False, 0.6,
+                                                   trace, D)]), 0.0)
     cf, cU, corig = inputs["cylinder"]
     for D in (1, 2, 3, 4):
         got = advect.advect_velocity(0.1, cU, cf, 0.6, D, orig=corig)
@@ -648,13 +750,17 @@ def check_adv_branches(inputs):
               f"max_disp {D})",
               max_err([got], [advection.advect_velocity(0.1, corig, cU, cf,
                                                         0.6, D)]), 0.0)
-    most = _build.constant("fn_advect_max_disp")
-    try:
-        advect.advect_velocity(0.1, U, f, 0.6, most + 1)
-    except ValueError as e:
-        print(f"E at max_disp {most + 1} raises: {e}", flush=True)
-    else:
-        raise SystemExit(f"E ran past its built max_disp {most}")
+    past = [("E", lambda: advect.advect_velocity(0.1, U, f, 0.6, most + 1))]
+    if d_most:
+        past.append(("D", lambda: advect.advect_scalar(0.1, rho, U, f, 0.6,
+                                                       False, most + 1)))
+    for k, fn in past:
+        try:
+            fn()
+        except ValueError as e:
+            print(f"{k} at max_disp {most + 1} raises: {e}", flush=True)
+        else:
+            raise SystemExit(f"{k} ran past its built max_disp {most}")
 
 
 def phase_advection(dev, results):
@@ -721,6 +827,25 @@ def adv_times(cases):
         {k: (round(d, 4), round(e, 4)) for k, (d, e) in times.items()}),
         flush=True)
     return times
+
+
+def d_split(inputs):
+    """D's device time split into its forward and backward launches on the
+    stress, scene and RT flags with the trace on and off."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import advect
+
+    for where in ("stress", "scene", "RT"):
+        f, U, rho = inputs[where]
+        for trace in (True, False):
+            run = lambda: advect.advect_scalar(0.1, rho, U, f, 0.6, False, 4,
+                                               trace)
+            parts = {"forward": 0.0, "backward": 0.0}
+            for key, (ms, _) in device_split(run).items():
+                bwd = "backward" in key
+                parts["backward" if bwd else "forward"] += ms
+            print(f"D {where} trace {'on' if trace else 'off'}: device "
+                  f"{graph_ms(run):.4f} ms, forward {parts['forward']:.4f}, "
+                  f"backward {parts['backward']:.4f}", flush=True)
 
 
 def check_rounding(name, got, want, exact):
@@ -1656,26 +1781,43 @@ def main_paths():
 # prologue, epilogue and one z-march per 3 polish sweeps (16 for p8: 6
 # marches, 8 for p4: 3); H's and G's two set-up launches, 7 (512^2: three
 # levels down, the single-block tail, three up) or 5 (512x128) a V-cycle,
-# and the epilogue, for 2 V-cycles; E's one launch and D's two.
+# and the epilogue, for 2 V-cycles; E's one launch and D's two; C's
+# prologue, epilogue and one tile launch per 8 of its 32 polish sweeps;
+# F's mask launch and one tile launch per 8 sweeps (200: 25, 34: 5).
 EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 8, "N": 9},
                   f"plume3d {RES3}^3 convnet p4": {"J": 5, "N": 9},
+                  f"plume {RES}^2 convnet": {"C": 6},
+                  f"plume {RES}^2 jacobi-200": {"F": 26},
                   f"plume {RES}^2 mg-2v": {"H": 17},
+                  f"RT {RT_W}x{RT_H} jacobi-200": {"F": 26},
                   f"RT {RT_W}x{RT_H} multigrid": {"G": 13},
-                  f"cylinder {CYL_W}x{CYL_H} jacobi-34": {"E": 1},
-                  f"plume {RES}^2 unfused jacobi-200": {"D": 2, "E": 1}}
+                  f"cylinder {CYL_W}x{CYL_H} jacobi-34": {"E": 1, "F": 6},
+                  f"plume {RES}^2 unfused jacobi-200": {"D": 2, "E": 1,
+                                                        "F": 26}}
+# C entry calls (ctypes calls) per step that a main path must show
+# exactly: C's and F's whole solve from one call each.
+EXACT_CALLS = {f"plume {RES}^2 convnet": {"fn_tail": 1},
+               f"plume {RES}^2 jacobi-200": {"fn_jacobi_solve": 1},
+               f"RT {RT_W}x{RT_H} jacobi-200": {"fn_jacobi_solve": 1},
+               f"cylinder {CYL_W}x{CYL_H} jacobi-34": {"fn_jacobi_solve": 1},
+               f"plume {RES}^2 unfused jacobi-200": {"fn_jacobi_solve": 1}}
 
 
 def phase_main_paths(counters):
     """Drive every main path with the counters set to 0 just before and
     read just after; returns {path: {kernel: launches}}."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build
+
     seen = {}
     for name, (run, _, kernels) in main_paths().items():
         done = phase(f"main path ({name}, {STEPS} steps)")
         for fn in counters.values():
             fn.launches = 0
+        _build.calls.clear()
         out = run(STEPS)
         torch.cuda.synchronize()
         launches = {k: fn.launches for k, fn in counters.items()}
+        calls = dict(_build.calls)
         st = out["state"]
         for field in ("U", "density", "p"):
             if not bool(torch.isfinite(getattr(st, field)).all()):
@@ -1690,11 +1832,17 @@ def phase_main_paths(counters):
             if launches[k] != per_step * STEPS:
                 raise SystemExit(f"{name}: {k} launched {launches[k]} "
                                  f"times, not {per_step} a step")
+        for k, per_step in EXACT_CALLS.get(name, {}).items():
+            if calls.get(k, 0) != per_step * STEPS:
+                raise SystemExit(f"{name}: {k} called {calls.get(k, 0)} "
+                                 f"times, not {per_step} a step")
         stats = {k: v for k, v in out.items()
                  if k not in ("state", "ms_per_step", "launches_per_step")}
         per_step = {k: v / STEPS for k, v in launches.items() if v}
         print(f"{name}: ms/step {out['ms_per_step']:.4f}; {stats}; "
-              f"launches {launches} (per step {per_step})", flush=True)
+              f"launches {launches} (per step {per_step}); C entry calls "
+              f"per step {({k: v / STEPS for k, v in calls.items()})}",
+              flush=True)
         seen[name] = launches
         done()
     return seen
@@ -1813,6 +1961,47 @@ def threed_only(dev):
         phase_profile(name, case)
 
 
+def tail_only(dev):
+    """`python3 chip_smoke.py --tail-only`: kernels C and F alone, on the
+    version of the package beside this script (Step 0: a checkout of the
+    parent commit with this script copied in). C at 512^2 (32 damped
+    sweeps, scale and inlet) and F at 512^2 (200 sweeps) held to their
+    plain versions bit for bit (check_tail), their (device, eager) ms
+    beside Step 0 and as a STEP0_MS literal, launches and C entry calls a
+    call, C's device time split into prologue, sweeps and epilogue; then
+    the 512^2 convnet and jacobi-200 main paths: ms/step and the profiler's
+    window."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build
+
+    done = phase("kernels C and F checked and timed")
+    inputs = tail_inputs(dev)
+    cases = tail_cases(inputs)
+    check_tail(inputs, cases)
+    times = {name: device_and_eager(c[0]) for name, c in cases.items()}
+    for name, (ms, eager) in times.items():
+        print_step0(name, ms, eager)
+    print("STEP0_MS C and F = " + repr(
+        {k: (round(d, 4), round(e, 4)) for k, (d, e) in times.items()}),
+        flush=True)
+    for name, (run, _, counter) in cases.items():
+        calls = getattr(_build, "calls", None)
+        before = dict(calls) if calls is not None else {}
+        n = launches_of(counter, run)
+        made = ({k: v - before.get(k, 0) for k, v in calls.items()
+                 if v != before.get(k, 0)} if calls is not None else "n/a")
+        print(f"{name}: {n} launches, C entry calls {made}", flush=True)
+    print_tail_split(device_split(cases["C 32"][0]))
+    done()
+    for name, (run, case, kernels) in main_paths().items():
+        if f"plume {RES}^2" not in name or "unfused" in name or \
+                "mg" in name:
+            continue
+        done = phase(f"{name}, {STEPS} steps")
+        print(f"{name}: ms/step {run(STEPS)['ms_per_step']:.4f}", flush=True)
+        done()
+        phase_profile(name, case)
+
+
 def tile_sweep(cases):
     """Device ms of E's cases at every tile of the planner's TILES (the
     planner's own pick marked), to check its choice."""
@@ -1857,6 +2046,7 @@ def adv_only(dev):
     for name, (run, _, counter, *_) in cases.items():
         print(f"{name}: {launches_of(counter, run)} launches a call",
               flush=True)
+    d_split(inputs)
     if "fn_advect_max_disp" in _build.QUERIES:
         tile_sweep(cases)
     done()
@@ -1918,6 +2108,9 @@ def main():
     if sys.argv[1:] == ["--adv-only"]:
         adv_only(dev)
         return
+    if sys.argv[1:] == ["--tail-only"]:
+        tail_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -1949,7 +2142,7 @@ def main():
               "fluidnet_cxx_tpu/ops/pallas/advect_pallas.py:715"),
         "B": ("punet_conv2d", "fluidnet_cxx_tpu_torch/csrc/conv2d.cu",
               "fluidnet_cxx_tpu/ops/pallas/punet_pallas.py:366"),
-        "C": ("project_tail", "fluidnet_cxx_tpu_torch/csrc/proj_tail.cu",
+        "C": ("project_tail", "fluidnet_cxx_tpu_torch/csrc/jacobi.cu",
               "fluidnet_cxx_tpu/ops/pallas/proj_tail_pallas.py:164"),
         "D": ("advect_scalar", "fluidnet_cxx_tpu_torch/csrc/advect_all.cu",
               "fluidnet_cxx_tpu/ops/pallas/advect_pallas.py:516"),

@@ -68,7 +68,9 @@
 // GridFluid for global memory, TileField and TileFluid for shared memory),
 // so they agree bit for bit with the plain versions, built with
 // -fmad=false in their float32 order. E's tiles are built for every max_disp 1..kMaxD;
-// its wrapper refuses a larger D. A and D take any D.
+// its wrapper refuses a larger D, and so do D's entries and wrapper (D's
+// backward over shared-memory tiles, built and timed on the card, lost to
+// these launches at the plume's sub-cell steps, PERF.md). A takes any D.
 //
 // The first-hit trace walks an exact pruned box instead of the whole
 // (2D+1)^2 window, as kernels K and L do in 3-D (csrc/advect3.cu): a
@@ -862,7 +864,8 @@ extern "C" int fn_advect_scalar_forward(const float* rho, const float* U,
                                         float wm, float hm, float slack,
                                         int D, int line_trace,
                                         int sample_outside, void* stream) {
-  if (bad_shape(b, h, w, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, h, w, D) || D > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params P = make_params(h, w, dt, 0.f, wm, hm, slack, D,
                                sample_outside);
   const dim3 grid = grid2d(b, h, w, kBlock);
@@ -884,7 +887,8 @@ extern "C" int fn_advect_scalar_backward(const float* rho, const float* U,
                                          float hm, float slack, int D,
                                          int line_trace, int sample_outside,
                                          void* stream) {
-  if (bad_shape(b, h, w, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, h, w, D) || D > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params P = make_params(h, w, dt, halfstr, wm, hm, slack, D,
                                sample_outside);
   const dim3 grid = grid2d(b, h, w, kBlock);

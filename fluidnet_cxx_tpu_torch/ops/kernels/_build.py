@@ -8,9 +8,10 @@ build takes seconds, and there is no lock file: the library is written under
 a temporary name and renamed into place. A rebuild happens only when the
 hash of the sources and flags changes.
 
-Every ``extern "C"`` entry launches its kernel (``fn_jacobi3_solve``,
-``fn_tail3``, ``fn_mg_solve`` and ``fn_mg_project``: the launches of a
-whole solve) on the stream it is given,
+Every ``extern "C"`` entry launches its kernel (``fn_jacobi_solve``,
+``fn_tail``, ``fn_jacobi3_solve``, ``fn_tail3``, ``fn_mg_solve`` and
+``fn_mg_project``: the launches of a whole solve) on the stream it is
+given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
 ``QUERIES`` launch nothing: they answer a question of the kernels' own
@@ -20,6 +21,7 @@ limits, so each such decision is written once, in the CUDA source, and
 Run ``python -m fluidnet_cxx_tpu_torch.ops.kernels._build`` to build and
 print nvcc's ``-Xptxas -v`` report (registers, shared memory, spills).
 """
+import collections
 import ctypes
 import functools
 import hashlib
@@ -39,6 +41,8 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false"]
 
 _LIB = None
+# C entry name -> calls through ``call`` (each one ctypes call).
+calls = collections.Counter()
 
 VP = ctypes.c_void_p
 I = ctypes.c_int
@@ -52,12 +56,9 @@ SIGNATURES = {
     "fn_advect_scalar_backward": [VP, VP, VP, VP, VP, I, I, I, F, F, F, F,
                                   F, I, I, I, VP],
     "fn_advect_velocity": [VP] * 4 + [I, I, I, F, F, I, I, I, VP],
-    "fn_tail_prologue": [VP, VP, VP, VP, VP, VP, VP, VP, VP, I, I, I, VP],
-    "fn_tail_sweep": [VP, VP, VP, VP, I, I, I, I, F, F, VP],
-    "fn_tail_epilogue": [VP, VP, VP, VP, VP, VP, I, I, I, VP],
+    "fn_tail": [VP] * 11 + [I] * 5 + [F, F, VP],
     "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
-    "fn_jacobi_mask": [VP, VP, I, I, I, VP],
-    "fn_jacobi_sweeps": [VP, VP, VP, VP, I, I, I, I, I, F, F, VP],
+    "fn_jacobi_solve": [VP] * 6 + [I] * 5 + [F, F, VP],
     "fn_mg_solve": [VP] * 5 + [I] * 9 + [F, F, VP],
     "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
@@ -71,6 +72,7 @@ SIGNATURES = {
 # extern "C" entries that launch nothing and return a number.
 QUERIES = {
     "fn_jacobi_max_sweeps": [],
+    "fn_tail_launches": [I],
     "fn_jacobi3_max_sweeps": [],
     "fn_mg_workspace": [I] * 8,
     "fn_mg_launches": [I] * 9,
@@ -174,7 +176,9 @@ def library():
 
 
 def call(name: str, *args):
-    """Launch one kernel through its C entry; raise on a launch error."""
+    """Launch one kernel through its C entry (counted in ``calls``); raise
+    on a launch error."""
+    calls[name] += 1
     status = getattr(library(), name)(*args)
     if status != 0:
         raise RuntimeError(f"{name}: CUDA error {status}")

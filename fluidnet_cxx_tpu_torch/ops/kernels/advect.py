@@ -13,8 +13,8 @@ the halo its output tile reads into shared memory, computes the forward
 field over the tile and D + 1 cells around it, and runs the backward
 samples, correction and Selle clamp from there. The tile comes from
 ``plan_tile``; the kernel is built for ``max_disp`` up to
-``fn_advect_max_disp()`` (8), and a larger one raises. A and D run two
-launches (forward samples into scratch, then backward samples,
+``fn_advect_max_disp()`` (8), and a larger one raises, in D too. A and D
+run two launches (forward samples into scratch, then backward samples,
 correction and clamps), one thread a cell; their first-hit trace walks
 the pruned box of ``line_trace.firsthit_box2``, whose margin the wrapper
 passes. A and E take an optional ``orig``, the field that U advects (the
@@ -144,6 +144,7 @@ def advect_scalar(dt, src, U, flags, maccormack_strength=0.75,
             max_disp=max_disp)
     b, h, w = _check(U, flags, max_disp)
     _build.check(src, "src", torch.float32, (b, h, w), U.device)
+    _check_max_disp("advect_scalar", max_disp)
     scratch = torch.empty((3, b, h, w), dtype=torch.float32, device=U.device)
     out = torch.empty_like(src)
     wm, hm = w - 1e-5, h - 1e-5
@@ -162,6 +163,15 @@ def advect_scalar(dt, src, U, flags, maccormack_strength=0.75,
     return out
 
 
+def _check_max_disp(name, max_disp):
+    """Raise above the largest max_disp E's tiles are built for (D is held
+    to the same limit)."""
+    most = _build.constant("fn_advect_max_disp")
+    if max_disp > most:
+        raise ValueError(f"{name}: max_disp {max_disp} exceeds {most}, the "
+                         "largest the 2-D advection kernels are built for")
+
+
 def advect_velocity(dt, U, flags, maccormack_strength=0.75, max_disp=4,
                     orig=None):
     """Advect MAC velocity ``orig`` (default U) by ``U`` (b, 2, h, w) over
@@ -171,10 +181,7 @@ def advect_velocity(dt, U, flags, maccormack_strength=0.75, max_disp=4,
             dt, U if orig is None else orig, U, flags,
             maccormack_strength=maccormack_strength, max_disp=max_disp)
     b, h, w = _check(U, flags, max_disp, orig)
-    most = _build.constant("fn_advect_max_disp")
-    if max_disp > most:
-        raise ValueError(f"advect_velocity: max_disp {max_disp} exceeds "
-                         f"{most}, the largest its tiles are built for")
+    _check_max_disp("advect_velocity", max_disp)
     tw, th = plan_tile(b, h, w, max_disp)
     out = torch.empty_like(U)
     _build.call("fn_advect_velocity", U.data_ptr(), _build.ptr(orig),

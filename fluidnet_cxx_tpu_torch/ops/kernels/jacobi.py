@@ -4,7 +4,8 @@ Replaces ``fluidnet_cxx_tpu/ops/pallas/jacobi_pallas.py::
 solve_jacobi_pallas`` with the CUDA kernels in ``csrc/jacobi.cu``: one
 launch for the per-cell mask byte, then one launch per
 ``fn_jacobi_max_sweeps()`` sweeps (temporal blocking in shared memory,
-ping-ponging two pressure buffers). No launch waits on another block. The plain version is
+ping-ponging two pressure buffers), all issued by one C call. No launch
+waits on another block. The plain version is
 ``ops/jacobi.py::solve_jacobi_fixed``; a CPU tensor runs it, a CUDA tensor
 the kernels.
 """
@@ -35,22 +36,12 @@ def solve_jacobi(flags, div, iters: int, p0=None, damping: float = 1.0):
     if iters == 0:
         return torch.zeros_like(div) if p0 is None else p0
     mask = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    _build.call("fn_jacobi_mask", flags.data_ptr(), mask.data_ptr(), b, h, w,
-                _build.stream())
-    solve_jacobi.launches += 1
-    # Two buffers to ping-pong, neither of them the caller's p0.
-    pair = (torch.empty_like(div), torch.empty_like(div))
-    damped, keep, w_ = sweep_args(damping)
-    max_sweeps = _build.constant("fn_jacobi_max_sweeps")
-    p, done = p0, 0
-    while done < iters:
-        n = min(max_sweeps, iters - done)
-        dst = pair[1] if p is pair[0] else pair[0]
-        _build.call("fn_jacobi_sweeps", _build.ptr(p), div.data_ptr(),
-                    mask.data_ptr(), dst.data_ptr(), b, h, w, n, damped,
-                    keep, w_, _build.stream())
-        solve_jacobi.launches += 1
-        p, done = dst, done + n
+    tmp, p = torch.empty_like(div), torch.empty_like(div)
+    _build.call("fn_jacobi_solve", flags.data_ptr(), div.data_ptr(),
+                _build.ptr(p0), mask.data_ptr(), tmp.data_ptr(), p.data_ptr(),
+                b, h, w, iters, *sweep_args(damping), _build.stream())
+    per_launch = _build.constant("fn_jacobi_max_sweeps")
+    solve_jacobi.launches += 1 + -(-iters // per_launch)
     return p
 
 

@@ -1,18 +1,24 @@
 """Kernel C: the learned projection's tail.
 
 Replaces ``fluidnet_cxx_tpu/ops/pallas/proj_tail_pallas.py::
-project_tail_pallas`` with the CUDA kernels in ``csrc/proj_tail.cu``: one
-prologue launch, one launch per damped Jacobi sweep (two pressure buffers,
-ping-pong), one epilogue launch. No launch waits on another block. The
-plain version, ``project_tail_plain``, is the unfused chain of
-``ops/stencils.py`` and ``ops/jacobi.py``; a CPU tensor runs it, a CUDA
-tensor the kernels.
+project_tail_pallas`` with the CUDA kernels in ``csrc/jacobi.cu``, all
+issued by one C call (``fn_tail``): a prologue launch (inlet BC, RHS,
+p0 * scale, the mask byte), kernel F's tile launches (on 4-row strips)
+of up to ``fn_jacobi_max_sweeps()`` damped Jacobi sweeps each
+(ping-ponging two pressure buffers) and an epilogue launch (velocity
+update, walls, inlet BC): 6 launches for 32 sweeps. No launch waits on
+another block. The plain version, ``project_tail_plain``, is the unfused
+chain of ``ops/stencils.py`` and ``ops/jacobi.py``; a CPU tensor runs it,
+a CUDA tensor the kernels.
 """
+import functools
+
 import torch
 
 from ..jacobi import solve_jacobi_fixed
 from ..stencils import set_wall_bcs, velocity_divergence, velocity_update
 from . import _build
+from .jacobi import sweep_args
 
 
 def project_tail_plain(flags, U, p0, iters: int, damping: float = 2.0 / 3.0,
@@ -55,30 +61,23 @@ def project_tail(flags, U, p0, iters: int, damping: float = 2.0 / 3.0,
                      (b, 2, h, w), dev)
     if h < 3 or w < 3 or iters < 0:
         raise ValueError("project_tail needs h, w >= 3 and iters >= 0")
-    rhs = torch.empty((b, h, w), dtype=torch.float32, device=dev)
+    rhs, tmp, p = (torch.empty_like(p0) for _ in range(3))
     mask = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    p_out = torch.empty_like(p0)
-    p_tmp = torch.empty_like(p0)
     U_out = torch.empty_like(U)
-    s = _build.stream()
-    bc, inv = _build.ptr(U_bc), _build.ptr(U_bc_inv_mask)
-    # The last sweep must land in p_out.
-    cur, nxt = (p_out, p_tmp) if iters % 2 == 0 else (p_tmp, p_out)
-    _build.call("fn_tail_prologue", flags.data_ptr(), U.data_ptr(),
-                p0.data_ptr(), _build.ptr(scale), bc, inv, rhs.data_ptr(),
-                cur.data_ptr(), mask.data_ptr(), b, h, w, s)
-    project_tail.launches += 1
-    w_ = float(damping)
-    for _ in range(iters):
-        _build.call("fn_tail_sweep", cur.data_ptr(), rhs.data_ptr(),
-                    mask.data_ptr(), nxt.data_ptr(), b, h, w,
-                    int(w_ != 1.0), 1.0 - w_, w_, s)
-        project_tail.launches += 1
-        cur, nxt = nxt, cur
-    _build.call("fn_tail_epilogue", flags.data_ptr(), U.data_ptr(),
-                p_out.data_ptr(), bc, inv, U_out.data_ptr(), b, h, w, s)
-    project_tail.launches += 1
-    return p_out, U_out
+    _build.call("fn_tail", flags.data_ptr(), U.data_ptr(), p0.data_ptr(),
+                _build.ptr(scale), _build.ptr(U_bc),
+                _build.ptr(U_bc_inv_mask), rhs.data_ptr(), mask.data_ptr(),
+                tmp.data_ptr(), p.data_ptr(), U_out.data_ptr(), b, h, w,
+                iters, *sweep_args(damping), _build.stream())
+    project_tail.launches += tail_launches(iters)
+    return p, U_out
+
+
+@functools.lru_cache(maxsize=64)
+def tail_launches(iters: int) -> int:
+    """Launches of one fn_tail call of ``iters`` sweeps (asked of the
+    library once an ``iters``)."""
+    return _build.query("fn_tail_launches", iters)
 
 
 project_tail.launches = 0

@@ -98,7 +98,7 @@ def _shift(t, dy, dx):
 
 
 def twin_f(flags, div, iters, p0=None, damping=1.0):
-    """Plain-torch twin of fn_jacobi_mask + fn_jacobi_sweeps as
+    """Plain-torch twin of the mask and tile launches of fn_jacobi_solve as
     ops/kernels/jacobi.py::solve_jacobi issues them."""
     k_max, lx = f_constants()
     ly = lx
