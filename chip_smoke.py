@@ -77,7 +77,8 @@ Phases (each prints its elapsed seconds):
      it (K, M, I; bench3d's --lineTrace), and with merged advection and
      the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
-     J, N) at full widths, weights from seed 0; finite fields, ms per
+     J, N) at full widths, the trained weights (each run prints which);
+     finite fields, ms per
      step, quality stats, launches per step (J, N, C on the 512^2
      convnet step, F on the jacobi paths, H on mg-2v, G on the RT
      multigrid path, E on the cylinder and D and E on the unfused plume
@@ -86,7 +87,15 @@ Phases (each prints its elapsed seconds):
      `kernels` JSON line;
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
-     most device time and every other kernel of the port's.
+     most device time and every other kernel of the port's;
+  7. the benches (fluidnet_cxx_tpu_torch/bench.py and bench3d.py) called
+     as functions: the five 2-D cases at 128^2 with their full 400-step
+     rollouts and cnn at 512^2 with its 300-step rollout, and the 3-D
+     classical row's 60-step rollout at 128^3, each held to
+     bench_reference.json (the JAX package's columns: mean|div| and
+     max|div| within 1%, the height within a row; 3-D max|div|, mean|div|,
+     density sum and max|U| within 1%); every case timed as a CUDA-graph
+     replay and eagerly at a reduced n; each case's line printed.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
 `python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
@@ -432,6 +441,7 @@ def phase_conv2d(dev, gen, results):
     split and with the 16^2 level's split; the whole forward; repeats; the
     per-layer table beside cuDNN's same layer (float32, TF32 off)."""
     from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.models.convert import STATE_DICT_FILE
     from fluidnet_cxx_tpu_torch.models.punet import (depth_to_space,
                                                      space_to_depth)
     from fluidnet_cxx_tpu_torch.ops.kernels import punet
@@ -442,7 +452,9 @@ def phase_conv2d(dev, gen, results):
     done = phase("kernel B punet conv")
     n = RES * RES
     mcfg = load_model_config(str(MODEL_DIR))
-    net = build_punet(mcfg, SEED, dev)
+    net = build_punet(mcfg, None, dev)
+    print(f"B: trained weights, {MODEL_DIR.name}/{STATE_DICT_FILE}",
+          flush=True)
     packed = punet.pack_weights(net)
     x = torch.stack([torch.randn((1, RES, RES), generator=gen),
                      (torch.rand((1, RES, RES), generator=gen) < 0.1).float()],
@@ -1462,6 +1474,7 @@ def phase_learned3d(dev, results):
     import dataclasses
 
     from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.models.convert import STATE_DICT_FILE
     from fluidnet_cxx_tpu_torch.ops.kernels import proj_tail3, punet3
     from fluidnet_cxx_tpu_torch.run_plume3d import build_punet3
 
@@ -1501,7 +1514,9 @@ def phase_learned3d(dev, results):
     def net_of(model_dir, dtype):
         mcfg = dataclasses.replace(load_model_config(str(model_dir)),
                                    compute_dtype=dtype)
-        net = build_punet3(mcfg, SEED, dev)
+        net = build_punet3(mcfg, None, dev, model_dir)
+        print(f"N ({dtype}): trained weights, {model_dir}/{STATE_DICT_FILE}",
+              flush=True)
         return net, punet3.pack_weights3(net)
 
     phase_punet3(dev, gen, results, net_of)
@@ -1693,13 +1708,13 @@ def phase_small_check():
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import run_rayleigh_taylor
 
     cases = {
-        "64^2 plume convnet": lambda d: run_plume(64, 3, device=d, seed=SEED),
+        "64^2 plume convnet": lambda d: run_plume(64, 3, device=d),
         "64^2 plume jacobi-28": lambda d: run_plume(
-            64, 3, device=d, seed=SEED, sim_method="jacobi", jacobi_iter=28),
+            64, 3, device=d, sim_method="jacobi", jacobi_iter=28),
         "64^2 plume mg-2v": lambda d: run_plume(
-            64, 3, device=d, seed=SEED, sim_method="multigrid", mg_vcycles=2),
+            64, 3, device=d, sim_method="multigrid", mg_vcycles=2),
         "64^2 plume unfused jacobi-28": lambda d: run_plume(
-            64, 3, device=d, seed=SEED, sim_method="jacobi", jacobi_iter=28,
+            64, 3, device=d, sim_method="jacobi", jacobi_iter=28,
             fuse_advection=False),
         "64x32 RT multigrid": lambda d: run_rayleigh_taylor(
             32, 64, 3, device=d, sim_method="multigrid"),
@@ -1737,8 +1752,8 @@ def main_paths():
         rt_case, run_rayleigh_taylor)
 
     def plume(**kw):
-        return (lambda n: run_plume(RES, n, "cuda", SEED, **kw),
-                lambda: plume_case(RES, "cuda", SEED, **kw))
+        return (lambda n: run_plume(RES, n, "cuda", **kw),
+                lambda: plume_case(RES, "cuda", **kw))
 
     def rt(method):
         return (lambda n: run_rayleigh_taylor(RT_W, RT_H, n, "cuda", method),
@@ -1891,6 +1906,52 @@ def phase_profile(name, case):
                 continue
             print(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step "
                   f"{e.count / n:6.1f} calls/step  {e.key[:70]}", flush=True)
+    done()
+
+
+def phase_bench():
+    """Phase 7: the benches as functions, at their full rollouts and
+    bench_reference.json's settings, timed at a reduced n (graph 200 and
+    eager 20 at 128^2, 50 and 10 at 512^2, 3 reps; 3-D n 10, 1 rep); fails
+    on a case outside its reference."""
+    from fluidnet_cxx_tpu_torch import bench, bench3d
+
+    ref = str(bench.REFERENCE)
+    runs = {"bench 128^2, five cases": bench.parse(
+                ["--res", "128", "--n-time", "200", "--n-eager", "20",
+                 "--reps", "3", "--reference", ref]),
+            f"bench {RES}^2 cnn": bench.parse(
+                ["--res", str(RES), "--cases", "cnn", "--n-time", "50",
+                 "--n-eager", "10", "--reps", "3", "--reference", ref])}
+    for name, args in runs.items():
+        done = phase(name)
+        out, full, failures = bench.run_bench(args)
+        for res, rows in full["table"].items():
+            for case, r in rows.items():
+                print(f"{name}: {res}^2 {case} graph {r['sps']:.1f} steps/s "
+                      f"(n {r['n_graph']}, spread {r['sps_spread']:.3f}), "
+                      f"eager {r['eager_sps']:.1f} (n {r['n_eager']}); "
+                      f"mean|div| {r['mean_div']:.6f} max|div| "
+                      f"{r['max_div']:.5f} height {r['height']}; launches "
+                      f"a step {r['launches_per_step']}; {r['engine']}",
+                      flush=True)
+        print(bench.compact(out), flush=True)
+        if failures:
+            raise SystemExit(f"{name}: reference check failed: {failures}")
+        done()
+    done = phase(f"bench3d {RES3}^3 classical row")
+    out, full, failures = bench3d.run_bench3d(bench3d.parse(
+        ["--res", str(RES3), "--steps", "10", "--reps", "1",
+         "--reference", ref]))
+    for case, r in full["table"].items():
+        print(f"bench3d {RES3}^3 {case}: graph {r['sps']:.2f} steps/s, "
+              f"eager {r['eager_sps']:.2f}; max|div| {r['max_div']:.5f} "
+              f"mean|div| {r['mean_div']:.6f} density sum "
+              f"{r['density_sum']:.4f} max|U| {r['max_U']:.4f}; launches a "
+              f"step {r['launches_per_step']}; {r['engine']}", flush=True)
+    print(bench.compact(out), flush=True)
+    if failures:
+        raise SystemExit(f"bench3d: reference check failed: {failures}")
     done()
 
 
@@ -2133,6 +2194,7 @@ def main():
     paths = main_paths()
     for name, (_, case, _) in paths.items():
         phase_profile(name, case)
+    phase_bench()
 
     # Launches of each kernel on the first main path that must launch it.
     path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)

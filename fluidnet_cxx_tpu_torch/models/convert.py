@@ -14,9 +14,18 @@ read where JAX is installed, or from ``random_flax_params``/
    over unchanged.
 3. flax kernels are HWIO (DHWIO in 3-D), torch's OIHW (OIDHW):
    transposed here.
+
+The trained checkpoints' conversions are committed beside them as
+``trained_models/<name>/torch_state_dict.pt`` (written in a JAX
+installation by ``scripts/torch_convert_checkpoints.py``);
+``load_state_dict_file`` reads one with torch alone.
 """
+import os
+
 import numpy as np
 import torch
+
+STATE_DICT_FILE = "torch_state_dict.pt"
 
 # flax's lecun_normal: truncated normal on [-2, 2] rescaled to unit
 # variance (the std of a standard normal truncated there).
@@ -46,6 +55,20 @@ def flax_to_state_dict3(params):
     """Flax PUNet3 param tree (numpy) -> {``convs.<name>.weight``: OIDHW,
     ``convs.<name>.bias``} float32 tensors."""
     return _to_state_dict(params, (4, 3, 0, 1, 2))
+
+
+def load_state_dict_file(model_dir):
+    """The converted trained parameters of ``model_dir``
+    (``<model_dir>/torch_state_dict.pt``), as float32 CPU tensors. Raises
+    FileNotFoundError if the file is missing: there is no fallback to
+    seed weights."""
+    path = os.path.join(str(model_dir), STATE_DICT_FILE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"{path} is missing: write it with "
+            "scripts/torch_convert_checkpoints.py (needs JAX), or ask for "
+            "seed weights explicitly")
+    return torch.load(path, weights_only=True, map_location="cpu")
 
 
 def _lecun_params(rng, shape):

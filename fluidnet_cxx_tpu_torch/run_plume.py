@@ -16,9 +16,11 @@ of ``trained_models/PUNetD2_128/model_config.json`` at its full widths,
 "jacobi" ``--jacobi-iter`` sweeps (the jacobi-N rows), "multigrid"
 ``--mg-vcycles`` warm V-cycles (the mg-2v row). ``--no-fuse-advection``
 advects the density and the velocity separately (kernels D and E in place
-of A; ``bench.py``'s ``BENCH_FUSE_ADV=0``). The PUNet's weights are
-drawn from ``--seed`` with flax's initialiser: the trained checkpoint is
-an orbax file that only a JAX installation can read.
+of A; ``bench.py``'s ``BENCH_FUSE_ADV=0``). The PUNet runs the trained
+weights (``trained_models/PUNetD2_128/torch_state_dict.pt``, converted
+from the orbax checkpoint by ``scripts/torch_convert_checkpoints.py``);
+``--weight-seed N`` asks for flax-initialised weights from seed N instead.
+The output says which (``"weights": "trained"`` or ``"seed:N"``).
 
 Prints ms/step and ``bench.py``'s quality stats of the final state:
 mean|div| and max|div| over fluid cells outside the inlet rows, and the
@@ -34,7 +36,8 @@ import torch
 
 from .celltype import FLUID
 from .config import load_model_config
-from .models.convert import flax_to_state_dict, random_flax_params
+from .models.convert import (flax_to_state_dict, load_state_dict_file,
+                             random_flax_params)
 from .models.fluidnet import make_project_fn
 from .models.punet import PUNet
 from .ops.stencils import velocity_divergence
@@ -54,31 +57,45 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def build_punet(mcfg, seed: int = 0, device="cpu") -> PUNet:
-    """The configured PUNet with flax-initialised weights from ``seed``."""
+def weights_label(weight_seed) -> str:
+    """How a run's weights are named in its output: "trained" for the
+    converted checkpoint (``weight_seed`` None), "seed:N" otherwise."""
+    return "trained" if weight_seed is None else f"seed:{weight_seed}"
+
+
+def build_punet(mcfg, weight_seed=None, device="cpu",
+                model_dir=MODEL_DIR) -> PUNet:
+    """The configured PUNet with the trained weights of ``model_dir``
+    (``weight_seed`` None) or flax-initialised weights from
+    ``weight_seed``."""
     net = PUNet.from_config(mcfg)
-    net.load_state_dict(flax_to_state_dict(random_flax_params(net.table,
-                                                              seed)))
+    net.load_state_dict(
+        load_state_dict_file(model_dir) if weight_seed is None else
+        flax_to_state_dict(random_flax_params(net.table, weight_seed)))
     return net.to(device).eval()
 
 
-def plume_case(res: int = 512, device="cuda", seed: int = 0,
+def plume_case(res: int = 512, device="cuda", weight_seed=None,
                model_dir=MODEL_DIR, sim_method: str = "convnet",
                jacobi_iter: int = 200, mg_vcycles: int = 2,
-               fuse_advection: bool = True):
+               fuse_advection: bool = True, max_disp: int = 4,
+               line_trace: bool = True):
     """(SimConfig, initial SimState, project_fn) of a plume case;
-    project_fn is None for the classical projections."""
+    project_fn is None for the classical projections. The convnet's
+    weights are the trained ones unless ``weight_seed`` is given."""
     dev = resolve_device(device)
-    cfg = plume_config(dt=0.1, line_trace=True, max_disp=4, use_pallas=True,
-                       fuse_advection=fuse_advection, sim_method=sim_method,
-                       jacobi_iter=jacobi_iter, mg_vcycles=mg_vcycles)
+    cfg = plume_config(dt=0.1, line_trace=line_trace, max_disp=max_disp,
+                       use_pallas=True, fuse_advection=fuse_advection,
+                       sim_method=sim_method, jacobi_iter=jacobi_iter,
+                       mg_vcycles=mg_vcycles)
     state = create_plume_scene(res, res, density_val=0.1,
                                u_scale=2.0 * res / 128.0, rad=0.145,
                                device=dev)
     if sim_method != "convnet":
         return cfg, state, None
     mcfg = load_model_config(str(model_dir))
-    project = make_project_fn(mcfg, build_punet(mcfg, seed, dev))
+    project = make_project_fn(mcfg, build_punet(mcfg, weight_seed, dev,
+                                                model_dir))
     return cfg, state, project
 
 
@@ -107,16 +124,17 @@ def quality(state):
 
 
 @torch.no_grad()
-def run_plume(res: int = 512, steps: int = 20, device="cuda", seed: int = 0,
-              model_dir=MODEL_DIR, sim_method: str = "convnet",
-              jacobi_iter: int = 200, mg_vcycles: int = 2,
-              fuse_advection: bool = True):
+def run_plume(res: int = 512, steps: int = 20, device="cuda",
+              weight_seed=None, model_dir=MODEL_DIR,
+              sim_method: str = "convnet", jacobi_iter: int = 200,
+              mg_vcycles: int = 2, fuse_advection: bool = True):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step (CUDA events on the card,
     the host clock on the CPU), ``quality(state)`` and, for the convnet
-    projection, the mean |div| of the last step's projection input
+    projection, the weights it ran (``weights``: "trained" or "seed:N")
+    and the mean |div| of the last step's projection input
     (``div_in``)."""
-    cfg, state, project = plume_case(res, device, seed, model_dir,
+    cfg, state, project = plume_case(res, device, weight_seed, model_dir,
                                      sim_method, jacobi_iter, mg_vcycles,
                                      fuse_advection)
     on_card = state.U.device.type == "cuda"
@@ -140,8 +158,9 @@ def run_plume(res: int = 512, steps: int = 20, device="cuda", seed: int = 0,
 
     observed.handles_const_vals = True
     state = simulate_step(cfg, state, observed if project else None)
+    weights = {"weights": weights_label(weight_seed)} if project else {}
     return {"state": state,
-            "ms_per_step": elapsed_ms / max(steps - 1, 1),
+            "ms_per_step": elapsed_ms / max(steps - 1, 1), **weights,
             "div_in": seen["div_in"], **quality(state)}
 
 
@@ -149,7 +168,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--steps", type=int, default=20)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--weight-seed", type=int, default=None,
+                    help="flax-initialised weights from this seed in "
+                         "place of the trained ones")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sim-method", default="convnet",
                     choices=("convnet", "jacobi", "multigrid"))
@@ -158,7 +179,7 @@ def main(argv=None):
     ap.add_argument("--no-fuse-advection", dest="fuse_advection",
                     action="store_false")
     args = ap.parse_args(argv)
-    out = run_plume(args.res, args.steps, args.device, args.seed,
+    out = run_plume(args.res, args.steps, args.device, args.weight_seed,
                     sim_method=args.sim_method, jacobi_iter=args.jacobi_iter,
                     mg_vcycles=args.mg_vcycles,
                     fuse_advection=args.fuse_advection)

@@ -25,9 +25,11 @@ same scene and config with the PUNet3 of ``--model-dir``'s
 patch 8, widths 96/128, bfloat16, 16 polish sweeps; ``PUNet3_32``: patch
 4, 8 sweeps; ``--polish-sweeps`` overrides the count), projecting with
 kernels N (the PUNet3 forward, 9 conv launches) and J (the tail: RHS,
-polish sweeps, velocity update, walls) after K and M. The weights are
-drawn from ``--weight-seed`` with flax's initialiser: the trained
-checkpoints are orbax files that only a JAX installation can read.
+polish sweeps, velocity update, walls) after K and M. The network runs the
+trained weights of ``--model-dir`` (its ``torch_state_dict.pt``, converted
+from the orbax checkpoint by ``scripts/torch_convert_checkpoints.py``);
+``--weight-seed N`` asks for flax-initialised weights from seed N instead.
+The output says which (``"weights": "trained"`` or ``"seed:N"``).
 
 Prints ms/step (CUDA events on the card, the host clock on the CPU, over
 all but the last step), the launches of each kernel per step and the
@@ -45,11 +47,12 @@ import torch
 
 from .celltype import FLUID
 from .config import load_model_config
-from .models.convert import flax_to_state_dict3, random_flax_params3
+from .models.convert import (flax_to_state_dict3, load_state_dict_file,
+                             random_flax_params3)
 from .models.punet3d import PUNet3, make_project_fn3
 from .ops.kernels import advect3, jacobi3, proj_tail3, punet3
 from .ops.ops3d import velocity_divergence3
-from .run_plume import resolve_device
+from .run_plume import resolve_device, weights_label
 from .sim.scenes import plume_config
 from .sim.scenes3 import create_plume_scene3
 from .sim.step3d import simulate_step3
@@ -77,26 +80,34 @@ def plume3d_case(res: int = 128, device="cuda", jacobi_iter: int = 60,
     return cfg, state
 
 
-def build_punet3(mcfg, seed: int = 0, device="cpu") -> PUNet3:
-    """The configured PUNet3 with flax-initialised weights from ``seed``."""
+def build_punet3(mcfg, weight_seed=None, device="cpu",
+                 model_dir=MODEL_DIR3) -> PUNet3:
+    """The configured PUNet3 with the trained weights of ``model_dir``
+    (``weight_seed`` None) or flax-initialised weights from
+    ``weight_seed``."""
     net = PUNet3.from_config(mcfg)
-    net.load_state_dict(flax_to_state_dict3(random_flax_params3(net.table,
-                                                                seed)))
+    net.load_state_dict(
+        load_state_dict_file(model_dir) if weight_seed is None else
+        flax_to_state_dict3(random_flax_params3(net.table, weight_seed)))
     return net.to(device).eval()
 
 
 def learned3d_case(res: int = 128, device="cuda", model_dir=MODEL_DIR3,
-                   polish_sweeps=None, weight_seed: int = 0,
-                   fuse_advection: bool = False, line_trace: bool = False):
+                   polish_sweeps=None, weight_seed=None,
+                   fuse_advection: bool = False, line_trace: bool = False,
+                   compute_dtype=None):
     """(SimConfig, initial SimState3, project_fn) of bench3d's learned
-    plume case: the PUNet3 of ``model_dir`` (``polish_sweeps`` overriding
-    its count) with weights from ``weight_seed``."""
+    plume case: the PUNet3 of ``model_dir`` (``polish_sweeps`` and
+    ``compute_dtype`` overriding its own) with its trained weights, or
+    weights from ``weight_seed``."""
     cfg, state = plume3d_case(res, device, fuse_advection=fuse_advection,
                               line_trace=line_trace, sim_method="convnet")
     mcfg = load_model_config(str(model_dir))
     if polish_sweeps is not None:
         mcfg = dataclasses.replace(mcfg, polish_sweeps=polish_sweeps)
-    net = build_punet3(mcfg, weight_seed, state.U.device)
+    if compute_dtype is not None:
+        mcfg = dataclasses.replace(mcfg, compute_dtype=compute_dtype)
+    net = build_punet3(mcfg, weight_seed, state.U.device, model_dir)
     return cfg, state, make_project_fn3(mcfg, net)
 
 
@@ -116,10 +127,11 @@ def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
                 jacobi_iter: int = 60, fuse_advection: bool = False,
                 line_trace: bool = False, sim_method: str = "jacobi",
                 model_dir=MODEL_DIR3, polish_sweeps=None,
-                weight_seed: int = 0):
+                weight_seed=None):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step, the kernel launches per
-    step and ``quality3(state)``."""
+    step, ``quality3(state)`` and, for the learned case, the weights it
+    ran (``weights``: "trained" or "seed:N")."""
     if sim_method == "convnet":
         cfg, state, project = learned3d_case(
             res, device, model_dir, polish_sweeps, weight_seed,
@@ -145,8 +157,10 @@ def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
     state = simulate_step3(cfg, state, project)
     per_step = {k: (fn.launches - before[k]) / steps
                 for k, fn in KERNELS.items() if fn.launches > before[k]}
+    weights = ({"weights": weights_label(weight_seed)}
+               if project is not None else {})
     return {"state": state,
-            "ms_per_step": elapsed_ms / max(steps - 1, 1),
+            "ms_per_step": elapsed_ms / max(steps - 1, 1), **weights,
             "launches_per_step": per_step, **quality3(state)}
 
 
@@ -161,7 +175,9 @@ def main(argv=None):
                     choices=("jacobi", "convnet"))
     ap.add_argument("--model-dir", default=str(MODEL_DIR3))
     ap.add_argument("--polish-sweeps", type=int, default=None)
-    ap.add_argument("--weight-seed", type=int, default=0)
+    ap.add_argument("--weight-seed", type=int, default=None,
+                    help="flax-initialised weights from this seed in "
+                         "place of the trained ones")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run_plume3d(args.res, args.steps, args.device, args.jacobi_iter,
@@ -171,8 +187,7 @@ def main(argv=None):
     method = ({"jacobi_iter": args.jacobi_iter}
               if args.sim_method == "jacobi" else
               {"model_dir": args.model_dir,
-               "polish_sweeps": args.polish_sweeps,
-               "weight_seed": args.weight_seed})
+               "polish_sweeps": args.polish_sweeps})
     print(json.dumps({
         "res": args.res, "steps": args.steps,
         "sim_method": args.sim_method, **method,

@@ -25,7 +25,8 @@ print('IMPORT_OK')
 """
 
 # Each entry point at a small size; without a card each must refuse. The
-# key names the case, its module is the key's part before the first '.'.
+# key names the case, its module is the key's part before the first '.',
+# and the call's function is imported from that module.
 ENTRY_POINTS = {
     "run_plume": "run_plume(res=64, steps=1)",
     "run_rayleigh_taylor": "run_rayleigh_taylor(res_x=32, res_y=64, steps=1)",
@@ -34,13 +35,16 @@ ENTRY_POINTS = {
     "run_plume3d": "run_plume3d(res=16, steps=1)",
     "run_plume3d.convnet": "run_plume3d(res=16, steps=1, "
                            "sim_method='convnet')",
+    "bench": "main(['--res', '32', '--cases', 'jacobi28', '--small-steps', "
+             "'2', '--chunk', '1', '--n-eager', '1', '--reps', '1'])",
+    "bench3d": "main(['--res', '16', '--steps', '1', '--reps', '1'])",
 }
 
 RUN_WITHOUT_CARD = """
 import torch
 assert not torch.cuda.is_available()
 """ + "".join(f"""
-from fluidnet_cxx_tpu_torch.{name.split('.')[0]} import {name.split('.')[0]}
+from fluidnet_cxx_tpu_torch.{name.split('.')[0]} import {call.split('(')[0]}
 try:
     {call}
 except RuntimeError as e:

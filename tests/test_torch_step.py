@@ -57,7 +57,7 @@ def _close(got, want, rel=1e-4):
 
 
 def test_plume_steps_match_jax():
-    cfg, state, project = plume_case(RES, device="cpu", seed=SEED)
+    cfg, state, project = plume_case(RES, device="cpu", weight_seed=SEED)
     assert cfg.max_disp == 4
 
     mcfg = j_mcfg(str(MODEL_DIR))
