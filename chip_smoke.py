@@ -59,13 +59,27 @@ Phases (each prints its elapsed seconds):
      C, F, G, H, I and J with their launches a call, and the
      per-layer tables of B (512^2) and N (p8, p4 in bfloat16): each
      layer's plan, blocks, device time, cuDNN's same layer and its bound;
+     kernel G's learned cut (ops/kernels/mg.py::solve_mg_learned: the two
+     halves of csrc/mg.cu around MGCoarseNet's PUNet on kernel B) with
+     the trained MGCoarse_128 against the plain solve_mg(coarse_fn=...)
+     within 1.4e-5 of the largest output, bit-equal on a repeat: 512^2
+     plume flags with 8% obstacles, one V-cycle cold (the main path's) and
+     two warm, and the 512x128 box (its cut is the tail's first level);
+     the planner's tail rule against fn_mg_cut_level on 10 shapes; a cut
+     inside the tail raising ValueError; its device time split into G's
+     halves, B and the torch glue, with its launches and bound; B on
+     MGCoarseNet's 128^2 input (16^2 after s2d) and on the 1000x100 map
+     of PUNetD2_128 at 8000x800, layer by layer and whole, beside the
+     cuDNN chain; H at 8000x800 on the cylinder's flags, cold and warm,
+     after fn_mg_workspace and fn_mg_cut_level there, with its split;
   4. small-input checks, the card against the plain path on the CPU:
      3 steps of the 64^2 plume with the learned projection, jacobi-28,
-     mg-2v and unfused jacobi-28, of the 64x32 Rayleigh-Taylor scene
-     under multigrid, of the 64x256 cylinder (radius 8 at x 40) and of
-     the 32^3 plume under jacobi-60, merged with the trace and separate
-     with and without it, and under the learned projection with patch 8
-     and 4;
+     mg-2v and unfused jacobi-28, of the 256^2 plume under mg_learned, of
+     the 64x32 Rayleigh-Taylor scene under multigrid, of the 64x256
+     cylinder (radius 8 at x 40) under jacobi-34, multigrid and convnet,
+     and of the 32^3 plume under jacobi-60, merged with the trace and
+     separate with and without it, and under the learned projection with
+     patch 8 and 4;
   5. the main paths, 20 steps each with every launch counter set to 0
      just before and read just after: the 512^2 plume with the learned
      projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), the
@@ -77,14 +91,20 @@ Phases (each prints its elapsed seconds):
      it (K, M, I; bench3d's --lineTrace), and with merged advection and
      the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
-     J, N) at full widths, the trained weights (each run prints which);
-     finite fields, ms per
-     step, quality stats, launches per step (J, N, C on the 512^2
-     convnet step, F on the jacobi paths, H on mg-2v, G on the RT
-     multigrid path, E on the cylinder and D and E on the unfused plume
-     held to their exact counts) and C entry (ctypes) calls per step (C's
-     fn_tail and F's fn_jacobi_solve held to one a step); then the
-     `kernels` JSON line;
+     J, N) at full widths, the trained weights (each run prints which),
+     the 512^2 plume under mg_learned with the trained MGCoarse_128 (A,
+     G's learned cut, B), and the 8000x800 cylinder under multigrid (E, H)
+     and under PUNetD2_128 (E, B, C; the step's unfused branch); finite
+     fields, ms per step, quality stats (mean|div|, max|div|), launches
+     per step (J, N, C on the 512^2 convnet step, F on the jacobi paths,
+     H on mg-2v and the cylinder's multigrid, G on the RT multigrid path,
+     the learned cut and B on mg_learned, B and C on the cylinder's
+     convnet, E on the cylinder and D and E on the unfused plume held to
+     their exact counts) and C entry (ctypes) calls per step (C's
+     fn_tail, F's fn_jacobi_solve, H's fn_mg_project and each half of
+     the learned cut held to one a step); then the `kernels` JSON line
+     (the 14 kernels, and rows for G's learned cut, B at 128^2 and on the
+     1000x100 map, and H at 8000x800);
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's;
@@ -99,7 +119,9 @@ Phases (each prints its elapsed seconds):
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
 `python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
-`python3 chip_smoke.py --tail-only` kernels C and F (tail_only).
+`python3 chip_smoke.py --tail-only` kernels C and F (tail_only),
+`python3 chip_smoke.py --learned-only` G's learned cut, H at 8000x800, B
+on the 1000x100 map and the mg_learned and cylinder paths (learned_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -124,6 +146,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 TF32_OPS_PER_S = 495e12
+# Kernel B's float32 multiply-add is three TF32 tensor-core products
+# (3xTF32), the card's fastest route at float32's accuracy: B's bounds
+# take its operations at a third of the TF32 rate.
+TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RES = 512
 RES3 = 128
 RT_W, RT_H = 128, 512
@@ -442,8 +468,6 @@ def phase_conv2d(dev, gen, results):
     per-layer table beside cuDNN's same layer (float32, TF32 off)."""
     from fluidnet_cxx_tpu_torch.config import load_model_config
     from fluidnet_cxx_tpu_torch.models.convert import STATE_DICT_FILE
-    from fluidnet_cxx_tpu_torch.models.punet import (depth_to_space,
-                                                     space_to_depth)
     from fluidnet_cxx_tpu_torch.ops.kernels import punet
     from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
     from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
@@ -516,39 +540,7 @@ def phase_conv2d(dev, gen, results):
                            20)
         plain_ms = cuda_ms(lambda: net(x, inv_scale=inv), 20)
 
-        # library: the same forward as cuDNN F.conv2d calls on NCHW tensors.
-        def library():
-            h = x.clone()
-            h[..., 0] *= inv[0]
-            h = space_to_depth(h, net.patch).permute(0, 3, 1, 2)
-
-            def conv(name, h, relu=True):
-                c = net.convs[name]
-                k, s, d = net.geometry[name]
-                p = same_pads(h.shape[-1], k, s, d)
-                h = torch.nn.functional.conv2d(
-                    torch.nn.functional.pad(h, (p[0], p[1], p[0], p[1])),
-                    c.weight, c.bias, stride=s, dilation=d)
-                return torch.relu(h) if relu else h
-
-            def d2s(h, p):
-                return depth_to_space(h.permute(0, 2, 3, 1), p).permute(
-                    0, 3, 1, 2)
-
-            h = conv("embed", h)
-            skips = []
-            for i in range(len(net.widths)):
-                if i > 0:
-                    h = conv(f"down{i}", h)
-                h = conv(f"enc{i}_0", h)
-                skips.append(h)
-            for j in range(net.bottleneck_convs):
-                h = conv(f"mid{j}", h)
-            for i in range(len(net.widths) - 2, -1, -1):
-                h = d2s(conv(f"up{i}", h, relu=False), 2)
-                h = conv(f"dec{i}_0", torch.cat([h, skips[i]], dim=1))
-            return d2s(conv("head", h, relu=False), net.patch)
-
+        library = punet_library(net, x, inv)
         lib_err = max_err([library().permute(0, 2, 3, 1)], [want])
         print(f"B library forward vs plain: max_abs_err {lib_err:.3e}")
         library_ms = graph_ms(library)
@@ -579,28 +571,362 @@ def phase_conv2d(dev, gen, results):
                 name=name, m=m, co=co, k=taps * (c1 + c2), bm=plan.bm,
                 bn=plan.bn, splits=plan.splits, blocks=plan.blocks,
                 ms=graph_ms(lambda: punet.conv2d_nhwc(*args)),
-                lib_ms=graph_ms(lib), bound_ms=bound(nbytes, ops)[0]))
-        conv_table(f"B per layer at {RES}^2 (bound: fp32 rate)", rows)
-    # Output side of each layer in forward order (s2d by the patch first,
-    # stride-2 downs halve it, each up's depth-to-space doubles it).
-    sizes, side = {}, RES // net.patch
-    for name in net.convs:
-        if net.geometry[name][1] == 2:
-            side //= 2
-        sizes[name] = side
-        if name.startswith("up"):
-            side *= 2
-    macs = sum(sizes[nm] ** 2 * w.shape[0] * w.shape[1] * w.shape[2] *
-               w.shape[3] for nm, (w, _) in packed.items())
+                lib_ms=graph_ms(lib),
+                bound_ms=bound(nbytes, ops, TF32X3_OPS_PER_S)[0]))
+        conv_table(f"B per layer at {RES}^2 (bound: 3xTF32 rate)", rows)
+    macs = punet_macs(net, RES, RES)
     wbytes = sum(4 * (w.numel() + b.numel()) for w, b in packed.values())
-    b_ms, b_by = bound(4 * x.numel() + wbytes + 4 * n, 2.0 * macs)
+    b_ms, b_by = bound(4 * x.numel() + wbytes + 4 * n, 2.0 * macs,
+                       TF32X3_OPS_PER_S)
     results["B"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=library_ms)
     print(f"B: kernel {ms:.4f} ms (eager {eager_ms:.4f}), plain "
           f"{plain_ms:.3f} ms, library {library_ms:.4f} ms (eager "
-          f"{library_eager_ms:.4f}), bound {b_ms:.4f} ms ({b_by}; 3xTF32 "
-          f"{1e3 * 6.0 * macs / TF32_OPS_PER_S:.4f} ms), "
+          f"{library_eager_ms:.4f}), bound {b_ms:.4f} ms ({b_by}, 3xTF32; "
+          f"fp32 CUDA cores {1e3 * 2.0 * macs / FP32_OPS_PER_S:.4f} ms), "
           f"{2.0 * macs / 1e9:.3f} GFLOP", flush=True)
+    done()
+
+
+def punet_library(net, x, inv=None):
+    """The PUNet forward of NHWC ``x`` as cuDNN F.conv2d calls on NCHW
+    tensors (the library call of kernel B's row); returns it as a
+    function of no arguments."""
+    from fluidnet_cxx_tpu_torch.models.punet import (depth_to_space,
+                                                     space_to_depth)
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
+
+    def library():
+        h = x.clone()
+        if inv is not None:
+            h[..., 0] *= inv[0]
+        h = space_to_depth(h, net.patch).permute(0, 3, 1, 2)
+
+        def conv(name, h, relu=True):
+            c = net.convs[name]
+            k, s, d = net.geometry[name]
+            ph = same_pads(h.shape[-2], k, s, d)
+            pw = same_pads(h.shape[-1], k, s, d)
+            h = torch.nn.functional.conv2d(
+                torch.nn.functional.pad(h, (pw[0], pw[1], ph[0], ph[1])),
+                c.weight, c.bias, stride=s, dilation=d)
+            return torch.relu(h) if relu else h
+
+        def d2s(h, p):
+            return depth_to_space(h.permute(0, 2, 3, 1), p).permute(
+                0, 3, 1, 2)
+
+        h = conv("embed", h)
+        skips = []
+        for i in range(len(net.widths)):
+            if i > 0:
+                h = conv(f"down{i}", h)
+            h = conv(f"enc{i}_0", h)
+            skips.append(h)
+        for j in range(net.bottleneck_convs):
+            h = conv(f"mid{j}", h)
+        for i in range(len(net.widths) - 2, -1, -1):
+            h = d2s(conv(f"up{i}", h, relu=False), 2)
+            h = conv(f"dec{i}_0", torch.cat([h, skips[i]], dim=1))
+        return d2s(conv("head", h, relu=False), net.patch)
+
+    return library
+
+
+def punet_macs(net, h, w):
+    """Multiply-adds of one PUNet forward on an h x w input: each layer's
+    output cells (s2d by the patch first, stride-2 downs halve the sides,
+    each up's depth-to-space doubles them) times its weights."""
+    sizes, side = {}, (h // net.patch, w // net.patch)
+    for name in net.convs:
+        if net.geometry[name][1] == 2:
+            side = (side[0] // 2, side[1] // 2)
+        sizes[name] = side[0] * side[1]
+        if name.startswith("up"):
+            side = (2 * side[0], 2 * side[1])
+    return sum(sizes[nm] * c.weight.numel() for nm, c in net.convs.items())
+
+
+def check_b_forward(label, net, x, inv=None):
+    """Kernel B on one PUNet forward: each layer on the activations the
+    forward hands it within 1e-5 of its largest output, the forward within
+    1e-4 of its largest value, a repeat bit-equal; device and eager ms of
+    the kernel, the plain version's and the cuDNN chain's ms. Returns
+    (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet
+
+    packed = punet.pack_weights(net)
+
+    def run(hook):
+        def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
+            w, b = packed[name]
+            _, stride, dil = net.geometry[name]
+            return hook(name, (h, w, b, stride, dil, relu, x2, in_scale,
+                               scale_mod), {})
+        return net(x, inv_scale=inv, conv=conv)
+
+    with torch.no_grad():
+        for name, args, _ in record_layers(run, punet.conv2d_nhwc):
+            h, w, *rest = args
+            want = punet.conv2d_nhwc_plain(h, w.permute(3, 2, 0, 1), *rest)
+            got = punet.conv2d_nhwc(*args)
+            torch.cuda.synchronize()
+            check(f"B {label} layer {name} ({tuple(h.shape)})",
+                  max_err([got], [want]), 1e-5 * float(want.abs().max()))
+        fwd = lambda: punet.punet_forward(net, packed, x, inv)
+        got, want = fwd(), net(x, inv_scale=inv)
+        torch.cuda.synchronize()
+        err = max_err([got], [want])
+        check(f"B {label} forward", err, 1e-4 * scale_of([want]))
+        check_repeat(f"B {label} forward", fwd)
+        ms, eager_ms = device_and_eager(fwd)
+        plain_ms = cuda_ms(lambda: net(x, inv_scale=inv), 10)
+        library = punet_library(net, x, inv)
+        lib_err = max_err([library().permute(0, 2, 3, 1)], [want])
+        library_ms = graph_ms(library)
+    macs = punet_macs(net, x.shape[1], x.shape[2])
+    wbytes = sum(4 * (w.numel() + b.numel()) for w, b in packed.values())
+    b_ms, b_by = bound(4 * x.numel() + wbytes + 4 * x[..., 0].numel(),
+                       2.0 * macs, TF32X3_OPS_PER_S)
+    print(f"B {label}: kernel {ms:.4f} ms device (eager {eager_ms:.4f}), "
+          f"plain {plain_ms:.3f} ms, cuDNN chain {library_ms:.4f} ms "
+          f"(its error {lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}, 3xTF32; "
+          f"fp32 CUDA cores {1e3 * 2.0 * macs / FP32_OPS_PER_S:.4f} ms), "
+          f"{2.0 * macs / 1e9:.3f} GFLOP", flush=True)
+    return err, ms, plain_ms, library_ms, b_ms, b_by
+
+
+def mg_learned_ops(shapes, cut, pre=4, post=4):
+    """Operations of one learned V-cycle, per cell of each level it
+    touches (mg_ops' counts): the levels above the cut as in a V-cycle,
+    the cut level's projection and post-sweeps; 3 per fine cell the
+    gauge. The coarse net's own are B's."""
+    n = [h * w for h, w in shapes[:cut + 1]]
+    per = sum(c * ((pre + post) * 13 + 12 + 3 + 4 + 10) + 2 * 14 * nc
+              for c, nc in zip(n[:-1], n[1:]))
+    return per + n[-1] * (3 + post * 13) + 3 * n[0]
+
+
+def learned_inputs(dev):
+    """The 512^2 plume scene's flags with 8% random obstacles, the
+    divergence of a U of up to 5 cells a step (as stress_inputs) and a
+    warm start."""
+    from fluidnet_cxx_tpu_torch.celltype import OBSTACLE
+    from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
+    from fluidnet_cxx_tpu_torch.sim.scenes import create_plume_scene
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    flags = create_plume_scene(RES, RES, 0.1, 8.0, 0.145).flags.clone()
+    inner = torch.zeros_like(flags, dtype=torch.bool)
+    inner[:, 1:-1, 1:-1] = True
+    flags[inner & (torch.rand(flags.shape, generator=gen) < 0.08)] = OBSTACLE
+    U = 100.0 * (torch.rand((1, 2, RES, RES), generator=gen) - 0.5)
+    p0 = torch.randn((1, RES, RES), generator=gen)
+    flags, U = flags.to(dev), U.to(dev)
+    return flags, velocity_divergence(U, flags), p0.to(dev)
+
+
+def phase_mg_learned(dev, results):
+    """Kernel G's learned-cut route (fn_mg_learned_down, B's MGCoarseNet,
+    fn_mg_learned_up) at 512^2 with the trained MGCoarse_128 against the
+    plain solve_mg(coarse_fn=...) with the net's plain forward, within
+    1.4e-5 of the largest output, one V-cycle cold (the main path) and two
+    warm, bit-equal on a repeat; the planner against fn_mg_cut_level; the
+    refusal of a cut inside the tail; device time split by launch kind;
+    B on MGCoarseNet's 128^2 input beside cuDNN."""
+    from fluidnet_cxx_tpu_torch.models.mg_coarse import _cont, make_coarse_fn
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build, mg, punet
+    from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
+    from fluidnet_cxx_tpu_torch.ops.multigrid import solve_mg as mg_plain
+    from fluidnet_cxx_tpu_torch.run_plume import MG_COARSE_DIR, build_mg_coarse
+
+    done = phase("kernel G's learned cut (G halves + B)")
+    for h, w in ((RES, RES), (RT_H, RT_W), (CYL_H, CYL_W), (64, 64),
+                 (128, 128), (256, 256), (1024, 1024), (96, 160), (32, 32),
+                 (2048, 256)):
+        want = _build.query("fn_mg_cut_level", h, w, 8)
+        got = mg.tail_first_level(level_shapes(h, w))
+        if got != want:
+            raise SystemExit(f"plan_learned_cut's tail rule gives {got} at "
+                             f"{h}x{w}, fn_mg_cut_level {want}")
+    print("the planner's tail rule equals fn_mg_cut_level on 10 shapes",
+          flush=True)
+    model = build_mg_coarse(None, dev)
+    print(f"G learned: trained weights, {MG_COARSE_DIR.name}", flush=True)
+    coarse_fn = make_coarse_fn(model)
+    plain_fn = lambda f, r: model(f, r)
+    small = torch.ones((1, 64, 64), dtype=torch.int32, device=dev)
+    try:
+        mg.solve_mg(small, torch.zeros((1, 64, 64), device=dev),
+                    n_vcycles=1, coarse_fn=coarse_fn, coarse_size=32)
+    except ValueError as e:
+        print(f"a cut inside the tail raises: {e}", flush=True)
+    else:
+        raise SystemExit("a learned cut inside the tail did not raise")
+    flags, div, p0 = learned_inputs(dev)
+    cut = mg.plan_learned_cut(RES, RES)
+    shapes = level_shapes(RES, RES)
+    print(f"G learned at {RES}^2: cut at level {cut} {shapes[cut]}, the "
+          f"tail's first level {mg.tail_first_level(shapes)}", flush=True)
+    # The RT box's cut (128x32) is the tail's first level: no tail launch.
+    rt = solver_inputs(dev)["RT"]
+    cases = {"1 V-cycle cold": (flags, div, dict(n_vcycles=1)),
+             "2 V-cycles warm": (flags, div, dict(n_vcycles=2, p0=p0)),
+             f"{RT_H}x{RT_W} cold": (rt[0], rt[2], dict(n_vcycles=1))}
+    errs = {}
+    with torch.no_grad():
+        for name, (f, d, kw) in cases.items():
+            run = lambda f=f, d=d, kw=kw: mg.solve_mg(
+                f, d, coarse_fn=coarse_fn, **kw)
+            got = run()
+            torch.cuda.synchronize()
+            want = mg_plain(f, d, coarse_fn=plain_fn, **kw)
+            errs[name] = max_err([got], [want])
+            check(f"G learned {name}", errs[name],
+                  1.4e-5 * float(want.abs().max()))
+            check(f"G learned {name} (repeat)", max_err([run()], [got]), 0.0)
+        run = lambda: mg.solve_mg(flags, div, n_vcycles=1,
+                                  coarse_fn=coarse_fn)
+        launches = launches_of(mg.solve_mg_learned, run)
+        b_calls = launches_of(punet.conv2d_nhwc, run)
+        ms, eager_ms = device_and_eager(run)
+        plain_ms = cuda_ms(lambda: mg_plain(flags, div, n_vcycles=1,
+                                            coarse_fn=plain_fn), 5)
+        split = device_split(run)
+    groups = {"G halves": ("mg_",), "B convs": ("conv",)}
+    parts = {g: [0.0, 0.0] for g in list(groups) + ["glue"]}
+    for key, (t, n) in split.items():
+        g = next((g for g, ks in groups.items()
+                  if any(k in key for k in ks)), "glue")
+        parts[g][0] += t
+        parts[g][1] += n
+    print("G learned split: " + ", ".join(
+        f"{g} {t:.4f} ms ({n:g} launches)" for g, (t, n) in parts.items()),
+        flush=True)
+    for key, (t, n) in sorted(split.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {t:9.4f} ms {n:5.1f} launches  {key[:70]}", flush=True)
+    n = RES * RES
+    macs = punet_macs(model.punet, *shapes[cut])
+    # The net's multiply-adds at B's 3xTF32 rate, counted as operations at
+    # the fp32 rate of the levels' stencils.
+    b_ms, b_by = bound(12 * n, mg_learned_ops(shapes, cut)
+                       + 2.0 * macs * FP32_OPS_PER_S / TF32X3_OPS_PER_S)
+    results["G learned"] = dict(err=max(errs.values()), ms=ms,
+                                plain_ms=plain_ms, bound_ms=b_ms,
+                                bound_by=b_by, library_ms=None)
+    print(f"G learned ({RES}^2, 1 V-cycle cold): kernel {ms:.4f} ms device "
+          f"(eager {eager_ms:.4f}), {launches} G launches and {b_calls} B "
+          f"convs a call, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    hc, wc = shapes[cut]
+    rhs = torch.randn((1, hc, wc), generator=gen)
+    fc = torch.where(torch.rand((1, hc, wc), generator=gen) < 0.08, 2,
+                     1).to(torch.int32)
+    fc[:, [0, -1], :] = 2
+    fc[:, :, [0, -1]] = 2
+    cont = _cont(fc)
+    x = torch.stack([rhs * cont, cont], dim=-1).to(dev)
+    err, ms, plain_ms, lib_ms, b_ms, b_by = check_b_forward(
+        f"MGCoarse_128 at {hc}x{wc}", model.punet, x)
+    results["B mg_coarse"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  library_ms=lib_ms)
+    done()
+
+
+def phase_cylinder_kernels(dev, results):
+    """Kernel H at 8000x800 on the cylinder's flags (2 V-cycles, cold and
+    warm, as cylinder_config's multigrid runs them) against its plain
+    version, within 1e-4 of each output's largest value and bit-equal on a
+    repeat, after fn_mg_workspace and fn_mg_cut_level there; kernel C at
+    8000x800 as the unfused convnet step calls it (PUNetD2_128's 32
+    damped polish sweeps from a warm start, a scale, no inlet) bit for bit
+    against its plain version and on a repeat; kernel B on the 1000x100
+    map of PUNetD2_128's forward at 8000x800."""
+    from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build, mg, proj_tail
+    from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
+    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_punet
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    cflags, cU, _ = cylinder_inputs(gen, dev)
+    p0 = torch.randn((1, CYL_H, CYL_W), generator=gen).to(dev)
+    done = phase(f"kernel H at {CYL_W}x{CYL_H}")
+    shapes = level_shapes(CYL_H, CYL_W)
+    cut = _build.query("fn_mg_cut_level", CYL_H, CYL_W, 8)
+    nbytes = _build.query("fn_mg_workspace", 1, CYL_H, CYL_W, 8, 4, 4, 32, 1)
+    print(f"H {CYL_W}x{CYL_H}: levels {shapes}; the tail runs {shapes[cut:]}"
+          f"; workspace {nbytes} bytes", flush=True)
+    if cut >= len(shapes) or nbytes <= 0:
+        raise SystemExit(f"H at {CYL_W}x{CYL_H}: no tail or no workspace")
+    errs = {}
+    for name, kw in (("cold", dict(n_vcycles=2)),
+                     ("warm", dict(n_vcycles=2, p0=p0))):
+        run = lambda kw=kw: list(mg.project_mg(cflags, cU, **kw))
+        got = run()
+        torch.cuda.synchronize()
+        want = list(mg.project_mg_plain(cflags, cU, **kw))
+        for i, field in enumerate(("p", "U'")):
+            check(f"H {CYL_W}x{CYL_H} {name} {field}",
+                  max_err(got[i:i + 1], want[i:i + 1]),
+                  1e-4 * scale_of(want[i:i + 1]))
+        errs[name] = max_err(got, want)
+        check(f"H {CYL_W}x{CYL_H} {name} (repeat)", max_err(run(), got), 0.0)
+    run = lambda: mg.project_mg(cflags, cU, n_vcycles=2, p0=p0)
+    ms, eager_ms = device_and_eager(run)
+    launches = launches_of(mg.project_mg, run)
+    plain_ms = cuda_ms(lambda: mg.project_mg_plain(cflags, cU, n_vcycles=2,
+                                                   p0=p0), 3, warmup=1)
+    nc = CYL_W * CYL_H
+    b_ms, b_by = bound(28 * nc, mg_ops(shapes, 2) + 12 * nc)
+    results["H cylinder"] = dict(err=max(errs.values()), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None)
+    print(f"H {CYL_W}x{CYL_H} warm: kernel {ms:.4f} ms device (eager "
+          f"{eager_ms:.4f}), {launches} launches, plain {plain_ms:.3f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print_split(f"H {CYL_W}x{CYL_H} warm", device_split(run))
+    done()
+
+    done = phase(f"kernel C at {CYL_W}x{CYL_H}")
+    mcfg = load_model_config(str(MODEL_DIR))
+    it = mcfg.polish_sweeps
+    kw = dict(damping=mcfg.polish_damping,
+              scale=torch.tensor([0.37], device=dev))
+    run = lambda: list(proj_tail.project_tail(cflags, cU, p0, it, **kw))
+    plain = lambda: list(proj_tail.project_tail_plain(cflags, cU, p0, it,
+                                                      **kw))
+    got = run()
+    torch.cuda.synchronize()
+    err = max_err(got, plain())
+    check(f"C {CYL_W}x{CYL_H} ({it} sweeps, scale, no inlet)", err, 0.0)
+    check(f"C {CYL_W}x{CYL_H} (repeat)", max_err(run(), got), 0.0)
+    ms, eager_ms = device_and_eager(run)
+    launches = launches_of(proj_tail.project_tail, run)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    # flags, U and p0 read, p and U' written: 28 B a cell without inlet.
+    b_ms, b_by = bound(28 * nc, (it * 10 + 30) * nc)
+    results["C cylinder"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None)
+    print(f"C {CYL_W}x{CYL_H}, {it} sweeps: kernel {ms:.4f} ms device "
+          f"(eager {eager_ms:.4f}), {launches} launches, plain "
+          f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    print_tail_split(device_split(run))
+    done()
+
+    done = phase(f"kernel B on the {CYL_W // 8}x{CYL_H // 8} map")
+    net = build_punet(mcfg, None, dev)
+    x = torch.stack([torch.randn((1, CYL_H, CYL_W), generator=gen),
+                     (torch.rand((1, CYL_H, CYL_W), generator=gen)
+                      < 0.1).float()], dim=-1).to(dev)
+    err, ms, plain_ms, lib_ms, b_ms, b_by = check_b_forward(
+        f"PUNetD2_128 at {CYL_W}x{CYL_H}", net, x,
+        torch.tensor([3.0], device=dev))
+    results["B cylinder"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=lib_ms)
     done()
 
 
@@ -1696,7 +2022,7 @@ def punet3_table(net, packed, x, label, geometry):
                "rate)", rows)
 
 
-def phase_small_check():
+def phase_small_check(keep=lambda name: True):
     """3 steps of small scenes: kernels on the card vs plain on the CPU,
     each field within 1e-4 of its largest value; the learned 3-D
     projection within 1e-3, since its bfloat16 activations round a sum
@@ -1720,6 +2046,14 @@ def phase_small_check():
             32, 64, 3, device=d, sim_method="multigrid"),
         "64x256 cylinder jacobi-34": lambda d: run_cylinder(
             256, 64, 3, device=d, radius=8.0, center_x=40.0),
+        "64x256 cylinder multigrid": lambda d: run_cylinder(
+            256, 64, 3, device=d, radius=8.0, center_x=40.0,
+            sim_method="multigrid"),
+        "64x256 cylinder convnet": lambda d: run_cylinder(
+            256, 64, 3, device=d, radius=8.0, center_x=40.0,
+            sim_method="convnet"),
+        "256^2 plume mg_learned": lambda d: run_plume(
+            256, 3, device=d, sim_method="mg_learned"),
         "32^3 plume3d fused trace jacobi-60": lambda d: run_plume3d(
             32, 3, device=d, fuse_advection=True, line_trace=True),
         "32^3 plume3d unfused jacobi-60": lambda d: run_plume3d(
@@ -1732,6 +2066,8 @@ def phase_small_check():
             32, 3, device=d, sim_method="convnet", model_dir=MODEL_P4),
     }
     for name, run in cases.items():
+        if not keep(name):
+            continue
         done = phase(f"small-input check ({name}, 3 steps, card vs CPU)")
         gpu, cpu = run("cuda")["state"], run("cpu")["state"]
         rel = 1e-3 if "convnet" in name and "3d" in name else 1e-4
@@ -1763,6 +2099,12 @@ def main_paths():
         return (lambda n: run_plume3d(RES3, n, "cuda", **kw),
                 lambda: plume3d_case(RES3, "cuda", **kw) + (None,))
 
+    def cylinder(method):
+        return (lambda n: run_cylinder(CYL_W, CYL_H, n, "cuda",
+                                       sim_method=method),
+                lambda: cylinder_case(CYL_W, CYL_H, "cuda",
+                                      sim_method=method))
+
     def learned3d(model_dir):
         return (lambda n: run_plume3d(RES3, n, "cuda", sim_method="convnet",
                                       model_dir=model_dir),
@@ -1776,9 +2118,7 @@ def main_paths():
                                       mg_vcycles=2) + ("AH",),
         f"RT {RT_W}x{RT_H} jacobi-200": rt("jacobi") + ("AF",),
         f"RT {RT_W}x{RT_H} multigrid": rt("multigrid") + ("AG",),
-        f"cylinder {CYL_W}x{CYL_H} jacobi-34": (
-            lambda n: run_cylinder(CYL_W, CYL_H, n, "cuda"),
-            lambda: cylinder_case(CYL_W, CYL_H, "cuda") + (None,), "EF"),
+        f"cylinder {CYL_W}x{CYL_H} jacobi-34": cylinder("jacobi") + ("EF",),
         f"plume {RES}^2 unfused jacobi-200": plume(
             sim_method="jacobi", jacobi_iter=200,
             fuse_advection=False) + ("DEF",),
@@ -1789,10 +2129,25 @@ def main_paths():
             fuse_advection=True, line_trace=True) + ("LI",),
         f"plume3d {RES3}^3 convnet p8": learned3d(MODEL_P8) + ("KMJN",),
         f"plume3d {RES3}^3 convnet p4": learned3d(MODEL_P4) + ("KMJN",),
+        f"plume {RES}^2 mg_learned": plume(sim_method="mg_learned") + (
+            ("A", "B", LEARNED_G),),
+        f"cylinder {CYL_W}x{CYL_H} multigrid": cylinder("multigrid") + (
+            "EH",),
+        f"cylinder {CYL_W}x{CYL_H} convnet": cylinder("convnet") + ("EBC",),
     }
 
 
-# Launches per step that a main path must show exactly: N's 9 convs; J's
+# The counter key of kernel G's learned-cut route (a separate wrapper,
+# ops/kernels/mg.py::solve_mg_learned).
+LEARNED_G = "Gl"
+
+# Launches per step that a main path must show exactly: the learned
+# V-cycle's 9 (fn_mg_learned_down: 2 set-up, a down launch for each of the
+# two levels above the 128^2 cut, the cut's flags and RHS;
+# fn_mg_learned_up: the cut's post-sweeps, two up launches, the gauge)
+# and MGCoarseNet's 10 convs; H's 25 at 8000x800 (2 set-up, a down and an
+# up launch for each of the 5 levels above the 250x25 tail and the tail,
+# for 2 V-cycles, and the epilogue); PUNetD2_128's 14 convs; N's 9 convs; J's
 # prologue, epilogue and one z-march per 3 polish sweeps (16 for p8: 6
 # marches, 8 for p4: 3); H's and G's two set-up launches, 7 (512^2: three
 # levels down, the single-block tail, three up) or 5 (512x128) a V-cycle,
@@ -1808,23 +2163,35 @@ EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 8, "N": 9},
                   f"RT {RT_W}x{RT_H} multigrid": {"G": 13},
                   f"cylinder {CYL_W}x{CYL_H} jacobi-34": {"E": 1, "F": 6},
                   f"plume {RES}^2 unfused jacobi-200": {"D": 2, "E": 1,
-                                                        "F": 26}}
+                                                        "F": 26},
+                  f"plume {RES}^2 mg_learned": {"A": 2, "B": 10,
+                                                LEARNED_G: 9},
+                  f"cylinder {CYL_W}x{CYL_H} multigrid": {"E": 1, "H": 25},
+                  f"cylinder {CYL_W}x{CYL_H} convnet": {"B": 14, "C": 6,
+                                                        "E": 1}}
 # C entry calls (ctypes calls) per step that a main path must show
 # exactly: C's and F's whole solve from one call each.
 EXACT_CALLS = {f"plume {RES}^2 convnet": {"fn_tail": 1},
                f"plume {RES}^2 jacobi-200": {"fn_jacobi_solve": 1},
                f"RT {RT_W}x{RT_H} jacobi-200": {"fn_jacobi_solve": 1},
                f"cylinder {CYL_W}x{CYL_H} jacobi-34": {"fn_jacobi_solve": 1},
-               f"plume {RES}^2 unfused jacobi-200": {"fn_jacobi_solve": 1}}
+               f"plume {RES}^2 unfused jacobi-200": {"fn_jacobi_solve": 1},
+               f"plume {RES}^2 mg_learned": {"fn_mg_learned_down": 1,
+                                             "fn_mg_learned_up": 1},
+               f"cylinder {CYL_W}x{CYL_H} multigrid": {"fn_mg_project": 1},
+               f"cylinder {CYL_W}x{CYL_H} convnet": {"fn_tail": 1}}
 
 
-def phase_main_paths(counters):
-    """Drive every main path with the counters set to 0 just before and
-    read just after; returns {path: {kernel: launches}}."""
+def phase_main_paths(counters, names=None):
+    """Drive every main path (or those of ``names``) with the counters set
+    to 0 just before and read just after; returns {path: {kernel:
+    launches}}."""
     from fluidnet_cxx_tpu_torch.ops.kernels import _build
 
     seen = {}
     for name, (run, _, kernels) in main_paths().items():
+        if names is not None and name not in names:
+            continue
         done = phase(f"main path ({name}, {STEPS} steps)")
         for fn in counters.values():
             fn.launches = 0
@@ -2120,6 +2487,38 @@ def adv_only(dev):
         phase_profile(name, case)
 
 
+def launch_counters():
+    """{key: wrapper} of every kernel's launch counter."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, advect3, jacobi,
+                                                    jacobi3, mg, proj_tail,
+                                                    proj_tail3, punet, punet3)
+    return {"A": advect.advect_all, "B": punet.conv2d_nhwc,
+            "C": proj_tail.project_tail, "D": advect.advect_scalar,
+            "E": advect.advect_velocity, "F": jacobi.solve_jacobi,
+            "G": mg.solve_mg, "H": mg.project_mg,
+            "I": jacobi3.solve_jacobi3, "J": proj_tail3.project_tail3,
+            "K": advect3.advect_scalar3, "L": advect3.advect_all3,
+            "M": advect3.advect_velocity3, "N": punet3.conv3d_ndhwc,
+            LEARNED_G: mg.solve_mg_learned}
+
+
+def learned_only(dev):
+    """`python3 chip_smoke.py --learned-only`: this slice's phases alone
+    (G's learned cut, H and C at 8000x800, B on the 1000x100 map), its
+    small checks and its three main paths with their counters and
+    profiles."""
+    results = {}
+    phase_mg_learned(dev, results)
+    phase_cylinder_kernels(dev, results)
+    phase_small_check(lambda name: "mg_learned" in name or (
+        "cylinder" in name and "jacobi" not in name))
+    new = [name for name in main_paths()
+           if "mg_learned" in name or "cylinder" in name]
+    phase_main_paths(launch_counters(), new)
+    for name in new:
+        phase_profile(name, main_paths()[name][1])
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2172,24 +2571,20 @@ def main():
     if sys.argv[1:] == ["--tail-only"]:
         tail_only(dev)
         return
+    if sys.argv[1:] == ["--learned-only"]:
+        learned_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
     phase_mg(dev, results)
+    phase_mg_learned(dev, results)
+    phase_cylinder_kernels(dev, results)
     phase_kernels3d(dev, results)
     phase_learned3d(dev, results)
     phase_small_check()
 
-    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, advect3, jacobi,
-                                                    jacobi3, mg, proj_tail,
-                                                    proj_tail3, punet, punet3)
-    counters = {"A": advect.advect_all, "B": punet.conv2d_nhwc,
-                "C": proj_tail.project_tail, "D": advect.advect_scalar,
-                "E": advect.advect_velocity, "F": jacobi.solve_jacobi,
-                "G": mg.solve_mg, "H": mg.project_mg,
-                "I": jacobi3.solve_jacobi3, "J": proj_tail3.project_tail3,
-                "K": advect3.advect_scalar3, "L": advect3.advect_all3,
-                "M": advect3.advect_velocity3, "N": punet3.conv3d_ndhwc}
+    counters = launch_counters()
     seen = phase_main_paths(counters)
     paths = main_paths()
     for name, (_, case, _) in paths.items():
@@ -2229,12 +2624,27 @@ def main():
         "N": ("punet3_conv3d", "fluidnet_cxx_tpu_torch/csrc/conv3d.cu",
               "fluidnet_cxx_tpu/ops/pallas/punet3_pallas.py:358"),
     }
+    # Rows of this slice's shapes: (result, name, the kernel's row, its
+    # counter, the main path that gives the launches).
+    extra = [("G learned", "solve_mg_learned", "G", LEARNED_G,
+              f"plume {RES}^2 mg_learned"),
+             ("B mg_coarse", "punet_conv2d_mg_coarse_128", "B", "B",
+              f"plume {RES}^2 mg_learned"),
+             ("B cylinder", "punet_conv2d_1000x100", "B", "B",
+              f"cylinder {CYL_W}x{CYL_H} convnet"),
+             ("H cylinder", "project_mg_8000x800", "H", "H",
+              f"cylinder {CYL_W}x{CYL_H} multigrid"),
+             ("C cylinder", "project_tail_8000x800", "C", "C",
+              f"cylinder {CYL_W}x{CYL_H} convnet")]
+    rows = [(k, *meta[k], k, path_of[k]) for k in meta]
+    rows += [(r, name, *meta[k][1:], c, path)
+             for r, name, k, c, path in extra]
     kernels = []
-    for k, (name, source, replaces) in meta.items():
-        r = results[k]
+    for key, name, source, replaces, counter, path in rows:
+        r = results[key]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": seen[path_of[k]][k],
+                        "launches": seen[path][counter],
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

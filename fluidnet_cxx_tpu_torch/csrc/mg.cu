@@ -48,6 +48,16 @@
 // adds in one fixed order, so a repeat gives the same bits. At 512^2 one
 // V-cycle is 7 launches (2 V-cycles and the set-up: 17).
 //
+// The learned coarse solve (models/mg_coarse.py; JAX's mg_learned, which
+// reaches no Pallas kernel) splits a V-cycle at a level `cut` above the
+// tail's first level or at it, into two C calls that share one workspace:
+// fn_mg_learned_down (set-up, the pre-sweeps and down launches of the
+// levels above the cut, and one launch that writes the cut level's flags
+// and its compatibility-projected RHS into the caller's tensors) and, once
+// the caller's network has turned those into a correction e,
+// fn_mg_learned_up (the post-sweeps at the cut level from e on that same
+// RHS, the up launches, the gauge). A cut inside the tail is refused.
+//
 // The per-cell operators keep the plain version's float32 order (built
 // with -fmad=false): the sweep is common.cuh::jacobi_cell/jacobi_update,
 // the residual, _fold_border, the child sum (a + b) + (c + d),
@@ -328,6 +338,26 @@ __global__ void __launch_bounds__(256)
     a = (p_all ? p_all[j] : 0.f) * c;
   }
   store_partial(a, c, parts_all, slots);
+}
+
+// The learned cut's inputs: level j's flags and its RHS less the level's
+// mean over continuation cells (its per-block partials), times cont.
+__global__ void __launch_bounds__(256)
+    mg_cut_out(const int* __restrict__ flags_all,
+               const float* __restrict__ rhs_all,
+               const uint8_t* __restrict__ mask_all,
+               const float* __restrict__ parts_all, int nparts,
+               int* __restrict__ flags_out, float* __restrict__ rhs_out,
+               int h, int w) {
+  __shared__ float2 slots[8];
+  const float mean =
+      partials_mean(parts_all + 2 * blockIdx.z * nparts, nparts, slots);
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t j = blockIdx.z * (size_t)h * w + y * w + x;
+  flags_out[j] = flags_all[j];
+  rhs_out[j] = (rhs_all[j] - mean) * cont_f(mask_all[j]);
 }
 
 // ---- the per-level launches ----
@@ -1259,10 +1289,10 @@ class Solve {
   // Set-up, the V-cycles, the gauge; G's output in out, H's in out and
   // U_out.
   void run(float* out, float* U_out) {
-    setup();
+    setup(true);
     const float* p = p0_;
     for (int v = 0; v < P_.n_vcycles; ++v)
-      p = vcycle(0, p, v + 1 == P_.n_vcycles);
+      p = vcycle(p, v + 1 == P_.n_vcycles);
     if (P_.n_vcycles == 0) {
       dim3 block(32, 8);
       dim3 grid = grid2d(P_.b, P_.h, P_.w, block);
@@ -1272,6 +1302,54 @@ class Solve {
                                             P_.h, P_.w);
       note();
     }
+    epilogue(p, out, U_out);
+  }
+
+  // A learned cut at level `cut` is taken if it lies above the tail or at
+  // its first level.
+  bool learned_ok(int cut) const { return cut >= 1 && cut <= cut_ &&
+                                          cut < L_.n; }
+
+  // The learned V-cycle's first C call: the set-up (if asked), the
+  // levels above the cut from src (null: zeros), then the cut level's
+  // flags and projected RHS into flags_c and rhs_c.
+  void learned_down(const float* src, int cut, bool with_setup,
+                    int* flags_c, float* rhs_c) {
+    setup(with_setup);
+    const float* q = src;
+    for (int j = 0; j < cut; ++j) {
+      pre_[j] = descend(j, q);
+      q = nullptr;
+    }
+    dim3 block(32, 8);
+    if (go())
+      mg_cut_out<<<grid2d(P_.b, L_.h[cut], L_.w[cut], block), block, 0,
+                   s_>>>(L_.flags[cut], rhs(cut), L_.mask[cut],
+                         f(W_.parts[cut]), nparts_[cut], flags_c, rhs_c,
+                         L_.h[cut], L_.w[cut]);
+    note();
+  }
+
+  // The second: `post` sweeps at the cut level from e on rhs_c (already
+  // projected), the levels above it, and, after the last V-cycle, the
+  // gauge into out; else level 0's p into out. Replays learned_down's
+  // bookkeeping first without launching.
+  void learned_up(int cut, const float* e, const float* rhs_c, float* out,
+                  bool last) {
+    quiet_ = true;
+    learned_down(nullptr, cut, false, nullptr, nullptr);
+    quiet_ = false;
+    const float* q = smooth(cut, e, P_.post, false, false, nullptr, rhs_c);
+    for (int j = cut - 1; j >= 0; --j)
+      q = ascend(j, pre_[j], q, last && j == 0,
+                 (!last && j == 0) ? out : nullptr);
+    if (last) epilogue(q, out, nullptr);
+  }
+
+ private:
+  float* f(size_t off) { return reinterpret_cast<float*>(work_ + off); }
+
+  void epilogue(const float* p, float* out, float* U_out) {
     dim3 block(32, 8);
     dim3 grid = grid2d(P_.b, P_.h, P_.w, block);
     if (go()) {
@@ -1286,23 +1364,26 @@ class Solve {
     note();
   }
 
- private:
-  float* f(size_t off) { return reinterpret_cast<float*>(work_ + off); }
-
-  // Counts a launch; true if it is to be issued.
+  // Counts a launch; true if it is to be issued. A quiet stretch only
+  // replays the bookkeeping (buffers, partial counts) of launches that
+  // another call issued.
   bool go() {
+    if (quiet_) return false;
     ++launches_;
     return issue_ && status_ == 0;
   }
   void note() {
-    if (issue_ && status_ == 0) status_ = launch_status();
+    if (!quiet_ && issue_ && status_ == 0) status_ = launch_status();
   }
 
   const float* rhs(int j) {
     return (j == 0 && !project_) ? rhs_in_ : f(W_.rhs[j]);
   }
 
-  void setup() {
+  // The set-up launches (launch false: only their bookkeeping).
+  void setup(bool launch) {
+    const bool was_quiet = quiet_;
+    quiet_ = quiet_ || !launch;
     dim3 block(kSetupTile, 512 / kSetupTile);
     dim3 grid(tiles(P_.w, kSetupTile), tiles(P_.h, kSetupTile), P_.b);
     nparts_[0] = grid.x * grid.y;
@@ -1327,6 +1408,7 @@ class Solve {
       if (go()) mg_masks<<<g2, b2, 0, s_>>>(L_);
       note();
     }
+    quiet_ = was_quiet;
   }
 
   LevelArgs level_args(int j, const float* p_in, float* p_out, int k,
@@ -1358,11 +1440,17 @@ class Solve {
   }
 
   // A smoothing launch (k sweeps), or the down launch with restrict.
+  // rhs_in: a RHS already projected in place of the level's own (its
+  // mean is then taken as 0).
   void down(int j, const float* p_in, float* p_out, int k, bool restrict_,
-            bool gauge) {
+            bool gauge, const float* rhs_in = nullptr) {
     const int halo = restrict_ ? ((k + kResidHalo + 1) & ~1) : k;
     const int t = tile_of(j);
     LevelArgs a = level_args(j, p_in, p_out, k, halo);
+    if (rhs_in) {
+      a.rhs = rhs_in;
+      a.nparts = 0;
+    }
     dim3 grid = level_grid(j, t, halo);
     if (restrict_) {
       a.rhs_c = f(W_.rhs[j + 1]);
@@ -1409,53 +1497,73 @@ class Solve {
     note();
   }
 
-  // One V-cycle of level j from src (null: zeros); returns the buffer
-  // that holds the level's result. `last`: the solve's last V-cycle (its
-  // final launch of level 0 writes the gauge's partials).
-  const float* vcycle(int j, const float* src, bool last) {
+  // The buffer of level j's pair that q is not.
+  float* other(int j, const float* q) {
     float* A = f(W_.pa[j]);
-    float* B = f(W_.pb[j]);
-    auto other = [A, B](const float* q) { return q == A ? B : A; };
-    const bool gauge = last && j == 0;
-    if (j == cut_) {
-      float* o = other(src);
-      tail(j, src, o, gauge);
-      return o;
-    }
-    const float* q = src;
-    if (j + 1 == L_.n) {  // the coarsest level, too large for the tail
-      int k = P_.coarse;
-      do {
-        const int kk = min(k, kMaxSweeps);
-        float* o = other(q);
-        down(j, q, o, kk, false, gauge && k == kk);
-        q = o;
-        k -= kk;
-      } while (k > 0);
-      return q;
-    }
-    int k = P_.pre;
-    for (; k > kMaxSweeps; k -= kMaxSweeps) {
-      float* o = other(q);
-      down(j, q, o, kMaxSweeps, false, false);
-      q = o;
-    }
-    float* o = other(q);
-    down(j, q, o, k, true, false);
-    q = o;
-    const float* e = vcycle(j + 1, nullptr, false);
-    const int kp = min(P_.post, kMaxSweeps);
-    o = other(q);
-    up(j, q, e, o, kp, gauge && kp == P_.post);
-    q = o;
-    for (k = P_.post - kp; k > 0;) {
+    return q == A ? f(W_.pb[j]) : A;
+  }
+
+  // k sweeps of level j from q in launches of up to kMaxSweeps sweeps
+  // (at least one launch if once), the last into final_out if given;
+  // `gauge`: the last launch writes the gauge's partials. Returns the
+  // buffer that holds the result.
+  const float* smooth(int j, const float* q, int k, bool gauge, bool once,
+                      float* final_out, const float* rhs_in = nullptr) {
+    while (k > 0 || once) {
       const int kk = min(k, kMaxSweeps);
-      o = other(q);
-      down(j, q, o, kk, false, gauge && k == kk);
+      float* o = (final_out && k == kk) ? final_out : other(j, q);
+      down(j, q, o, kk, false, gauge && k == kk, rhs_in);
       q = o;
       k -= kk;
+      once = false;
     }
     return q;
+  }
+
+  // Level j's pre-sweeps from src (null: zeros) and its down launch;
+  // returns the buffer with its pre-swept p.
+  const float* descend(int j, const float* src) {
+    const int k = P_.pre > kMaxSweeps
+                      ? (P_.pre - 1) % kMaxSweeps + 1 : P_.pre;
+    const float* q = smooth(j, src, P_.pre - k, false, false, nullptr);
+    float* o = other(j, q);
+    down(j, q, o, k, true, false);
+    return o;
+  }
+
+  // Level j's up launch onto its pre-swept p q from level j+1's
+  // correction e, and the rest of its post-sweeps.
+  const float* ascend(int j, const float* q, const float* e, bool gauge,
+                      float* final_out) {
+    const int kp = min(P_.post, kMaxSweeps);
+    float* o = (final_out && kp == P_.post) ? final_out : other(j, q);
+    up(j, q, e, o, kp, gauge && kp == P_.post);
+    return smooth(j, o, P_.post - kp, gauge, false, final_out);
+  }
+
+  // One V-cycle from src (null: zeros): down to the tail's first level or
+  // the coarsest, the tail or the coarsest level's sweeps, back up.
+  // Returns the buffer that holds level 0's result. `last`: the solve's
+  // last V-cycle (its final launch of level 0 writes the gauge's
+  // partials).
+  const float* vcycle(const float* src, bool last) {
+    int j = 0;
+    const float* q = src;
+    for (; j != cut_ && j + 1 < L_.n; ++j) {
+      pre_[j] = descend(j, q);
+      q = nullptr;
+    }
+    const bool gauge = last && j == 0;
+    const float* e;
+    if (j == cut_) {
+      float* o = other(j, q);
+      tail(j, q, o, gauge);
+      e = o;
+    } else {
+      e = smooth(j, q, P_.coarse, gauge, true, nullptr);
+    }
+    while (j-- > 0) e = ascend(j, pre_[j], e, last && j == 0, nullptr);
+    return e;
   }
 
   Problem P_;
@@ -1475,6 +1583,8 @@ class Solve {
   int gauge_nparts_ = 0;
   int launches_ = 0;
   int status_ = 0;
+  bool quiet_ = false;
+  const float* pre_[kMaxLevels] = {};
 };
 
 int clamp_int(size_t v) { return v > (size_t)INT_MAX ? -1 : (int)v; }
@@ -1546,5 +1656,67 @@ extern "C" int fn_mg_project(const int* flags, const float* U,
           (cudaStream_t)stream, true);
   if (!S.ok() || !work) return static_cast<int>(cudaErrorInvalidValue);
   S.run(p_out, U_out);
+  return S.status();
+}
+
+// Kernel launches of one half of a learned V-cycle cut at level `cut`
+// (half 0: fn_mg_learned_down, flag its with_setup; half 1:
+// fn_mg_learned_up, flag its last); -1 for arguments or a cut the split
+// refuses (a cut inside the tail, or at the finest level). Launches
+// nothing.
+extern "C" int fn_mg_learned_launches(int b, int h, int w, int min_size,
+                                      int cut, int pre, int post, int coarse,
+                                      int half, int flag) {
+  Problem P{b, h, w, min_size, 1, pre, post, coarse, 0, 0.f, 0.f};
+  Solve S(P, false, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+          false);
+  if (!S.ok() || !S.learned_ok(cut)) return -1;
+  if (half == 0)
+    S.learned_down(nullptr, cut, flag != 0, nullptr, nullptr);
+  else
+    S.learned_up(cut, nullptr, nullptr, nullptr, flag != 0);
+  return S.launches();
+}
+
+// Kernel G's learned V-cycle, first half: the set-up (with_setup: the
+// first V-cycle of a solve), the pre-sweeps and down launches of levels
+// 0 .. cut-1 from p_in (null: zeros), then level cut's flags into flags_c
+// and its compatibility-projected RHS into rhs_c (b, h_cut, w_cut). `work`
+// holds fn_mg_workspace(..., 0) bytes and is handed unchanged to
+// fn_mg_learned_up.
+extern "C" int fn_mg_learned_down(const int* flags, const float* div,
+                                  const float* p_in, int* flags_c,
+                                  float* rhs_c, void* work, int b, int h,
+                                  int w, int min_size, int cut,
+                                  int with_setup, int pre, int post,
+                                  int coarse, int damped, float keep,
+                                  float damping, void* stream) {
+  Problem P{b, h, w, min_size, 1, pre, post, coarse, damped, keep, damping};
+  Solve S(P, false, static_cast<char*>(work), flags, div, nullptr, nullptr,
+          (cudaStream_t)stream, true);
+  if (!S.ok() || !S.learned_ok(cut) || !work || !flags_c || !rhs_c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  S.learned_down(p_in, cut, with_setup != 0, flags_c, rhs_c);
+  return S.status();
+}
+
+// Second half: `post` damped sweeps of level cut from the correction e on
+// rhs_c (fn_mg_learned_down's output), the up launches of levels cut-1 ..
+// 0 and their post-sweeps (level 0's on div, the RHS the first half got),
+// then (last) the zero-mean gauge into out, or (not last) level 0's p into
+// out for the next V-cycle's p_in.
+extern "C" int fn_mg_learned_up(const int* flags, const float* div,
+                                const float* e, const float* rhs_c,
+                                float* out, void* work, int b, int h, int w,
+                                int min_size, int cut, int last, int pre,
+                                int post, int coarse, int damped, float keep,
+                                float damping, void* stream) {
+  Problem P{b, h, w, min_size, 1, pre, post, coarse, damped, keep, damping};
+  Solve S(P, false, static_cast<char*>(work), flags, div, nullptr, nullptr,
+          (cudaStream_t)stream, true);
+  if (!S.ok() || !S.learned_ok(cut) || !work || !div || !e || !rhs_c ||
+      !out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  S.learned_up(cut, e, rhs_c, out, last != 0);
   return S.status();
 }

@@ -1,7 +1,7 @@
 """Flax PUNet and PUNet3 parameters -> the port's ``state_dict``s.
 
-Input: the flax ``PUNet_0`` (or ``PUNet3_0``) param subtree as numpy
-arrays, ``{"embed": {"kernel": (k, k, c_in, c_out), "bias": (c_out,)},
+Input: the flax ``PUNet_0`` (or ``PUNet3_0``, or ``MGCoarseNet``'s
+``punet``) param subtree as numpy arrays, ``{"embed": {"kernel": (k, k, c_in, c_out), "bias": (c_out,)},
 ...}`` (3-D kernels are (k, k, k, c_in, c_out)), from an orbax checkpoint
 read where JAX is installed, or from ``random_flax_params``/
 ``random_flax_params3``. Three layout traps, each handled once:
@@ -49,6 +49,14 @@ def flax_to_state_dict(params):
     """Flax PUNet param tree (numpy) -> {``convs.<name>.weight``: OIHW,
     ``convs.<name>.bias``} float32 tensors."""
     return _to_state_dict(params, (3, 2, 0, 1))
+
+
+def flax_mg_coarse_to_state_dict(params):
+    """Flax ``MGCoarseNet`` param tree (numpy; its PUNet under ``punet``,
+    the flax submodule's name) -> the port's ``MGCoarseNet`` state_dict,
+    ``punet.convs.<name>.weight`` (OIHW) and ``.bias``."""
+    return {f"punet.{k}": v
+            for k, v in flax_to_state_dict(params["punet"]).items()}
 
 
 def flax_to_state_dict3(params):

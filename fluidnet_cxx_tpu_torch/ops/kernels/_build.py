@@ -10,8 +10,9 @@ hash of the sources and flags changes.
 
 Every ``extern "C"`` entry launches its kernel (``fn_jacobi_solve``,
 ``fn_tail``, ``fn_jacobi3_solve``, ``fn_tail3``, ``fn_mg_solve`` and
-``fn_mg_project``: the launches of a whole solve) on the stream it is
-given,
+``fn_mg_project``: the launches of a whole solve; ``fn_mg_learned_down``
+and ``fn_mg_learned_up``: the two halves of a learned V-cycle) on the
+stream it is given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
 ``QUERIES`` launch nothing: they answer a question of the kernels' own
@@ -61,6 +62,8 @@ SIGNATURES = {
     "fn_jacobi_solve": [VP] * 6 + [I] * 5 + [F, F, VP],
     "fn_mg_solve": [VP] * 5 + [I] * 9 + [F, F, VP],
     "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
+    "fn_mg_learned_down": [VP] * 6 + [I] * 10 + [F, F, VP],
+    "fn_mg_learned_up": [VP] * 6 + [I] * 10 + [F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
     "fn_conv3d_ndhwc": [VP] * 6 + [I] * 19 + [VP, VP],
@@ -77,6 +80,7 @@ QUERIES = {
     "fn_mg_workspace": [I] * 8,
     "fn_mg_launches": [I] * 9,
     "fn_mg_cut_level": [I] * 3,
+    "fn_mg_learned_launches": [I] * 10,
     "fn_advect_max_disp": [],
     "fn_advect_tile_smem": [I] * 3,
     "fn_advect3_velocity_max_disp": [],

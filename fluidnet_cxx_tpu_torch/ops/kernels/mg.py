@@ -13,19 +13,72 @@ answers how many launches the call makes. No launch waits on another
 block; grid-wide means are per-block partial sums that the next launch
 adds up in a fixed order.
 
-Plain versions: ``ops/multigrid.py::solve_mg`` (G) and
-``project_mg_plain`` (H: velocity_divergence -> solve_mg ->
-velocity_update -> set_wall_bcs). A CPU tensor runs them, a CUDA tensor
-the kernels.
+G with a learned coarse solve (``solve_mg(coarse_fn=...)``, JAX's
+``mg_learned``) splits each V-cycle at the cut level into two C calls on
+one workspace, ``fn_mg_learned_down`` and ``fn_mg_learned_up``, with
+``coarse_fn`` (kernel B's PUNet and torch glue, models/mg_coarse.py)
+between them (``solve_mg_learned``, its own launch counter).
+``plan_learned_cut`` decides on the host, with no card, where the cut
+falls against the single-block tail: a cut inside the tail raises.
+
+Plain versions: ``ops/multigrid.py::solve_mg`` (G, with or without
+``coarse_fn``) and ``project_mg_plain`` (H: velocity_divergence ->
+solve_mg -> velocity_update -> set_wall_bcs). A CPU tensor runs them, a
+CUDA tensor the kernels.
 """
 import functools
 
 import torch
 
+from ..multigrid import cut_level, level_shapes
 from ..multigrid import solve_mg as solve_mg_plain
 from ..stencils import set_wall_bcs, velocity_divergence, velocity_update
 from . import _build
 from .jacobi import sweep_args
+
+# csrc/mg.cu::kTailBudget: the dynamic shared memory the single-block tail
+# may take.
+TAIL_BUDGET = 160 * 1024
+
+
+def tail_bytes(shapes, first: int) -> int:
+    """Dynamic shared memory of the single-block tail over levels
+    ``first`` .. of ``shapes`` (csrc/mg.cu::tail_args): p and r of every
+    level and a scratch field of the first, float32; the mask bytes of
+    every level, each padded to 4; the whole rounded up to 16."""
+    cells = [h * w for h, w in shapes[first:]]
+    nbytes = 4 * (2 * sum(cells) + cells[0])
+    nbytes += sum((n + 3) & ~3 for n in cells)
+    return (nbytes + 15) & ~15
+
+
+def tail_first_level(shapes) -> int:
+    """The first level whose remaining hierarchy fits the tail's budget
+    (``fn_mg_cut_level``'s rule); ``len(shapes)`` if none does."""
+    return next((j for j in range(len(shapes))
+                 if tail_bytes(shapes, j) <= TAIL_BUDGET), len(shapes))
+
+
+def plan_learned_cut(h: int, w: int, min_size: int = 8,
+                     coarse_size: int = 128):
+    """The level a learned coarse solve takes over on an (h, w) grid
+    (``ops/multigrid.py::cut_level``), or None if no level below the finest
+    has side <= ``coarse_size`` (the solve is then a plain V-cycle). The
+    kernel route splits its V-cycle there; a cut below the tail's first
+    level falls inside the single-block tail, which has no split: raises
+    ValueError."""
+    shapes = level_shapes(h, w, min_size)
+    cut = cut_level(shapes, coarse_size)
+    if cut is None:
+        return None
+    tail = tail_first_level(shapes)
+    if cut > tail:
+        raise ValueError(
+            f"multigrid: the learned cut at level {cut} {shapes[cut]} falls "
+            f"inside the single-block tail, which runs levels {tail} "
+            f"{shapes[tail]} and below on {h}x{w}: the kernel route splits "
+            "a V-cycle only above the tail or at its first level")
+    return cut
 
 
 def project_mg_plain(flags, U, p0=None, n_vcycles: int = 1, pre: int = 4,
@@ -71,19 +124,84 @@ def _run(owner, entry, flags, data, p0, outs, n_vcycles, pre, post,
 
 def solve_mg(flags, div, n_vcycles: int = 2, pre: int = 4, post: int = 4,
              coarse_iters: int = 32, damping: float = 2.0 / 3.0,
-             min_size: int = 8, p0=None):
+             min_size: int = 8, p0=None, coarse_fn=None,
+             coarse_size: int = 128):
     """Kernel G: ``n_vcycles`` V-cycles from ``p0`` (default 0) and the
-    zero-mean gauge. flags (b,h,w) int32, div (b,h,w) the RHS. Returns p."""
+    zero-mean gauge. flags (b,h,w) int32, div (b,h,w) the RHS. Returns p.
+    With ``coarse_fn`` and a learned cut (``plan_learned_cut``) the
+    V-cycles run split around it (``solve_mg_learned``)."""
     if not _build.on_cuda(div):
         return solve_mg_plain(flags, div, n_vcycles, pre, post, coarse_iters,
-                              damping, min_size, p0=p0)
+                              damping, min_size, p0=p0, coarse_fn=coarse_fn,
+                              coarse_size=coarse_size)
     b, h, w = flags.shape
     _build.check(flags, "flags", torch.int32, (b, h, w), div.device)
     _build.check(div, "div", torch.float32, (b, h, w), div.device)
+    cut = (plan_learned_cut(h, w, min_size, coarse_size)
+           if coarse_fn is not None and n_vcycles > 0 else None)
+    if cut is not None:
+        return solve_mg_learned(flags, div, coarse_fn, cut, n_vcycles, pre,
+                                post, coarse_iters, damping, min_size, p0)
     out = torch.empty_like(div)
     _run(solve_mg, "fn_mg_solve", flags, div, p0, (out,), n_vcycles, pre,
          post, coarse_iters, damping, min_size)
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _learned_launches(b, h, w, min_size, cut, pre, post, coarse, half,
+                      flag):
+    n = _build.query("fn_mg_learned_launches", b, h, w, min_size, cut, pre,
+                     post, coarse, half, flag)
+    if n < 0:
+        raise ValueError(f"multigrid: the kernels refuse a learned cut at "
+                         f"level {cut} of {h}x{w}")
+    return n
+
+
+def solve_mg_learned(flags, div, coarse_fn, cut: int, n_vcycles: int = 1,
+                     pre: int = 4, post: int = 4, coarse_iters: int = 32,
+                     damping: float = 2.0 / 3.0, min_size: int = 8,
+                     p0=None):
+    """Kernel G split at level ``cut`` (CUDA tensors only): each V-cycle is
+    ``fn_mg_learned_down`` (set-up on the first, the levels above the cut,
+    the cut level's flags and projected RHS), ``coarse_fn(flags_c,
+    rhs_c)`` and ``fn_mg_learned_up`` (the post-sweeps at the cut from the
+    correction, the levels above, the gauge after the last). Returns p."""
+    b, h, w = flags.shape
+    dev = div.device
+    if p0 is not None:
+        _build.check(p0, "p0", torch.float32, (b, h, w), dev)
+    hc, wc = level_shapes(h, w, min_size)[cut]
+    nbytes, _ = _plan(b, h, w, min_size, n_vcycles, pre, post, coarse_iters,
+                      0)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    flags_c = torch.empty((b, hc, wc), dtype=torch.int32, device=dev)
+    rhs_c = torch.empty((b, hc, wc), dtype=torch.float32, device=dev)
+    sizes = (b, h, w, min_size, cut)
+    counts = (pre, post, coarse_iters)
+    p = p0
+    for v in range(n_vcycles):
+        first, last = v == 0, v + 1 == n_vcycles
+        _build.call("fn_mg_learned_down", flags.data_ptr(), div.data_ptr(),
+                    _build.ptr(p), flags_c.data_ptr(), rhs_c.data_ptr(),
+                    work.data_ptr(), *sizes, int(first), *counts,
+                    *sweep_args(damping), _build.stream())
+        solve_mg_learned.launches += _learned_launches(*sizes, *counts, 0,
+                                                       int(first))
+        e = coarse_fn(flags_c, rhs_c)
+        _build.check(e, "coarse_fn's correction", torch.float32,
+                     (b, hc, wc), dev)
+        out = torch.empty_like(div)
+        _build.call("fn_mg_learned_up", flags.data_ptr(), div.data_ptr(),
+                    e.data_ptr(), rhs_c.data_ptr(), out.data_ptr(),
+                    work.data_ptr(),
+                    *sizes, int(last), *counts, *sweep_args(damping),
+                    _build.stream())
+        solve_mg_learned.launches += _learned_launches(*sizes, *counts, 1,
+                                                       int(last))
+        p = out
+    return p
 
 
 def project_mg(flags, U, p0=None, n_vcycles: int = 1, pre: int = 4,
@@ -106,4 +224,5 @@ def project_mg(flags, U, p0=None, n_vcycles: int = 1, pre: int = 4,
 
 
 solve_mg.launches = 0
+solve_mg_learned.launches = 0
 project_mg.launches = 0

@@ -77,7 +77,11 @@ def conv2d_nhwc(x, w_hwio, bias, stride=1, dil=1, relu=False, x2=None,
     ph = same_pads(hi, k, stride, dil)
     pw = same_pads(wi, k, stride, dil)
     if ph != pw:
-        raise ValueError("conv2d_nhwc takes square inputs")
+        # One pad for both axes: a non-square map passes where its SAME
+        # pads agree (the 1000x100 cylinder map does).
+        raise ValueError(f"conv2d_nhwc needs equal SAME pads on both axes: "
+                         f"rows {ph}, columns {pw} ({hi}x{wi}, kernel {k}, "
+                         f"stride {stride}, dilation {dil})")
     ho, wo = -(-hi // stride), -(-wi // stride)
     m = n * ho * wo
     plan = plan_conv(m, co, k * k, c1, c2, "tf32x3")

@@ -12,8 +12,11 @@ coarsest level only smooths. Coarse flags are OBSTACLE where all children
 are, with a forced obstacle border ring. ``solve_mg`` ends with the
 zero-mean gauge.
 
-Not ported: the learned coarse solve (``coarse_fn``), ``mg_cut_rhs`` and
-the 3-D functions.
+The learned coarse solve: ``solve_mg(coarse_fn=...)`` hands the first level
+of side <= ``coarse_size`` below the finest (``cut_level``) to
+``coarse_fn(flags_c, rhs_c)`` in place of the sub-V below it, then runs
+``post`` damped sweeps there from its correction (models/mg_coarse.py);
+``mg_cut_rhs`` is the downward half alone. Not ported: the 3-D functions.
 """
 import torch
 
@@ -119,16 +122,23 @@ def _neumann_extend(flags, e):
     return e
 
 
-def _vcycle(flags_lvls, rhs, p, lvl, pre, post, coarse_iters, damping):
+def _vcycle(flags_lvls, rhs, p, lvl, pre, post, coarse_iters, damping,
+            coarse_fn=None, cut_lvl=None):
     flags = flags_lvls[lvl]
     rhs = _remove_incompatible(flags, rhs)
+    if coarse_fn is not None and lvl == cut_lvl:
+        # The learned solve replaces the sub-V below this level; the post
+        # sweeps clean its high-frequency noise before the prolongation.
+        e = coarse_fn(flags, rhs)
+        return solve_jacobi_fixed(flags, rhs, post, p0=p + e,
+                                  damping=damping)
     if lvl + 1 == len(flags_lvls):
         return solve_jacobi_fixed(flags, rhs, coarse_iters, p0=p,
                                   damping=damping)
     p = solve_jacobi_fixed(flags, rhs, pre, p0=p, damping=damping)
     rhs_c = _restrict_sum(residual(flags, rhs, p))
     e_c = _vcycle(flags_lvls, rhs_c, torch.zeros_like(rhs_c), lvl + 1, pre,
-                  post, coarse_iters, damping)
+                  post, coarse_iters, damping, coarse_fn, cut_lvl)
     e_c = _neumann_extend(flags_lvls[lvl + 1], e_c)
     p = p + where0(_cont(flags), _prolong(e_c))
     return solve_jacobi_fixed(flags, rhs, post, p0=p, damping=damping)
@@ -151,20 +161,67 @@ def _levels(flags, min_size):
     return lvls
 
 
-def solve_mg(flags, div, n_vcycles: int = 2, pre: int = 4, post: int = 4,
-             coarse_iters: int = 32, damping: float = 2.0 / 3.0,
-             min_size: int = 8, p0=None, coarse_fn=None):
-    """V-cycle multigrid for the obstacle-aware pressure Poisson equation,
-    with ``solve_jacobi_fixed``'s (flags, div) contract; returns p in the
-    zero-mean gauge over continuation cells (0 on border/obstacle)."""
-    if coarse_fn is not None:
-        raise NotImplementedError("the learned coarse solve is ROADMAP A.2")
-    p = torch.zeros_like(div) if p0 is None else p0
-    lvls = _levels(flags, min_size)
-    for _ in range(n_vcycles):
-        p = _vcycle(lvls, div, p, 0, pre, post, coarse_iters, damping)
+def cut_level(shapes, coarse_size: int):
+    """Index of the first level of ``shapes`` (``level_shapes``) whose
+    larger side is <= ``coarse_size``: the level a learned coarse solve
+    takes over. None if that is the finest level (a learned solve there is
+    a plain convnet projection, not a hybrid) or no level is that small."""
+    for i, (h, w) in enumerate(shapes):
+        if max(h, w) <= coarse_size:
+            return i if i > 0 else None
+    return None
+
+
+def _cut_level(lvls, coarse_size: int):
+    """``cut_level`` of a list of per-level flags (the JAX package's
+    ``_cut_level``)."""
+    return cut_level([tuple(f.shape[1:]) for f in lvls], coarse_size)
+
+
+def _gauge(flags, p):
     cont = _cont_mask(flags)
     mean = (torch.sum(p * cont, dim=(1, 2), keepdim=True)
             / torch.clamp(torch.sum(cont, dim=(1, 2), keepdim=True),
                           min=1.0))
     return cont * (p - mean)
+
+
+def solve_mg(flags, div, n_vcycles: int = 2, pre: int = 4, post: int = 4,
+             coarse_iters: int = 32, damping: float = 2.0 / 3.0,
+             min_size: int = 8, p0=None, coarse_fn=None,
+             coarse_size: int = 128):
+    """V-cycle multigrid for the obstacle-aware pressure Poisson equation,
+    with ``solve_jacobi_fixed``'s (flags, div) contract; returns p in the
+    zero-mean gauge over continuation cells (0 on border/obstacle).
+
+    ``coarse_fn(flags_c, rhs_c) -> e_c`` (optional) is a learned solve
+    that takes over the first level of side <= ``coarse_size`` below the
+    finest; with no such level it is not called (a plain V-cycle)."""
+    p = torch.zeros_like(div) if p0 is None else p0
+    lvls = _levels(flags, min_size)
+    cut = _cut_level(lvls, coarse_size) if coarse_fn is not None else None
+    for _ in range(n_vcycles):
+        p = _vcycle(lvls, div, p, 0, pre, post, coarse_iters, damping,
+                    coarse_fn if cut is not None else None, cut)
+    return _gauge(flags, p)
+
+
+def mg_cut_rhs(flags, div, coarse_size: int = 128, pre: int = 4,
+               damping: float = 2.0 / 3.0, min_size: int = 8, p0=None):
+    """The downward half-V alone: pre-sweeps and restriction from the
+    finest level to the learned cut. Returns ``(flags_c, rhs_c)``, the
+    inputs ``coarse_fn`` sees inside ``solve_mg``."""
+    lvls = _levels(flags, min_size)
+    cut = _cut_level(lvls, coarse_size)
+    if cut is None:
+        raise ValueError(f"no level of side <= {coarse_size} below the "
+                         f"finest {tuple(flags.shape[1:])}")
+    p = torch.zeros_like(div) if p0 is None else p0
+    rhs = div
+    for lvl in range(cut):
+        f = lvls[lvl]
+        rhs = _remove_incompatible(f, rhs)
+        p = solve_jacobi_fixed(f, rhs, pre, p0=p, damping=damping)
+        rhs = _restrict_sum(residual(f, rhs, p))
+        p = torch.zeros_like(rhs)
+    return lvls[cut], _remove_incompatible(lvls[cut], rhs)

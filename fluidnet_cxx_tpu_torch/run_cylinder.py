@@ -3,6 +3,8 @@
     python -m fluidnet_cxx_tpu_torch.run_cylinder --steps 20
     python -m fluidnet_cxx_tpu_torch.run_cylinder --res-x 256 --res-y 64 \\
         --radius 8 --center-x 40 --steps 5 --device cpu
+    python -m fluidnet_cxx_tpu_torch.run_cylinder --sim-method multigrid
+    python -m fluidnet_cxx_tpu_torch.run_cylinder --sim-method convnet
 
 The case is the JAX package's ``scripts/run_cylinder.py --fast``: the
 reference's 8000 x 800 channel with a no-slip (stick) disc of radius 80.5
@@ -10,9 +12,15 @@ at x = 500 on the centre line, a left-wall inlet at speed 1, Re 100 (so
 nu = |u| * 2 radius / Re = 1.61), ``cylinder_config`` (dt 0.1, MacCormack
 0.6, no density field) and 34 Jacobi sweeps. A step runs the viscosity,
 kernel E with the viscous field, the wall BCs with the stick disc and
-kernel F. The run loop is ``sim/driver.py::run_simulation`` with its CFL
-guard, without plotting or restarts. ``--sim-method multigrid`` and
-``convnet`` are not ported for this scene yet.
+kernel F. ``--sim-method multigrid`` projects with kernel H
+(``cylinder_config``'s 2 warm V-cycles; the JAX step runs its XLA
+``solve_mg`` at this size, where its TPU kernel does not fit), and
+``--sim-method convnet`` with the learned projection of ``--model-dir``
+(default ``trained_models/PUNetD2_128``, its trained weights; kernels B
+and C), which the stick walls send through the step's unfused branch, as
+in the JAX ``scripts/run_cylinder.py``. The run loop is
+``sim/driver.py::run_simulation`` with its CFL guard, without plotting or
+restarts.
 
 Prints ms/step (CUDA events on the card, the host clock on the CPU, over
 the whole run loop), mean|div| and max|div| over fluid cells after the
@@ -27,33 +35,40 @@ import time
 import torch
 
 from .celltype import FLUID
+from .config import load_model_config
+from .models.fluidnet import make_project_fn
 from .ops.stencils import velocity_divergence
 from .ops.window import max_displacement
-from .run_plume import resolve_device
+from .run_plume import MODEL_DIR, build_punet, resolve_device
 from .sim.driver import run_simulation
 from .sim.scenes import create_cylinder_scene, cylinder_config
+
+SIM_METHODS = ("jacobi", "multigrid", "convnet")
 
 
 def cylinder_case(res_x: int = 8000, res_y: int = 800, device="cuda",
                   reynolds: float = 100.0, radius: float = 80.5,
                   center_x: float = 500.0, inlet_vel: float = 1.0,
-                  jacobi_iter: int = 34, sim_method: str = "jacobi"):
-    """(SimConfig, initial SimState) of the cylinder case."""
-    if sim_method == "multigrid":
-        raise NotImplementedError(
-            "not ported yet: the cylinder under multigrid, never checked at "
-            "8000x800 (ROADMAP A.3)")
-    if sim_method == "convnet":
-        raise NotImplementedError(
-            "not ported yet: the cylinder under the learned projection, "
-            "which needs the unfused projection (ROADMAP A.2)")
+                  jacobi_iter: int = 34, sim_method: str = "jacobi",
+                  model_dir=MODEL_DIR):
+    """(SimConfig, initial SimState, project_fn) of the cylinder case;
+    project_fn is the learned projection of ``model_dir`` (its trained
+    weights) for "convnet", else None."""
+    if sim_method not in SIM_METHODS:
+        raise ValueError(f"sim_method {sim_method!r}: the cylinder runs "
+                         f"{', '.join(SIM_METHODS)}")
     dev = resolve_device(device)
     state, viscosity = create_cylinder_scene(
         res_x, res_y, center_x=center_x, radius=radius, inlet_vel=inlet_vel,
         reynolds=reynolds, device=dev)
     cfg = cylinder_config(viscosity, jacobi_iter=jacobi_iter,
-                          use_pallas=True)
-    return cfg, state
+                          use_pallas=True, sim_method=sim_method)
+    project = None
+    if sim_method == "convnet":
+        mcfg = load_model_config(str(model_dir))
+        project = make_project_fn(mcfg, build_punet(mcfg, None, dev,
+                                                    model_dir))
+    return cfg, state, project
 
 
 @torch.no_grad()
@@ -62,11 +77,12 @@ def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
                  radius: float = 80.5, center_x: float = 500.0,
                  inlet_vel: float = 1.0, jacobi_iter: int = 34,
                  sim_method: str = "jacobi", stat_iter: int = 50,
-                 verbose: bool = False):
+                 verbose: bool = False, model_dir=MODEL_DIR):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` and the diagnostics."""
-    cfg, state = cylinder_case(res_x, res_y, device, reynolds, radius,
-                               center_x, inlet_vel, jacobi_iter, sim_method)
+    cfg, state, project = cylinder_case(
+        res_x, res_y, device, reynolds, radius, center_x, inlet_vel,
+        jacobi_iter, sim_method, model_dir)
     disp = []
 
     def on_stats(st, it):
@@ -77,8 +93,8 @@ def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
         start.record()
     t0 = time.perf_counter()
-    state = run_simulation(cfg, state, steps, stat_iter, on_stats=on_stats,
-                           verbose=verbose)
+    state = run_simulation(cfg, state, steps, stat_iter, project,
+                           on_stats=on_stats, verbose=verbose)
     if on_card:
         end.record()
         end.synchronize()
@@ -110,14 +126,15 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--stat-iter", type=int, default=50)
     ap.add_argument("--jacobi-iter", type=int, default=34)
-    ap.add_argument("--sim-method", default="jacobi",
-                    choices=("jacobi", "multigrid", "convnet"))
+    ap.add_argument("--sim-method", default="jacobi", choices=SIM_METHODS)
+    ap.add_argument("--model-dir", default=str(MODEL_DIR),
+                    help="checkpoint of --sim-method convnet")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run_cylinder(args.res_x, args.res_y, args.steps, args.device,
                        args.re, args.radius, args.center_x, args.inlet_vel,
                        args.jacobi_iter, args.sim_method, args.stat_iter,
-                       verbose=True)
+                       verbose=True, model_dir=args.model_dir)
     out.pop("state")
     print(json.dumps({"res_x": args.res_x, "res_y": args.res_y,
                       "steps": args.steps, "sim_method": args.sim_method,

@@ -7,6 +7,7 @@
         --mg-vcycles 2
     python -m fluidnet_cxx_tpu_torch.run_plume --sim-method jacobi \
         --no-fuse-advection
+    python -m fluidnet_cxx_tpu_torch.run_plume --sim-method mg_learned
 
 The cases are the JAX package's ``bench.py`` rows: ``plume_config`` (dt
 0.1, MacCormack 0.6, buoyancy 0.25, ``max_disp`` 4, line trace and merged
@@ -14,13 +15,19 @@ advection on) with the plume scene (inlet speed 2*res/128, radius 0.145)
 and one projection: "convnet" (the default, the "cnn" row) runs the PUNet
 of ``trained_models/PUNetD2_128/model_config.json`` at its full widths,
 "jacobi" ``--jacobi-iter`` sweeps (the jacobi-N rows), "multigrid"
-``--mg-vcycles`` warm V-cycles (the mg-2v row). ``--no-fuse-advection``
+``--mg-vcycles`` warm V-cycles (the mg-2v row), "mg_learned" one cold
+V-cycle whose levels below side 128 are replaced by the
+learned coarse solve of ``trained_models/MGCoarse_128`` (run as "convnet"
+with ``models/mg_coarse.py::make_project_fn_mg_learned``, as the JAX
+``scripts/run_plume.py`` does; kernel G split at the cut, kernel B for the
+coarse net). ``--no-fuse-advection``
 advects the density and the velocity separately (kernels D and E in place
 of A; ``bench.py``'s ``BENCH_FUSE_ADV=0``). The PUNet runs the trained
 weights (``trained_models/PUNetD2_128/torch_state_dict.pt``, converted
 from the orbax checkpoint by ``scripts/torch_convert_checkpoints.py``);
 ``--weight-seed N`` asks for flax-initialised weights from seed N instead.
 The output says which (``"weights": "trained"`` or ``"seed:N"``).
+``--model-dir`` points either at another checkpoint directory.
 
 Prints ms/step and ``bench.py``'s quality stats of the final state:
 mean|div| and max|div| over fluid cells outside the inlet rows, and the
@@ -39,6 +46,9 @@ from .config import load_model_config
 from .models.convert import (flax_to_state_dict, load_state_dict_file,
                              random_flax_params)
 from .models.fluidnet import make_project_fn
+from .models.mg_coarse import (MGCoarseNet, load_mg_coarse,
+                               load_mg_coarse_config,
+                               make_project_fn_mg_learned)
 from .models.punet import PUNet
 from .ops.stencils import velocity_divergence
 from .sim.scenes import create_plume_scene, plume_config
@@ -46,6 +56,7 @@ from .sim.step import simulate_step
 
 MODEL_DIR = Path(__file__).resolve().parent.parent / "trained_models" / \
     "PUNetD2_128"
+MG_COARSE_DIR = MODEL_DIR.parent / "MGCoarse_128"
 
 
 def resolve_device(device) -> torch.device:
@@ -75,24 +86,45 @@ def build_punet(mcfg, weight_seed=None, device="cpu",
     return net.to(device).eval()
 
 
+def build_mg_coarse(weight_seed=None, device="cpu",
+                    model_dir=MG_COARSE_DIR) -> MGCoarseNet:
+    """The ``MGCoarseNet`` of ``model_dir`` with its trained weights
+    (``weight_seed`` None) or flax-initialised ones from
+    ``weight_seed``."""
+    if weight_seed is None:
+        return load_mg_coarse(model_dir, device)
+    net = MGCoarseNet(load_mg_coarse_config(model_dir))
+    net.punet.load_state_dict(flax_to_state_dict(
+        random_flax_params(net.punet.table, weight_seed)))
+    return net.to(device).eval()
+
+
 def plume_case(res: int = 512, device="cuda", weight_seed=None,
-               model_dir=MODEL_DIR, sim_method: str = "convnet",
+               model_dir=None, sim_method: str = "convnet",
                jacobi_iter: int = 200, mg_vcycles: int = 2,
                fuse_advection: bool = True, max_disp: int = 4,
                line_trace: bool = True):
     """(SimConfig, initial SimState, project_fn) of a plume case;
-    project_fn is None for the classical projections. The convnet's
-    weights are the trained ones unless ``weight_seed`` is given."""
+    project_fn is None for the classical projections. "mg_learned" runs
+    as "convnet" with the learned coarse solve on the levels of side <=
+    128. The networks' weights are the trained ones of ``model_dir`` (default:
+    PUNetD2_128, or MGCoarse_128 for mg_learned) unless ``weight_seed``
+    is given."""
     dev = resolve_device(device)
+    learned_mg = sim_method == "mg_learned"
     cfg = plume_config(dt=0.1, line_trace=line_trace, max_disp=max_disp,
                        use_pallas=True, fuse_advection=fuse_advection,
-                       sim_method=sim_method, jacobi_iter=jacobi_iter,
-                       mg_vcycles=mg_vcycles)
+                       sim_method="convnet" if learned_mg else sim_method,
+                       jacobi_iter=jacobi_iter, mg_vcycles=mg_vcycles)
     state = create_plume_scene(res, res, density_val=0.1,
                                u_scale=2.0 * res / 128.0, rad=0.145,
                                device=dev)
+    if learned_mg:
+        net = build_mg_coarse(weight_seed, dev, model_dir or MG_COARSE_DIR)
+        return cfg, state, make_project_fn_mg_learned(net)
     if sim_method != "convnet":
         return cfg, state, None
+    model_dir = model_dir or MODEL_DIR
     mcfg = load_model_config(str(model_dir))
     project = make_project_fn(mcfg, build_punet(mcfg, weight_seed, dev,
                                                 model_dir))
@@ -125,14 +157,14 @@ def quality(state):
 
 @torch.no_grad()
 def run_plume(res: int = 512, steps: int = 20, device="cuda",
-              weight_seed=None, model_dir=MODEL_DIR,
+              weight_seed=None, model_dir=None,
               sim_method: str = "convnet", jacobi_iter: int = 200,
               mg_vcycles: int = 2, fuse_advection: bool = True):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step (CUDA events on the card,
-    the host clock on the CPU), ``quality(state)`` and, for the convnet
-    projection, the weights it ran (``weights``: "trained" or "seed:N")
-    and the mean |div| of the last step's projection input
+    the host clock on the CPU), ``quality(state)`` and, for the learned
+    projections, the weights they ran (``weights``: "trained" or
+    "seed:N") and the mean |div| of the last step's projection input
     (``div_in``)."""
     cfg, state, project = plume_case(res, device, weight_seed, model_dir,
                                      sim_method, jacobi_iter, mg_vcycles,
@@ -152,11 +184,15 @@ def run_plume(res: int = 512, steps: int = 20, device="cuda",
         elapsed_ms = 1e3 * (time.perf_counter() - t0)
     seen = {"div_in": None}
 
-    def observed(p, U, flags, density, U_bc, U_bc_inv_mask):
-        seen["div_in"] = fluid_mean_abs_div(state, U * U_bc_inv_mask + U_bc)
-        return project(p, U, flags, density, U_bc, U_bc_inv_mask)
+    def observed(p, U, flags, density, **bcs):
+        # The fused projection gets U_bc and U_bc_inv_mask; the unfused
+        # one a U with the inlet BCs already applied.
+        U_in = U * bcs["U_bc_inv_mask"] + bcs["U_bc"] if bcs else U
+        seen["div_in"] = fluid_mean_abs_div(state, U_in)
+        return project(p, U, flags, density, **bcs)
 
-    observed.handles_const_vals = True
+    observed.handles_const_vals = getattr(project, "handles_const_vals",
+                                          False)
     state = simulate_step(cfg, state, observed if project else None)
     weights = {"weights": weights_label(weight_seed)} if project else {}
     return {"state": state,
@@ -173,14 +209,19 @@ def main(argv=None):
                          "place of the trained ones")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--sim-method", default="convnet",
-                    choices=("convnet", "jacobi", "multigrid"))
+                    choices=("convnet", "jacobi", "multigrid", "mg_learned"))
+    ap.add_argument("--model-dir", default=None,
+                    help="checkpoint directory (default: "
+                         "trained_models/PUNetD2_128, or MGCoarse_128 for "
+                         "mg_learned)")
     ap.add_argument("--jacobi-iter", type=int, default=200)
     ap.add_argument("--mg-vcycles", type=int, default=2)
     ap.add_argument("--no-fuse-advection", dest="fuse_advection",
                     action="store_false")
     args = ap.parse_args(argv)
     out = run_plume(args.res, args.steps, args.device, args.weight_seed,
-                    sim_method=args.sim_method, jacobi_iter=args.jacobi_iter,
+                    args.model_dir, sim_method=args.sim_method,
+                    jacobi_iter=args.jacobi_iter,
                     mg_vcycles=args.mg_vcycles,
                     fuse_advection=args.fuse_advection)
     st = out.pop("state")

@@ -10,7 +10,11 @@ correction -> inlet/const BCs -> buoyancy -> gravity -> vorticity
 confinement -> pressure projection, one of:
 
 * ``convnet`` with a projection that folds in the inlet BCs
-  (``project_fn.handles_const_vals``) and no stick walls;
+  (``project_fn.handles_const_vals``) and no stick walls; otherwise
+  (an unfused projection such as ``models/mg_coarse.py::
+  make_project_fn_mg_learned``, or a scene with stick walls) the wall
+  BCs -> const BCs -> ``project_fn(p, U, flags, density)`` -> wall BCs
+  -> const BCs;
 * ``jacobi``: wall BCs -> const BCs -> divergence -> Jacobi (kernel F,
   ops/kernels/jacobi.py; the early-exit ``solve_jacobi`` when
   ``p_tol > 0``) -> velocity update -> wall BCs -> const BCs;
@@ -21,7 +25,8 @@ confinement -> pressure projection, one of:
 The wall BCs are free-slip with the periodic overrides, then the stick
 walls where the scene has ``flags_stick`` (in every projection, as in the
 JAX package; PARITY.md). Every other branch raises ``NotImplementedError``
-naming its ROADMAP item.
+naming its ROADMAP item; a ``sim_method`` the step does not know raises
+too, where the JAX step would quietly run Jacobi.
 """
 import numpy as np
 
@@ -44,24 +49,31 @@ def apply_const_vals(state, U, density):
     return U, density
 
 
-def _unsupported(cfg, state, project_fn):
+def _unsupported(cfg):
     if cfg.advection_method != "maccormackFluidNet" or \
             cfg.advection_impl != "window":
-        return "Euler or gather advection (ROADMAP A.6)"
+        return "not ported yet: Euler or gather advection (ROADMAP A.6)"
     if (cfg.advect_density and cfg.line_trace
             and cfg.line_trace_impl == "march" and not cfg.use_pallas):
         # What the JAX step runs on its XLA path; the kernels run the
         # first-hit trace, which the JAX step runs with use_pallas=True.
-        return "the march line trace of the XLA path (ROADMAP A.6)"
+        return ("not ported yet: the march line trace of the XLA path "
+                "(ROADMAP A.6)")
     if cfg.sim_method not in ("convnet", "jacobi", "multigrid"):
-        return f"the {cfg.sim_method} projection (ROADMAP A.2)"
-    if cfg.sim_method == "convnet":
-        if not getattr(project_fn, "handles_const_vals", False):
-            return "an unfused projection function (ROADMAP A.2)"
-        if state.flags_stick is not None:
-            return ("the learned projection with stick walls, which runs "
-                    "unfused (ROADMAP A.2)")
+        # The JAX step would run Jacobi for it (its else branch).
+        return (f"sim_method {cfg.sim_method!r}: the step runs convnet, "
+                "jacobi or multigrid; for mg_learned pass the projection "
+                "of models/mg_coarse.py::make_project_fn_mg_learned with "
+                'sim_method="convnet", as the JAX scripts/run_plume.py does')
     return None
+
+
+def _fused_projection(cfg, state, project_fn):
+    """The learned projection that folds in the inlet BCs, on a scene
+    without stick walls (JAX's fused branch)."""
+    return (cfg.sim_method == "convnet"
+            and getattr(project_fn, "handles_const_vals", False)
+            and state.flags_stick is None)
 
 
 def _scaled_gravity(cfg, scale):
@@ -129,9 +141,11 @@ def _project_classical(cfg, state, U, flags):
 
 def simulate_step(cfg, state, project_fn=None):
     """Advance by one dt. Returns the new state."""
-    why = _unsupported(cfg, state, project_fn)
+    why = _unsupported(cfg)
     if why is not None:
-        raise NotImplementedError(f"not ported yet: {why}")
+        raise NotImplementedError(why)
+    if cfg.sim_method == "convnet" and project_fn is None:
+        raise ValueError("the convnet projection needs a project_fn")
     flags = state.flags
     orig = (add_viscosity(cfg.dt, state.U, flags, cfg.viscosity)
             if cfg.viscosity > 0 else None)
@@ -147,7 +161,7 @@ def simulate_step(cfg, state, project_fn=None):
     if cfg.vorticity_confinement > 0:
         U = add_vorticity_confinement(U, flags, cfg.vorticity_confinement,
                                       cfg.dt)
-    if cfg.sim_method == "convnet":
+    if _fused_projection(cfg, state, project_fn):
         # The projection applies U's const BCs on its input and output;
         # rho's were applied above and are idempotent.
         p, U = project_fn(state.p, U, flags, rho, U_bc=state.U_bc,
@@ -155,7 +169,10 @@ def simulate_step(cfg, state, project_fn=None):
         return state._replace(p=p, U=U, density=rho)
     U = _wall_bcs(cfg, state, U)
     U, rho = apply_const_vals(state, U, rho)
-    p, U = _project_classical(cfg, state, U, flags)
+    if cfg.sim_method == "convnet":
+        p, U = project_fn(state.p, U, flags, rho)
+    else:
+        p, U = _project_classical(cfg, state, U, flags)
     U = _wall_bcs(cfg, state, U)
     U, rho = apply_const_vals(state, U, rho)
     return state._replace(p=p, U=U, density=rho)

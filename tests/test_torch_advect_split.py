@@ -155,7 +155,9 @@ def test_unfused_plume_steps_match_jax():
 def test_unported_knobs_raise(knob):
     """A knob whose JAX branch the port does not implement raises
     NotImplementedError naming its ROADMAP item, instead of running
-    another branch."""
+    another branch; a sim_method the step does not know (mg_learned, which
+    the JAX step would run as Jacobi) raises naming the projection to pass
+    with sim_method "convnet"."""
     if knob == "compute_dtype":
         with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
             PUNet.from_config(ModelConfig(model="PUNet",
@@ -167,8 +169,9 @@ def test_unported_knobs_raise(knob):
     bad = {"march": dict(use_pallas=False),
            "gather": dict(advection_impl="gather"),
            "mg_learned": dict(sim_method="mg_learned")}[knob]
-    item = {"march": "A.6", "gather": "A.6", "mg_learned": "A.2"}[knob]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    match = {"march": "ROADMAP A.6", "gather": "ROADMAP A.6",
+             "mg_learned": "make_project_fn_mg_learned"}[knob]
+    with pytest.raises(NotImplementedError, match=match):
         simulate_step(dataclasses.replace(cfg, **bad), state)
 
 

@@ -1,8 +1,9 @@
 """The cylinder slice against the JAX package, on the CPU: the source
 terms and stencils it adds (viscosity, scalar correction, vorticity
 confinement, curl, stick walls, the CFL guard's displacement), the
-cylinder scene, five steps of the 64x256 cylinder under Jacobi-34, and
-the run loop and entry point.
+cylinder scene, five steps of the 64x256 cylinder under Jacobi-34 and
+three each under multigrid and the trained PUNetD2_128, and the run loop
+and entry point.
 
 Tolerances: the ops are the same float32 operations in the same order as
 the JAX code and are held to 1e-6 of the largest output (a few ulp); the
@@ -163,7 +164,8 @@ def test_cylinder_steps_match_jax():
     jacobi-34: viscosity, E with the viscous field, free-slip and stick
     walls, F. The port runs max_disp 4 and JAX 1: equal while no
     back-trace exceeds one cell (asserted)."""
-    cfg, state = rc.cylinder_case(256, 64, "cpu", radius=8.0, center_x=40.0)
+    cfg, state, _ = rc.cylinder_case(256, 64, "cpu", radius=8.0,
+                                     center_x=40.0)
     assert cfg.viscosity == pytest.approx(0.16) and cfg.max_disp == 4
     jstate, jnu = j_scenes.create_cylinder_scene(256, 64, center_x=40.0,
                                                  radius=8.0)
@@ -193,10 +195,62 @@ def test_run_cylinder_needs_a_card_unless_cpu(monkeypatch):
     assert out["max_U"] >= 1.0 and out["max_div"] < 1.0
 
 
+def _flax_punet(state_dict):
+    """The port's PUNet state_dict as flax FluidNet params."""
+    out = {}
+    for key, t in state_dict.items():
+        _, name, kind = key.split(".")
+        out.setdefault(name, {})["kernel" if kind == "weight" else "bias"] = (
+            t.permute(2, 3, 1, 0).numpy() if kind == "weight" else t.numpy())
+    return {"params": {"PUNet_0": out}}
+
+
+@pytest.mark.parametrize("method", ["multigrid", "convnet"])
+def test_cylinder_other_projections_match_jax(method):
+    """Three steps of the 64x256 cylinder (radius 8 at x 40) under
+    multigrid (kernel H's plain version; JAX's XLA solve_mg) and under the
+    trained PUNetD2_128 (JAX scripts/run_cylinder.py's flax
+    make_project_fn; the stick walls send both steps through the unfused
+    branch), max_disp 1 on the JAX side as above, to 1e-4 of each field's
+    largest value."""
+    from fluidnet_cxx_tpu.models import FluidNet, make_project_fn
+    from fluidnet_cxx_tpu.train.checkpoint import load_model_config
+
+    cfg, state, project = rc.cylinder_case(256, 64, "cpu", radius=8.0,
+                                           center_x=40.0, sim_method=method)
+    assert cfg.sim_method == method and (project is None) == (
+        method == "multigrid")
+    jstate, jnu = j_scenes.create_cylinder_scene(256, 64, center_x=40.0,
+                                                 radius=8.0)
+    jcfg = j_scenes.cylinder_config(jnu, max_disp=1, sim_method=method)
+    j_project = None
+    if method == "convnet":
+        model = FluidNet(load_model_config(str(rc.MODEL_DIR)))
+        net = rc.build_punet(model.cfg)
+        j_project = make_project_fn(model, _flax_punet(net.state_dict()))
+    jax_step = jax.jit(lambda s: j_step(jcfg, s, project_fn=j_project))
+    with torch.no_grad():
+        for _ in range(3):
+            assert 0.1 * float(jnp.abs(jstate.U).max()) < 1.0
+            jstate = jax_step(jstate)
+            state = simulate_step(cfg, state, project)
+            for field in ("U", "p"):
+                want = np.asarray(getattr(jstate, field))
+                np.testing.assert_allclose(
+                    getattr(state, field).numpy(), want, rtol=0,
+                    atol=1e-4 * max(np.abs(want).max(), 1e-6))
+
+
 @pytest.mark.parametrize("method", ["multigrid", "convnet"])
 def test_cylinder_other_projections_raise(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        rc.cylinder_case(256, 64, "cpu", sim_method=method)
+    """Of the projections other than Jacobi, the cylinder builds multigrid
+    and convnet, and raises for one it does not run (mg_learned)."""
+    cfg, _, project = rc.cylinder_case(64, 32, "cpu", radius=4.0,
+                                       center_x=16.0, sim_method=method)
+    assert cfg.sim_method == method
+    assert (project is None) == (method == "multigrid")
+    with pytest.raises(ValueError, match="the cylinder runs"):
+        rc.cylinder_case(64, 32, "cpu", sim_method="mg_learned")
 
 
 def test_run_simulation_stats_and_cfl_guard():

@@ -20,7 +20,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'fluidnet_cxx_tpu'))
 print(len(names), bad)
-assert len(names) >= 42 and not bad, bad
+assert len(names) >= 43 and not bad, bad
+assert 'fluidnet_cxx_tpu_torch.models.mg_coarse' in names, names
 print('IMPORT_OK')
 """
 
@@ -29,6 +30,14 @@ print('IMPORT_OK')
 # and the call's function is imported from that module.
 ENTRY_POINTS = {
     "run_plume": "run_plume(res=64, steps=1)",
+    "run_plume.mg_learned": "run_plume(res=256, steps=1, "
+                            "sim_method='mg_learned')",
+    "run_cylinder.multigrid": "run_cylinder(res_x=256, res_y=64, steps=1, "
+                              "radius=8.0, center_x=40.0, "
+                              "sim_method='multigrid')",
+    "run_cylinder.convnet": "run_cylinder(res_x=256, res_y=64, steps=1, "
+                            "radius=8.0, center_x=40.0, "
+                            "sim_method='convnet')",
     "run_rayleigh_taylor": "run_rayleigh_taylor(res_x=32, res_y=64, steps=1)",
     "run_cylinder": "run_cylinder(res_x=256, res_y=64, steps=1, radius=8.0, "
                     "center_x=40.0)",

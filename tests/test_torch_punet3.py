@@ -1,9 +1,8 @@
 """Kernel N's plain versions against the JAX package on the CPU: the
 space-to-depth reshapes, one convolution of each layer kind, the port's
 PUNet3 forward against the interpreted Pallas kernel
-(``make_punet3_apply(..., interpret=True)``), the flax-to-torch converter
-(also on the trained ``PUNet3p8_64`` checkpoint) and the wrapper's CPU
-path.
+(``make_punet3_apply(..., interpret=True)``, also with the trained
+``PUNet3p8_64``), the flax-to-torch converter and the wrapper's CPU path.
 
 Tolerances:
 - float32: 1e-5 of the largest output for one layer, 1e-4 for the whole
@@ -32,6 +31,7 @@ from fluidnet_cxx_tpu.models.punet3d import space_to_depth3 as jax_s2d3
 from fluidnet_cxx_tpu.ops.pallas.punet3_pallas import make_punet3_apply
 from fluidnet_cxx_tpu_torch.config import ModelConfig, load_model_config
 from fluidnet_cxx_tpu_torch.models.convert import (flax_to_state_dict3,
+                                                   load_state_dict_file,
                                                    random_flax_params3)
 from fluidnet_cxx_tpu_torch.models.punet3d import (PUNet3, depth_to_space3,
                                                    layer_table3,
@@ -194,25 +194,21 @@ def test_converter3_against_flax_init(rng):
 
 
 def test_trained_checkpoint3_matches_interpreted_kernel(rng):
-    """The trained PUNet3p8_64 orbax checkpoint, read on the CPU by the JAX
-    package's loader (bench3d's template) and converted: the port's
-    bfloat16 forward at 32^3 against the interpreted fused forward, and
+    """The trained PUNet3p8_64 as the port loads it (its committed
+    conversion, which tests/test_torch_weights.py holds bit for bit to the
+    orbax checkpoint read by the JAX package's loader): the port's
+    bfloat16 forward at 32^3 against the interpreted fused forward on the
+    same parameters carried back to flax's layout, and
     random_flax_params3 draws the checkpoint's shapes."""
-    import optax
-
-    from fluidnet_cxx_tpu.models.punet3d import FluidNet3, init_params3
-    from fluidnet_cxx_tpu.train.checkpoint import load_model_config as jload
-    from fluidnet_cxx_tpu.train.checkpoint import load_train_checkpoint
-    from fluidnet_cxx_tpu.train.trainer import TrainState
-
     model_dir = "trained_models/PUNet3p8_64"
-    model = FluidNet3(jload(model_dir))
-    init = init_params3(model, jax.random.PRNGKey(0), 16, 16, 16)
-    template = TrainState(init, optax.adam(1e-4).init(init),
-                          jnp.zeros((), jnp.int32))
-    ts, _, _ = load_train_checkpoint(model_dir, template, best=True)
-    params = jax.tree_util.tree_map(np.asarray,
-                                    ts.params["params"]["PUNet3_0"])
+    sd = load_state_dict_file(model_dir)
+    params = {}
+    for key, t in sd.items():
+        _, name, kind = key.split(".")
+        params.setdefault(name, {})[
+            "kernel" if kind == "weight" else "bias"] = (
+            t.permute(2, 3, 4, 1, 0).numpy() if kind == "weight"
+            else t.numpy())
     mcfg = load_model_config(model_dir)
     assert mcfg.compute_dtype == "bfloat16" and mcfg.punet_patch == 8
     net = PUNet3.from_config(mcfg)

@@ -22,11 +22,12 @@ import torch
 
 from fluidnet_cxx_tpu.models.punet import PUNet as FlaxPUNet
 from fluidnet_cxx_tpu_torch.config import load_model_config
-from fluidnet_cxx_tpu_torch.models.convert import (STATE_DICT_FILE,
-                                                   flax_to_state_dict,
-                                                   flax_to_state_dict3,
-                                                   load_state_dict_file)
-from fluidnet_cxx_tpu_torch.run_plume import build_punet, weights_label
+from fluidnet_cxx_tpu_torch.models.convert import (
+    STATE_DICT_FILE, flax_mg_coarse_to_state_dict, flax_to_state_dict,
+    flax_to_state_dict3, load_state_dict_file)
+from fluidnet_cxx_tpu_torch.models.mg_coarse import CONFIG_FILE, MGCoarseNet
+from fluidnet_cxx_tpu_torch.run_plume import (build_mg_coarse, build_punet,
+                                              weights_label)
 from fluidnet_cxx_tpu_torch.run_plume3d import build_punet3
 
 torch.set_num_threads(1)
@@ -50,13 +51,16 @@ def convert():
 
 
 @pytest.mark.parametrize("name", ["PUNetD2_128", "PUNet3p8_64",
-                                  "PUNet3_32"])
+                                  "PUNet3_32", "MGCoarse_128"])
 def test_committed_file_equals_the_checkpoints_conversion(convert, name):
     """The file's tensors are the conversion of ``best`` read by the JAX
-    loader, bit for bit, float32, on the CPU, and nothing else."""
+    loader, bit for bit, float32, on the CPU, and nothing else
+    (MGCoarse_128: the JAX ``load_mg_coarse`` and
+    ``flax_mg_coarse_to_state_dict``, keys under ``punet.``)."""
     params = convert.flax_params(name)
-    want = (flax_to_state_dict if name == "PUNetD2_128"
-            else flax_to_state_dict3)(params)
+    want = (flax_to_state_dict if name == "PUNetD2_128" else
+            flax_mg_coarse_to_state_dict if name == "MGCoarse_128" else
+            flax_to_state_dict3)(params)
     got = load_state_dict_file(MODELS / name)
     assert set(got) == set(want)
     for key, w in want.items():
@@ -96,6 +100,11 @@ def test_missing_file_raises_and_names_the_script(tmp_path):
     mcfg3 = load_model_config(str(MODELS / "PUNet3_32"))
     with pytest.raises(FileNotFoundError, match=STATE_DICT_FILE):
         build_punet3(mcfg3, model_dir=tmp_path)
+    (tmp_path / CONFIG_FILE).write_text(
+        (MODELS / "MGCoarse_128" / CONFIG_FILE).read_text())
+    with pytest.raises(FileNotFoundError, match=STATE_DICT_FILE):
+        build_mg_coarse(model_dir=tmp_path)
+    assert isinstance(build_mg_coarse(0, model_dir=tmp_path), MGCoarseNet)
     seeded = build_punet(mcfg, 0, model_dir=tmp_path)
     trained = build_punet(mcfg)
     assert not torch.equal(seeded.convs["embed"].weight,
