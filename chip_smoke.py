@@ -72,9 +72,20 @@ Phases (each prints its elapsed seconds):
      of PUNetD2_128 at 8000x800, layer by layer and whole, beside the
      cuDNN chain; H at 8000x800 on the cylinder's flags, cold and warm,
      after fn_mg_workspace and fn_mg_cut_level there, with its split;
+     B's thin-channel route: every layer of FluidNetTower (DataTrain_128,
+     10 convs) and MultiScaleNet (ScaleNet_jets_128, 17 convs, 5x5 taps
+     among them) at 512^2 on the plume's assembled input at step 0, on
+     zero-padded weights and 32-channel activations, against its plain
+     version on the unpadded weights within 1e-5 of its largest output
+     (its padded output channels exactly 0), each forward within 1e-4,
+     a repeat bit-equal, device and eager ms beside the plain forward and
+     the cuDNN chain, launches, the bound on the unpadded work, and the
+     per-layer table;
   4. small-input checks, the card against the plain path on the CPU:
      3 steps of the 64^2 plume with the learned projection, jacobi-28,
-     mg-2v and unfused jacobi-28, of the 256^2 plume under mg_learned, of
+     mg-2v and unfused jacobi-28, and under DataTrain_128 and
+     ScaleNet_jets_128 (the flax path), of the 256^2 plume under
+     mg_learned, of
      the 64x32 Rayleigh-Taylor scene under multigrid, of the 64x256
      cylinder (radius 8 at x 40) under jacobi-34, multigrid and convnet,
      and of the 32^3 plume under jacobi-60, merged with the trace and
@@ -94,7 +105,10 @@ Phases (each prints its elapsed seconds):
      J, N) at full widths, the trained weights (each run prints which),
      the 512^2 plume under mg_learned with the trained MGCoarse_128 (A,
      G's learned cut, B), and the 8000x800 cylinder under multigrid (E, H)
-     and under PUNetD2_128 (E, B, C; the step's unfused branch); finite
+     and under PUNetD2_128 (E, B, C; the step's unfused branch), and the
+     512^2 plume under the flax-path FluidNet with DataTrain_128's
+     FluidNetTower (A, B 10 convs) and ScaleNet_jets_128's MultiScaleNet
+     (A, B 17 convs), no polish (C 0); finite
      fields, ms per step, quality stats (mean|div|, max|div|), launches
      per step (J, N, C on the 512^2 convnet step, F on the jacobi paths,
      H on mg-2v and the cylinder's multigrid, G on the RT multigrid path,
@@ -103,8 +117,9 @@ Phases (each prints its elapsed seconds):
      their exact counts) and C entry (ctypes) calls per step (C's
      fn_tail, F's fn_jacobi_solve, H's fn_mg_project and each half of
      the learned cut held to one a step); then the `kernels` JSON line
-     (the 14 kernels, and rows for G's learned cut, B at 128^2 and on the
-     1000x100 map, and H at 8000x800);
+     (the 14 kernels, and rows for G's learned cut, B at 128^2, on the
+     1000x100 map and on the tower's and ScaleNet's 512^2 forwards, and H
+     and C at 8000x800);
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's;
@@ -121,7 +136,10 @@ Phases (each prints its elapsed seconds):
 `python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
 `python3 chip_smoke.py --tail-only` kernels C and F (tail_only),
 `python3 chip_smoke.py --learned-only` G's learned cut, H at 8000x800, B
-on the 1000x100 map and the mg_learned and cylinder paths (learned_only).
+on the 1000x100 map and the mg_learned and cylinder paths (learned_only),
+`python3 chip_smoke.py --nets-only` B's thin-channel phase, the 64^2
+card-against-CPU checks and the 512^2 main paths of DataTrain_128 and
+ScaleNet_jets_128 (nets_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -158,6 +176,9 @@ STEPS = 20
 SEED = 0
 MODEL_P8 = "trained_models/PUNet3p8_64"
 MODEL_P4 = "trained_models/PUNet3_32"
+# The reference's own 2-D nets on the flax path (results key -> checkpoint).
+NETS = {"B tower": "trained_models/DataTrain_128",
+        "B scalenet": "trained_models/ScaleNet_jets_128"}
 # (device ms, eager ms) of kernels before their redesign (Step 0), printed
 # beside this run's, NVIDIA H100 80GB HBM3 at 700 W: G and H in each case
 # of mg_cases (`chip_smoke.py --mg-only` in a checkout of the commit before
@@ -471,12 +492,12 @@ def phase_conv2d(dev, gen, results):
     from fluidnet_cxx_tpu_torch.ops.kernels import punet
     from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
     from fluidnet_cxx_tpu_torch.ops.kernels.punet import same_pads
-    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_punet
+    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_net
 
     done = phase("kernel B punet conv")
     n = RES * RES
     mcfg = load_model_config(str(MODEL_DIR))
-    net = build_punet(mcfg, None, dev)
+    net = build_net(mcfg, None, dev)
     print(f"B: trained weights, {MODEL_DIR.name}/{STATE_DICT_FILE}",
           flush=True)
     packed = punet.pack_weights(net)
@@ -528,16 +549,15 @@ def phase_conv2d(dev, gen, results):
                 check(f"B layer {name} at {side}^2 (plan {plan.bm}x{plan.bn},"
                       f" {plan.splits} splits)", max_err([got], [want]),
                       1e-5 * float(want.abs().max()))
-        got = punet.punet_forward(net, packed, x, inv)
+        fwd = lambda: punet.net_forward(net, packed, x, inv_scale=inv)
+        got = fwd()
         torch.cuda.synchronize()
         want = net(x, inv_scale=inv)
         err, tol = max_err([got], [want]), 1e-4 * scale_of([want])
         check("B punet conv", err, tol)
-        check_repeat("B punet forward",
-                     lambda: punet.punet_forward(net, packed, x, inv))
-        ms = graph_ms(lambda: punet.punet_forward(net, packed, x, inv))
-        eager_ms = cuda_ms(lambda: punet.punet_forward(net, packed, x, inv),
-                           20)
+        check_repeat("B punet forward", fwd)
+        ms = graph_ms(fwd)
+        eager_ms = cuda_ms(fwd, 20)
         plain_ms = cuda_ms(lambda: net(x, inv_scale=inv), 20)
 
         library = punet_library(net, x, inv)
@@ -673,7 +693,7 @@ def check_b_forward(label, net, x, inv=None):
             torch.cuda.synchronize()
             check(f"B {label} layer {name} ({tuple(h.shape)})",
                   max_err([got], [want]), 1e-5 * float(want.abs().max()))
-        fwd = lambda: punet.punet_forward(net, packed, x, inv)
+        fwd = lambda: punet.net_forward(net, packed, x, inv_scale=inv)
         got, want = fwd(), net(x, inv_scale=inv)
         torch.cuda.synchronize()
         err = max_err([got], [want])
@@ -835,6 +855,161 @@ def phase_mg_learned(dev, results):
     done()
 
 
+def step0_projection_input(model_dir, dev):
+    """(p, U, flags, density) that the 512^2 plume's first step hands
+    the learned projection of ``model_dir`` (the step's unfused branch,
+    captured from a run of that step)."""
+    from fluidnet_cxx_tpu_torch.run_plume import plume_case
+    from fluidnet_cxx_tpu_torch.sim.step import simulate_step
+
+    cfg, state, project = plume_case(RES, dev, model_dir=model_dir)
+    seen = []
+
+    def capture(p, U, flags, density):
+        seen.append((p, U, flags, density))
+        return project(p, U, flags, density)
+
+    with torch.no_grad():
+        simulate_step(cfg, state, capture)
+    return seen[0]
+
+
+def thin_layer_work(net, calls):
+    """(operations, bytes) of each recorded conv call of a ConvNet on its
+    unpadded channels: 2 a multiply-add; input, weights, bias and output
+    read or written once, float32."""
+    out = []
+    for name, args, _ in calls:
+        h = args[0]
+        c = net.convs[name]
+        co, ci, k, _ = c.weight.shape
+        m = h.shape[0] * h.shape[1] * h.shape[2]
+        out.append((2.0 * m * co * ci * k * k,
+                    4.0 * (m * ci + c.weight.numel() + co + m * co)))
+    return out
+
+
+def cudnn_conv(net):
+    """The per-layer hook of a ConvNet as cuDNN F.conv2d calls on the
+    unpadded weights, NHWC tensors as channels-last NCHW views (the
+    library call of B's thin-channel rows)."""
+    def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
+        c = net.convs[name]
+        y = torch.nn.functional.conv2d(h.permute(0, 3, 1, 2), c.weight,
+                                       c.bias, padding=c.kernel_size[0] // 2)
+        return (torch.relu(y) if relu else y).permute(0, 2, 3, 1)
+    return conv
+
+
+def phase_nets(dev, results):
+    """Kernel B's thin-channel route: every layer of FluidNetTower
+    (DataTrain_128) and MultiScaleNet (ScaleNet_jets_128) at 512^2 on the
+    plume's assembled input at step 0, trained weights, each held to its
+    plain version on the unpadded weights (F.conv2d, TF32 off) within
+    1e-5 of its largest output and its padded output channels exactly 0;
+    each forward within 1e-4 of its largest value, a repeat bit-equal;
+    device and eager ms beside the plain forward's and the cuDNN chain's,
+    launches, the bound on the unpadded work; the per-layer table."""
+    from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.models.fluidnet import assemble_inputs
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
+    from fluidnet_cxx_tpu_torch.run_plume import build_net
+
+    done = phase("kernel B thin-channel layers (FluidNetTower, ScaleNet)")
+    for key, model_dir in NETS.items():
+        mcfg = load_model_config(model_dir)
+        net = build_net(mcfg, None, dev, model_dir)
+        packed = punet.pack_weights(net)
+        with torch.no_grad():
+            x = assemble_inputs(mcfg, *step0_projection_input(model_dir,
+                                                              dev))[0]
+        label = f"{model_dir.split('/')[-1]} at {RES}^2"
+        print(f"B {label}: trained weights, {mcfg.model}, input "
+              f"{tuple(x.shape)} max|x| {float(x.abs().max()):.4e}",
+              flush=True)
+
+        def run(hook):
+            def conv(name, h, x2=None, relu=True, in_scale=None,
+                     scale_mod=1):
+                w, b = packed[name]
+                return hook(name, (h, w, b, 1, 1, relu), {})
+            return net(x, conv=conv, width=punet.STAGE)
+
+        with torch.no_grad():
+            calls = record_layers(run, punet.conv2d_nhwc)
+            torch.cuda.synchronize()
+            for name, args, _ in calls:
+                h, w, b, _, _, relu = args
+                c = net.convs[name]
+                co, ci = c.weight.shape[:2]
+                want = punet.conv2d_nhwc_plain(h[..., :ci], c.weight, c.bias,
+                                               relu=relu)
+                got = punet.conv2d_nhwc(*args)
+                torch.cuda.synchronize()
+                if bool(got[..., co:].any()):
+                    raise SystemExit(f"B {label} layer {name}: a padded "
+                                     "output channel is not 0")
+                plan = plan_conv(h.shape[0] * h.shape[1] * h.shape[2],
+                                 w.shape[3], w.shape[0] ** 2, h.shape[3], 0,
+                                 "tf32x3")
+                check(f"B {label} layer {name} {tuple(h.shape[1:3])} "
+                      f"k{w.shape[0]} {ci}->{co} (padded {h.shape[3]}->"
+                      f"{w.shape[3]}; plan {plan.bm}x{plan.bn}, "
+                      f"{plan.splits} splits)", max_err([got[..., :co]],
+                                                        [want]),
+                      1e-5 * float(want.abs().max()))
+            fwd = lambda: punet.net_forward(net, packed, x)
+            got, want = fwd(), net(x)
+            torch.cuda.synchronize()
+            err = max_err([got], [want])
+            check(f"B {label} forward", err, 1e-4 * scale_of([want]))
+            check_repeat(f"B {label} forward", fwd)
+            launches = launches_of(punet.conv2d_nhwc, fwd)
+            ms, eager_ms = device_and_eager(fwd)
+            plain_ms = cuda_ms(lambda: net(x), 10)
+            library = lambda: net(x, conv=cudnn_conv(net))
+            lib_err = max_err([library()], [want])
+            library_ms, library_eager_ms = device_and_eager(library)
+            work = thin_layer_work(net, calls)
+            rows = []
+            for (name, args, _), (ops, nbytes) in zip(calls, work):
+                h, w = args[:2]
+                c = net.convs[name]
+                co, ci = c.weight.shape[:2]
+                plan = plan_conv(h.shape[0] * h.shape[1] * h.shape[2],
+                                 w.shape[3], w.shape[0] ** 2, h.shape[3], 0,
+                                 "tf32x3")
+                hn = h[..., :ci].contiguous()
+                lib = lambda hn=hn, name=name: cudnn_conv(net)(name, hn)
+                rows.append(dict(
+                    name=name.replace("convN_", "N").replace("/Conv_", "."),
+                    m=h.shape[0] * h.shape[1] * h.shape[2], co=w.shape[3], k=w.shape[0] ** 2 * h.shape[3],
+                    bm=plan.bm, bn=plan.bn, splits=plan.splits,
+                    blocks=plan.blocks,
+                    ms=graph_ms(lambda args=args: punet.conv2d_nhwc(*args)),
+                    lib_ms=graph_ms(lib),
+                    bound_ms=bound(nbytes, ops, TF32X3_OPS_PER_S)[0]))
+            conv_table(f"B per layer, {label} (padded M, co, K; cuDNN and "
+                       "the bound on the unpadded layer, 3xTF32 rate)", rows)
+        flops = sum(ops for ops, _ in work)
+        wbytes = sum(4 * t.numel() for t in net.state_dict().values())
+        b_ms, b_by = bound(4 * x.numel() + wbytes + 4 * x[..., 0].numel(),
+                           flops, TF32X3_OPS_PER_S)
+        layer_ms, layer_by = bound(sum(nb for _, nb in work), flops,
+                                   TF32X3_OPS_PER_S)
+        results[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=library_ms)
+        print(f"B {label}: kernel {ms:.4f} ms device (eager {eager_ms:.4f}),"
+              f" {launches} launches, plain {plain_ms:.3f} ms, cuDNN chain "
+              f"{library_ms:.4f} ms (eager {library_eager_ms:.4f}; its error "
+              f"{lib_err:.3e}), bound {b_ms:.4f} ms ({b_by}, 3xTF32; layer by "
+              f"layer {layer_ms:.4f}, {layer_by}), {flops / 1e9:.3f} GFLOP "
+              f"unpadded ({flops / x[..., 0].numel() / 1e3:.1f} kFLOP a "
+              "cell)", flush=True)
+    done()
+
+
 def phase_cylinder_kernels(dev, results):
     """Kernel H at 8000x800 on the cylinder's flags (2 V-cycles, cold and
     warm, as cylinder_config's multigrid runs them) against its plain
@@ -847,7 +1022,7 @@ def phase_cylinder_kernels(dev, results):
     from fluidnet_cxx_tpu_torch.config import load_model_config
     from fluidnet_cxx_tpu_torch.ops.kernels import _build, mg, proj_tail
     from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
-    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_punet
+    from fluidnet_cxx_tpu_torch.run_plume import MODEL_DIR, build_net
 
     gen = torch.Generator().manual_seed(SEED + 9)
     cflags, cU, _ = cylinder_inputs(gen, dev)
@@ -917,7 +1092,7 @@ def phase_cylinder_kernels(dev, results):
     done()
 
     done = phase(f"kernel B on the {CYL_W // 8}x{CYL_H // 8} map")
-    net = build_punet(mcfg, None, dev)
+    net = build_net(mcfg, None, dev)
     x = torch.stack([torch.randn((1, CYL_H, CYL_W), generator=gen),
                      (torch.rand((1, CYL_H, CYL_W), generator=gen)
                       < 0.1).float()], dim=-1).to(dev)
@@ -2054,6 +2229,8 @@ def phase_small_check(keep=lambda name: True):
             sim_method="convnet"),
         "256^2 plume mg_learned": lambda d: run_plume(
             256, 3, device=d, sim_method="mg_learned"),
+        **{f"64^2 plume {m.split('/')[-1]}": lambda d, m=m: run_plume(
+            64, 3, device=d, model_dir=m) for m in NETS.values()},
         "32^3 plume3d fused trace jacobi-60": lambda d: run_plume3d(
             32, 3, device=d, fuse_advection=True, line_trace=True),
         "32^3 plume3d unfused jacobi-60": lambda d: run_plume3d(
@@ -2134,6 +2311,8 @@ def main_paths():
         f"cylinder {CYL_W}x{CYL_H} multigrid": cylinder("multigrid") + (
             "EH",),
         f"cylinder {CYL_W}x{CYL_H} convnet": cylinder("convnet") + ("EBC",),
+        **{f"plume {RES}^2 {m.split('/')[-1]}": plume(model_dir=m) + ("AB",)
+           for m in NETS.values()},
     }
 
 
@@ -2145,7 +2324,9 @@ LEARNED_G = "Gl"
 # V-cycle's 9 (fn_mg_learned_down: 2 set-up, a down launch for each of the
 # two levels above the 128^2 cut, the cut's flags and RHS;
 # fn_mg_learned_up: the cut's post-sweeps, two up launches, the gauge)
-# and MGCoarseNet's 10 convs; H's 25 at 8000x800 (2 set-up, a down and an
+# and MGCoarseNet's 10 convs; FluidNetTower's 10 convs (conv1, the bank's
+# two at three scales, conv2, conv3, convOut) and MultiScaleNet's 17, with
+# no polish (C 0); H's 25 at 8000x800 (2 set-up, a down and an
 # up launch for each of the 5 levels above the 250x25 tail and the tail,
 # for 2 V-cycles, and the epilogue); PUNetD2_128's 14 convs; N's 9 convs; J's
 # prologue, epilogue and one z-march per 3 polish sweeps (16 for p8: 6
@@ -2168,7 +2349,10 @@ EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 8, "N": 9},
                                                 LEARNED_G: 9},
                   f"cylinder {CYL_W}x{CYL_H} multigrid": {"E": 1, "H": 25},
                   f"cylinder {CYL_W}x{CYL_H} convnet": {"B": 14, "C": 6,
-                                                        "E": 1}}
+                                                        "E": 1},
+                  f"plume {RES}^2 DataTrain_128": {"A": 2, "B": 10, "C": 0},
+                  f"plume {RES}^2 ScaleNet_jets_128": {"A": 2, "B": 17,
+                                                       "C": 0}}
 # C entry calls (ctypes calls) per step that a main path must show
 # exactly: C's and F's whole solve from one call each.
 EXACT_CALLS = {f"plume {RES}^2 convnet": {"fn_tail": 1},
@@ -2519,6 +2703,20 @@ def learned_only(dev):
         phase_profile(name, main_paths()[name][1])
 
 
+def nets_only(dev):
+    """`python3 chip_smoke.py --nets-only`: kernel B's thin-channel phase,
+    the 64^2 card-against-CPU checks and the two 512^2 main paths of the
+    tower and ScaleNet with their counters and profiles."""
+    phase_nets(dev, {})
+    phase_small_check(lambda name: any(m.split("/")[-1] in name
+                                       for m in NETS.values()))
+    new = [name for name in main_paths()
+           if any(m.split("/")[-1] in name for m in NETS.values())]
+    phase_main_paths(launch_counters(), new)
+    for name in new:
+        phase_profile(name, main_paths()[name][1])
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2574,11 +2772,15 @@ def main():
     if sys.argv[1:] == ["--learned-only"]:
         learned_only(dev)
         return
+    if sys.argv[1:] == ["--nets-only"]:
+        nets_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
     phase_mg(dev, results)
     phase_mg_learned(dev, results)
+    phase_nets(dev, results)
     phase_cylinder_kernels(dev, results)
     phase_kernels3d(dev, results)
     phase_learned3d(dev, results)
@@ -2635,7 +2837,11 @@ def main():
              ("H cylinder", "project_mg_8000x800", "H", "H",
               f"cylinder {CYL_W}x{CYL_H} multigrid"),
              ("C cylinder", "project_tail_8000x800", "C", "C",
-              f"cylinder {CYL_W}x{CYL_H} convnet")]
+              f"cylinder {CYL_W}x{CYL_H} convnet"),
+             ("B tower", "punet_conv2d_fluidnet_tower_512", "B", "B",
+              f"plume {RES}^2 DataTrain_128"),
+             ("B scalenet", "punet_conv2d_multiscalenet_512", "B", "B",
+              f"plume {RES}^2 ScaleNet_jets_128")]
     rows = [(k, *meta[k], k, path_of[k]) for k in meta]
     rows += [(r, name, *meta[k][1:], c, path)
              for r, name, k, c, path in extra]

@@ -20,7 +20,7 @@ import torch
 
 from .config import load_model_config
 from .ops.kernels import conv_plan, punet, punet3
-from .run_plume import MODEL_DIR, build_punet
+from .run_plume import MODEL_DIR, build_net
 from .run_plume3d import build_punet3
 
 MODELS3 = {"p8": "trained_models/PUNet3p8_64",
@@ -79,7 +79,7 @@ def main():
                                   compute_dtype="bfloat16")
         net = build_punet3(cfg, 0, dev)
         nets[label] = (net, punet3.pack_weights3(net))
-    net2 = build_punet(load_model_config(str(MODEL_DIR)), 0, dev)
+    net2 = build_net(load_model_config(str(MODEL_DIR)), 0, dev)
     packed2 = punet.pack_weights(net2)
 
     def forward3(net, packed):
@@ -114,8 +114,8 @@ def main():
                       lambda n=nets[label]: punet3.punet3_forward(*n, x3))
                      for label in MODELS3]
             cases.append(("B 512^2", forward2, punet.conv2d_nhwc,
-                          lambda: punet.punet_forward(net2, packed2, x2,
-                                                      inv)))
+                          lambda: punet.net_forward(net2, packed2, x2,
+                                                    inv_scale=inv)))
             for label, forward, wrapper, whole in cases:
                 layers = {name: graph_ms(lambda a=args: wrapper(*a))
                           for name, args in layer_calls(forward, wrapper)}

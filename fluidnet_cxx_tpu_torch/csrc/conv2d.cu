@@ -1,7 +1,9 @@
-// Kernel B: one NHWC 2-D convolution (kernel 1 or 3, stride 1 or 2,
-// dilation 1 or 2, flax SAME padding) with fused bias and ReLU, float32
-// products and sums. The PUNet forward launches it once per layer, 14
-// times at PUNetD2_128's widths (ops/kernels/punet.py::punet_forward).
+// Kernel B: one NHWC 2-D convolution (any odd kernel: 1, 3 and 5 run;
+// stride 1 or 2, dilation 1 or 2, flax SAME padding) with fused bias and
+// ReLU, float32 products and sums. A net's forward launches it once per
+// layer (ops/kernels/punet.py::net_forward): 14 times at PUNetD2_128's
+// widths, 10 for FluidNetTower, 17 for MultiScaleNet, whose 1-16 channel
+// layers reach it padded with zero channels to the 32-channel stage.
 //
 // Replaces fluidnet_cxx_tpu/ops/pallas/punet_pallas.py::punet_forward_pallas
 // (body _punet_kernel), which computes every conv of the U-Net as MXU

@@ -1,10 +1,13 @@
-"""Flax PUNet and PUNet3 parameters -> the port's ``state_dict``s.
+"""Flax network parameters -> the port's ``state_dict``s.
 
-Input: the flax ``PUNet_0`` (or ``PUNet3_0``, or ``MGCoarseNet``'s
-``punet``) param subtree as numpy arrays, ``{"embed": {"kernel": (k, k, c_in, c_out), "bias": (c_out,)},
-...}`` (3-D kernels are (k, k, k, c_in, c_out)), from an orbax checkpoint
-read where JAX is installed, or from ``random_flax_params``/
-``random_flax_params3``. Three layout traps, each handled once:
+Input: the flax ``PUNet_0``, ``FluidNetTower_0`` or ``MultiScaleNet_0``
+(or ``PUNet3_0``, or ``MGCoarseNet``'s ``punet``) param subtree as numpy
+arrays, ``{"embed": {"kernel": (k, k, c_in, c_out), "bias": (c_out,)},
+...}`` (3-D kernels are (k, k, k, c_in, c_out); MultiScaleNet's layers
+nest one level deeper, ``{"convN_4": {"Conv_0": {...}}}``, and become
+``convN_4/Conv_0``), from an orbax checkpoint read where JAX is
+installed, or from ``random_flax_params``/``random_flax_params3``. Three
+layout traps, each handled once:
 
 1. flax's space_to_depth orders channels (py, px, c), torch's
    pixel_unshuffle (c, py, px): the port's ``space_to_depth`` keeps flax's
@@ -32,11 +35,21 @@ STATE_DICT_FILE = "torch_state_dict.pt"
 _TRUNC_STD = 0.87962566103423978
 
 
+def _layers(params, prefix=""):
+    """(name, {"kernel", "bias"}) of each layer of a flax param tree, a
+    nested layer's name joined with "/"."""
+    for name, sub in params.items():
+        if "kernel" in sub:
+            yield prefix + name, sub
+        else:
+            yield from _layers(sub, f"{prefix}{name}/")
+
+
 def _to_state_dict(params, order):
     """{``convs.<name>.weight``: the kernel transposed by ``order``,
     ``convs.<name>.bias``} float32 tensors."""
     sd = {}
-    for name, leaf in params.items():
+    for name, leaf in _layers(params):
         k = np.asarray(leaf["kernel"], np.float32)
         sd[f"convs.{name}.weight"] = torch.from_numpy(
             np.ascontiguousarray(k.transpose(order)))
@@ -46,8 +59,9 @@ def _to_state_dict(params, order):
 
 
 def flax_to_state_dict(params):
-    """Flax PUNet param tree (numpy) -> {``convs.<name>.weight``: OIHW,
-    ``convs.<name>.bias``} float32 tensors."""
+    """Flax 2-D net param tree (numpy; PUNet, FluidNetTower or
+    MultiScaleNet) -> {``convs.<name>.weight``: OIHW, ``convs.<name>.bias``}
+    float32 tensors."""
     return _to_state_dict(params, (3, 2, 0, 1))
 
 
@@ -94,12 +108,20 @@ def _lecun_params(rng, shape):
 
 
 def random_flax_params(table, seed: int = 0):
-    """Flax-initialised PUNet parameters from a numpy seed: lecun-normal
-    kernels (truncated normal, std sqrt(1/fan_in)) and zero biases, for the
-    layers of ``models.punet.layer_table``."""
+    """Flax-initialised parameters of a 2-D net from a numpy seed:
+    lecun-normal kernels (truncated normal, std sqrt(1/fan_in)) and zero
+    biases, for the layers of its ``table`` (``ConvNet.table``: PUNet with
+    its refinement stack, FluidNetTower, MultiScaleNet), as the flax tree
+    holds them (a name with "/" nested)."""
     rng = np.random.default_rng(seed)
-    return {name: _lecun_params(rng, (k, k, ci, co))
-            for name, ci, co, k, _, _ in table}
+    tree = {}
+    for name, ci, co, k, _, _ in table:
+        *outer, last = name.split("/")
+        node = tree
+        for part in outer:
+            node = node.setdefault(part, {})
+        node[last] = _lecun_params(rng, (k, k, ci, co))
+    return tree
 
 
 def random_flax_params3(table, seed: int = 0):

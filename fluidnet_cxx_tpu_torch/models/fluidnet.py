@@ -1,19 +1,32 @@
 """The learned pressure projection (the port of the JAX package's
-``models/fluidnet.py``: ``scale_std`` and the fused inference path of
-``make_project_fn_fused_forward``).
+``models/fluidnet.py``): input assembly and ``scale_std``, the 3-bank
+FluidNet conv tower, the flax-path ``FluidNet`` wrapper with its
+``make_project_fn``, and the fused inference path of
+``make_project_fn_fused_forward``.
 
-assemble (divergence, occupancy, std normalisation) -> PUNet forward
-(ops/kernels/punet.py) -> projection tail, with the inlet BCs folded in on
-the tail's input and output. The tail is ops/kernels/proj_tail.py (RHS,
-warm damped-Jacobi polish, velocity update, wall BCs) or, with
-``polish_impl="mg"``, one warm V-cycle of ops/kernels/mg.py::project_mg.
+Flax path (``FluidNet``, every architecture): assemble (divergence,
+occupancy, the std scale s) -> network (PUNet, MultiScaleNet or
+FluidNetTower; kernel B for each conv on a CUDA tensor) -> the optional
+polish (``polish_impl``: "fused" kernel C, "mg" kernel H, "pallas"/"xla"
+kernel F's damped Jacobi on the normalised fields) -> velocity update on
+the normalised fields -> un-scale -> wall BCs.
+
+Fused path (refine-free PUNet): the forward takes the normalisation 1/s
+on its input's physical channel, then the projection tail
+(ops/kernels/proj_tail.py, or one warm V-cycle of ops/kernels/mg.py::
+project_mg with ``polish_impl="mg"``) runs on un-normalised fields with
+the inlet BCs folded in on its input and output.
 """
 import torch
 
+from ..ops.kernels.jacobi import solve_jacobi
 from ..ops.kernels.mg import project_mg
 from ..ops.kernels.proj_tail import project_tail
-from ..ops.kernels.punet import pack_weights, punet_forward
-from ..ops.stencils import flags_to_occupancy, velocity_divergence
+from ..ops.kernels.punet import net_forward, pack_weights, widen
+from ..ops.stencils import (flags_to_occupancy, set_wall_bcs,
+                            velocity_divergence, velocity_update)
+from .multi_scale import MultiScaleNet
+from .punet import ConvNet, PUNet
 
 
 def scale_std(x, threshold: float):
@@ -23,7 +36,153 @@ def scale_std(x, threshold: float):
     return torch.clamp(torch.std(y, dim=1, correction=1), min=threshold)
 
 
+def input_scale(cfg, p, U, div):
+    """(b,) scale s of the configured channel (``normalize_input_chan``),
+    or ones without ``normalize_input``."""
+    if not cfg.normalize_input:
+        return torch.ones((p.shape[0],), dtype=torch.float32,
+                          device=p.device)
+    chan = {"pDiv": p, "UDiv": U, "div": div}[cfg.normalize_input_chan]
+    return scale_std(chan, cfg.normalize_input_threshold)
+
+
+def assemble_inputs(cfg, p, U, flags, density):
+    """(NHWC input, scale s (b,), div) of the network: the reference's
+    priority chain pDiv, else UDiv (2 channels), else div, each divided by
+    s, then occupancy."""
+    div = velocity_divergence(U, flags)
+    s3 = input_scale(cfg, p, U, div)[:, None, None]
+    if cfg.input_p_div:
+        feats = [p / s3]
+    elif cfg.input_u_div:
+        feats = [U[:, 0] / s3, U[:, 1] / s3]
+    elif cfg.input_div:
+        feats = [div / s3]
+    else:
+        feats = []
+    feats.append(flags_to_occupancy(flags))
+    return torch.stack(feats, dim=-1), s3[:, 0, 0], div
+
+
+def tower_table(in_ch: int):
+    """FluidNetTower's layers, [(name, c_in, c_out, kernel, stride,
+    dilation)]."""
+    return [("conv1", in_ch, 16, 3, 1, 1), ("bank_conv1", 16, 16, 3, 1, 1),
+            ("bank_conv2", 16, 16, 3, 1, 1), ("conv2", 16, 16, 1, 1, 1),
+            ("conv3", 16, 8, 1, 1, 1), ("convOut", 8, 1, 1, 1, 1)]
+
+
+def avg_pool(x, k: int):
+    """k x k average pool of NHWC ``x``, stride k (flax ``avg_pool``,
+    VALID; the sides are multiples of k)."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // k, k, w // k, k, c).mean(dim=(2, 4))
+
+
+def upsample(x, k: int):
+    """Nearest-neighbour k-fold upsample of NHWC ``x`` (a repeat)."""
+    b, h, w, c = x.shape
+    return x[:, :, None, :, None, :].expand(b, h, k, w, k, c).reshape(
+        b, h * k, w * k, c)
+
+
+class FluidNetTower(ConvNet):
+    """The 3-bank FluidNet conv tower (JAX ``FluidNetTower``): conv1 3x3
+    and ReLU; one shared bank (two 3x3 convs, each with ReLU) at scales 1,
+    1/2 and 1/4 (average pools), nearest upsample and sum; 1x1 conv2 and
+    conv3 with ReLU, 1x1 convOut to one channel. Like JAX, conv2 runs once
+    (the reference applies it twice). h and w must be multiples of 4."""
+    outputs = ("convOut",)
+
+    def __init__(self, in_ch: int = 2):
+        super().__init__(tower_table(in_ch))
+        self.in_ch = in_ch
+
+    def forward(self, x, conv=None, width=None):
+        """NHWC (b, h, w, in_ch) -> (b, h, w, 1); ``conv`` and ``width``:
+        see ``ConvNet``."""
+        if x.shape[1] % 4 or x.shape[2] % 4:
+            raise ValueError(f"FluidNetTower needs h and w divisible by 4, "
+                             f"got {tuple(x.shape[1:3])}")
+        conv = conv or self._plain_conv
+
+        def bank(a):
+            return conv("bank_conv2", conv("bank_conv1", a))
+
+        x = conv("conv1", widen(x, width))
+        x = (bank(x) + upsample(bank(avg_pool(x, 2)), 2)
+             + upsample(bank(avg_pool(x, 4)), 4))
+        x = conv("conv3", conv("conv2", x))
+        return conv("convOut", x, relu=False)[..., :1]
+
+
+def make_net(cfg) -> ConvNet:
+    """The network of a ``ModelConfig``: PUNet (with or without its
+    refinement stack), MultiScaleNet for "ScaleNet", else FluidNetTower,
+    as the JAX ``FluidNet`` picks it; float32 only."""
+    if cfg.model == "PUNet":
+        return PUNet.from_config(cfg)
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r}: the port's 2-D nets run "
+            "float32 only; the bfloat16 checkpoints are 3-D (ROADMAP A.7)")
+    if cfg.model == "ScaleNet":
+        return MultiScaleNet(cfg.in_dims)
+    return FluidNetTower(cfg.in_dims)
+
+
+class FluidNet(torch.nn.Module):
+    """The flax-path learned projection (JAX ``FluidNet.__call__``):
+    ``forward(p, U, flags, density) -> (p, U)`` on the divergent state.
+    ``net`` defaults to ``make_net(cfg)``."""
+
+    def __init__(self, cfg, net=None):
+        super().__init__()
+        self.cfg = cfg
+        self.net = make_net(cfg) if net is None else net
+
+    def forward(self, p, U, flags, density, packed=None):
+        """``packed`` (``pack_weights(self.net)``) runs the network's
+        convolutions through kernel B's wrapper; without it the network's
+        plain forward. The polish and the tail follow the tensors'
+        device."""
+        cfg = self.cfg
+        x, s, div = assemble_inputs(cfg, p, U, flags, density)
+        out = self.net(x) if packed is None else net_forward(self.net,
+                                                             packed, x)
+        p_hat = out[..., 0].contiguous()
+        s3 = s[:, None, None]
+        if cfg.polish_sweeps > 0 and cfg.polish_impl == "fused":
+            # The tail on un-normalised fields (linear in p and the RHS).
+            return project_tail(flags, U, p_hat * s3, cfg.polish_sweeps,
+                                damping=cfg.polish_damping)
+        if cfg.polish_sweeps > 0 and cfg.polish_impl == "mg":
+            return project_mg(flags, U, p0=p_hat * s3, n_vcycles=1)
+        if cfg.polish_sweeps > 0:
+            # "pallas" and "xla": the same fixed-count damped Jacobi.
+            p_hat = solve_jacobi(flags, div / s3, cfg.polish_sweeps,
+                                 p0=p_hat, damping=cfg.polish_damping)
+        U_new = velocity_update(p_hat, U / s3[:, None], flags) * s3[:, None]
+        return p_hat * s3, set_wall_bcs(U_new, flags)
+
+
 def make_project_fn(cfg, net):
+    """Inference projection ``project(p, U, flags, density) -> (p, U)`` for
+    ``simulate_step`` on the flax path (``FluidNet``), with ``net``'s
+    weights packed once for kernel B. It has no ``handles_const_vals``:
+    the step runs it in its unfused branch, as the JAX step runs the flax
+    ``make_project_fn``."""
+    model = FluidNet(cfg, net)
+    packed = pack_weights(net)
+
+    @torch.no_grad()
+    def project(p, U, flags, density):
+        return model(p, U, flags, density, packed)
+
+    return project
+
+
+def make_project_fn_fused_forward(cfg, net):
     """Inference projection ``project(p, U, flags, density, U_bc=None,
     U_bc_inv_mask=None) -> (p, U)`` for ``simulate_step``.
 
@@ -34,9 +193,8 @@ def make_project_fn(cfg, net):
     ``p0 = p_hat * s``, and given ``U_bc``/``U_bc_inv_mask`` the inlet BCs
     are applied on the tail's input and output (``handles_const_vals``)."""
     if cfg.model != "PUNet" or cfg.punet_refine_convs != 0:
-        raise NotImplementedError(
-            "the port's projection runs the refine-free PUNet only "
-            "(ROADMAP A.4)")
+        raise ValueError("the fused forward runs a refine-free PUNet; "
+                         "the other nets take make_project_fn")
     if cfg.input_u_div:
         raise ValueError("the projection assembles a 2-channel input; "
                          "input_u_div needs 3 channels")
@@ -46,16 +204,10 @@ def make_project_fn(cfg, net):
     def project(p, U, flags, density, U_bc=None, U_bc_inv_mask=None):
         U_in = U * U_bc_inv_mask + U_bc if U_bc is not None else U
         div = velocity_divergence(U_in, flags)
-        if cfg.normalize_input:
-            chan = {"pDiv": p, "UDiv": U_in, "div": div}[
-                cfg.normalize_input_chan]
-            s = scale_std(chan, cfg.normalize_input_threshold)
-        else:
-            s = torch.ones((p.shape[0],), dtype=torch.float32,
-                           device=p.device)
+        s = input_scale(cfg, p, U_in, div)
         feat0 = p if cfg.input_p_div else div
         x = torch.stack([feat0, flags_to_occupancy(flags)], dim=-1)
-        p_hat = punet_forward(net, packed, x, inv_scale=1.0 / s)[..., 0]
+        p_hat = net_forward(net, packed, x, inv_scale=1.0 / s)[..., 0]
         if cfg.polish_impl == "mg":
             p, U = project_mg(flags, U_in, p0=p_hat * s[:, None, None],
                               n_vcycles=1)
@@ -68,3 +220,16 @@ def make_project_fn(cfg, net):
 
     project.handles_const_vals = True
     return project
+
+
+def summary(net, title: str = "FluidNet"):
+    """Parameter-count table of ``net`` (JAX ``summary``; the reference
+    prints a torchsummary table)."""
+    lines = [f"{title} parameters:"]
+    total = 0
+    for name, t in net.state_dict().items():
+        total += t.numel()
+        lines.append(f"  {name:60s} {str(tuple(t.shape)):18s} "
+                     f"{t.numel():>10,d}")
+    lines.append(f"  {'total':60s} {'':18s} {total:>10,d}")
+    return "\n".join(lines)

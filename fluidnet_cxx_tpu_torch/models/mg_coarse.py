@@ -26,7 +26,7 @@ from torch import nn
 from ..celltype import OBSTACLE
 from ..ops.common import border_mask
 from ..ops.kernels.mg import solve_mg
-from ..ops.kernels.punet import pack_weights, punet_forward
+from ..ops.kernels.punet import pack_weights, net_forward
 from ..ops.stencils import set_wall_bcs, velocity_divergence, velocity_update
 from .convert import load_state_dict_file
 from .punet import PUNet
@@ -73,7 +73,7 @@ class MGCoarseNet(nn.Module):
                        / n_live) + 1e-8
         x = torch.stack([rhs / s * cont, cont], dim=-1)
         e = (self.punet(x) if packed is None else
-             punet_forward(self.punet, packed, x))[..., 0]
+             net_forward(self.punet, packed, x))[..., 0]
         e = e * s
         mean = torch.sum(e * cont, dim=(1, 2), keepdim=True) / n_live
         return (e - mean) * cont

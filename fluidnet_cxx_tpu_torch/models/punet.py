@@ -1,11 +1,13 @@
 """PUNet — the learned pressure projection's U-Net (twin of the JAX
-package's ``models/punet.py`` for ``refine_convs == 0``, the shipped
-flagship).
+package's ``models/punet.py``), and ``ConvNet``, the base of the port's
+2-D conv nets.
 
 space-to-depth(patch) -> 1x1 embed -> encoder (stride-2 3x3 downs, 3x3
 convs) -> bottleneck 3x3 convs (optionally dilated) -> decoder (1x1 expand +
 depth-to-space(2), skip concat [up | skip], 3x3 convs) -> 1x1 head ->
-depth-to-space(patch).
+depth-to-space(patch) -> optionally the thin full-resolution refinement
+stack (``refine_convs`` 3x3 convs of ``refine_ch`` channels over [p | the
+raw input], a 3x3 conv to 1 channel, added to p).
 
 Layouts follow flax so the converted weights drop in: the network takes and
 returns NHWC; space_to_depth orders channels (py, px, c) like flax (torch's
@@ -17,7 +19,7 @@ version of the conv kernel (ops/kernels/punet.py).
 import torch
 from torch import nn
 
-from ..ops.kernels.punet import conv2d_nhwc_plain
+from ..ops.kernels.punet import _scaled, conv2d_nhwc_plain, widen
 
 
 def space_to_depth(x, p: int):
@@ -36,7 +38,7 @@ def depth_to_space(x, p: int):
 
 
 def layer_table(in_ch, patch, widths, level_convs, bottleneck_convs,
-                bottleneck_dilation):
+                bottleneck_dilation, refine_ch=8, refine_convs=0):
     """[(name, c_in, c_out, kernel, stride, dilation)] in forward order."""
     widths = tuple(widths)
     t = [("embed", patch * patch * in_ch, widths[0], 1, 1, 1)]
@@ -54,38 +56,80 @@ def layer_table(in_ch, patch, widths, level_convs, bottleneck_convs,
         for j in range(level_convs):
             t.append((f"dec{i}_{j}", 2 * wd if j == 0 else wd, wd, 3, 1, 1))
     t.append(("head", widths[0], patch * patch, 1, 1, 1))
+    for j in range(refine_convs):
+        t.append((f"ref{j}", 1 + in_ch if j == 0 else refine_ch, refine_ch,
+                  3, 1, 1))
+    if refine_convs:
+        t.append(("ref_out", refine_ch, 1, 3, 1, 1))
     return t
 
 
-class PUNet(nn.Module):
+class ConvNet(nn.Module):
+    """A 2-D net of named flax-'SAME' convolutions, NHWC in and out.
+
+    ``table`` is [(name, c_in, c_out, kernel, stride, dilation)]; the
+    parameters are ``nn.Conv2d``s (OIHW) under ``convs.<name>``, named as
+    the flax modules are (a nested flax name joined with "/"). A
+    subclass's forward takes ``conv`` (the per-layer convolution: the
+    plain version on these weights by default; ops/kernels/punet.py::
+    ``net_forward`` passes kernel B's on padded weights) and ``width``
+    (None, or the kernel path's stage: each input the net assembles is
+    widened to it with zero channels). ``thin(name)`` says whether a
+    layer is on kernel B's thin-channel route (its weights padded by
+    ops/kernels/punet.py::pack_weights): every layer by default.
+    ``outputs`` are the layers whose output the forward slices to its
+    real channels."""
+    outputs = ()
+
+    def __init__(self, table):
+        super().__init__()
+        self.table = table
+        self.geometry = {name: (k, s, d) for name, _, _, k, s, d in table}
+        self.convs = nn.ModuleDict({
+            name: nn.Conv2d(ci, co, k, stride=s, dilation=d)
+            for name, ci, co, k, s, d in table})
+
+    def _plain_conv(self, name, x, x2=None, relu=True, in_scale=None,
+                    scale_mod=1):
+        c = self.convs[name]
+        _, stride, dil = self.geometry[name]
+        return conv2d_nhwc_plain(x, c.weight, c.bias, stride, dil, relu, x2,
+                                 in_scale, scale_mod)
+
+    def thin(self, name) -> bool:
+        return True
+
+
+class PUNet(ConvNet):
     """Learned Poisson solve: NHWC (b, h, w, in_ch) -> (b, h, w, 1).
 
-    h and w must be divisible by patch * 2**(len(widths)-1)."""
+    h and w must be divisible by patch * 2**(len(widths)-1). Only the
+    refinement stack is on the thin-channel route: the U-Net's layers keep
+    their widths (kernel B takes multiples of 32)."""
+    outputs = ("ref_out",)
+
+    def thin(self, name) -> bool:
+        return name.startswith("ref")
 
     def __init__(self, in_ch: int = 2, patch: int = 8,
                  widths=(128, 128), level_convs: int = 1,
-                 bottleneck_convs: int = 3, bottleneck_dilation: int = 1):
-        super().__init__()
+                 bottleneck_convs: int = 3, bottleneck_dilation: int = 1,
+                 refine_ch: int = 8, refine_convs: int = 0):
+        super().__init__(layer_table(in_ch, patch, widths, level_convs,
+                                     bottleneck_convs, bottleneck_dilation,
+                                     refine_ch, refine_convs))
         self.in_ch = in_ch
         self.patch = patch
         self.widths = tuple(widths)
         self.level_convs = level_convs
         self.bottleneck_convs = bottleneck_convs
-        self.table = layer_table(in_ch, patch, widths, level_convs,
-                                 bottleneck_convs, bottleneck_dilation)
-        self.geometry = {name: (k, s, d)
-                         for name, _, _, k, s, d in self.table}
-        self.convs = nn.ModuleDict({
-            name: nn.Conv2d(ci, co, k, stride=s, dilation=d)
-            for name, ci, co, k, s, d in self.table})
+        self.refine_convs = refine_convs
 
     @classmethod
     def from_config(cls, cfg):
-        """Build from a ``ModelConfig`` (refine-free float32 PUNet only)."""
-        if cfg.model != "PUNet" or cfg.punet_refine_convs != 0:
-            raise NotImplementedError(
-                "the port has the refine-free PUNet only; the refinement "
-                "stack and the other models are ROADMAP A.4")
+        """Build from a ``ModelConfig`` (float32 PUNet)."""
+        if cfg.model != "PUNet":
+            raise ValueError(f"model {cfg.model!r} is not a PUNet")
         if cfg.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype!r}: the port's PUNet "
@@ -95,20 +139,16 @@ class PUNet(nn.Module):
                    widths=cfg.punet_widths,
                    level_convs=cfg.punet_level_convs,
                    bottleneck_convs=cfg.punet_bottleneck_convs,
-                   bottleneck_dilation=cfg.punet_bottleneck_dilation)
+                   bottleneck_dilation=cfg.punet_bottleneck_dilation,
+                   refine_ch=cfg.punet_refine_ch,
+                   refine_convs=cfg.punet_refine_convs)
 
-    def _plain_conv(self, name, x, x2=None, relu=True, in_scale=None,
-                    scale_mod=1):
-        c = self.convs[name]
-        _, stride, dil = self.geometry[name]
-        return conv2d_nhwc_plain(x, c.weight, c.bias, stride, dil, relu, x2,
-                                 in_scale, scale_mod)
-
-    def forward(self, x, inv_scale=None, conv=None):
+    def forward(self, x, inv_scale=None, conv=None, width=None):
         """``inv_scale`` (b,) optionally multiplies input channel 0 (the
-        physical channel) before the embed conv. ``conv`` replaces the
-        per-layer convolution (the kernel path passes its own)."""
+        physical channel) before the embed conv and the refinement stack.
+        ``conv`` and ``width``: see ``ConvNet``."""
         conv = conv or self._plain_conv
+        raw = x
         x = space_to_depth(x, self.patch)
         x = conv("embed", x, in_scale=inv_scale, scale_mod=self.in_ch)
         skips = []
@@ -125,5 +165,11 @@ class PUNet(nn.Module):
             x = conv(f"dec{i}_0", x, x2=skips[i])
             for j in range(1, self.level_convs):
                 x = conv(f"dec{i}_{j}", x)
-        x = conv("head", x, relu=False)
-        return depth_to_space(x, self.patch)
+        p = depth_to_space(conv("head", x, relu=False), self.patch)
+        if self.refine_convs:
+            raw = _scaled(raw, inv_scale, self.in_ch)
+            r = widen(torch.cat([p, raw], dim=-1), width)
+            for j in range(self.refine_convs):
+                r = conv(f"ref{j}", r)
+            p = p + conv("ref_out", r, relu=False)[..., :1]
+        return p

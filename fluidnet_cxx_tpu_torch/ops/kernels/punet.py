@@ -1,5 +1,5 @@
-"""Kernel B: one NHWC convolution with fused bias and ReLU, and the PUNet
-forward that launches it once per layer.
+"""Kernel B: one NHWC convolution with fused bias and ReLU, and the forward
+of a 2-D conv net that launches it once per layer.
 
 Replaces ``fluidnet_cxx_tpu/ops/pallas/punet_pallas.py::punet_forward_pallas``
 (the whole U-Net in one Pallas kernel) with the CUDA kernel in
@@ -8,15 +8,40 @@ tile and split-K plan of ``conv_plan.py``, a split layer's partial sums in
 a ``torch.empty`` workspace added in a fixed order (bit-equal repeats).
 The space-to-depth/depth-to-space reshapes and the skip routing stay
 PyTorch, as the JAX wrapper keeps s2d(8)/d2s(8) outside its kernel. Plain
-versions: ``conv2d_nhwc_plain`` for one layer (F.conv2d) and the ``PUNet``
+versions: ``conv2d_nhwc_plain`` for one layer (F.conv2d) and the network
 module's own forward for the network; a CPU tensor runs them, a CUDA
 tensor the kernel.
+
+The same kernel runs every conv of the port's other 2-D nets (JAX computes
+them with flax ``nn.Conv``): FluidNetTower, MultiScaleNet and PUNet's
+refinement stack, whose 1-16 channel layers the kernel's 32-channel stage
+does not take. ``pack_weights`` pads each layer once, at pack time, with
+zero input rows up to the stage and zero output columns (and bias) up to
+it, or up to 4 for a layer whose output the net slices; the net widens its
+assembled inputs with zero channels (``widen``). The padded channels stay
+exactly 0 through ReLU, pooling, nearest repeat and bilinear resize, so
+activations carry them from layer to layer with no pad pass between.
 """
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_plan import plan_conv
+from .conv_plan import CHUNK, plan_conv
+
+# Input channels a stage of the 3xTF32 route: every layer's input is
+# padded to a multiple of it.
+STAGE = CHUNK["tf32x3"]
+
+
+def padded(n: int, m: int) -> int:
+    """n rounded up to a multiple of m."""
+    return -(-n // m) * m
+
+
+def widen(x, width):
+    """NHWC ``x`` with zero channels appended up to ``width``; ``x`` itself
+    when ``width`` is None (the plain version's chain)."""
+    return x if width is None else F.pad(x, (0, width - x.shape[-1]))
 
 
 def same_pads(size: int, k: int, stride: int, dil: int):
@@ -102,20 +127,38 @@ conv2d_nhwc.launches = 0
 
 
 def pack_weights(net):
-    """HWIO copies of the PUNet's conv weights, made once for the kernel."""
-    return {name: (conv.weight.detach().permute(2, 3, 1, 0).contiguous(),
-                   conv.bias.detach().contiguous())
-            for name, conv in net.convs.items()}
+    """HWIO copies of the net's conv weights for the kernel, made once.
+    The layers on the thin-channel route (``net.thin(name)``) get zero
+    input rows up to a multiple of ``STAGE`` and zero output columns and
+    bias up to a multiple of ``STAGE``, or of 4 for the layers in
+    ``net.outputs`` (whose output the forward slices to its real
+    channels); the others are copied as they are."""
+    packed = {}
+    for name, conv in net.convs.items():
+        co, ci, k, _ = conv.weight.shape
+        cip, cop = ci, co
+        if net.thin(name):
+            cip = padded(ci, STAGE)
+            cop = padded(co, 4 if name in net.outputs else STAGE)
+        w = conv.weight.new_zeros((k, k, cip, cop))
+        w[:, :, :ci, :co] = conv.weight.detach().permute(2, 3, 1, 0)
+        b = conv.bias.new_zeros((cop,))
+        b[:co] = conv.bias.detach()
+        packed[name] = (w, b)
+    return packed
 
 
-def punet_forward(net, packed, x, inv_scale=None):
-    """PUNet forward of NHWC ``x`` (b, h, w, C) -> (b, h, w, 1), every conv
-    through ``conv2d_nhwc``. ``packed`` is ``pack_weights(net)``;
-    ``inv_scale`` (b,) normalises input channel 0 as it is loaded."""
+def net_forward(net, packed, x, **kw):
+    """Forward of a 2-D conv net (``models/punet.py::ConvNet``) on NHWC
+    ``x``, every conv through ``conv2d_nhwc`` with ``packed``
+    (``pack_weights(net)``) and the net's assembled inputs widened to
+    ``STAGE`` channels. ``kw`` goes to the net (PUNet's ``inv_scale``
+    normalises input channel 0 as it is loaded). On a CPU tensor this is
+    the padded chain's plain twin."""
     def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
         w_hwio, b = packed[name]
         _, stride, dil = net.geometry[name]
         return conv2d_nhwc(h, w_hwio, b, stride, dil, relu, x2, in_scale,
                            scale_mod)
 
-    return net(x, inv_scale=inv_scale, conv=conv)
+    return net(x, conv=conv, width=STAGE, **kw)

@@ -16,16 +16,21 @@ kernel F. ``--sim-method multigrid`` projects with kernel H
 (``cylinder_config``'s 2 warm V-cycles; the JAX step runs its XLA
 ``solve_mg`` at this size, where its TPU kernel does not fit), and
 ``--sim-method convnet`` with the learned projection of ``--model-dir``
-(default ``trained_models/PUNetD2_128``, its trained weights; kernels B
-and C), which the stick walls send through the step's unfused branch, as
-in the JAX ``scripts/run_cylinder.py``. The run loop is
+(default ``trained_models/PUNetD2_128``, its trained weights, or seed
+weights with ``--weight-seed N``; kernels B and C; ``run_plume.
+learned_projection`` picks the fused or the flax path from the
+checkpoint's model, as for the plume: ``--model-dir
+trained_models/DataTrain_128`` runs the FluidNetTower, every conv on
+kernel B), which the stick walls send through the step's unfused branch,
+as in the JAX ``scripts/run_cylinder.py``. The run loop is
 ``sim/driver.py::run_simulation`` with its CFL guard, without plotting or
 restarts.
 
 Prints ms/step (CUDA events on the card, the host clock on the CPU, over
 the whole run loop), mean|div| and max|div| over fluid cells after the
 last projection, max|U|, the largest back-trace displacement the CFL guard
-saw and whether every field is finite. Runs on the card unless
+saw, whether every field is finite and, under convnet, the net and its
+weights (``"model"``, ``"weights"``). Runs on the card unless
 ``--device cpu`` is given.
 """
 import argparse
@@ -36,10 +41,10 @@ import torch
 
 from .celltype import FLUID
 from .config import load_model_config
-from .models.fluidnet import make_project_fn
 from .ops.stencils import velocity_divergence
 from .ops.window import max_displacement
-from .run_plume import MODEL_DIR, build_punet, resolve_device
+from .run_plume import (MODEL_DIR, learned_projection, resolve_device,
+                        weights_label)
 from .sim.driver import run_simulation
 from .sim.scenes import create_cylinder_scene, cylinder_config
 
@@ -50,10 +55,11 @@ def cylinder_case(res_x: int = 8000, res_y: int = 800, device="cuda",
                   reynolds: float = 100.0, radius: float = 80.5,
                   center_x: float = 500.0, inlet_vel: float = 1.0,
                   jacobi_iter: int = 34, sim_method: str = "jacobi",
-                  model_dir=MODEL_DIR):
+                  model_dir=MODEL_DIR, weight_seed=None):
     """(SimConfig, initial SimState, project_fn) of the cylinder case;
     project_fn is the learned projection of ``model_dir`` (its trained
-    weights) for "convnet", else None."""
+    weights, or seed weights from ``weight_seed``) for "convnet", else
+    None."""
     if sim_method not in SIM_METHODS:
         raise ValueError(f"sim_method {sim_method!r}: the cylinder runs "
                          f"{', '.join(SIM_METHODS)}")
@@ -65,9 +71,7 @@ def cylinder_case(res_x: int = 8000, res_y: int = 800, device="cuda",
                           use_pallas=True, sim_method=sim_method)
     project = None
     if sim_method == "convnet":
-        mcfg = load_model_config(str(model_dir))
-        project = make_project_fn(mcfg, build_punet(mcfg, None, dev,
-                                                    model_dir))
+        project = learned_projection(model_dir, weight_seed, dev)
     return cfg, state, project
 
 
@@ -77,12 +81,13 @@ def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
                  radius: float = 80.5, center_x: float = 500.0,
                  inlet_vel: float = 1.0, jacobi_iter: int = 34,
                  sim_method: str = "jacobi", stat_iter: int = 50,
-                 verbose: bool = False, model_dir=MODEL_DIR):
+                 verbose: bool = False, model_dir=MODEL_DIR,
+                 weight_seed=None):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` and the diagnostics."""
     cfg, state, project = cylinder_case(
         res_x, res_y, device, reynolds, radius, center_x, inlet_vel,
-        jacobi_iter, sim_method, model_dir)
+        jacobi_iter, sim_method, model_dir, weight_seed)
     disp = []
 
     def on_stats(st, it):
@@ -103,6 +108,10 @@ def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
         elapsed_ms = 1e3 * (time.perf_counter() - t0)
     fluid = state.flags == FLUID
     div = velocity_divergence(state.U, state.flags).abs() * fluid
+    net = {}
+    if project is not None:
+        net = {"model": load_model_config(str(model_dir)).model,
+               "weights": weights_label(weight_seed)}
     return {
         "state": state,
         "ms_per_step": elapsed_ms / max(steps, 1),
@@ -112,6 +121,7 @@ def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
         "max_disp": max(disp, default=0.0),
         "finite": all(bool(torch.isfinite(t).all())
                       for t in (state.U, state.p)),
+        **net,
     }
 
 
@@ -129,12 +139,16 @@ def main(argv=None):
     ap.add_argument("--sim-method", default="jacobi", choices=SIM_METHODS)
     ap.add_argument("--model-dir", default=str(MODEL_DIR),
                     help="checkpoint of --sim-method convnet")
+    ap.add_argument("--weight-seed", type=int, default=None,
+                    help="flax-initialised weights from this seed in "
+                         "place of the trained ones")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     out = run_cylinder(args.res_x, args.res_y, args.steps, args.device,
                        args.re, args.radius, args.center_x, args.inlet_vel,
                        args.jacobi_iter, args.sim_method, args.stat_iter,
-                       verbose=True, model_dir=args.model_dir)
+                       verbose=True, model_dir=args.model_dir,
+                       weight_seed=args.weight_seed)
     out.pop("state")
     print(json.dumps({"res_x": args.res_x, "res_y": args.res_y,
                       "steps": args.steps, "sim_method": args.sim_method,

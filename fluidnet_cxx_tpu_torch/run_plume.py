@@ -13,7 +13,8 @@ The cases are the JAX package's ``bench.py`` rows: ``plume_config`` (dt
 0.1, MacCormack 0.6, buoyancy 0.25, ``max_disp`` 4, line trace and merged
 advection on) with the plume scene (inlet speed 2*res/128, radius 0.145)
 and one projection: "convnet" (the default, the "cnn" row) runs the PUNet
-of ``trained_models/PUNetD2_128/model_config.json`` at its full widths,
+of ``trained_models/PUNetD2_128/model_config.json`` at its full widths
+(or the network of ``--model-dir``, below),
 "jacobi" ``--jacobi-iter`` sweeps (the jacobi-N rows), "multigrid"
 ``--mg-vcycles`` warm V-cycles (the mg-2v row), "mg_learned" one cold
 V-cycle whose levels below side 128 are replaced by the
@@ -26,8 +27,19 @@ of A; ``bench.py``'s ``BENCH_FUSE_ADV=0``). The PUNet runs the trained
 weights (``trained_models/PUNetD2_128/torch_state_dict.pt``, converted
 from the orbax checkpoint by ``scripts/torch_convert_checkpoints.py``);
 ``--weight-seed N`` asks for flax-initialised weights from seed N instead.
-The output says which (``"weights": "trained"`` or ``"seed:N"``).
-``--model-dir`` points either at another checkpoint directory.
+The output says which (``"weights": "trained"`` or ``"seed:N"``) and
+which net ran (``"model"``). ``--model-dir`` points either at another
+checkpoint directory; its ``model_config.json`` picks the projection: a
+refine-free PUNet keeps the fused path (``make_project_fn_fused_forward``,
+kernels B and C), "FluidNet" (``DataTrain_128``'s FluidNetTower),
+"ScaleNet" (the ``ScaleNet_*`` MultiScaleNets) and a PUNet with a
+refinement stack go through the flax-path ``FluidNet``
+(``models/fluidnet.py::make_project_fn``: every conv on kernel B, the
+polish of ``polish_impl``, the step's unfused branch), as the JAX
+``scripts/run_plume.py --simMethod convnet --modelDir`` runs them:
+
+    python -m fluidnet_cxx_tpu_torch.run_plume \
+        --model-dir trained_models/ScaleNet_jets_128
 
 Prints ms/step and ``bench.py``'s quality stats of the final state:
 mean|div| and max|div| over fluid cells outside the inlet rows, and the
@@ -45,11 +57,12 @@ from .celltype import FLUID
 from .config import load_model_config
 from .models.convert import (flax_to_state_dict, load_state_dict_file,
                              random_flax_params)
-from .models.fluidnet import make_project_fn
+from .models.fluidnet import (make_net, make_project_fn,
+                              make_project_fn_fused_forward)
 from .models.mg_coarse import (MGCoarseNet, load_mg_coarse,
                                load_mg_coarse_config,
                                make_project_fn_mg_learned)
-from .models.punet import PUNet
+from .models.punet import ConvNet
 from .ops.stencils import velocity_divergence
 from .sim.scenes import create_plume_scene, plume_config
 from .sim.step import simulate_step
@@ -74,12 +87,13 @@ def weights_label(weight_seed) -> str:
     return "trained" if weight_seed is None else f"seed:{weight_seed}"
 
 
-def build_punet(mcfg, weight_seed=None, device="cpu",
-                model_dir=MODEL_DIR) -> PUNet:
-    """The configured PUNet with the trained weights of ``model_dir``
-    (``weight_seed`` None) or flax-initialised weights from
+def build_net(mcfg, weight_seed=None, device="cpu",
+              model_dir=MODEL_DIR) -> ConvNet:
+    """The configured network (``models/fluidnet.py::make_net``: PUNet,
+    MultiScaleNet or FluidNetTower) with the trained weights of
+    ``model_dir`` (``weight_seed`` None) or flax-initialised weights from
     ``weight_seed``."""
-    net = PUNet.from_config(mcfg)
+    net = make_net(mcfg)
     net.load_state_dict(
         load_state_dict_file(model_dir) if weight_seed is None else
         flax_to_state_dict(random_flax_params(net.table, weight_seed)))
@@ -97,6 +111,17 @@ def build_mg_coarse(weight_seed=None, device="cpu",
     net.punet.load_state_dict(flax_to_state_dict(
         random_flax_params(net.punet.table, weight_seed)))
     return net.to(device).eval()
+
+
+def learned_projection(model_dir, weight_seed=None, device="cpu"):
+    """The project_fn of the checkpoint in ``model_dir``: the fused path
+    for a refine-free PUNet, the flax path (``FluidNet``) for every other
+    network."""
+    mcfg = load_model_config(str(model_dir))
+    net = build_net(mcfg, weight_seed, device, model_dir)
+    fused = mcfg.model == "PUNet" and mcfg.punet_refine_convs == 0
+    make = make_project_fn_fused_forward if fused else make_project_fn
+    return make(mcfg, net)
 
 
 def plume_case(res: int = 512, device="cuda", weight_seed=None,
@@ -124,11 +149,8 @@ def plume_case(res: int = 512, device="cuda", weight_seed=None,
         return cfg, state, make_project_fn_mg_learned(net)
     if sim_method != "convnet":
         return cfg, state, None
-    model_dir = model_dir or MODEL_DIR
-    mcfg = load_model_config(str(model_dir))
-    project = make_project_fn(mcfg, build_punet(mcfg, weight_seed, dev,
-                                                model_dir))
-    return cfg, state, project
+    return cfg, state, learned_projection(model_dir or MODEL_DIR,
+                                          weight_seed, dev)
 
 
 def _fluid_abs_div(state, U):
@@ -164,7 +186,8 @@ def run_plume(res: int = 512, steps: int = 20, device="cuda",
     ``ms_per_step`` over all but the last step (CUDA events on the card,
     the host clock on the CPU), ``quality(state)`` and, for the learned
     projections, the weights they ran (``weights``: "trained" or
-    "seed:N") and the mean |div| of the last step's projection input
+    "seed:N"), the net (``model``: the checkpoint's ``model``, or
+    "MGCoarseNet") and the mean |div| of the last step's projection input
     (``div_in``)."""
     cfg, state, project = plume_case(res, device, weight_seed, model_dir,
                                      sim_method, jacobi_iter, mg_vcycles,
@@ -194,7 +217,11 @@ def run_plume(res: int = 512, steps: int = 20, device="cuda",
     observed.handles_const_vals = getattr(project, "handles_const_vals",
                                           False)
     state = simulate_step(cfg, state, observed if project else None)
-    weights = {"weights": weights_label(weight_seed)} if project else {}
+    weights = {}
+    if project:
+        model = ("MGCoarseNet" if sim_method == "mg_learned" else
+                 load_model_config(str(model_dir or MODEL_DIR)).model)
+        weights = {"weights": weights_label(weight_seed), "model": model}
     return {"state": state,
             "ms_per_step": elapsed_ms / max(steps - 1, 1), **weights,
             "div_in": seen["div_in"], **quality(state)}

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Convert the trained PUNet checkpoints into torch files for the PyTorch
-port.
+"""Convert the trained checkpoints into torch files for the PyTorch port.
 
     JAX_PLATFORMS=cpu python scripts/torch_convert_checkpoints.py [NAME ...]
 
-For each of PUNetD2_128 (2-D), PUNet3p8_64 and PUNet3_32 (3-D) it reads
+For each of PUNetD2_128, DataTrain_128 (FluidNetTower), ScaleNet_jets_128,
+ScaleNet_onDevice_128 and ScaleNet_rollout_128 (MultiScaleNet) (2-D),
+PUNet3p8_64 and PUNet3_32 (3-D) it reads
 ``trained_models/<name>/best`` with the JAX package's loader
 (``train/checkpoint.py::load_train_checkpoint``), and for MGCoarse_128 (the
 learned coarse solve of ``mg_learned``) as ``models/mg_coarse.py::
@@ -33,7 +34,11 @@ from fluidnet_cxx_tpu_torch.models.convert import (
     STATE_DICT_FILE, flax_mg_coarse_to_state_dict, flax_to_state_dict,
     flax_to_state_dict3)
 
-MODELS_2D = ("PUNetD2_128",)
+MODELS_2D = ("PUNetD2_128", "DataTrain_128", "ScaleNet_jets_128",
+             "ScaleNet_onDevice_128", "ScaleNet_rollout_128")
+# The flax FluidNet's submodule of each 2-D model (its config's "model").
+SUBTREE = {"PUNet": "PUNet_0", "ScaleNet": "MultiScaleNet_0",
+           "FluidNet": "FluidNetTower_0"}
 MODELS_3D = ("PUNet3p8_64", "PUNet3_32")
 MODELS_MG_COARSE = ("MGCoarse_128",)
 
@@ -85,7 +90,7 @@ def flax_params(name):
 
         template = _template(lambda k: init_train_state(
             FluidNet(mcfg), k, TrainConfig(), 64, 64))
-        sub = "PUNet_0"
+        sub = SUBTREE[mcfg.model]
     else:
         import optax
 

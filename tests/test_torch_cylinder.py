@@ -32,7 +32,7 @@ from fluidnet_cxx_tpu_torch.ops import grid as t_grid
 from fluidnet_cxx_tpu_torch.ops import source_terms as t_src
 from fluidnet_cxx_tpu_torch.ops import stencils as t_st
 from fluidnet_cxx_tpu_torch.ops import window as t_win
-from fluidnet_cxx_tpu_torch.run_plume import plume_case
+from fluidnet_cxx_tpu_torch.run_plume import build_net, plume_case
 from fluidnet_cxx_tpu_torch.sim import scenes as t_scenes
 from fluidnet_cxx_tpu_torch.sim.driver import run_simulation
 from fluidnet_cxx_tpu_torch.sim.step import simulate_step
@@ -226,7 +226,7 @@ def test_cylinder_other_projections_match_jax(method):
     j_project = None
     if method == "convnet":
         model = FluidNet(load_model_config(str(rc.MODEL_DIR)))
-        net = rc.build_punet(model.cfg)
+        net = build_net(model.cfg)
         j_project = make_project_fn(model, _flax_punet(net.state_dict()))
     jax_step = jax.jit(lambda s: j_step(jcfg, s, project_fn=j_project))
     with torch.no_grad():

@@ -32,7 +32,7 @@ from fluidnet_cxx_tpu_torch.ops.kernels.advect import advect_all
 from fluidnet_cxx_tpu_torch.ops.kernels.proj_tail import project_tail
 from fluidnet_cxx_tpu_torch.ops.kernels.punet import (conv2d_nhwc,
                                                       pack_weights,
-                                                      punet_forward)
+                                                      net_forward)
 
 torch.set_num_threads(1)
 
@@ -152,7 +152,8 @@ def test_punet_plain_matches_pallas(rng):
     net = PUNet.from_config(cfg)
     net.load_state_dict(flax_to_state_dict(params))
     with torch.no_grad():
-        got = punet_forward(net, pack_weights(net), T(x), T(inv)).numpy()
+        got = net_forward(net, pack_weights(net), T(x),
+                          inv_scale=T(inv)).numpy()
     assert got.shape == want.shape == (2, n, n, 1)
     close(torch.from_numpy(got), want, 1e-4)
 

@@ -25,7 +25,9 @@ import torch
 from conftest import random_flags
 from fluidnet_cxx_tpu import ops as j_ops
 from fluidnet_cxx_tpu.config import ModelConfig as JModelConfig
-from fluidnet_cxx_tpu.models import FluidNet, make_project_fn_fused_forward
+from fluidnet_cxx_tpu.models import FluidNet
+from fluidnet_cxx_tpu.models import (
+    make_project_fn_fused_forward as j_fused_forward)
 from fluidnet_cxx_tpu.ops import multigrid as j_mg
 from fluidnet_cxx_tpu.sim import create_plume_scene as j_plume
 from fluidnet_cxx_tpu.sim import create_rayleigh_taylor_scene as j_rt
@@ -34,12 +36,13 @@ from fluidnet_cxx_tpu.sim import rayleigh_taylor_config as j_rt_config
 from fluidnet_cxx_tpu.sim import simulate_step as j_step
 from fluidnet_cxx_tpu_torch.config import ModelConfig
 from fluidnet_cxx_tpu_torch.models.convert import random_flax_params
-from fluidnet_cxx_tpu_torch.models.fluidnet import make_project_fn, scale_std
+from fluidnet_cxx_tpu_torch.models.fluidnet import (
+    make_project_fn_fused_forward, scale_std)
 from fluidnet_cxx_tpu_torch.ops import multigrid as t_mg
 from fluidnet_cxx_tpu_torch.ops.kernels import mg as k_mg
 from fluidnet_cxx_tpu_torch.ops.stencils import (flags_to_occupancy,
                                                  velocity_divergence)
-from fluidnet_cxx_tpu_torch.run_plume import build_punet, plume_case
+from fluidnet_cxx_tpu_torch.run_plume import build_net, plume_case
 from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import rt_case
 from fluidnet_cxx_tpu_torch.sim.step import simulate_step
 
@@ -134,8 +137,8 @@ def test_mg_polish_is_punet_then_project_mg(rng):
     BCs are applied to its output."""
     mcfg = ModelConfig(model="PUNet", punet_patch=4, punet_widths=(8, 8),
                        punet_bottleneck_convs=1, polish_impl="mg")
-    net = build_punet(mcfg, 0)
-    project = make_project_fn(mcfg, net)
+    net = build_net(mcfg, 0)
+    project = make_project_fn_fused_forward(mcfg, net)
     h = w = 32
     flags = T(random_flags(rng, 1, h, w, p_obstacle=0.05))
     U = T(rng.standard_normal((1, 2, h, w)).astype(np.float32))
@@ -173,10 +176,10 @@ def test_mg_polish_matches_jax_fused_forward(rng, monkeypatch):
     widths = dict(model="PUNet", punet_patch=4, punet_widths=(8, 8),
                   punet_bottleneck_convs=1, polish_impl="mg")
     mcfg = ModelConfig(**widths)
-    net = build_punet(mcfg, 0)
+    net = build_net(mcfg, 0)
     params = {"params": {"PUNet_0": random_flax_params(net.table, 0)}}
     h = w = 32
-    j_project = make_project_fn_fused_forward(
+    j_project = j_fused_forward(
         FluidNet(JModelConfig(**widths)), params, h, w,
         compute_dtype=jnp.float32)
     flags = random_flags(rng, 1, h, w, p_obstacle=0.05)
@@ -188,7 +191,7 @@ def test_mg_polish_matches_jax_fused_forward(rng, monkeypatch):
     ref = jax.jit(lambda p, U, flags, U_bc, inv: j_project(
         p, U, flags, None, U_bc=U_bc, U_bc_inv_mask=inv))
     want_p, want_U = ref(p, U, flags, U_bc, inv)
-    got_p, got_U = make_project_fn(mcfg, net)(
+    got_p, got_U = make_project_fn_fused_forward(mcfg, net)(
         T(p), T(U), T(flags), None, U_bc=T(U_bc), U_bc_inv_mask=T(inv))
     _close(got_p, want_p)
     _close(got_U, want_U)

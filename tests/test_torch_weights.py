@@ -3,7 +3,8 @@
 ``scripts/torch_convert_checkpoints.py``) against the orbax checkpoints
 read by the JAX package's loader, on the CPU.
 
-Each file must hold exactly ``flax_to_state_dict`` (2-D) or
+Each file must hold exactly ``flax_to_state_dict`` (2-D: PUNet,
+FluidNetTower, MultiScaleNet) or
 ``flax_to_state_dict3`` (3-D) of its checkpoint, tensor for tensor
 (``torch.equal``). The port's 2-D forward with the loaded file equals
 flax's forward with the checkpoint to 1e-4 of the output's largest
@@ -26,7 +27,7 @@ from fluidnet_cxx_tpu_torch.models.convert import (
     STATE_DICT_FILE, flax_mg_coarse_to_state_dict, flax_to_state_dict,
     flax_to_state_dict3, load_state_dict_file)
 from fluidnet_cxx_tpu_torch.models.mg_coarse import CONFIG_FILE, MGCoarseNet
-from fluidnet_cxx_tpu_torch.run_plume import (build_mg_coarse, build_punet,
+from fluidnet_cxx_tpu_torch.run_plume import (build_mg_coarse, build_net,
                                               weights_label)
 from fluidnet_cxx_tpu_torch.run_plume3d import build_punet3
 
@@ -50,15 +51,21 @@ def convert():
     return _script()
 
 
-@pytest.mark.parametrize("name", ["PUNetD2_128", "PUNet3p8_64",
-                                  "PUNet3_32", "MGCoarse_128"])
+MODELS_2D = ["PUNetD2_128", "DataTrain_128", "ScaleNet_jets_128",
+             "ScaleNet_onDevice_128", "ScaleNet_rollout_128"]
+
+
+@pytest.mark.parametrize("name", MODELS_2D + ["PUNet3p8_64", "PUNet3_32",
+                                              "MGCoarse_128"])
 def test_committed_file_equals_the_checkpoints_conversion(convert, name):
     """The file's tensors are the conversion of ``best`` read by the JAX
     loader, bit for bit, float32, on the CPU, and nothing else
-    (MGCoarse_128: the JAX ``load_mg_coarse`` and
+    (DataTrain_128 and the ScaleNet_* checkpoints: their FluidNetTower_0
+    and MultiScaleNet_0 subtrees, ScaleNet's names joined with "/";
+    MGCoarse_128: the JAX ``load_mg_coarse`` and
     ``flax_mg_coarse_to_state_dict``, keys under ``punet.``)."""
     params = convert.flax_params(name)
-    want = (flax_to_state_dict if name == "PUNetD2_128" else
+    want = (flax_to_state_dict if name in MODELS_2D else
             flax_mg_coarse_to_state_dict if name == "MGCoarse_128" else
             flax_to_state_dict3)(params)
     got = load_state_dict_file(MODELS / name)
@@ -70,7 +77,7 @@ def test_committed_file_equals_the_checkpoints_conversion(convert, name):
 
 
 def test_trained_forward_with_the_file_matches_flax(convert, rng):
-    """The port's PUNetD2_128 built from the file (``build_punet``'s
+    """The port's PUNetD2_128 built from the file (``build_net``'s
     default) against flax's forward with the checkpoint at 64^2."""
     mcfg = load_model_config(str(MODELS / "PUNetD2_128"))
     params = convert.flax_params("PUNetD2_128")
@@ -83,7 +90,7 @@ def test_trained_forward_with_the_file_matches_flax(convert, rng):
     want = np.asarray(jax.jit(flax_net.apply)({"params": params},
                                               jnp.asarray(x)))
     with torch.no_grad():
-        got = build_punet(mcfg)(torch.from_numpy(x)).numpy()
+        got = build_net(mcfg)(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
 
@@ -96,7 +103,7 @@ def test_missing_file_raises_and_names_the_script(tmp_path):
         load_state_dict_file(tmp_path)
     mcfg = load_model_config(str(MODELS / "PUNetD2_128"))
     with pytest.raises(FileNotFoundError, match=STATE_DICT_FILE):
-        build_punet(mcfg, model_dir=tmp_path)
+        build_net(mcfg, model_dir=tmp_path)
     mcfg3 = load_model_config(str(MODELS / "PUNet3_32"))
     with pytest.raises(FileNotFoundError, match=STATE_DICT_FILE):
         build_punet3(mcfg3, model_dir=tmp_path)
@@ -105,8 +112,8 @@ def test_missing_file_raises_and_names_the_script(tmp_path):
     with pytest.raises(FileNotFoundError, match=STATE_DICT_FILE):
         build_mg_coarse(model_dir=tmp_path)
     assert isinstance(build_mg_coarse(0, model_dir=tmp_path), MGCoarseNet)
-    seeded = build_punet(mcfg, 0, model_dir=tmp_path)
-    trained = build_punet(mcfg)
+    seeded = build_net(mcfg, 0, model_dir=tmp_path)
+    trained = build_net(mcfg)
     assert not torch.equal(seeded.convs["embed"].weight,
                            trained.convs["embed"].weight)
     assert (weights_label(None), weights_label(3)) == ("trained", "seed:3")
