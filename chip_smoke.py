@@ -131,6 +131,30 @@ Phases (each prints its elapsed seconds):
      max|div| within 1%, the height within a row; 3-D max|div|, mean|div|,
      density sum and max|U| within 1%); every case timed as a CUDA-graph
      replay and eagerly at a reduced n; each case's line printed.
+  8. training (ROADMAP A.5; configs/train.yaml's FluidNetTower and
+     MultiScaleNet at 128^2, batch 64, seed weights): kernel B's input
+     gradient (B on the flipped weights, ops/kernels/punet.py::
+     conv2d_dgrad) on every conv call of the tower's forward but conv1,
+     held to cuDNN's conv2d_input on the unpadded weights within 1e-5 of
+     its largest value (padded input channels exactly 0), and the weight
+     gradient fn_conv2d_wgrad (csrc/conv2d_grad.cu) on every call, held
+     to twice the plain float32 version's (torch.nn.grad.conv2d_weight
+     and a sum) distance from its float64 run, each bit-equal on a repeat,
+     timed as device ms beside the plain version and cuDNN with the
+     bound; the same on ScaleNet's 5x5 layers; both nets' forward and
+     backward through the kernels against plain autograd on the card and
+     in float64 (batch 16; the kernel route within twice the plain float32
+     route's distance from float64); one loss and its gradients at 64^2,
+     batch 4, LT on with a fixed 4-step draw, the card against the CPU
+     (terms 1e-4, gradients 1e-3 of the net's largest); the main paths: make_on_device_train_step with
+     TrainConfig() and 600 label sweeps, 10 steps of the tower and 5 of
+     ScaleNet (one warm-up each, then the counters set to 0): ms/step,
+     finite loss terms, peak memory, launches per step of B's forward,
+     its input gradient, wgrad, E and F (the backward's exact), a
+     profiler window of one more step; then the dataset path (--synthetic
+     8 at 128^2, batch 16, one epoch with validation, a checkpoint, a
+     resume to a second epoch whose step count continues) and
+     --plumeFrames 16 with 5 mixed steps, through the entry point.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
 `python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
@@ -139,7 +163,9 @@ Phases (each prints its elapsed seconds):
 on the 1000x100 map and the mg_learned and cylinder paths (learned_only),
 `python3 chip_smoke.py --nets-only` B's thin-channel phase, the 64^2
 card-against-CPU checks and the 512^2 main paths of DataTrain_128 and
-ScaleNet_jets_128 (nets_only).
+ScaleNet_jets_128 (nets_only),
+`python3 chip_smoke.py --train-only` phase 8 alone and the kernels line
+of its two rows (train_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -500,7 +526,8 @@ def phase_conv2d(dev, gen, results):
     net = build_net(mcfg, None, dev)
     print(f"B: trained weights, {MODEL_DIR.name}/{STATE_DICT_FILE}",
           flush=True)
-    packed = punet.pack_weights(net)
+    with torch.no_grad():
+        packed = punet.pack_weights(net)
     x = torch.stack([torch.randn((1, RES, RES), generator=gen),
                      (torch.rand((1, RES, RES), generator=gen) < 0.1).float()],
                     dim=-1).to(dev)
@@ -675,7 +702,8 @@ def check_b_forward(label, net, x, inv=None):
     (max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by)."""
     from fluidnet_cxx_tpu_torch.ops.kernels import punet
 
-    packed = punet.pack_weights(net)
+    with torch.no_grad():
+        packed = punet.pack_weights(net)
 
     def run(hook):
         def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
@@ -920,7 +948,8 @@ def phase_nets(dev, results):
     for key, model_dir in NETS.items():
         mcfg = load_model_config(model_dir)
         net = build_net(mcfg, None, dev, model_dir)
-        packed = punet.pack_weights(net)
+        with torch.no_grad():
+            packed = punet.pack_weights(net)
         with torch.no_grad():
             x = assemble_inputs(mcfg, *step0_projection_input(model_dir,
                                                               dev))[0]
@@ -2438,6 +2467,14 @@ def phase_profile(name, case):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0) / n
 
+    print_profile(name, prof, n, wall_ms)
+    done()
+
+
+def print_profile(name, prof, n, wall_ms):
+    """Device busy ms per step, the idle share, the 8 kernels that take
+    the most device time and every other kernel of the port's, from a
+    profiler window of ``n`` steps that took ``wall_ms`` each."""
     # Device-side events only: an aten op's own row repeats the time of
     # the kernels it launched.
     events = [e for e in prof.key_averages()
@@ -2445,19 +2482,18 @@ def phase_profile(name, case):
     dev_ms = sum(dev_us(e) for e in events) / 1e3 / n
     if not events:
         print("profiler: no device time recorded", flush=True)
-    else:
-        print(f"profile {name}: wall {wall_ms:.4f} ms/step, device busy "
-              f"{dev_ms:.4f} ms/step, idle share {1 - dev_ms / wall_ms:.3f}",
-              flush=True)
-        ranked = sorted(events, key=dev_us, reverse=True)
-        # The top 8, then the port's own kernels below them.
-        for i, e in enumerate(ranked):
-            if i >= 8 and not ("(anonymous namespace)::" in e.key
-                               or "fnk::" in e.key):
-                continue
-            print(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step "
-                  f"{e.count / n:6.1f} calls/step  {e.key[:70]}", flush=True)
-    done()
+        return
+    print(f"profile {name}: wall {wall_ms:.4f} ms/step, device busy "
+          f"{dev_ms:.4f} ms/step, idle share {1 - dev_ms / wall_ms:.3f}",
+          flush=True)
+    ranked = sorted(events, key=dev_us, reverse=True)
+    # The top 8, then the port's own kernels below them.
+    for i, e in enumerate(ranked):
+        if i >= 8 and not ("(anonymous namespace)::" in e.key
+                           or "fnk::" in e.key):
+            continue
+        print(f"  {dev_us(e) / 1e3 / n:9.4f} ms/step "
+              f"{e.count / n:6.1f} calls/step  {e.key[:70]}", flush=True)
 
 
 def phase_bench():
@@ -2717,6 +2753,473 @@ def nets_only(dev):
         phase_profile(name, main_paths()[name][1])
 
 
+# Training (ROADMAP A.5): FluidNetTower and MultiScaleNet at configs/
+# train.yaml's 128^2, batch 64.
+TRAIN_RES, TRAIN_BSZ = 128, 64
+TRAIN_MODELS = {"tower": "FluidNet", "scalenet": "ScaleNet"}
+# The loss's two differentiable forwards each run a backward: weight
+# gradients of every conv call, input gradients of every call whose input
+# needs one (not the tower's conv1 nor ScaleNet's convN_4/Conv_0).
+TRAIN_BACKWARD = {"FluidNet": (20, 18), "ScaleNet": (34, 32)}
+TRAIN_STEPS = {"FluidNet": 10, "ScaleNet": 5}
+TRAIN_REPLACES = "fluidnet_cxx_tpu/train/trainer.py:244"
+# Gradients card against CPU, as a share of the net's largest gradient:
+# the LT rollout and ReLU masks carry B's 3xTF32 rounding into them (on
+# an H100 1.3e-6 for the tower, 1.3e-4 for ScaleNet; a per-tensor share is
+# noise for the output layer's bias, whose gradient is 0 up to rounding:
+# the loss sees the pressure through its differences only).
+GRAD_TOL = 1e-3
+
+
+def train_counters():
+    """{key: wrapper} of the kernels a training step launches: B's
+    forward, B's input gradient, the weight gradient, E and F."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, conv_grad, jacobi,
+                                                    punet)
+    return {"B": punet.conv2d_nhwc, "B dgrad": punet.conv2d_dgrad,
+            "wgrad": conv_grad.conv2d_wgrad, "E": advect.advect_velocity,
+            "F": jacobi.solve_jacobi}
+
+
+def seeded_net(model, dev, seed=1):
+    """The 2-D net of ``model`` with flax's initialisation from ``seed``."""
+    from fluidnet_cxx_tpu_torch.config import ModelConfig
+    from fluidnet_cxx_tpu_torch.models.convert import (flax_to_state_dict,
+                                                       random_flax_params)
+    from fluidnet_cxx_tpu_torch.models.fluidnet import make_net
+
+    net = make_net(ModelConfig(model=model))
+    net.load_state_dict(flax_to_state_dict(random_flax_params(net.table,
+                                                              seed)))
+    return net.to(dev)
+
+
+def train_input(model, dev, bsz=TRAIN_BSZ, res=TRAIN_RES):
+    """The net's assembled input on a synthetic batch drawn on the card, as
+    the on-device path draws it (600-sweep labels)."""
+    from fluidnet_cxx_tpu_torch.config import ModelConfig
+    from fluidnet_cxx_tpu_torch.data.synthetic import generate_batch
+    from fluidnet_cxx_tpu_torch.models.fluidnet import assemble_inputs
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        b = generate_batch(gen, bsz, res, res, 600, dev)
+        return assemble_inputs(ModelConfig(model=model), b.p_div, b.U_div,
+                               b.flags, b.density_div)[0]
+
+
+def grad_layer_rows(model, net, x, dev, keep=lambda name: True):
+    """Kernel B's input gradient and fn_conv2d_wgrad on each conv call of
+    ``net``'s padded forward on ``x`` (those ``keep`` names), from a seeded
+    upstream gradient (zero on the padded output channels): B's against
+    cuDNN's conv2d_input on the unpadded weights within 1e-5 of its largest
+    value, its padded input channels exactly 0 (skipped for the first
+    layer, whose input needs no gradient); wgrad within twice the plain
+    float32 version's distance from its float64 run; both bit-equal on a
+    repeat. Returns per-layer dicts of errors, device ms of the kernel,
+    the plain version and cuDNN, and the unpadded work."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build, conv_grad, punet
+
+    with torch.no_grad():
+        packed = punet.pack_weights(net)
+
+    def run(hook):
+        def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
+            w, b = packed[name]
+            return hook(name, (h, w, b, 1, net.geometry[name][2], relu), {})
+        return net(x, conv=conv, width=punet.STAGE)
+
+    with torch.no_grad():
+        calls = record_layers(run, punet.conv2d_nhwc)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rows = []
+    first = calls[0][0]
+    for name, (h, w, _, _, dil, _), _ in calls:
+        if not keep(name):
+            continue
+        c = net.convs[name]
+        co, ci, k, _ = c.weight.shape
+        n, hh, ww = h.shape[:3]
+        m = n * hh * ww
+        pads = punet.same_pads(hh, k, 1, dil)
+        gy = torch.randn((n, hh, ww, w.shape[3]), generator=gen, device=dev)
+        gy[..., co:] = 0
+        gyn = gy[..., :co].permute(0, 3, 1, 2).contiguous()
+        hn = h[..., :ci].permute(0, 3, 1, 2).contiguous()
+        label = f"{model} {name} {hh}x{ww} k{k} {ci}->{co}"
+        row = dict(name=name, m=m, k=k, ci=ci, co=co,
+                   ops=2.0 * m * k * k * ci * co,
+                   d_bytes=4.0 * (m * co + c.weight.numel() + m * ci),
+                   w_bytes=4.0 * (m * ci + m * co + c.weight.numel() + co))
+        with torch.no_grad():
+            if name != first:
+                dgrad = lambda gy=gy, w=w, dil=dil: punet.conv2d_dgrad(
+                    gy, w, dil)
+                lib_in = (lambda hn=hn, c=c, gyn=gyn, p=pads[0], dil=dil:
+                          torch.nn.grad.conv2d_input(hn.shape, c.weight, gyn,
+                                                     padding=p,
+                                                     dilation=dil))
+                got = dgrad()
+                want = lib_in().permute(0, 2, 3, 1)
+                torch.cuda.synchronize()
+                if bool(got[..., ci:].any()):
+                    raise SystemExit(f"B dgrad {label}: a padded input "
+                                     "channel is not 0")
+                row["d_err"] = max_err([got[..., :ci]], [want])
+                check(f"B dgrad {label}", row["d_err"],
+                      1e-5 * float(want.abs().max()))
+                check_repeat(f"B dgrad {label}", dgrad)
+                row["d_ms"] = graph_ms(dgrad)
+                row["d_plain_ms"] = graph_ms(
+                    lambda gy=gy, w=w, dil=dil: punet.conv2d_dgrad_plain(
+                        gy, w, dil))
+                row["d_lib_ms"] = graph_ms(lib_in)
+            wgrad = (lambda h=h, gy=gy, k=k, dil=dil, pads=pads:
+                     torch.cat([t.flatten() for t in conv_grad.conv2d_wgrad(
+                         h, gy, k, 1, dil, pads)]))
+            plain = (lambda h=h, gy=gy, k=k, dil=dil, pads=pads:
+                     torch.cat([t.flatten() for t in
+                                conv_grad.conv2d_wgrad_plain(
+                                    h, gy, k, 1, dil, pads)]))
+            exact = torch.cat([t.flatten() for t in
+                               conv_grad.conv2d_wgrad_plain(
+                                   h.double(), gy.double(), k, 1, dil, pads)])
+            got, ref = wgrad(), plain()
+            torch.cuda.synchronize()
+            row["w_err"] = float((got.double() - exact).abs().max())
+            row["w_plain_err"] = float((ref.double() - exact).abs().max())
+            row["w_err_plain"] = float((got - ref).abs().max())
+            check(f"wgrad {label} (from float64; tolerance twice the plain "
+                  f"float32's {row['w_plain_err']:.3e})", row["w_err"],
+                  2 * row["w_plain_err"])
+            check_repeat(f"wgrad {label}", wgrad)
+            row["w_ms"] = graph_ms(wgrad)
+            row["w_plain_ms"] = graph_ms(plain)
+            row["w_lib_ms"] = graph_ms(
+                lambda hn=hn, c=c, gyn=gyn, p=pads[0], dil=dil:
+                torch.nn.grad.conv2d_weight(hn, c.weight.shape, gyn,
+                                            padding=p, dilation=dil))
+            row["splits"] = _build.query("fn_conv2d_wgrad_splits", m,
+                                         k * k * h.shape[3], w.shape[3])
+        rows.append(row)
+    print(f"backward per layer, {model} at {x.shape[1]}^2, batch "
+          f"{x.shape[0]} (padded M, K, co; device ms: kernel / plain / "
+          "cuDNN; bound on the unpadded work at the 3xTF32 rate):",
+          flush=True)
+    for r in rows:
+        d = (f"dgrad {r['d_ms']:.4f} / {r['d_plain_ms']:.4f} / "
+             f"{r['d_lib_ms']:.4f}" if "d_ms" in r else "dgrad skipped")
+        print(f"  {r['name']:16s} k{r['k']} {r['ci']:3d}->{r['co']:3d} M "
+              f"{r['m']:8d} S {r['splits']:3d}  {d}  wgrad {r['w_ms']:.4f} / "
+              f"{r['w_plain_ms']:.4f} / {r['w_lib_ms']:.4f}  bound "
+              f"{bound(r['w_bytes'], r['ops'], TF32X3_OPS_PER_S)[0]:.4f}",
+              flush=True)
+    return rows
+
+
+def backward_results(rows):
+    """The kernels-line entries of B's input gradient and the weight
+    gradient over one backward of the net (every layer's call summed)."""
+    out = {}
+    for key, p in (("B dgrad", "d"), ("wgrad", "w")):
+        rs = [r for r in rows if f"{p}_ms" in r]
+        ms, by = bound(sum(r[f"{p}_bytes"] for r in rs),
+                       sum(r["ops"] for r in rs), TF32X3_OPS_PER_S)
+        out[key] = dict(err=max(r[f"{p}_err"] for r in rs),
+                        ms=sum(r[f"{p}_ms"] for r in rs),
+                        plain_ms=sum(r[f"{p}_plain_ms"] for r in rs),
+                        library_ms=sum(r[f"{p}_lib_ms"] for r in rs),
+                        bound_ms=ms, bound_by=by)
+        print(f"{key}, one backward ({len(rs)} calls): kernel "
+              f"{out[key]['ms']:.4f} ms device, plain "
+              f"{out[key]['plain_ms']:.4f}, cuDNN {out[key]['library_ms']:.4f}"
+              f", bound {ms:.4f} ({by}, 3xTF32), max_abs_err "
+              f"{out[key]['err']:.3e}", flush=True)
+    return out
+
+
+def rel_err(got, want, names):
+    """(the largest share of a tensor's largest value by which ``got``
+    misses ``want``, that tensor's name; the largest difference over all
+    the tensors as a share of the largest value among them)."""
+    per = [float((g.double() - w.double()).abs().max())
+           / max(float(w.abs().max()), 1e-30) for g, w in zip(got, want)]
+    i = max(range(len(per)), key=per.__getitem__)
+    whole = (max(float((g.double() - w.double()).abs().max())
+                 for g, w in zip(got, want))
+             / max(float(w.abs().max()) for w in want))
+    return per[i], names[i], whole
+
+
+def check_net_backward(model, dev, bsz=16):
+    """The net's forward and backward together: the kernel route (weights
+    packed while autograd records, B, B's input gradient, wgrad) against
+    plain autograd through F.conv2d (TF32 off) on the card, and both
+    against plain autograd in float64: the kernel route's gradients no
+    further from the float64 ones than twice the plain float32 route's (as
+    a share of the net's largest gradient: ReLU masks flip where a
+    pre-activation is within rounding of 0, which moves both float32
+    routes by up to 2.8e-3 on ScaleNet); both routes timed."""
+    import copy
+
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet
+
+    net = seeded_net(model, dev)
+    net64 = copy.deepcopy(net).double()
+    x = train_input(model, dev, bsz)
+    up = torch.randn(x.shape[:3] + (1,), generator=torch.Generator(
+        device=dev).manual_seed(SEED + 3), device=dev)
+    params = list(net.parameters())
+
+    def kernel_route():
+        out = punet.net_forward(net, punet.pack_weights(net), x)
+        return torch.autograd.grad((out * up).sum(), params)
+
+    def plain_route():
+        return torch.autograd.grad((net(x) * up).sum(), params)
+
+    got, want = kernel_route(), plain_route()
+    exact = torch.autograd.grad((net64(x.double()) * up.double()).sum(),
+                                list(net64.parameters()))
+    torch.cuda.synchronize()
+    names = [n for n, _ in net.named_parameters()]
+    k_plain, k_exact, p_exact = (rel_err(got, want, names),
+                                 rel_err(got, exact, names),
+                                 rel_err(want, exact, names))
+    k_ms, p_ms = cuda_ms(kernel_route, 5), cuda_ms(plain_route, 5)
+    print(f"{model} forward+backward at {x.shape[1]}^2, batch {bsz}: "
+          "gradients' largest difference as a share of the net's largest "
+          f"gradient (and of its own tensor's, worst tensor): kernel route "
+          f"to plain float32 {k_plain[2]:.3e} ({k_plain[0]:.3e}, "
+          f"{k_plain[1]}), kernel route to float64 {k_exact[2]:.3e} "
+          f"({k_exact[0]:.3e}, {k_exact[1]}), plain float32 to float64 "
+          f"{p_exact[2]:.3e} ({p_exact[0]:.3e}, {p_exact[1]}); kernel route "
+          f"{k_ms:.3f} ms, plain autograd (cuDNN) {p_ms:.3f} ms", flush=True)
+    check(f"{model} forward+backward, kernel route to float64 (share of "
+          "the net's largest gradient; tolerance twice the plain float32 "
+          "route's)", k_exact[2], 2 * p_exact[2])
+
+
+def check_loss_card_vs_cpu(model, dev):
+    """One loss and its gradient at 64^2, batch 4, LT on with a fixed draw
+    of 4 steps, on the card (kernels) against the CPU (plain versions):
+    each term within 1e-4 of its value, the gradients within GRAD_TOL of
+    the net's largest gradient."""
+    from fluidnet_cxx_tpu_torch.config import ModelConfig, SimConfig, \
+        TrainConfig
+    from fluidnet_cxx_tpu_torch.data.synthetic import generate_batch
+    from fluidnet_cxx_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_cxx_tpu_torch.train.trainer import (Batch, _sample_dyn,
+                                                      make_loss_fn)
+
+    tc, sc = TrainConfig(batch_size=4), SimConfig()
+    with torch.no_grad():
+        batch = Batch(*generate_batch(torch.Generator().manual_seed(SEED), 4,
+                                      64, 64, 200, "cpu"))
+    dyn, _ = _sample_dyn(torch.Generator().manual_seed(SEED), sc, tc)
+    out = {}
+    for d in (dev, "cpu"):
+        net = seeded_net(model, d)
+        loss_fn = make_loss_fn(FluidNet(ModelConfig(model=model), net), sc,
+                               tc)
+        b = Batch(*(t.to(d) for t in batch[:7]))
+        total, terms = loss_fn(b, draw=(dyn, 4))
+        total.backward()
+        out[d] = ([t.detach().cpu() for t in terms],
+                  [p.grad.cpu() for p in net.parameters()])
+    (gt, gg), (ct, cg) = out[dev], out["cpu"]
+    for name, g, c in zip(("total", "p_l2", "div_l2", "p_l1", "div_l1",
+                           "div_lt"), gt, ct):
+        check(f"{model} loss card vs CPU, {name} {float(c):.6f}",
+              max_err([g], [c]), 1e-4 * scale_of([c]))
+    names = [n for n, _ in seeded_net(model, "cpu").named_parameters()]
+    per, name, whole = rel_err(gg, cg, names)
+    print(f"{model} gradients card vs CPU: worst tensor {name} {per:.3e} of "
+          "its own largest value", flush=True)
+    check(f"{model} gradients card vs CPU (largest difference as a share "
+          "of the net's largest gradient)", whole, GRAD_TOL)
+
+
+def train_main_path(model, dev):
+    """make_on_device_train_step with TrainConfig() (configs/train.yaml:
+    batch 64, LT on) on ``model`` at 128^2, 600 label sweeps: one warm-up
+    step, then the counters set to 0 and TRAIN_STEPS - 1 steps timed with
+    CUDA events; finite loss terms, peak memory, launches per step (B's
+    forward, its input gradient, wgrad, E, F; the backward's held to
+    TRAIN_BACKWARD, B's forward to the rollout's length), then a profiler
+    window of one more step. Returns the launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidnet_cxx_tpu_torch.config import ModelConfig, SimConfig, \
+        TrainConfig
+    from fluidnet_cxx_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_cxx_tpu_torch.train.trainer import (
+        init_train_state, make_on_device_train_step)
+
+    name = (f"train {model} {TRAIN_RES}^2 batch {TRAIN_BSZ}, "
+            f"{TRAIN_STEPS[model]} steps")
+    done = phase(f"main path ({name})")
+    tc, sc = TrainConfig(), SimConfig()
+    fnet = FluidNet(ModelConfig(model=model)).to(dev)
+    ts = init_train_state(fnet, tc, seed=0, steps_per_epoch=50)
+    step = make_on_device_train_step(fnet, sc, tc, TRAIN_RES, TRAIN_RES,
+                                     tc.batch_size, 600, dev)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    host_gen = torch.Generator().manual_seed(4321)
+    ts, _ = step(ts, gen, host_gen)
+    torch.cuda.synchronize()
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n = TRAIN_STEPS[model] - 1
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    terms = [step(ts, gen, host_gen)[1] for _ in range(n)]
+    e1.record()
+    e1.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ms = e0.elapsed_time(e1) / n
+    vals = torch.stack([torch.stack(list(t)) for t in terms]).cpu()
+    if not bool(torch.isfinite(vals).all()):
+        raise SystemExit(f"{name}: a loss term is not finite: {vals}")
+    missed = [k for k, v in launches.items() if v < 1]
+    if missed:
+        raise SystemExit(f"{name} missed kernels {missed}: {launches}")
+    w_per, d_per = TRAIN_BACKWARD[model]
+    if launches["wgrad"] != w_per * n or launches["B dgrad"] != d_per * n:
+        raise SystemExit(f"{name}: backward launches {launches}, not "
+                         f"{w_per} wgrad and {d_per} B dgrad a step")
+    convs = w_per // 2   # conv calls a forward
+    if launches["B"] != convs * (2 * n + launches["E"]):
+        raise SystemExit(f"{name}: B launched {launches['B']} times, not "
+                         f"{convs} a forward over 2 a step and one a "
+                         f"rollout step ({launches['E']})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{name}: ms/step {ms:.2f} ({n} steps after one warm-up), peak "
+          f"memory {peak:.2f} GiB, launches {launches} (per step "
+          f"{ {k: v / n for k, v in launches.items()} }; rollout steps "
+          f"{launches['E']})", flush=True)
+    print(f"{name}: loss terms per step (total, pL2, divL2, pL1, divL1, "
+          f"divLT): {[[round(v, 5) for v in row] for row in vals.tolist()]}",
+          flush=True)
+    done()
+    done = phase(f"profile ({name}, 1 step)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ts, gen, host_gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    print_profile(name, prof, 1, wall_ms)
+    done()
+    return launches
+
+
+def train_small_paths():
+    """The dataset path (--synthetic scenes at 128^2, one epoch with
+    validation and a checkpoint, then a resume for a second epoch whose
+    step count continues the first's) and --plumeFrames (16 frames, 5
+    mixed steps), through the training entry point's main, in a
+    directory under build/ that is removed after."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from fluidnet_cxx_tpu_torch.train.__main__ import main as train_main
+
+    work = Path(__file__).resolve().parent / "build" / "train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        done = phase("train dataset path (--synthetic 8 at 128^2, bsz 16)")
+        ds = work / "ds"
+        common = ["--res", str(TRAIN_RES), "--bsz", "16", "--modelDir",
+                  str(ds)]
+        train_main(["--synthetic", "8", "--maxEpochs", "1"] + common)
+        state = ds / "last_epoch" / "train_state.pt"
+        s1 = torch.load(state, weights_only=True)["step"]
+        train_main(["--maxEpochs", "2", "--resume"] + common)
+        s2 = torch.load(state, weights_only=True)["step"]
+        rows = np.load(ds / "val_loss.npy")
+        if s1 < 1 or s2 != 2 * s1 or rows.shape != (2, 7) or \
+                not np.isfinite(rows).all():
+            raise SystemExit(f"dataset path: steps {s1}, {s2}, val rows "
+                             f"{rows}")
+        print(f"dataset path: {s1} steps an epoch, the resume continued "
+              f"to step {s2}; val rows {rows.tolist()}", flush=True)
+        done()
+        done = phase("train --plumeFrames 16, 5 mixed steps at 128^2")
+        pl = work / "plume"
+        train_main(["--onDevice", "5", "--plumeFrames", "16", "--res",
+                    str(TRAIN_RES), "--bsz", "16", "--modelDir", str(pl)])
+        rows = np.load(pl / "train_loss.npy")
+        if rows.shape != (1, 7) or not np.isfinite(rows).all():
+            raise SystemExit(f"--plumeFrames: loss rows {rows}")
+        done()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train(dev, results):
+    """Training: the backward kernels on every conv call of the tower (and
+    ScaleNet's 5x5 layers) at 128^2, batch 64; the nets' forward and
+    backward against plain autograd; one loss card against CPU; the two
+    main paths; the dataset and plume-frame paths. Returns the tower
+    path's launches."""
+    done = phase("backward kernels (B dgrad, wgrad) at 128^2, batch 64")
+    tower = seeded_net("FluidNet", dev)
+    rows = grad_layer_rows("FluidNet", tower, train_input("FluidNet", dev),
+                           dev)
+    results.update(backward_results(rows))
+    scale = seeded_net("ScaleNet", dev)
+    grad_layer_rows("ScaleNet", scale, train_input("ScaleNet", dev), dev,
+                    keep=lambda name: scale.geometry[name][0] == 5)
+    del tower, scale
+    done()
+    done = phase("nets forward+backward, kernel route vs plain autograd")
+    for model in TRAIN_MODELS.values():
+        check_net_backward(model, dev)
+    done()
+    done = phase("one loss and its gradient, card vs CPU (64^2, batch 4)")
+    for model in TRAIN_MODELS.values():
+        check_loss_card_vs_cpu(model, dev)
+    done()
+    launches = {m: train_main_path(m, dev) for m in TRAIN_MODELS.values()}
+    train_small_paths()
+    return launches["FluidNet"]
+
+
+def train_rows(results, launches):
+    """The kernels-line rows of the backward kernels: launches from the
+    tower's training main path."""
+    meta = {"B dgrad": ("punet_conv2d_dgrad_tower_128_b64",
+                        "fluidnet_cxx_tpu_torch/csrc/conv2d.cu",
+                        "fluidnet_cxx_tpu/ops/pallas/punet_pallas.py:366"),
+            "wgrad": ("conv2d_wgrad_tower_128_b64",
+                      "fluidnet_cxx_tpu_torch/csrc/conv2d_grad.cu",
+                      TRAIN_REPLACES)}
+    out = []
+    for key, (name, source, replaces) in meta.items():
+        r = results[key]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[key],
+                    "max_abs_err": r["err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    return out
+
+
+def train_only(dev):
+    """`python3 chip_smoke.py --train-only`: phase_train alone, then the
+    kernels line of its two rows."""
+    results = {}
+    launches = phase_train(dev, results)
+    print(json.dumps({"kernels": train_rows(results, launches)}))
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -2775,6 +3278,9 @@ def main():
     if sys.argv[1:] == ["--nets-only"]:
         nets_only(dev)
         return
+    if sys.argv[1:] == ["--train-only"]:
+        train_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -2792,6 +3298,7 @@ def main():
     for name, (_, case, _) in paths.items():
         phase_profile(name, case)
     phase_bench()
+    train_launches = phase_train(dev, results)
 
     # Launches of each kernel on the first main path that must launch it.
     path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)
@@ -2855,6 +3362,7 @@ def main():
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    kernels += train_rows(results, train_launches)
     print(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

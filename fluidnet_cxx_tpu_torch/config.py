@@ -1,9 +1,10 @@
-"""Simulation and model configuration.
+"""Simulation, model and training configuration.
 
-``SimConfig`` and ``ModelConfig`` keep the field names and defaults of the
-JAX package's ``config.py`` so a configuration reads the same in both.
-Only the JSON ``model_config.json`` reader is ported here; the YAML loader
-is still to come (ROADMAP A.3).
+``SimConfig``, ``ModelConfig`` and ``TrainConfig`` keep the field names and
+defaults of the JAX package's ``config.py`` so a configuration reads the
+same in both; ``TrainConfig``'s defaults are ``configs/train.yaml``'s
+values. Only the JSON ``model_config.json`` reader and writer are ported
+here; the YAML loader is still to come (ROADMAP A.3).
 """
 import dataclasses
 import json
@@ -80,6 +81,38 @@ class ModelConfig:
         elif self.input_div:
             n += 1
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop parameters: the 5-term loss's weights, the long-term
+    rollout's randomised physics and the plateau scheduler."""
+    batch_size: int = 64
+    max_epochs: int = 400
+    lr: float = 5e-5
+    p_l2_lambda: float = 0.0
+    div_l2_lambda: float = 1.0
+    p_l1_lambda: float = 0.0
+    div_l1_lambda: float = 0.0
+    div_lt_lambda: float = 1.0
+    lt_num_steps: Tuple[int, int] = (4, 16)
+    lt_probability: float = 0.9
+    train_buoyancy_scale: float = 2.0
+    train_buoyancy_prob: float = 0.3
+    train_gravity_scale: float = 0.0
+    train_gravity_prob: float = 0.0
+    time_scale_sigma: float = 1.0
+    plateau_factor: float = 0.6
+    plateau_patience: int = 10
+    plateau_threshold: float = 3e-4
+
+
+def save_model_config(model_dir: str, cfg: ModelConfig):
+    """Write ``<model_dir>/model_config.json`` in the JAX trainer's layout
+    (the dataclass's fields, indent 2)."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "model_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
 
 
 def load_model_config(model_dir: str) -> ModelConfig:

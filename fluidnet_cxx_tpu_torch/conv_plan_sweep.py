@@ -80,7 +80,8 @@ def main():
         net = build_punet3(cfg, 0, dev)
         nets[label] = (net, punet3.pack_weights3(net))
     net2 = build_net(load_model_config(str(MODEL_DIR)), 0, dev)
-    packed2 = punet.pack_weights(net2)
+    with torch.no_grad():
+        packed2 = punet.pack_weights(net2)
 
     def forward3(net, packed):
         def run(hook):

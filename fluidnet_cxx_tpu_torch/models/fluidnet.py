@@ -11,6 +11,13 @@ polish (``polish_impl``: "fused" kernel C, "mg" kernel H, "pallas"/"xla"
 kernel F's damped Jacobi on the normalised fields) -> velocity update on
 the normalised fields -> un-scale -> wall BCs.
 
+Training (train/trainer.py) calls ``FluidNet`` with weights packed from
+the live parameters on every call (``pack_weights`` while autograd
+records): each conv then runs ``ops/kernels/punet.py::ConvNHWC``, whose
+backward is kernel B on flipped weights and ``fn_conv2d_wgrad``. The
+pooling, repeats and resizes between the convs are torch glue that
+autograd differentiates, as in the forward.
+
 Fused path (refine-free PUNet): the forward takes the normalisation 1/s
 on its input's physical channel, then the projection tail
 (ops/kernels/proj_tail.py, or one warm V-cycle of ops/kernels/mg.py::
@@ -145,12 +152,17 @@ class FluidNet(torch.nn.Module):
         """``packed`` (``pack_weights(self.net)``) runs the network's
         convolutions through kernel B's wrapper; without it the network's
         plain forward. The polish and the tail follow the tensors'
-        device."""
+        device; they have no gradient on the card, so a polish raises there
+        while autograd records."""
         cfg = self.cfg
         x, s, div = assemble_inputs(cfg, p, U, flags, density)
         out = self.net(x) if packed is None else net_forward(self.net,
                                                              packed, x)
         p_hat = out[..., 0].contiguous()
+        if cfg.polish_sweeps > 0 and p_hat.requires_grad and p_hat.is_cuda:
+            raise NotImplementedError(
+                "not ported yet: the gradient of the polish sweeps on the "
+                "card (PUNet's training, ROADMAP A.5.1)")
         s3 = s[:, None, None]
         if cfg.polish_sweeps > 0 and cfg.polish_impl == "fused":
             # The tail on un-normalised fields (linear in p and the RHS).
@@ -173,7 +185,8 @@ def make_project_fn(cfg, net):
     the step runs it in its unfused branch, as the JAX step runs the flax
     ``make_project_fn``."""
     model = FluidNet(cfg, net)
-    packed = pack_weights(net)
+    with torch.no_grad():
+        packed = pack_weights(net)
 
     @torch.no_grad()
     def project(p, U, flags, density):
@@ -198,7 +211,8 @@ def make_project_fn_fused_forward(cfg, net):
     if cfg.input_u_div:
         raise ValueError("the projection assembles a 2-channel input; "
                          "input_u_div needs 3 channels")
-    packed = pack_weights(net)
+    with torch.no_grad():
+        packed = pack_weights(net)
 
     @torch.no_grad()
     def project(p, U, flags, density, U_bc=None, U_bc_inv_mask=None):

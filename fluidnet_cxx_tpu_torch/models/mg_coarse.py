@@ -83,7 +83,8 @@ def make_coarse_fn(model):
     """``coarse_fn(flags_c, rhs_c) -> e_c`` of ``model`` for ``solve_mg``,
     its convolutions through ``conv2d_nhwc`` (weights packed once, on the
     model's device)."""
-    packed = pack_weights(model.punet)
+    with torch.no_grad():
+        packed = pack_weights(model.punet)
 
     @torch.no_grad()
     def coarse_fn(flags_c, rhs_c):

@@ -11,7 +11,8 @@ hash of the sources and flags changes.
 Every ``extern "C"`` entry launches its kernel (``fn_jacobi_solve``,
 ``fn_tail``, ``fn_jacobi3_solve``, ``fn_tail3``, ``fn_mg_solve`` and
 ``fn_mg_project``: the launches of a whole solve; ``fn_mg_learned_down``
-and ``fn_mg_learned_up``: the two halves of a learned V-cycle) on the
+and ``fn_mg_learned_up``: the two halves of a learned V-cycle;
+``fn_conv2d_wgrad``: the partial tiles and their reduce) on the
 stream it is given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
@@ -59,6 +60,7 @@ SIGNATURES = {
     "fn_advect_velocity": [VP] * 4 + [I, I, I, F, F, I, I, I, VP],
     "fn_tail": [VP] * 11 + [I] * 5 + [F, F, VP],
     "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
+    "fn_conv2d_wgrad": [VP] * 5 + [I] * 12 + [VP],
     "fn_jacobi_solve": [VP] * 6 + [I] * 5 + [F, F, VP],
     "fn_mg_solve": [VP] * 5 + [I] * 9 + [F, F, VP],
     "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
@@ -85,6 +87,7 @@ QUERIES = {
     "fn_advect_tile_smem": [I] * 3,
     "fn_advect3_velocity_max_disp": [],
     "fn_advect3_velocity_smem": [I],
+    "fn_conv2d_wgrad_splits": [ctypes.c_longlong, I, I],
 }
 
 

@@ -21,11 +21,19 @@ it, or up to 4 for a layer whose output the net slices; the net widens its
 assembled inputs with zero channels (``widen``). The padded channels stay
 exactly 0 through ReLU, pooling, nearest repeat and bilinear resize, so
 activations carry them from layer to layer with no pad pass between.
+
+Training (``ConvNHWC``, through ``net_forward`` whenever autograd records):
+a stride-1 conv's backward is two hand kernels, its input gradient kernel B
+itself on the weights flipped in both taps with c_in and c_out swapped
+(``conv2d_dgrad``) and its weight gradient ``fn_conv2d_wgrad``
+(``conv_grad.py``). ``pack_weights`` pads through ops autograd follows, so
+the padded channels pass no gradient to the parameters.
 """
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_grad import conv2d_wgrad
 from .conv_plan import CHUNK, plan_conv
 
 # Input channels a stage of the 3xTF32 route: every layer's input is
@@ -86,6 +94,14 @@ def conv2d_nhwc(x, w_hwio, bias, stride=1, dil=1, relu=False, x2=None,
     if not _build.on_cuda(x):
         return conv2d_nhwc_plain(x, w_hwio.permute(3, 2, 0, 1), bias, stride,
                                  dil, relu, x2, in_scale, scale_mod)
+    out = _launch(x, w_hwio, bias, stride, dil, relu, x2, in_scale,
+                  scale_mod)
+    conv2d_nhwc.launches += 1
+    return out
+
+
+def _launch(x, w_hwio, bias, stride, dil, relu, x2, in_scale, scale_mod):
+    """Kernel B on CUDA tensors (``conv2d_nhwc``'s arguments)."""
     n, hi, wi, c1 = x.shape
     k, _, cin, co = w_hwio.shape
     c2 = 0 if x2 is None else x2.shape[-1]
@@ -119,20 +135,108 @@ def conv2d_nhwc(x, w_hwio, bias, stride=1, dil=1, relu=False, x2=None,
                 ho, wo, co, k, stride, dil, ph[0], int(relu), plan.bm,
                 plan.bn, plan.warp_m, plan.splits, plan.c_bounds,
                 _build.stream())
-    conv2d_nhwc.launches += 1
     return out
 
 
 conv2d_nhwc.launches = 0
 
 
+def _adjoint(dy, w_hwio):
+    """(dy, the weight flipped in both taps with c_in and c_out swapped,
+    a zero bias), dy's channels and the weight's rows widened with zeros to
+    the stage where they fall short of it (an output layer's 4)."""
+    co = dy.shape[-1]
+    wt = w_hwio.flip(0, 1).transpose(2, 3)
+    cp = padded(co, STAGE)
+    if cp != co:
+        dy = F.pad(dy, (0, cp - co))
+        wt = F.pad(wt, (0, 0, 0, cp - co))
+    return dy, wt.contiguous(), dy.new_zeros((wt.shape[3],))
+
+
+def conv2d_dgrad_plain(dy, w_hwio, dil=1):
+    """Plain version of ``conv2d_dgrad``: F.conv2d on the flipped weight."""
+    dy, wt, bias = _adjoint(dy, w_hwio)
+    return conv2d_nhwc_plain(dy, wt.permute(3, 2, 0, 1), bias, 1, dil)
+
+
+def conv2d_dgrad(dy, w_hwio, dil=1):
+    """Input gradient of a stride-1 SAME conv with the HWIO weight
+    ``w_hwio`` (odd k), from the gradient ``dy`` of its output: kernel B on
+    the weight flipped in both taps with c_in and c_out swapped, no bias,
+    no ReLU (the adjoint of a stride-1 SAME conv is that conv, with the
+    same symmetric pads)."""
+    if not _build.on_cuda(dy):
+        return conv2d_dgrad_plain(dy, w_hwio, dil)
+    out = _launch(*_adjoint(dy, w_hwio), 1, dil, False, None, None, 1)
+    conv2d_dgrad.launches += 1
+    return out
+
+
+conv2d_dgrad.launches = 0
+
+
+class ConvNHWC(torch.autograd.Function):
+    """``conv2d_nhwc`` at stride 1 with a backward of hand kernels: the
+    upstream gradient masked by ``out > 0`` under ReLU (jax's relu
+    gradient at 0 is 0 too), then ``conv2d_dgrad`` for the input (skipped
+    when it needs none) and ``conv_grad.conv2d_wgrad`` for the weight and
+    bias. Saves the input and the output."""
+
+    @staticmethod
+    def forward(ctx, x, w_hwio, bias, dil, relu):
+        y = conv2d_nhwc(x, w_hwio, bias, 1, dil, relu)
+        ctx.save_for_backward(x, w_hwio, y)
+        ctx.dil, ctx.relu = dil, relu
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w_hwio, y = ctx.saved_tensors
+        gy = (torch.where(y > 0, gy, 0.0) if ctx.relu else gy).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv2d_dgrad(gy, w_hwio, ctx.dil)
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            k = w_hwio.shape[0]
+            dw, db = conv2d_wgrad(x, gy, k, 1, ctx.dil,
+                                  same_pads(x.shape[1], k, 1, ctx.dil))
+        return dx, dw, db, None, None
+
+
+def conv2d_nhwc_autograd(x, w_hwio, bias, stride=1, dil=1, relu=False,
+                         x2=None, in_scale=None, scale_mod=1):
+    """``conv2d_nhwc`` that autograd follows: while it records and a
+    tensor needs a gradient, a stride-1 conv without ``x2`` and
+    ``in_scale`` runs ``ConvNHWC``; any other conv runs its plain version
+    under autograd on a CPU tensor and raises on a CUDA tensor (its
+    backward is the next training slice's). Otherwise ``conv2d_nhwc``."""
+    tensors = (x, w_hwio, bias, x2, in_scale)
+    if not (torch.is_grad_enabled()
+            and any(t is not None and t.requires_grad for t in tensors)):
+        return conv2d_nhwc(x, w_hwio, bias, stride, dil, relu, x2, in_scale,
+                           scale_mod)
+    if stride == 1 and x2 is None and in_scale is None:
+        return ConvNHWC.apply(x, w_hwio, bias, dil, relu)
+    if not _build.on_cuda(x):
+        return conv2d_nhwc_plain(x, w_hwio.permute(3, 2, 0, 1), bias, stride,
+                                 dil, relu, x2, in_scale, scale_mod)
+    raise NotImplementedError(
+        "not ported yet: the gradient of a stride-2, skip-concat or "
+        "in_scale conv on the card (PUNet's training, ROADMAP A.5.1)")
+
+
 def pack_weights(net):
-    """HWIO copies of the net's conv weights for the kernel, made once.
-    The layers on the thin-channel route (``net.thin(name)``) get zero
-    input rows up to a multiple of ``STAGE`` and zero output columns and
-    bias up to a multiple of ``STAGE``, or of 4 for the layers in
-    ``net.outputs`` (whose output the forward slices to its real
-    channels); the others are copied as they are."""
+    """HWIO weights of the net's convs for the kernel, from its live
+    parameters through ops autograd follows (permute, zero-pad): made under
+    ``torch.no_grad()`` they are a detached copy, packed once for
+    inference; made while autograd records (a training step packs on every
+    call) they pass their gradient back to the parameters, the padded
+    channels none. The layers on the thin-channel route
+    (``net.thin(name)``) get zero input rows up to a multiple of ``STAGE``
+    and zero output columns and bias up to a multiple of ``STAGE``, or of
+    4 for the layers in ``net.outputs`` (whose output the forward slices
+    to its real channels); the others keep their widths."""
     packed = {}
     for name, conv in net.convs.items():
         co, ci, k, _ = conv.weight.shape
@@ -140,17 +244,15 @@ def pack_weights(net):
         if net.thin(name):
             cip = padded(ci, STAGE)
             cop = padded(co, 4 if name in net.outputs else STAGE)
-        w = conv.weight.new_zeros((k, k, cip, cop))
-        w[:, :, :ci, :co] = conv.weight.detach().permute(2, 3, 1, 0)
-        b = conv.bias.new_zeros((cop,))
-        b[:co] = conv.bias.detach()
-        packed[name] = (w, b)
+        w = F.pad(conv.weight.permute(2, 3, 1, 0),
+                  (0, cop - co, 0, cip - ci)).contiguous()
+        packed[name] = (w, F.pad(conv.bias, (0, cop - co)))
     return packed
 
 
 def net_forward(net, packed, x, **kw):
     """Forward of a 2-D conv net (``models/punet.py::ConvNet``) on NHWC
-    ``x``, every conv through ``conv2d_nhwc`` with ``packed``
+    ``x``, every conv through ``conv2d_nhwc_autograd`` with ``packed``
     (``pack_weights(net)``) and the net's assembled inputs widened to
     ``STAGE`` channels. ``kw`` goes to the net (PUNet's ``inv_scale``
     normalises input channel 0 as it is loaded). On a CPU tensor this is
@@ -158,7 +260,7 @@ def net_forward(net, packed, x, **kw):
     def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
         w_hwio, b = packed[name]
         _, stride, dil = net.geometry[name]
-        return conv2d_nhwc(h, w_hwio, b, stride, dil, relu, x2, in_scale,
-                           scale_mod)
+        return conv2d_nhwc_autograd(h, w_hwio, b, stride, dil, relu, x2,
+                                    in_scale, scale_mod)
 
     return net(x, conv=conv, width=STAGE, **kw)

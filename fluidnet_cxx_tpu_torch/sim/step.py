@@ -12,9 +12,9 @@ confinement -> pressure projection, one of:
 * ``convnet`` with a projection that folds in the inlet BCs
   (``project_fn.handles_const_vals``) and no stick walls; otherwise
   (an unfused projection such as ``models/mg_coarse.py::
-  make_project_fn_mg_learned``, or a scene with stick walls) the wall
-  BCs -> const BCs -> ``project_fn(p, U, flags, density)`` -> wall BCs
-  -> const BCs;
+  make_project_fn_mg_learned``, or a scene with stick walls) the stick
+  walls (if any) -> const BCs -> ``project_fn(p, U, flags, density)`` ->
+  stick walls -> const BCs;
 * ``jacobi``: wall BCs -> const BCs -> divergence -> Jacobi (kernel F,
   ops/kernels/jacobi.py; the early-exit ``solve_jacobi`` when
   ``p_tol > 0``) -> velocity update -> wall BCs -> const BCs;
@@ -22,12 +22,22 @@ confinement -> pressure projection, one of:
   project_mg: RHS, V-cycles, velocity update and wall BCs) or, with a
   periodic axis, divergence -> kernel G (``solve_mg``) -> velocity update.
 
-The wall BCs are free-slip with the periodic overrides, then the stick
-walls where the scene has ``flags_stick`` (in every projection, as in the
-JAX package; PARITY.md). Every other branch raises ``NotImplementedError``
+The wall BCs are free-slip with the periodic overrides (in the jacobi and
+multigrid projections), then the stick walls where the scene has
+``flags_stick`` (in every projection), as in the JAX package (PARITY.md).
+
+The training rollout's randomised physics (``train/trainer.py``) passes a
+``DynParams``: its ``dt`` is then every term's dt (kernels A, D and E
+included: the JAX step takes its XLA branch under ``dyn``, where dt is
+``dyn.dt`` throughout) and the buoyancy and gravity are applied whatever
+their scale, from ``dyn``'s gravity vector. ``output_div`` stops the step
+before the projection (after vorticity confinement) and returns the
+divergent state. Every other branch raises ``NotImplementedError``
 naming its ROADMAP item; a ``sim_method`` the step does not know raises
 too, where the JAX step would quietly run Jacobi.
 """
+from typing import NamedTuple, Tuple
+
 import numpy as np
 
 from ..ops.jacobi import solve_jacobi as solve_jacobi_tol
@@ -38,6 +48,15 @@ from ..ops.source_terms import (add_buoyancy, add_gravity, add_viscosity,
                                 add_vorticity_confinement, correct_scalar)
 from ..ops.stencils import (set_wall_bcs, set_wall_bcs_stick,
                             velocity_divergence, velocity_update)
+
+
+class DynParams(NamedTuple):
+    """Per-step physics overrides of the long-term rollout, Python floats
+    that hold float32 values (drawn on the host: no device sync)."""
+    dt: float
+    buoyancy_scale: float
+    gravity_scale: float
+    gravity_vec: Tuple[float, float, float]
 
 
 def apply_const_vals(state, U, density):
@@ -76,46 +95,49 @@ def _fused_projection(cfg, state, project_fn):
             and state.flags_stick is None)
 
 
-def _scaled_gravity(cfg, scale):
-    g = np.asarray(cfg.gravity_vec, np.float32) * np.float32(-scale)
+def _scaled_gravity(gravity_vec, scale):
+    """gravity_vec * (-scale) in float32, as the JAX step computes it."""
+    g = np.asarray(gravity_vec, np.float32) * np.float32(-scale)
     return tuple(float(x) for x in g)
 
 
 def _wall_bcs(cfg, state, U):
-    """Free-slip walls; the periodic overrides of the Rayleigh-Taylor
+    """Free-slip walls, except under the convnet projection (the JAX step
+    skips them there: the learned projection applies its own after its
+    velocity update); the periodic overrides of the Rayleigh-Taylor
     scene: the first interior column's v (periodic_x) or row's u
     (periodic_y) takes the last column's or row's value from before the
-    wall BCs; then the stick walls where the scene has them."""
-    U_before = U
-    U = set_wall_bcs(U, state.flags)
-    if cfg.periodic_x:
-        U[:, 1, :, 1] = U_before[:, 1, :, -1]
-    if cfg.periodic_y:
-        U[:, 0, 1, :] = U_before[:, 0, -1, :]
+    wall BCs; then the stick walls where the scene has them (every
+    projection)."""
+    if cfg.sim_method != "convnet":
+        U_before = U
+        U = set_wall_bcs(U, state.flags)
+        if cfg.periodic_x:
+            U[:, 1, :, 1] = U_before[:, 1, :, -1]
+        if cfg.periodic_y:
+            U[:, 0, 1, :] = U_before[:, 0, -1, :]
     if state.flags_stick is not None:
         U = set_wall_bcs_stick(U, state.flags, state.flags_stick)
     return U
 
 
-def _advect(cfg, state, orig):
-    """Advected (rho, U): kernel A, or D (when the density is advected)
-    and E."""
+def _advect(cfg, state, orig, dt):
+    """Advected (rho, U) over ``dt``: kernel A, or D (when the density is
+    advected) and E."""
     flags, U, rho = state.flags, state.U, state.density
     kw = dict(maccormack_strength=cfg.maccormack_strength,
               max_disp=cfg.max_disp)
     scalar_kw = dict(kw, sample_outside_fluid=cfg.sample_outside_fluid,
                      line_trace=cfg.line_trace)
     if cfg.advect_density and cfg.fuse_advection:
-        rho, U_new = advect_all(cfg.dt, rho, U, flags, orig=orig,
-                                **scalar_kw)
+        rho, U_new = advect_all(dt, rho, U, flags, orig=orig, **scalar_kw)
     else:
         if cfg.advect_density:
-            rho = advect_scalar(cfg.dt, rho, U, flags, **scalar_kw)
-        U_new = advect_velocity(cfg.dt, U, flags, orig=orig, **kw)
+            rho = advect_scalar(dt, rho, U, flags, **scalar_kw)
+        U_new = advect_velocity(dt, U, flags, orig=orig, **kw)
     if cfg.advect_density and cfg.correct_scalar:
         # The correction's divergence is the pre-advection U's.
-        rho = correct_scalar(cfg.dt, rho, velocity_divergence(U, flags),
-                             flags)
+        rho = correct_scalar(dt, rho, velocity_divergence(U, flags), flags)
     return rho, U_new
 
 
@@ -139,28 +161,39 @@ def _project_classical(cfg, state, U, flags):
     return p, velocity_update(p, U, flags)
 
 
-def simulate_step(cfg, state, project_fn=None):
-    """Advance by one dt. Returns the new state."""
+def simulate_step(cfg, state, project_fn=None, output_div=False, dyn=None):
+    """Advance by one dt (``dyn.dt`` given a ``DynParams``). Returns the
+    new state, or with ``output_div`` the divergent state before the
+    projection."""
     why = _unsupported(cfg)
     if why is not None:
         raise NotImplementedError(why)
-    if cfg.sim_method == "convnet" and project_fn is None:
+    if cfg.sim_method == "convnet" and project_fn is None and not output_div:
         raise ValueError("the convnet projection needs a project_fn")
     flags = state.flags
-    orig = (add_viscosity(cfg.dt, state.U, flags, cfg.viscosity)
+    dt = cfg.dt if dyn is None else dyn.dt
+    orig = (add_viscosity(dt, state.U, flags, cfg.viscosity)
             if cfg.viscosity > 0 else None)
-    rho, U = _advect(cfg, state, orig)
+    rho, U = _advect(cfg, state, orig, dt)
     U, rho = apply_const_vals(state, U, rho)
-    if cfg.buoyancy_scale > 0:
-        U = add_buoyancy(U, flags, rho,
-                         _scaled_gravity(cfg, cfg.buoyancy_scale),
-                         cfg.operating_density, cfg.dt)
-    if cfg.gravity_scale > 0:
-        U = add_gravity(U, flags, _scaled_gravity(cfg, cfg.gravity_scale),
-                        cfg.dt)
+    if dyn is not None:
+        U = add_buoyancy(U, flags, rho, _scaled_gravity(
+            dyn.gravity_vec, dyn.buoyancy_scale), cfg.operating_density, dt)
+        U = add_gravity(U, flags, _scaled_gravity(dyn.gravity_vec,
+                                                  dyn.gravity_scale), dt)
+    else:
+        if cfg.buoyancy_scale > 0:
+            U = add_buoyancy(U, flags, rho, _scaled_gravity(
+                cfg.gravity_vec, cfg.buoyancy_scale), cfg.operating_density,
+                dt)
+        if cfg.gravity_scale > 0:
+            U = add_gravity(U, flags, _scaled_gravity(cfg.gravity_vec,
+                                                      cfg.gravity_scale), dt)
     if cfg.vorticity_confinement > 0:
         U = add_vorticity_confinement(U, flags, cfg.vorticity_confinement,
-                                      cfg.dt)
+                                      dt)
+    if output_div:
+        return state._replace(U=U, density=rho)
     if _fused_projection(cfg, state, project_fn):
         # The projection applies U's const BCs on its input and output;
         # rho's were applied above and are idempotent.

@@ -150,12 +150,12 @@ def simulate_step3(cfg, state, project_fn=None, output_div: bool = False):
     rho, U = _advect3(cfg, state)
     U, rho = apply_const_vals3(state, U, rho)
     if cfg.buoyancy_scale > 0:
-        U = add_buoyancy3(U, flags, rho,
-                          _scaled_gravity(cfg, cfg.buoyancy_scale),
-                          cfg.operating_density, cfg.dt)
+        U = add_buoyancy3(U, flags, rho, _scaled_gravity(
+            cfg.gravity_vec, cfg.buoyancy_scale), cfg.operating_density,
+            cfg.dt)
     if cfg.gravity_scale > 0:
-        U = add_gravity3(U, flags, _scaled_gravity(cfg, cfg.gravity_scale),
-                         cfg.dt)
+        U = add_gravity3(U, flags, _scaled_gravity(cfg.gravity_vec,
+                                                   cfg.gravity_scale), cfg.dt)
     U = _wall_bcs3(cfg, state, U)
     U, rho = apply_const_vals3(state, U, rho)
     if cfg.sim_method == "convnet":

@@ -1,0 +1,373 @@
+"""Training (the port of the JAX package's ``train/trainer.py``): the
+5-term loss with the long-term divergence rollout, Adam with the
+reduce-on-plateau scale on its learning rate, the dataset, on-device and
+mixed train steps and the rollout-frame collector.
+
+Semantics as in JAX (the reference's ``fluid_net_train.py``): the
+short-term losses on the model's projection of a divergent frame; the
+long-term loss rolls the simulator forward ``n`` steps (``lt_num_steps[0]``
+with probability ``lt_probability``, else ``lt_num_steps[1]``) without
+gradient, under randomised physics (dt scaled by 0.2028 + |N(0,1)| sigma,
+a random buoyancy scale and cardinal direction, no gravity) on a zero
+density with ``advect_density`` off, projecting with the current weights,
+then takes one differentiable projection of the rolled state and its
+MSE(div, 0). The rollout runs exactly ``n`` steps: JAX's masked scan over
+``max(lt_num_steps)`` gives the same state. The draw (``_sample_dyn``)
+comes from a CPU generator on the host, so the rollout's trip count needs
+no device sync.
+
+On a CUDA tensor every conv of the loss runs on kernel B, its backward on
+kernel B (input gradient) and ``fn_conv2d_wgrad`` (weights)
+(``ops/kernels/punet.py::ConvNHWC``); the LT rollout's velocity advection
+is kernel E at the drawn dt, the synthetic labels kernel F, the plume
+frames' steps kernels A and F. PUNet and the polish sweeps have no
+gradient on the card yet (ROADMAP A.5.1): ``check_trainable`` refuses them
+there; on the CPU plain autograd runs them.
+"""
+import dataclasses
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig, SimConfig, TrainConfig
+from ..data.synthetic import generate_batch
+from ..models.convert import flax_to_state_dict, random_flax_params
+from ..models.fluidnet import FluidNet
+from ..ops.kernels.jacobi import solve_jacobi
+from ..ops.kernels.punet import pack_weights
+from ..ops.stencils import (set_wall_bcs, set_wall_bcs_stick,
+                            velocity_divergence, velocity_update)
+from ..sim.step import DynParams, simulate_step
+from ..state import SimState
+from .losses import LossTerms, long_term_loss, short_term_losses
+
+
+class Batch(NamedTuple):
+    """One training batch: divergent inputs and projected targets.
+    ``div_mask`` (optional, (b, h, w)) excludes cells from the divergence
+    losses (train/losses.py)."""
+    p_div: torch.Tensor      # (b, h, w)
+    U_div: torch.Tensor      # (b, 2, h, w)
+    flags: torch.Tensor      # (b, h, w) int32
+    density_div: torch.Tensor
+    p_target: torch.Tensor
+    U_target: torch.Tensor
+    density_target: torch.Tensor
+    div_mask: Optional[torch.Tensor] = None
+
+
+class Plateau:
+    """optax's ``contrib.reduce_on_plateau`` (optax 0.2.6; atol 0, no
+    cooldown, min_scale 0), float32 like its state: the mean of the last
+    ``accumulation_size`` losses, once that many have come, either improves
+    on the best by more than ``rtol`` of it, or adds one to the plateau
+    count; at ``patience`` the scale is multiplied by ``factor`` and the
+    count restarts. ``update(value)`` returns the scale after this value,
+    the one that multiplies this step's update. The running mean stays a
+    tensor on the loss's device: the host reads it only when the count
+    completes."""
+
+    def __init__(self, factor: float, patience: int, rtol: float,
+                 accumulation_size: int = 1):
+        self.factor, self.patience = factor, patience
+        self.rtol, self.accumulation_size = rtol, accumulation_size
+        self.scale = np.float32(1.0)
+        self.best_value = np.float32(np.inf)
+        self.plateau_count = 0
+        self.count = 0
+        self.avg_value = None
+
+    def update(self, value) -> float:
+        value = value.detach().to(torch.float32)
+        count, self.count = self.count, self.count + 1
+        prev = self.avg_value if self.avg_value is not None else \
+            torch.zeros_like(value)
+        self.avg_value = (count * prev + value) / self.count
+        if self.count == self.accumulation_size:
+            avg = np.float32(self.avg_value.item())
+            improved = avg < (np.float32(1 - self.rtol) * self.best_value
+                              - np.float32(0.0))
+            if improved:
+                self.best_value, self.plateau_count = avg, 0
+            else:
+                self.plateau_count += 1
+            if self.plateau_count == self.patience:
+                self.scale = np.float32(self.scale * np.float32(self.factor))
+                self.plateau_count = 0
+            self.count, self.avg_value = 0, None
+        return float(self.scale)
+
+    def state_dict(self):
+        return {"scale": float(self.scale),
+                "best_value": float(self.best_value),
+                "plateau_count": self.plateau_count, "count": self.count,
+                "avg_value": self.avg_value}
+
+    def load_state_dict(self, d):
+        self.scale = np.float32(d["scale"])
+        self.best_value = np.float32(d["best_value"])
+        self.plateau_count, self.count = d["plateau_count"], d["count"]
+        self.avg_value = d["avg_value"]
+
+
+class Optimizer:
+    """Adam (``torch.optim.Adam``, optax's defaults: betas 0.9, 0.999,
+    eps 1e-8) whose learning rate is ``lr`` times the plateau's scale, as
+    ``optax.chain(adam(lr), reduce_on_plateau(...))`` scales Adam's
+    update."""
+
+    def __init__(self, params, cfg: TrainConfig, steps_per_epoch: int = 1):
+        self.lr = cfg.lr
+        self.adam = torch.optim.Adam(params, lr=cfg.lr, betas=(0.9, 0.999),
+                                     eps=1e-8)
+        self.plateau = Plateau(cfg.plateau_factor, cfg.plateau_patience,
+                               cfg.plateau_threshold,
+                               max(steps_per_epoch, 1))
+
+    def step(self, value):
+        """One update with the gradients in the parameters; ``value`` is
+        this step's loss (the plateau's input)."""
+        scale = self.plateau.update(value)
+        for group in self.adam.param_groups:
+            group["lr"] = self.lr * scale
+        self.adam.step()
+
+    def state_dict(self):
+        return {"adam": self.adam.state_dict(),
+                "plateau": self.plateau.state_dict()}
+
+    def load_state_dict(self, d):
+        self.adam.load_state_dict(d["adam"])
+        self.plateau.load_state_dict(d["plateau"])
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (its parameters), their optimizer and the step count."""
+    model: FluidNet
+    optimizer: Optimizer
+    step: int = 0
+
+
+def make_optimizer(cfg: TrainConfig, model, steps_per_epoch: int = 1):
+    """Adam + reduce-on-plateau over ``model``'s parameters. The reference
+    steps its plateau scheduler once per epoch on the epoch-mean train
+    loss: ``steps_per_epoch`` is the plateau's accumulation size."""
+    return Optimizer(model.parameters(), cfg, steps_per_epoch)
+
+
+def init_params(model: FluidNet, seed: int = 0):
+    """flax's initialisation of ``model``'s network from a numpy seed:
+    lecun-normal kernels, zero biases (``models/convert.py``)."""
+    dev = next(model.parameters()).device
+    sd = flax_to_state_dict(random_flax_params(model.net.table, seed))
+    model.net.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+
+
+def init_train_state(model: FluidNet, cfg: TrainConfig, seed: int = 0,
+                     steps_per_epoch: int = 1):
+    init_params(model, seed)
+    return TrainState(model, make_optimizer(cfg, model, steps_per_epoch))
+
+
+def check_trainable(mcfg: ModelConfig, device):
+    """Raise NotImplementedError for a model whose backward has no kernel
+    on the card yet: PUNet (stride-2 input gradients, the skip split) and
+    any polish sweeps. The CPU trains them with plain autograd."""
+    if torch.device(device).type != "cuda":
+        return
+    if mcfg.model == "PUNet" or mcfg.polish_sweeps > 0:
+        raise NotImplementedError(
+            f"not ported yet: training {mcfg.model} with {mcfg.polish_sweeps}"
+            " polish sweeps on the card; the tower and ScaleNet without "
+            "polish train there (PUNet's training, ROADMAP A.5.1)")
+
+
+def _sample_dyn(gen: torch.Generator, sim_cfg: SimConfig, cfg: TrainConfig):
+    """(DynParams, n_steps) of one long-term rollout, drawn from the CPU
+    generator ``gen`` and computed in float32 as JAX's ``_sample_dyn``."""
+    u = torch.rand((6,), generator=gen).numpy()
+    z = torch.randn((2,), generator=gen).numpy()
+    card, updown = torch.randint(0, 2, (2,), generator=gen).tolist()
+    f32 = np.float32
+    b_scale = (f32(cfg.train_buoyancy_scale) + z[0]
+               if u[0] < cfg.train_buoyancy_prob else f32(0.0))
+    sign = float(updown * 2 - 1)
+    gvec = (sign, 0.0, 0.0) if card == 0 else (0.0, sign, 0.0)
+    dt = f32(sim_cfg.dt)
+    if cfg.time_scale_sigma > 0:
+        # mean(|N(0,1)|) ~= 0.7972, hence the 0.2028 offset.
+        dt = dt * (f32(0.2028) + np.abs(z[1]) * f32(cfg.time_scale_sigma))
+    n_steps = (cfg.lt_num_steps[0] if u[1] < cfg.lt_probability
+               else cfg.lt_num_steps[1])
+    return DynParams(float(dt), float(b_scale), 0.0, gvec), int(n_steps)
+
+
+def make_loss_fn(model: FluidNet, sim_cfg: SimConfig, cfg: TrainConfig):
+    """``loss_fn(batch, host_gen=None, draw=None) -> (total, LossTerms)``;
+    ``draw`` (a ``(DynParams, n_steps)``) replaces ``_sample_dyn``'s draw
+    from ``host_gen``. The weights are packed from the live parameters on
+    every call, so the rollout projects with the current weights and the
+    gradient reaches the parameters."""
+    rollout_cfg = dataclasses.replace(sim_cfg, sim_method="convnet",
+                                      advect_density=False)
+
+    def loss_fn(batch: Batch, host_gen=None, draw=None):
+        packed = pack_weights(model.net)
+        p_out, U_out = model(batch.p_div, batch.U_div, batch.flags,
+                             batch.density_div, packed)
+        mask = batch.div_mask
+        p_l2, div_l2, p_l1, div_l1 = short_term_losses(
+            cfg, p_out, U_out, batch.flags, batch.p_target, mask=mask)
+        total = p_l2 + div_l2 + p_l1 + div_l1
+        div_lt = torch.zeros((), device=total.device)
+        if cfg.div_lt_lambda > 0:
+            dyn, n_steps = (draw if draw is not None
+                            else _sample_dyn(host_gen, sim_cfg, cfg))
+            zeros = torch.zeros_like(p_out)
+            with torch.no_grad():
+                def project(p, U, flags, density):
+                    return model(p, U, flags, density, packed)
+
+                state = SimState(p=p_out.detach(), U=U_out.detach(),
+                                 flags=batch.flags, density=zeros)
+                for _ in range(n_steps):
+                    state = simulate_step(rollout_cfg, state, project,
+                                          dyn=dyn)
+            _, U_lt = model(state.p, state.U, batch.flags, zeros, packed)
+            div_lt = long_term_loss(cfg, U_lt, batch.flags, mask=mask)
+            total = total + div_lt
+        return total, LossTerms(total, p_l2, div_l2, p_l1, div_l1, div_lt)
+
+    return loss_fn
+
+
+def _detached(terms: LossTerms) -> LossTerms:
+    return LossTerms(*(t.detach() for t in terms))
+
+
+def make_train_step(model: FluidNet, sim_cfg: SimConfig, cfg: TrainConfig):
+    """``(train_step, eval_step)``: ``train_step(ts, batch, host_gen=None,
+    draw=None) -> (ts, LossTerms)`` updates ``ts`` (whose model is
+    ``model``) in place; ``eval_step`` returns the terms without
+    gradient."""
+    loss_fn = make_loss_fn(model, sim_cfg, cfg)
+
+    def train_step(ts: TrainState, batch: Batch, host_gen=None, draw=None):
+        ts.optimizer.adam.zero_grad(set_to_none=True)
+        total, terms = loss_fn(batch, host_gen, draw)
+        total.backward()
+        ts.optimizer.step(total)
+        ts.step += 1
+        return ts, _detached(terms)
+
+    def eval_step(ts: TrainState, batch: Batch, host_gen=None, draw=None):
+        with torch.no_grad():
+            return loss_fn(batch, host_gen, draw)[1]
+
+    return train_step, eval_step
+
+
+def make_on_device_train_step(model: FluidNet, sim_cfg: SimConfig,
+                              cfg: TrainConfig, h: int, w: int,
+                              batch_size: int = None,
+                              jacobi_iters: int = 400, device="cuda"):
+    """``step(ts, gen, host_gen, draw=None) -> (ts, LossTerms)``: a fresh
+    synthetic batch drawn on ``device`` from ``gen`` (labels from
+    ``jacobi_iters`` sweeps of kernel F), then one train step; no data
+    crosses from the host."""
+    train_step, _ = make_train_step(model, sim_cfg, cfg)
+    bsz = batch_size or cfg.batch_size
+
+    def step(ts: TrainState, gen, host_gen, draw=None):
+        with torch.no_grad():
+            sample = generate_batch(gen, bsz, h, w, jacobi_iters, device)
+        return train_step(ts, Batch(*sample), host_gen, draw)
+
+    return step
+
+
+def _project_frame(sim_cfg: SimConfig, s_div: SimState, iters: int):
+    """Finish a step classically from its divergent state. Returns
+    (next state, U_in, p_in): U_in is the divergent velocity as the convnet
+    step hands it to the learned projection (stick walls and const BCs,
+    no free-slip walls) and p_in the Jacobi pressure of that field (the
+    anchoring target); the trajectory continues with the Jacobi step's
+    tail."""
+    flags = s_div.flags
+    U_in = s_div.U
+    if s_div.flags_stick is not None:
+        U_in = set_wall_bcs_stick(U_in, flags, s_div.flags_stick)
+    if s_div.U_bc is not None:
+        U_in = U_in * s_div.U_bc_inv_mask + s_div.U_bc
+    p_in = solve_jacobi(flags, velocity_divergence(U_in, flags), iters)
+    U = set_wall_bcs(s_div.U, flags)
+    if s_div.U_bc is not None:
+        U = U * s_div.U_bc_inv_mask + s_div.U_bc
+    p = solve_jacobi(flags, velocity_divergence(U, flags), iters)
+    U = set_wall_bcs(velocity_update(p, U, flags), flags)
+    if s_div.U_bc is not None:
+        U = U * s_div.U_bc_inv_mask + s_div.U_bc
+    return s_div._replace(p=p, U=U), U_in, p_in
+
+
+@torch.no_grad()
+def collect_rollout_frames(sim_cfg: SimConfig, state0: SimState,
+                           n_frames: int, stride: int = 4, warmup: int = 50):
+    """Roll the scene with the classical (Jacobi) projection and collect
+    the pre-projection divergent states, the distribution the learned
+    projection sees in closed loop: ``warmup`` full steps, then per frame
+    one step to its divergent state, its classical finish and ``stride -
+    1`` full steps. Returns (frames (n, 2, h, w), the Jacobi pressures of
+    the frames (n, h, w), the scene's flags)."""
+    state = state0
+    for _ in range(warmup):
+        state = simulate_step(sim_cfg, state)
+    frames, p_frames = [], []
+    for _ in range(n_frames):
+        s_div = simulate_step(sim_cfg, state, output_div=True)
+        state, U_in, p_in = _project_frame(sim_cfg, s_div,
+                                           sim_cfg.jacobi_iter)
+        for _ in range(stride - 1):
+            state = simulate_step(sim_cfg, state)
+        frames.append(U_in[0])
+        p_frames.append(p_in[0])
+    return torch.stack(frames), torch.stack(p_frames), state0.flags
+
+
+def make_mixed_train_step(model: FluidNet, sim_cfg: SimConfig,
+                          cfg: TrainConfig, frame_shape, batch_size: int,
+                          synth_frac: float = 0.5, jacobi_iters: int = 400,
+                          device="cuda"):
+    """``step(ts, gen, host_gen, frames, frame_p, frame_flags,
+    frame_div_mask=None) -> (ts, LossTerms)``: per sample, with probability
+    ``synth_frac`` a fresh synthetic field, else a buffered rollout frame
+    (``collect_rollout_frames``) at a random amplitude in [0.5, 1.5), its
+    pressure target scaled alike (the projection is linear)."""
+    train_step, _ = make_train_step(model, sim_cfg, cfg)
+    n, _, h, w = frame_shape
+
+    def step(ts: TrainState, gen, host_gen, frames, frame_p, frame_flags,
+             frame_div_mask=None):
+        with torch.no_grad():
+            syn = generate_batch(gen, batch_size, h, w, jacobi_iters, device)
+            idx = torch.randint(0, n, (batch_size,), generator=gen,
+                                device=device)
+            amp = torch.rand((batch_size, 1, 1, 1), generator=gen,
+                             device=device) + 0.5
+            use_syn = torch.rand((batch_size, 1, 1, 1), generator=gen,
+                                 device=device) < synth_frac
+            U_div = torch.where(use_syn, syn.U_div, frames[idx] * amp)
+            flags = torch.where(use_syn[..., 0], syn.flags, frame_flags)
+            p_target = torch.where(use_syn[..., 0], syn.p_target,
+                                   frame_p[idx] * amp[..., 0])
+            zero = torch.zeros((batch_size, h, w), device=device)
+            div_mask = (None if frame_div_mask is None else torch.where(
+                use_syn[..., 0], 1.0, frame_div_mask.to(torch.float32)))
+        batch = Batch(p_div=zero, U_div=U_div, flags=flags,
+                      density_div=zero, p_target=p_target, U_target=U_div,
+                      density_target=zero, div_mask=div_mask)
+        return train_step(ts, batch, host_gen)
+
+    return step

@@ -22,12 +22,17 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 43 and not bad, bad
 assert 'fluidnet_cxx_tpu_torch.models.mg_coarse' in names, names
+for mod in ('train.trainer', 'train.losses', 'train.checkpoint',
+            'train.__main__', 'data.dataset', 'data.manta_io',
+            'data.synthetic', 'utils.diagnostics', 'ops.kernels.conv_grad'):
+    assert 'fluidnet_cxx_tpu_torch.' + mod in names, (mod, names)
 print('IMPORT_OK')
 """
 
 # Each entry point at a small size; without a card each must refuse. The
-# key names the case, its module is the key's part before the first '.',
-# and the call's function is imported from that module.
+# key names the case, its module is the key's part before the first '.'
+# (or MODULES' entry for it), and the call's function is imported from
+# that module.
 ENTRY_POINTS = {
     "run_plume": "run_plume(res=64, steps=1)",
     "run_plume.mg_learned": "run_plume(res=256, steps=1, "
@@ -47,13 +52,20 @@ ENTRY_POINTS = {
     "bench": "main(['--res', '32', '--cases', 'jacobi28', '--small-steps', "
              "'2', '--chunk', '1', '--n-eager', '1', '--reps', '1'])",
     "bench3d": "main(['--res', '16', '--steps', '1', '--reps', '1'])",
+    "train": "main(['--onDevice', '1', '--res', '16', '--bsz', '2', "
+             "'--modelDir', 'unused'])",
+    "train.dataset": "main(['--synthetic', '1', '--res', '16', "
+                     "'--modelDir', 'unused'])",
 }
+# The training entry point is run as ``python -m fluidnet_cxx_tpu_torch.
+# train``: its main() lives in train/__main__.py.
+MODULES = {"train": "train.__main__"}
 
 RUN_WITHOUT_CARD = """
 import torch
 assert not torch.cuda.is_available()
 """ + "".join(f"""
-from fluidnet_cxx_tpu_torch.{name.split('.')[0]} import {call.split('(')[0]}
+from fluidnet_cxx_tpu_torch.{MODULES.get(name.split('.')[0], name.split('.')[0])} import {call.split('(')[0]}
 try:
     {call}
 except RuntimeError as e:
