@@ -141,7 +141,10 @@ Phases (each prints its elapsed seconds):
      to twice the plain float32 version's (torch.nn.grad.conv2d_weight
      and a sum) distance from its float64 run, each bit-equal on a repeat,
      timed as device ms beside the plain version and cuDNN with the
-     bound; the same on ScaleNet's 5x5 layers; both nets' forward and
+     bound; the same on every ScaleNet layer (wgrad over each layer's real
+     channels, its padded entries exactly 0, also timed under one fixed
+     plan per output-channel class), each net's summed wgrad in the
+     kernels line; both nets' forward and
      backward through the kernels against plain autograd on the card and
      in float64 (batch 16; the kernel route within twice the plain float32
      route's distance from float64); one loss and its gradients at 64^2,
@@ -165,7 +168,7 @@ on the 1000x100 map and the mg_learned and cylinder paths (learned_only),
 card-against-CPU checks and the 512^2 main paths of DataTrain_128 and
 ScaleNet_jets_128 (nets_only),
 `python3 chip_smoke.py --train-only` phase 8 alone and the kernels line
-of its two rows (train_only).
+of its three rows (train_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -2808,17 +2811,39 @@ def train_input(model, dev, bsz=TRAIN_BSZ, res=TRAIN_RES):
                                b.flags, b.density_div)[0]
 
 
-def grad_layer_rows(model, net, x, dev, keep=lambda name: True):
+def fixed_wgrad_plan(n, ho, wo, ci, co, k):
+    """The wgrad plan of one fixed choice per output-channel class (the
+    planner's wn columns of m16n8 tiles a warp, from co) for the planner's
+    to beat: 16-channel slices, 2 m-tiles a warp (4 where it has one
+    n-tile), 4 warps a block; the strides, chunk tile and splits the
+    planner's own for that choice."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad
+
+    p = conv_grad.plan_wgrad(n, ho, wo, ci, co, k)
+    return conv_grad.plan_wgrad(n, ho, wo, ci, co, k, cw=16,
+                                wm=4 if p.wn == 1 else 2,
+                                nwr=max(1, 4 // p.nwc))
+
+
+def plan_text(p):
+    return (f"cw {p.cw} warp {p.wm}x{p.wn} warps {p.nwr}x{p.nwc} tw {p.tw} "
+            f"S {p.splits}")
+
+
+def grad_layer_rows(model, net, x, dev):
     """Kernel B's input gradient and fn_conv2d_wgrad on each conv call of
-    ``net``'s padded forward on ``x`` (those ``keep`` names), from a seeded
-    upstream gradient (zero on the padded output channels): B's against
-    cuDNN's conv2d_input on the unpadded weights within 1e-5 of its largest
+    ``net``'s padded forward on ``x``, from a seeded upstream gradient
+    (zero on the padded output channels): B's against cuDNN's
+    conv2d_input on the unpadded weights within 1e-5 of its largest
     value, its padded input channels exactly 0 (skipped for the first
-    layer, whose input needs no gradient); wgrad within twice the plain
-    float32 version's distance from its float64 run; both bit-equal on a
-    repeat. Returns per-layer dicts of errors, device ms of the kernel,
-    the plain version and cuDNN, and the unpadded work."""
-    from fluidnet_cxx_tpu_torch.ops.kernels import _build, conv_grad, punet
+    layer, whose input needs no gradient); wgrad, over the layer's real
+    channels, within twice the plain float32 version's distance from its
+    float64 run, its padded entries exactly 0; both bit-equal on a
+    repeat; the same tolerance under fixed_wgrad_plan's plan. Returns
+    per-layer dicts of errors, device ms of the kernel (under its
+    planner's plan and under the fixed one), the plain
+    version and cuDNN, its plans, and the unpadded work."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad, punet
 
     with torch.no_grad():
         packed = punet.pack_weights(net)
@@ -2834,9 +2859,12 @@ def grad_layer_rows(model, net, x, dev, keep=lambda name: True):
     gen = torch.Generator(device=dev).manual_seed(SEED + 9)
     rows = []
     first = calls[0][0]
+    print(f"backward per layer, {model} at {x.shape[1]}^2, batch "
+          f"{x.shape[0]} (M; device ms: kernel / plain / cuDNN; wgrad's "
+          "bound on the unpadded work at the 3xTF32 rate, its error from "
+          "float64 beside the plain float32's, its plan; the fixed plan's "
+          "ms and plan):", flush=True)
     for name, (h, w, _, _, dil, _), _ in calls:
-        if not keep(name):
-            continue
         c = net.convs[name]
         co, ci, k, _ = c.weight.shape
         n, hh, ww = h.shape[:3]
@@ -2847,10 +2875,13 @@ def grad_layer_rows(model, net, x, dev, keep=lambda name: True):
         gyn = gy[..., :co].permute(0, 3, 1, 2).contiguous()
         hn = h[..., :ci].permute(0, 3, 1, 2).contiguous()
         label = f"{model} {name} {hh}x{ww} k{k} {ci}->{co}"
+        fixed = fixed_wgrad_plan(n, hh, ww, ci, co, k)
         row = dict(name=name, m=m, k=k, ci=ci, co=co,
                    ops=2.0 * m * k * k * ci * co,
                    d_bytes=4.0 * (m * co + c.weight.numel() + m * ci),
-                   w_bytes=4.0 * (m * ci + m * co + c.weight.numel() + co))
+                   w_bytes=4.0 * (m * ci + m * co + c.weight.numel() + co),
+                   plan=plan_text(conv_grad.plan_wgrad(n, hh, ww, ci, co, k)),
+                   fixed_plan=plan_text(fixed))
         with torch.no_grad():
             if name != first:
                 dgrad = lambda gy=gy, w=w, dil=dil: punet.conv2d_dgrad(
@@ -2874,52 +2905,64 @@ def grad_layer_rows(model, net, x, dev, keep=lambda name: True):
                     lambda gy=gy, w=w, dil=dil: punet.conv2d_dgrad_plain(
                         gy, w, dil))
                 row["d_lib_ms"] = graph_ms(lib_in)
-            wgrad = (lambda h=h, gy=gy, k=k, dil=dil, pads=pads:
-                     torch.cat([t.flatten() for t in conv_grad.conv2d_wgrad(
-                         h, gy, k, 1, dil, pads)]))
-            plain = (lambda h=h, gy=gy, k=k, dil=dil, pads=pads:
-                     torch.cat([t.flatten() for t in
-                                conv_grad.conv2d_wgrad_plain(
-                                    h, gy, k, 1, dil, pads)]))
-            exact = torch.cat([t.flatten() for t in
-                               conv_grad.conv2d_wgrad_plain(
-                                   h.double(), gy.double(), k, 1, dil, pads)])
+                del got, want
+            def flat(pair):
+                return torch.cat([t.flatten() for t in pair])
+
+            def wgrad(h=h, gy=gy, k=k, dil=dil, pads=pads, ci=ci, co=co,
+                      plan=None):
+                return flat(conv_grad.conv2d_wgrad(h, gy, k, 1, dil, pads,
+                                                   ci, co, plan))
+
+            def plain(h=h, gy=gy, k=k, dil=dil, pads=pads, ci=ci, co=co):
+                return flat(conv_grad.conv2d_wgrad_plain(h, gy, k, 1, dil,
+                                                         pads, ci, co))
+
+            exact = flat(conv_grad.conv2d_wgrad_plain(
+                h.double(), gy.double(), k, 1, dil, pads, ci, co))
             got, ref = wgrad(), plain()
+            got_fixed = wgrad(plan=fixed)
+            dw, db = conv_grad.conv2d_wgrad(h, gy, k, 1, dil, pads, ci, co)
             torch.cuda.synchronize()
+            if bool(dw[:, :, ci:].any() or dw[..., co:].any()
+                    or db[co:].any()):
+                raise SystemExit(f"wgrad {label}: a padded entry is not 0")
             row["w_err"] = float((got.double() - exact).abs().max())
             row["w_plain_err"] = float((ref.double() - exact).abs().max())
             row["w_err_plain"] = float((got - ref).abs().max())
             check(f"wgrad {label} (from float64; tolerance twice the plain "
                   f"float32's {row['w_plain_err']:.3e})", row["w_err"],
                   2 * row["w_plain_err"])
+            check(f"wgrad {label} under the fixed plan (from float64)",
+                  float((got_fixed.double() - exact).abs().max()),
+                  2 * row["w_plain_err"])
+            del got, got_fixed, ref, exact, dw, db
             check_repeat(f"wgrad {label}", wgrad)
             row["w_ms"] = graph_ms(wgrad)
+            row["w_fixed_ms"] = graph_ms(
+                lambda wgrad=wgrad, fixed=fixed: wgrad(plan=fixed))
             row["w_plain_ms"] = graph_ms(plain)
             row["w_lib_ms"] = graph_ms(
                 lambda hn=hn, c=c, gyn=gyn, p=pads[0], dil=dil:
                 torch.nn.grad.conv2d_weight(hn, c.weight.shape, gyn,
                                             padding=p, dilation=dil))
-            row["splits"] = _build.query("fn_conv2d_wgrad_splits", m,
-                                         k * k * h.shape[3], w.shape[3])
         rows.append(row)
-    print(f"backward per layer, {model} at {x.shape[1]}^2, batch "
-          f"{x.shape[0]} (padded M, K, co; device ms: kernel / plain / "
-          "cuDNN; bound on the unpadded work at the 3xTF32 rate):",
-          flush=True)
-    for r in rows:
+        r = row
         d = (f"dgrad {r['d_ms']:.4f} / {r['d_plain_ms']:.4f} / "
              f"{r['d_lib_ms']:.4f}" if "d_ms" in r else "dgrad skipped")
         print(f"  {r['name']:16s} k{r['k']} {r['ci']:3d}->{r['co']:3d} M "
-              f"{r['m']:8d} S {r['splits']:3d}  {d}  wgrad {r['w_ms']:.4f} / "
+              f"{r['m']:8d}  {d}  wgrad {r['w_ms']:.4f} / "
               f"{r['w_plain_ms']:.4f} / {r['w_lib_ms']:.4f}  bound "
-              f"{bound(r['w_bytes'], r['ops'], TF32X3_OPS_PER_S)[0]:.4f}",
-              flush=True)
+              f"{bound(r['w_bytes'], r['ops'], TF32X3_OPS_PER_S)[0]:.4f}  "
+              f"err {r['w_err']:.2e} (plain {r['w_plain_err']:.2e})  "
+              f"[{r['plan']}]  fixed {r['w_fixed_ms']:.4f} "
+              f"[{r['fixed_plan']}]", flush=True)
     return rows
 
 
-def backward_results(rows):
+def backward_results(rows, model="FluidNet"):
     """The kernels-line entries of B's input gradient and the weight
-    gradient over one backward of the net (every layer's call summed)."""
+    gradient over one backward of ``model`` (every layer's call summed)."""
     out = {}
     for key, p in (("B dgrad", "d"), ("wgrad", "w")):
         rs = [r for r in rows if f"{p}_ms" in r]
@@ -2930,11 +2973,13 @@ def backward_results(rows):
                         plain_ms=sum(r[f"{p}_plain_ms"] for r in rs),
                         library_ms=sum(r[f"{p}_lib_ms"] for r in rs),
                         bound_ms=ms, bound_by=by)
-        print(f"{key}, one backward ({len(rs)} calls): kernel "
+        fixed = (f"; under the fixed plans "
+                 f"{sum(r['w_fixed_ms'] for r in rs):.4f}" if p == "w" else "")
+        print(f"{key}, one {model} backward ({len(rs)} calls): kernel "
               f"{out[key]['ms']:.4f} ms device, plain "
               f"{out[key]['plain_ms']:.4f}, cuDNN {out[key]['library_ms']:.4f}"
               f", bound {ms:.4f} ({by}, 3xTF32), max_abs_err "
-              f"{out[key]['err']:.3e}", flush=True)
+              f"{out[key]['err']:.3e}{fixed}", flush=True)
     return out
 
 
@@ -3163,20 +3208,22 @@ def train_small_paths():
 
 
 def phase_train(dev, results):
-    """Training: the backward kernels on every conv call of the tower (and
-    ScaleNet's 5x5 layers) at 128^2, batch 64; the nets' forward and
-    backward against plain autograd; one loss card against CPU; the two
-    main paths; the dataset and plume-frame paths. Returns the tower
-    path's launches."""
+    """Training: the backward kernels on every conv call of the tower and
+    of ScaleNet at 128^2, batch 64; the nets' forward and backward against
+    plain autograd; one loss card against CPU; the two main paths; the
+    dataset and plume-frame paths. Returns each main path's launches."""
     done = phase("backward kernels (B dgrad, wgrad) at 128^2, batch 64")
     tower = seeded_net("FluidNet", dev)
     rows = grad_layer_rows("FluidNet", tower, train_input("FluidNet", dev),
                            dev)
     results.update(backward_results(rows))
+    del tower
     scale = seeded_net("ScaleNet", dev)
-    grad_layer_rows("ScaleNet", scale, train_input("ScaleNet", dev), dev,
-                    keep=lambda name: scale.geometry[name][0] == 5)
-    del tower, scale
+    rows = grad_layer_rows("ScaleNet", scale, train_input("ScaleNet", dev),
+                           dev)
+    results["wgrad scalenet"] = backward_results(rows, "ScaleNet")["wgrad"]
+    del scale, rows
+    torch.cuda.empty_cache()
     done()
     done = phase("nets forward+backward, kernel route vs plain autograd")
     for model in TRAIN_MODELS.values():
@@ -3188,23 +3235,28 @@ def phase_train(dev, results):
     done()
     launches = {m: train_main_path(m, dev) for m in TRAIN_MODELS.values()}
     train_small_paths()
-    return launches["FluidNet"]
+    return launches
 
 
 def train_rows(results, launches):
     """The kernels-line rows of the backward kernels: launches from the
-    tower's training main path."""
+    tower's training main path (ScaleNet's row from its own)."""
     meta = {"B dgrad": ("punet_conv2d_dgrad_tower_128_b64",
                         "fluidnet_cxx_tpu_torch/csrc/conv2d.cu",
-                        "fluidnet_cxx_tpu/ops/pallas/punet_pallas.py:366"),
+                        "fluidnet_cxx_tpu/ops/pallas/punet_pallas.py:366",
+                        "FluidNet", "B dgrad"),
             "wgrad": ("conv2d_wgrad_tower_128_b64",
                       "fluidnet_cxx_tpu_torch/csrc/conv2d_grad.cu",
-                      TRAIN_REPLACES)}
+                      TRAIN_REPLACES, "FluidNet", "wgrad"),
+            "wgrad scalenet": ("conv2d_wgrad_scalenet_128_b64",
+                               "fluidnet_cxx_tpu_torch/csrc/conv2d_grad.cu",
+                               TRAIN_REPLACES, "ScaleNet", "wgrad")}
     out = []
-    for key, (name, source, replaces) in meta.items():
+    for key, (name, source, replaces, model, counter) in meta.items():
         r = results[key]
         out.append({"name": name, "route": "cuda", "source": source,
-                    "replaces": replaces, "launches": launches[key],
+                    "replaces": replaces,
+                    "launches": launches[model][counter],
                     "max_abs_err": r["err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
@@ -3214,7 +3266,7 @@ def train_rows(results, launches):
 
 def train_only(dev):
     """`python3 chip_smoke.py --train-only`: phase_train alone, then the
-    kernels line of its two rows."""
+    kernels line of its three rows."""
     results = {}
     launches = phase_train(dev, results)
     print(json.dumps({"kernels": train_rows(results, launches)}))

@@ -60,7 +60,7 @@ SIGNATURES = {
     "fn_advect_velocity": [VP] * 4 + [I, I, I, F, F, I, I, I, VP],
     "fn_tail": [VP] * 11 + [I] * 5 + [F, F, VP],
     "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
-    "fn_conv2d_wgrad": [VP] * 5 + [I] * 12 + [VP],
+    "fn_conv2d_wgrad": [VP] * 5 + [I] * 22 + [VP],
     "fn_jacobi_solve": [VP] * 6 + [I] * 5 + [F, F, VP],
     "fn_mg_solve": [VP] * 5 + [I] * 9 + [F, F, VP],
     "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
@@ -87,7 +87,7 @@ QUERIES = {
     "fn_advect_tile_smem": [I] * 3,
     "fn_advect3_velocity_max_disp": [],
     "fn_advect3_velocity_smem": [I],
-    "fn_conv2d_wgrad_splits": [ctypes.c_longlong, I, I],
+    "fn_conv2d_wgrad_plan": [I] * 8 + [VP],
 }
 
 

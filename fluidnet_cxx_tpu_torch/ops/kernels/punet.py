@@ -26,8 +26,10 @@ Training (``ConvNHWC``, through ``net_forward`` whenever autograd records):
 a stride-1 conv's backward is two hand kernels, its input gradient kernel B
 itself on the weights flipped in both taps with c_in and c_out swapped
 (``conv2d_dgrad``) and its weight gradient ``fn_conv2d_wgrad``
-(``conv_grad.py``). ``pack_weights`` pads through ops autograd follows, so
-the padded channels pass no gradient to the parameters.
+(``conv_grad.py``), which computes only the layer's real rows and columns
+(``net_forward`` passes them) and writes 0 in the padded ones.
+``pack_weights`` pads through ops autograd follows, so the padded channels
+pass no gradient to the parameters.
 """
 import torch
 import torch.nn.functional as F
@@ -181,13 +183,15 @@ class ConvNHWC(torch.autograd.Function):
     upstream gradient masked by ``out > 0`` under ReLU (jax's relu
     gradient at 0 is 0 too), then ``conv2d_dgrad`` for the input (skipped
     when it needs none) and ``conv_grad.conv2d_wgrad`` for the weight and
-    bias. Saves the input and the output."""
+    bias over the layer's real channels ``ci`` -> ``co`` (the padded
+    entries of the packed weight's gradient are 0). Saves the input and
+    the output."""
 
     @staticmethod
-    def forward(ctx, x, w_hwio, bias, dil, relu):
+    def forward(ctx, x, w_hwio, bias, dil, relu, ci, co):
         y = conv2d_nhwc(x, w_hwio, bias, 1, dil, relu)
         ctx.save_for_backward(x, w_hwio, y)
-        ctx.dil, ctx.relu = dil, relu
+        ctx.dil, ctx.relu, ctx.real = dil, relu, (ci, co)
         return y
 
     @staticmethod
@@ -200,24 +204,28 @@ class ConvNHWC(torch.autograd.Function):
         if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
             k = w_hwio.shape[0]
             dw, db = conv2d_wgrad(x, gy, k, 1, ctx.dil,
-                                  same_pads(x.shape[1], k, 1, ctx.dil))
-        return dx, dw, db, None, None
+                                  same_pads(x.shape[1], k, 1, ctx.dil),
+                                  *ctx.real)
+        return dx, dw, db, None, None, None, None
 
 
 def conv2d_nhwc_autograd(x, w_hwio, bias, stride=1, dil=1, relu=False,
-                         x2=None, in_scale=None, scale_mod=1):
+                         x2=None, in_scale=None, scale_mod=1, real=None):
     """``conv2d_nhwc`` that autograd follows: while it records and a
     tensor needs a gradient, a stride-1 conv without ``x2`` and
-    ``in_scale`` runs ``ConvNHWC``; any other conv runs its plain version
-    under autograd on a CPU tensor and raises on a CUDA tensor (its
-    backward is the next training slice's). Otherwise ``conv2d_nhwc``."""
+    ``in_scale`` runs ``ConvNHWC``, its weight gradient over ``real`` =
+    (the layer's real c_in, c_out) of the packed weight's (all of it by
+    default); any other conv runs its plain version under autograd on a
+    CPU tensor and raises on a CUDA tensor (its backward is the next
+    training slice's). Otherwise ``conv2d_nhwc``."""
     tensors = (x, w_hwio, bias, x2, in_scale)
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in tensors)):
         return conv2d_nhwc(x, w_hwio, bias, stride, dil, relu, x2, in_scale,
                            scale_mod)
     if stride == 1 and x2 is None and in_scale is None:
-        return ConvNHWC.apply(x, w_hwio, bias, dil, relu)
+        ci, co = real or w_hwio.shape[2:]
+        return ConvNHWC.apply(x, w_hwio, bias, dil, relu, ci, co)
     if not _build.on_cuda(x):
         return conv2d_nhwc_plain(x, w_hwio.permute(3, 2, 0, 1), bias, stride,
                                  dil, relu, x2, in_scale, scale_mod)
@@ -253,14 +261,16 @@ def pack_weights(net):
 def net_forward(net, packed, x, **kw):
     """Forward of a 2-D conv net (``models/punet.py::ConvNet``) on NHWC
     ``x``, every conv through ``conv2d_nhwc_autograd`` with ``packed``
-    (``pack_weights(net)``) and the net's assembled inputs widened to
+    (``pack_weights(net)``; the weight gradients over each layer's real
+    channels) and the net's assembled inputs widened to
     ``STAGE`` channels. ``kw`` goes to the net (PUNet's ``inv_scale``
     normalises input channel 0 as it is loaded). On a CPU tensor this is
     the padded chain's plain twin."""
     def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
         w_hwio, b = packed[name]
         _, stride, dil = net.geometry[name]
+        co, ci = net.convs[name].weight.shape[:2]
         return conv2d_nhwc_autograd(h, w_hwio, b, stride, dil, relu, x2,
-                                    in_scale, scale_mod)
+                                    in_scale, scale_mod, (ci, co))
 
     return net(x, conv=conv, width=STAGE, **kw)
