@@ -22,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace fnk {
@@ -66,6 +68,10 @@ struct Args {
   float* ws;               // (splits, M, co) when splits > 1
   Geom g;
   int relu, scale_mod;
+  // Round the float32 sum to the output type before the bias is added
+  // (flax nn.Conv in bfloat16: the conv's result is bfloat16, then the
+  // bias add rounds again); 0: the bias joins the float32 sum.
+  int round_sum = 0;
 };
 
 __host__ __device__ inline int cells(const Geom& g) {
@@ -202,6 +208,10 @@ __device__ __forceinline__ float narrow<float>(float v) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 // ---- block set-up and stage loaders ----
@@ -347,6 +357,10 @@ __device__ __forceinline__ void store_tile(const Args& A, int splits,
               A.ws + ((size_t)split * M + m) * co + col) = make_float2(v0, v1);
           continue;
         }
+        if (A.round_sum) {
+          v0 = to_float(narrow<TO>(v0));
+          v1 = to_float(narrow<TO>(v1));
+        }
         v0 = v0 + A.bias[col];
         v1 = v1 + A.bias[col + 1];
         if (A.relu) {
@@ -360,11 +374,13 @@ __device__ __forceinline__ void store_tile(const Args& A, int splits,
 }
 
 // out = round(relu(((ws[0] + ws[1]) + ... + ws[S-1]) + bias)), four
-// values a thread (co is a multiple of 4).
+// values a thread (co is a multiple of 4); with round_sum the sum is
+// rounded to TO before the bias is added.
 template <class TO>
 __global__ void __launch_bounds__(256)
     splitk_reduce(const float* __restrict__ ws, const float* bias, TO* out,
-                  long long total, int co, int splits, int relu) {
+                  long long total, int co, int splits, int relu,
+                  int round_sum) {
   const long long i =
       4 * ((long long)blockIdx.x * blockDim.x + threadIdx.x);
   if (i >= total) return;
@@ -377,13 +393,164 @@ __global__ void __launch_bounds__(256)
     s.w = s.w + v.w;
   }
   const int col = static_cast<int>(i % co);
-  float y[4] = {s.x + bias[col], s.y + bias[col + 1], s.z + bias[col + 2],
-                s.w + bias[col + 3]};
+  float y[4] = {s.x, s.y, s.z, s.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
+    if (round_sum) y[j] = to_float(narrow<TO>(y[j]));
+    y[j] = y[j] + bias[col + j];
     if (relu) y[j] = fmaxf(y[j], 0.f);
     out[i + j] = narrow<TO>(y[j]);
   }
+}
+
+// ---- the bf16 tensor-core body (kernel N; kernel B's bfloat16 route) ----
+
+// Shared-memory rows of one stage: a bf16 A row of kChunk channels is 64
+// bytes + 16 of padding (ldmatrix's eight rows then fall on distinct
+// banks), a float32 one 128 + 16; a weight row is bn bf16 values + 16
+// bytes. With a float32 x1 the block also holds the chunk's bf16x3 split:
+// three bf16 A tiles (hi, mid, lo) after the stages.
+constexpr int kRowA16 = kChunk * 2 + 16;
+constexpr int kRowA32 = kChunk * 4 + 16;
+
+template <class T1>
+__host__ __device__ constexpr bool f32_x1() {
+  return std::is_same<T1, float>::value;
+}
+template <class T1>
+__host__ __device__ constexpr int row_a() {
+  return f32_x1<T1>() ? kRowA32 : kRowA16;
+}
+__host__ __device__ constexpr int row_w16(int bn) { return bn * 2 + 16; }
+template <class T1>
+__host__ __device__ constexpr int tc_stage_bytes(int bm, int bn) {
+  return bm * row_a<T1>() + kChunk * row_w16(bn);
+}
+template <class T1>
+__host__ __device__ constexpr int tc_smem_bytes(int bm, int bn, int stages) {
+  return stages * tc_stage_bytes<T1>(bm, bn) +
+         (f32_x1<T1>() ? 3 * bm * kRowA16 : 0) + bm * (16 + 4);
+}
+
+// acc += A (bf16, from `a_tile`, kRowA16 rows, the warp's rows from
+// `row0`) x B fragments of one k16 step.
+template <int MT, int NT>
+__device__ __forceinline__ void mma_a_tile(float (&acc)[MT][NT][4],
+                                           const char* a_tile, int ks,
+                                           int row0, int lane,
+                                           const uint32_t (&b)[NT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    uint32_t a[4];
+    ldsm_x4(a, a_tile + (row0 + mt * 16 + (lane & 15)) * kRowA16 +
+                   (ks * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) mma_bf16(acc[mt][nt], a, b[nt]);
+  }
+}
+
+// A block of warps with (16 MT) x (8 NT) warp tiles over a bm x bn tile
+// (MT 2, NT 4: 32x32; MT 4, NT bn/16: the wide 64 x bn/2), K through a
+// STAGES-deep ring.
+template <class T1, class TO, int MT, int NT, int STAGES>
+__global__ void __launch_bounds__(kMaxThreads)
+    conv_tc(Args A, Plan P) {
+  extern __shared__ __align__(16) char smem[];
+  constexpr bool kF32 = f32_x1<T1>();
+  const Geom& g = A.g;
+  const int bm = P.bm, bn = P.bn, rw = row_w16(bn);
+  const int stage = tc_stage_bytes<T1>(bm, bn);
+  char* x3 = smem + STAGES * stage;  // the bf16x3 tiles (float32 x1)
+  int4* rows = reinterpret_cast<int4*>(x3 + (kF32 ? 3 * bm * kRowA16 : 0));
+  float* rscale = reinterpret_cast<float*>(rows + bm);
+  const int m0 = blockIdx.x * bm, n0 = blockIdx.y * bn, split = blockIdx.z;
+  fill_rows(A, m0, bm, rows, rscale);
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps_n = bn / (8 * NT);
+  const int row0 = (warp / warps_n) * 16 * MT;
+  const int col0 = (warp % warps_n) * 8 * NT;
+  const int kb = P.kbeg[split];
+  const int nk = (P.kbeg[split + 1] - kb) / kChunk;
+  const WSlot wslot = w_slot<2>(bn);
+
+  TapIter taps(g, kb);
+  auto load = [&](int kc) {
+    const int k0 = kb + kc * kChunk;
+    char* st = smem + (kc % STAGES) * stage;
+    const Tap t = taps.next(g);  // chunks load in order
+    if (t.c < g.c1)
+      load_a<(int)sizeof(T1)>(g, rows, bm, A.x1, g.c1, t.c, t, st,
+                              row_a<T1>());
+    else
+      load_a<2>(g, rows, bm, A.x2, g.c2, t.c - g.c1, t, st, kRowA16);
+    load_w<2>(A.wgt, g.co, k0, n0, wslot, st + bm * row_a<T1>(), rw);
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  const int cin = g.c1 + g.c2;
+  int c_mma = kb % cin;  // the first channel of the chunk the warps multiply
+  for (int kc = 0; kc < nk; ++kc) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (kc + STAGES - 1 < nk) load(kc + STAGES - 1);
+    cp_async_commit();
+
+    const char* st = smem + (kc % STAGES) * stage;
+    const char* wt = st + bm * row_a<T1>();
+    const bool f32_chunk = kF32 && c_mma < g.c1;
+    c_mma = c_mma + kChunk == cin ? 0 : c_mma + kChunk;
+    if (f32_chunk) {
+      // Split the float32 tile once for the block: hi, mid, lo tiles.
+      for (int i = threadIdx.x; i < bm * (kChunk / 4); i += blockDim.x) {
+        const int r = i / (kChunk / 4), q = i % (kChunk / 4);
+        const float4 v =
+            *reinterpret_cast<const float4*>(st + r * kRowA32 + q * 16);
+        uint2 hi, mid, lo;
+        split_bf16x3(make_float2(v.x, v.y), hi.x, mid.x, lo.x);
+        split_bf16x3(make_float2(v.z, v.w), hi.y, mid.y, lo.y);
+        char* d = x3 + r * kRowA16 + q * 8;
+        *reinterpret_cast<uint2*>(d) = hi;
+        *reinterpret_cast<uint2*>(d + bm * kRowA16) = mid;
+        *reinterpret_cast<uint2*>(d + 2 * bm * kRowA16) = lo;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int ks = 0; ks < kChunk / 16; ++ks) {
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t r[4];
+        ldsm_x4_t(r, wt + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * rw +
+                         (col0 + np * 16 + (lane >> 4) * 8) * 2);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
+      }
+      if (f32_chunk) {  // lo, mid, hi: three exact products
+        mma_a_tile<MT, NT>(acc, x3 + 2 * bm * kRowA16, ks, row0, lane, b);
+        mma_a_tile<MT, NT>(acc, x3 + bm * kRowA16, ks, row0, lane, b);
+        mma_a_tile<MT, NT>(acc, x3, ks, row0, lane, b);
+      } else {
+        mma_a_tile<MT, NT>(acc, st, ks, row0, lane, b);
+      }
+    }
+  }
+  store_tile<TO, MT, NT>(A, P.splits, split, m0 + row0, n0 + col0, acc);
 }
 
 // ---- host launch ----
@@ -408,7 +575,7 @@ int launch_plan(Kernel kern, int& smem_set, const Args& A, const Plan& P,
     const long long blocks = (total / 4 + 255) / 256;
     splitk_reduce<TO><<<(unsigned)blocks, 256, 0, s>>>(
         A.ws, A.bias, static_cast<TO*>(A.out), total, A.g.co, P.splits,
-        A.relu);
+        A.relu, A.round_sum);
   }
   return fnk::launch_status();
 }

@@ -15,6 +15,20 @@
 // Both TPU kernels keep one sample's grid in VMEM and loop every sweep
 // inside one kernel.
 //
+// fn_jacobi_adjoint, beside F, runs F's sweeps transposed: the gradient of
+// F's output with respect to its warm start p0, which training needs for
+// the learned projection's damped polish (ops/kernels/jacobi.py::
+// JacobiPolish). It replaces no TPU kernel: JAX differentiates the "xla"
+// polish (ops/jacobi.py's fori_loop) through XLA. The sweep is affine in
+// p, so its transpose is linear in the upstream gradient g: with a = cont
+// g and c = (w a) / 4, g'[j] = keep a[j] + n_obst(j) c[j] + (1 -
+// obstacle[j]) sum_d c[j - d]; the border ring, pinned in the forward,
+// receives gradient from its interior neighbours. Same tiles, halo and
+// one barrier a sweep as F; a thread keeps its strip's g in registers and
+// the tile's c lives in shared memory (two copies, written alternately).
+// Bound like F: ~14 operations a cell a sweep, 9 bytes a cell read and 4
+// written once.
+//
 // What bounds them on an H100. F: operations. It reads flags and the RHS
 // once and writes p once (12 bytes a cell, ~3 MB at 512^2, ~0.9 us at
 // 3.35 TB/s), but does ~10 operations per continuation cell per sweep:
@@ -92,7 +106,11 @@ struct Inlet {
   }
 };
 
-// Kernel F's mask launch.
+// The adjoint's mask bit: the cell itself is an obstacle (cell_mask gives
+// such a cell 0, as it does the border ring). F's sweeps never test it.
+constexpr uint8_t kSelfOb = 32;
+
+// The mask launch of kernel F and of its adjoint.
 __global__ void jacobi_mask(const int* __restrict__ flags_all,
                             uint8_t* __restrict__ mask_all, int h, int w) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -100,7 +118,10 @@ __global__ void jacobi_mask(const int* __restrict__ flags_all,
   int b = blockIdx.z;
   if (x >= w || y >= h) return;
   size_t n = (size_t)h * w;
-  mask_all[b * n + y * w + x] = cell_mask(flags_all + b * n, x, y, h, w);
+  const int* flags = flags_all + b * n;
+  uint8_t m = cell_mask(flags, x, y, h, w);
+  if (flags[y * w + x] == kObstacle) m |= kSelfOb;
+  mask_all[b * n + y * w + x] = m;
 }
 
 // Kernel C's prologue: the inlet BC on U, the RHS, p0 * scale, the mask.
@@ -255,6 +276,85 @@ int sweeps_of(bool damped, const float* src, const float* rhs,
                                                s);
 }
 
+// One transposed update of a cell with mask byte m, upstream value g and
+// c = (damping * cont g) * 0.25 of itself and of its neighbours at x+1,
+// x-1, y+1, y-1 (ops/jacobi.py::_adjoint_sweep_maker, same order).
+__device__ __forceinline__ float adjoint_update(uint8_t m, float g, float c,
+                                                float c_xp, float c_xm,
+                                                float c_yp, float c_ym,
+                                                float keep) {
+  float t = keep * ((m & kCont) ? g : 0.f);
+  t = t + ((m & kObXm) ? c : 0.f);
+  t = t + ((m & kObXp) ? c : 0.f);
+  t = t + ((m & kObYm) ? c : 0.f);
+  t = t + ((m & kObYp) ? c : 0.f);
+  const bool ob = m & kSelfOb;
+  t = t + (ob ? 0.f : c_xp);
+  t = t + (ob ? 0.f : c_xm);
+  t = t + (ob ? 0.f : c_yp);
+  t = t + (ob ? 0.f : c_ym);
+  return t;
+}
+
+// The adjoint's tile kernel: k (1..kMaxSweeps) transposed sweeps from g_in
+// into g_out on F's tiles (kRY rows a thread). Cells off the grid hold g 0
+// and mask 0, so their c is 0, as the plain version's wrapped reads of the
+// border ring are.
+__global__ void __launch_bounds__(kLX * (kLY / kRY))
+    jacobi_adjoint_sweeps(const float* __restrict__ g_in_all,
+                          const uint8_t* __restrict__ mask_all,
+                          float* __restrict__ g_out_all, int h, int w, int k,
+                          float keep, float damping) {
+  extern __shared__ float smem[];
+  float* const bufs[2] = {smem + kPad, smem + kCopy + kPad};
+  const int lx = threadIdx.x, ly0 = threadIdx.y * kRY;
+  const int li0 = ly0 * kLX + lx;
+  const int gx = blockIdx.x * kOutX - kMaxSweeps + lx;
+  const int gy0 = blockIdx.y * kOutY - kMaxSweeps + ly0;
+  const size_t base = blockIdx.z * (size_t)h * w;
+  const bool col_in = gx >= 0 && gx < w;
+
+  float cur[kRY];
+  uint32_t mw[(kRY + 3) / 4] = {};
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) {
+    const int gy = gy0 + r;
+    const bool in = col_in && gy >= 0 && gy < h;
+    const size_t gi = base + (size_t)(in ? gy : 0) * w + (in ? gx : 0);
+    cur[r] = in ? g_in_all[gi] : 0.f;
+    mw[r / 4] |= (uint32_t)(in ? mask_all[gi] : 0) << (8 * (r % 4));
+  }
+
+  for (int s = 0; s < k; ++s) {
+    float* cb = bufs[s & 1];
+    float c[kRY];
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) {
+      const uint8_t m = (uint8_t)(mw[r / 4] >> (8 * (r % 4)));
+      c[r] = (damping * ((m & kCont) ? cur[r] : 0.f)) * 0.25f;
+      cb[li0 + r * kLX] = c[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRY; ++r) {
+      const int li = li0 + r * kLX;
+      const uint8_t m = (uint8_t)(mw[r / 4] >> (8 * (r % 4)));
+      const float c_yp = r < kRY - 1 ? c[r + 1] : cb[li + kLX];
+      const float c_ym = r > 0 ? c[r - 1] : cb[li - kLX];
+      cur[r] = adjoint_update(m, cur[r], c[r], cb[li + 1], cb[li - 1], c_yp,
+                              c_ym, keep);
+    }
+  }
+
+  if (!col_in || lx < kMaxSweeps || lx >= kLX - kMaxSweeps) return;
+#pragma unroll
+  for (int r = 0; r < kRY; ++r) {
+    const int ly = ly0 + r, gy = gy0 + r;
+    if (ly >= kMaxSweeps && ly < kLY - kMaxSweeps && gy >= 0 && gy < h)
+      g_out_all[base + (size_t)gy * w + gx] = cur[r];
+  }
+}
+
 bool bad_args(int b, int h, int w, int iters, const float* tmp,
               const float* p_out) {
   return iters < 0 || b < 1 || b > 65535 || h < 1 || w < 1 || tmp == p_out;
@@ -320,4 +420,39 @@ extern "C" int fn_tail(const int* flags, const float* U, const float* p0,
   if (status) return status;
   tail_epilogue<<<grid, block, 0, s>>>(flags, U, p_out, in_bc, U_out, h, w);
   return launch_status();
+}
+
+// The adjoint of fn_jacobi_solve's sweeps: iters (>= 1) transposed sweeps
+// of the upstream gradient g into g_out (the gradient with respect to p0);
+// `mask` holds b*h*w bytes and `tmp` b*h*w floats of scratch; keep and
+// damping as fn_jacobi_solve's (keep 0 and damping 1 undamped). Issues 1 +
+// ceil(iters / kMaxSweeps) launches on `stream`; returns the first launch
+// error, or cudaErrorInvalidValue for bad arguments.
+extern "C" int fn_jacobi_adjoint(const int* flags, const float* g,
+                                 uint8_t* mask, float* tmp, float* g_out,
+                                 int b, int h, int w, int iters, float keep,
+                                 float damping, void* stream) {
+  if (iters < 1 || bad_args(b, h, w, iters, tmp, g_out) || g == g_out ||
+      g == tmp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = (cudaStream_t)stream;
+  const dim3 block(32, 8);
+  jacobi_mask<<<grid2d(b, h, w, block), block, 0, s>>>(flags, mask, h, w);
+  int status = launch_status();
+  if (status) return status;
+  const dim3 grid((w + kOutX - 1) / kOutX, (h + kOutY - 1) / kOutY, b);
+  const dim3 tile(kLX, kLY / kRY);
+  const float* src = g;
+  float* dst = (launches_of(iters) % 2) ? g_out : tmp;
+  for (int done = 0; done < iters;) {
+    const int k = min(kMaxSweeps, iters - done);
+    jacobi_adjoint_sweeps<<<grid, tile, kSmem, s>>>(src, mask, dst, h, w, k,
+                                                    keep, damping);
+    status = launch_status();
+    if (status) return status;
+    done += k;
+    src = dst;
+    dst = (dst == g_out) ? tmp : g_out;
+  }
+  return 0;
 }

@@ -14,9 +14,11 @@ the normalised fields -> un-scale -> wall BCs.
 Training (train/trainer.py) calls ``FluidNet`` with weights packed from
 the live parameters on every call (``pack_weights`` while autograd
 records): each conv then runs ``ops/kernels/punet.py::ConvNHWC``, whose
-backward is kernel B on flipped weights and ``fn_conv2d_wgrad``. The
-pooling, repeats and resizes between the convs are torch glue that
-autograd differentiates, as in the forward.
+backward is ``fn_conv2d_dgrad``'s transposed gather (any stride), split
+at a skip concat, and ``fn_conv2d_wgrad``; the damped polish runs
+``JacobiPolish`` (kernel F, then its transposed sweeps). The pooling,
+repeats, space-to-depth and resizes between the convs are torch glue
+that autograd differentiates, as in the forward.
 
 Fused path (refine-free PUNet): the forward takes the normalisation 1/s
 on its input's physical channel, then the projection tail
@@ -126,13 +128,15 @@ class FluidNetTower(ConvNet):
 def make_net(cfg) -> ConvNet:
     """The network of a ``ModelConfig``: PUNet (with or without its
     refinement stack), MultiScaleNet for "ScaleNet", else FluidNetTower,
-    as the JAX ``FluidNet`` picks it; float32 only."""
+    as the JAX ``FluidNet`` picks it; PUNet in float32 or bfloat16, the
+    others float32 only."""
     if cfg.model == "PUNet":
         return PUNet.from_config(cfg)
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port's 2-D nets run "
-            "float32 only; the bfloat16 checkpoints are 3-D (ROADMAP A.7)")
+            f"not ported yet: compute_dtype {cfg.compute_dtype!r} for "
+            f"{cfg.model}; its convs run float32 (bfloat16 for the tower "
+            "and ScaleNet, ROADMAP A.4.3)")
     if cfg.model == "ScaleNet":
         return MultiScaleNet(cfg.in_dims)
     return FluidNetTower(cfg.in_dims)
@@ -152,17 +156,22 @@ class FluidNet(torch.nn.Module):
         """``packed`` (``pack_weights(self.net)``) runs the network's
         convolutions through kernel B's wrapper; without it the network's
         plain forward. The polish and the tail follow the tensors'
-        device; they have no gradient on the card, so a polish raises there
-        while autograd records."""
+        device. While autograd records, the "xla"/"pallas" polish is
+        ``ops/kernels/jacobi.py::JacobiPolish`` (kernel F forward, its
+        transposed sweeps backward); the "fused" and "mg" tails raise on
+        the card, as ``jax.grad`` does not run through their Pallas
+        kernels either."""
         cfg = self.cfg
         x, s, div = assemble_inputs(cfg, p, U, flags, density)
         out = self.net(x) if packed is None else net_forward(self.net,
                                                              packed, x)
         p_hat = out[..., 0].contiguous()
-        if cfg.polish_sweeps > 0 and p_hat.requires_grad and p_hat.is_cuda:
+        if (cfg.polish_sweeps > 0 and cfg.polish_impl in ("fused", "mg")
+                and p_hat.requires_grad and p_hat.is_cuda):
             raise NotImplementedError(
-                "not ported yet: the gradient of the polish sweeps on the "
-                "card (PUNet's training, ROADMAP A.5.1)")
+                f"no gradient of the {cfg.polish_impl!r} polish tail on the "
+                "card: JAX does not differentiate it either (jax.grad stops "
+                "at its Pallas kernel); train with polish_impl 'xla'")
         s3 = s[:, None, None]
         if cfg.polish_sweeps > 0 and cfg.polish_impl == "fused":
             # The tail on un-normalised fields (linear in p and the RHS).
@@ -205,9 +214,10 @@ def make_project_fn_fused_forward(cfg, net):
     the forward, the tail works on un-normalised fields with
     ``p0 = p_hat * s``, and given ``U_bc``/``U_bc_inv_mask`` the inlet BCs
     are applied on the tail's input and output (``handles_const_vals``)."""
-    if cfg.model != "PUNet" or cfg.punet_refine_convs != 0:
-        raise ValueError("the fused forward runs a refine-free PUNet; "
-                         "the other nets take make_project_fn")
+    if (cfg.model != "PUNet" or cfg.punet_refine_convs != 0
+            or cfg.compute_dtype != "float32"):
+        raise ValueError("the fused forward runs a refine-free PUNet in "
+                         "float32; the other nets take make_project_fn")
     if cfg.input_u_div:
         raise ValueError("the projection assembles a 2-channel input; "
                          "input_u_div needs 3 channels")

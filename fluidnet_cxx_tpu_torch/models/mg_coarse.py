@@ -10,9 +10,9 @@ per-sample RMS over live cells and its output scaled back, then
 gauge-fixed (zero mean over continuation cells) and masked.
 
 On the card the V-cycle is kernel G split at the cut (ops/kernels/mg.py::
-``solve_mg_learned``) and the PUNet's convolutions are kernel B
-(ops/kernels/punet.py); the RMS, the input stack and the gauge are torch
-glue. A CPU tensor runs the plain versions. The projection has no
+``solve_mg_learned``) and the PUNet's convolutions are kernel B's
+bfloat16 route (ops/kernels/punet.py; flax's rounding points, as JAX
+runs the net); the RMS, the input stack and the gauge are torch glue. A CPU tensor runs the plain versions. The projection has no
 ``handles_const_vals``: the step runs it in its unfused branch with
 ``sim_method="convnet"``, as the JAX ``scripts/run_plume.py`` does.
 """
@@ -52,15 +52,20 @@ def _cont(flags):
 class MGCoarseNet(nn.Module):
     """(flags, rhs) -> e with A e ~= rhs on continuation cells. Its PUNet
     (2 input channels, no refinement stack) is ``self.punet``, named as
-    the flax submodule."""
+    the flax submodule, computing in ``dtype``: bfloat16 by default, as
+    the JAX ``MGCoarseNet`` leaves flax PUNet's default dtype (and
+    MGCoarse_128 was trained so); "float32" builds the float32 variant.
+    The RMS, the input stack and the gauge are float32 either way."""
 
-    def __init__(self, cfg: MGCoarseConfig = MGCoarseConfig()):
+    def __init__(self, cfg: MGCoarseConfig = MGCoarseConfig(),
+                 dtype: str = "bfloat16"):
         super().__init__()
         self.cfg = cfg
         self.punet = PUNet(in_ch=2, patch=cfg.patch, widths=cfg.widths,
                            level_convs=cfg.level_convs,
                            bottleneck_convs=cfg.bottleneck_convs,
-                           bottleneck_dilation=cfg.bottleneck_dilation)
+                           bottleneck_dilation=cfg.bottleneck_dilation,
+                           dtype=dtype)
 
     def forward(self, flags, rhs, packed=None):
         """``packed`` (``pack_weights(self.punet)``) runs the convolutions
@@ -123,11 +128,12 @@ def load_mg_coarse_config(model_dir) -> MGCoarseConfig:
                              for k, v in d.items()})
 
 
-def load_mg_coarse(model_dir, device="cpu") -> MGCoarseNet:
+def load_mg_coarse(model_dir, device="cpu",
+                   dtype: str = "bfloat16") -> MGCoarseNet:
     """The trained ``MGCoarseNet`` of ``model_dir``: its config and the
     converted parameters ``torch_state_dict.pt`` (read with torch alone;
     FileNotFoundError if the file is missing), on ``device``, in eval
-    mode."""
-    model = MGCoarseNet(load_mg_coarse_config(model_dir))
+    mode, its PUNet in ``dtype`` (flax's bfloat16 by default)."""
+    model = MGCoarseNet(load_mg_coarse_config(model_dir), dtype)
     model.load_state_dict(load_state_dict_file(model_dir))
     return model.to(device).eval()

@@ -21,6 +21,9 @@ from torch import nn
 
 from ..ops.kernels.punet import _scaled, conv2d_nhwc_plain, widen
 
+# flax's ``dtype`` names of the compute types the 2-D nets take.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 def space_to_depth(x, p: int):
     """(b, h, w, c) -> (b, h/p, w/p, p*p*c), channels ordered (py, px, c)."""
@@ -78,8 +81,11 @@ class ConvNet(nn.Module):
     layer is on kernel B's thin-channel route (its weights padded by
     ops/kernels/punet.py::pack_weights): every layer by default.
     ``outputs`` are the layers whose output the forward slices to its
-    real channels."""
+    real channels. ``compute_dtype`` is flax's ``dtype`` of the convs
+    (float32 here; PUNet also takes bfloat16): the parameters stay float32
+    and each conv casts its input, weight and bias to it."""
     outputs = ()
+    compute_dtype = torch.float32
 
     def __init__(self, table):
         super().__init__()
@@ -93,6 +99,9 @@ class ConvNet(nn.Module):
                     scale_mod=1):
         c = self.convs[name]
         _, stride, dil = self.geometry[name]
+        if self.compute_dtype == torch.bfloat16:
+            x = x.to(torch.bfloat16)
+            x2 = None if x2 is None else x2.to(torch.bfloat16)
         return conv2d_nhwc_plain(x, c.weight, c.bias, stride, dil, relu, x2,
                                  in_scale, scale_mod)
 
@@ -105,7 +114,10 @@ class PUNet(ConvNet):
 
     h and w must be divisible by patch * 2**(len(widths)-1). Only the
     refinement stack is on the thin-channel route: the U-Net's layers keep
-    their widths (kernel B takes multiples of 32)."""
+    their widths (kernel B takes multiples of 32). ``dtype`` is flax
+    PUNet's: "float32" (FluidNet's ``compute_dtype`` default) or
+    "bfloat16" (flax PUNet's own default, which MGCoarseNet keeps):
+    activations between the convs in that type, the output float32."""
     outputs = ("ref_out",)
 
     def thin(self, name) -> bool:
@@ -114,10 +126,15 @@ class PUNet(ConvNet):
     def __init__(self, in_ch: int = 2, patch: int = 8,
                  widths=(128, 128), level_convs: int = 1,
                  bottleneck_convs: int = 3, bottleneck_dilation: int = 1,
-                 refine_ch: int = 8, refine_convs: int = 0):
+                 refine_ch: int = 8, refine_convs: int = 0,
+                 dtype: str = "float32"):
         super().__init__(layer_table(in_ch, patch, widths, level_convs,
                                      bottleneck_convs, bottleneck_dilation,
                                      refine_ch, refine_convs))
+        if dtype not in DTYPES:
+            raise ValueError(f"PUNet dtype {dtype!r}: the port's 2-D PUNet "
+                             f"takes {sorted(DTYPES)}")
+        self.compute_dtype = DTYPES[dtype]
         self.in_ch = in_ch
         self.patch = patch
         self.widths = tuple(widths)
@@ -127,21 +144,18 @@ class PUNet(ConvNet):
 
     @classmethod
     def from_config(cls, cfg):
-        """Build from a ``ModelConfig`` (float32 PUNet)."""
+        """Build from a ``ModelConfig`` (``compute_dtype`` float32 or
+        bfloat16)."""
         if cfg.model != "PUNet":
             raise ValueError(f"model {cfg.model!r} is not a PUNet")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype!r}: the port's PUNet "
-                "runs float32 only; the bfloat16 checkpoints are 3-D "
-                "(ROADMAP A.7)")
         return cls(in_ch=cfg.in_dims, patch=cfg.punet_patch,
                    widths=cfg.punet_widths,
                    level_convs=cfg.punet_level_convs,
                    bottleneck_convs=cfg.punet_bottleneck_convs,
                    bottleneck_dilation=cfg.punet_bottleneck_dilation,
                    refine_ch=cfg.punet_refine_ch,
-                   refine_convs=cfg.punet_refine_convs)
+                   refine_convs=cfg.punet_refine_convs,
+                   dtype=cfg.compute_dtype)
 
     def forward(self, x, inv_scale=None, conv=None, width=None):
         """``inv_scale`` (b,) optionally multiplies input channel 0 (the
@@ -172,4 +186,4 @@ class PUNet(ConvNet):
             for j in range(self.refine_convs):
                 r = conv(f"ref{j}", r)
             p = p + conv("ref_out", r, relu=False)[..., :1]
-        return p
+        return p.float() if self.compute_dtype == torch.bfloat16 else p

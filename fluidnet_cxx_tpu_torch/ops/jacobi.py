@@ -7,6 +7,9 @@ warm start ``p0`` and weighted-Jacobi ``damping``; the residual is
 ``solve_jacobi_fixed`` runs a fixed count of sweeps (the plain version of
 kernel F, ``ops/kernels/jacobi.py``); ``solve_jacobi`` stops early once the
 residual drops below ``p_tol``. Both are plain tensor code, as in JAX.
+``jacobi_adjoint_fixed`` runs the transposed sweeps: the gradient of
+``solve_jacobi_fixed``'s output with respect to ``p0`` (the plain version
+of ``fn_jacobi_adjoint``).
 """
 import torch
 
@@ -71,3 +74,43 @@ def solve_jacobi(flags, div, p_tol: float = 1e-5, max_iter: int = 1000):
         res = _residual(p_new, p)
         p, it = p_new, it + 1
     return p, res
+
+
+def _adjoint_sweep_maker(flags, damping: float = 1.0):
+    """The transpose of the sweep's linear part in p: with a = cont * g and
+    c = (w * a) * 0.25,
+    g'[j] = keep * a[j] + n_obst(j) * c[j]
+            + (1 - obstacle[j]) * sum_d c[j - d],
+    the obstacle-neighbour terms of j added first (x-1, x+1, y-1, y+1),
+    then the four neighbours' c (x+1, x-1, y+1, y-1), each in its own
+    float32 add. The border ring, pinned by the sweep, still receives
+    gradient from the cells next to it."""
+    _, h, w = flags.shape
+    obstacle = flags == OBSTACLE
+    cont = ~(border_mask(h, w, 1, flags.device)[None] | obstacle)
+    obs = (nb(obstacle, 0, -1), nb(obstacle, 0, 1), nb(obstacle, -1, 0),
+           nb(obstacle, 1, 0))
+    w_ = float(damping)
+    keep = 1.0 - w_
+
+    def sweep(g):
+        a = where0(cont, g)
+        c = (w_ * a) * 0.25
+        t = keep * a
+        for ob in obs:
+            t = t + where0(ob, c)
+        for dy, dx in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+            t = t + where0(~obstacle, nb(c, dy, dx))
+        return t
+
+    return sweep
+
+
+def jacobi_adjoint_fixed(flags, g, iters: int, damping: float = 1.0):
+    """``iters`` transposed sweeps of the upstream gradient ``g`` (b, h, w):
+    the gradient with respect to ``p0`` of ``solve_jacobi_fixed(flags, div,
+    iters, p0=p0, damping=damping)``, whatever ``div``."""
+    sweep = _adjoint_sweep_maker(flags, damping)
+    for _ in range(iters):
+        g = sweep(g)
+    return g

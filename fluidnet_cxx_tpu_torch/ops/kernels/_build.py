@@ -60,8 +60,11 @@ SIGNATURES = {
     "fn_advect_velocity": [VP] * 4 + [I, I, I, F, F, I, I, I, VP],
     "fn_tail": [VP] * 11 + [I] * 5 + [F, F, VP],
     "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
+    "fn_conv2d_bf16": [VP] * 6 + [I] * 17 + [VP, VP],
+    "fn_conv2d_dgrad": [VP] * 5 + [I] * 15 + [VP, VP],
     "fn_conv2d_wgrad": [VP] * 5 + [I] * 22 + [VP],
     "fn_jacobi_solve": [VP] * 6 + [I] * 5 + [F, F, VP],
+    "fn_jacobi_adjoint": [VP] * 5 + [I] * 4 + [F, F, VP],
     "fn_mg_solve": [VP] * 5 + [I] * 9 + [F, F, VP],
     "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
     "fn_mg_learned_down": [VP] * 6 + [I] * 10 + [F, F, VP],

@@ -4,8 +4,8 @@ any stride and dilation, from the gradient of its output. It replaces no
 TPU kernel (the JAX package lets XLA differentiate flax ``nn.Conv``); the
 port needs it because every conv on the card runs on kernel B. The
 autograd function of ``ops/kernels/punet.py`` calls it with the layer's
-real channel counts; kernel B itself gives the input gradient there
-(``conv2d_dgrad``).
+real channel counts; ``fn_conv2d_dgrad``, kernel B's body with a
+transposed gather, gives the input gradient there (``conv2d_dgrad``).
 
 The kernel runs 3xTF32 ``mma.sync`` over chunks of 64 output pixels, each
 with the halo'd x patch it needs staged by ``cp.async``; its planner,

@@ -8,10 +8,19 @@ ping-ponging two pressure buffers), all issued by one C call. No launch
 waits on another block. The plain version is
 ``ops/jacobi.py::solve_jacobi_fixed``; a CPU tensor runs it, a CUDA tensor
 the kernels.
+
+Under autograd, with a ``p0`` that needs a gradient (the learned
+projection's polish in training), ``solve_jacobi`` is ``JacobiPolish``:
+forward kernel F, backward ``jacobi_adjoint``, the transposed damped
+sweeps on F's 64^2 tiles (``fn_jacobi_adjoint`` in the same source; one C
+call, a mask launch and one launch per ``fn_jacobi_max_sweeps()``
+sweeps). It replaces no TPU kernel: JAX differentiates the "xla" polish
+(``ops/jacobi.py``'s ``fori_loop``) with XLA, and no Pallas polish.
+Plain version ``ops/jacobi.py::jacobi_adjoint_fixed``.
 """
 import torch
 
-from ..jacobi import solve_jacobi_fixed
+from ..jacobi import jacobi_adjoint_fixed, solve_jacobi_fixed
 from . import _build
 
 def sweep_args(damping: float):
@@ -22,7 +31,19 @@ def sweep_args(damping: float):
 
 def solve_jacobi(flags, div, iters: int, p0=None, damping: float = 1.0):
     """``iters`` Jacobi sweeps. flags (b,h,w) int32, div (b,h,w) the RHS,
-    p0 (b,h,w) optional warm start (default 0). Returns p."""
+    p0 (b,h,w) optional warm start (default 0). Returns p. While autograd
+    records and ``p0`` needs a gradient, ``JacobiPolish`` (``div`` may not
+    need one)."""
+    if (p0 is not None and torch.is_grad_enabled() and p0.requires_grad):
+        if div.requires_grad:
+            raise ValueError("solve_jacobi gives p0 a gradient, not div "
+                             "(the polish's RHS comes from data)")
+        return JacobiPolish.apply(flags, div, p0, iters, damping)
+    return _solve(flags, div, iters, p0, damping)
+
+
+def _solve(flags, div, iters, p0, damping):
+    """Kernel F on CUDA tensors, its plain version on CPU tensors."""
     if not _build.on_cuda(div):
         return solve_jacobi_fixed(flags, div, iters, p0=p0, damping=damping)
     b, h, w = flags.shape
@@ -46,3 +67,58 @@ def solve_jacobi(flags, div, iters: int, p0=None, damping: float = 1.0):
 
 
 solve_jacobi.launches = 0
+
+
+def _check_flags(flags, t, name):
+    b, h, w = flags.shape
+    _build.check(flags, "flags", torch.int32, (b, h, w), t.device)
+    _build.check(t, name, torch.float32, (b, h, w), t.device)
+
+
+def jacobi_adjoint(flags, g, iters: int, damping: float = 1.0):
+    """``iters`` transposed damped sweeps of ``g`` (b, h, w): the gradient
+    of kernel F's output with respect to its ``p0``. On a CUDA tensor
+    ``fn_jacobi_adjoint`` (a mask launch, then F's tiles: 64^2 with a halo
+    of 8, 8 sweeps a launch, the per-cell c = (w * cont * g) * 0.25 in
+    shared memory, in the plain version's float32 order), else
+    ``jacobi_adjoint_fixed``."""
+    if not _build.on_cuda(g):
+        return jacobi_adjoint_fixed(flags, g, iters, damping)
+    b, h, w = flags.shape
+    _check_flags(flags, g, "g")
+    if iters < 0:
+        raise ValueError("jacobi_adjoint needs iters >= 0")
+    if iters == 0:
+        return g
+    mask = torch.empty((b, h, w), dtype=torch.uint8, device=g.device)
+    tmp, out = torch.empty_like(g), torch.empty_like(g)
+    _, keep, w_ = sweep_args(damping)
+    _build.call("fn_jacobi_adjoint", flags.data_ptr(), g.data_ptr(),
+                mask.data_ptr(), tmp.data_ptr(), out.data_ptr(), b, h, w,
+                iters, keep, w_, _build.stream())
+    per_launch = _build.constant("fn_jacobi_max_sweeps")
+    jacobi_adjoint.launches += 1 + -(-iters // per_launch)
+    return out
+
+
+jacobi_adjoint.launches = 0
+
+
+class JacobiPolish(torch.autograd.Function):
+    """``solve_jacobi`` with a gradient for ``p0``: forward kernel F (or
+    its plain version), backward ``jacobi_adjoint`` of the upstream
+    gradient. The output is affine in ``p0``, so the backward needs only
+    the flags."""
+
+    @staticmethod
+    def forward(ctx, flags, div, p0, iters, damping):
+        ctx.save_for_backward(flags)
+        ctx.iters, ctx.damping = iters, damping
+        return _solve(flags, div, iters, p0, damping)
+
+    @staticmethod
+    def backward(ctx, gp):
+        (flags,) = ctx.saved_tensors
+        return (None, None,
+                jacobi_adjoint(flags, gp.contiguous(), ctx.iters,
+                               ctx.damping), None, None)

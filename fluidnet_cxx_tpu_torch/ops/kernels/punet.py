@@ -22,14 +22,19 @@ assembled inputs with zero channels (``widen``). The padded channels stay
 exactly 0 through ReLU, pooling, nearest repeat and bilinear resize, so
 activations carry them from layer to layer with no pad pass between.
 
+bfloat16 route (MGCoarse_128, as flax runs it): ``fn_conv2d_bf16`` in the
+same source, bf16 ``mma.sync`` with float32 sums, the sum rounded to
+bfloat16, then the bias add rounded again (flax ``nn.Conv(dtype=
+"bfloat16")`` on JAX's CPU); a bfloat16 net's weights are cast once at
+pack time. Inference only.
+
 Training (``ConvNHWC``, through ``net_forward`` whenever autograd records):
-a stride-1 conv's backward is two hand kernels, its input gradient kernel B
-itself on the weights flipped in both taps with c_in and c_out swapped
-(``conv2d_dgrad``) and its weight gradient ``fn_conv2d_wgrad``
+a conv's backward is hand kernels, its input gradient ``fn_conv2d_dgrad``
+(``conv2d_dgrad``: kernel B's body with a transposed gather, any stride),
+split at a skip concat, and its weight gradient ``fn_conv2d_wgrad``
 (``conv_grad.py``), which computes only the layer's real rows and columns
-(``net_forward`` passes them) and writes 0 in the padded ones.
-``pack_weights`` pads through ops autograd follows, so the padded channels
-pass no gradient to the parameters.
+(``net_forward`` passes them) and writes 0 in the padded ones. ``pack_weights`` pads through ops autograd follows,
+so the padded channels pass no gradient to the parameters.
 """
 import torch
 import torch.nn.functional as F
@@ -75,7 +80,17 @@ def _scaled(x, in_scale, scale_mod):
 def conv2d_nhwc_plain(x, weight, bias, stride=1, dil=1, relu=False, x2=None,
                       in_scale=None, scale_mod=1):
     """Plain version: SAME conv of NHWC ``x`` (and ``x2`` concatenated on
-    channels) with an OIHW ``weight``; returns NHWC."""
+    channels) with an OIHW ``weight``; returns NHWC. A bfloat16 ``x`` is
+    flax ``nn.Conv(dtype="bfloat16")`` as JAX computes it on the CPU: the
+    weight and bias cast to bfloat16, the products summed in float32 (each
+    is exact there), the sum rounded to bfloat16, the bias added and the
+    result rounded again, then the ReLU; a bfloat16 output."""
+    low = x.dtype == torch.bfloat16
+    if low:
+        if in_scale is not None:
+            raise ValueError("the bfloat16 conv takes no in_scale")
+        x, weight = x.float(), weight.to(torch.bfloat16).float()
+        x2 = None if x2 is None else x2.float()
     x = _scaled(x, in_scale, scale_mod)
     if x2 is not None:
         x = torch.cat([x, x2], dim=-1)
@@ -83,7 +98,10 @@ def conv2d_nhwc_plain(x, weight, bias, stride=1, dil=1, relu=False, x2=None,
     ph = same_pads(x.shape[1], k, stride, dil)
     pw = same_pads(x.shape[2], k, stride, dil)
     xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]))
-    y = F.conv2d(xn, weight, bias, stride=stride, dilation=dil)
+    y = F.conv2d(xn, weight, None if low else bias, stride=stride,
+                 dilation=dil)
+    if low:
+        y = y.to(torch.bfloat16) + bias.to(torch.bfloat16)[:, None, None]
     if relu:
         y = torch.relu(y)
     return y.permute(0, 2, 3, 1).contiguous()
@@ -102,35 +120,54 @@ def conv2d_nhwc(x, w_hwio, bias, stride=1, dil=1, relu=False, x2=None,
     return out
 
 
-def _launch(x, w_hwio, bias, stride, dil, relu, x2, in_scale, scale_mod):
-    """Kernel B on CUDA tensors (``conv2d_nhwc``'s arguments)."""
-    n, hi, wi, c1 = x.shape
-    k, _, cin, co = w_hwio.shape
-    c2 = 0 if x2 is None else x2.shape[-1]
-    dev = x.device
-    _build.check(x, "x", torch.float32, (n, hi, wi, c1), dev)
-    if x2 is not None:
-        _build.check(x2, "x2", torch.float32, (n, hi, wi, c2), dev)
-    _build.check(w_hwio, "weight", torch.float32, (k, k, c1 + c2, co), dev)
-    _build.check(bias, "bias", torch.float32, (co,), dev)
-    if in_scale is not None:
-        _build.check(in_scale, "in_scale", torch.float32, (n,), dev)
-    if co % 4 or scale_mod < 1:
-        raise ValueError("conv2d_nhwc needs co a multiple of 4")
+def _same_pad(hi, wi, k, stride, dil):
+    """The one SAME pad (lo, hi) of both axes that the kernels take."""
     ph = same_pads(hi, k, stride, dil)
     pw = same_pads(wi, k, stride, dil)
     if ph != pw:
         # One pad for both axes: a non-square map passes where its SAME
         # pads agree (the 1000x100 cylinder map does).
-        raise ValueError(f"conv2d_nhwc needs equal SAME pads on both axes: "
+        raise ValueError(f"kernel B needs equal SAME pads on both axes: "
                          f"rows {ph}, columns {pw} ({hi}x{wi}, kernel {k}, "
                          f"stride {stride}, dilation {dil})")
+    return ph
+
+
+def _launch(x, w_hwio, bias, stride, dil, relu, x2, in_scale, scale_mod):
+    """Kernel B on CUDA tensors (``conv2d_nhwc``'s arguments): the 3xTF32
+    route on float32 ``x``, the bfloat16 route on bfloat16 ``x``."""
+    n, hi, wi, c1 = x.shape
+    k, _, cin, co = w_hwio.shape
+    c2 = 0 if x2 is None else x2.shape[-1]
+    dev = x.device
+    low = x.dtype == torch.bfloat16
+    dt = torch.bfloat16 if low else torch.float32
+    _build.check(x, "x", dt, (n, hi, wi, c1), dev)
+    if x2 is not None:
+        _build.check(x2, "x2", dt, (n, hi, wi, c2), dev)
+    _build.check(w_hwio, "weight", dt, (k, k, c1 + c2, co), dev)
+    _build.check(bias, "bias", torch.float32, (co,), dev)
+    if in_scale is not None:
+        if low:
+            raise ValueError("the bfloat16 conv takes no in_scale")
+        _build.check(in_scale, "in_scale", torch.float32, (n,), dev)
+    if co % (8 if low else 4) or scale_mod < 1:
+        raise ValueError(f"conv2d_nhwc needs co a multiple of "
+                         f"{8 if low else 4}")
+    ph = _same_pad(hi, wi, k, stride, dil)
     ho, wo = -(-hi // stride), -(-wi // stride)
     m = n * ho * wo
-    plan = plan_conv(m, co, k * k, c1, c2, "tf32x3")
-    out = torch.empty((n, ho, wo, co), dtype=torch.float32, device=dev)
+    plan = plan_conv(m, co, k * k, c1, c2, "bf16" if low else "tf32x3")
+    out = torch.empty((n, ho, wo, co), dtype=dt, device=dev)
     ws = (torch.empty((plan.splits, m, co), dtype=torch.float32, device=dev)
           if plan.splits > 1 else None)
+    if low:
+        _build.call("fn_conv2d_bf16", x.data_ptr(), _build.ptr(x2),
+                    w_hwio.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                    _build.ptr(ws), c1, c2, n, hi, wi, ho, wo, co, k, stride,
+                    dil, ph[0], int(relu), plan.bm, plan.bn, plan.warp_m,
+                    plan.splits, plan.c_bounds, _build.stream())
+        return out
     _build.call("fn_conv2d_nhwc", x.data_ptr(), _build.ptr(x2),
                 w_hwio.data_ptr(), bias.data_ptr(), _build.ptr(in_scale),
                 out.data_ptr(), _build.ptr(ws), c1, c2, scale_mod, n, hi, wi,
@@ -143,95 +180,135 @@ def _launch(x, w_hwio, bias, stride, dil, relu, x2, in_scale, scale_mod):
 conv2d_nhwc.launches = 0
 
 
-def _adjoint(dy, w_hwio):
-    """(dy, the weight flipped in both taps with c_in and c_out swapped,
-    a zero bias), dy's channels and the weight's rows widened with zeros to
-    the stage where they fall short of it (an output layer's 4)."""
-    co = dy.shape[-1]
-    wt = w_hwio.flip(0, 1).transpose(2, 3)
+def conv2d_dgrad_plain(dy, w_hwio, dil=1, stride=1, in_hw=None):
+    """Plain version of ``conv2d_dgrad``: F.conv_transpose2d of ``dy`` with
+    the OIHW weight, cut to the input's SAME-padded window."""
+    in_hw = tuple(dy.shape[1:3]) if in_hw is None else in_hw
+    k = w_hwio.shape[0]
+    lo = [same_pads(n, k, stride, dil)[0] for n in in_hw]
+    g = F.conv_transpose2d(dy.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
+                           stride=stride, dilation=dil)
+    short = [max(0, lo[i] + in_hw[i] - g.shape[2 + i]) for i in (0, 1)]
+    g = F.pad(g, (0, short[1], 0, short[0]))
+    g = g[:, :, lo[0]:lo[0] + in_hw[0], lo[1]:lo[1] + in_hw[1]]
+    return g.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_dgrad(dy, w_hwio, dil=1, stride=1, in_hw=None):
+    """Input gradient (n, *in_hw, c_in) of a SAME conv of stride ``stride``
+    with the HWIO weight ``w_hwio`` from the gradient ``dy`` (n, ho, wo,
+    c_out) of its output (``in_hw`` defaults to dy's map, right at stride
+    1): ``fn_conv2d_dgrad``, kernel B's 3xTF32 implicit GEMM over input
+    cells with a transposed gather (a tap reads dy where (y + pad - tap)
+    divides by the stride, else a zero: at stride 2 a quarter of the 3x3
+    taps of a cell on average), the weight transposed, not flipped; dy's
+    channels and the weight's rows widened with zeros to the stage where
+    they fall short of it (an output layer's 4). A new kernel: the JAX
+    package lets XLA differentiate the flax conv. Bound by operations (the
+    gathered zeros count as work done)."""
+    if not _build.on_cuda(dy):
+        return conv2d_dgrad_plain(dy, w_hwio, dil, stride, in_hw)
+    n, ho, wo, co = dy.shape
+    k, _, ci, _ = w_hwio.shape
+    dev = dy.device
+    _build.check(dy, "dy", torch.float32, (n, ho, wo, co), dev)
+    _build.check(w_hwio, "weight", torch.float32, (k, k, ci, co), dev)
+    if ci % 4:
+        raise ValueError("conv2d_dgrad needs c_in a multiple of 4")
+    hi, wi = (ho, wo) if in_hw is None else in_hw
+    if (-(-hi // stride), -(-wi // stride)) != (ho, wo):
+        raise ValueError(f"dy {ho}x{wo} is not the output of a stride-"
+                         f"{stride} SAME conv of {hi}x{wi}")
+    pad = _same_pad(hi, wi, k, stride, dil)[0]
     cp = padded(co, STAGE)
+    wt = w_hwio.transpose(2, 3)
     if cp != co:
         dy = F.pad(dy, (0, cp - co))
         wt = F.pad(wt, (0, 0, 0, cp - co))
-    return dy, wt.contiguous(), dy.new_zeros((wt.shape[3],))
-
-
-def conv2d_dgrad_plain(dy, w_hwio, dil=1):
-    """Plain version of ``conv2d_dgrad``: F.conv2d on the flipped weight."""
-    dy, wt, bias = _adjoint(dy, w_hwio)
-    return conv2d_nhwc_plain(dy, wt.permute(3, 2, 0, 1), bias, 1, dil)
-
-
-def conv2d_dgrad(dy, w_hwio, dil=1):
-    """Input gradient of a stride-1 SAME conv with the HWIO weight
-    ``w_hwio`` (odd k), from the gradient ``dy`` of its output: kernel B on
-    the weight flipped in both taps with c_in and c_out swapped, no bias,
-    no ReLU (the adjoint of a stride-1 SAME conv is that conv, with the
-    same symmetric pads)."""
-    if not _build.on_cuda(dy):
-        return conv2d_dgrad_plain(dy, w_hwio, dil)
-    out = _launch(*_adjoint(dy, w_hwio), 1, dil, False, None, None, 1)
+    wt = wt.contiguous()
+    m = n * hi * wi
+    plan = plan_conv(m, ci, k * k, cp, 0, "tf32x3")
+    dx = torch.empty((n, hi, wi, ci), dtype=torch.float32, device=dev)
+    ws = (torch.empty((plan.splits, m, ci), dtype=torch.float32, device=dev)
+          if plan.splits > 1 else None)
+    zeros = torch.zeros((ci,), dtype=torch.float32, device=dev)
+    _build.call("fn_conv2d_dgrad", dy.data_ptr(), wt.data_ptr(),
+                zeros.data_ptr(), dx.data_ptr(), _build.ptr(ws), cp, n, ho, wo,
+                hi, wi, ci, k, stride, dil, pad, plan.bm, plan.bn,
+                plan.warp_m, plan.splits, plan.c_bounds, _build.stream())
     conv2d_dgrad.launches += 1
-    return out
+    return dx
 
 
 conv2d_dgrad.launches = 0
 
 
 class ConvNHWC(torch.autograd.Function):
-    """``conv2d_nhwc`` at stride 1 with a backward of hand kernels: the
-    upstream gradient masked by ``out > 0`` under ReLU (jax's relu
-    gradient at 0 is 0 too), then ``conv2d_dgrad`` for the input (skipped
-    when it needs none) and ``conv_grad.conv2d_wgrad`` for the weight and
-    bias over the layer's real channels ``ci`` -> ``co`` (the padded
-    entries of the packed weight's gradient are 0). Saves the input and
-    the output."""
+    """``conv2d_nhwc`` with a backward of hand kernels: the upstream
+    gradient masked by ``out > 0`` under ReLU (jax's relu gradient at 0 is
+    0 too); the input gradient over [x | x2] (skipped when neither needs
+    one) from ``conv2d_dgrad``, split into x's and x2's channels;
+    ``conv_grad.conv2d_wgrad`` for the weight and bias over the layer's
+    real channels ``ci`` -> ``co`` (the padded entries of the packed
+    weight's gradient are 0), on the input the kernel saw: [x * in_scale | x2], assembled in torch. The
+    input and ``in_scale`` of a scaled conv take no gradient (JAX's scale
+    comes from data or from the rollout's stop-gradient state): asserted
+    by ``conv2d_nhwc_autograd``. Saves the inputs and the output."""
 
     @staticmethod
-    def forward(ctx, x, w_hwio, bias, dil, relu, ci, co):
-        y = conv2d_nhwc(x, w_hwio, bias, 1, dil, relu)
-        ctx.save_for_backward(x, w_hwio, y)
-        ctx.dil, ctx.relu, ctx.real = dil, relu, (ci, co)
+    def forward(ctx, x, x2, w_hwio, bias, in_scale, stride, dil, relu,
+                scale_mod, ci, co):
+        y = conv2d_nhwc(x, w_hwio, bias, stride, dil, relu, x2, in_scale,
+                        scale_mod)
+        ctx.save_for_backward(x, x2, w_hwio, in_scale, y)
+        ctx.geom = (stride, dil, relu, scale_mod, ci, co)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        x, w_hwio, y = ctx.saved_tensors
-        gy = (torch.where(y > 0, gy, 0.0) if ctx.relu else gy).contiguous()
-        dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            dx = conv2d_dgrad(gy, w_hwio, ctx.dil)
-        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+        x, x2, w_hwio, in_scale, y = ctx.saved_tensors
+        stride, dil, relu, scale_mod, ci, co = ctx.geom
+        gy = (torch.where(y > 0, gy, 0.0) if relu else gy).contiguous()
+        dx = dx2 = dw = db = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            g = conv2d_dgrad(gy, w_hwio, dil, stride, x.shape[1:3])
+            c1 = x.shape[-1]
+            dx = g if x2 is None else g[..., :c1]
+            dx2 = None if x2 is None else g[..., c1:]
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            xin = _scaled(x, in_scale, scale_mod)
+            if x2 is not None:
+                xin = torch.cat([xin, x2], dim=-1)
             k = w_hwio.shape[0]
-            dw, db = conv2d_wgrad(x, gy, k, 1, ctx.dil,
-                                  same_pads(x.shape[1], k, 1, ctx.dil),
-                                  *ctx.real)
-        return dx, dw, db, None, None, None, None
+            dw, db = conv2d_wgrad(xin.contiguous(), gy, k, stride, dil,
+                                  same_pads(x.shape[1], k, stride, dil), ci,
+                                  co)
+        return dx, dx2, dw, db, None, None, None, None, None, None, None
 
 
 def conv2d_nhwc_autograd(x, w_hwio, bias, stride=1, dil=1, relu=False,
                          x2=None, in_scale=None, scale_mod=1, real=None):
     """``conv2d_nhwc`` that autograd follows: while it records and a
-    tensor needs a gradient, a stride-1 conv without ``x2`` and
-    ``in_scale`` runs ``ConvNHWC``, its weight gradient over ``real`` =
-    (the layer's real c_in, c_out) of the packed weight's (all of it by
-    default); any other conv runs its plain version under autograd on a
-    CPU tensor and raises on a CUDA tensor (its backward is the next
-    training slice's). Otherwise ``conv2d_nhwc``."""
+    tensor needs a gradient, ``ConvNHWC`` (stride 1 or 2, with ``x2`` and
+    ``in_scale``), its weight gradient over ``real`` = (the layer's real
+    c_in, c_out) of the packed weight's (all of it by default). Raises for
+    a bfloat16 conv (kernel B's bfloat16 route has no backward) and for a
+    gradient of a scaled conv's input or ``in_scale``. Otherwise
+    ``conv2d_nhwc``."""
     tensors = (x, w_hwio, bias, x2, in_scale)
     if not (torch.is_grad_enabled()
             and any(t is not None and t.requires_grad for t in tensors)):
         return conv2d_nhwc(x, w_hwio, bias, stride, dil, relu, x2, in_scale,
                            scale_mod)
-    if stride == 1 and x2 is None and in_scale is None:
-        ci, co = real or w_hwio.shape[2:]
-        return ConvNHWC.apply(x, w_hwio, bias, dil, relu, ci, co)
-    if not _build.on_cuda(x):
-        return conv2d_nhwc_plain(x, w_hwio.permute(3, 2, 0, 1), bias, stride,
-                                 dil, relu, x2, in_scale, scale_mod)
-    raise NotImplementedError(
-        "not ported yet: the gradient of a stride-2, skip-concat or "
-        "in_scale conv on the card (PUNet's training, ROADMAP A.5.1)")
+    if x.dtype != torch.float32:
+        raise ValueError(f"no gradient of a {x.dtype} conv: kernel B's "
+                         "bfloat16 route runs inference only")
+    if in_scale is not None and (x.requires_grad or in_scale.requires_grad):
+        raise ValueError("a scaled conv's input and in_scale take no "
+                         "gradient (the scale comes from data)")
+    ci, co = real or w_hwio.shape[2:]
+    return ConvNHWC.apply(x, x2, w_hwio, bias, in_scale, stride, dil, relu,
+                          scale_mod, ci, co)
 
 
 def pack_weights(net):
@@ -243,18 +320,26 @@ def pack_weights(net):
     channels none. The layers on the thin-channel route
     (``net.thin(name)``) get zero input rows up to a multiple of ``STAGE``
     and zero output columns and bias up to a multiple of ``STAGE``, or of
-    4 for the layers in ``net.outputs`` (whose output the forward slices
-    to its real channels); the others keep their widths."""
+    4 (8 in bfloat16) for the layers in ``net.outputs`` (whose output the
+    forward slices to its real channels); the others keep their widths. A
+    bfloat16 net (``net.compute_dtype``) gets its weights cast to bfloat16
+    here, once, and its biases rounded to bfloat16 and kept in float32, as
+    flax's ``promote_dtype`` casts the float32 parameters."""
+    low = net.compute_dtype == torch.bfloat16
     packed = {}
     for name, conv in net.convs.items():
         co, ci, k, _ = conv.weight.shape
         cip, cop = ci, co
         if net.thin(name):
             cip = padded(ci, STAGE)
-            cop = padded(co, 4 if name in net.outputs else STAGE)
+            cop = padded(co, (8 if low else 4) if name in net.outputs
+                         else STAGE)
         w = F.pad(conv.weight.permute(2, 3, 1, 0),
                   (0, cop - co, 0, cip - ci)).contiguous()
-        packed[name] = (w, F.pad(conv.bias, (0, cop - co)))
+        b = F.pad(conv.bias, (0, cop - co))
+        if low:
+            w, b = w.to(torch.bfloat16), b.to(torch.bfloat16).float()
+        packed[name] = (w, b)
     return packed
 
 
@@ -265,12 +350,20 @@ def net_forward(net, packed, x, **kw):
     channels) and the net's assembled inputs widened to
     ``STAGE`` channels. ``kw`` goes to the net (PUNet's ``inv_scale``
     normalises input channel 0 as it is loaded). On a CPU tensor this is
-    the padded chain's plain twin."""
+    the padded chain's plain twin. A bfloat16 net takes its input cast to
+    bfloat16 (each conv casts what it is given, as ``promote_dtype`` does)
+    and returns float32."""
+    low = net.compute_dtype == torch.bfloat16
+
+    def cast(t):
+        return t.to(torch.bfloat16) if low and t is not None else t
+
     def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
         w_hwio, b = packed[name]
         _, stride, dil = net.geometry[name]
         co, ci = net.convs[name].weight.shape[:2]
-        return conv2d_nhwc_autograd(h, w_hwio, b, stride, dil, relu, x2,
-                                    in_scale, scale_mod, (ci, co))
+        return conv2d_nhwc_autograd(cast(h), w_hwio, b, stride, dil, relu,
+                                    cast(x2), in_scale, scale_mod, (ci, co))
 
-    return net(x, conv=conv, width=STAGE, **kw)
+    out = net(cast(x), conv=conv, width=STAGE, **kw)
+    return out.float() if low else out

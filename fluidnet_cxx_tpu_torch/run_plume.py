@@ -30,7 +30,7 @@ from the orbax checkpoint by ``scripts/torch_convert_checkpoints.py``);
 The output says which (``"weights": "trained"`` or ``"seed:N"``) and
 which net ran (``"model"``). ``--model-dir`` points either at another
 checkpoint directory; its ``model_config.json`` picks the projection: a
-refine-free PUNet keeps the fused path (``make_project_fn_fused_forward``,
+refine-free float32 PUNet keeps the fused path (``make_project_fn_fused_forward``,
 kernels B and C), "FluidNet" (``DataTrain_128``'s FluidNetTower),
 "ScaleNet" (the ``ScaleNet_*`` MultiScaleNets) and a PUNet with a
 refinement stack go through the flax-path ``FluidNet``
@@ -101,13 +101,14 @@ def build_net(mcfg, weight_seed=None, device="cpu",
 
 
 def build_mg_coarse(weight_seed=None, device="cpu",
-                    model_dir=MG_COARSE_DIR) -> MGCoarseNet:
+                    model_dir=MG_COARSE_DIR,
+                    dtype: str = "bfloat16") -> MGCoarseNet:
     """The ``MGCoarseNet`` of ``model_dir`` with its trained weights
-    (``weight_seed`` None) or flax-initialised ones from
-    ``weight_seed``."""
+    (``weight_seed`` None) or flax-initialised ones from ``weight_seed``,
+    its PUNet in ``dtype`` (bfloat16, as JAX runs it, by default)."""
     if weight_seed is None:
-        return load_mg_coarse(model_dir, device)
-    net = MGCoarseNet(load_mg_coarse_config(model_dir))
+        return load_mg_coarse(model_dir, device, dtype)
+    net = MGCoarseNet(load_mg_coarse_config(model_dir), dtype)
     net.punet.load_state_dict(flax_to_state_dict(
         random_flax_params(net.punet.table, weight_seed)))
     return net.to(device).eval()
@@ -119,7 +120,8 @@ def learned_projection(model_dir, weight_seed=None, device="cpu"):
     network."""
     mcfg = load_model_config(str(model_dir))
     net = build_net(mcfg, weight_seed, device, model_dir)
-    fused = mcfg.model == "PUNet" and mcfg.punet_refine_convs == 0
+    fused = (mcfg.model == "PUNet" and mcfg.punet_refine_convs == 0
+             and mcfg.compute_dtype == "float32")
     make = make_project_fn_fused_forward if fused else make_project_fn
     return make(mcfg, net)
 

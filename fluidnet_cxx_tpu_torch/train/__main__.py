@@ -1,6 +1,8 @@
 """Training entry point, the twin of the JAX package's ``scripts/train.py``:
 
     python -m fluidnet_cxx_tpu_torch.train --onDevice 200 --res 128
+    python -m fluidnet_cxx_tpu_torch.train --onDevice 200 --model PUNet \\
+        --punetWidths 96,128,128 --punetDilation 2 --polishSweeps 32
     python -m fluidnet_cxx_tpu_torch.train --synthetic 16 --maxEpochs 2 \\
         [--dataDir DIR] [--modelDir DIR] [--resume]
 
@@ -11,7 +13,8 @@ dataset of ``.npz`` scenes (``--synthetic N`` writes N synthetic scenes
 first). The configuration is ``configs/train.yaml``'s (``TrainConfig()``,
 ``ModelConfig()``, ``SimConfig()``) with the flags' overrides; a YAML file
 (``--trainConfig``) is ROADMAP A.3. Runs on the card unless ``--device
-cpu`` is given; on the card PUNet and polish sweeps raise (ROADMAP A.5.1).
+cpu`` is given. The second line trains PUNetD2_128's architecture (its
+damped "xla" polish differentiated by kernel F's transposed sweeps).
 Writes ``train_loss.npy`` (and ``val_loss.npy``), ``last_epoch/``,
 ``best/`` and ``model_config.json`` under ``--modelDir``.
 """
@@ -59,6 +62,10 @@ def parse_args(argv=None):
                     help="grid size for synthetic data")
     ap.add_argument("--model", default=None,
                     choices=["FluidNet", "ScaleNet", "PUNet"])
+    ap.add_argument("--punetWidths", default=None,
+                    help="comma-separated PUNet level widths, e.g. 96,128,128")
+    ap.add_argument("--punetDilation", type=int, default=None,
+                    help="PUNet bottleneck conv dilation")
     ap.add_argument("--polishSweeps", type=int, default=None,
                     help="Jacobi polish sweeps inside the learned projection")
     ap.add_argument("--evalRes", type=int, default=None,
@@ -92,8 +99,14 @@ def configs(args):
             "lr": args.lr, "p_l2_lambda": args.pL2}
     tc = dataclasses.replace(tc, **{k: v for k, v in over.items()
                                     if v is not None})
+    punet = {}
+    if args.punetWidths:
+        punet["punet_widths"] = tuple(int(v) for v in
+                                      args.punetWidths.split(","))
+    if args.punetDilation is not None:
+        punet["punet_bottleneck_dilation"] = args.punetDilation
     mcfg = ModelConfig(model=args.model or "FluidNet",
-                       polish_sweeps=args.polishSweeps or 0)
+                       polish_sweeps=args.polishSweeps or 0, **punet)
     return mcfg, tc, SimConfig()
 
 

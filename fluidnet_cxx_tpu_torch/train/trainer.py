@@ -17,12 +17,15 @@ comes from a CPU generator on the host, so the rollout's trip count needs
 no device sync.
 
 On a CUDA tensor every conv of the loss runs on kernel B, its backward on
-kernel B (input gradient) and ``fn_conv2d_wgrad`` (weights)
-(``ops/kernels/punet.py::ConvNHWC``); the LT rollout's velocity advection
-is kernel E at the drawn dt, the synthetic labels kernel F, the plume
-frames' steps kernels A and F. PUNet and the polish sweeps have no
-gradient on the card yet (ROADMAP A.5.1): ``check_trainable`` refuses them
-there; on the CPU plain autograd runs them.
+``fn_conv2d_dgrad`` (input gradient, stride 1 or 2, split at PUNet's skip
+concat) and ``fn_conv2d_wgrad`` (weights)
+(``ops/kernels/punet.py::ConvNHWC``); the damped polish is kernel F
+forward and ``fn_jacobi_adjoint`` backward (``ops/kernels/jacobi.py::
+JacobiPolish``); the LT rollout's velocity advection is kernel E at the
+drawn dt, the synthetic labels kernel F, the plume frames' steps kernels
+A and F. ``check_trainable`` refuses on the card what has no backward
+there: the "fused" and "mg" polish tails (JAX does not differentiate them
+either) and a bfloat16 net; on the CPU the plain versions run.
 """
 import dataclasses
 from typing import NamedTuple, Optional
@@ -173,15 +176,21 @@ def init_train_state(model: FluidNet, cfg: TrainConfig, seed: int = 0,
 
 def check_trainable(mcfg: ModelConfig, device):
     """Raise NotImplementedError for a model whose backward has no kernel
-    on the card yet: PUNet (stride-2 input gradients, the skip split) and
-    any polish sweeps. The CPU trains them with plain autograd."""
+    on the card: the "fused" or "mg" polish tail (``jax.grad`` does not
+    run through their Pallas kernels either) and a bfloat16 net (kernel
+    B's bfloat16 route runs inference only). Every net in float32 with no
+    polish or the "xla"/"pallas" one trains there."""
     if torch.device(device).type != "cuda":
         return
-    if mcfg.model == "PUNet" or mcfg.polish_sweeps > 0:
+    if mcfg.polish_sweeps > 0 and mcfg.polish_impl in ("fused", "mg"):
         raise NotImplementedError(
-            f"not ported yet: training {mcfg.model} with {mcfg.polish_sweeps}"
-            " polish sweeps on the card; the tower and ScaleNet without "
-            "polish train there (PUNet's training, ROADMAP A.5.1)")
+            f"no gradient of the {mcfg.polish_impl!r} polish tail on the "
+            "card: JAX does not differentiate it either; train with "
+            "polish_impl 'xla'")
+    if mcfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"training in {mcfg.compute_dtype}: kernel B's bfloat16 route "
+            "has no backward; the nets train in float32")
 
 
 def _sample_dyn(gen: torch.Generator, sim_cfg: SimConfig, cfg: TrainConfig):

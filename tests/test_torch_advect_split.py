@@ -32,6 +32,7 @@ from fluidnet_cxx_tpu.sim import create_plume_scene as j_scene
 from fluidnet_cxx_tpu.sim import plume_config as j_config
 from fluidnet_cxx_tpu.sim import simulate_step as j_step
 from fluidnet_cxx_tpu_torch.config import ModelConfig
+from fluidnet_cxx_tpu_torch.models.fluidnet import make_net
 from fluidnet_cxx_tpu_torch.models.punet import PUNet
 from fluidnet_cxx_tpu_torch.ops.kernels.advect import (advect_all,
                                                        advect_scalar,
@@ -159,9 +160,14 @@ def test_unported_knobs_raise(knob):
     the JAX step would run as Jacobi) raises naming the projection to pass
     with sim_method "convnet"."""
     if knob == "compute_dtype":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            PUNet.from_config(ModelConfig(model="PUNet",
-                                          compute_dtype="bfloat16"))
+        # PUNet takes bfloat16 (kernel B's bfloat16 route); the tower and
+        # ScaleNet do not yet.
+        net = PUNet.from_config(ModelConfig(model="PUNet",
+                                            compute_dtype="bfloat16"))
+        assert net.compute_dtype == torch.bfloat16
+        for model in ("FluidNet", "ScaleNet"):
+            with pytest.raises(NotImplementedError, match="ROADMAP A.4.3"):
+                make_net(ModelConfig(model=model, compute_dtype="bfloat16"))
         return
     cfg, state, _ = plume_case(16, device="cpu", sim_method="jacobi",
                                jacobi_iter=2)

@@ -5,14 +5,23 @@ step with ``make_project_fn_mg_learned``; the kernel route's split of a
 V-cycle at the cut as a plain-torch twin; its planner.
 
 The flax ``MGCoarseNet`` computes its PUNet in bfloat16 (flax PUNet's
-default dtype, which ``models/mg_coarse.py`` does not set), the port in
-float32, as its 2-D PUNet always does. The JAX side here runs the float32
-variant (its ``PUNet`` name in ``models/mg_coarse.py`` bound to a float32
-PUNet for the module's tests), which is held at 1e-4 of the largest
-output. Two tests hold the port to JAX's own bfloat16 net at 3e-2 of the
-largest output, its rounding: random weights at 32^2, and the trained
-MGCoarse_128 on a 128^2 coarse solve, the net's output and the pressure
-of the V-cycle around it.
+default dtype, which ``models/mg_coarse.py`` does not set), and so does
+the port's by default (kernel B's bfloat16 route, flax's rounding points:
+tests/test_torch_bf16_conv.py). Most tests here run the float32 variant
+on both sides (JAX's ``PUNet`` name in ``models/mg_coarse.py`` bound to a
+float32 PUNet for the module's tests, the port's ``dtype="float32"``),
+held at 1e-4 of the largest output. Two tests hold the port's bfloat16
+net to JAX's, under JAX's default XLA settings (``_default_xla``; the
+module's fixture turns its optimisations off, which moves JAX's own
+V-cycle pressure by 4.5e-3 and 3.0e-3 of its largest value on the trained
+case): random weights at 32^2, and the trained MGCoarse_128 on a 128^2
+coarse solve, the net's output and the pressure of the V-cycle around
+it. At 32^2 every layer is bit-equal (held at 2e-7, twice the gap). On
+the trained case the gap is set by a few values of one layer that a float32 sum
+taken in another order rounds to the other bfloat16 (enc0_0: 1-3 of
+16384 on the trained case, every other layer bit-equal), which the net
+carries to its output: the output within 3e-2 of its largest value, the
+pressure within 8e-3 (twice its largest gap, 3.66e-3).
 
 Tolerances: the net 1e-4 of its largest output (the two frameworks sum a
 convolution in another order); ``solve_mg`` and ``mg_cut_rhs`` 1e-5 of
@@ -53,6 +62,19 @@ torch.set_num_threads(1)
 
 CSRC = Path(__file__).resolve().parents[1] / "fluidnet_cxx_tpu_torch" / "csrc"
 SMALL = t_mgc.MGCoarseConfig(widths=(32, 32))
+# The bfloat16 nets at 32^2 with random weights (gap 6.6e-8: every layer
+# bit-equal, the float32 glue around them summed in another order).
+BF16_NET_TOL = 2e-7
+
+
+@pytest.fixture
+def _default_xla():
+    """JAX's default XLA settings for one test (scripts/ run so), the
+    module's setting restored after."""
+    old = jax.config.read("jax_disable_most_optimizations")
+    jax.config.update("jax_disable_most_optimizations", False)
+    yield
+    jax.config.update("jax_disable_most_optimizations", old)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -79,10 +101,10 @@ def close(got, want, rel):
                                atol=rel * max(np.abs(want).max(), 1e-6))
 
 
-def nets(cfg=SMALL, seed=0):
-    """(the port's MGCoarseNet, the flax one, its flax params) with the
-    same flax-initialised weights."""
-    net = t_mgc.MGCoarseNet(cfg)
+def nets(cfg=SMALL, seed=0, dtype="float32"):
+    """(the port's MGCoarseNet in ``dtype``, the flax one, its flax
+    params) with the same flax-initialised weights."""
+    net = t_mgc.MGCoarseNet(cfg, dtype)
     params = {"punet": random_flax_params(net.punet.table, seed)}
     net.load_state_dict(flax_mg_coarse_to_state_dict(params))
     jnet = j_mgc.MGCoarseNet(j_mgc.MGCoarseConfig(**vars(cfg)))
@@ -115,18 +137,20 @@ def test_cut_level_matches_jax(h, w, size, want):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_mg_coarse_net_matches_jax(rng, dtype, monkeypatch):
+def test_mg_coarse_net_matches_jax(rng, dtype, monkeypatch, request):
     """The port's MGCoarseNet against flax's with the weights carried
-    across, 32^2, 10% obstacles: output, gauge and pinning."""
+    across, 32^2, 10% obstacles: output, gauge and pinning; the bfloat16
+    nets under JAX's default XLA settings."""
     if dtype == "bfloat16":
         monkeypatch.setattr(j_mgc, "PUNet", FlaxPUNet)
-    net, jnet, params = nets()
+        request.getfixturevalue("_default_xla")
+    net, jnet, params = nets(dtype=dtype)
     flags = random_flags(rng, 2, 32, 32, p_obstacle=0.1)
     rhs = (3.0 * rng.standard_normal((2, 32, 32))).astype(np.float32)
     want = np.asarray(jax.jit(jnet.apply)(params, flags, rhs))
     with torch.no_grad():
         got = net(T(flags), T(rhs))
-    close(got, want, 1e-4 if dtype == "float32" else 3e-2)
+    close(got, want, 1e-4 if dtype == "float32" else BF16_NET_TOL)
     cont = t_mgc._cont(T(flags))
     assert float((got * (1 - cont)).abs().max()) == 0.0
     assert float((got * cont).sum(dim=(1, 2)).abs().max()) < 1e-3
@@ -179,7 +203,7 @@ def test_mg_learned_plume_steps_match_jax():
     (asserted), as in tests/test_torch_step.py."""
     cfg, state, _ = plume_case(64, device="cpu", sim_method="mg_learned")
     assert cfg.sim_method == "convnet" and cfg.max_disp == 4
-    model = build_mg_coarse()
+    model = build_mg_coarse(dtype="float32")
     project = t_mgc.make_project_fn_mg_learned(model, coarse_size=32)
     assert not getattr(project, "handles_const_vals", False)
     jnet = j_mgc.MGCoarseNet(j_mgc.MGCoarseConfig(**vars(model.cfg)))
@@ -202,13 +226,15 @@ def test_mg_learned_plume_steps_match_jax():
 
 
 @pytest.mark.parametrize("p_obstacle", [0.0, 0.08])
-def test_trained_net_matches_bfloat16_jax(rng, p_obstacle, monkeypatch):
+def test_trained_net_matches_bfloat16_jax(rng, p_obstacle, monkeypatch,
+                                          _default_xla):
     """The trained MGCoarse_128 through JAX's own bfloat16 MGCoarseNet
-    against the port's float32 net, on a 128^2 coarse solve: the cut
-    level of one cold V-cycle at 256^2 (walls, 0 or 8% obstacles, the
-    divergence of a random U after the wall BCs). The net's output and
-    the V-cycle's pressure, each within 3e-2 of its largest value; the
-    gaps are printed (``pytest -s``)."""
+    against the port's bfloat16 net (its default), on a 128^2 coarse
+    solve: the cut level of one cold V-cycle at 256^2 (walls, 0 or 8%
+    obstacles, the divergence of a random U after the wall BCs). The
+    net's output within 3e-2 of its largest value and the V-cycle's
+    pressure within 8e-3 (the module's docstring); the gaps are printed
+    (``pytest -s``)."""
     monkeypatch.setattr(j_mgc, "PUNet", FlaxPUNet)
     flags = random_flags(rng, 1, 256, 256, p_obstacle=p_obstacle)
     U = j_st.set_wall_bcs(jnp.asarray(rng.standard_normal((1, 2, 256, 256)),
@@ -232,7 +258,7 @@ def test_trained_net_matches_bfloat16_jax(rng, p_obstacle, monkeypatch):
     print(f"obstacles {p_obstacle}: gap to JAX's bfloat16 net, output "
           f"{gaps[0]:.2e}, p {gaps[1]:.2e} of the largest value")
     close(got, want, 3e-2)
-    close(got_p, want_p, 3e-2)
+    close(got_p, want_p, 8e-3)
 
 
 def twin_smooth(flags, rhs, p, k, side):

@@ -3,7 +3,7 @@ the JAX package on the CPU.
 
 * The plain twins of the backward route: ``ConvNHWC`` (kernel B's
   autograd function; on a CPU tensor its forward is ``conv2d_nhwc``'s plain
-  version, its input gradient the flipped-weight conv ``conv2d_dgrad`` and
+  version, its input gradient ``conv2d_dgrad``'s transposed conv and
   its weight gradient ``torch.nn.grad.conv2d_weight`` plus a sum) against
   autograd through ``conv2d_nhwc_plain``, k 1, 3 and 5, dilation 1 and 2,
   with and without ReLU, an output layer's 4 channels; the wgrad twin at
@@ -90,7 +90,7 @@ def test_conv_backward_twins_match_autograd(rng, k, dil, relu, ci, co):
     _close(got, want.detach(), 1e-6)
     for g, w_ in zip(got_grads, want_grads):
         _close(g, w_, 1e-5)
-    # The two halves on their own: the flipped-weight conv and wgrad.
+    # The two halves on their own: the transposed conv and wgrad.
     gy = torch.where(want > 0, up, 0.0) if relu else up
     _close(k_punet.conv2d_dgrad(gy, w, dil), want_grads[0], 1e-5)
     dw, db = conv2d_wgrad(x, gy, k, 1, dil, k_punet.same_pads(12, k, 1, dil))
