@@ -139,11 +139,13 @@ Phases (each prints its elapsed seconds):
      replay and eagerly at a reduced n; each case's line printed.
   8. training (ROADMAP A.5; configs/train.yaml's FluidNetTower and
      MultiScaleNet at 128^2, batch 64, seed weights): the input gradient
-     fn_conv2d_dgrad (csrc/conv2d.cu, ops/kernels/punet.py::conv2d_dgrad)
-     on every conv call of the tower's forward but conv1, held to cuDNN's
-     conv2d_input on the unpadded weights within 1e-5 of its largest value
-     and to its plain version (padded input channels exactly 0), timed
-     beside kernel B's forward on the flipped weight, and the weight
+     fn_conv2d_dgrad (csrc/conv2d_dgrad.cu, ops/kernels/conv_grad.py::
+     conv2d_dgrad) on every conv call of the tower's forward but conv1, on
+     each of its routes that takes the layer (the planned one named), held
+     to cuDNN's conv2d_input on the unpadded weights within 1e-5 of its
+     largest value and to its plain version (padded input channels exactly
+     0), each route timed beside the parent's time (DGRAD_STEP0_MS), and
+     the weight
      gradient fn_conv2d_wgrad (csrc/conv2d_grad.cu) on every call, held
      to twice the plain float32 version's (torch.nn.grad.conv2d_weight
      and a sum) distance from its float64 run, each bit-equal on a repeat,
@@ -167,9 +169,10 @@ Phases (each prints its elapsed seconds):
      --plumeFrames 16 with 5 mixed steps, through the entry point. PUNet
      (PUNetD2_128's architecture: widths 96/128/128, dilation 2, 32 damped
      "xla" polish sweeps; ROADMAP A.5.1) the same way: every conv call's
-     input gradient (fn_conv2d_dgrad, at stride 2 on down1 and down2, the
-     skip concat's over [up | skip]) against the plain version and beside
-     cuDNN's conv2d_input, its
+     input gradient (fn_conv2d_dgrad, at stride 2 on down1 and down2 with
+     its output-parity classes' tap counts printed and the stride-2
+     subtotal, the skip concat's over [up | skip]) against the plain
+     version and cuDNN's conv2d_input, its
      weight gradient against float64; the polish adjoint
      (fn_jacobi_adjoint) bit for bit against its plain version on the
      512^2 stress flags and the batch's flags at 128^2, batch 64, timed;
@@ -186,7 +189,9 @@ on the 1000x100 map and the mg_learned and cylinder paths (learned_only),
 card-against-CPU checks and the 512^2 main paths of DataTrain_128 and
 ScaleNet_jets_128 (nets_only),
 `python3 chip_smoke.py --train-only` phase 8 alone and the kernels line
-of its five rows (train_only).
+of its five rows (train_only), `python3 chip_smoke.py --dgrad-only` the
+input gradient of phase 8 alone, every route on every layer
+(dgrad_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -252,6 +257,43 @@ STEP0_MS = {"G 512^2 cold": (0.2390, 1.2144),
             "C 32": (0.0668, 0.2268), "F 200": (0.1864, 0.3202),
             "D stress": (0.0342, 0.0373), "D scene": (0.0264, 0.0426),
             "D RT": (0.0137, 0.0274)}
+# Device ms of the input gradient before its redesign for Hopper (kernel
+# B's body with a transposed gather over padded channels), per conv call
+# of phase 8's nets at 128^2, batch 64 ("model layer map" -> ms), printed
+# beside this run's: `chip_smoke.py --train-only` in a checkout of the
+# commit before the redesign, NVIDIA H100 80GB HBM3 at 700 W.
+DGRAD_STEP0_MS = {"FluidNet bank_conv1 128x128": 0.7918,
+                  "FluidNet bank_conv2 128x128": 0.7987,
+                  "FluidNet bank_conv1 64x64": 0.2058,
+                  "FluidNet bank_conv2 64x64": 0.2059,
+                  "FluidNet bank_conv1 32x32": 0.0566,
+                  "FluidNet bank_conv2 32x32": 0.0565,
+                  "FluidNet conv2 128x128": 0.1958,
+                  "FluidNet conv3 128x128": 0.1976,
+                  "FluidNet convOut 128x128": 0.297,
+                  "ScaleNet convN_4/Conv_1 32x32": 0.1018,
+                  "ScaleNet convN_4/Conv_2 32x32": 0.0759,
+                  "ScaleNet convN_4/Conv_3 32x32": 0.064,
+                  "ScaleNet convN_2/Conv_0 64x64": 0.5253,
+                  "ScaleNet convN_2/Conv_1 64x64": 0.3828,
+                  "ScaleNet convN_2/Conv_2 64x64": 1.0106,
+                  "ScaleNet convN_2/Conv_3 64x64": 0.9848,
+                  "ScaleNet convN_2/Conv_4 64x64": 0.2753,
+                  "ScaleNet convN_2/Conv_5 64x64": 0.2286,
+                  "ScaleNet convN_1/Conv_0 128x128": 2.004,
+                  "ScaleNet convN_1/Conv_1 128x128": 1.4794,
+                  "ScaleNet convN_1/Conv_2 128x128": 3.8182,
+                  "ScaleNet convN_1/Conv_3 128x128": 3.7577,
+                  "ScaleNet convN_1/Conv_4 128x128": 1.0517,
+                  "ScaleNet convN_1/Conv_5 128x128": 2.0175,
+                  "ScaleNet final 128x128": 0.298,
+                  "PUNet enc0_0 16x16": 0.0827, "PUNet down1 16x16": 0.1215,
+                  "PUNet enc1_0 8x8": 0.0516, "PUNet down2 8x8": 0.056,
+                  "PUNet enc2_0 4x4": 0.0214, "PUNet mid0 4x4": 0.0211,
+                  "PUNet mid1 4x4": 0.0216, "PUNet mid2 4x4": 0.0215,
+                  "PUNet up1 4x4": 0.0152, "PUNet dec1_0 8x8": 0.0887,
+                  "PUNet up0 8x8": 0.0246, "PUNet dec0_0 16x16": 0.161,
+                  "PUNet head 16x16": 0.0155}
 
 
 def phase(name):
@@ -2931,7 +2973,7 @@ def train_counters():
     E and F."""
     from fluidnet_cxx_tpu_torch.ops.kernels import (advect, conv_grad, jacobi,
                                                     punet)
-    return {"B": punet.conv2d_nhwc, "dgrad": punet.conv2d_dgrad,
+    return {"B": punet.conv2d_nhwc, "dgrad": conv_grad.conv2d_dgrad,
             "wgrad": conv_grad.conv2d_wgrad,
             "F adjoint": jacobi.jacobi_adjoint,
             "E": advect.advect_velocity, "F": jacobi.solve_jacobi}
@@ -2988,40 +3030,81 @@ def plan_text(p):
             f"S {p.splits}")
 
 
-def b_on_flipped(dy, w_hwio, dil):
-    """Kernel B's forward on the weight flipped in both taps with c_in and
-    c_out swapped, dy's channels and the weight's rows widened with zeros
-    to the stage, all in the call: a stride-1 SAME conv's input gradient
-    the way the port took it through B itself before fn_conv2d_dgrad took
-    every stride, the yardstick of fn_conv2d_dgrad's stride-1 time."""
-    from fluidnet_cxx_tpu_torch.ops.kernels import punet
+def dgrad_layer(label, key, gy, w, conv, ci, co, stride, dil, hw, hp, gyn,
+                lo):
+    """The input gradient fn_conv2d_dgrad of one conv call on its real
+    channels (ci, co), on every route whose planner takes the layer (its
+    own pick among them), each held to cuDNN's conv2d_input on the
+    unpadded weight (``hp``, ``gyn``: the SAME-padded input's shape and
+    dy, NCHW) within 1e-5 of its largest value and to the plain version,
+    its padded channels exactly 0, bit-equal on a repeat, timed (device
+    ms). Returns the row's fields: the planned route's error and ms, each
+    route's ms, the plan's route, the plain version's and cuDNN's ms, the
+    parent's ms (DGRAD_STEP0_MS) and, at stride 2, the class tables' tap
+    counts."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad
 
-    pad = torch.nn.functional.pad
-    co = dy.shape[-1]
-    cp = punet.padded(co, punet.STAGE)
-    wt = w_hwio.flip(0, 1).transpose(2, 3)
-    if cp != co:
-        dy, wt = pad(dy, (0, cp - co)), pad(wt, (0, 0, 0, cp - co))
-    return punet.conv2d_nhwc(dy, wt.contiguous(), dy.new_zeros((wt.shape[3],)),
-                             1, dil)
+    n = gy.shape[0]
+    (hh, ww), k = hw, w.shape[0]
+
+    def lib():
+        return torch.nn.grad.conv2d_input(
+            hp.shape, conv.weight, gyn, stride=stride,
+            dilation=dil)[:, :, lo:lo + hh, lo:lo + ww]
+
+    def plain():
+        return conv_grad.conv2d_dgrad_plain(gy, w, dil, stride, hw, ci, co)
+
+    want = lib().permute(0, 2, 3, 1)
+    tol = 1e-5 * float(want.abs().max())
+    plan = conv_grad.plan_dgrad(n, hh, ww, ci, co, k, stride, dil)
+    row = dict(route=conv_grad.ROUTES[plan.route],
+               d_parent_ms=DGRAD_STEP0_MS.get(key, float("nan")),
+               taps=[len(c.taps) for c in conv_grad.dgrad_classes(
+                   hh, ww, k, stride, dil)])
+    for route, name in conv_grad.ROUTES.items():
+        try:
+            p = conv_grad.plan_dgrad(n, hh, ww, ci, co, k, stride, dil,
+                                     route)
+        except ValueError:  # the route does not take this layer
+            continue
+
+        def fn(p=p):
+            return conv_grad.conv2d_dgrad(gy, w, dil, stride, hw, ci, co, p)
+
+        got = fn()
+        torch.cuda.synchronize()
+        if bool(got[..., ci:].any()):
+            raise SystemExit(f"dgrad {label} ({name}): a padded input "
+                             "channel is not 0")
+        err = max_err([got[..., :ci]], [want])
+        check(f"dgrad {label} ({name}, kc {p.kc}, bn {p.bn}, S {p.splits})",
+              err, tol)
+        check(f"dgrad {label} ({name}) against its plain version",
+              max_err([got], [plain()]), tol)
+        del got
+        check_repeat(f"dgrad {label} ({name})", fn)
+        row[f"d_{name}_ms"] = graph_ms(fn)
+        if route == plan.route:
+            row["d_err"], row["d_ms"] = err, row[f"d_{name}_ms"]
+    row["d_plain_ms"] = graph_ms(plain)
+    row["d_lib_ms"] = graph_ms(lib)
+    return row
 
 
-def grad_layer_rows(model, net, x, dev):
+def grad_layer_rows(model, net, x, dev, with_wgrad=True):
     """The input gradient fn_conv2d_dgrad (a skip concat's over [up |
-    skip]) and fn_conv2d_wgrad on each conv call of ``net``'s padded
-    forward on ``x``, from a seeded upstream gradient (zero on the padded
-    output channels): the input gradient against cuDNN's conv2d_input on
-    the unpadded weights within 1e-5 of its largest value and against its
-    plain version, its padded input channels exactly 0 (skipped for the
-    first layer, whose input needs no gradient), at stride 1 timed beside
-    b_on_flipped (checked equal within the same tolerance); wgrad, over
-    the layer's real channels, within twice the plain float32 version's
-    distance from its float64 run, its padded entries exactly 0; both
-    bit-equal on a repeat; the same tolerance under fixed_wgrad_plan's
-    plan. Returns per-layer dicts of errors,
-    device ms of the kernel (under its planner's plan and under the fixed
-    one; the input gradient's also through b_on_flipped), the plain
-    version and cuDNN, its plans, and the unpadded work."""
+    skip]; dgrad_layer, skipped for the first layer, whose input needs no
+    gradient) and, ``with_wgrad``, fn_conv2d_wgrad on each conv call of
+    ``net``'s padded forward on ``x``, from a seeded upstream gradient
+    (zero on the padded output channels): wgrad over the layer's real
+    channels, within twice the plain float32 version's distance from its
+    float64 run, its padded entries exactly 0, bit-equal on a repeat; the
+    same tolerance under fixed_wgrad_plan's plan. Returns per-layer dicts
+    of errors, device ms of the kernels (dgrad's on each route it has,
+    beside the parent's; wgrad's under its planner's plan and under the
+    fixed one), the plain versions and cuDNN, the plans, and the unpadded
+    work."""
     from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad, punet
 
     F = torch.nn.functional
@@ -3041,11 +3124,12 @@ def grad_layer_rows(model, net, x, dev):
     rows = []
     first = calls[0][0]
     print(f"backward per layer, {model} at {x.shape[1]}^2, batch "
-          f"{x.shape[0]} (M; device ms: kernel / plain / cuDNN, at stride 1 "
-          "kernel B on the flipped weight beside them; wgrad's "
-          "bound on the unpadded work at the 3xTF32 rate, its error from "
-          "float64 beside the plain float32's, its plan; the fixed plan's "
-          "ms and plan):", flush=True)
+          f"{x.shape[0]} (M; device ms: dgrad kernel on its planned route / "
+          "plain / cuDNN, then each route's ms, the parent's ms and at "
+          "stride 2 the classes' tap counts; wgrad kernel / plain / cuDNN, "
+          "its bound on the unpadded work at the 3xTF32 rate, its error "
+          "from float64 beside the plain float32's, its plan; the fixed "
+          "plan's ms and plan):", flush=True)
     for name, (h, w, _, stride, dil, _, x2), _ in calls:
         if x2 is not None:
             h = torch.cat([h, x2], dim=-1)
@@ -3076,40 +3160,15 @@ def grad_layer_rows(model, net, x, dev):
                    fixed_plan=plan_text(fixed))
         with torch.no_grad():
             if name != first:
-                dgrad = (lambda gy=gy, w=w, s=stride, dil=dil, hw=(hh, ww):
-                         punet.conv2d_dgrad(gy, w, dil, s, hw))
-                dplain = (lambda gy=gy, w=w, s=stride, dil=dil, hw=(hh, ww):
-                          punet.conv2d_dgrad_plain(gy, w, dil, s, hw))
-                flipped = ((lambda gy=gy, w=w, dil=dil:
-                            b_on_flipped(gy, w, dil))
-                           if stride == 1 else None)
-                lib_in = (lambda hp=hp, c=c, gyn=gyn, s=stride, dil=dil,
-                          lo=pads[0], hh=hh, ww=ww:
-                          torch.nn.grad.conv2d_input(
-                              hp.shape, c.weight, gyn, stride=s,
-                              dilation=dil)[:, :, lo:lo + hh, lo:lo + ww])
-                got = dgrad()
-                want = lib_in().permute(0, 2, 3, 1)
-                torch.cuda.synchronize()
-                if bool(got[..., ci:].any()):
-                    raise SystemExit(f"dgrad {label}: a padded input "
-                                     "channel is not 0")
-                row["d_err"] = max_err([got[..., :ci]], [want])
-                check(f"dgrad {label}", row["d_err"],
-                      1e-5 * float(want.abs().max()))
-                check(f"dgrad {label} against its plain version",
-                      max_err([got], [dplain()]),
-                      1e-5 * float(want.abs().max()))
-                if flipped is not None:
-                    check(f"dgrad {label} against kernel B on the flipped "
-                          "weight", max_err([got], [flipped()]),
-                          1e-5 * float(want.abs().max()))
-                    row["d_flip_ms"] = graph_ms(flipped)
-                check_repeat(f"dgrad {label}", dgrad)
-                row["d_ms"] = graph_ms(dgrad)
-                row["d_plain_ms"] = graph_ms(dplain)
-                row["d_lib_ms"] = graph_ms(lib_in)
-                del got, want
+                row.update(dgrad_layer(
+                    label, f"{model} {name} {hh}x{ww}", gy, w, c, ci, co,
+                    stride, dil, (hh, ww), hp, gyn, pads[0]))
+
+            if not with_wgrad:
+                rows.append(row)
+                print(f"  {name:16s} k{k} s{stride} {ci:3d}->{co:3d} M "
+                      f"{m:8d}  {dgrad_text(row)}", flush=True)
+                continue
 
             def flat(pair):
                 return torch.cat([t.flatten() for t in pair])
@@ -3157,12 +3216,9 @@ def grad_layer_rows(model, net, x, dev):
                                             stride=s, dilation=dil))
         rows.append(row)
         r = row
-        d = (f"dgrad {r['d_ms']:.4f} / {r['d_plain_ms']:.4f} / "
-             f"{r['d_lib_ms']:.4f}" if "d_ms" in r else "dgrad skipped")
-        if "d_flip_ms" in r:
-            d += f" (B flipped {r['d_flip_ms']:.4f})"
         print(f"  {r['name']:16s} k{r['k']} s{r['stride']} {r['ci']:3d}->"
-              f"{r['co']:3d} M {r['m']:8d}  {d}  wgrad {r['w_ms']:.4f} / "
+              f"{r['co']:3d} M {r['m']:8d}  {dgrad_text(r)}  wgrad "
+              f"{r['w_ms']:.4f} / "
               f"{r['w_plain_ms']:.4f} / {r['w_lib_ms']:.4f}  bound "
               f"{bound(r['w_bytes'], r['ops'], TF32X3_OPS_PER_S)[0]:.4f}  "
               f"err {r['w_err']:.2e} (plain {r['w_plain_err']:.2e})  "
@@ -3171,12 +3227,46 @@ def grad_layer_rows(model, net, x, dev):
     return rows
 
 
+def dgrad_text(r):
+    """One layer's input-gradient figures as grad_layer_rows prints them."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad
+
+    if "d_ms" not in r:
+        return "dgrad skipped"
+    routes = ", ".join(f"{k[2:-3]} {v:.4f}" for k, v in r.items()
+                       if k.startswith("d_") and k.endswith("_ms")
+                       and k[2:-3] in conv_grad.ROUTES.values())
+    taps = f" class taps {r['taps']}" if r["stride"] == 2 else ""
+    return (f"dgrad {r['route']} {r['d_ms']:.4f} / {r['d_plain_ms']:.4f} / "
+            f"{r['d_lib_ms']:.4f} ({routes}; parent "
+            f"{r['d_parent_ms']:.4f}){taps}")
+
+
+def route_sums(rs):
+    """The input gradient's sums over the layers that more than one route
+    takes: each route's (over the layers it takes), the planned routes',
+    the fastest routes'."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad
+
+    keys = [f"d_{n}_ms" for n in conv_grad.ROUTES.values()]
+    multi = [r for r in rs if sum(k in r for k in keys) > 1]
+    if not multi:
+        return "one route a layer"
+    each = ", ".join(
+        f"{k[2:-3]} {sum(r[k] for r in multi if k in r):.4f} "
+        f"({sum(k in r for r in multi)})" for k in keys
+        if any(k in r for r in multi))
+    return (f"the {len(multi)} layers with more than one route: {each}; "
+            f"planned {sum(r['d_ms'] for r in multi):.4f}, fastest "
+            f"{sum(min(r[k] for k in keys if k in r) for r in multi):.4f}")
+
+
 def backward_results(rows, model="FluidNet"):
     """The kernels-line entries of the input gradient and the weight
     gradient over one backward of ``model`` (every layer's call summed),
     and the input gradient's stride-2 calls alone (where the net has
-    such layers); the stride-1 input gradients' sum beside kernel B's on
-    the flipped weights."""
+    such layers); the input gradient's sums beside the parent's and
+    route_sums'."""
     out = {}
     for key, p, keep in (("dgrad", "d", lambda r: True),
                          ("dgrad s2", "d", lambda r: r["stride"] == 2),
@@ -3194,10 +3284,8 @@ def backward_results(rows, model="FluidNet"):
         s1 = [r for r in rs if r["stride"] == 1]
         fixed = (f"; under the fixed plans (stride 1) "
                  f"{sum(r['w_fixed_ms'] for r in s1):.4f}" if p == "w" else
-                 f"; its stride-1 calls {sum(r['d_ms'] for r in s1):.4f}, "
-                 f"kernel B on the flipped weight "
-                 f"{sum(r['d_flip_ms'] for r in s1):.4f}" if key == "dgrad"
-                 else "")
+                 f"; the parent {sum(r['d_parent_ms'] for r in rs):.4f}; "
+                 + route_sums(rs))
         print(f"{key}, one {model} backward ({len(rs)} calls): kernel "
               f"{out[key]['ms']:.4f} ms device, plain "
               f"{out[key]['plain_ms']:.4f}, cuDNN {out[key]['library_ms']:.4f}"
@@ -3517,13 +3605,13 @@ def train_rows(results, launches):
     tower's training main path (ScaleNet's and PUNet's rows from their
     own)."""
     meta = {"dgrad": ("conv2d_dgrad_tower_128_b64",
-                      "fluidnet_cxx_tpu_torch/csrc/conv2d.cu",
+                      "fluidnet_cxx_tpu_torch/csrc/conv2d_dgrad.cu",
                       TRAIN_REPLACES, "FluidNet", "dgrad"),
             "dgrad scalenet": ("conv2d_dgrad_scalenet_128_b64",
-                               "fluidnet_cxx_tpu_torch/csrc/conv2d.cu",
+                               "fluidnet_cxx_tpu_torch/csrc/conv2d_dgrad.cu",
                                TRAIN_REPLACES, "ScaleNet", "dgrad"),
             "dgrad punet": ("conv2d_dgrad_punet_128_b64",
-                            "fluidnet_cxx_tpu_torch/csrc/conv2d.cu",
+                            "fluidnet_cxx_tpu_torch/csrc/conv2d_dgrad.cu",
                             TRAIN_REPLACES, "PUNet", "dgrad"),
             "F adjoint": ("jacobi_adjoint_punet_128_b64",
                           "fluidnet_cxx_tpu_torch/csrc/jacobi.cu",
@@ -3546,6 +3634,18 @@ def train_rows(results, launches):
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
     return out
+
+
+def dgrad_only(dev):
+    """`python3 chip_smoke.py --dgrad-only`: the input gradient alone on
+    every conv call of the tower, ScaleNet and PUNetD2_128's architecture
+    at 128^2, batch 64 (grad_layer_rows without wgrad), and its sums."""
+    for model in TRAIN_MODELS.values():
+        net = seeded_net(model, dev)
+        backward_results(grad_layer_rows(model, net, train_input(model, dev),
+                                         dev, with_wgrad=False), model)
+        del net
+        torch.cuda.empty_cache()
 
 
 def train_only(dev):
@@ -3616,6 +3716,9 @@ def main():
         return
     if sys.argv[1:] == ["--train-only"]:
         train_only(dev)
+        return
+    if sys.argv[1:] == ["--dgrad-only"]:
+        dgrad_only(dev)
         return
     results = {}
     phase_kernels(dev, results)

@@ -39,22 +39,14 @@
 // skip concat is a second input pointer (channels [x1 | x2], as punet.py
 // concatenates [upsampled, skip]).
 //
-// Two more entries share the gather and the epilogue. fn_conv2d_bf16 is
+// A second entry shares the gather and the epilogue: fn_conv2d_bf16 is
 // B's bfloat16 route (MGCoarse_128 as flax runs it): conv_mma.cuh's
 // tensor-core body conv_tc (kernel N's) with B's dilation, the epilogue
 // rounding the float32 sum to bfloat16 before the bias add and again
-// after it, as JAX does on the CPU. Bound on an H100 by operations
-// (0.089 GFLOP a 128^2 forward, 0.1 us at the dense bf16 rate); in
-// practice by launches on 16^2 and 8^2 maps. fn_conv2d_dgrad is the input
-// gradient of every conv that training differentiates (it replaces no TPU
-// kernel, JAX lets XLA differentiate flax's conv): this body over the
-// input's cells with a transposed gather, each tap reading dy where (y +
-// pad - tap) divides by the stride, else a zero-fill copy. At stride 1
-// that is kernel B's own gather on the flipped weight. Bound by
-// operations at the 3xTF32 rate: at stride 2, 1.2 GFLOP of useful
-// multiply-adds for PUNetD2_128's two downs at 128^2, batch 64 (7.3 us);
-// the gather does four times that, three quarters of it on zeros (one
-// launch per output parity class would skip them).
+// after it, as JAX does on the CPU. Bound on an H100 by operations (0.089
+// GFLOP a 128^2 forward, 0.1 us at the dense bf16 rate); in practice by
+// launches on 16^2 and 8^2 maps. The input gradient of this conv is
+// conv2d_dgrad.cu's, the weight gradient conv2d_grad.cu's.
 #include "conv_mma.cuh"
 
 namespace {
@@ -70,57 +62,6 @@ __host__ __device__ constexpr int stage_bytes(int bm, int bn) {
   return bm * kRowA + kChunk * row_w(bn);
 }
 
-// The transposed gather of the input gradient (kT): output cell m is an
-// input cell (y, x) of the forward conv, its row (its cell of dy's map
-// shifted by the pad, the sample's first cell of dy, y + pad, x + pad);
-// tap (ky, kx) reads dy at ((y + pad - ky * dil) / stride, ...) where that
-// divides exactly and lies inside dy, else a zero. Geom: hi x wi is dy's
-// map, ho x wo dx's, c1 dy's channels, co dx's.
-__device__ __forceinline__ void fill_rows_t(const Geom& g, int m0, int bm,
-                                            int4* rows, float* rscale) {
-  const int M = cells(g);
-  for (int r = threadIdx.x; r < bm; r += blockDim.x) {
-    int4 v = make_int4(0, 0, kNoRow, kNoRow);
-    if (m0 + r < M) {
-      int mc = m0 + r;
-      const int x = mc % g.wo + g.pad;
-      mc /= g.wo;
-      const int y = mc % g.ho + g.pad;
-      const int base = mc / g.ho * g.hi * g.wi;
-      v = make_int4(base + y * g.wi + x, base, y, x);
-    }
-    rows[r] = v;
-    rscale[r] = 1.f;
-  }
-}
-
-__device__ __forceinline__ void load_a_t(const Geom& g, const int4* rows,
-                                         int bm, const float* dy, int cc,
-                                         const Tap& t, char* dst) {
-  constexpr int kCopies = kChunk * 4 / 16;
-  for (int i = threadIdx.x; i < bm * kCopies; i += blockDim.x) {
-    const int r = i / kCopies, piece = i % kCopies;
-    const int4 rw = rows[r];
-    const int sy = rw.z - t.dy, sx = rw.w - t.dx;
-    bool ok;
-    int cell;
-    if (g.stride == 1) {
-      // B's own gather, mirrored: the row's cell less the tap's offset (a
-      // uniform branch; no division).
-      ok = sy >= 0 && sy < g.hi && sx >= 0 && sx < g.wi;
-      cell = rw.x - t.off;
-    } else {
-      const int oy = sy / g.stride, ox = sx / g.stride;
-      ok = sy >= 0 && sx >= 0 && oy * g.stride == sy &&
-           ox * g.stride == sx && oy < g.hi && ox < g.wi;
-      cell = rw.y + oy * g.wi + ox;
-    }
-    const float* src = ok ? dy + (size_t)cell * g.c1 + cc + piece * 4 : dy;
-    cp_async16(dst + r * kRowA + piece * 16, src, ok);
-  }
-}
-
-template <bool kT>
 __global__ void __launch_bounds__(kMaxThreads)
     conv2d_tf32x3(Args A, Plan P) {
   extern __shared__ __align__(16) char smem[];
@@ -130,10 +71,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   int4* rows = reinterpret_cast<int4*>(smem + kStages * stage);
   float* rscale = reinterpret_cast<float*>(rows + bm);
   const int m0 = blockIdx.x * bm, n0 = blockIdx.y * bn, split = blockIdx.z;
-  if (kT)
-    fill_rows_t(g, m0, bm, rows, rscale);
-  else
-    fill_rows(A, m0, bm, rows, rscale);
+  fill_rows(A, m0, bm, rows, rscale);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -147,9 +85,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int k0 = kb + kc * kChunk;
     char* st = smem + (kc % kStages) * stage;
     const Tap t = taps.next(g);  // chunks load in order
-    if (kT)
-      load_a_t(g, rows, bm, static_cast<const float*>(A.x1), t.c, t, st);
-    else if (t.c < g.c1)
+    if (t.c < g.c1)
       load_a<4>(g, rows, bm, A.x1, g.c1, t.c, t, st, kRowA);
     else
       load_a<4>(g, rows, bm, A.x2, g.c2, t.c - g.c1, t, st, kRowA);
@@ -267,36 +203,7 @@ extern "C" int fn_conv2d_nhwc(const float* x1, const float* x2,
     return static_cast<int>(cudaErrorInvalidValue);
   Args A{x1, x2, wgt, bias, in_scale, out, ws, g, relu, scale_mod};
   const int smem = kStages * stage_bytes(bm, bn) + bm * 20;
-  return launch_plan<float>(conv2d_tf32x3<false>, smem_set, A, P,
-                            plan_threads(P), smem,
-                            static_cast<cudaStream_t>(stream));
-}
-
-// The input gradient of a SAME conv of any stride: dx (n, hi, wi, ci)
-// from dy (n, ho, wo, c_dy) and the weight transposed to (k, k, c_dy, ci)
-// (HWIO with its last two axes swapped, not flipped), the forward's
-// stride, dilation and low pad; `zeros` is ci zero floats (the epilogue's
-// bias). The plan is conv_plan.py's for M = n*hi*wi, ci columns, K =
-// k*k*c_dy on the 3xTF32 route. Returns the launch status.
-extern "C" int fn_conv2d_dgrad(const float* dy, const float* wt,
-                               const float* zeros, float* dx, float* ws,
-                               int c_dy, int n, int ho, int wo, int hi,
-                               int wi, int ci, int k, int stride, int dil,
-                               int pad, int bm, int bn, int warp_m,
-                               int splits, const int* kbeg, void* stream) {
-  static int smem_set = 48 * 1024;
-  Plan P;
-  // The transposed geometry: dy is the gathered map, dx the output.
-  Geom g{n, 1, ho, wo, 1, hi, wi, ci, 1, k, stride, dil, pad, 0, c_dy, 0};
-  if (!read_plan(P, bm, bn, warp_m, splits, kbeg) || stride < 1 ||
-      dil < 1 || pad < 0 || ci < 1 || ci % 4 ||
-      !plan_ok(g, P, kChunk, 0, false) ||
-      (splits > 1) != (ws != nullptr) || !aligned16(dy) || !aligned16(wt) ||
-      (ws && !aligned16(ws)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  Args A{dy, nullptr, wt, zeros, nullptr, dx, ws, g, 0, 1};
-  const int smem = kStages * stage_bytes(bm, bn) + bm * 20;
-  return launch_plan<float>(conv2d_tf32x3<true>, smem_set, A, P,
+  return launch_plan<float>(conv2d_tf32x3, smem_set, A, P,
                             plan_threads(P), smem,
                             static_cast<cudaStream_t>(stream));
 }

@@ -15,8 +15,8 @@
 // Replaces no TPU kernel: the JAX package trains through flax nn.Conv and
 // lets XLA differentiate it (no Pallas kernel has a custom_vjp). It is
 // here because every conv on the card runs on kernel B, which has no
-// gradient of its own; the input gradient is conv2d.cu's fn_conv2d_dgrad,
-// B's body with a transposed gather (ops/kernels/punet.py::conv2d_dgrad).
+// gradient of its own; the input gradient is conv2d_dgrad.cu's
+// fn_conv2d_dgrad (ops/kernels/conv_grad.py::conv2d_dgrad).
 // Its plain version is torch.nn.grad.conv2d_weight and a sum over dy.
 //
 // What bounds it on an H100: operations. It is a GEMM of the im2col

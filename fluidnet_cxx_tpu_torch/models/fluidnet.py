@@ -14,11 +14,11 @@ the normalised fields -> un-scale -> wall BCs.
 Training (train/trainer.py) calls ``FluidNet`` with weights packed from
 the live parameters on every call (``pack_weights`` while autograd
 records): each conv then runs ``ops/kernels/punet.py::ConvNHWC``, whose
-backward is ``fn_conv2d_dgrad``'s transposed gather (any stride), split
-at a skip concat, and ``fn_conv2d_wgrad``; the damped polish runs
-``JacobiPolish`` (kernel F, then its transposed sweeps). The pooling,
-repeats, space-to-depth and resizes between the convs are torch glue
-that autograd differentiates, as in the forward.
+backward is ``fn_conv2d_dgrad`` (any stride: one pass per output-parity
+class), split at a skip concat, and ``fn_conv2d_wgrad``; the damped
+polish runs ``JacobiPolish`` (kernel F, then its transposed sweeps). The
+pooling, repeats, space-to-depth and resizes between the convs are torch
+glue that autograd differentiates, as in the forward.
 
 Fused path (refine-free PUNet): the forward takes the normalisation 1/s
 on its input's physical channel, then the projection tail

@@ -12,7 +12,8 @@ Every ``extern "C"`` entry launches its kernel (``fn_jacobi_solve``,
 ``fn_tail``, ``fn_jacobi3_solve``, ``fn_tail3``, ``fn_mg_solve`` and
 ``fn_mg_project``: the launches of a whole solve; ``fn_mg_learned_down``
 and ``fn_mg_learned_up``: the two halves of a learned V-cycle;
-``fn_conv2d_wgrad``: the partial tiles and their reduce) on the
+``fn_conv2d_wgrad``: the partial tiles and their reduce;
+``fn_conv2d_dgrad``: its one launch and, with splits, their reduce) on the
 stream it is given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
@@ -61,7 +62,7 @@ SIGNATURES = {
     "fn_tail": [VP] * 11 + [I] * 5 + [F, F, VP],
     "fn_conv2d_nhwc": [VP] * 7 + [I] * 18 + [VP, VP],
     "fn_conv2d_bf16": [VP] * 6 + [I] * 17 + [VP, VP],
-    "fn_conv2d_dgrad": [VP] * 5 + [I] * 15 + [VP, VP],
+    "fn_conv2d_dgrad": [VP] * 7 + [I] * 21 + [VP],
     "fn_conv2d_wgrad": [VP] * 5 + [I] * 22 + [VP],
     "fn_jacobi_solve": [VP] * 6 + [I] * 5 + [F, F, VP],
     "fn_jacobi_adjoint": [VP] * 5 + [I] * 4 + [F, F, VP],
@@ -91,6 +92,7 @@ QUERIES = {
     "fn_advect3_velocity_max_disp": [],
     "fn_advect3_velocity_smem": [I],
     "fn_conv2d_wgrad_plan": [I] * 8 + [VP],
+    "fn_conv2d_dgrad_plan": [I] * 8 + [VP],
 }
 
 

@@ -29,18 +29,20 @@ bfloat16, then the bias add rounded again (flax ``nn.Conv(dtype=
 pack time. Inference only.
 
 Training (``ConvNHWC``, through ``net_forward`` whenever autograd records):
-a conv's backward is hand kernels, its input gradient ``fn_conv2d_dgrad``
-(``conv2d_dgrad``: kernel B's body with a transposed gather, any stride),
-split at a skip concat, and its weight gradient ``fn_conv2d_wgrad``
-(``conv_grad.py``), which computes only the layer's real rows and columns
-(``net_forward`` passes them) and writes 0 in the padded ones. ``pack_weights`` pads through ops autograd follows,
-so the padded channels pass no gradient to the parameters.
+a conv's backward is hand kernels (``conv_grad.py``), both over the layer's
+real channels (``net_forward`` passes them) with 0 in the padded ones: its
+input gradient ``fn_conv2d_dgrad`` (``conv2d_dgrad``: one pass per
+output-parity class, so a stride-2 conv gathers and multiplies no zero
+tap; 3xTF32 ``mma.sync`` on thin layers, ``wgmma`` on the wide ones), split
+at a skip concat, and its weight gradient ``fn_conv2d_wgrad``.
+``pack_weights`` pads through ops autograd follows, so the padded channels
+pass no gradient to the parameters.
 """
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_grad import conv2d_wgrad
+from .conv_grad import conv2d_dgrad, conv2d_wgrad, same_pads
 from .conv_plan import CHUNK, plan_conv
 
 # Input channels a stage of the 3xTF32 route: every layer's input is
@@ -57,14 +59,6 @@ def widen(x, width):
     """NHWC ``x`` with zero channels appended up to ``width``; ``x`` itself
     when ``width`` is None (the plain version's chain)."""
     return x if width is None else F.pad(x, (0, width - x.shape[-1]))
-
-
-def same_pads(size: int, k: int, stride: int, dil: int):
-    """(lo, hi) padding of flax/XLA 'SAME' — on an even input a stride-2
-    3x3 conv pads (0, 1), not (1, 1)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + (k - 1) * dil + 1 - size, 0)
-    return total // 2, total - total // 2
 
 
 def _scaled(x, in_scale, scale_mod):
@@ -180,77 +174,15 @@ def _launch(x, w_hwio, bias, stride, dil, relu, x2, in_scale, scale_mod):
 conv2d_nhwc.launches = 0
 
 
-def conv2d_dgrad_plain(dy, w_hwio, dil=1, stride=1, in_hw=None):
-    """Plain version of ``conv2d_dgrad``: F.conv_transpose2d of ``dy`` with
-    the OIHW weight, cut to the input's SAME-padded window."""
-    in_hw = tuple(dy.shape[1:3]) if in_hw is None else in_hw
-    k = w_hwio.shape[0]
-    lo = [same_pads(n, k, stride, dil)[0] for n in in_hw]
-    g = F.conv_transpose2d(dy.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1),
-                           stride=stride, dilation=dil)
-    short = [max(0, lo[i] + in_hw[i] - g.shape[2 + i]) for i in (0, 1)]
-    g = F.pad(g, (0, short[1], 0, short[0]))
-    g = g[:, :, lo[0]:lo[0] + in_hw[0], lo[1]:lo[1] + in_hw[1]]
-    return g.permute(0, 2, 3, 1).contiguous()
-
-
-def conv2d_dgrad(dy, w_hwio, dil=1, stride=1, in_hw=None):
-    """Input gradient (n, *in_hw, c_in) of a SAME conv of stride ``stride``
-    with the HWIO weight ``w_hwio`` from the gradient ``dy`` (n, ho, wo,
-    c_out) of its output (``in_hw`` defaults to dy's map, right at stride
-    1): ``fn_conv2d_dgrad``, kernel B's 3xTF32 implicit GEMM over input
-    cells with a transposed gather (a tap reads dy where (y + pad - tap)
-    divides by the stride, else a zero: at stride 2 a quarter of the 3x3
-    taps of a cell on average), the weight transposed, not flipped; dy's
-    channels and the weight's rows widened with zeros to the stage where
-    they fall short of it (an output layer's 4). A new kernel: the JAX
-    package lets XLA differentiate the flax conv. Bound by operations (the
-    gathered zeros count as work done)."""
-    if not _build.on_cuda(dy):
-        return conv2d_dgrad_plain(dy, w_hwio, dil, stride, in_hw)
-    n, ho, wo, co = dy.shape
-    k, _, ci, _ = w_hwio.shape
-    dev = dy.device
-    _build.check(dy, "dy", torch.float32, (n, ho, wo, co), dev)
-    _build.check(w_hwio, "weight", torch.float32, (k, k, ci, co), dev)
-    if ci % 4:
-        raise ValueError("conv2d_dgrad needs c_in a multiple of 4")
-    hi, wi = (ho, wo) if in_hw is None else in_hw
-    if (-(-hi // stride), -(-wi // stride)) != (ho, wo):
-        raise ValueError(f"dy {ho}x{wo} is not the output of a stride-"
-                         f"{stride} SAME conv of {hi}x{wi}")
-    pad = _same_pad(hi, wi, k, stride, dil)[0]
-    cp = padded(co, STAGE)
-    wt = w_hwio.transpose(2, 3)
-    if cp != co:
-        dy = F.pad(dy, (0, cp - co))
-        wt = F.pad(wt, (0, 0, 0, cp - co))
-    wt = wt.contiguous()
-    m = n * hi * wi
-    plan = plan_conv(m, ci, k * k, cp, 0, "tf32x3")
-    dx = torch.empty((n, hi, wi, ci), dtype=torch.float32, device=dev)
-    ws = (torch.empty((plan.splits, m, ci), dtype=torch.float32, device=dev)
-          if plan.splits > 1 else None)
-    zeros = torch.zeros((ci,), dtype=torch.float32, device=dev)
-    _build.call("fn_conv2d_dgrad", dy.data_ptr(), wt.data_ptr(),
-                zeros.data_ptr(), dx.data_ptr(), _build.ptr(ws), cp, n, ho, wo,
-                hi, wi, ci, k, stride, dil, pad, plan.bm, plan.bn,
-                plan.warp_m, plan.splits, plan.c_bounds, _build.stream())
-    conv2d_dgrad.launches += 1
-    return dx
-
-
-conv2d_dgrad.launches = 0
-
-
 class ConvNHWC(torch.autograd.Function):
-    """``conv2d_nhwc`` with a backward of hand kernels: the upstream
-    gradient masked by ``out > 0`` under ReLU (jax's relu gradient at 0 is
-    0 too); the input gradient over [x | x2] (skipped when neither needs
-    one) from ``conv2d_dgrad``, split into x's and x2's channels;
-    ``conv_grad.conv2d_wgrad`` for the weight and bias over the layer's
-    real channels ``ci`` -> ``co`` (the padded entries of the packed
-    weight's gradient are 0), on the input the kernel saw: [x * in_scale | x2], assembled in torch. The
+    """``conv2d_nhwc`` with a backward of hand kernels, both over the
+    layer's real channels ``ci`` -> ``co`` (the padded entries of the
+    packed weight's gradient, and the padded channels of the input
+    gradient, are 0): the upstream gradient masked by ``out > 0`` under
+    ReLU (jax's relu gradient at 0 is 0 too); the input gradient over [x |
+    x2] (skipped when neither needs one) from ``conv2d_dgrad``, split into
+    x's and x2's channels; ``conv2d_wgrad`` for the weight and bias on the
+    input the kernel saw: [x * in_scale | x2], assembled in torch. The
     input and ``in_scale`` of a scaled conv take no gradient (JAX's scale
     comes from data or from the rollout's stop-gradient state): asserted
     by ``conv2d_nhwc_autograd``. Saves the inputs and the output."""
@@ -271,7 +203,8 @@ class ConvNHWC(torch.autograd.Function):
         gy = (torch.where(y > 0, gy, 0.0) if relu else gy).contiguous()
         dx = dx2 = dw = db = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            g = conv2d_dgrad(gy, w_hwio, dil, stride, x.shape[1:3])
+            g = conv2d_dgrad(gy, w_hwio, dil, stride, x.shape[1:3], ci,
+                             co)
             c1 = x.shape[-1]
             dx = g if x2 is None else g[..., :c1]
             dx2 = None if x2 is None else g[..., c1:]

@@ -27,6 +27,14 @@ points.
   (output 3e-2, pressure 8e-3 of the largest value); JAX's net gives the
   same output under both settings (1e-6), its V-cycle's pressure does
   not (printed: the scale of the gap that rounding order leaves).
+* The summation-order witness inside JAX (ROADMAP C.7): JAX's own
+  bfloat16 net on the transposed problem (flags and rhs transposed, each
+  kernel's taps transposed, the space-to-depth channel orders folded into
+  the weights that read or write them), which differs from the direct one
+  only in the order of its float32 sums (the float32 net commutes with the
+  transposition to 1e-5), transposed back and held to JAX's direct output:
+  its largest gap over the two 128^2 cut inputs within 3x of the port's
+  largest (``pytest -s`` prints both).
 """
 import flax.linen as nn
 import jax
@@ -37,6 +45,7 @@ import torch
 
 from conftest import random_flags
 from fluidnet_cxx_tpu.models import mg_coarse as j_mgc
+from fluidnet_cxx_tpu.models import punet as j_punet
 from fluidnet_cxx_tpu.ops import multigrid as j_mg
 from fluidnet_cxx_tpu.ops import stencils as j_st
 from fluidnet_cxx_tpu_torch.models import mg_coarse as t_mgc
@@ -230,3 +239,72 @@ def test_trained_gap_under_both_xla_settings(rng, p_obstacle):
     print(f"obstacles {p_obstacle}: JAX default against optimisations off, "
           f"output {_rel(b, a):.2e}, p {_rel(bp, ap):.2e}")
     assert _rel(b, a) <= 1e-6
+
+
+def _s2d_order(p, c):
+    """Channel j of space_to_depth(p) of a transposed map is channel
+    order[j] of the map's (patch offsets (dy, dx) swapped)."""
+    return np.arange(p * p * c).reshape(p, p, c).transpose(1, 0, 2).reshape(-1)
+
+
+def _transposed_params(params, patch):
+    """The flax PUNet's params for transposed inputs: every kernel's taps
+    transposed, s2d(patch)'s channel order folded into embed's input rows,
+    depth_to_space's into the up convs' (2) and head's (patch) outputs."""
+    out = {}
+    for name, d in params.items():
+        k = np.asarray(d["kernel"]).transpose(1, 0, 2, 3)
+        b = np.asarray(d["bias"])
+        if name == "embed":
+            k = k[:, :, _s2d_order(patch, k.shape[2] // patch ** 2)]
+        p = 2 if name.startswith("up") else patch if name == "head" else 0
+        if p:
+            order = _s2d_order(p, k.shape[-1] // p ** 2)
+            k, b = k[..., order], b[order]
+        out[name] = {"kernel": k, "bias": b}
+    return out
+
+
+def test_c7_summation_order_witness():
+    model = build_mg_coarse()
+    cfg = model.cfg
+    params = _flax_params(model)
+    net = params["params"]["punet"]
+    tparams = {"params": {"punet": _transposed_params(net, cfg.patch)}}
+    # The witness changes nothing but the summation order: in float32 the
+    # net commutes with the transposition.
+    p32 = j_punet.PUNet(patch=cfg.patch, widths=tuple(cfg.widths),
+                        level_convs=cfg.level_convs,
+                        bottleneck_convs=cfg.bottleneck_convs,
+                        bottleneck_dilation=cfg.bottleneck_dilation,
+                        refine_convs=0, dtype="float32")
+    x = np.random.default_rng(1).standard_normal((1, 128, 128, 2)).astype(
+        np.float32)
+    f32 = jax.jit(p32.apply)
+    a = np.asarray(f32({"params": net}, x))
+    b = np.asarray(f32({"params": tparams["params"]["punet"]},
+                       x.transpose(0, 2, 1, 3)))
+    commute = _rel(b.transpose(0, 2, 1, 3), a)
+    print(f"float32 net, transposed problem against direct: {commute:.2e}")
+    assert commute <= 1e-5
+
+    jnet = j_mgc.MGCoarseNet(j_mgc.MGCoarseConfig(**vars(cfg)))
+    apply = jax.jit(jnet.apply)
+    gaps = []
+    for p_obstacle in (0.0, 0.08):
+        flags, div = _scene(np.random.default_rng(0), p_obstacle)
+        flags_c, rhs_c = t_mg.mg_cut_rhs(torch.from_numpy(flags),
+                                         torch.from_numpy(div),
+                                         coarse_size=128)
+        with torch.no_grad():
+            got = model(flags_c, rhs_c).numpy()
+        f, r = flags_c.numpy(), rhs_c.numpy()
+        want = np.asarray(apply(params, f, r))
+        swapped = np.asarray(apply(tparams, f.transpose(0, 2, 1).copy(),
+                                   r.transpose(0, 2, 1).copy()))
+        gaps.append((_rel(got, want), _rel(swapped.transpose(0, 2, 1), want)))
+        print(f"obstacles {p_obstacle}: gap to JAX's bfloat16 net at the "
+              f"128^2 cut, port {gaps[-1][0]:.3e}, JAX's own on the "
+              f"transposed problem {gaps[-1][1]:.3e}")
+    port, own = max(g[0] for g in gaps), max(g[1] for g in gaps)
+    assert own * 3 >= port
