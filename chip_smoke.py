@@ -178,7 +178,18 @@ Phases (each prints its elapsed seconds):
      512^2 stress flags and the batch's flags at 128^2, batch 64, timed;
      its forward and backward, its 64^2 loss card against CPU, and its
      train main path (10 steps, the input gradient and the adjoint
-     counted); the kernels line's rows for them.
+     counted); the kernels line's rows for them;
+  9. the scene drivers' twins (`python -m fluidnet_cxx_tpu_torch.scripts.
+     run_plume`, `run_rayleigh_taylor`, `run_cylinder`) as users run them,
+     from the shipped YAMLs with realTimePlot false: the 128^2 plume under
+     jacobi-200 (with VTK), PUNetD2_128 on the flax path and multigrid,
+     mg_learned at 256^2; RT 128x512 jacobi-200 and multigrid; the
+     8000x800 cylinder under jacobi-34, multigrid and PUNetD2_128; each
+     straight (its files checked), then cut and resumed with --restartSim,
+     the final p, U and density bit-equal to the straight run's, with
+     ms/step, launches per step and mean/max|div|; then `python -m
+     fluidnet_cxx_tpu_torch.train --trainConfig configs/train.yaml
+     --onDevice 2 --bsz 8` to a finite loss.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
 `python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
@@ -191,7 +202,8 @@ ScaleNet_jets_128 (nets_only),
 `python3 chip_smoke.py --train-only` phase 8 alone and the kernels line
 of its five rows (train_only), `python3 chip_smoke.py --dgrad-only` the
 input gradient of phase 8 alone, every route on every layer
-(dgrad_only).
+(dgrad_only), `python3 chip_smoke.py --drivers-only` phase 9 alone
+(phase_drivers).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -3636,6 +3648,205 @@ def train_rows(results, launches):
     return out
 
 
+# The scene drivers' twins (python -m fluidnet_cxx_tpu_torch.scripts.*,
+# ROADMAP A.3 and A.9) at the shipped configs' sizes. Each case: (twin,
+# its flags, the changes to its shipped YAML (None: the cylinder, which
+# has none), the kernels it must launch, its restart check). A restart
+# check is (straight, cut, resumed): each a (maxIter, statIter) run, the
+# resumed one with --restartSim from the cut's restart.npz and stepped
+# singly to the stats grid first; its final p, U and density must equal
+# the straight run's bit for bit. The plume and RT take statIter from the
+# YAML, the cylinder from --statIter.
+PLUME_RESTART = ((60, 20), (30, 15), (60, 20))
+RT_RESTART = ((40, 10), (25, 25), (40, 10))
+CYL_RESTART = ((20, 10), (15, 15), (20, 10))
+DRIVER_CASES = {
+    "plume 128^2 jacobi-200 (VTK)": (
+        "run_plume", ["--simMethod", "jacobi"], {"saveVTK": True}, "AF",
+        PLUME_RESTART),
+    "plume 128^2 convnet PUNetD2_128 (flax path)": (
+        "run_plume", ["--simMethod", "convnet", "--modelDir",
+                      "trained_models/PUNetD2_128"], {"saveVTK": True},
+        "ABF", PLUME_RESTART),
+    "plume 128^2 multigrid": (
+        "run_plume", ["--simMethod", "multigrid"], {"saveVTK": True}, "AH",
+        PLUME_RESTART),
+    # At 128^2 MGCoarse_128 has no level below the finest to take over
+    # (ops/kernels/mg.py::plan_learned_cut): 256^2 puts the net at 128^2.
+    "plume 256^2 mg_learned MGCoarse_128": (
+        "run_plume", ["--simMethod", "mg_learned", "--modelDir",
+                      "trained_models/MGCoarse_128", "--resX", "256",
+                      "--resY", "256"], {"saveVTK": True},
+        ("A", "B", LEARNED_G), PLUME_RESTART),
+    f"RT {RT_W}x{RT_H} jacobi-200": (
+        "run_rayleigh_taylor", [], {"simMethod": "jacobi"}, "AF",
+        RT_RESTART),
+    f"RT {RT_W}x{RT_H} multigrid": (
+        "run_rayleigh_taylor", [], {"simMethod": "multigrid"}, "AG",
+        RT_RESTART),
+    f"cylinder {CYL_W}x{CYL_H} jacobi-34": (
+        "run_cylinder", ["--simMethod", "jacobi"], None, "EF", CYL_RESTART),
+    f"cylinder {CYL_W}x{CYL_H} multigrid": (
+        "run_cylinder", ["--simMethod", "multigrid"], None, "EH",
+        CYL_RESTART),
+    f"cylinder {CYL_W}x{CYL_H} convnet PUNetD2_128 (flax path)": (
+        "run_cylinder", ["--simMethod", "convnet"], None, "EBF",
+        CYL_RESTART),
+}
+YAML_OF = {"run_plume": "plume.yaml",
+           "run_rayleigh_taylor": "rayleighTaylor.yaml"}
+
+
+def twin_argv(twin, flags, changes, work, run, out, restart=False):
+    """The argv of one run of a twin: its shipped YAML with ``changes``,
+    realTimePlot false and statIter from ``run``, written into ``work``;
+    or, for the cylinder (``changes`` None), --statIter and --realTimePlot
+    false."""
+    from fluidnet_cxx_tpu_torch.config import dump_yaml, load_yaml
+
+    max_iter, stat_iter = run
+    argv = flags + ["--maxIter", str(max_iter), "--outputFolder", str(out)]
+    argv += ["--restartSim"] if restart else []
+    if changes is None:
+        return argv + ["--statIter", str(stat_iter), "--realTimePlot",
+                       "false"]
+    conf = dict(load_yaml(f"configs/{YAML_OF[twin]}"), **changes,
+                realTimePlot=False, statIter=stat_iter)
+    path = work / f"{twin}_{stat_iter}.yaml"
+    dump_yaml(conf, str(path))
+    return ["--simConf", str(path)] + argv
+
+
+def drive_twin(name, twin, argv, counters):
+    """One run of a twin's main(argv) on the card with the counters set to
+    0 just before and read just after; prints and returns (its result,
+    the launches)."""
+    import importlib
+
+    main = importlib.import_module(
+        f"fluidnet_cxx_tpu_torch.scripts.{twin}").main
+    for fn in counters.values():
+        fn.launches = 0
+    res = main(argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if not res["finite"]:
+        raise SystemExit(f"{name}: a field is not finite")
+    n = max(res["steps"], 1)
+    loop_ms = (res["ms_per_step"] * n - res["outputs_ms"]) / n
+    print(f"{name} [{res['start_it']}->{res['it']}]: ms/step "
+          f"{res['ms_per_step']:.4f} with outputs, {loop_ms:.4f} without "
+          f"({res['outputs_ms']:.1f} ms of outputs); mean|div| "
+          f"{res['mean_div']:.6g} max|div| {res['max_div']:.6g}; launches "
+          f"per step {({k: v / n for k, v in launches.items()})}",
+          flush=True)
+    return res, launches
+
+
+def check_driver_files(name, twin, out, run):
+    """The files a twin wrote at every stats point of ``run`` (from 0):
+    restart.npz at the last, and the plume's VTK (finite) or RT's
+    distance.npy and avg_density.npy (a finite row a stats point)."""
+    import numpy as np
+
+    max_iter, stat_iter = run
+    points = list(range(stat_iter, max_iter + 1, stat_iter))
+    with np.load(out / "restart.npz") as z:
+        if int(z["it"]) != points[-1]:
+            raise SystemExit(f"{name}: restart.npz holds it={int(z['it'])}")
+    if twin == "run_plume":
+        for it in points:
+            vtk = out / f"snap_{it:06d}.vtk"
+            data = vtk.read_text().split("POINT_DATA", 1)[1]
+            cells = int(data.split()[0])
+            # The numbers below the SCALARS, LOOKUP_TABLE and VECTORS
+            # lines ("nan" and "inf" included): 4 scalars and 3 vectors of
+            # 3 components a cell.
+            vals = [float(v) for line in data.splitlines()[1:]
+                    if not line[:1].isupper() for v in line.split()]
+            if len(vals) != 13 * cells or not np.isfinite(vals).all():
+                raise SystemExit(f"{name}: {vtk.name} is empty or not "
+                                 "finite")
+        print(f"{name}: VTK at it {points}, finite", flush=True)
+    if twin == "run_rayleigh_taylor":
+        for f in ("distance.npy", "avg_density.npy"):
+            rows = np.load(out / f)
+            if rows.shape != (len(points), 2) or not np.isfinite(rows).all():
+                raise SystemExit(f"{name}: {f} {rows}")
+        print(f"{name}: distance.npy {np.load(out / 'distance.npy')[-1]}, "
+              f"avg_density.npy {np.load(out / 'avg_density.npy')[-1]}",
+              flush=True)
+
+
+def phase_drivers():
+    """The scene drivers' twins as users run them: each case of
+    DRIVER_CASES straight, with its files checked, then cut and resumed
+    with --restartSim (bit-equal to the straight run); then the training
+    entry point with --trainConfig configs/train.yaml for two on-device
+    steps (its configs printed, a finite loss). Works in build/
+    drivers_smoke, removed after."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from fluidnet_cxx_tpu_torch.train.__main__ import main as train_main
+
+    counters = launch_counters()
+    work = Path(__file__).resolve().parent / "build" / "drivers_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        for name, (twin, flags, changes, kernels, runs) in \
+                DRIVER_CASES.items():
+            done = phase(f"driver {name}")
+            straight, cut, resumed = runs
+            a, b = work / "straight", work / "cut"
+            res, launches = drive_twin(name, twin, twin_argv(
+                twin, flags, changes, work, straight, a), counters)
+            missed = [k for k in kernels if k not in launches]
+            if missed:
+                raise SystemExit(f"{name} missed kernels {missed}: "
+                                 f"{launches}")
+            check_driver_files(name, twin, a, straight)
+            drive_twin(name, twin, twin_argv(twin, flags, changes, work, cut,
+                                             b), counters)
+            again, _ = drive_twin(name, twin, twin_argv(
+                twin, flags, changes, work, resumed, b, restart=True),
+                counters)
+            if again["start_it"] != cut[0]:
+                raise SystemExit(f"{name}: resumed at {again['start_it']}")
+            for f in ("p", "U", "density"):
+                if not torch.equal(getattr(again["state"], f),
+                                   getattr(res["state"], f)):
+                    raise SystemExit(f"{name}: {f} after the restart differs "
+                                     "from the straight run")
+            print(f"{name}: restarted at {cut[0]}, final p, U, density "
+                  "bit-equal to the straight run", flush=True)
+            del res, again
+            shutil.rmtree(a)
+            shutil.rmtree(b)
+            done()
+        done = phase("train --trainConfig configs/train.yaml --onDevice 2")
+        tc = train_counters()
+        for fn in tc.values():
+            fn.launches = 0
+        model_dir = work / "model"
+        train_main(["--trainConfig", "configs/train.yaml", "--onDevice", "2",
+                    "--bsz", "8", "--modelDir", str(model_dir)])
+        torch.cuda.synchronize()
+        rows = np.load(model_dir / "train_loss.npy")
+        if rows.shape != (1, 7) or not np.isfinite(rows).all():
+            raise SystemExit(f"--trainConfig: loss rows {rows}")
+        print(f"--trainConfig: loss {rows[0, 1]:.6g} after 2 steps; "
+              f"launches per step "
+              f"{({k: fn.launches / 2 for k, fn in tc.items()})}",
+              flush=True)
+        done()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def dgrad_only(dev):
     """`python3 chip_smoke.py --dgrad-only`: the input gradient alone on
     every conv call of the tower, ScaleNet and PUNetD2_128's architecture
@@ -3720,6 +3931,9 @@ def main():
     if sys.argv[1:] == ["--dgrad-only"]:
         dgrad_only(dev)
         return
+    if sys.argv[1:] == ["--drivers-only"]:
+        phase_drivers()
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -3738,6 +3952,7 @@ def main():
         phase_profile(name, case)
     phase_bench()
     train_launches = phase_train(dev, results)
+    phase_drivers()
 
     # Launches of each kernel on the first main path that must launch it.
     path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)

@@ -24,7 +24,8 @@ trained_models/DataTrain_128`` runs the FluidNetTower, every conv on
 kernel B), which the stick walls send through the step's unfused branch,
 as in the JAX ``scripts/run_cylinder.py``. The run loop is
 ``sim/driver.py::run_simulation`` with its CFL guard, without plotting or
-restarts.
+restarts (its twin with both is ``scripts/run_cylinder.py`` of this
+package).
 
 Prints ms/step (CUDA events on the card, the host clock on the CPU, over
 the whole run loop), mean|div| and max|div| over fluid cells after the
@@ -35,18 +36,16 @@ weights (``"model"``, ``"weights"``). Runs on the card unless
 """
 import argparse
 import json
-import time
 
 import torch
 
-from .celltype import FLUID
 from .config import load_model_config
-from .ops.stencils import velocity_divergence
 from .ops.window import max_displacement
 from .run_plume import (MODEL_DIR, learned_projection, resolve_device,
                         weights_label)
-from .sim.driver import run_simulation
+from .scripts import finite, timed_run
 from .sim.scenes import create_cylinder_scene, cylinder_config
+from .utils.diagnostics import div_stats
 
 SIM_METHODS = ("jacobi", "multigrid", "convnet")
 
@@ -55,11 +54,13 @@ def cylinder_case(res_x: int = 8000, res_y: int = 800, device="cuda",
                   reynolds: float = 100.0, radius: float = 80.5,
                   center_x: float = 500.0, inlet_vel: float = 1.0,
                   jacobi_iter: int = 34, sim_method: str = "jacobi",
-                  model_dir=MODEL_DIR, weight_seed=None):
+                  model_dir=MODEL_DIR, weight_seed=None,
+                  flax_path: bool = False):
     """(SimConfig, initial SimState, project_fn) of the cylinder case;
     project_fn is the learned projection of ``model_dir`` (its trained
-    weights, or seed weights from ``weight_seed``) for "convnet", else
-    None."""
+    weights, or seed weights from ``weight_seed``; on the flax path under
+    ``flax_path``, see ``run_plume.learned_projection``) for "convnet",
+    else None."""
     if sim_method not in SIM_METHODS:
         raise ValueError(f"sim_method {sim_method!r}: the cylinder runs "
                          f"{', '.join(SIM_METHODS)}")
@@ -71,7 +72,8 @@ def cylinder_case(res_x: int = 8000, res_y: int = 800, device="cuda",
                           use_pallas=True, sim_method=sim_method)
     project = None
     if sim_method == "convnet":
-        project = learned_projection(model_dir, weight_seed, dev)
+        project = learned_projection(model_dir, weight_seed, dev,
+                                     flax_path)
     return cfg, state, project
 
 
@@ -93,34 +95,19 @@ def run_cylinder(res_x: int = 8000, res_y: int = 800, steps: int = 20,
     def on_stats(st, it):
         disp.append(float(max_displacement(st.U, cfg.dt)))
 
-    on_card = state.U.device.type == "cuda"
-    if on_card:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-    t0 = time.perf_counter()
-    state = run_simulation(cfg, state, steps, stat_iter, project,
-                           on_stats=on_stats, verbose=verbose)
-    if on_card:
-        end.record()
-        end.synchronize()
-        elapsed_ms = start.elapsed_time(end)
-    else:
-        elapsed_ms = 1e3 * (time.perf_counter() - t0)
-    fluid = state.flags == FLUID
-    div = velocity_divergence(state.U, state.flags).abs() * fluid
+    state, run = timed_run(cfg, state, steps, stat_iter, project, on_stats,
+                           verbose=verbose)
     net = {}
     if project is not None:
         net = {"model": load_model_config(str(model_dir)).model,
                "weights": weights_label(weight_seed)}
     return {
         "state": state,
-        "ms_per_step": elapsed_ms / max(steps, 1),
-        "mean_div": float(div.sum() / fluid.sum()),
-        "max_div": float(div.max()),
+        "ms_per_step": run["ms_per_step"],
+        **div_stats(state.U, state.flags),
         "max_U": float(state.U.abs().max()),
         "max_disp": max(disp, default=0.0),
-        "finite": all(bool(torch.isfinite(t).all())
-                      for t in (state.U, state.p)),
+        "finite": finite(state),
         **net,
     }
 

@@ -63,6 +63,7 @@ from .models.mg_coarse import (MGCoarseNet, load_mg_coarse,
                                load_mg_coarse_config,
                                make_project_fn_mg_learned)
 from .models.punet import ConvNet
+from .scripts import finite
 from .ops.stencils import velocity_divergence
 from .sim.scenes import create_plume_scene, plume_config
 from .sim.step import simulate_step
@@ -114,14 +115,16 @@ def build_mg_coarse(weight_seed=None, device="cpu",
     return net.to(device).eval()
 
 
-def learned_projection(model_dir, weight_seed=None, device="cpu"):
+def learned_projection(model_dir, weight_seed=None, device="cpu",
+                       flax_path: bool = False):
     """The project_fn of the checkpoint in ``model_dir``: the fused path
-    for a refine-free PUNet, the flax path (``FluidNet``) for every other
-    network."""
+    for a refine-free PUNet, the flax path (``FluidNet``, as the JAX
+    scene scripts run every network) for every other network, or for all
+    under ``flax_path``."""
     mcfg = load_model_config(str(model_dir))
     net = build_net(mcfg, weight_seed, device, model_dir)
     fused = (mcfg.model == "PUNet" and mcfg.punet_refine_convs == 0
-             and mcfg.compute_dtype == "float32")
+             and mcfg.compute_dtype == "float32" and not flax_path)
     make = make_project_fn_fused_forward if fused else make_project_fn
     return make(mcfg, net)
 
@@ -257,9 +260,7 @@ def main(argv=None):
     print(json.dumps({
         "res": args.res, "steps": args.steps, "sim_method": args.sim_method,
         "fuse_advection": args.fuse_advection,
-        **out, "rho_max": float(st.density.max()),
-        "finite": all(bool(torch.isfinite(t).all())
-                      for t in (st.U, st.p, st.density)),
+        **out, "rho_max": float(st.density.max()), "finite": finite(st),
     }))
 
 

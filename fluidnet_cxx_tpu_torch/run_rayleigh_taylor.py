@@ -4,56 +4,72 @@
     python -m fluidnet_cxx_tpu_torch.run_rayleigh_taylor \\
         --sim-method multigrid
 
-The case is ``configs/rayleighTaylor.yaml``: a 128 wide x 512 high box,
-``rayleigh_taylor_config`` (dt 0.5, buoyancy 1.0 along +y, periodic in y)
-with the Jacobi projection (``--jacobi-iter`` sweeps, 200 shipped) or
+The case is ``configs/rayleighTaylor.yaml`` (``rt_case_from_conf``, which
+the twin ``scripts/run_rayleigh_taylor.py`` builds its case with): a 128
+wide x 512 high box, dt 0.5, buoyancy 1.0 along +y, periodic in y, with
+the Jacobi projection (``--jacobi-iter`` sweeps, 200 shipped) or
 multigrid (``--mg-vcycles`` V-cycles), over the tanh density interface at
 mid-height with a cosine perturbation. The JAX package's
-``scripts/run_rayleigh_taylor.py`` without plotting or restarts.
+``scripts/run_rayleigh_taylor.py`` without plotting or restarts (its
+twin with both is ``scripts/run_rayleigh_taylor.py`` of this package).
 
 Prints ms/step (CUDA events on the card, the host clock on the CPU), the
-mean density (conserved up to the advection's clamps), max|div| over
-fluid cells, the interface's distance from mid-height and whether every
-field is finite. Runs on the card unless ``--device cpu`` is given.
+mean density (conserved up to the advection's clamps), mean and max|div|
+over fluid cells, the interface's distance from mid-height and whether
+every field is finite. Runs on the card unless ``--device cpu`` is given.
 """
 import argparse
+import dataclasses
 import json
-import time
 
 import torch
 
-from .celltype import FLUID
-from .ops.stencils import velocity_divergence
+from .config import sim_config_from_mconf
 from .run_plume import resolve_device
-from .sim.scenes import create_rayleigh_taylor_scene, rayleigh_taylor_config
-from .sim.step import simulate_step
+from .scripts import finite, timed_run
+from .sim.scenes import create_rayleigh_taylor_scene
+from .utils.diagnostics import div_stats, mean_density, rt_interface_distance
+
+SIM_METHODS = ("jacobi", "multigrid")
+# The keys the JAX scripts/run_rayleigh_taylor.py sets where its config
+# does not.
+RT_DEFAULTS = {"periodic-y": True, "periodic-x": False, "dt": 0.5,
+               "buoyancyScale": 1.0,
+               "gravityVec": {"x": 0.0, "y": 1.0, "z": 0.0}}
 
 
-def rt_interface_distance(density, res_y: int) -> float:
-    """Where the centre column's density first crosses zero upward
-    (linear interpolation), relative to mid-height."""
-    col = density[0][:, density.shape[-1] // 2]
-    crossing = (col[:-1] < 0) & (col[1:] > 0)
-    idx = int(torch.argmax(crossing.to(torch.int32)))
-    r1, r2 = col[idx], col[idx + 1]
-    m = r1 - r2
-    frac = float(r1 / m) if float(m.abs()) > 1e-12 else 0.5
-    return idx + frac - res_y // 2
-
-
-def mean_density(density) -> float:
-    return float(density.mean())
+def rt_case_from_conf(conf, device="cuda"):
+    """(SimConfig, initial SimState) of a rayleighTaylorConfig-style dict
+    (``configs/rayleighTaylor.yaml``'s keys) with ``RT_DEFAULTS`` filled
+    in: ``sim_config_from_mconf`` with its ``simMethod`` (jacobi or
+    multigrid), and the tanh interface of ``resX`` x ``resY`` from
+    ``rho1``, ``rho2``, ``perturbThickness``, ``perturbAmplitude`` and
+    ``height``."""
+    conf = {**RT_DEFAULTS, **conf}
+    method = conf.get("simMethod", "jacobi")
+    if method not in SIM_METHODS:
+        raise ValueError(f"simMethod {method!r}: the Rayleigh-Taylor case "
+                         f"runs {', '.join(SIM_METHODS)}")
+    cfg = dataclasses.replace(sim_config_from_mconf(conf), sim_method=method,
+                              use_pallas=True)
+    scene = create_rayleigh_taylor_scene(
+        int(conf.get("resX", 128)), int(conf.get("resY", 512)),
+        rho1=float(conf.get("rho1", -0.01)),
+        rho2=float(conf.get("rho2", 0.01)),
+        perturb_thickness=float(conf.get("perturbThickness", 100)),
+        perturb_amplitude=float(conf.get("perturbAmplitude", 0.01)),
+        height=float(conf.get("height", 0.5)), device=resolve_device(device))
+    return cfg, scene
 
 
 def rt_case(res_x: int = 128, res_y: int = 512, device="cuda",
             sim_method: str = "jacobi", jacobi_iter: int = 200,
             mg_vcycles: int = 2):
     """(SimConfig, initial SimState) of the Rayleigh-Taylor case."""
-    dev = resolve_device(device)
-    cfg = rayleigh_taylor_config(sim_method=sim_method, use_pallas=True,
-                                 jacobi_iter=jacobi_iter,
-                                 mg_vcycles=mg_vcycles)
-    return cfg, create_rayleigh_taylor_scene(res_x, res_y, device=dev)
+    cfg, state = rt_case_from_conf(
+        {"resX": res_x, "resY": res_y, "simMethod": sim_method,
+         "jacobiIter": jacobi_iter}, device)
+    return dataclasses.replace(cfg, mg_vcycles=mg_vcycles), state
 
 
 @torch.no_grad()
@@ -64,29 +80,16 @@ def run_rayleigh_taylor(res_x: int = 128, res_y: int = 512, steps: int = 20,
     ``ms_per_step`` and the diagnostics."""
     cfg, state = rt_case(res_x, res_y, device, sim_method, jacobi_iter,
                          mg_vcycles)
-    on_card = state.U.device.type == "cuda"
-    if on_card:
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        state = simulate_step(cfg, state)
-    if on_card:
-        end.record()
-        end.synchronize()
-        elapsed_ms = start.elapsed_time(end)
-    else:
-        elapsed_ms = 1e3 * (time.perf_counter() - t0)
-    fluid = state.flags == FLUID
-    div = velocity_divergence(state.U, state.flags).abs() * fluid
+    state, run = timed_run(cfg, state, steps, max(steps, 1),
+                           verbose=False)
     return {
         "state": state,
-        "ms_per_step": elapsed_ms / max(steps, 1),
-        "mean_density": mean_density(state.density),
-        "max_div": float(div.max()),
-        "interface_distance": rt_interface_distance(state.density, res_y),
-        "finite": all(bool(torch.isfinite(t).all())
-                      for t in (state.U, state.p, state.density)),
+        "ms_per_step": run["ms_per_step"],
+        "mean_density": float(mean_density(state.density)),
+        **div_stats(state.U, state.flags),
+        "interface_distance": float(rt_interface_distance(state.density,
+                                                          res_y)),
+        "finite": finite(state),
     }
 
 

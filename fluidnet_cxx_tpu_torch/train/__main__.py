@@ -5,18 +5,22 @@
         --punetWidths 96,128,128 --punetDilation 2 --polishSweeps 32
     python -m fluidnet_cxx_tpu_torch.train --synthetic 16 --maxEpochs 2 \\
         [--dataDir DIR] [--modelDir DIR] [--resume]
+    python -m fluidnet_cxx_tpu_torch.train --trainConfig configs/train.yaml \\
+        --onDevice 200
 
 ``--onDevice N`` takes N steps on synthetic batches drawn on the card
 (labels from ``--labelIters`` Jacobi sweeps), mixed with plume rollout
 frames under ``--plumeFrames``; otherwise it trains by epochs on a
 dataset of ``.npz`` scenes (``--synthetic N`` writes N synthetic scenes
-first). The configuration is ``configs/train.yaml``'s (``TrainConfig()``,
-``ModelConfig()``, ``SimConfig()``) with the flags' overrides; a YAML file
-(``--trainConfig``) is ROADMAP A.3. Runs on the card unless ``--device
-cpu`` is given. The second line trains PUNetD2_128's architecture (its
-damped "xla" polish differentiated by kernel F's transposed sweeps).
-Writes ``train_loss.npy`` (and ``val_loss.npy``), ``last_epoch/``,
-``best/`` and ``model_config.json`` under ``--modelDir``.
+first). The second line trains PUNetD2_128's architecture (its damped
+"xla" polish differentiated by kernel F's transposed sweeps). The
+configuration is the ``--trainConfig`` YAML's, read as the JAX
+``scripts/train.py`` reads it (``train_config_from_yaml``, and
+``model_config_from_mconf`` and ``sim_config_from_mconf`` of its
+``modelParam``), or the defaults without one (``configs/train.yaml``'s
+values), with the flags' overrides. Runs on the card unless ``--device
+cpu`` is given. Writes ``train_loss.npy`` (and ``val_loss.npy``),
+``last_epoch/``, ``best/`` and ``model_config.json`` under ``--modelDir``.
 """
 import argparse
 import dataclasses
@@ -25,7 +29,8 @@ import time
 
 import torch
 
-from ..config import ModelConfig, SimConfig, TrainConfig
+from ..config import (load_yaml, model_config_from_mconf,
+                      sim_config_from_mconf, train_config_from_yaml)
 from ..data.dataset import FluidDataset, sample_to_batch
 from ..data.synthetic import write_synthetic_dataset
 from ..models.fluidnet import FluidNet, make_project_fn
@@ -47,7 +52,7 @@ LOG_EVERY = 50
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m fluidnet_cxx_tpu_torch.train")
     ap.add_argument("--trainConfig", default=None,
-                    help="a YAML training config (not ported: ROADMAP A.3)")
+                    help="a YAML training config (configs/train.yaml)")
     ap.add_argument("--dataDir", default=None)
     ap.add_argument("--synthetic", type=int, default=0,
                     help="generate N synthetic scenes into dataDir first")
@@ -89,25 +94,26 @@ def parse_args(argv=None):
 
 
 def configs(args):
-    """(ModelConfig, TrainConfig, SimConfig) of the flags."""
-    if args.trainConfig:
-        raise NotImplementedError(
-            "not ported yet: the YAML config loader (ROADMAP A.3); "
-            "TrainConfig() holds configs/train.yaml's values")
-    tc = TrainConfig()
+    """(ModelConfig, TrainConfig, SimConfig) of the ``--trainConfig`` YAML
+    (the defaults without one) with the flags' overrides, as the JAX
+    ``scripts/train.py`` builds them."""
+    conf = (load_yaml(args.trainConfig) or {}) if args.trainConfig else {}
+    mconf = dict(conf.get("modelParam") or {})
+    tc = train_config_from_yaml(conf)
     over = {"max_epochs": args.maxEpochs, "batch_size": args.bsz,
             "lr": args.lr, "p_l2_lambda": args.pL2}
     tc = dataclasses.replace(tc, **{k: v for k, v in over.items()
                                     if v is not None})
-    punet = {}
+    if args.model:
+        mconf["model"] = args.model
+    if args.polishSweeps is not None:
+        mconf["polishSweeps"] = args.polishSweeps
     if args.punetWidths:
-        punet["punet_widths"] = tuple(int(v) for v in
-                                      args.punetWidths.split(","))
+        mconf["punetWidths"] = [int(v) for v in args.punetWidths.split(",")]
     if args.punetDilation is not None:
-        punet["punet_bottleneck_dilation"] = args.punetDilation
-    mcfg = ModelConfig(model=args.model or "FluidNet",
-                       polish_sweeps=args.polishSweeps or 0, **punet)
-    return mcfg, tc, SimConfig()
+        mconf["punetBottleneckDilation"] = args.punetDilation
+    return (model_config_from_mconf(mconf), tc,
+            sim_config_from_mconf(mconf))
 
 
 def mean_terms(terms_list):
@@ -275,6 +281,8 @@ def main(argv=None):
     args = parse_args(argv)
     dev = resolve_device(args.device)
     mcfg, tc, scfg = configs(args)
+    if args.trainConfig:
+        print(f"{args.trainConfig}: {tc}\n{mcfg}\n{scfg}", flush=True)
     check_trainable(mcfg, dev)
     if args.onDevice:
         train_on_device(args, mcfg, tc, scfg, dev)

@@ -1,18 +1,24 @@
-"""Train checkpoints (the port of the JAX package's ``train/checkpoint.py``,
-its training half; the simulation restarts are ROADMAP A.9).
+"""Train checkpoints and simulation restarts (the port of the JAX
+package's ``train/checkpoint.py``).
 
-``<model_dir>/last_epoch/train_state.pt`` (and ``best/`` for the best so
-far) holds, by ``torch.save``, the network's parameters (the state_dict
-layout of ``trained_models/*/torch_state_dict.pt``), the Adam state, the
-plateau state, ``step``, ``epoch`` and ``best_perf``;
+Training: ``<model_dir>/last_epoch/train_state.pt`` (and ``best/`` for the
+best so far) holds, by ``torch.save``, the network's parameters (the
+state_dict layout of ``trained_models/*/torch_state_dict.pt``), the Adam
+state, the plateau state, ``step``, ``epoch`` and ``best_perf``;
 ``<model_dir>/model_config.json`` is written in the JAX trainer's layout.
-A file is written under a temporary name and renamed into place.
+Every file is written under a temporary name and renamed into place.
+
+Simulation: ``restart.npz`` snapshots of a ``SimState`` for the drivers'
+``--restartSim``, with the JAX package's keys (``it`` and every field that
+is not None), so a restart written by either package loads into the other.
 """
 import os
 
+import numpy as np
 import torch
 
 from ..config import save_model_config
+from ..state import SimState
 
 STATE_FILE = "train_state.pt"
 
@@ -43,3 +49,36 @@ def load_train_checkpoint(model_dir: str, ts, best: bool = False):
     ts.optimizer.load_state_dict(payload["optimizer"])
     ts.step = int(payload["step"])
     return ts, int(payload["epoch"]), float(payload["best_perf"])
+
+
+def save_sim_restart(path: str, state, it: int):
+    """npz snapshot of every non-None SimState field and the iteration
+    counter ``it`` (one copy to the host). Written under a temporary name
+    and renamed into place, so a run stopped during the write leaves the
+    previous snapshot whole."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {"it": np.asarray(it)}
+    for name in SimState._fields:
+        val = getattr(state, name)
+        if val is not None:
+            arrays[name] = val.detach().cpu().numpy()
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def load_sim_restart(path: str, device="cpu"):
+    """(SimState, it) of a ``save_sim_restart`` file (the port's or the JAX
+    package's), each field on ``device`` in its saved dtype (flags
+    int32)."""
+    with np.load(path) as z:
+        it = int(z["it"])
+        state = SimState(**{
+            name: torch.from_numpy(z[name]).to(device) if name in z.files
+            else None for name in SimState._fields})
+    return state, it

@@ -24,8 +24,18 @@ assert len(names) >= 43 and not bad, bad
 assert 'fluidnet_cxx_tpu_torch.models.mg_coarse' in names, names
 for mod in ('train.trainer', 'train.losses', 'train.checkpoint',
             'train.__main__', 'data.dataset', 'data.manta_io',
-            'data.synthetic', 'utils.diagnostics', 'ops.kernels.conv_grad'):
+            'data.synthetic', 'utils.diagnostics', 'ops.kernels.conv_grad',
+            'utils.vtk_export', 'utils.plotting', 'scripts',
+            'scripts.run_plume', 'scripts.run_rayleigh_taylor',
+            'scripts.run_cylinder'):
     assert 'fluidnet_cxx_tpu_torch.' + mod in names, (mod, names)
+# PyYAML and matplotlib are not imported with the port, and the YAML
+# reader runs with PyYAML made unimportable.
+assert 'yaml' not in sys.modules and 'matplotlib' not in sys.modules
+sys.modules['yaml'] = None
+from fluidnet_cxx_tpu_torch.config import load_yaml
+assert load_yaml('configs/train.yaml')['modelParam']['lr'] == 5e-5
+del sys.modules['yaml']
 print('IMPORT_OK')
 """
 
@@ -56,10 +66,25 @@ ENTRY_POINTS = {
              "'--modelDir', 'unused'])",
     "train.dataset": "main(['--synthetic', '1', '--res', '16', "
                      "'--modelDir', 'unused'])",
+    "train.trainConfig": "main(['--trainConfig', 'configs/train.yaml', "
+                         "'--onDevice', '1', '--res', '16', '--bsz', '2', "
+                         "'--modelDir', 'unused'])",
+    "twin_plume": "main(['--simConf', 'configs/plume.yaml', '--resX', "
+                  "'32', '--resY', '32', '--maxIter', '1', "
+                  "'--outputFolder', 'unused'])",
+    "twin_rayleigh_taylor": "main(['--simConf', "
+                            "'configs/rayleighTaylor.yaml', '--maxIter', "
+                            "'1', '--outputFolder', 'unused'])",
+    "twin_cylinder": "main(['--resX', '256', '--resY', '64', '--radius', "
+                     "'8', '--centerX', '40', '--maxIter', '1', "
+                     "'--outputFolder', 'unused'])",
 }
 # The training entry point is run as ``python -m fluidnet_cxx_tpu_torch.
-# train``: its main() lives in train/__main__.py.
-MODULES = {"train": "train.__main__"}
+# train``: its main() lives in train/__main__.py; the scene drivers' twins
+# as ``python -m fluidnet_cxx_tpu_torch.scripts.<name>``.
+MODULES = {"train": "train.__main__", "twin_plume": "scripts.run_plume",
+           "twin_rayleigh_taylor": "scripts.run_rayleigh_taylor",
+           "twin_cylinder": "scripts.run_cylinder"}
 
 RUN_WITHOUT_CARD = """
 import torch
