@@ -84,7 +84,15 @@ Phases (each prints its elapsed seconds):
      (its padded output channels exactly 0), each forward within 1e-4,
      a repeat bit-equal, device and eager ms beside the plain forward and
      the cuDNN chain, launches, the bound on the unpadded work, and the
-     per-layer table;
+     per-layer table; M with a viscous `orig` bit for bit at 128^3 (stress
+     inputs) and on the 32x128x384 cylinder at max_disp 1-3, past its
+     three rings' limit raising, timed beside M without it; N's flax route
+     (flax's two roundings, bfloat16 up and head outputs, a bfloat16
+     concat) bit for bit on exact sums and each layer of PUNet3p8_64's
+     128^3 forward within one bfloat16 ulp at each rounding point with at
+     most one value in 1000 off, the forward timed beside cuDNN's bfloat16
+     chain; I's launches and the device time of one solve_mg3 at 128^3 and
+     on the cylinder, the solve held to the CPU within 1e-5 (phase_new3d);
   4. small-input checks, the card against the plain path on the CPU:
      3 steps of the 64^2 plume with the learned projection, jacobi-28,
      mg-2v and unfused jacobi-28, and under DataTrain_128 and
@@ -94,7 +102,9 @@ Phases (each prints its elapsed seconds):
      cylinder (radius 8 at x 40) under jacobi-34, multigrid and convnet,
      and of the 32^3 plume under jacobi-60, merged with the trace and
      separate with and without it, and under the learned projection with
-     patch 8 and 4;
+     patch 8 and 4, the flax path and PUNet3p8j_64; the 32^3 plume under
+     the 3-D multigrid; the 8x24x48 and 16x32x64 3-D cylinders (Jacobi;
+     multigrid with vorticity confinement);
   5. the main paths, 20 steps each with every launch counter set to 0
      just before and read just after: the 512^2 plume with the learned
      projection (A, B, C), jacobi-200 (A, F) and mg-2v (A, H), the
@@ -107,6 +117,11 @@ Phases (each prints its elapsed seconds):
      the first-hit trace (L, I), and bench3d's learned case
      at 128^3 with PUNet3p8_64 (K, M, J, N) and PUNet3_32 (patch 4; K, M,
      J, N) at full widths, the trained weights (each run prints which),
+     and with PUNet3p8j_64 and PUNet3p8r_64, the flax path with
+     PUNet3p8_64 as it ships (K, M, N's flax route, I), bench3d's "pallas
+     + multigrid" case merged (L, I in solve_mg3), the 32x128x384 3-D
+     cylinder under jacobi-34 and multigrid and jacobi-34 with vorticity
+     confinement (M with orig, I),
      the 512^2 plume under mg_learned with the trained MGCoarse_128 (A,
      G's learned cut, B), and the 8000x800 cylinder under multigrid (E, H)
      and under PUNetD2_128 (E, B, C; the step's unfused branch), and the
@@ -124,8 +139,8 @@ Phases (each prints its elapsed seconds):
      the learned cut held to one a step); then the `kernels` JSON line
      (the 14 kernels, and rows for G's learned cut, B's bfloat16 route
      on MGCoarse_128 at 128^2, B on the
-     1000x100 map and on the tower's and ScaleNet's 512^2 forwards, and H
-     and C at 8000x800);
+     1000x100 map and on the tower's and ScaleNet's 512^2 forwards, H and
+     C at 8000x800, M with orig and N's flax route);
   6. a torch.profiler window of 5 more steps of each main path: device
      time per step, the device's idle share, the 8 kernels that take the
      most device time and every other kernel of the port's;
@@ -135,7 +150,9 @@ Phases (each prints its elapsed seconds):
      classical row's 60-step rollout at 128^3, each held to
      bench_reference.json (the JAX package's columns: mean|div| and
      max|div| within 1%, the height within a row; 3-D max|div|, mean|div|,
-     density sum and max|U| within 1%); every case timed as a CUDA-graph
+     density sum and max|U| within 1%), and bench3d's classical and
+     multigrid rows at 64^3 (their JAX reference's size); every case
+     timed as a CUDA-graph
      replay and eagerly at a reduced n; each case's line printed.
   8. training (ROADMAP A.5; configs/train.yaml's FluidNetTower and
      MultiScaleNet at 128^2, batch 64, seed weights): the input gradient
@@ -191,7 +208,9 @@ Phases (each prints its elapsed seconds):
      fluidnet_cxx_tpu_torch.train --trainConfig configs/train.yaml
      --onDevice 2 --bsz 8` to a finite loss.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
-`python3 chip_smoke.py --3d-only` kernels J, M, K and L (threed_only),
+`python3 chip_smoke.py --3d-only` kernels J, M, K and L, phase_new3d, the
+new 3-D small checks and the 3-D paths with J, M or multigrid
+(threed_only),
 `python3 chip_smoke.py --adv-only` kernels A, D and E (adv_only),
 `python3 chip_smoke.py --tail-only` kernels C and F (tail_only),
 `python3 chip_smoke.py --learned-only` G's learned cut, H at 8000x800, B
@@ -234,6 +253,8 @@ TF32_OPS_PER_S = 495e12
 TF32X3_OPS_PER_S = TF32_OPS_PER_S / 3
 RES = 512
 RES3 = 128
+# The side of bench_reference.json's 3-D multigrid row (plume3d:64:mg2v).
+MG3_REF_RES = 64
 RT_W, RT_H = 128, 512
 CYL_W, CYL_H = 8000, 800
 STEPS = 20
@@ -2034,22 +2055,34 @@ def walk_stats(flags, cc, D, dt):
                 offsets_walk=offsets_walk / max(walked, 1), tested=tested)
 
 
-def check_bf16(name, got, want, off_share=BF16_OFF_SHARE):
+def check_bf16(name, got, want, off_share=BF16_OFF_SHARE, presum=None):
     """Hold a bfloat16 output to its plain version: each value within one
     bfloat16 ulp of the plain value, or within 1e-5 of the largest output
     where cancellation leaves the value near zero (a sum taken in another
     order may round to the neighbouring bfloat16), and at most
-    ``off_share`` of the values not equal to it. Returns the largest
-    absolute error."""
+    ``off_share`` of the values not equal to it. With ``presum`` (the
+    plain version's float32 sum of a layer that rounds the sum to bfloat16
+    before the bias add, N's flax route) one ulp at each rounding point:
+    the ulp of the sum (1% up, for a sum in the next binade) plus the ulp
+    of the larger output, since the bias add carries a sum that rounded to
+    the neighbouring bfloat16 into the output, several output ulps where
+    the bias cancels most of the sum. Returns the largest absolute
+    error."""
+    def ulp(a):
+        a = a.abs()
+        return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
+                           torch.zeros_like(a))
+
     w = want.float()
     d = (got.float() - w).abs()
-    a = w.abs()
-    ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
-                      torch.zeros_like(a))
-    tol = torch.clamp(ulp, min=1e-5 * float(a.max()))
+    tol = (ulp(w) if presum is None else
+           ulp(torch.maximum(got.float().abs(), w.abs()))
+           + ulp(1.01 * presum.float()))
+    tol = torch.clamp(tol, min=1e-5 * float(w.abs().max()))
     excess, err = float((d - tol).max()), float(d.max())
     off = int((d > 0).sum())
-    print(f"{name}: max_abs_err {err:.3e}; largest excess over max(1 ulp, "
+    print(f"{name}: max_abs_err {err:.3e}; largest excess over max(1 ulp"
+          f"{' at each rounding point' if presum is not None else ''}, "
           f"1e-5 of the largest output) {excess:.3e}; {off} of {d.numel()} "
           "values off", flush=True)
     if not excess <= 0 or off > off_share * d.numel():
@@ -2417,6 +2450,245 @@ def punet3_table(net, packed, x, label, geometry):
                "rate)", rows)
 
 
+# The 3-D cylinder at the JAX package's default size (sim/scenes3.py::
+# create_cylinder_scene3: 32 x 128 x 384, radius 12.5 at x 64).
+CYL3_D, CYL3_H, CYL3_W = 32, 128, 384
+MODEL_P8J = "trained_models/PUNet3p8j_64"
+MODEL_P8R = "trained_models/PUNet3p8r_64"
+# (kernel, stride, relu, c1, c2, co) of N's flax-route rounding check: the
+# flax PUNet3's kinds of layer at 32-channel multiples (the concat takes
+# both halves in bfloat16, the up conv and the head round to bfloat16).
+N_FLAX_ROUNDING_LAYERS = [(1, 1, True, 64, 0, 32), (3, 1, True, 32, 0, 32),
+                          (3, 2, True, 32, 0, 64), (1, 1, False, 64, 0, 256),
+                          (3, 1, True, 32, 32, 32), (1, 1, False, 32, 0, 64)]
+
+
+def cylinder3_inputs(dev, gen):
+    """The 3-D cylinder's flags (32 x 128 x 384, the extruded disc) with a
+    random U of up to 1.5 cells a step at dt 0.3 and its viscous field
+    (viscosity 0.25, the scene's)."""
+    from fluidnet_cxx_tpu_torch.ops import ops3d
+    from fluidnet_cxx_tpu_torch.sim.scenes3 import create_cylinder_scene3
+
+    state, visc = create_cylinder_scene3(CYL3_D, CYL3_H, CYL3_W)
+    U = 10.0 * (torch.rand(state.U.shape, generator=gen) - 0.5)
+    orig = ops3d.add_viscosity3(0.3, U, state.flags, visc)
+    return state.flags.to(dev), U.to(dev), orig.to(dev)
+
+
+def check_n_flax_rounding(dev):
+    """N's flax route bit for bit against its plain version on inputs
+    whose every float32 product and partial sum is exact (values k/8 and
+    k/64, |k| <= 16, a bias off the dyadic grid by 1/3), so that only the
+    rounding points are under test (the sum rounded to bfloat16, the
+    bfloat16 bias added and rounded again; tests/test_torch_flax3d.py
+    holds the plain version so to flax): each of N_FLAX_ROUNDING_LAYERS at
+    16^3 and at 8^3 (split-K plans); and a single rounding after the bias
+    add shown to miss the kernel."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet3
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_plan import plan_conv
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    bf = torch.bfloat16
+
+    def dyadic(shape, num, den):
+        return torch.randint(-num, num + 1, shape, generator=gen,
+                             device=dev).float() / den
+
+    for side in (16, 8):
+        for k, stride, relu, c1, c2, co in N_FLAX_ROUNDING_LAYERS:
+            x = dyadic((1, side, side, side, c1), 16, 8).to(bf)
+            x2 = dyadic((1, side, side, side, c2), 16, 8).to(bf) if c2 \
+                else None
+            w = dyadic((k, k, k, c1 + c2, co), 16, 64).to(bf)
+            bias = (dyadic((co,), 64, 128) + 1.0 / 3.0).to(bf).float()
+            args = (bias, stride, relu, x2, bf)
+            got = punet3.conv3d_ndhwc(x, w, *args, round_sum=True)
+            want = punet3.conv3d_ndhwc_plain(x, w.permute(4, 3, 0, 1, 2),
+                                             *args, round_sum=True)
+            once = punet3.conv3d_ndhwc_plain(x, w.permute(4, 3, 0, 1, 2),
+                                             *args)
+            torch.cuda.synchronize()
+            m = (-(-side // stride)) ** 3
+            plan = plan_conv(m, co, k ** 3, c1, c2, "bf16")
+            tag = (f"N flax rounding k{k} s{stride} "
+                   f"{'relu' if relu else 'lin'} {c1}+{c2}->{co} at "
+                   f"{side}^3 ({plan.splits} splits)")
+            missed = int((once != got).sum())
+            print(f"{tag}: {int((got != want).sum())} values differ from the"
+                  f" plain version; a single rounding misses {missed}",
+                  flush=True)
+            check(tag, max_err([got.float()], [want.float()]), 0.0)
+            if missed == 0:
+                raise SystemExit(f"{tag}: a single rounding after the bias "
+                                 "add gives the kernel's output: the check "
+                                 "cannot see the rounding points")
+
+
+def phase_new3d(dev, results):
+    """Kernel M with a viscous orig, N's flax route and I inside the 3-D
+    multigrid, at the new 3-D main paths' shapes. M with orig runs its
+    plain version's float32 operations in the same order (-fmad=false):
+    held bit for bit at 128^3 (stress inputs) and on the 32x128x384
+    cylinder, at max_disp 2 and also 1 and 3 (past each clamp), and a D
+    past the three rings' limit must raise. N's flax route bit for bit on
+    exact sums (check_n_flax_rounding), then each layer of PUNet3p8_64's
+    flax-path forward at 128^3 on the activations the forward hands it
+    within one bfloat16 ulp at each of its two rounding points with at
+    most one value in 1000 off (check_bf16 with the layer's sum),
+    the whole forward within BF16_FORWARD_TOL, a repeat bit-equal, beside
+    cuDNN's bfloat16 F.conv3d chain (whose every layer rounds to bfloat16,
+    as flax's). I: its launches and device time inside one solve_mg3
+    (2 V-cycles, 3 levels, post 8) at 128^3 and on the cylinder, the solve
+    against the plain version on the CPU within 1e-5 of its largest
+    value."""
+    import dataclasses
+
+    from fluidnet_cxx_tpu_torch.config import load_model_config
+    from fluidnet_cxx_tpu_torch.ops import multigrid, ops3d
+    from fluidnet_cxx_tpu_torch.ops.kernels import (_build, advect3, jacobi3,
+                                                    punet3)
+    from fluidnet_cxx_tpu_torch.run_plume3d import build_punet3
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    done = phase("kernel M advect_velocity3 with orig")
+    flags, U, _ = stress_inputs3(gen, dev, RES3)
+    orig = ops3d.add_viscosity3(0.25, U, flags, 0.25)
+    c_flags, c_U, c_orig = cylinder3_inputs(dev, gen)
+    cases = {f"{RES3}^3 stress": (0.25, U, flags, orig),
+             f"{CYL3_D}x{CYL3_H}x{CYL3_W} cylinder": (0.3, c_U, c_flags,
+                                                    c_orig)}
+    errs = {}
+    for label, (dt, u, f, o) in cases.items():
+        for D, scale in ((2, 1.0), (1, 1.0), (3, 2.0)):
+            got = advect3.advect_velocity3(scale * dt, u, f, 0.6, D, orig=o)
+            torch.cuda.synchronize()
+            want = ops3d.advect_velocity3(scale * dt, u, f, 0.6, max_disp=D,
+                                          orig=o)
+            e = max_err([got], [want])
+            check(f"M with orig ({label}, max_disp {D})", e, 0.0)
+            errs[label, D] = e
+    most = _build.query("fn_advect3_velocity_max_disp", 1)
+    try:
+        advect3.advect_velocity3(0.25, U, flags, 0.6, most + 1, orig=orig)
+    except ValueError as e:
+        print(f"M with orig at max_disp {most + 1} raises: {e}", flush=True)
+    else:
+        raise SystemExit(f"M with orig at max_disp {most + 1} did not raise")
+    n = RES3 ** 3
+    times = {}
+    for label, (dt, u, f, o) in cases.items():
+        run = (lambda dt=dt, u=u, f=f, o=o:
+               advect3.advect_velocity3(dt, u, f, 0.6, 2, orig=o))
+        times[label] = device_and_eager(run)
+        plain = (lambda dt=dt, u=u, f=f, o=o:
+                 ops3d.advect_velocity3(dt, u, f, 0.6, max_disp=2, orig=o))
+        cells = f.numel()
+        b_ms, b_by = bound(40 * cells, 3 * 140.0 * cells)
+        nb_ms, _ = bound(28 * cells, 3 * 140.0 * cells)
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        no_orig = device_and_eager(
+            lambda dt=dt, u=u, f=f: advect3.advect_velocity3(dt, u, f, 0.6,
+                                                             2))
+        print(f"M with orig ({label}): kernel {times[label][0]:.4f} ms device"
+              f" (eager {times[label][1]:.4f}), without orig "
+              f"{no_orig[0]:.4f} (eager {no_orig[1]:.4f}), plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, 40 B a "
+              f"cell; 28 B without orig {nb_ms:.4f}), "
+              f"{launches_of(advect3.velocity_orig, run)} launches a call",
+              flush=True)
+        if label.startswith(f"{RES3}^3"):
+            results["M orig"] = dict(
+                err=errs[label, 2], ms=times[label][0], plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    done()
+
+    done = phase("kernel N punet3 conv, flax route")
+    check_n_flax_rounding(dev)
+    mcfg = load_model_config(MODEL_P8)
+    net = build_punet3(mcfg, None, dev, MODEL_P8, rounding="flax")
+    packed = punet3.pack_weights3(net)
+    x = torch.stack([torch.randn((1, RES3, RES3, RES3), generator=gen),
+                     (torch.rand((1, RES3, RES3, RES3), generator=gen)
+                      < 0.08).float()], dim=-1).to(dev)
+
+    def run(hook):
+        def conv(name, h, x2=None, relu=True):
+            w, b = packed[name]
+            return hook(name, (h, w, b, net.strides[name], relu, x2,
+                               net.out_dtype(relu), True), {})
+        return net(x, conv=conv)
+
+    with torch.no_grad():
+        for name, args, _ in record_layers(run, punet3.conv3d_ndhwc):
+            h, w, b, stride, relu, x2 = args[:6]
+            got = punet3.conv3d_ndhwc(*args)
+            want = punet3.conv3d_ndhwc_plain(h, w.permute(4, 3, 0, 1, 2),
+                                             *args[2:])
+            presum = punet3.conv3d_ndhwc_plain(
+                h, w.permute(4, 3, 0, 1, 2), torch.zeros_like(b), stride,
+                False, x2)
+            torch.cuda.synchronize()
+            check_bf16(f"N flax route layer {name} ({h.shape[1]}^3 -> "
+                       f"{w.shape[-1]} channels)", got, want, BF16_OFF_SHARE,
+                       presum)
+        fwd = lambda: punet3.punet3_forward(net, packed, x)
+        got = fwd()
+        torch.cuda.synchronize()
+        want = net(x)
+        err = max_err([got], [want])
+        check(f"N flax route forward {RES3}^3 p8 bfloat16", err,
+              BF16_FORWARD_TOL * float(want.abs().max()))
+        check_repeat("N flax route forward p8", fwd)
+        lib = conv3d_library(net, torch.bfloat16)
+        lib_err = max_err([lib(x).float().permute(0, 2, 3, 4, 1)], [want])
+        before = punet3.flax_route.launches
+        fwd()
+        launches = punet3.flax_route.launches - before
+        ms, eager_ms = device_and_eager(fwd)
+        plain_ms = cuda_ms(lambda: net(x), 5)
+        library_ms = graph_ms(lambda: lib(x), 10)
+        library_eager_ms = cuda_ms(lambda: lib(x), 10)
+    nbytes, nops = punet3_work(net, x)
+    b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+    results["N flax"] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms)
+    print(f"N flax route p8 bfloat16: kernel {ms:.4f} ms device (eager "
+          f"{eager_ms:.4f}), {launches} launches, plain {plain_ms:.3f} ms, "
+          f"library {library_ms:.4f} ms (eager {library_eager_ms:.4f}; cuDNN "
+          f"bfloat16 F.conv3d chain; vs plain {lib_err:.3e}), bound "
+          f"{b_ms:.4f} ms ({b_by}, bf16 tensor cores), {nops / 1e9:.3f} "
+          "GFLOP", flush=True)
+    done()
+
+    done = phase("kernel I inside solve_mg3")
+    mg_cases = {f"{RES3}^3 stress": flags,
+                f"{CYL3_D}x{CYL3_H}x{CYL3_W} cylinder": c_flags}
+    for label, f in mg_cases.items():
+        u = U if f is flags else c_U
+        div = ops3d.velocity_divergence3(u, f)
+        kw = dict(n_vcycles=2, pre=4, post=8, coarse_iters=32, max_levels=3)
+        solve = lambda f=f, div=div: multigrid.solve_mg3(f, div, **kw)
+        got = solve()
+        torch.cuda.synchronize()
+        want = multigrid.solve_mg3(f.cpu(), div.cpu(), **kw)
+        shapes = multigrid.level_shapes3(*f.shape[1:], 8, 3)
+        check(f"solve_mg3 ({label}, levels {shapes}) against the CPU",
+              max_err([got.cpu()], [want]), 1e-5 * scale_of([want]))
+        n_i = launches_of(jacobi3.solve_jacobi3, solve)
+        ms, eager_ms = device_and_eager(solve)
+        print(f"I inside solve_mg3 ({label}): {n_i} launches a solve; the "
+              f"solve {ms:.4f} ms device (eager {eager_ms:.4f})", flush=True)
+    done()
+
+
+# The card-against-CPU checks of the paths phase_new3d's kernels run.
+NEW3D_SMALL = ("32^3 plume3d fused multigrid", "32^3 plume3d convnet flax p8",
+               "32^3 plume3d convnet p8j", "8x24x48 cylinder3d jacobi-34",
+               "16x32x64 cylinder3d multigrid vorticity")
+
+
 def phase_small_check(keep=lambda name: True):
     """3 steps of small scenes: kernels on the card vs plain on the CPU,
     each field within 1e-4 of its largest value; the learned 3-D
@@ -2427,6 +2699,7 @@ def phase_small_check(keep=lambda name: True):
     within BF16_PATH_TOL (the same rounding, carried through the net's
     ten layers)."""
     from fluidnet_cxx_tpu_torch.run_cylinder import run_cylinder
+    from fluidnet_cxx_tpu_torch.run_cylinder3d import run_cylinder3d
     from fluidnet_cxx_tpu_torch.run_plume import run_plume
     from fluidnet_cxx_tpu_torch.run_plume3d import run_plume3d
     from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import run_rayleigh_taylor
@@ -2464,6 +2737,18 @@ def phase_small_check(keep=lambda name: True):
             32, 3, device=d, sim_method="convnet", model_dir=MODEL_P8),
         "32^3 plume3d convnet p4": lambda d: run_plume3d(
             32, 3, device=d, sim_method="convnet", model_dir=MODEL_P4),
+        "32^3 plume3d fused multigrid": lambda d: run_plume3d(
+            32, 3, device=d, sim_method="multigrid", fuse_advection=True),
+        "32^3 plume3d convnet flax p8": lambda d: run_plume3d(
+            32, 3, device=d, sim_method="convnet", model_dir=MODEL_P8,
+            path="flax"),
+        "32^3 plume3d convnet p8j": lambda d: run_plume3d(
+            32, 3, device=d, sim_method="convnet", model_dir=MODEL_P8J),
+        "8x24x48 cylinder3d jacobi-34": lambda d: run_cylinder3d(
+            8, 24, 48, 3, d, radius=4.5, center_x=12.0),
+        "16x32x64 cylinder3d multigrid vorticity": lambda d: run_cylinder3d(
+            16, 32, 64, 3, d, "multigrid", vorticity_confinement=0.1,
+            radius=4.5, center_x=12.0),
     }
     for name, run in cases.items():
         if not keep(name):
@@ -2484,6 +2769,8 @@ def main_paths():
     """name -> (run for n steps on the card, the (cfg, state, project_fn)
     of its first step, the kernels it must launch)."""
     from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case, run_cylinder
+    from fluidnet_cxx_tpu_torch.run_cylinder3d import (cylinder3d_case,
+                                                       run_cylinder3d)
     from fluidnet_cxx_tpu_torch.run_plume import plume_case, run_plume
     from fluidnet_cxx_tpu_torch.run_plume3d import (learned3d_case,
                                                     plume3d_case, run_plume3d)
@@ -2508,10 +2795,17 @@ def main_paths():
                 lambda: cylinder_case(CYL_W, CYL_H, "cuda",
                                       sim_method=method))
 
-    def learned3d(model_dir):
+    def learned3d(model_dir, path="fused"):
         return (lambda n: run_plume3d(RES3, n, "cuda", sim_method="convnet",
-                                      model_dir=model_dir),
-                lambda: learned3d_case(RES3, "cuda", model_dir))
+                                      model_dir=model_dir, path=path),
+                lambda: learned3d_case(RES3, "cuda", model_dir, path=path))
+
+    def cylinder3d(method, vorticity=0.0):
+        kw = dict(sim_method=method, vorticity_confinement=vorticity)
+        return (lambda n: run_cylinder3d(CYL3_D, CYL3_H, CYL3_W, n, "cuda",
+                                         **kw),
+                lambda: cylinder3d_case(CYL3_D, CYL3_H, CYL3_W, "cuda", **kw)
+                + (None,))
 
     return {
         f"plume {RES}^2 convnet": plume() + ("ABC",),
@@ -2539,6 +2833,18 @@ def main_paths():
         f"cylinder {CYL_W}x{CYL_H} convnet": cylinder("convnet") + ("EBC",),
         **{f"plume {RES}^2 {m.split('/')[-1]}": plume(model_dir=m) + ("AB",)
            for m in NETS.values()},
+        f"plume3d {RES3}^3 fused multigrid": plume3d(
+            fuse_advection=True, sim_method="multigrid") + ("LI",),
+        f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} jacobi-34": cylinder3d(
+            "jacobi") + (("M", "Mo", "I"),),
+        f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} multigrid": cylinder3d(
+            "multigrid") + (("M", "Mo", "I"),),
+        f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} jacobi-34 vorticity": (
+            cylinder3d("jacobi", 0.1) + (("M", "Mo", "I"),)),
+        f"plume3d {RES3}^3 convnet flax p8": learned3d(MODEL_P8, "flax") + (
+            ("K", "M", "N", "Nf", "I"),),
+        f"plume3d {RES3}^3 convnet p8j": learned3d(MODEL_P8J) + ("KMJN",),
+        f"plume3d {RES3}^3 convnet p8r": learned3d(MODEL_P8R) + ("KMJN",),
     }
 
 
@@ -2556,12 +2862,27 @@ LEARNED_G = "Gl"
 # up launch for each of the 5 levels above the 250x25 tail and the tail,
 # for 2 V-cycles, and the epilogue); PUNetD2_128's 14 convs; N's 9 convs; J's
 # prologue, epilogue and one z-march per 3 polish sweeps (16 for p8: 6
-# marches, 8 for p4: 3); H's and G's two set-up launches, 7 (512^2: three
+# marches, 8 for p4: 3); I's mask launch and one z-march per 3 sweeps: the
+# flax path's 16 "xla" polish sweeps 7, Jacobi-34 13, and in one solve_mg3
+# (2 V-cycles over 3 levels: pre 4 (3), pre 4 (3), coarse 32 (12), post
+# 8 (4), post 8 (4)) 52; M's two launches, both with orig on the
+# cylinder; H's and G's two set-up launches, 7 (512^2: three
 # levels down, the single-block tail, three up) or 5 (512x128) a V-cycle,
 # and the epilogue, for 2 V-cycles; E's one launch and D's two; C's
 # prologue, epilogue and one tile launch per 8 of its 32 polish sweeps;
 # F's mask launch and one tile launch per 8 sweeps (200: 25, 34: 5).
 EXACT_LAUNCHES = {f"plume3d {RES3}^3 convnet p8": {"J": 8, "N": 9},
+                  f"plume3d {RES3}^3 convnet p8j": {"J": 8, "N": 9},
+                  f"plume3d {RES3}^3 convnet p8r": {"J": 8, "N": 9},
+                  f"plume3d {RES3}^3 convnet flax p8": {"I": 7, "J": 0,
+                                                        "N": 9, "Nf": 9},
+                  f"plume3d {RES3}^3 fused multigrid": {"L": 2, "I": 52},
+                  f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} jacobi-34": {
+                      "M": 2, "Mo": 2, "I": 13},
+                  f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} multigrid": {
+                      "M": 2, "Mo": 2, "I": 52},
+                  f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} jacobi-34 "
+                  "vorticity": {"M": 2, "Mo": 2, "I": 13},
                   f"plume3d {RES3}^3 convnet p4": {"J": 5, "N": 9},
                   f"plume {RES}^2 convnet": {"C": 6},
                   f"plume {RES}^2 jacobi-200": {"F": 26},
@@ -2698,7 +3019,7 @@ def phase_bench():
     bench_reference.json's settings, timed at a reduced n (graph 200 and
     eager 20 at 128^2, 50 and 10 at 512^2, 3 reps; 3-D n 10, 1 rep); fails
     on a case outside its reference."""
-    from fluidnet_cxx_tpu_torch import bench, bench3d
+    from fluidnet_cxx_tpu_torch import bench
 
     ref = str(bench.REFERENCE)
     runs = {"bench 128^2, five cases": bench.parse(
@@ -2723,20 +3044,34 @@ def phase_bench():
         if failures:
             raise SystemExit(f"{name}: reference check failed: {failures}")
         done()
-    done = phase(f"bench3d {RES3}^3 classical row")
-    out, full, failures = bench3d.run_bench3d(bench3d.parse(
-        ["--res", str(RES3), "--steps", "10", "--reps", "1",
-         "--reference", ref]))
-    for case, r in full["table"].items():
-        print(f"bench3d {RES3}^3 {case}: graph {r['sps']:.2f} steps/s, "
-              f"eager {r['eager_sps']:.2f}; max|div| {r['max_div']:.5f} "
-              f"mean|div| {r['mean_div']:.6f} density sum "
-              f"{r['density_sum']:.4f} max|U| {r['max_U']:.4f}; launches a "
-              f"step {r['launches_per_step']}; {r['engine']}", flush=True)
-    print(bench.compact(out), flush=True)
-    if failures:
-        raise SystemExit(f"bench3d: reference check failed: {failures}")
-    done()
+    phase_bench3d([f"bench3d {RES3}^3 classical row",
+                   ["--res", str(RES3), "--steps", "10", "--reps", "1",
+                    "--reference", ref]],
+                  [f"bench3d {MG3_REF_RES}^3 classical and multigrid rows",
+                   ["--res", str(MG3_REF_RES), "--steps", "10", "--reps",
+                    "1", "--multigrid", "--reference", ref]])
+
+
+def phase_bench3d(*runs):
+    """bench3d called as a function for each (title, argv) of ``runs``,
+    every row held to bench_reference.json."""
+    from fluidnet_cxx_tpu_torch import bench, bench3d
+
+    for title, argv in runs:
+        done = phase(title)
+        out, full, failures = bench3d.run_bench3d(bench3d.parse(argv))
+        res = argv[argv.index("--res") + 1]
+        for case, r in full["table"].items():
+            print(f"bench3d {res}^3 {case}: graph {r['sps']:.2f} steps/s, "
+                  f"eager {r['eager_sps']:.2f}; max|div| {r['max_div']:.5f} "
+                  f"mean|div| {r['mean_div']:.6f} density sum "
+                  f"{r['density_sum']:.4f} max|U| {r['max_U']:.4f}; launches "
+                  f"a step {r['launches_per_step']}; {r['engine']}",
+                  flush=True)
+        print(bench.compact(out), flush=True)
+        if failures:
+            raise SystemExit(f"bench3d: reference check failed: {failures}")
+        done()
 
 
 def mg_only(dev):
@@ -2774,8 +3109,10 @@ def threed_only(dev):
     its plain version (J and M bit for bit, K and L within 1e-4 of the
     largest output, as the full run holds them), its (device, eager) ms as
     a STEP0_MS literal, the device time of J's and M's launches by
-    kernel, then the four 128^3 main paths that run J or M: ms/step and
-    the profiler's window."""
+    kernel; phase_new3d (M with orig, N's flax route, I inside solve_mg3)
+    and the new 3-D paths' card-against-CPU checks; then the 3-D main
+    paths that run J or M and the 3-D multigrid path with their counters,
+    and the profiler's window of each."""
     done = phase("kernels J, M, K, L checked and timed")
     cases = cases3d(dev)
     for name, (run, plain) in cases.items():
@@ -2797,13 +3134,14 @@ def threed_only(dev):
             print(f"  {ms:9.4f} ms {n:5.1f} launches  {key[:90]}",
                   flush=True)
     done()
-    for name, (run, case, kernels) in main_paths().items():
-        if "3d" not in name or not set(kernels) & set("JM"):
-            continue
-        done = phase(f"{name}, {STEPS} steps")
-        print(f"{name}: ms/step {run(STEPS)['ms_per_step']:.4f}", flush=True)
-        done()
-        phase_profile(name, case)
+    phase_new3d(dev, {})
+    phase_small_check(lambda name: name in NEW3D_SMALL)
+    new = [name for name, (_, _, kernels) in main_paths().items()
+           if "3d" in name and (set(kernels) & {"J", "M"}
+                                or "multigrid" in name)]
+    phase_main_paths(launch_counters(), new)
+    for name in new:
+        phase_profile(name, main_paths()[name][1])
 
 
 def tail_only(dev):
@@ -2916,6 +3254,7 @@ def launch_counters():
             "I": jacobi3.solve_jacobi3, "J": proj_tail3.project_tail3,
             "K": advect3.advect_scalar3, "L": advect3.advect_all3,
             "M": advect3.advect_velocity3, "N": punet3.conv3d_ndhwc,
+            "Mo": advect3.velocity_orig, "Nf": punet3.flax_route,
             LEARNED_G: mg.solve_mg_learned}
 
 
@@ -3889,11 +4228,15 @@ def main():
     # M's march takes its rings as dynamic shared memory, which -Xptxas -v
     # does not count (a checkout from before the march has no such query).
     if "fn_advect3_velocity_smem" in _build.QUERIES:
-        print("M (vel3_march<D, true>, the backward rings) dynamic shared "
-              "memory a block: " + ", ".join(
-                  f"D={d} {_build.query('fn_advect3_velocity_smem', d)} B"
-                  for d in range(1, _build.constant(
-                      "fn_advect3_velocity_max_disp") + 1)), flush=True)
+        for orig in (0, 1):
+            print(f"M (vel3_march<D, true, {bool(orig)}>, the backward rings"
+                  f"{' with orig' if orig else ''}) dynamic shared memory a "
+                  "block: " + ", ".join(
+                      f"D={d} "
+                      f"{_build.query('fn_advect3_velocity_smem', d, orig)} B"
+                      for d in range(1, _build.query(
+                          "fn_advect3_velocity_max_disp", orig) + 1)),
+                  flush=True)
     if "fn_advect_tile_smem" in _build.QUERIES:
         from fluidnet_cxx_tpu_torch.ops.kernels.advect import TILES
         print("E (advect_tile) dynamic shared memory a block: " + "; ".join(
@@ -3943,6 +4286,7 @@ def main():
     phase_cylinder_kernels(dev, results)
     phase_kernels3d(dev, results)
     phase_learned3d(dev, results)
+    phase_new3d(dev, results)
     phase_small_check()
 
     counters = launch_counters()
@@ -4002,7 +4346,11 @@ def main():
              ("B tower", "punet_conv2d_fluidnet_tower_512", "B", "B",
               f"plume {RES}^2 DataTrain_128"),
              ("B scalenet", "punet_conv2d_multiscalenet_512", "B", "B",
-              f"plume {RES}^2 ScaleNet_jets_128")]
+              f"plume {RES}^2 ScaleNet_jets_128"),
+             ("M orig", "advect_velocity3_orig", "M", "Mo",
+              f"cylinder3d {CYL3_D}x{CYL3_H}x{CYL3_W} jacobi-34"),
+             ("N flax", "punet3_conv3d_flax_bf16", "N", "Nf",
+              f"plume3d {RES3}^3 convnet flax p8")]
     rows = [(k, *meta[k], k, path_of[k]) for k in meta]
     rows += [(r, name, *meta[k][1:], c, path)
              for r, name, k, c, path in extra]

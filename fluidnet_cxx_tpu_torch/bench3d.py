@@ -2,7 +2,7 @@
 through the hand-written kernels.
 
     python -m fluidnet_cxx_tpu_torch.bench3d [--res 128] [--steps 10] \\
-        [--jacobiIter 60] [--fuseAdvection] [--lineTrace]
+        [--jacobiIter 60] [--fuseAdvection] [--lineTrace] [--multigrid]
     python -m fluidnet_cxx_tpu_torch.bench3d \\
         --modelDir trained_models/PUNet3p8_64 --onlyModel
     python -m fluidnet_cxx_tpu_torch.bench3d \\
@@ -13,12 +13,15 @@ density_val=0.1, u_scale=0.6*res/64)``, dt 0.25, buoyancy 0.5, gravity (0,
 -1, 0), ``max_disp`` 2, window advection (``run_plume3d.plume3d_case``).
 Rows: the classical row at Jacobi-``--jacobiIter`` (kernels K, M and I;
 L in place of K and M with ``--fuseAdvection``; the first-hit trace with
-``--lineTrace``), and with ``--modelDir`` the learned row: the model's
-trained weights (``torch_state_dict.pt``) and polish sweeps, kernels N
-and J after the advection (``--computeDtype float32`` runs the network
-in float32, the variant the JAX reference can be held to). ``--onlyModel`` skips the classical row. bench3d's "pallas +
-multigrid", "window (XLA)" and "gather" rows are not ported (ROADMAP
-A.7.2, A.6).
+``--lineTrace``); with ``--multigrid`` bench3d's "pallas + multigrid" row
+(``mg2v``: ``solve_mg3`` with 2 V-cycles, at most 3 levels and 8 post
+sweeps, its sweeps on kernel I, after the same advection); and with
+``--modelDir`` the learned row: the model's trained weights
+(``torch_state_dict.pt``) and polish sweeps on bench3d's fused forward,
+kernels N and J after the advection (``--computeDtype float32`` runs the
+network in float32, the variant the JAX reference can be held to).
+``--onlyModel`` skips the classical and multigrid rows. bench3d's "window
+(XLA)" and "gather" rows are not ported (ROADMAP A.6).
 
 Speed: bench3d's marginal steps/s, n / (t(2n) - t(n)) with n =
 ``--steps``, the median of ``--reps`` runs (5) with spread and MAD, by CUDA
@@ -97,6 +100,12 @@ def rows_of(args, device):
         cfg, state = plume3d_case(args.res, device, args.jacobiIter,
                                   args.fuseAdvection, args.lineTrace)
         rows[f"jacobi{args.jacobiIter}"] = (cfg, state, None)
+        if args.multigrid:
+            cfg, state = plume3d_case(args.res, device,
+                                      fuse_advection=args.fuseAdvection,
+                                      line_trace=args.lineTrace,
+                                      sim_method="multigrid", mg_vcycles=2)
+            rows["mg2v"] = (cfg, state, None)
     if args.modelDir:
         case = Path(args.modelDir).name
         if args.computeDtype:
@@ -121,6 +130,8 @@ def parse(argv):
                     choices=("bfloat16", "float32"))
     ap.add_argument("--fuseAdvection", action="store_true")
     ap.add_argument("--lineTrace", action="store_true")
+    ap.add_argument("--multigrid", action="store_true",
+                    help="add bench3d's pallas + multigrid row (mg2v)")
     ap.add_argument("--reference", default=None)
     ap.add_argument("--out-dir", default=str(OUT_DIR))
     return ap.parse_args(argv)

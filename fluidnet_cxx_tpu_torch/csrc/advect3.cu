@@ -6,7 +6,10 @@
 //   L  scalar + MAC velocity from the same pre-advection U; replaces
 //      advect3_pallas.py::advect_all3_pallas (body _advect_all3_kernel);
 //   M  the MAC velocity alone; replaces advect3_pallas.py::
-//      advect_velocity3_pallas (body _advect_vel3_kernel).
+//      advect_velocity3_pallas (body _advect_vel3_kernel); with `orig`
+//      (the viscous field the step advects, as E does in 2-D) it samples,
+//      corrects and clamps orig along U's MAC vectors, which the JAX
+//      step runs on its XLA window engine (ops3d.advect_velocity3).
 //
 // Same semantics as the port's plain versions ops/ops3d.py
 // (advect_scalar3, advect_velocity3; impl='window', first-hit trace):
@@ -22,7 +25,9 @@
 // idx + 0.5 along its face's vector, as the reference does.
 //
 // What bounds it on an H100: bytes (K: rho, u, v, w, flags in and rho'
-// out, 24 B a cell; L: 36 B; M: 28 B, ~0.015-0.023 ms at 128^3); the
+// out, 24 B a cell; L: 36 B; M: 28 B, ~0.015-0.023 ms at 128^3; M with
+// orig: 40 B, 0.0188 ms at 32x128x384 and 0.0250 ms at 128^3 at 3.35
+// TB/s); the
 // trilinear samples and clamps are ~150 operations a cell per half and
 // the trace three slab tests (~30 operations) per blocked cell it tests,
 // well under the fp32 rate. What holds them back is latency and issue:
@@ -63,7 +68,11 @@
 // their chains interleave. One thread owns a column, so each cell's MAC
 // vectors are computed once a launch. The backward pair of rings at D = 2
 // takes 92 KB (two blocks an SM); the rings are built for D up to kVMaxD
-// (196 KB at D = 4), and the wrapper refuses a larger D.
+// (196 KB at D = 4), and the wrapper refuses a larger D. With orig the
+// forward launch keeps U's ring and orig's, the backward one U's, the
+// forward field's and orig's: three rings, 138 KB at D = 2 (one block an
+// SM), 206 KB at D = kVMaxDOrig = 3 (ten-plane rings); three rings at D =
+// 4 exceed a block's 227 KB, so the wrapper refuses D > 3 with orig.
 //
 // K, L and M run the same device functions on accessors (Field, UAt for
 // global memory; RingField, RingAt for the rings), so all three agree bit
@@ -576,6 +585,7 @@ constexpr int kVTY = 8;         // tile rows
 constexpr int kVSegZ = 32;      // output planes a block
 constexpr int kVAhead = 2;      // planes in flight
 constexpr int kVMaxD = 4;
+constexpr int kVMaxDOrig = 3;   // with orig: three rings a backward block
 
 // Shared memory a block may have (after the opt-in above 48 KB).
 constexpr int kSmemMax = 232448;
@@ -589,8 +599,9 @@ constexpr int pow2_at_least(int n) {
 // of its cells: [idx - D, idx + D + 1]), u, v and w of each plane, and
 // planes z-D .. z+D+1 around output plane z plus kVAhead in flight: at
 // least kMinDepth slots, rounded up to a power of two where the backward
-// pair still fits a block (the slot of plane Z is then Z & (kDepth - 1)).
-template <int kD>
+// block's kRings rings still fit (the slot of plane Z is then Z &
+// (kDepth - 1)): 2 without orig (U's and the forward field's), 3 with it.
+template <int kD, int kRings = 2>
 struct Ring {
   static constexpr int kW = kVTX + 2 * kD + 1;
   static constexpr int kH = kVTY + 2 * kD + 1;
@@ -598,7 +609,7 @@ struct Ring {
   static constexpr int kSlot = 3 * kPlane;              // one z plane
   static constexpr int kMinDepth = 2 * kD + 2 + kVAhead;
   static constexpr int kDepth =
-      2 * pow2_at_least(kMinDepth) * kSlot * 4 <= kSmemMax
+      kRings * pow2_at_least(kMinDepth) * kSlot * 4 <= kSmemMax
           ? pow2_at_least(kMinDepth)
           : kMinDepth;
   static constexpr int kFloats = kDepth * kSlot;
@@ -606,6 +617,9 @@ struct Ring {
 };
 static_assert(2 * Ring<kVMaxD>::kFloats * sizeof(float) <= kSmemMax,
               "the backward rings at kVMaxD exceed a block's shared memory");
+static_assert(3 * Ring<kVMaxDOrig, 3>::kFloats * sizeof(float) <= kSmemMax,
+              "the backward rings with orig at kVMaxDOrig exceed a block's "
+              "shared memory");
 
 // The rings of the block: kernel M's dynamic shared memory.
 extern __shared__ float vel3_rings[];
@@ -614,12 +628,12 @@ extern __shared__ float vel3_rings[];
 // at (Y - y0) * kW + (X - x0) of it (x0, y0: the ring's first column and
 // row). Offsets into vel3_rings are 32-bit; Z >= 0 for every cell a march
 // reads.
-template <int kD>
+template <int kD, int kRings>
 struct RingField {
   int base;  // the component's plane in slot 0
   int x0, y0;
   __device__ __forceinline__ float operator()(int X, int Y, int Z) const {
-    using G = Ring<kD>;
+    using G = Ring<kD, kRings>;
     return vel3_rings[base + (int)((unsigned)Z % G::kDepth) * G::kSlot +
                       (Y - y0) * G::kW + (X - x0)];
   }
@@ -658,21 +672,26 @@ __device__ __forceinline__ void cp_async_wait() {
 // One half of kernel M over a kVTX x kVTY tile and a z segment of kVSegZ
 // output planes. Forward: U's ring; each cell's u_fwd, v_fwd, w_fwd into
 // the scratch planes 0-2. Backward: U's ring and the forward field's
-// (rings[0, kFloats) and [kFloats, 2 kFloats)); U' out. At the step of
+// (rings[0, kFloats) and [kFloats, 2 kFloats)); U' out. kOrig adds orig's
+// ring after them, which the samples, the correction and the clamp read
+// in place of U's (the MAC vectors stay U's). At the step of
 // output plane z, it waits for plane z + D + 1's copies, passes one
 // barrier, issues plane z + D + 1 + kVAhead's cp.async copies (into the
 // slot of a plane no thread reads any more: z - D - 1 or older) and
 // computes plane z from shared memory alone;
 // flags come from global memory. Cells of the ring off the grid are never
 // loaded and never read. Grid: x and y tiles, b * segs z segments.
-template <int kD, bool kBackward>
-__global__ void __launch_bounds__(kVTX * kVTY, kBackward ? 2 : 4)
-    vel3_march(const float* __restrict__ U,
+template <int kD, bool kBackward, bool kOrig>
+__global__ void __launch_bounds__(kVTX * kVTY, kBackward || kOrig ? 2 : 4)
+    vel3_march(const float* __restrict__ U, const float* __restrict__ orig_all,
                const int* __restrict__ flags_all,
                const float* __restrict__ scratch, float* __restrict__ out,
                Params P, int segs) {
-  using G = Ring<kD>;
-  constexpr int ru = 0, rf = G::kFloats;  // U's ring, the forward field's
+  constexpr int kRings = kOrig ? 3 : 2;
+  using G = Ring<kD, kRings>;
+  // U's ring, the forward field's, orig's (U's without orig).
+  constexpr int ru = 0, rf = G::kFloats;
+  constexpr int ro = kOrig ? (kBackward ? 2 : 1) * G::kFloats : ru;
   const int tid = threadIdx.y * kVTX + threadIdx.x;
   const int seg = blockIdx.z % segs, b = blockIdx.z / segs;
   const int nb = gridDim.z / segs;
@@ -680,6 +699,7 @@ __global__ void __launch_bounds__(kVTX * kVTY, kBackward ? 2 : 4)
   const int z0 = seg * kVSegZ, z1 = min(z0 + kVSegZ, P.d);
   const size_t hw = (size_t)P.h * P.w, n = hw * P.d;
   const float* const u = U + (size_t)b * 3 * n;
+  const float* const o = kOrig ? orig_all + (size_t)b * 3 * n : u;
   const int* const flags = flags_all + (size_t)b * n;
 
   // This thread's share of a plane: ring cell tid + j * threads, at offset
@@ -706,6 +726,8 @@ __global__ void __launch_bounds__(kVTX * kVTY, kBackward ? 2 : 4)
           if (goff[j] < 0) continue;
           const int e = slot + k * G::kPlane + tid + j * kVTX * kVTY;
           cp_async4(vel3_rings + ru + e, u + k * n + zo + goff[j]);
+          if (kOrig)
+            cp_async4(vel3_rings + ro + e, o + k * n + zo + goff[j]);
           if (kBackward)
             cp_async4(vel3_rings + rf + e,
                       scratch + ((size_t)k * nb + b) * n + zo + goff[j]);
@@ -743,12 +765,12 @@ __global__ void __launch_bounds__(kVTX * kVTY, kBackward ? 2 : 4)
       const size_t stride[3] = {1, (size_t)P.w, hw};
 #pragma unroll
       for (int comp = 0; comp < 3; ++comp) {
-        const RingField<kD> orig{ru + comp * G::kPlane, x0, y0};
+        const RingField<kD, kRings> orig{ro + comp * G::kPlane, x0, y0};
         if (kBackward) {
           const bool skip = !C.fluid || flags[i - stride[comp]] != kFluid;
           r[comp] = vel_backward(
-              at, RingField<kD>{rf + comp * G::kPlane, x0, y0}, orig, C, c,
-              comp, skip, P);
+              at, RingField<kD, kRings>{rf + comp * G::kPlane, x0, y0}, orig,
+              C, c, comp, skip, P);
         } else {
           r[comp] = vel_forward(at, orig, C, c, comp, P);
         }
@@ -763,19 +785,21 @@ __global__ void __launch_bounds__(kVTX * kVTY, kBackward ? 2 : 4)
 }
 
 // Bytes of dynamic shared memory of one half's block at max_disp kD.
-template <int kD, bool kBackward>
+template <int kD, bool kBackward, bool kOrig>
 constexpr size_t march_bytes() {
-  return (kBackward ? 2 : 1) * Ring<kD>::kFloats * sizeof(float);
+  return ((kBackward ? 2 : 1) + (kOrig ? 1 : 0)) *
+         Ring<kD, kOrig ? 3 : 2>::kFloats * sizeof(float);
 }
 
-template <int kD, bool kBackward>
-int launch_vel3_march(const float* U, const int* flags, const float* scratch,
-                      float* out, int b, const Params& P, cudaStream_t s) {
+template <int kD, bool kBackward, bool kOrig>
+int launch_vel3_march(const float* U, const float* orig, const int* flags,
+                      const float* scratch, float* out, int b,
+                      const Params& P, cudaStream_t s) {
   const int segs = (P.d + kVSegZ - 1) / kVSegZ;
   if ((long long)b * segs > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = vel3_march<kD, kBackward>;
-  constexpr size_t bytes = march_bytes<kD, kBackward>();
+  auto kern = vel3_march<kD, kBackward, kOrig>;
+  constexpr size_t bytes = march_bytes<kD, kBackward, kOrig>();
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -783,25 +807,46 @@ int launch_vel3_march(const float* U, const int* flags, const float* scratch,
   }
   const dim3 grid((P.w + kVTX - 1) / kVTX, (P.h + kVTY - 1) / kVTY,
                   b * segs);
-  kern<<<grid, dim3(kVTX, kVTY), bytes, s>>>(U, flags, scratch, out, P,
-                                             segs);
+  kern<<<grid, dim3(kVTX, kVTY), bytes, s>>>(U, orig, flags, scratch, out,
+                                             P, segs);
   return fnk::launch_status();
 }
 
-// The march of one half at max_disp P.D (1..kVMaxD).
+// The march of one half at max_disp P.D (1..kVMaxD; 1..kVMaxDOrig with
+// orig, which is null without).
 template <bool kBackward>
-int launch_vel3(const float* U, const int* flags, const float* scratch,
-                float* out, int b, const Params& P, cudaStream_t s) {
-  static_assert(kVMaxD == 4, "launch_vel3 dispatches D = 1..4");
+int launch_vel3(const float* U, const float* orig, const int* flags,
+                const float* scratch, float* out, int b, const Params& P,
+                cudaStream_t s) {
+  static_assert(kVMaxD == 4 && kVMaxDOrig == 3,
+                "launch_vel3 dispatches D = 1..4, with orig 1..3");
+  if (orig) {
+    switch (P.D) {
+      case 1:
+        return launch_vel3_march<1, kBackward, true>(U, orig, flags, scratch,
+                                                     out, b, P, s);
+      case 2:
+        return launch_vel3_march<2, kBackward, true>(U, orig, flags, scratch,
+                                                     out, b, P, s);
+      case 3:
+        return launch_vel3_march<3, kBackward, true>(U, orig, flags, scratch,
+                                                     out, b, P, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   switch (P.D) {
     case 1:
-      return launch_vel3_march<1, kBackward>(U, flags, scratch, out, b, P, s);
+      return launch_vel3_march<1, kBackward, false>(U, U, flags, scratch, out,
+                                                    b, P, s);
     case 2:
-      return launch_vel3_march<2, kBackward>(U, flags, scratch, out, b, P, s);
+      return launch_vel3_march<2, kBackward, false>(U, U, flags, scratch, out,
+                                                    b, P, s);
     case 3:
-      return launch_vel3_march<3, kBackward>(U, flags, scratch, out, b, P, s);
+      return launch_vel3_march<3, kBackward, false>(U, U, flags, scratch, out,
+                                                    b, P, s);
     case 4:
-      return launch_vel3_march<4, kBackward>(U, flags, scratch, out, b, P, s);
+      return launch_vel3_march<4, kBackward, false>(U, U, flags, scratch, out,
+                                                    b, P, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -840,18 +885,21 @@ int launch(Kernel kern, int b, const Params& P, cudaStream_t s,
 }  // namespace
 
 // `parts`: 1 the scalar (K), 2 the velocity (M), 3 both (L); the velocity
-// alone never traces. wm, hm, dm are float32(w - 1e-5), float32(h - 1e-5),
-// float32(d - 1e-5); slack the trace box's margin
+// alone never traces; `orig` (b, 3, d, h, w), the field M advects in place
+// of U, or null (only M takes one). wm, hm, dm are float32(w - 1e-5),
+// float32(h - 1e-5), float32(d - 1e-5); slack the trace box's margin
 // (ops/line_trace3.py::firsthit_slack3). Scratch: b*d*h*w floats times 4
 // for K, 3 for M, 7 for L. rho and rho_out may be null without the scalar,
 // U_out without the velocity.
 extern "C" int fn_advect3_forward(int parts, const float* rho,
-                                  const float* U, const int* flags,
+                                  const float* U, const float* orig,
+                                  const int* flags,
                                   float* scratch, int b, int d, int h, int w,
                                   float dt, float wm, float hm, float dm,
                                   float slack, int D, int line_trace,
                                   void* stream) {
-  if (bad_shape(b, d, h, w, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, d, h, w, D) || (orig && parts != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params P = make_params(d, h, w, dt, 0.f, wm, hm, dm, slack, D);
   cudaStream_t s = (cudaStream_t)stream;
   const bool tr = line_trace != 0;
@@ -861,7 +909,7 @@ extern "C" int fn_advect3_forward(int parts, const float* rho,
               : launch(advect3_forward<true, false, false>, b, P, s, rho, U,
                        flags, scratch, P);
   if (parts == 2)
-    return launch_vel3<false>(U, flags, nullptr, scratch, b, P, s);
+    return launch_vel3<false>(U, orig, flags, nullptr, scratch, b, P, s);
   if (parts == 3)
     return tr ? launch(advect3_forward<true, true, true>, b, P, s, rho, U,
                        flags, scratch, P)
@@ -871,13 +919,15 @@ extern "C" int fn_advect3_forward(int parts, const float* rho,
 }
 
 extern "C" int fn_advect3_backward(int parts, const float* rho,
-                                   const float* U, const int* flags,
+                                   const float* U, const float* orig,
+                                   const int* flags,
                                    const float* scratch, float* rho_out,
                                    float* U_out, int b, int d, int h, int w,
                                    float dt, float halfstr, float wm,
                                    float hm, float dm, float slack, int D,
                                    int line_trace, void* stream) {
-  if (bad_shape(b, d, h, w, D)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(b, d, h, w, D) || (orig && parts != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Params P = make_params(d, h, w, dt, halfstr, wm, hm, dm, slack, D);
   cudaStream_t s = (cudaStream_t)stream;
   const bool tr = line_trace != 0;
@@ -887,7 +937,7 @@ extern "C" int fn_advect3_backward(int parts, const float* rho,
               : launch(advect3_backward<true, false, false>, b, P, s, rho, U,
                        flags, scratch, rho_out, U_out, P);
   if (parts == 2)
-    return launch_vel3<true>(U, flags, scratch, U_out, b, P, s);
+    return launch_vel3<true>(U, orig, flags, scratch, U_out, b, P, s);
   if (parts == 3)
     return tr ? launch(advect3_backward<true, true, true>, b, P, s, rho, U,
                        flags, scratch, rho_out, U_out, P)
@@ -896,17 +946,29 @@ extern "C" int fn_advect3_backward(int parts, const float* rho,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The largest max_disp kernel M's rings are built for. Launches nothing.
-extern "C" int fn_advect3_velocity_max_disp() { return kVMaxD; }
+// The largest max_disp kernel M's rings are built for, without orig (0)
+// or with it (1). Launches nothing.
+extern "C" int fn_advect3_velocity_max_disp(int orig) {
+  return orig ? kVMaxDOrig : kVMaxD;
+}
 
 // Bytes of dynamic shared memory a block of M's backward march takes at
-// max_disp D (1..kVMaxD; 0 otherwise). Launches nothing.
-extern "C" int fn_advect3_velocity_smem(int D) {
+// max_disp D without orig (0) or with it (1); 0 for a D it is not built
+// for. Launches nothing.
+extern "C" int fn_advect3_velocity_smem(int D, int orig) {
+  if (orig) {
+    switch (D) {
+      case 1: return (int)march_bytes<1, true, true>();
+      case 2: return (int)march_bytes<2, true, true>();
+      case 3: return (int)march_bytes<3, true, true>();
+    }
+    return 0;
+  }
   switch (D) {
-    case 1: return (int)march_bytes<1, true>();
-    case 2: return (int)march_bytes<2, true>();
-    case 3: return (int)march_bytes<3, true>();
-    case 4: return (int)march_bytes<4, true>();
+    case 1: return (int)march_bytes<1, true, false>();
+    case 2: return (int)march_bytes<2, true, false>();
+    case 3: return (int)march_bytes<3, true, false>();
+    case 4: return (int)march_bytes<4, true, false>();
   }
   return 0;
 }

@@ -14,7 +14,14 @@
 // the wrapper says (`types`); every product is exact or rounded once in
 // float32 and summed in float32; the bias is added in float32, then the
 // ReLU, then the rounding to the output type (round to nearest even, as
-// XLA's and torch's casts).
+// XLA's and torch's casts). The flax route (`round_sum`, the flax path's
+// bfloat16 PUNet3: flax nn.Conv(dtype="bfloat16") as JAX computes it on
+// the CPU) rounds the float32 sum to bfloat16 first, then adds the bias
+// (which the wrapper rounds to bfloat16) and rounds again; every layer's
+// output is bfloat16 there, the up conv's and the head's too, so the
+// decoder's concat is bfloat16 on both halves and takes no bf16x3 split
+// (conv_mma.cuh's epilogue and split-K reduce hold the two roundings, as
+// for kernel B's bfloat16 route).
 //
 // What bounds it on an H100: operations. The p8 forward at 128^3 (g0 16)
 // is 9.1 GFLOP, the p4 forward (g0 32) 64.5 GFLOP, over activations of at
@@ -189,11 +196,12 @@ int launch_tc(const Args& A, const Plan& P, cudaStream_t s) {
   }
 }
 
-// The operand types the PUNet3 forward uses (ops/kernels/punet3.py): all
+// The operand types the PUNet3 forwards use (ops/kernels/punet3.py): all
 // float32 (the SIMT route); or bfloat16 weights with a bfloat16 input and
 // a bfloat16 (ReLU layers) or float32 (the up conv, the head) output; or
-// the decoder's concat, a float32 up half and a bfloat16 skip half. Other
-// `types` values are refused.
+// the decoder's concat, a float32 up half and a bfloat16 skip half; or, on
+// the flax route, the concat with both halves bfloat16. Other `types`
+// values are refused.
 int launch_types(int types, const Args& A, const Plan& P, cudaStream_t s) {
   static int simt_smem = 48 * 1024;
   switch (types) {
@@ -206,6 +214,8 @@ int launch_types(int types, const Args& A, const Plan& P, cudaStream_t s) {
       return launch_tc<bf16, bf16>(A, P, s);
     case kX2Bf16 | kWBf16 | kOutBf16:
       return launch_tc<float, bf16>(A, P, s);
+    case kX1Bf16 | kX2Bf16 | kWBf16 | kOutBf16:
+      return launch_tc<bf16, bf16>(A, P, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -214,7 +224,8 @@ int launch_types(int types, const Args& A, const Plan& P, cudaStream_t s) {
 }  // namespace
 
 // x2 may be null (c2 0). `types` says which operands are bfloat16 (bits
-// above, one of launch_types' cases); the rest are float32. The plan (bm,
+// above, one of launch_types' cases); the rest are float32. `round_sum`
+// (bfloat16 output only) rounds the sum before the bias add. The plan (bm,
 // bn, warp_m, splits, kbeg: splits + 1 K offsets, a host array) is
 // ops/kernels/conv_plan.py's; `ws` is a (splits, M, co) float32 workspace
 // when splits > 1, else null. Output (n, dout, ho, wo, co) NDHWC.
@@ -223,7 +234,8 @@ extern "C" int fn_conv3d_ndhwc(const void* x1, const void* x2,
                                float* ws, int c1, int c2, int n, int di,
                                int hi, int wi, int dout, int ho, int wo,
                                int co, int k, int stride, int pad, int relu,
-                               int types, int bm, int bn, int warp_m,
+                               int types, int round_sum, int bm, int bn,
+                               int warp_m,
                                int splits, const int* kbeg, void* stream) {
   const bool simt = types == 0;
   Plan P;
@@ -234,8 +246,9 @@ extern "C" int fn_conv3d_ndhwc(const void* x1, const void* x2,
       co % (simt ? 4 : 8) ||
       !plan_ok(g, P, simt ? kSimtK : kChunk, simt ? kSimtTile : 0, !simt) ||
       (splits > 1) != (ws != nullptr) || !aligned16(x1) ||
+      (round_sum && !(types & kOutBf16)) ||
       (x2 && !aligned16(x2)) || !aligned16(wgt) || (ws && !aligned16(ws)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args A{x1, x2, wgt, bias, nullptr, out, ws, g, relu, 1};
+  Args A{x1, x2, wgt, bias, nullptr, out, ws, g, relu, 1, round_sum};
   return launch_types(types, A, P, static_cast<cudaStream_t>(stream));
 }

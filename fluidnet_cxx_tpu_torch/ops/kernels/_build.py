@@ -72,11 +72,11 @@ SIGNATURES = {
     "fn_mg_learned_up": [VP] * 6 + [I] * 10 + [F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
-    "fn_conv3d_ndhwc": [VP] * 6 + [I] * 19 + [VP, VP],
-    "fn_advect3_forward": [I, VP, VP, VP, VP, I, I, I, I, F, F, F, F, F, I,
-                           I, VP],
-    "fn_advect3_backward": [I, VP, VP, VP, VP, VP, VP, I, I, I, I, F, F, F,
-                            F, F, F, I, I, VP],
+    "fn_conv3d_ndhwc": [VP] * 6 + [I] * 20 + [VP, VP],
+    "fn_advect3_forward": [I] + [VP] * 5 + [I, I, I, I, F, F, F, F, F, I,
+                                             I, VP],
+    "fn_advect3_backward": [I] + [VP] * 7 + [I, I, I, I, F, F, F, F, F, F,
+                                             I, I, VP],
 }
 # extern "C" entries that launch nothing and return a number.
 QUERIES = {
@@ -89,8 +89,8 @@ QUERIES = {
     "fn_mg_learned_launches": [I] * 10,
     "fn_advect_max_disp": [],
     "fn_advect_tile_smem": [I] * 3,
-    "fn_advect3_velocity_max_disp": [],
-    "fn_advect3_velocity_smem": [I],
+    "fn_advect3_velocity_max_disp": [I],
+    "fn_advect3_velocity_smem": [I, I],
     "fn_conv2d_wgrad_plan": [I] * 8 + [VP],
     "fn_conv2d_dgrad_plan": [I] * 8 + [VP],
 }

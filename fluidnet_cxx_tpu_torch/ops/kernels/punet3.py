@@ -15,13 +15,25 @@ XLA. Plain versions: ``conv3d_ndhwc_plain`` for one layer
 (F.conv3d) and the ``PUNet3`` module's own forward for the network; a CPU
 tensor runs them, a CUDA tensor the kernel.
 
-Rounding (``compute_dtype="bfloat16"``, as the TPU kernel rounds): the
-input and every weight are bfloat16, each product is taken in float32 and
-summed in float32, the bias is added in float32, a ReLU layer rounds its
-output to bfloat16, and the layers without a ReLU (the decoder's up conv
-and the head) keep float32 outputs. Tensors carry those dtypes between the
-layers; with ``"float32"`` nothing is rounded.
+Rounding (``compute_dtype="bfloat16"``), two routes:
+
+* ``rounding="fused"`` (the fused forward, as the TPU kernel rounds): the
+  input and every weight are bfloat16, each product is taken in float32
+  and summed in float32, the bias is added in float32, a ReLU layer rounds
+  its output to bfloat16, and the layers without a ReLU (the decoder's up
+  conv and the head) keep float32 outputs;
+* ``rounding="flax"`` (the flax path, flax ``nn.Conv(dtype="bfloat16")``
+  as JAX computes it on the CPU): the same products and float32 sums, the
+  sum rounded to bfloat16, the bias (rounded to bfloat16) added and the
+  result rounded again (``round_sum``), every layer's output bfloat16, the
+  up conv's and the head's too, so the decoder's concat is bfloat16 on
+  both halves; the network's output is cast to float32 at the end.
+
+Tensors carry those dtypes between the layers; with ``"float32"`` nothing
+is rounded and the two routes are the same.
 """
+import types
+
 import torch
 import torch.nn.functional as F
 
@@ -32,6 +44,9 @@ from .punet import same_pads
 # Bits of the kernel's ``types`` argument: which operands are bfloat16.
 _X1_BF16, _X2_BF16, _W_BF16, _OUT_BF16 = 1, 2, 4, 8
 _DTYPES = (torch.float32, torch.bfloat16)
+# The launches of N's flax route (round_sum), which also count on
+# conv3d_ndhwc.
+flax_route = types.SimpleNamespace(launches=0)
 
 
 def _pads3(x, k: int, stride: int):
@@ -40,32 +55,40 @@ def _pads3(x, k: int, stride: int):
 
 
 def conv3d_ndhwc_plain(x, weight, bias, stride=1, relu=False, x2=None,
-                       out_dtype=torch.float32):
+                       out_dtype=torch.float32, round_sum=False):
     """Plain version: SAME conv of NDHWC ``x`` (and ``x2`` concatenated on
     channels) with an OIDHW ``weight``, products and sums in float32;
-    returns NDHWC in ``out_dtype``."""
+    returns NDHWC in ``out_dtype``. ``round_sum`` (bfloat16 out): the sum
+    rounded to bfloat16, then the bias, rounded to bfloat16, added and the
+    result rounded again, as flax's bfloat16 conv."""
     h = x.float()
     if x2 is not None:
         h = torch.cat([h, x2.float()], dim=-1)
     (d0, d1), (h0, h1), (w0, w1) = _pads3(x, weight.shape[-1], stride)
     hn = F.pad(h.permute(0, 4, 1, 2, 3), (w0, w1, h0, h1, d0, d1))
-    y = F.conv3d(hn, weight.float(), bias.float(), stride=stride)
+    if round_sum:
+        y = F.conv3d(hn, weight.float(), None, stride=stride)
+        y = y.to(out_dtype) + bias.to(out_dtype)[:, None, None, None]
+    else:
+        y = F.conv3d(hn, weight.float(), bias.float(), stride=stride)
     if relu:
         y = torch.relu(y)
     return y.permute(0, 2, 3, 4, 1).to(out_dtype).contiguous()
 
 
 def conv3d_ndhwc(x, w_dhwio, bias, stride=1, relu=False, x2=None,
-                 out_dtype=torch.float32):
+                 out_dtype=torch.float32, round_sum=False):
     """SAME conv of NDHWC ``x`` (channels [x | x2]) with a DHWIO weight
     (k, k, k, c_in, c_out); bias and ReLU fused. ``x``, ``x2`` and the
     weight are float32 or bfloat16 (each product in float32), the bias
-    float32. Returns NDHWC in ``out_dtype`` (float32 or bfloat16). The
-    kernel takes the dtype sets of the PUNet3 forward (all float32, or
-    bfloat16 weights: csrc/conv3d.cu::launch_types) and refuses others."""
+    float32. Returns NDHWC in ``out_dtype`` (float32 or bfloat16);
+    ``round_sum`` rounds the sum to bfloat16 before the bias add (the flax
+    route: give the bias rounded to bfloat16). The kernel takes the dtype
+    sets of the PUNet3 forwards (all float32, or bfloat16 weights:
+    csrc/conv3d.cu::launch_types) and refuses others."""
     if not _build.on_cuda(x):
         return conv3d_ndhwc_plain(x, w_dhwio.permute(4, 3, 0, 1, 2), bias,
-                                  stride, relu, x2, out_dtype)
+                                  stride, relu, x2, out_dtype, round_sum)
     n, di, hi, wi, c1 = x.shape
     k, _, _, cin, co = w_dhwio.shape
     c2 = 0 if x2 is None else x2.shape[-1]
@@ -76,6 +99,8 @@ def conv3d_ndhwc(x, w_dhwio, bias, stride=1, relu=False, x2=None,
                              "takes float32 or bfloat16")
     if out_dtype not in _DTYPES:
         raise ValueError(f"out_dtype {out_dtype}: float32 or bfloat16")
+    if round_sum and out_dtype != torch.bfloat16:
+        raise ValueError("round_sum rounds to a bfloat16 output")
     _build.check(x, "x", x.dtype, (n, di, hi, wi, c1), dev)
     if x2 is not None:
         _build.check(x2, "x2", x2.dtype, (n, di, hi, wi, c2), dev)
@@ -104,9 +129,11 @@ def conv3d_ndhwc(x, w_dhwio, bias, stride=1, relu=False, x2=None,
     _build.call("fn_conv3d_ndhwc", x.data_ptr(), _build.ptr(x2),
                 w_dhwio.data_ptr(), bias.data_ptr(), out.data_ptr(),
                 _build.ptr(ws), c1, c2, n, di, hi, wi, do, ho, wo, co, k,
-                stride, pads[0][0], int(relu), types, plan.bm, plan.bn,
+                stride, pads[0][0], int(relu), types, int(round_sum),
+                plan.bm, plan.bn,
                 plan.warp_m, plan.splits, plan.c_bounds, _build.stream())
     conv3d_ndhwc.launches += 1
+    flax_route.launches += bool(round_sum)
     return out
 
 
@@ -116,20 +143,25 @@ conv3d_ndhwc.launches = 0
 def pack_weights3(net):
     """DHWIO copies of the PUNet3's conv weights in its compute dtype
     (rounded to bfloat16 once, here, for a bfloat16 net) and float32
-    biases, made once for the kernel."""
+    biases (rounded to bfloat16 first on the flax route), made once for
+    the kernel."""
+    def bias(conv):
+        b = conv.bias.detach()
+        return (b.to(torch.bfloat16) if net.round_sum else b).float()
+
     return {name: (conv.weight.detach().to(net.act_dtype)
                    .permute(2, 3, 4, 1, 0).contiguous(),
-                   conv.bias.detach().float().contiguous())
+                   bias(conv).contiguous())
             for name, conv in net.convs.items()}
 
 
 def punet3_forward(net, packed, x):
     """PUNet3 forward of NDHWC ``x`` (b, d, h, w, C) float32 -> (b, d, h,
-    w, 1) float32, every conv through ``conv3d_ndhwc``. ``packed`` is
-    ``pack_weights3(net)``."""
+    w, 1) float32, every conv through ``conv3d_ndhwc`` on the net's
+    rounding route. ``packed`` is ``pack_weights3(net)``."""
     def conv(name, h, x2=None, relu=True):
         w_dhwio, b = packed[name]
         return conv3d_ndhwc(h, w_dhwio, b, net.strides[name], relu, x2,
-                            net.out_dtype(relu))
+                            net.out_dtype(relu), net.round_sum)
 
     return net(x, conv=conv)

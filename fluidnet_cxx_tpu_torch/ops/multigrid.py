@@ -16,13 +16,23 @@ The learned coarse solve: ``solve_mg(coarse_fn=...)`` hands the first level
 of side <= ``coarse_size`` below the finest (``cut_level``) to
 ``coarse_fn(flags_c, rhs_c)`` in place of the sub-V below it, then runs
 ``post`` damped sweeps there from its correction (models/mg_coarse.py);
-``mg_cut_rhs`` is the downward half alone. Not ported: the 3-D functions.
+``mg_cut_rhs`` is the downward half alone.
+
+3-D (``solve_mg3``): the same V-cycle on the 7-point operator ``A p = 6 p -
+sum_n sel_n(p)``, 2x2x2 child sums halved, trilinear prolongation, three
+Neumann-extension passes, 6/7 damping by default and the depth cap
+``max_levels`` (the step passes ``mg_max_levels3``). Its smoother and
+coarse solve are kernel I (``ops/kernels/jacobi3.py::solve_jacobi3``, with
+``p0`` and ``damping``), the plain ``solve_jacobi_fixed3`` on CPU tensors;
+the rest is torch glue, as it is XLA in the JAX package.
 """
 import torch
 
 from ..celltype import OBSTACLE
+from . import ops3d
 from .common import border_mask, nb, where0
 from .jacobi import solve_jacobi_fixed
+from .kernels.jacobi3 import solve_jacobi3
 
 _NEIGHBOURS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 
@@ -94,15 +104,19 @@ def _prolong(e):
 
 
 def _cont_mask(flags):
-    return _cont(flags).to(torch.float32)
+    """Continuation cells (interior, not obstacle) as float32; 2-D or
+    3-D flags."""
+    return (_cont(flags) if flags.dim() == 3 else _cont3(flags)).to(
+        torch.float32)
 
 
 def _remove_incompatible(flags, rhs):
     """Project the RHS onto the range of A: subtract its mean over
     continuation cells."""
     m = _cont_mask(flags)
-    mean = (torch.sum(rhs * m, dim=(1, 2), keepdim=True)
-            / torch.clamp(torch.sum(m, dim=(1, 2), keepdim=True), min=1.0))
+    dims = tuple(range(1, rhs.dim()))
+    mean = (torch.sum(rhs * m, dim=dims, keepdim=True)
+            / torch.clamp(torch.sum(m, dim=dims, keepdim=True), min=1.0))
     return (rhs - mean) * m
 
 
@@ -180,9 +194,9 @@ def _cut_level(lvls, coarse_size: int):
 
 def _gauge(flags, p):
     cont = _cont_mask(flags)
-    mean = (torch.sum(p * cont, dim=(1, 2), keepdim=True)
-            / torch.clamp(torch.sum(cont, dim=(1, 2), keepdim=True),
-                          min=1.0))
+    dims = tuple(range(1, p.dim()))
+    mean = (torch.sum(p * cont, dim=dims, keepdim=True)
+            / torch.clamp(torch.sum(cont, dim=dims, keepdim=True), min=1.0))
     return cont * (p - mean)
 
 
@@ -225,3 +239,139 @@ def mg_cut_rhs(flags, div, coarse_size: int = 128, pre: int = 4,
         rhs = _restrict_sum(residual(f, rhs, p))
         p = torch.zeros_like(rhs)
     return lvls[cut], _remove_incompatible(lvls[cut], rhs)
+
+
+# ---------------------------------------------------------------- 3-D
+
+
+def _cont3(flags):
+    _, d, h, w = flags.shape
+    return ~(ops3d.border_mask3(d, h, w, 1, flags.device)[None]
+             | (flags == OBSTACLE))
+
+
+def apply_A3(flags, p):
+    """A p = 6 p - sum_n sel_n(p) on continuation cells, 0 elsewhere."""
+    ob = flags == OBSTACLE
+    acc = torch.zeros_like(p)
+    for s in ops3d._NEIGHBOURS6:
+        acc = acc + torch.where(ops3d.nb3(ob, *s), p, ops3d.nb3(p, *s))
+    return where0(_cont3(flags), 6.0 * p - acc)
+
+
+def _residual3(flags, rhs, p):
+    return where0(_cont3(flags), rhs - apply_A3(flags, p))
+
+
+def _coarsen_flags3(flags):
+    """OBSTACLE iff all eight children are; otherwise the least cell-type
+    id of the non-obstacle children; an OBSTACLE border shell."""
+    b, d, h, w = flags.shape
+    f = flags.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2)
+    all_ob = (f == OBSTACLE).all(dim=6).all(dim=4).all(dim=2)
+    big = torch.iinfo(torch.int32).max
+    rep = torch.where(f == OBSTACLE, big, f).amin(dim=(2, 4, 6))
+    out = torch.where(all_ob, OBSTACLE, rep).to(torch.int32)
+    border = ops3d.border_mask3(d // 2, h // 2, w // 2, 1, flags.device)
+    return torch.where(border[None], OBSTACLE, out).to(torch.int32)
+
+
+def _fold_border3(r):
+    """Move the residual of the border-layer planes (1 and -2) one cell
+    inward, z, then y, then x (edges and corners travel once per axis)."""
+    r = r.clone()
+    for ax in (1, 2, 3):
+        lo_src, lo_dst = r.select(ax, 1), r.select(ax, 2)
+        hi_src, hi_dst = r.select(ax, -2), r.select(ax, -3)
+        lo_dst += lo_src
+        hi_dst += hi_src
+        lo_src.zero_()
+        hi_src.zero_()
+    return r
+
+
+def _restrict_sum3(r):
+    """Border fold, then the sum of each cell's 8 children halved (the
+    unit-spacing stencil at every level)."""
+    b, d, h, w = r.shape
+    r = _fold_border3(r)
+    return r.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2).sum(
+        dim=(2, 4, 6)) * 0.5
+
+
+def _prolong3(e):
+    """Cell-centred trilinear prolongation: per axis z, y, x, (3/4, 1/4)
+    toward the containing coarse cell and its previous (even child) or
+    next (odd child) neighbour."""
+    def interleave(x, axis):
+        lo = 0.75 * x + 0.25 * torch.roll(x, 1, dims=axis)
+        hi = 0.75 * x + 0.25 * torch.roll(x, -1, dims=axis)
+        shape = list(x.shape)
+        shape[axis] *= 2
+        return torch.stack([lo, hi], dim=axis + 1).reshape(shape)
+
+    return interleave(interleave(interleave(e, 1), 2), 3)
+
+
+def _neumann_extend3(flags, e):
+    """Fill dead cells with the mean of their live 6-neighbours, three
+    passes (cube corners fill through edges and faces)."""
+    live = _cont_mask(flags)
+    e = e * live
+    for _ in range(3):
+        num = torch.zeros_like(e)
+        den = torch.zeros_like(e)
+        for s in ops3d._NEIGHBOURS6:
+            num = num + ops3d.nb3(e * live, *s)
+            den = den + ops3d.nb3(live, *s)
+        fill = num / torch.clamp(den, min=1.0)
+        e = torch.where(live > 0.5, e, fill)
+        live = torch.maximum(live, (den > 0.5).to(e.dtype))
+    return e
+
+
+def _vcycle3(flags_lvls, rhs, p, lvl, pre, post, coarse_iters, damping):
+    flags = flags_lvls[lvl]
+    rhs = _remove_incompatible(flags, rhs)
+    if lvl + 1 == len(flags_lvls):
+        return solve_jacobi3(flags, rhs, coarse_iters, p0=p, damping=damping)
+    p = solve_jacobi3(flags, rhs, pre, p0=p, damping=damping)
+    rhs_c = _restrict_sum3(_residual3(flags, rhs, p))
+    e_c = _vcycle3(flags_lvls, rhs_c, torch.zeros_like(rhs_c), lvl + 1,
+                   pre, post, coarse_iters, damping)
+    e_c = _neumann_extend3(flags_lvls[lvl + 1], e_c)
+    p = p + where0(_cont3(flags), _prolong3(e_c))
+    return solve_jacobi3(flags, rhs, post, p0=p, damping=damping)
+
+
+def level_shapes3(d: int, h: int, w: int, min_size: int = 8,
+                  max_levels: int = 0):
+    """(d, h, w) of every level: halve while all sides are even, the
+    halved smallest side is at least ``min_size`` and there are fewer
+    than ``max_levels`` levels (0: no cap)."""
+    shapes = [(d, h, w)]
+    while (all(s % 2 == 0 for s in shapes[-1])
+           and min(shapes[-1]) // 2 >= min_size
+           and (max_levels <= 0 or len(shapes) < max_levels)):
+        shapes.append(tuple(s // 2 for s in shapes[-1]))
+    return shapes
+
+
+def _levels3(flags, min_size, max_levels: int = 0):
+    lvls = [flags]
+    for _ in level_shapes3(*flags.shape[1:], min_size, max_levels)[1:]:
+        lvls.append(_coarsen_flags3(lvls[-1]))
+    return lvls
+
+
+def solve_mg3(flags, div, n_vcycles: int = 2, pre: int = 4, post: int = 4,
+              coarse_iters: int = 32, damping: float = 6.0 / 7.0,
+              min_size: int = 8, p0=None, max_levels: int = 0):
+    """3-D V-cycle multigrid with ``solve_jacobi3``'s (flags, div)
+    contract; returns p in the zero-mean gauge over continuation cells.
+    ``max_levels`` caps the hierarchy (0: none)."""
+    p = torch.zeros_like(div) if p0 is None else p0
+    lvls = _levels3(flags, min_size, max_levels)
+    for _ in range(n_vcycles):
+        p = _vcycle3(lvls, div, p, 0, pre, post, coarse_iters, damping)
+    return _gauge(flags, p)

@@ -10,12 +10,13 @@ Advection is the window engine only (MacCormack, the first-hit trace):
 the plain versions of kernels K (``advect_scalar3``) and M
 (``advect_velocity3``), which sample their corners with direct gathers
 (``ops/window3.py``). ``solve_jacobi_fixed3`` is the plain version of
-kernel I. Stick walls and viscosity (ROADMAP A.7.3) and vorticity
-confinement (A.7.4) wait.
+kernel I. ``add_viscosity3``, ``set_wall_bcs_stick3``, ``curl3`` and
+``add_vorticity_confinement3`` are torch code, as they are XLA in the JAX
+package; ``advect_velocity3(..., orig=...)`` carries the viscous field.
 """
 import torch
 
-from ..celltype import EMPTY, FLUID, OBSTACLE
+from ..celltype import EMPTY, FLUID, OBSTACLE, STICK
 from .common import F32, I32, where0
 
 _AXES = ((0, 0, 1), (0, 1, 0), (1, 0, 0))  # (dz, dy, dx) per channel
@@ -276,17 +277,22 @@ def advect_scalar3(dt, src, U, flags, maccormack_strength=0.75,
 
 
 def advect_velocity3(dt, U, flags, maccormack_strength=0.75,
-                     method="maccormackFluidNet", impl="window", max_disp=2):
-    """MacCormack advection of the MAC velocity by itself on the window
-    engine: each component is sampled from the cell-centre position
-    ``idx + 0.5`` along its face's full velocity vector (the JAX
-    package's semantics), corrected where the face lies between fluid
-    cells (the ``skip`` rule) and clamped to the extrema of the 8
-    trilinear corners of the integer positions idx -/+ vel*dt (the Selle
-    clamp). The output's border shell is 0."""
+                     method="maccormackFluidNet", impl="window", max_disp=2,
+                     orig=None):
+    """MacCormack advection of the MAC velocity ``orig`` (U itself when
+    None; the step passes the viscous field) by ``U`` on the window
+    engine: each component of ``orig`` is sampled from the cell-centre
+    position ``idx + 0.5`` along its face's full velocity vector of U (the
+    JAX package's semantics), corrected where the face lies between fluid
+    cells (the ``skip`` rule) and clamped to the extrema of ``orig`` over
+    the 8 trilinear corners of the integer positions idx -/+ vel*dt (the
+    Selle clamp). Non-fluid cells keep ``orig``'s value in each sample.
+    The output's border shell is 0."""
     from .window3 import clamp_component_mac_window3, interpol_window3
 
     _unsupported_advection(impl, method, "firsthit", False)
+    if orig is None:
+        orig = U
     D = max_disp
     b, _, d, h, w = U.shape
     fluid = flags == FLUID
@@ -301,7 +307,7 @@ def advect_velocity3(dt, U, flags, maccormack_strength=0.75,
         return torch.where(fluid[:, None], val, field)
 
     ring = border[None, None]
-    fwd = where0(~ring, sl(U, dt))
+    fwd = where0(~ring, sl(orig, dt))
     bwd = where0(~ring, sl(fwd, -dt))
     zz, yy, xx = index_grids3(b, d, h, w, U.device)
     outs = []
@@ -310,12 +316,139 @@ def advect_velocity3(dt, U, flags, maccormack_strength=0.75,
         skip = (~fluid) | ((idx > 0) & (~nb3(fluid, -dz, -dy, -dx)))
         dst = torch.where(
             skip, fwd[:, c],
-            fwd[:, c] + maccormack_strength * 0.5 * (U[:, c] - bwd[:, c]))
-        out = clamp_component_mac_window3(dst, U[:, c], mac[c] * dt, D)
+            fwd[:, c] + maccormack_strength * 0.5 * (orig[:, c] - bwd[:, c]))
+        out = clamp_component_mac_window3(dst, orig[:, c], mac[c] * dt, D)
         outs.append(where0(~border, out))
+    return torch.stack(outs, dim=1)
+
+
+def add_viscosity3(dt, U, flags, viscosity):
+    """Explicit viscous diffusion with the 7-point Laplacian on interior
+    faces whose cell and lower neighbour are fluid (0 on the other
+    interior faces); the border shell keeps U."""
+    _, d, h, w = flags.shape
+    fl = flags == FLUID
+
+    def lap(c):
+        acc = -6.0 * c
+        for s in _NEIGHBOURS6:
+            acc = acc + nb3(c, *s)
+        return acc
+
+    interior = ~border_mask3(d, h, w, 1, U.device)
+    outs = []
+    for c, (dz, dy, dx) in enumerate(_AXES):
+        mask = fl & nb3(fl, -dz, -dy, -dx)
+        comp = where0(mask, U[:, c] + dt * viscosity * lap(U[:, c]))
+        outs.append(torch.where(interior, comp, U[:, c]))
     return torch.stack(outs, dim=1)
 
 
 def correct_scalar3(dt, src, div, flags):
     """Variable-density correction: rho += dt*0.5*rho*div in fluid cells."""
     return torch.where(flags == FLUID, src + dt * 0.5 * src * div, src)
+
+
+def _shift_ok3(a, dz, dy, dx):
+    """``nb3`` of boolean ``a`` (b, d, h, w), False where the roll would
+    wrap: result[..., z, y, x] = a[..., z+dz, y+dy, x+dx] inside the grid
+    (one copy of the overlapping slab, not a roll and a mask)."""
+    def cut(k, n):
+        return (slice(max(0, -k), n - max(0, k)),
+                slice(max(0, k), n + min(0, k)))
+
+    (zo, zi), (yo, yi), (xo, xi) = (cut(k, n) for k, n in
+                                    zip((dz, dy, dx), a.shape[-3:]))
+    out = torch.zeros_like(a)
+    out[..., zo, yo, xo] = a[..., zi, yi, xi]
+    return out
+
+
+def set_wall_bcs_stick3(U, flags, flags_stick):
+    """No-slip (stick) walls, in the JAX package's order:
+      1. zero the velocity inside obstacle cells;
+      2. free-slip on each normal component (the lower neighbour false
+         off the grid);
+      3. in stick cells, each tangential component's ghost value is the
+         negated mean of its fluid neighbours along the two tangential
+         axes (1-4 of them);
+      4. a stick cell whose normal-minus neighbour is stick zeroes the
+         component when a tangential axis has a stick neighbour on exactly
+         one side (a both-sided pair is the extrusion axis, not a
+         corner)."""
+    fl = flags == FLUID
+    ob = flags == OBSTACLE
+    st = flags_stick == STICK
+    cont = fl | ob | st
+    comps = [where0(~ob, U[:, c]) for c in range(3)]
+    for c, (ndz, ndy, ndx) in enumerate(_AXES):
+        ob_m = _shift_ok3(ob, -ndz, -ndy, -ndx)
+        fl_m = _shift_ok3(fl, -ndz, -ndy, -ndx)
+        vel = where0(~(cont & (ob_m | (ob & fl_m))), comps[c])
+        acc = torch.zeros_like(vel)
+        cnt = torch.zeros(vel.shape, dtype=I32, device=vel.device)
+        for ta, (tdz, tdy, tdx) in enumerate(_AXES):
+            if ta == c:
+                continue
+            for sgn in (-1, 1):
+                sh = (sgn * tdz, sgn * tdy, sgn * tdx)
+                fl_t = _shift_ok3(fl, *sh)
+                acc = acc + where0(fl_t, nb3(vel, *sh))
+                cnt = cnt + fl_t.to(I32)
+        ghost = -acc / torch.clamp(cnt, min=1).to(F32)
+        vel = torch.where(cont & st & (cnt > 0), ghost, vel)
+        st_nm = _shift_ok3(st, -ndz, -ndy, -ndx)
+        st_tan = torch.zeros(vel.shape, dtype=torch.bool, device=vel.device)
+        for ta, (tdz, tdy, tdx) in enumerate(_AXES):
+            if ta == c:
+                continue
+            st_tan = st_tan | (_shift_ok3(st, -tdz, -tdy, -tdx)
+                               ^ _shift_ok3(st, tdz, tdy, tdx))
+        comps[c] = where0(~(cont & st & st_nm & st_tan), vel)
+    return torch.stack(comps, dim=1)
+
+
+def curl3(U):
+    """Cell-centred vorticity (b, 3, d, h, w): central differences of the
+    raw MAC components, zero on the border shell."""
+    _, _, d, h, w = U.shape
+    cu, cv, cw = U[:, 0], U[:, 1], U[:, 2]
+
+    def ddx(a):
+        return 0.5 * (nb3(a, 0, 0, 1) - nb3(a, 0, 0, -1))
+
+    def ddy(a):
+        return 0.5 * (nb3(a, 0, 1, 0) - nb3(a, 0, -1, 0))
+
+    def ddz(a):
+        return 0.5 * (nb3(a, 1, 0, 0) - nb3(a, -1, 0, 0))
+
+    keep = ~border_mask3(d, h, w, 1, U.device)
+    return torch.stack([where0(keep, ddy(cw) - ddz(cv)),
+                        where0(keep, ddz(cu) - ddx(cw)),
+                        where0(keep, ddx(cv) - ddy(cu))], dim=1)
+
+
+def add_vorticity_confinement3(U, flags, strength, dt):
+    """Vorticity confinement, f = strength * (N x omega) with N =
+    grad|omega| / |grad|omega||, averaged to the faces and added, times dt,
+    on interior fluid faces whose lower neighbour is fluid."""
+    _, d, h, w = flags.shape
+    fl = flags == FLUID
+    om = curl3(U)
+    mag = torch.sqrt(torch.sum(om * om, dim=1))
+    gx = 0.5 * (nb3(mag, 0, 0, 1) - nb3(mag, 0, 0, -1))
+    gy = 0.5 * (nb3(mag, 0, 1, 0) - nb3(mag, 0, -1, 0))
+    gz = 0.5 * (nb3(mag, 1, 0, 0) - nb3(mag, -1, 0, 0))
+    norm = torch.sqrt(gx * gx + gy * gy + gz * gz) + 1e-12
+    nx, ny, nz = gx / norm, gy / norm, gz / norm
+    forces = [ny * om[:, 2] - nz * om[:, 1], nz * om[:, 0] - nx * om[:, 2],
+              nx * om[:, 1] - ny * om[:, 0]]
+    cont = fl & (~border_mask3(d, h, w, 1, U.device))
+    outs = []
+    for c, (dz, dy, dx) in enumerate(_AXES):
+        f_face = 0.5 * (forces[c] + nb3(forces[c], -dz, -dy, -dx))
+        mask = cont & nb3(fl, -dz, -dy, -dx)
+        outs.append(torch.where(mask, U[:, c] + strength * dt * f_face,
+                                U[:, c]))
+    return torch.stack(outs, dim=1)

@@ -1,11 +1,13 @@
-"""Run the 3-D buoyant plume under the classical Jacobi projection or the
-learned one.
+"""Run the 3-D buoyant plume under the classical Jacobi projection, the
+3-D multigrid or the learned one.
 
     python -m fluidnet_cxx_tpu_torch.run_plume3d --res 128 --steps 20
     python -m fluidnet_cxx_tpu_torch.run_plume3d --fuse-advection \\
         --line-trace
+    python -m fluidnet_cxx_tpu_torch.run_plume3d --sim-method multigrid \\
+        --fuse-advection
     python -m fluidnet_cxx_tpu_torch.run_plume3d --sim-method convnet \\
-        --model-dir trained_models/PUNet3p8_64
+        --model-dir trained_models/PUNet3p8_64 [--path flax]
     python -m fluidnet_cxx_tpu_torch.run_plume3d --res 32 --steps 5 \\
         --device cpu
 
@@ -17,7 +19,9 @@ advection_impl="window", use_pallas=True)``. Without flags a step runs
 kernels K (density), M (velocity) and I (60 Jacobi sweeps);
 ``--fuse-advection`` runs kernel L in place of K and M, ``--line-trace``
 the first-hit obstacle trace in the density's advection (bench3d's
-``--fuseAdvection`` and ``--lineTrace``).
+``--fuseAdvection`` and ``--lineTrace``). ``--sim-method multigrid`` is
+bench3d's "pallas + multigrid" row: ``solve_mg3`` with ``--mg-vcycles``
+V-cycles (2), at most 3 levels and 8 post sweeps, its sweeps on kernel I.
 
 ``--sim-method convnet`` is bench3d's learned row (``--modelDir``): the
 same scene and config with the PUNet3 of ``--model-dir``'s
@@ -25,7 +29,12 @@ same scene and config with the PUNet3 of ``--model-dir``'s
 patch 8, widths 96/128, bfloat16, 16 polish sweeps; ``PUNet3_32``: patch
 4, 8 sweeps; ``--polish-sweeps`` overrides the count), projecting with
 kernels N (the PUNet3 forward, 9 conv launches) and J (the tail: RHS,
-polish sweeps, velocity update, walls) after K and M. The network runs the
+polish sweeps, velocity update, walls) after K and M: the fused forward
+(``make_project_fn3_fused_forward``, bench3d's engine, ``polish_impl``
+"fused"). ``--path flax`` runs the flax path instead
+(``make_project_fn3``: the model as its ``model_config.json`` ships it,
+N's flax route, the polish of its ``polish_impl``: "xla" and "pallas" on
+kernel I, "fused" on J). The network runs the
 trained weights of ``--model-dir`` (its ``torch_state_dict.pt``, converted
 from the orbax checkpoint by ``scripts/torch_convert_checkpoints.py``);
 ``--weight-seed N`` asks for flax-initialised weights from seed N instead.
@@ -49,7 +58,8 @@ from .celltype import FLUID
 from .config import load_model_config
 from .models.convert import (flax_to_state_dict3, load_state_dict_file,
                              random_flax_params3)
-from .models.punet3d import PUNet3, make_project_fn3
+from .models.punet3d import (PUNet3, make_project_fn3,
+                              make_project_fn3_fused_forward)
 from .ops.kernels import advect3, jacobi3, proj_tail3, punet3
 from .ops.ops3d import velocity_divergence3
 from .run_plume import resolve_device, weights_label
@@ -57,10 +67,13 @@ from .sim.scenes import plume_config
 from .sim.scenes3 import create_plume_scene3
 from .sim.step3d import simulate_step3
 
-# The kernels of the 3-D step, by their letter in the kernel table.
+# The kernels of the 3-D step, by their letter in the kernel table; "Mo"
+# and "Nf" count the launches of M with orig and of N's flax route, which
+# also count under M and N.
 KERNELS = {"I": jacobi3.solve_jacobi3, "J": proj_tail3.project_tail3,
            "K": advect3.advect_scalar3, "L": advect3.advect_all3,
-           "M": advect3.advect_velocity3, "N": punet3.conv3d_ndhwc}
+           "M": advect3.advect_velocity3, "Mo": advect3.velocity_orig,
+           "N": punet3.conv3d_ndhwc, "Nf": punet3.flax_route}
 
 MODELS = Path(__file__).resolve().parent.parent / "trained_models"
 MODEL_DIR3 = MODELS / "PUNet3p8_64"
@@ -68,24 +81,25 @@ MODEL_DIR3 = MODELS / "PUNet3p8_64"
 
 def plume3d_case(res: int = 128, device="cuda", jacobi_iter: int = 60,
                  fuse_advection: bool = False, line_trace: bool = False,
-                 sim_method: str = "jacobi"):
+                 sim_method: str = "jacobi", mg_vcycles: int = 2):
     """(SimConfig, initial SimState3) of bench3d's plume case."""
     dev = resolve_device(device)
     cfg = plume_config(dt=0.25, jacobi_iter=jacobi_iter, buoyancy_scale=0.5,
                        gravity_vec=(0.0, -1.0, 0.0), line_trace=line_trace,
                        max_disp=2, advection_impl="window", use_pallas=True,
-                       fuse_advection=fuse_advection, sim_method=sim_method)
+                       fuse_advection=fuse_advection, sim_method=sim_method,
+                       mg_vcycles=mg_vcycles)
     state = create_plume_scene3(res, res, res, density_val=0.1,
                                 u_scale=0.6 * res / 64.0, device=dev)
     return cfg, state
 
 
 def build_punet3(mcfg, weight_seed=None, device="cpu",
-                 model_dir=MODEL_DIR3) -> PUNet3:
-    """The configured PUNet3 with the trained weights of ``model_dir``
-    (``weight_seed`` None) or flax-initialised weights from
-    ``weight_seed``."""
-    net = PUNet3.from_config(mcfg)
+                 model_dir=MODEL_DIR3, rounding: str = "fused") -> PUNet3:
+    """The configured PUNet3 on ``rounding``'s route ("fused" or "flax")
+    with the trained weights of ``model_dir`` (``weight_seed`` None) or
+    flax-initialised weights from ``weight_seed``."""
+    net = PUNet3.from_config(mcfg, rounding)
     net.load_state_dict(
         load_state_dict_file(model_dir) if weight_seed is None else
         flax_to_state_dict3(random_flax_params3(net.table, weight_seed)))
@@ -95,11 +109,15 @@ def build_punet3(mcfg, weight_seed=None, device="cpu",
 def learned3d_case(res: int = 128, device="cuda", model_dir=MODEL_DIR3,
                    polish_sweeps=None, weight_seed=None,
                    fuse_advection: bool = False, line_trace: bool = False,
-                   compute_dtype=None):
+                   compute_dtype=None, path: str = "fused"):
     """(SimConfig, initial SimState3, project_fn) of bench3d's learned
     plume case: the PUNet3 of ``model_dir`` (``polish_sweeps`` and
     ``compute_dtype`` overriding its own) with its trained weights, or
-    weights from ``weight_seed``."""
+    weights from ``weight_seed``; ``path`` "fused" is bench3d's fused
+    forward (``polish_impl`` "fused"), "flax" the flax path with the
+    model's own ``polish_impl``."""
+    if path not in ("fused", "flax"):
+        raise ValueError(f"path {path!r}: 'fused' or 'flax'")
     cfg, state = plume3d_case(res, device, fuse_advection=fuse_advection,
                               line_trace=line_trace, sim_method="convnet")
     mcfg = load_model_config(str(model_dir))
@@ -107,8 +125,12 @@ def learned3d_case(res: int = 128, device="cuda", model_dir=MODEL_DIR3,
         mcfg = dataclasses.replace(mcfg, polish_sweeps=polish_sweeps)
     if compute_dtype is not None:
         mcfg = dataclasses.replace(mcfg, compute_dtype=compute_dtype)
-    net = build_punet3(mcfg, weight_seed, state.U.device, model_dir)
-    return cfg, state, make_project_fn3(mcfg, net)
+    if path == "fused":
+        mcfg = dataclasses.replace(mcfg, polish_impl="fused")
+    net = build_punet3(mcfg, weight_seed, state.U.device, model_dir, path)
+    make = (make_project_fn3_fused_forward if path == "fused"
+            else make_project_fn3)
+    return cfg, state, make(mcfg, net)
 
 
 def quality3(state):
@@ -127,7 +149,7 @@ def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
                 jacobi_iter: int = 60, fuse_advection: bool = False,
                 line_trace: bool = False, sim_method: str = "jacobi",
                 model_dir=MODEL_DIR3, polish_sweeps=None,
-                weight_seed=None):
+                weight_seed=None, path: str = "fused", mg_vcycles: int = 2):
     """Run ``steps`` steps; returns a dict with the final ``state``,
     ``ms_per_step`` over all but the last step, the kernel launches per
     step, ``quality3(state)`` and, for the learned case, the weights it
@@ -135,11 +157,21 @@ def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
     if sim_method == "convnet":
         cfg, state, project = learned3d_case(
             res, device, model_dir, polish_sweeps, weight_seed,
-            fuse_advection, line_trace)
+            fuse_advection, line_trace, path=path)
     else:
         cfg, state = plume3d_case(res, device, jacobi_iter, fuse_advection,
-                                  line_trace, sim_method)
+                                  line_trace, sim_method, mg_vcycles)
         project = None
+    out = drive3(cfg, state, project, steps)
+    if project is not None:
+        out["weights"] = weights_label(weight_seed)
+    return out
+
+
+def drive3(cfg, state, project, steps: int):
+    """Run ``steps`` 3-D steps from ``state``; returns a dict with the
+    final ``state``, ``ms_per_step`` over all but the last step, the
+    kernel launches per step and ``quality3(state)``."""
     on_card = state.U.device.type == "cuda"
     before = {k: fn.launches for k, fn in KERNELS.items()}
     if on_card:
@@ -157,10 +189,7 @@ def run_plume3d(res: int = 128, steps: int = 20, device="cuda",
     state = simulate_step3(cfg, state, project)
     per_step = {k: (fn.launches - before[k]) / steps
                 for k, fn in KERNELS.items() if fn.launches > before[k]}
-    weights = ({"weights": weights_label(weight_seed)}
-               if project is not None else {})
-    return {"state": state,
-            "ms_per_step": elapsed_ms / max(steps - 1, 1), **weights,
+    return {"state": state, "ms_per_step": elapsed_ms / max(steps - 1, 1),
             "launches_per_step": per_step, **quality3(state)}
 
 
@@ -172,8 +201,12 @@ def main(argv=None):
     ap.add_argument("--fuse-advection", action="store_true")
     ap.add_argument("--line-trace", action="store_true")
     ap.add_argument("--sim-method", default="jacobi",
-                    choices=("jacobi", "convnet"))
+                    choices=("jacobi", "multigrid", "convnet"))
+    ap.add_argument("--mg-vcycles", type=int, default=2)
     ap.add_argument("--model-dir", default=str(MODEL_DIR3))
+    ap.add_argument("--path", default="fused", choices=("fused", "flax"),
+                    help="the learned projection: bench3d's fused forward "
+                         "or the flax path")
     ap.add_argument("--polish-sweeps", type=int, default=None)
     ap.add_argument("--weight-seed", type=int, default=None,
                     help="flax-initialised weights from this seed in "
@@ -182,12 +215,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     out = run_plume3d(args.res, args.steps, args.device, args.jacobi_iter,
                       args.fuse_advection, args.line_trace, args.sim_method,
-                      args.model_dir, args.polish_sweeps, args.weight_seed)
+                      args.model_dir, args.polish_sweeps, args.weight_seed,
+                      args.path, args.mg_vcycles)
     st = out.pop("state")
-    method = ({"jacobi_iter": args.jacobi_iter}
-              if args.sim_method == "jacobi" else
-              {"model_dir": args.model_dir,
-               "polish_sweeps": args.polish_sweeps})
+    method = {"jacobi": {"jacobi_iter": args.jacobi_iter},
+              "multigrid": {"mg_vcycles": args.mg_vcycles},
+              "convnet": {"model_dir": args.model_dir, "path": args.path,
+                          "polish_sweeps": args.polish_sweeps}}[
+                              args.sim_method]
     print(json.dumps({
         "res": args.res, "steps": args.steps,
         "sim_method": args.sim_method, **method,

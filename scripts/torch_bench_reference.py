@@ -22,7 +22,9 @@ package's commit and the seconds it took into ``--out``
   max|div| and the plume height, as ``bench.py::run_case``.
 * ``plume3d:<res>:jacobi60``: ``scripts/bench3d.py``'s classical row
   (separate advection, no trace, max_disp 2), 60 steps from t = 0 (6n at
-  bench3d's n = 10). ``plume3d:<res>:<model>-float32``: its learned row
+  bench3d's n = 10). ``plume3d:<res>:mg2v``: its "pallas + multigrid" row
+  (``solve_mg3``, 2 V-cycles, the step's depth cap of 3 levels and 8 post
+  sweeps). ``plume3d:<res>:<model>-float32``: its learned row
   with the trained ``trained_models/<model>`` in float32 on both sides:
   in bfloat16 the flax PUNet3 rounds every conv's output, the port's (and
   the fused TPU kernel's) up conv and head keep float32 (ROADMAP C.5), so
@@ -139,7 +141,8 @@ def reduce_chunks(chunks):
 
 
 def plume3d_quality(case, res, steps, max_disp=2, line_trace=False):
-    """bench3d's case (jacobi<N>, or <model>-float32 for the learned row)
+    """bench3d's case (jacobi<N>, mg<N>v for the multigrid row with N
+    V-cycles, or <model>-float32 for the learned row)
     after ``steps`` steps from t = 0 on JAX's XLA path: max|div| over
     interior cells, mean|div| over fluid cells, the density sum and
     max|U|."""
@@ -157,6 +160,9 @@ def plume3d_quality(case, res, steps, max_disp=2, line_trace=False):
     project = None
     if case.startswith("jacobi"):
         cfg = plume_config(jacobi_iter=int(case[len("jacobi"):]), **kw)
+    elif case.startswith("mg") and case.endswith("v"):
+        cfg = plume_config(sim_method="multigrid",
+                           mg_vcycles=int(case[2:-1]), **kw)
     else:
         from fluidnet_cxx_tpu.models.punet3d import (FluidNet3,
                                                       make_project_fn3)

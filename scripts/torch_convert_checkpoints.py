@@ -5,7 +5,7 @@
 
 For each of PUNetD2_128, DataTrain_128 (FluidNetTower), ScaleNet_jets_128,
 ScaleNet_onDevice_128 and ScaleNet_rollout_128 (MultiScaleNet) (2-D),
-PUNet3p8_64 and PUNet3_32 (3-D) it reads
+PUNet3p8_64, PUNet3p8j_64, PUNet3p8r_64 and PUNet3_32 (3-D) it reads
 ``trained_models/<name>/best`` with the JAX package's loader
 (``train/checkpoint.py::load_train_checkpoint``), and for MGCoarse_128 (the
 learned coarse solve of ``mg_learned``) as ``models/mg_coarse.py::
@@ -39,7 +39,7 @@ MODELS_2D = ("PUNetD2_128", "DataTrain_128", "ScaleNet_jets_128",
 # The flax FluidNet's submodule of each 2-D model (its config's "model").
 SUBTREE = {"PUNet": "PUNet_0", "ScaleNet": "MultiScaleNet_0",
            "FluidNet": "FluidNetTower_0"}
-MODELS_3D = ("PUNet3p8_64", "PUNet3_32")
+MODELS_3D = ("PUNet3p8_64", "PUNet3p8j_64", "PUNet3p8r_64", "PUNet3_32")
 MODELS_MG_COARSE = ("MGCoarse_128",)
 
 

@@ -152,10 +152,10 @@ def test_reference_check_holds_rows_to_their_limits(cpu_run):
 
 def test_committed_reference_holds_the_required_rows():
     """bench_reference.json has the five 2-D cases at 128^2 (400 steps)
-    and 512^2 (300 steps), the 3-D classical row at 128^3 and the
-    learned rows' float32 variant at 64^3 and 128^3 (60 steps), each at
-    the benches' default settings, the 2-D rows with their JAX command
-    and commit."""
+    and 512^2 (300 steps), the 3-D classical row at 128^3 and 64^3, the
+    multigrid row (mg2v) at 64^3 and the learned rows' float32 variant at
+    64^3 and 128^3 (60 steps), each at the benches' default settings, the
+    2-D rows with their JAX command and commit."""
     ref = bench.load_reference(bench.REFERENCE)
     for res, steps in (("128", 400), ("512", 300)):
         for case in bench.CASES:
@@ -166,7 +166,8 @@ def test_committed_reference_holds_the_required_rows():
             assert "torch_bench_reference.py" in row["command"]
             assert row["jax_package_commit"]
     for res, case in (("128", "jacobi60"), ("128", "PUNet3p8_64-float32"),
-                      ("128", "PUNet3_32-float32"),
+                      ("128", "PUNet3_32-float32"), ("64", "mg2v"),
+                      ("64", "jacobi60"),
                       ("64", "PUNet3p8_64-float32"),
                       ("64", "PUNet3_32-float32")):
         assert ref["plume3d"][res][case]["settings"] == {

@@ -1,11 +1,12 @@
 """The port's 3-D bench (``fluidnet_cxx_tpu_torch/bench3d.py``) on the CPU:
-the rollout quality of the classical row and of the learned row's float32
-variant against the JAX package's
+the rollout quality of the classical row, the multigrid row (``mg2v``) and
+of the learned row's float32 variant against the JAX package's
 (``scripts/torch_bench_reference.py::plume3d_quality``), its command
 line's one JSON line, and its ``--reference`` check.
 
 The rollouts run bench3d's scene for 6n steps with n = 1, at 24^3
-(classical) and 16^3 (learned, the trained PUNet3p8_64 in float32). The
+(classical) and 16^3 (multigrid; learned, the trained PUNet3p8_64 in
+float32). The
 port runs the bench's max_disp 2; JAX runs max_disp 1, which compiles in a
 fraction of the time and gives the same fields while no back-trace
 exceeds one cell (asserted), as in ``tests/test_torch_step3d.py``.
@@ -51,22 +52,24 @@ def _reference_script():
     return mod
 
 
-@pytest.mark.parametrize("row,res", [
-    ([], RES),
+@pytest.mark.parametrize("row,res,case", [
+    ([], RES, "jacobi60"),
+    (["--multigrid"], 16, "mg2v"),
     (["--onlyModel", "--modelDir", "trained_models/PUNet3p8_64",
-      "--computeDtype", "float32"], 16)])
-def test_row_quality_matches_jax(row, res):
-    """The classical row (Jacobi-60, separate advection, no trace) and the
-    learned row's float32 variant (trained PUNet3p8_64: the reference's
-    flax forward and XLA polish against the port's forward and fused
-    tail) after 6n steps from t = 0: the bench's four quality columns
-    against JAX's."""
+      "--computeDtype", "float32"], 16, "PUNet3p8_64-float32")])
+def test_row_quality_matches_jax(row, res, case):
+    """The classical row (Jacobi-60, separate advection, no trace), the
+    multigrid row (bench3d's "pallas + multigrid": solve_mg3, 2 V-cycles;
+    two levels at 16^3) and the learned row's float32 variant (trained
+    PUNet3p8_64: the reference's flax forward and XLA polish against the
+    port's forward and fused tail) after 6n steps from t = 0: the bench's
+    four quality columns against JAX's."""
     ref = _reference_script()
     args = bench3d.parse(["--device", "cpu", "--res", str(res),
                           "--steps", str(N)] + row)
-    ((case, (cfg, state, project)),) = bench3d.rows_of(
-        args, torch.device("cpu")).items()
-    assert case == ("jacobi60" if not row else "PUNet3p8_64-float32")
+    rows = bench3d.rows_of(args, torch.device("cpu"))
+    assert list(rows)[-1] == case
+    cfg, state, project = rows[case]
     with torch.no_grad():
         for _ in range(6 * N):
             assert cfg.dt * float(state.U.abs().max()) < 1.0

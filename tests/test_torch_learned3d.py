@@ -1,7 +1,8 @@
-"""The learned 3-D projection as a whole, port against the JAX package on
-the CPU: ``make_project_fn3`` against ``make_project_fn3_fused_forward``
-(its Pallas kernels N and J interpreted, as ``tests/test_pallas.py`` runs
-them), three 32^3 ``simulate_step3`` convnet steps of bench3d's learned
+"""The learned 3-D projection's fused forward as a whole, port against the
+JAX package on the CPU: the port's ``make_project_fn3_fused_forward``
+against JAX's (its Pallas kernels N and J interpreted, as
+``tests/test_pallas.py`` runs them), three 32^3 ``simulate_step3`` convnet
+steps of bench3d's learned
 plume case with PUNet3p8_64 (patch 8) and PUNet3_32 (patch 4) at full
 widths, the convnet step's wall-BC rule, and the entry point.
 
@@ -37,7 +38,8 @@ from fluidnet_cxx_tpu.sim.step3d import simulate_step3 as j_step3
 from fluidnet_cxx_tpu_torch.celltype import OBSTACLE
 from fluidnet_cxx_tpu_torch.config import load_model_config
 from fluidnet_cxx_tpu_torch.models.convert import random_flax_params3
-from fluidnet_cxx_tpu_torch.models.punet3d import make_project_fn3
+from fluidnet_cxx_tpu_torch.models.punet3d import \
+    make_project_fn3_fused_forward as port_fused_forward
 from fluidnet_cxx_tpu_torch.ops.ops3d import empty_domain3, set_wall_bcs3
 from fluidnet_cxx_tpu_torch.run_plume3d import (MODELS, build_punet3,
                                                 plume3d_case, run_plume3d)
@@ -77,17 +79,17 @@ def _fast_jax_compile():
 
 def _projections(model, dtype, res=RES, seed=0):
     """(port project_fn, JAX fused-forward project_fn) of one model dir at
-    ``dtype``, the same weights (``random_flax_params3(seed)``) in both."""
+    ``dtype``, the same weights (``random_flax_params3(seed)``) in both,
+    ``polish_impl`` "fused" as bench3d sets it for the fused forward."""
     mcfg = dataclasses.replace(load_model_config(str(MODEL_DIRS[model])),
-                               compute_dtype=dtype)
+                               compute_dtype=dtype, polish_impl="fused")
     net = build_punet3(mcfg, seed)
     params = random_flax_params3(net.table, seed)
-    jcfg = JaxModelConfig(**{**dataclasses.asdict(mcfg),
-                             "polish_impl": "fused"})
+    jcfg = JaxModelConfig(**dataclasses.asdict(mcfg))
     jproj = make_project_fn3_fused_forward(
         FluidNet3(jcfg), {"params": {"PUNet3_0": params}}, res, res, res,
         compute_dtype=jnp.dtype(dtype))
-    return make_project_fn3(mcfg, net), jproj
+    return port_fused_forward(mcfg, net), jproj
 
 
 def _close(got, want, rel):
@@ -99,8 +101,9 @@ def _close(got, want, rel):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("model", ["p8", "p4"])
 def test_make_project_fn3_matches_fused_forward(model, dtype):
-    """One projection of a divergent U over flags with 8% obstacles:
-    divergence, UDiv scale, PUNet3 forward (N), tail (J)."""
+    """The port's make_project_fn3_fused_forward against JAX's: one
+    projection of a divergent U over flags with 8% obstacles: divergence,
+    UDiv scale, PUNet3 forward (N), tail (J)."""
     rng = np.random.default_rng(3)
     flags = empty_domain3(1, RES, RES, RES)
     flags[torch.from_numpy(rng.random(flags.shape) < 0.08)] = OBSTACLE

@@ -228,8 +228,9 @@ def test_trained_checkpoint3_matches_interpreted_kernel(rng):
 
 
 def test_from_config_takes_both_dtypes_and_refuses_the_rest():
-    """bfloat16 and float32 build; another dtype, model or a refinement
-    stack raises naming ROADMAP A.4."""
+    """bfloat16 and float32 build on both rounding routes; a refinement
+    stack is ignored, as the JAX PUNet3 has none; another dtype raises,
+    another model raises naming ROADMAP A.4, another rounding ValueError."""
     for dtype in ("bfloat16", "float32"):
         cfg = ModelConfig(model="PUNet3", punet_patch=4, punet_widths=WIDTHS,
                           punet_bottleneck_convs=2, compute_dtype=dtype)
@@ -238,13 +239,20 @@ def test_from_config_takes_both_dtypes_and_refuses_the_rest():
         assert [name for name, *_ in net.table] == [
             "embed", "enc0_0", "down1", "enc1_0", "mid0", "mid1", "up0",
             "dec0_0", "head"]
+        for rounding in ("flax", "fused"):
+            net = PUNet3.from_config(cfg, rounding)
+            assert net.round_sum == (rounding == "flax"
+                                     and dtype == "bfloat16")
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         PUNet3.from_config(ModelConfig(model="PUNet3",
                                        compute_dtype="float16"))
-    for bad in (dict(model="PUNet"), dict(model="PUNet3",
-                                          punet_refine_convs=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-            PUNet3.from_config(ModelConfig(**bad))
+    refine = PUNet3.from_config(ModelConfig(model="PUNet3",
+                                            punet_refine_convs=1))
+    assert [name for name, *_ in refine.table][-1] == "head"
+    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
+        PUNet3.from_config(ModelConfig(model="PUNet"))
+    with pytest.raises(ValueError, match="rounding"):
+        PUNet3.from_config(ModelConfig(model="PUNet3"), "xla")
 
 
 def test_kernel_wrapper_on_cpu_runs_the_plain_version():

@@ -23,9 +23,11 @@ the wrong plane gives a wrong value. Cases: b = 1
 and 2, shapes that are not multiples of the tiles, several z segments;
 J cold and warm, damping 2/3, 16, 8, 3, 2 and 1 sweeps; M at D = 1, 2 and
 4 on random obstacles and on the scene's flags (the border shell alone),
-with displacements past the window clamp. One case each holds a twin to
-the JAX package: J to the interpreted TPU kernel at 1e-6 of max|p|, M to
-the XLA window path at 1e-5.
+with displacements past the window clamp; M with a viscous ``orig`` (a
+third ring, orig's, in both launches, the rings' depth set for three) at
+D = 1, 2 and 3. One case each holds a twin to the JAX package: J to the
+interpreted TPU kernel at 1e-6 of max|p|, M to the XLA window path at
+1e-5.
 """
 import re
 from pathlib import Path
@@ -41,7 +43,8 @@ from fluidnet_cxx_tpu.ops.pallas.proj_tail3_pallas import \
 from fluidnet_cxx_tpu_torch.celltype import EMPTY, FLUID, OBSTACLE
 from fluidnet_cxx_tpu_torch.ops.kernels.proj_tail3 import \
     project_tail3_plain
-from fluidnet_cxx_tpu_torch.ops.ops3d import (advect_velocity3,
+from fluidnet_cxx_tpu_torch.ops.ops3d import (add_viscosity3,
+                                              advect_velocity3,
                                               empty_domain3)
 from test_torch_jacobi_blocking import i_constants, twin_i
 from test_torch_ops3d import random_flags3
@@ -64,17 +67,24 @@ def m_constants():
                  for name in ("kVTX", "kVTY", "kVSegZ", "kVAhead", "kVMaxD"))
 
 
+def max_d_orig():
+    """kVMaxDOrig of csrc/advect3.cu: the largest D M takes with orig."""
+    return _constant((CSRC / "advect3.cu").read_text(),
+                     r"constexpr int kVMaxDOrig = (\d+);")
+
+
 SMEM_MAX = 232448   # bytes of shared memory a block may have
 
 
-def ring_shape(D):
+def ring_shape(D, rings=2):
     """The ring's plane width and height and its depth in planes at
-    max_disp D (Ring<kD> in csrc/advect3.cu): at least 2D + 2 + kVAhead
-    planes, a power of two where the backward pair of rings fits."""
+    max_disp D (Ring<kD, kRings> in csrc/advect3.cu): at least 2D + 2 +
+    kVAhead planes, a power of two where the backward block's ``rings``
+    rings fit (2 without orig, 3 with it)."""
     tx, ty, _, ahead, _ = m_constants()
     kw, kh, least = tx + 2 * D + 1, ty + 2 * D + 1, 2 * D + 2 + ahead
     pow2 = 1 << (least - 1).bit_length()
-    fits = 2 * pow2 * 3 * kw * kh * 4 <= SMEM_MAX
+    fits = rings * pow2 * 3 * kw * kh * 4 <= SMEM_MAX
     return kw, kh, pow2 if fits else least
 
 
@@ -164,11 +174,11 @@ class Tiles:
     TY, TX) index arrays, and reads from rings of planes over those
     tiles."""
 
-    def __init__(self, shape, D, seg_z=None):
+    def __init__(self, shape, D, seg_z=None, rings=2):
         tx, ty, seg, _, _ = m_constants()
         self.b, self.d, self.h, self.w = shape
         self.D, self.seg = D, seg_z or seg
-        self.kw, self.kh, self.depth = ring_shape(D)
+        self.kw, self.kh, self.depth = ring_shape(D, rings)
         ny, nx = -(-self.h // ty), -(-self.w // tx)
         self.bi = torch.arange(self.b).view(-1, 1, 1, 1, 1)
         self.yi = torch.arange(ny).view(1, -1, 1, 1, 1)
@@ -284,11 +294,13 @@ def _trilinear(f, dims, D, c, pos):
     return a0[2] * pl[0] + a1[2] * pl[1]
 
 
-def twin_m(U, flags, D, seg_z=None):
+def twin_m(U, flags, D, seg_z=None, orig=None):
     """Plain-torch twin of M's two marches (fn_advect3_forward and
-    fn_advect3_backward with parts 2): the forward field, then U'."""
+    fn_advect3_backward with parts 2): the forward field, then U' (with
+    ``orig``: orig's ring after U's (and the forward field's), which the
+    samples, the correction and the clamp read)."""
     b, _, d, h, w = U.shape
-    t = Tiles(flags.shape, D, seg_z)
+    t = Tiles(flags.shape, D, seg_z, 2 if orig is None else 3)
     dims = (w, h, d)
     halfstr = STRENGTH * 0.5
     fluid = flags == FLUID
@@ -298,8 +310,10 @@ def twin_m(U, flags, D, seg_z=None):
         dst = out if backward else fwd
         for z0 in range(0, d, t.seg):
             z1 = min(z0 + t.seg, d)
-            ring = t.empty_ring(2 if backward else 1)
-            sources = (U, fwd) if backward else (U,)
+            sources = ((U, fwd) if backward else (U,)) + (
+                () if orig is None else (orig,))
+            ring = t.empty_ring(len(sources))
+            ko = 0 if orig is None else 3 * (len(sources) - 1)
             _, _, _, ahead, _ = m_constants()
             for Z in range(z0 - D, z0 + D + ahead + 1):
                 t.load(ring, Z, z1, sources)
@@ -319,12 +333,13 @@ def twin_m(U, flags, D, seg_z=None):
 
                 for comp in range(3):
                     m = _mac(at, comp)
-                    orig = lambda X, Y, Z, k=comp: t.read(ring, k, X, Y, Z)
+                    src = lambda X, Y, Z, k=ko + comp: t.read(ring, k, X, Y,
+                                                              Z)
                     if not backward:
                         pos = [c[a] - DT * m[a] for a in range(3)]
                         val = torch.where(
-                            fl, _trilinear(orig, dims, D, c, pos),
-                            orig(*cell))
+                            fl, _trilinear(src, dims, D, c, pos),
+                            src(*cell))
                     else:
                         ff = lambda X, Y, Z, k=comp: t.read(ring, 3 + k, X,
                                                             Y, Z)
@@ -337,7 +352,7 @@ def twin_m(U, flags, D, seg_z=None):
                                         *[-int(a == comp) for a in range(3)])
                         skip = ~fl | ~nb
                         dst_v = torch.where(
-                            skip, f0, f0 + halfstr * (orig(*cell) - bwd))
+                            skip, f0, f0 + halfstr * (src(*cell) - bwd))
                         vel = [torch.clamp(m[a] * DT, -D, D)
                                for a in range(3)]
                         mn = torch.full_like(dst_v, float("inf"))
@@ -349,8 +364,8 @@ def twin_m(U, flags, D, seg_z=None):
                             for dk in (0, 1):
                                 for dj in (0, 1):
                                     for di in (0, 1):
-                                        o = orig(lo[0] + di, lo[1] + dj,
-                                                 lo[2] + dk)
+                                        o = src(lo[0] + di, lo[1] + dj,
+                                                lo[2] + dk)
                                         mn = torch.minimum(mn, o)
                                         mx = torch.maximum(mx, o)
                         val = torch.maximum(torch.minimum(dst_v, mx), mn)
@@ -381,6 +396,20 @@ def test_m_twin_equals_plain(shape, scene, D):
     flags, U = vel_inputs(D + sum(shape), shape, D, scene)
     want = advect_velocity3(DT, U, flags, STRENGTH, max_disp=D)
     assert torch.equal(twin_m(U, flags, D), want)
+
+
+@pytest.mark.parametrize("D", [1, 2, 3])
+@pytest.mark.parametrize("scene", [False, True])
+def test_m_twin_with_orig_equals_plain(scene, D):
+    """M with a viscous orig: the three-ring marches against
+    ops3d.advect_velocity3(..., orig=orig)."""
+    shape = (2, 13, 11, 37)
+    flags, U = vel_inputs(7 + D, shape, D, scene)
+    orig = add_viscosity3(DT, U, flags, 0.25)
+    want = advect_velocity3(DT, U, flags, STRENGTH, max_disp=D, orig=orig)
+    assert not torch.equal(want, advect_velocity3(DT, U, flags, STRENGTH,
+                                                  max_disp=D))
+    assert torch.equal(twin_m(U, flags, D, orig=orig), want)
 
 
 @pytest.mark.parametrize("seg_z", [5, 1])
@@ -414,11 +443,19 @@ def test_constants_follow_the_sources():
                  f"constexpr int kSmemMax = {SMEM_MAX};"):
         assert expr in src
     # The backward ring pair fits a block's 227 KB at every D, with a
-    # power-of-two depth at D = 2 (the main paths').
+    # power-of-two depth at D = 2 (the main paths'); with orig the three
+    # rings fit up to kVMaxDOrig (power-of-two deep at D = 2) and not one
+    # D further.
     for D in range(1, max_d + 1):
         kw, kh, depth = ring_shape(D)
         assert 2 * depth * 3 * kw * kh * 4 <= SMEM_MAX
     assert ring_shape(2)[2] == 8
+    d_orig = max_d_orig()
+    for D in range(1, d_orig + 2):
+        kw, kh, depth = ring_shape(D, 3)
+        assert (3 * depth * 3 * kw * kh * 4 <= SMEM_MAX) == (D <= d_orig)
+    assert ring_shape(2, 3)[2] == 8 and d_orig >= 2
+    assert "kRings * pow2_at_least(kMinDepth)" in src
     jac = (CSRC / "jacobi3.cu").read_text()
     assert "jacobi3_marches(init, rhs" in jac
     assert "jacobi3_sweep(" not in jac and not (CSRC / "jacobi3.cuh").exists()

@@ -55,7 +55,8 @@ MODELS_2D = ["PUNetD2_128", "DataTrain_128", "ScaleNet_jets_128",
              "ScaleNet_onDevice_128", "ScaleNet_rollout_128"]
 
 
-@pytest.mark.parametrize("name", MODELS_2D + ["PUNet3p8_64", "PUNet3_32",
+@pytest.mark.parametrize("name", MODELS_2D + ["PUNet3p8_64", "PUNet3p8j_64",
+                                              "PUNet3p8r_64", "PUNet3_32",
                                               "MGCoarse_128"])
 def test_committed_file_equals_the_checkpoints_conversion(convert, name):
     """The file's tensors are the conversion of ``best`` read by the JAX
@@ -122,7 +123,8 @@ def test_missing_file_raises_and_names_the_script(tmp_path):
 def test_3d_builder_loads_each_models_own_file():
     """build_punet3 loads the file of the model_dir it is given: p8's and
     p4's shapes differ, so a mix-up raises rather than loading."""
-    for name in ("PUNet3p8_64", "PUNet3_32"):
+    for name in ("PUNet3p8_64", "PUNet3p8j_64", "PUNet3p8r_64",
+                 "PUNet3_32"):
         mcfg = load_model_config(str(MODELS / name))
         net = build_punet3(mcfg, model_dir=MODELS / name)
         want = load_state_dict_file(MODELS / name)
