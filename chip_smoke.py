@@ -196,6 +196,22 @@ Phases (each prints its elapsed seconds):
      its forward and backward, its 64^2 loss card against CPU, and its
      train main path (10 steps, the input gradient and the adjoint
      counted); the kernels line's rows for them;
+  8b. 3-D training (scripts/train3d.py's twin, ROADMAP A.5.2): on every
+     layer of train3d.py's p4 (32^3) and p8 (64^3) nets at batch 4, N's
+     flax route within one bf16 ulp at each rounding point, and the
+     gradient kernels fn_conv3d_dgrad and fn_conv3d_wgrad against their
+     plain versions (bit for bit on dyadic inputs, one bf16 ulp on the
+     layer's own inputs and upstream gradient, the bias gradient bit for
+     bit, bit-equal repeats), each timed beside cuDNN's bf16
+     conv3d_input / conv3d_weight and its bound, summed over a train
+     step's calls; I's adjoint fn_jacobi3_adjoint bit for bit (8 and 16
+     damped and 9 undamped sweeps, obstacles) and I's 400 label sweeps at
+     batch 4; one bf16 train step card against the CPU's plain step; the
+     three main paths (32^3 p4 for 50 steps, 64^3 p8 for 20, 32^3 with
+     --plumeFrames 8 for 20) with launch counters held to the model,
+     ms/step, the held-out loss before and after, a profiler window;
+     the twin CLI for 10 steps, then run_plume3d from its model dir; the
+     kernels line's six rows (phase_train3d);
   9. the scene drivers' twins (`python -m fluidnet_cxx_tpu_torch.scripts.
      run_plume`, `run_rayleigh_taylor`, `run_cylinder`) as users run them,
      from the shipped YAMLs with realTimePlot false: the 128^2 plume under
@@ -222,7 +238,8 @@ ScaleNet_jets_128 (nets_only),
 of its five rows (train_only), `python3 chip_smoke.py --dgrad-only` the
 input gradient of phase 8 alone, every route on every layer
 (dgrad_only), `python3 chip_smoke.py --drivers-only` phase 9 alone
-(phase_drivers).
+(phase_drivers), `python3 chip_smoke.py --train3d-only` phase 8b alone
+and the kernels line of its six rows (train3d_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -3987,6 +4004,522 @@ def train_rows(results, launches):
     return out
 
 
+# 3-D training (ROADMAP A.5.2: scripts/train3d.py's twin). The main paths:
+# label -> (res, patch, polish sweeps, --plumeFrames, steps); train3d.py's
+# model (PUNet3 widths 96/128, bfloat16, the "xla" polish), batch 4, 400
+# label sweeps, lr 2e-4.
+TRAIN3D_BSZ, TRAIN3D_LABEL_ITERS, TRAIN3D_LR = 4, 400, 2e-4
+TRAIN3D_PATHS = {"train3d 32^3 p4": (32, 4, 8, 0, 50),
+                 "train3d 64^3 p8": (64, 8, 16, 0, 20),
+                 "train3d 32^3 p4 --plumeFrames 8": (32, 4, 8, 8, 20)}
+TRAIN3D_NETS = {"p4": (32, 4, 8), "p8": (64, 8, 16)}
+# What the new kernels stand in for: the jax.value_and_grad of
+# train3d.py's loss (XLA's backward of flax nn.Conv) and of JAX's damped
+# polish (ops3d.solve_jacobi_fixed3).
+TRAIN3D_REPLACES = "scripts/train3d.py:116"
+ADJOINT3_REPLACES = "fluidnet_cxx_tpu/ops/ops3d.py:216"
+# A bfloat16 train step on the card against the port's plain step on the
+# CPU (same weights and batch): the loss within 1e-3 of its value, each
+# parameter gradient within 5e-2 of its tensor's norm (relative L2). The
+# two forwards sum in other orders, so a few bf16 outputs round the other
+# way and a pre-activation that rounds to 0 on one side flips a ReLU mask,
+# which moves a whole output channel's weight gradient (the port's CPU
+# step against JAX's: loss 1e-6, gradients 1e-2-2.6e-2 relative L2,
+# tests/test_torch_train3d.py).
+TRAIN3D_LOSS_TOL, TRAIN3D_GRAD_TOL = 1e-3, 5e-2
+
+
+def train3d_counters():
+    """{key: wrapper} of the kernels a 3-D train step launches: N (and its
+    flax route), the input and weight gradients, I (labels, polish; the
+    frames' Jacobi-200), I's adjoint and L (the frames' advection)."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import (advect3, conv_grad3,
+                                                    jacobi3, punet3)
+    return {"N": punet3.conv3d_ndhwc, "Nf": punet3.flax_route,
+            "dgrad3": conv_grad3.conv3d_dgrad,
+            "wgrad3": conv_grad3.conv3d_wgrad, "I": jacobi3.solve_jacobi3,
+            "I adjoint": jacobi3.jacobi3_adjoint, "L": advect3.advect_all3}
+
+
+def train3d_model(res, patch, sweeps, dev, seed=0):
+    """train3d.py's FluidNet3 (patch, polish sweeps) with flax's
+    initialisation from ``seed``, on ``dev``."""
+    from fluidnet_cxx_tpu_torch.models.punet3d import FluidNet3, init_params3
+    from fluidnet_cxx_tpu_torch.scripts import train3d
+
+    args = train3d.parse_args(["--res", str(res), "--patch", str(patch),
+                               "--polishSweeps", str(sweeps)])
+    return init_params3(FluidNet3(train3d.model_config(args)), seed).to(dev)
+
+
+def record_grad3_layers(model, res, dev):
+    """Each conv call of one forward and backward of ``model``'s PUNet3 on
+    a synthetic batch at res^3, batch 4 (the kernel route): (name, x, x2,
+    packed weight and bias, stride, relu, the forward's output, the
+    output's gradient from a random upstream gradient at the net's
+    output)."""
+    from fluidnet_cxx_tpu_torch.data.synthetic3 import generate_batch3
+    from fluidnet_cxx_tpu_torch.models.punet3d import _scale4
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet3
+    from fluidnet_cxx_tpu_torch.ops.ops3d import velocity_divergence3
+    from fluidnet_cxx_tpu_torch.ops.stencils import flags_to_occupancy
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    with torch.no_grad():
+        U, flags, _, _ = generate_batch3(gen, TRAIN3D_BSZ, res, res, res, 60,
+                                         dev)
+        div = velocity_divergence3(U, flags)
+        s4 = _scale4(model.cfg, div, U, div)
+        x = torch.stack([div / s4, flags_to_occupancy(flags)], dim=-1)
+    net = model.net
+    packed = punet3.pack_weights3(net)
+    calls, grads = [], {}
+
+    def conv(name, h, x2=None, relu=True):
+        w, b = packed[name]
+        y = punet3.conv3d_ndhwc_autograd(h, w, b, net.strides[name], relu,
+                                         x2, net.out_dtype(relu), True)
+        y.register_hook(lambda g, name=name: grads.__setitem__(name, g))
+        calls.append((name, h.detach(), None if x2 is None else x2.detach(),
+                      w.detach(), b.detach(), net.strides[name], relu,
+                      y.detach()))
+        return y
+
+    out = net(x, conv=conv)
+    up = torch.randn(out.shape, generator=gen, device=dev)
+    (out * up).sum().backward()
+    return [c + (grads[c[0]],) for c in calls]
+
+
+def dyadic3(gen, shape, num, den, dev):
+    """Values k / den, |k| <= num, in bfloat16: every product and partial
+    sum of the gradients below is exact in float32."""
+    return (torch.randint(-num, num + 1, shape, generator=gen, device=dev)
+            .float() / den).to(torch.bfloat16)
+
+
+def cudnn_grad3(x, w_dhwio, gy, stride):
+    """(input gradient, weight gradient) of one layer by cuDNN's
+    ``conv3d_input`` / ``conv3d_weight`` in bfloat16 (channels_last_3d)
+    on the SAME-padded input, as closures: the library yardstick."""
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_grad3 import same_pads
+
+    k = w_dhwio.shape[0]
+    pads = [same_pads(s, k, stride, 1) for s in x.shape[1:4]]
+    padded = [s + lo + hi for s, (lo, hi) in zip(x.shape[1:4], pads)]
+    cl = torch.channels_last_3d
+    w = w_dhwio.permute(4, 3, 0, 1, 2).contiguous(memory_format=cl)
+    g = gy.permute(0, 4, 1, 2, 3).contiguous(memory_format=cl)
+    (d0, d1), (h0, h1), (w0, w1) = pads
+    xn = torch.nn.functional.pad(x.permute(0, 4, 1, 2, 3),
+                                 (w0, w1, h0, h1, d0, d1)).contiguous(
+                                     memory_format=cl)
+    size = (x.shape[0], x.shape[-1], *padded)
+
+    def dgrad():
+        return torch.nn.grad.conv3d_input(size, w, g, stride=stride)
+
+    def wgrad():
+        return torch.nn.grad.conv3d_weight(xn, tuple(w.shape), g,
+                                           stride=stride)
+    return dgrad, wgrad
+
+
+def grad3_work(x, co, k, stride, so):
+    """(dgrad bytes, dgrad operations, wgrad bytes, wgrad operations) of
+    one layer: bf16 operands and outputs (db float32), each read or
+    written once; 2 operations a multiply-add, the taps of each dx cell's
+    parity class only."""
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_grad3 import dgrad_classes3
+
+    n, ci = x.shape[0], x.shape[-1]
+    cells_in, cells_out = x[..., 0].numel(), n * so ** 3
+    macs = sum(n * dq * hq * wq * len(t)
+               for _, (dq, hq, wq), t in dgrad_classes3(
+                   tuple(x.shape[1:4]), k, stride)) * ci * co
+    wbytes = 2 * k ** 3 * ci * co
+    return (2 * (cells_out * co + cells_in * ci) + wbytes, 2.0 * macs,
+            2 * (cells_in * ci + cells_out * co) + wbytes + 4 * co,
+            2.0 * cells_out * co * ci * k ** 3)
+
+
+def check_grad3_layers(label, rows, dev):
+    """N's flax route at batch 4 and the gradient kernels on each recorded
+    layer: N against its plain version within one bf16 ulp at each
+    rounding point; fn_conv3d_dgrad and fn_conv3d_wgrad against theirs,
+    bit for bit on dyadic inputs, within one bf16 ulp (the bias gradient
+    bit for bit) on the layer's own inputs with at most N_BF16_OFF_SHARE
+    off, bit-equal repeats; each timed beside cuDNN's bf16 gradients and
+    the plain versions, with its bound. Returns per-layer dicts."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad3, punet3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    bf = torch.bfloat16
+    out = []
+    for name, x1, x2, w, b, stride, relu, y, gy in rows:
+        k = w.shape[0]
+        co = w.shape[-1]
+        xin = x1 if x2 is None else torch.cat([x1, x2], dim=-1).contiguous()
+        shape = tuple(xin.shape[1:4])
+        tag = f"{label} {name} {tuple(xin.shape)}->{co} k{k} s{stride}"
+        got = punet3.conv3d_ndhwc(x1, w, b, stride, relu, x2, bf, True)
+        want = punet3.conv3d_ndhwc_plain(x1, w.permute(4, 3, 0, 1, 2), b,
+                                         stride, relu, x2, bf, True)
+        presum = punet3.conv3d_ndhwc_plain(x1, w.permute(4, 3, 0, 1, 2),
+                                           torch.zeros_like(b), stride,
+                                           False, x2)
+        check_bf16(f"N flax batch 4, {tag}", got, want, N_BF16_OFF_SHARE,
+                   presum)
+        gy = (torch.where(y > 0, gy, 0.0) if relu else gy).contiguous()
+        so = gy.shape[1]
+        dgrad = lambda g=gy, w=w: conv_grad3.conv3d_dgrad(g, w, stride,
+                                                          shape)
+        wgrad = lambda x=xin, g=gy: conv_grad3.conv3d_wgrad(x, g, k, stride)
+        dx, (dw, db) = dgrad(), wgrad()
+        torch.cuda.synchronize()
+        pdx = conv_grad3.conv3d_dgrad_plain(gy, w, stride, shape)
+        pdw, pdb = conv_grad3.conv3d_wgrad_plain(xin, gy, k, stride)
+        d_err = check_bf16(f"dgrad3 {tag}", dx, pdx, N_BF16_OFF_SHARE)
+        w_err = check_bf16(f"wgrad3 {tag}", dw, pdw, N_BF16_OFF_SHARE)
+        check(f"wgrad3 bias {tag}", max_err([db], [pdb]), 0.0)
+        check_repeat(f"dgrad3 {tag}", dgrad)
+        check_repeat(f"wgrad3 {tag}", lambda: torch.cat(
+            [t.float().flatten() for t in wgrad()]))
+        dx_, w_, g_ = (dyadic3(gen, t.shape, 16, d, dev) for t, d in
+                       ((xin, 8), (w, 64), (gy, 8)))
+        check(f"dgrad3 exact sums {tag}", max_err(
+            [conv_grad3.conv3d_dgrad(g_, w_, stride, shape).float()],
+            [conv_grad3.conv3d_dgrad_plain(g_, w_, stride, shape).float()]),
+            0.0)
+        kw, kb = conv_grad3.conv3d_wgrad(dx_, g_, k, stride)
+        pw, pb = conv_grad3.conv3d_wgrad_plain(dx_, g_, k, stride)
+        check(f"wgrad3 exact sums {tag}", max_err([kw.float(), kb],
+                                                  [pw.float(), pb]), 0.0)
+        lib_d, lib_w = cudnn_grad3(xin, w, gy, stride)
+        db_, do_, wb_, wo_ = grad3_work(xin, co, k, stride, so)
+        r = dict(name=name, d_err=d_err, w_err=w_err, d_ms=graph_ms(dgrad),
+                 w_ms=graph_ms(wgrad), d_lib=graph_ms(lib_d),
+                 w_lib=graph_ms(lib_w),
+                 d_plain=cuda_ms(lambda: conv_grad3.conv3d_dgrad_plain(
+                     gy, w, stride, shape), 3, warmup=1),
+                 w_plain=cuda_ms(lambda: conv_grad3.conv3d_wgrad_plain(
+                     xin, gy, k, stride), 2, warmup=1),
+                 d_bound=bound(db_, do_, BF16_OPS_PER_S),
+                 w_bound=bound(wb_, wo_, BF16_OPS_PER_S))
+        print(f"{tag}: dgrad {r['d_ms']:.4f} ms (cuDNN {r['d_lib']:.4f}, "
+              f"plain {r['d_plain']:.3f}, bound {r['d_bound'][0]:.4f} "
+              f"{r['d_bound'][1]}), wgrad {r['w_ms']:.4f} ms (cuDNN "
+              f"{r['w_lib']:.4f}, plain {r['w_plain']:.3f}, bound "
+              f"{r['w_bound'][0]:.4f} {r['w_bound'][1]})", flush=True)
+        out.append(r)
+    return out
+
+
+def grad3_results(label, layers):
+    """The kernels-line numbers of the input and weight gradients summed
+    over one train step's calls (dgrad: every layer but the embed, whose
+    input takes no gradient; wgrad: all nine)."""
+    res = {}
+    for key, pre, skip in (("dgrad3", "d", "embed"), ("wgrad3", "w", None)):
+        rs = [r for r in layers if r["name"] != skip]
+        b_ms = sum(r[f"{pre}_bound"][0] for r in rs)
+        by = max(rs, key=lambda r: r[f"{pre}_bound"][0])[f"{pre}_bound"][1]
+        res[f"{key} {label}"] = dict(
+            err=max(r[f"{pre}_err"] for r in rs),
+            ms=sum(r[f"{pre}_ms"] for r in rs),
+            plain_ms=sum(r[f"{pre}_plain"] for r in rs), bound_ms=b_ms,
+            bound_by=by, library_ms=sum(r[f"{pre}_lib"] for r in rs))
+        print(f"{key} {label}, one train step's {len(rs)} calls: kernel "
+              f"{res[f'{key} {label}']['ms']:.4f} ms, cuDNN "
+              f"{res[f'{key} {label}']['library_ms']:.4f}, plain "
+              f"{res[f'{key} {label}']['plain_ms']:.3f}, bound {b_ms:.4f} "
+              f"({by})", flush=True)
+    return res
+
+
+def check_adjoint3(dev, results):
+    """I's adjoint (fn_jacobi3_adjoint) bit for bit against its plain
+    version: 8 damped sweeps on training's 32^3 batch-4 box, 16 damped and
+    9 undamped on 64^3 batch 4 with 8% obstacles, 7 on an odd 33^3 box;
+    timed at the p4 and p8 main paths' shapes beside the plain version and
+    its bound (12 bytes a cell; 14 operations a cell a sweep); no PyTorch
+    call computes it. I itself at batch 4: the 400 label sweeps bit for
+    bit."""
+    from fluidnet_cxx_tpu_torch.ops import ops3d
+    from fluidnet_cxx_tpu_torch.ops.kernels import jacobi3
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 35)
+
+    def box(n, share, b=TRAIN3D_BSZ):
+        f = ops3d.empty_domain3(b, n, n, n, device=dev).clone()
+        f[(torch.rand(f.shape, generator=gen, device=dev) < share)
+          & (f == 1)] = 2
+        return f
+
+    f32, f64, f33 = box(32, 0.0), box(64, 0.08), box(33, 0.1, 1)
+    cases = {"32^3 batch 4, 8 damped": (f32, 8, 2.0 / 3.0, "I adjoint p4"),
+             "64^3 batch 4, 16 damped": (f64, 16, 2.0 / 3.0,
+                                         "I adjoint p8"),
+             "64^3 batch 4, 9 undamped": (f64, 9, 1.0, None),
+             "33^3, 7 damped": (f33, 7, 2.0 / 3.0, None)}
+    for name, (f, it, w, key) in cases.items():
+        g = torch.randn(f.shape, generator=gen, device=dev)
+        run = lambda f=f, g=g, it=it, w=w: jacobi3.jacobi3_adjoint(f, g, it,
+                                                                   w)
+        got = run()
+        torch.cuda.synchronize()
+        check(f"I adjoint {name}", max_err(
+            [got], [ops3d.jacobi_adjoint_fixed3(f, g, it, w)]), 0.0)
+        check_repeat(f"I adjoint {name}", run)
+        if key is None:
+            continue
+        ms, eager = device_and_eager(run)
+        plain = cuda_ms(lambda: ops3d.jacobi_adjoint_fixed3(f, g, it, w), 3,
+                        warmup=1)
+        b_ms, b_by = bound(12 * f.numel(), 14.0 * it * f.numel())
+        results[key] = dict(err=0.0, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+        print(f"{key} ({name}): kernel {ms:.4f} ms device (eager "
+              f"{eager:.4f}), plain {plain:.3f}, bound {b_ms:.4f} ({b_by}), "
+              f"launches a call {launches_of(jacobi3.jacobi3_adjoint, run)}",
+              flush=True)
+    div = torch.randn(f32.shape, generator=gen, device=dev)
+    check("I batch 4, 400 label sweeps at 32^3", max_err(
+        [jacobi3.solve_jacobi3(f32, div, TRAIN3D_LABEL_ITERS)],
+        [ops3d.solve_jacobi_fixed3(f32, div, TRAIN3D_LABEL_ITERS)]), 0.0)
+
+
+def check_step3_card_vs_cpu(dev):
+    """One bfloat16 train-step loss and its gradients (train3d.py's
+    defaults at 32^3, batch 4, seed weights) on the card (kernels) against
+    the port's plain step on the CPU, same batch: TRAIN3D_LOSS_TOL and
+    TRAIN3D_GRAD_TOL."""
+    from fluidnet_cxx_tpu_torch.data.synthetic3 import generate_batch3
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet3 import pack_weights3
+    from fluidnet_cxx_tpu_torch.train.trainer import loss3
+
+    with torch.no_grad():
+        U, flags, _, _ = generate_batch3(torch.Generator().manual_seed(SEED),
+                                         TRAIN3D_BSZ, 32, 32, 32, 60, "cpu")
+    out = []
+    for d in (dev, torch.device("cpu")):
+        model = train3d_model(32, 4, 8, d)
+        loss = loss3(model, pack_weights3(model.net), U.to(d), flags.to(d))
+        loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                           model.net.named_parameters()}))
+    (lc, gc), (lp, gp) = out
+    check(f"train3d step loss card {lc:.7g} vs CPU {lp:.7g} (relative)",
+          abs(lc - lp) / abs(lp), TRAIN3D_LOSS_TOL)
+    gaps = {n: float((gc[n] - gp[n]).norm() / gp[n].norm().clamp_min(1e-30))
+            for n in gp}
+    worst = max(gaps, key=gaps.get)
+    print("train3d step gradients card vs CPU (relative L2): "
+          f"{ {n: round(v, 5) for n, v in gaps.items()} }", flush=True)
+    check(f"train3d step gradients card vs CPU, worst {worst} (relative "
+          "L2)", gaps[worst], TRAIN3D_GRAD_TOL)
+
+
+def train3d_main_path(name, dev):
+    """One of TRAIN3D_PATHS through make_train_step3 as the twin CLI builds
+    it: the counters set to 0, the plume frames collected (the mixed path),
+    one warm-up step, the steps timed with CUDA events, each kernel of the
+    path launched and the per-step launches held to the model; the loss at
+    the first and the last chunk, and on a held-out batch before and after
+    (finite; the 32^3 path's must fall: single batches' losses vary with
+    their random amplitude); a profiler window of 2 steps. Returns the
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fluidnet_cxx_tpu_torch.data.synthetic3 import generate_batch3
+    from fluidnet_cxx_tpu_torch.ops.kernels import _build
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet3 import pack_weights3
+    from fluidnet_cxx_tpu_torch.scripts import train3d
+    from fluidnet_cxx_tpu_torch.train.trainer import loss3, make_train_step3
+
+    res, patch, sweeps, n_frames, steps = TRAIN3D_PATHS[name]
+    done = phase(f"main path ({name}, batch {TRAIN3D_BSZ}, {steps} steps)")
+    model = train3d_model(res, patch, sweeps, dev)
+    with torch.no_grad():
+        held = generate_batch3(torch.Generator(device=dev).manual_seed(
+            SEED + 41), TRAIN3D_BSZ, res, res, res, 60, dev)[:2]
+
+    def held_loss():
+        with torch.no_grad():
+            return float(loss3(model, pack_weights3(model.net), *held))
+
+    before = held_loss()
+    counters = train3d_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    frames = flags = mask = None
+    if n_frames:
+        args = train3d.parse_args(["--res", str(res), "--plumeFrames",
+                                   str(n_frames)])
+        frames, flags, mask = train3d.rollout_frames(args, dev)
+    step, _ = make_train_step3(model, TRAIN3D_LR, TRAIN3D_BSZ, res,
+                               TRAIN3D_LABEL_ITERS, frames, flags, mask,
+                               0.5, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    losses = [step(gen)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    losses += [step(gen) for _ in range(steps - 1)]
+    e1.record()
+    e1.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ms = e0.elapsed_time(e1) / (steps - 1)
+    vals = torch.stack(losses).cpu()
+    first, last = float(vals[:5].mean()), float(vals[-5:].mean())
+    after = held_loss()
+    per_launch = _build.constant("fn_jacobi3_max_sweeps")
+    forwards = 2 if n_frames else 1
+    want = {"N": 9 * forwards, "Nf": 9 * forwards,
+            "dgrad3": 8 * forwards, "wgrad3": 9 * forwards,
+            "I adjoint": (1 + -(-sweeps // per_launch)) * forwards}
+    if not n_frames:   # the labels' and the polish's solves
+        want["I"] = (2 + -(-TRAIN3D_LABEL_ITERS // per_launch)
+                     + -(-sweeps // per_launch))
+    for k, v in want.items():
+        if launches[k] != v * steps:
+            raise SystemExit(f"{name}: {k} launched {launches[k]} times, "
+                             f"not {v} a step over {steps}")
+    missed = [k for k, v in launches.items() if v < 1 and
+              (k != "L" or n_frames)]
+    if missed:
+        raise SystemExit(f"{name} missed kernels {missed}: {launches}")
+    if not bool(torch.isfinite(vals).all()):
+        raise SystemExit(f"{name}: a loss is not finite: {vals}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{name}: ms/step {ms:.2f} ({steps - 1} steps after one warm-up),"
+          f" peak memory {peak:.2f} GiB, launches {launches} (per step "
+          f"{ {k: round(v / steps, 2) for k, v in launches.items()} })",
+          flush=True)
+    print(f"{name}: loss mean of the first chunk {first:.6f}, of the last "
+          f"{last:.6f}; on a held-out batch {before:.6f} before, {after:.6f} "
+          f"after; every step {[round(v, 6) for v in vals.tolist()]}",
+          flush=True)
+    if not after == after or (not n_frames and res == 32
+                              and not after < before):
+        raise SystemExit(f"{name}: the held-out loss did not fall ({before} "
+                         f"-> {after})")
+    done()
+    done = phase(f"profile ({name}, 2 steps)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step(gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 2
+    print_profile(name, prof, 2, wall_ms)
+    done()
+    return launches
+
+
+def train3d_cli_and_plume(dev):
+    """The twin CLI (python -m fluidnet_cxx_tpu_torch.scripts.train3d, its
+    main) for 10 steps at its defaults into a model dir under build/, then
+    run_plume3d's learned case from that dir for 5 steps at 64^3: the
+    trained weights load, the state is finite. The dir is removed after."""
+    import math
+    import shutil
+    from pathlib import Path
+
+    from fluidnet_cxx_tpu_torch.run_plume3d import run_plume3d
+    from fluidnet_cxx_tpu_torch.scripts import train3d
+
+    work = Path(__file__).resolve().parent / "build" / "train3d_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        done = phase("train3d twin CLI, 10 steps, then run_plume3d from its "
+                     "model dir")
+        res = train3d.main(["--steps", "10", "--modelDir", str(work)])
+        if not (res["steps"] == 10 and all(math.isfinite(v)
+                                           for v in res["losses"])):
+            raise SystemExit(f"train3d CLI: {res}")
+        run = run_plume3d(64, 5, dev, sim_method="convnet",
+                          model_dir=str(work))
+        st = run.pop("state")
+        fin = all(bool(torch.isfinite(t).all())
+                  for t in (st.U, st.p, st.density))
+        print(f"run_plume3d from the trained dir: {run}, finite {fin}",
+              flush=True)
+        if not fin or run["weights"] != "trained":
+            raise SystemExit("run_plume3d on the trained model dir failed")
+        done()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_train3d(dev, results):
+    """3-D training (A.5.2): N at batch 4 and the gradient kernels on
+    every layer of the p4 and p8 nets; I's adjoint and I at batch 4; one
+    step card against CPU; the three main paths; the twin CLI and
+    run_plume3d from its model dir. Returns each main path's launches."""
+    for label, (res, patch, sweeps) in TRAIN3D_NETS.items():
+        done = phase(f"3-D gradient kernels, {label} at {res}^3, batch "
+                     f"{TRAIN3D_BSZ}")
+        model = train3d_model(res, patch, sweeps, dev)
+        rows = record_grad3_layers(model, res, dev)
+        results.update(grad3_results(label, check_grad3_layers(label, rows,
+                                                               dev)))
+        del model, rows
+        torch.cuda.empty_cache()
+        done()
+    done = phase("I's adjoint (fn_jacobi3_adjoint) and I at batch 4")
+    check_adjoint3(dev, results)
+    done()
+    done = phase("one bfloat16 train step, card vs CPU (32^3, batch 4)")
+    check_step3_card_vs_cpu(dev)
+    done()
+    launches = {name: train3d_main_path(name, dev) for name in TRAIN3D_PATHS}
+    train3d_cli_and_plume(dev)
+    return launches
+
+
+def train3d_rows(results, launches):
+    """The kernels-line rows of the 3-D backward kernels: launches from the
+    p4 and p8 main paths."""
+    src = "fluidnet_cxx_tpu_torch/csrc/conv3d_grad.cu"
+    meta = [("dgrad3 p4", "conv3d_dgrad_punet3_p4_b4", src, TRAIN3D_REPLACES,
+             "train3d 32^3 p4", "dgrad3"),
+            ("wgrad3 p4", "conv3d_wgrad_punet3_p4_b4", src, TRAIN3D_REPLACES,
+             "train3d 32^3 p4", "wgrad3"),
+            ("I adjoint p4", "jacobi3_adjoint_p4_b4",
+             "fluidnet_cxx_tpu_torch/csrc/jacobi3.cu", ADJOINT3_REPLACES,
+             "train3d 32^3 p4", "I adjoint"),
+            ("dgrad3 p8", "conv3d_dgrad_punet3_p8_b4", src, TRAIN3D_REPLACES,
+             "train3d 64^3 p8", "dgrad3"),
+            ("wgrad3 p8", "conv3d_wgrad_punet3_p8_b4", src, TRAIN3D_REPLACES,
+             "train3d 64^3 p8", "wgrad3"),
+            ("I adjoint p8", "jacobi3_adjoint_p8_b4",
+             "fluidnet_cxx_tpu_torch/csrc/jacobi3.cu", ADJOINT3_REPLACES,
+             "train3d 64^3 p8", "I adjoint")]
+    out = []
+    for key, name, source, replaces, path, counter in meta:
+        r = results[key]
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces,
+                    "launches": launches[path][counter],
+                    "max_abs_err": r["err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    return out
+
+
+def train3d_only(dev):
+    """`python3 chip_smoke.py --train3d-only`: phase_train3d alone, then
+    the kernels line of its six rows."""
+    results = {}
+    launches = phase_train3d(dev, results)
+    print(json.dumps({"kernels": train3d_rows(results, launches)}))
+
+
 # The scene drivers' twins (python -m fluidnet_cxx_tpu_torch.scripts.*,
 # ROADMAP A.3 and A.9) at the shipped configs' sizes. Each case: (twin,
 # its flags, the changes to its shipped YAML (None: the cylinder, which
@@ -4277,6 +4810,9 @@ def main():
     if sys.argv[1:] == ["--drivers-only"]:
         phase_drivers()
         return
+    if sys.argv[1:] == ["--train3d-only"]:
+        train3d_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -4296,6 +4832,7 @@ def main():
         phase_profile(name, case)
     phase_bench()
     train_launches = phase_train(dev, results)
+    train3d_launches = phase_train3d(dev, results)
     phase_drivers()
 
     # Launches of each kernel on the first main path that must launch it.
@@ -4365,6 +4902,7 @@ def main():
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
     kernels += train_rows(results, train_launches)
+    kernels += train3d_rows(results, train3d_launches)
     print(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,13 @@
 //      ops/kernels/proj_tail3.py::project_tail3_plain, the unfused chain
 //      of ops/ops3d.py.
 //
+// fn_jacobi3_adjoint, I's backward for the learned projection's polish in
+// training, replaces no TPU kernel: JAX differentiates the "xla" polish
+// (ops/ops3d.py::solve_jacobi_fixed3's fori_loop) with XLA. It runs the
+// transposed damped sweeps of the upstream gradient on I's z-march (plain
+// version ops/ops3d.py::jacobi_adjoint_fixed3, in its float32 order, so
+// bit for bit), bound like I by its operations.
+//
 // Both TPU kernels keep the whole volume in VMEM and loop every sweep
 // inside one kernel (J falls back to the unfused chain above its VMEM
 // budget; this port runs at every size). Each sweep here is the plain
@@ -251,6 +258,158 @@ __global__ void __launch_bounds__(kTX * kTY)
   }
 }
 
+// The adjoint's mask byte: mask_byte3's, and bit 4 where the cell is in
+// the grid and not an obstacle (the transposed sweep writes 0 elsewhere).
+constexpr uint8_t kOpen3 = 16;
+
+__global__ void adjoint3_mask(const int* __restrict__ flags,
+                              uint8_t* __restrict__ mask, Dims D) {
+  int x, y, z;
+  size_t base;
+  if (!cell_of(D, &x, &y, &z, &base)) return;
+  const size_t i = base + z * (size_t)D.h * D.w + (size_t)y * D.w + x;
+  mask[i] = (uint8_t)(mask_byte3(flags, x, y, z, i, D) |
+                      (flags[i] == kObstacle ? 0 : kOpen3));
+}
+
+// K (1..kMaxSweeps3) transposed sweeps of g_in into g_out (a distinct
+// buffer), on jacobi3_march's tile, halo and z-march. With a = g where the
+// sweep updates the cell (else 0) and c = (damping * a) * (1/6), a sweep
+// gives keep * a + cnt * c + c[x-1] + c[x+1] + c[y-1] + c[y+1] + c[z-1] +
+// c[z+1] on cells that are not obstacles (0 there), the plain version's
+// order. The rings hold each sweep's c (shared memory and zm/zc), its a
+// at the centre plane (za) and the mask byte of the plane it updates.
+template <int K, bool kDamped>
+__global__ void __launch_bounds__(kTX * kTY)
+    jacobi3_adjoint_march(const float* __restrict__ g_in,
+                          const uint8_t* __restrict__ mask,
+                          float* __restrict__ g_out, Dims D, int segs,
+                          float keep, float damping) {
+  constexpr int M = kMaxSweeps3;
+  __shared__ float sh[2][K][kPlane3];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int li = kPad3 + ty * kTX + tx;
+  const int x = blockIdx.x * kOutX - M + tx;
+  const int y = blockIdx.y * kOutY - M + ty;
+  const int seg = blockIdx.z % segs;
+  const size_t b = blockIdx.z / segs;
+  const int z0 = seg * kSegZ, z1 = min(z0 + kSegZ, D.d);
+  const size_t hw = (size_t)D.h * D.w;
+  const bool in_xy = x >= 0 && x < D.w && y >= 0 && y < D.h;
+  const bool writes = in_xy && tx >= M && tx < kTX - M && ty >= M &&
+                      ty < kTY - M;
+  const size_t col = b * D.d * hw + (in_xy ? (size_t)y * D.w + x : 0);
+  const float* g_col = g_in + col;
+  const uint8_t* m_in = mask + col;
+  float* out = g_out + col;
+  const float sixth = (float)(1.0 / 6.0);
+  bool band[K + 1];
+#pragma unroll
+  for (int s = 1; s <= K; ++s)
+    band[s] = ty >= M - K + s && ty < kTY - M + K - s;
+
+  auto load = [&](int z) {
+    Cell c{0.f, 0.f, 0};
+    if (in_xy && (unsigned)z < (unsigned)D.d) {
+      const size_t o = (size_t)z * hw;
+      c.p = g_col[o];
+      c.m = m_in[o];
+    }
+    return c;
+  };
+
+  // Sweep j's (0: the input) c at planes t-j-2 (zm) and t-j-1 (zc), its a
+  // at plane t-j-1 (za), and plane t-j-1's mask byte (mk), at the start of
+  // the step that loads plane t.
+  float zm[K], zc[K], za[K];
+  uint8_t mk[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) zm[j] = zc[j] = za[j] = 0.f, mk[j] = 0;
+
+  const int t0 = z0 - K, t_end = z1 + K;
+  Cell q[kPre3];
+#pragma unroll
+  for (int i = 0; i < kPre3; ++i) q[i] = load(t0 + i);
+  int buf = 0;
+#pragma unroll 2
+  for (int t = t0; t < t_end; ++t) {
+    const Cell c = q[0];
+#pragma unroll
+    for (int i = 0; i + 1 < kPre3; ++i) q[i] = q[i + 1];
+    q[kPre3 - 1] = load(t + kPre3);
+    float nv[K + 1], na[K + 1], nc[K + 1];
+    nv[0] = c.p;
+    na[0] = (c.m & 1) ? c.p : 0.f;
+    nc[0] = (damping * na[0]) * sixth;
+#pragma unroll
+    for (int s = 1; s <= K; ++s) {
+      const int j = s - 1;
+      const uint8_t m = mk[j];
+      float v = 0.f;
+      if (band[s]) {
+        const float* P = sh[buf][j];
+        float acc = (float)((m >> 1) & 7) * zc[j];
+        if (kDamped) acc = keep * za[j] + acc;
+        acc = acc + P[li - 1];
+        acc = acc + P[li + 1];
+        acc = acc + P[li - kTX];
+        acc = acc + P[li + kTX];
+        acc = acc + zm[j];
+        acc = acc + nc[j];
+        v = (m & kOpen3) ? acc : 0.f;
+      }
+      nv[s] = v;
+      na[s] = (m & 1) ? v : 0.f;
+      nc[s] = (damping * na[s]) * sixth;
+    }
+    const int zk = t - K;
+    if (writes && zk >= z0 && zk < z1) out[(size_t)zk * hw] = nv[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      sh[buf ^ 1][j][li] = nc[j];
+      zm[j] = zc[j];
+      zc[j] = nc[j];
+      za[j] = na[j];
+    }
+#pragma unroll
+    for (int j = K - 1; j > 0; --j) mk[j] = mk[j - 1];
+    mk[0] = c.m;
+    buf ^= 1;
+    __syncthreads();
+  }
+}
+
+template <int K>
+int launch_adjoint_march(const float* src, const uint8_t* mask, float* dst,
+                         int b, const Dims& D, int damped, float keep,
+                         float damping, cudaStream_t s) {
+  const int segs = (D.d + kSegZ - 1) / kSegZ;
+  dim3 grid((D.w + kOutX - 1) / kOutX, (D.h + kOutY - 1) / kOutY, b * segs);
+  dim3 block(kTX, kTY);
+  if (damped)
+    jacobi3_adjoint_march<K, true><<<grid, block, 0, s>>>(
+        src, mask, dst, D, segs, keep, damping);
+  else
+    jacobi3_adjoint_march<K, false><<<grid, block, 0, s>>>(
+        src, mask, dst, D, segs, keep, damping);
+  return fnk::launch_status();
+}
+
+// Launches the adjoint march instance of k sweeps (k <= K).
+template <int K>
+int launch_adjoint3(int k, const float* src, const uint8_t* mask,
+                    float* dst, int b, const Dims& D, int damped, float keep,
+                    float damping, cudaStream_t s) {
+  if constexpr (K > 0) {
+    if (k == K)
+      return launch_adjoint_march<K>(src, mask, dst, b, D, damped, keep,
+                                     damping, s);
+    return launch_adjoint3<K - 1>(k, src, mask, dst, b, D, damped, keep,
+                                  damping, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <int K>
 int launch_march(const float* src, const float* div, const uint8_t* mask,
                  float* dst, int b, const Dims& D, int damped, float keep,
@@ -441,4 +600,37 @@ extern "C" int fn_tail3(const int* flags, const float* U, const float* p0,
   if (status) return status;
   tail3_epilogue<<<grid3(b, D), kBlock3, 0, s>>>(flags, U, p_out, U_out, D);
   return fnk::launch_status();
+}
+
+// I's adjoint: iters (>= 1) transposed damped sweeps of g (the gradient of
+// I's output) into g_out, the gradient of its warm start p0. `mask` holds
+// b*d*h*w bytes and `tmp` b*d*h*w floats of scratch. Issues 1 +
+// ceil(iters / kMaxSweeps3) launches on `stream` (a mask launch, then the
+// marches ping-ponging tmp and g_out from g); returns the first launch
+// error, or cudaErrorInvalidValue for bad arguments.
+extern "C" int fn_jacobi3_adjoint(const int* flags, const float* g,
+                                  uint8_t* mask, float* tmp, float* g_out,
+                                  int b, int d, int h, int w, int iters,
+                                  int damped, float keep, float damping,
+                                  void* stream) {
+  if (iters < 1 || bad_args3(b, d, h, w, iters, tmp, g_out) || g == tmp ||
+      g == g_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = (cudaStream_t)stream;
+  Dims D{d, h, w};
+  adjoint3_mask<<<grid3(b, D), kBlock3, 0, s>>>(flags, mask, D);
+  int status = fnk::launch_status();
+  if (status) return status;
+  const float* src = g;
+  float* dst = (march_launches(iters) % 2) ? g_out : tmp;
+  for (int done = 0; done < iters;) {
+    const int k = min(kMaxSweeps3, iters - done);
+    status = launch_adjoint3<kMaxSweeps3>(k, src, mask, dst, b, D, damped,
+                                          keep, damping, s);
+    if (status) return status;
+    done += k;
+    src = dst;
+    dst = (dst == g_out) ? tmp : g_out;
+  }
+  return 0;
 }

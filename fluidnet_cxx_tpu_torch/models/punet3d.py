@@ -25,8 +25,9 @@ from torch import nn
 
 from ..ops.kernels.jacobi3 import solve_jacobi3
 from ..ops.kernels.proj_tail3 import project_tail3
-from ..ops.kernels.punet3 import (conv3d_ndhwc_plain, pack_weights3,
-                                  punet3_forward)
+from ..ops.kernels.punet3 import (conv3d_ndhwc_autograd,
+                                  conv3d_ndhwc_plain, pack_layer3,
+                                  pack_weights3, punet3_forward)
 from ..ops.ops3d import set_wall_bcs3, velocity_divergence3, velocity_update3
 from ..ops.stencils import flags_to_occupancy
 from .convert import flax_to_state_dict3, random_flax_params3
@@ -103,6 +104,10 @@ class PUNet3(nn.Module):
         # flax's two roundings of a bfloat16 conv (no-ops in float32).
         self.round_sum = (rounding == "flax"
                           and self.act_dtype == torch.bfloat16)
+        # The routes with a backward (ops/kernels/punet3.py::ConvNDHWC):
+        # the flax route and float32.
+        self.trainable = (self.round_sum
+                          or self.act_dtype == torch.float32)
         self.table = layer_table3(in_ch, patch, widths, level_convs,
                                   bottleneck_convs)
         self.strides = {name: s for name, _, _, _, s in self.table}
@@ -133,10 +138,17 @@ class PUNet3(nn.Module):
                 else torch.float32)
 
     def _plain_conv(self, name, x, x2=None, relu=True):
+        """The plain version of one layer; while autograd records, on a
+        trainable route, ``ConvNDHWC`` with the plain backward (flax's
+        rounding points, not torch's own bfloat16 conv backward)."""
         c = self.convs[name]
-        w = c.weight.to(self.act_dtype)
-        return conv3d_ndhwc_plain(x, w, c.bias, self.strides[name], relu, x2,
-                                  self.out_dtype(relu), self.round_sum)
+        args = (self.strides[name], relu, x2, self.out_dtype(relu),
+                self.round_sum)
+        if self.trainable and torch.is_grad_enabled():
+            w_dhwio, b = pack_layer3(self, c)
+            return conv3d_ndhwc_autograd(x, w_dhwio, b, *args, plain=True)
+        return conv3d_ndhwc_plain(x, c.weight.to(self.act_dtype), c.bias,
+                                  *args)
 
     def forward(self, x, conv=None):
         """``conv`` replaces the per-layer convolution (the kernel path
@@ -180,7 +192,13 @@ class FluidNet3(nn.Module):
     kernel J on un-normalised fields; "pallas" and "xla": kernel I's
     damped Jacobi from p_hat on the normalised fields; none with
     ``polish_sweeps`` 0) -> velocity update -> un-scale -> free-slip
-    walls. ``net`` defaults to ``PUNet3.from_config(cfg, "flax")``."""
+    walls. ``net`` defaults to ``PUNet3.from_config(cfg, "flax")``.
+
+    Under autograd (training, ``train/trainer.py``) every conv is
+    ``ConvNDHWC`` (N's forward and its gradient kernels on the card) and
+    the "xla"/"pallas" polish ``JacobiPolish3`` (I forward, its adjoint
+    backward); the "fused" tail raises on the card, as ``jax.grad`` does
+    not run through its Pallas kernel either."""
 
     def __init__(self, cfg, net=None):
         super().__init__()
@@ -202,6 +220,12 @@ class FluidNet3(nn.Module):
         out = (self.net(x) if packed is None
                else punet3_forward(self.net, packed, x))
         p_hat = out[..., 0].contiguous()
+        if (cfg.polish_sweeps > 0 and cfg.polish_impl == "fused"
+                and p_hat.requires_grad and p_hat.is_cuda):
+            raise NotImplementedError(
+                "no gradient of the 'fused' polish tail on the card: JAX "
+                "does not differentiate it either (jax.grad stops at its "
+                "Pallas kernel); train with polish_impl 'xla'")
         if cfg.polish_sweeps > 0 and cfg.polish_impl == "fused":
             # The tail on un-normalised fields (linear in p and the RHS).
             return project_tail3(flags, U, p_hat * s4, cfg.polish_sweeps,
@@ -266,7 +290,8 @@ def make_project_fn3_fused_forward(cfg, net):
                          "rounding='fused'")
     if net.in_ch != 2:
         raise ValueError("the 3-D projection assembles a 2-channel input")
-    packed = pack_weights3(net)
+    with torch.no_grad():
+        packed = pack_weights3(net)
 
     @torch.no_grad()
     def project(p, U, flags, density):

@@ -13,8 +13,10 @@ Every ``extern "C"`` entry launches its kernel (``fn_jacobi_solve``,
 ``fn_mg_project``: the launches of a whole solve; ``fn_mg_learned_down``
 and ``fn_mg_learned_up``: the two halves of a learned V-cycle;
 ``fn_conv2d_wgrad``: the partial tiles and their reduce;
-``fn_conv2d_dgrad``: its one launch and, with splits, their reduce) on the
-stream it is given,
+``fn_conv2d_dgrad``: its one launch and, with splits, their reduce;
+``fn_jacobi3_adjoint``: the mask launch and the transposed sweeps;
+``fn_conv3d_dgrad`` and ``fn_conv3d_wgrad``: the tiles, the reduce of
+their splits, wgrad's bias gradient) on the stream it is given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
 ``QUERIES`` launch nothing: they answer a question of the kernels' own
@@ -73,6 +75,9 @@ SIGNATURES = {
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
     "fn_conv3d_ndhwc": [VP] * 6 + [I] * 20 + [VP, VP],
+    "fn_conv3d_dgrad": [VP] * 5 + [I] * 12 + [VP],
+    "fn_conv3d_wgrad": [VP] * 5 + [I] * 13 + [VP],
+    "fn_jacobi3_adjoint": [VP] * 5 + [I] * 6 + [F, F, VP],
     "fn_advect3_forward": [I] + [VP] * 5 + [I, I, I, I, F, F, F, F, F, I,
                                              I, VP],
     "fn_advect3_backward": [I] + [VP] * 7 + [I, I, I, I, F, F, F, F, F, F,

@@ -31,6 +31,17 @@ Rounding (``compute_dtype="bfloat16"``), two routes:
 
 Tensors carry those dtypes between the layers; with ``"float32"`` nothing
 is rounded and the two routes are the same.
+
+Training (``ConvNDHWC``, through ``conv3d_ndhwc_autograd`` whenever
+autograd records, on the flax route and in float32): the backward of a
+conv is the hand kernels of ``conv_grad3.py`` on a CUDA tensor,
+``fn_conv3d_dgrad`` for the input gradient (split at the decoder's concat
+into its up and skip halves) and ``fn_conv3d_wgrad`` for the weight and
+bias gradients, at flax's rounding points; their plain versions on a CPU
+tensor, and always for the module's own plain forward. ``pack_weights3``
+casts and permutes the live parameters through ops autograd follows, so
+the gradients reach them as JAX's reach flax's float32 parameters:
+rounded to bfloat16, then float32. The fused route has no backward.
 """
 import types
 
@@ -38,6 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_grad3 import (conv3d_dgrad, conv3d_dgrad_plain, conv3d_wgrad,
+                         conv3d_wgrad_plain)
 from .conv_plan import plan_conv
 from .punet import same_pads
 
@@ -140,28 +153,101 @@ def conv3d_ndhwc(x, w_dhwio, bias, stride=1, relu=False, x2=None,
 conv3d_ndhwc.launches = 0
 
 
-def pack_weights3(net):
-    """DHWIO copies of the PUNet3's conv weights in its compute dtype
-    (rounded to bfloat16 once, here, for a bfloat16 net) and float32
-    biases (rounded to bfloat16 first on the flax route), made once for
-    the kernel."""
-    def bias(conv):
-        b = conv.bias.detach()
-        return (b.to(torch.bfloat16) if net.round_sum else b).float()
+class ConvNDHWC(torch.autograd.Function):
+    """``conv3d_ndhwc`` (``plain``: ``conv3d_ndhwc_plain``) with a
+    backward at flax's rounding points: the upstream gradient (in the
+    output's dtype) masked by ``out > 0`` under ReLU (jax's relu gradient
+    at 0 is 0 too); the input gradient over [x | x2] (skipped when neither
+    needs one), split into x's and x2's channels; the weight and bias
+    gradients on the input the kernel saw, [x | x2] assembled in torch.
+    The gradients are ``conv_grad3.py``'s: the kernels on a CUDA tensor,
+    the plain versions on a CPU tensor or with ``plain``. Saves the inputs
+    and the output."""
 
-    return {name: (conv.weight.detach().to(net.act_dtype)
-                   .permute(2, 3, 4, 1, 0).contiguous(),
-                   bias(conv).contiguous())
-            for name, conv in net.convs.items()}
+    @staticmethod
+    def forward(ctx, x, x2, w_dhwio, bias, stride, relu, out_dtype,
+                round_sum, plain):
+        if plain:
+            y = conv3d_ndhwc_plain(x, w_dhwio.permute(4, 3, 0, 1, 2), bias,
+                                   stride, relu, x2, out_dtype, round_sum)
+        else:
+            y = conv3d_ndhwc(x, w_dhwio, bias, stride, relu, x2, out_dtype,
+                             round_sum)
+        ctx.save_for_backward(x, x2, w_dhwio, y)
+        ctx.geom = (stride, relu, plain)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, x2, w_dhwio, y = ctx.saved_tensors
+        stride, relu, plain = ctx.geom
+        gy = (torch.where(y > 0, gy, 0.0) if relu else gy).contiguous()
+        dgrad = conv3d_dgrad_plain if plain else conv3d_dgrad
+        wgrad = conv3d_wgrad_plain if plain else conv3d_wgrad
+        dx = dx2 = dw = db = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            g = dgrad(gy, w_dhwio, stride, tuple(x.shape[1:4]))
+            c1 = x.shape[-1]
+            dx = g if x2 is None else g[..., :c1]
+            dx2 = None if x2 is None else g[..., c1:]
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            xin = x if x2 is None else torch.cat([x, x2], dim=-1)
+            dw, db = wgrad(xin.contiguous(), gy, w_dhwio.shape[0], stride)
+        return dx, dx2, dw, db, None, None, None, None, None
+
+
+def conv3d_ndhwc_autograd(x, w_dhwio, bias, stride=1, relu=False, x2=None,
+                          out_dtype=torch.float32, round_sum=False,
+                          plain=False):
+    """``conv3d_ndhwc`` (``plain``: ``conv3d_ndhwc_plain``) that autograd
+    follows: while it records and a tensor needs a gradient, ``ConvNDHWC``
+    on the flax route (``round_sum``) or in float32; the kernel's backward
+    on the card runs in bfloat16 only (``conv_grad3.py`` raises for a
+    float32 one). Raises for the fused route, which has no backward.
+    Otherwise the forward alone."""
+    tensors = (x, x2, w_dhwio, bias)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        if w_dhwio.dtype != torch.float32 and not round_sum:
+            raise ValueError("no gradient on kernel N's fused route: "
+                             "FluidNet3 trains on the flax route")
+        return ConvNDHWC.apply(x, x2, w_dhwio, bias, stride, relu,
+                               out_dtype, round_sum, plain)
+    if plain:
+        return conv3d_ndhwc_plain(x, w_dhwio.permute(4, 3, 0, 1, 2), bias,
+                                  stride, relu, x2, out_dtype, round_sum)
+    return conv3d_ndhwc(x, w_dhwio, bias, stride, relu, x2, out_dtype,
+                        round_sum)
+
+
+def pack_layer3(net, conv):
+    """(DHWIO weight in the net's compute dtype, float32 bias rounded to
+    bfloat16 first on the flax route) of one of ``net``'s convs, from its
+    live parameters through ops autograd follows: made under
+    ``torch.no_grad()`` a detached copy, made while autograd records the
+    path of the gradient back to the parameters."""
+    b = conv.bias.to(torch.bfloat16) if net.round_sum else conv.bias
+    return (conv.weight.to(net.act_dtype).permute(2, 3, 4, 1, 0)
+            .contiguous(), b.float().contiguous())
+
+
+def pack_weights3(net):
+    """``pack_layer3`` of every conv of the PUNet3, for the kernel: an
+    inference caller packs once (under ``torch.no_grad()``), a training
+    step on every call."""
+    return {name: pack_layer3(net, conv) for name, conv in net.convs.items()}
 
 
 def punet3_forward(net, packed, x):
     """PUNet3 forward of NDHWC ``x`` (b, d, h, w, C) float32 -> (b, d, h,
     w, 1) float32, every conv through ``conv3d_ndhwc`` on the net's
-    rounding route. ``packed`` is ``pack_weights3(net)``."""
+    rounding route (``conv3d_ndhwc_autograd`` on the trainable ones: the
+    flax route and float32). ``packed`` is ``pack_weights3(net)``."""
+    fn = conv3d_ndhwc_autograd if net.trainable else conv3d_ndhwc
+
     def conv(name, h, x2=None, relu=True):
         w_dhwio, b = packed[name]
-        return conv3d_ndhwc(h, w_dhwio, b, net.strides[name], relu, x2,
-                            net.out_dtype(relu), net.round_sum)
+        return fn(h, w_dhwio, b, net.strides[name], relu, x2,
+                  net.out_dtype(relu), net.round_sum)
 
     return net(x, conv=conv)

@@ -10,9 +10,10 @@ Advection is the window engine only (MacCormack, the first-hit trace):
 the plain versions of kernels K (``advect_scalar3``) and M
 (``advect_velocity3``), which sample their corners with direct gathers
 (``ops/window3.py``). ``solve_jacobi_fixed3`` is the plain version of
-kernel I. ``add_viscosity3``, ``set_wall_bcs_stick3``, ``curl3`` and
-``add_vorticity_confinement3`` are torch code, as they are XLA in the JAX
-package; ``advect_velocity3(..., orig=...)`` carries the viscous field.
+kernel I, ``jacobi_adjoint_fixed3`` of its adjoint. ``add_viscosity3``,
+``set_wall_bcs_stick3``, ``curl3`` and ``add_vorticity_confinement3`` are
+torch code, as they are XLA in the JAX package; ``advect_velocity3(...,
+orig=...)`` carries the viscous field.
 """
 import torch
 
@@ -193,6 +194,37 @@ def solve_jacobi_fixed3(flags, div, iters: int, p0=None,
             upd = (1.0 - w_) * p + w_ * upd
         p = where0(cont, upd)
     return p
+
+
+def jacobi_adjoint_fixed3(flags, g, iters: int, damping: float = 1.0):
+    """``iters`` transposed damped sweeps of the upstream gradient ``g``
+    (b, d, h, w): the gradient with respect to ``p0`` of
+    ``solve_jacobi_fixed3(flags, div, iters, p0=p0, damping=damping)``,
+    whatever ``div`` (the plain version of kernel I's adjoint).
+
+    The sweep is p' = where0(cont, (1-w) p + w (div + cnt p + sum nb3(p))
+    / 6) on a p that is 0 on obstacles; its transpose in p, with a =
+    where0(cont, g) and c = (w a) / 6, is g' = (1-w) a + cnt c + c[x-1] +
+    c[x+1] + c[y-1] + c[y+1] + c[z-1] + c[z+1] (each in its own float32
+    add, in that order) on cells that are not obstacles, 0 on obstacles:
+    the mask and the cnt term act on the gradient, the border shell still
+    receives it from its interior neighbours, and the obstacles take none,
+    as a warm start is zeroed there."""
+    cont, cnt = jacobi3_masks(flags)
+    open_ = flags != OBSTACLE
+    w_ = float(damping)
+    if iters == 0:
+        return where0(open_, g)
+    for _ in range(iters):
+        a = where0(cont, g)
+        c = (w_ * a) * (1.0 / 6.0)
+        t = cnt * c
+        if w_ != 1.0:
+            t = (1.0 - w_) * a + t
+        for s in _NEIGHBOURS6:
+            t = t + nb3(c, *s)
+        g = where0(open_, t)
+    return g
 
 
 def get_centered3(U):

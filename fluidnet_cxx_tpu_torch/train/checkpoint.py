@@ -4,9 +4,15 @@ package's ``train/checkpoint.py``).
 Training: ``<model_dir>/last_epoch/train_state.pt`` (and ``best/`` for the
 best so far) holds, by ``torch.save``, the network's parameters (the
 state_dict layout of ``trained_models/*/torch_state_dict.pt``), the Adam
-state, the plateau state, ``step``, ``epoch`` and ``best_perf``;
-``<model_dir>/model_config.json`` is written in the JAX trainer's layout.
-Every file is written under a temporary name and renamed into place.
+state (the 2-D trainer's with its plateau state; the 3-D trainer's plain
+Adam), ``step``, ``epoch`` and ``best_perf``;
+``<model_dir>/model_config.json`` is written in the JAX trainer's layout,
+and ``<model_dir>/torch_state_dict.pt`` holds the best parameters as float32
+CPU tensors, the file that ``models/convert.py::load_state_dict_file``
+reads, so the drivers and benches load a trained model dir as they load
+``trained_models/*`` (``run_plume3d --model-dir``, as JAX's loaders read
+``best/``). Every file is written under a temporary name and renamed into
+place.
 
 Simulation: ``restart.npz`` snapshots of a ``SimState`` for the drivers'
 ``--restartSim``, with the JAX package's keys (``it`` and every field that
@@ -18,9 +24,16 @@ import numpy as np
 import torch
 
 from ..config import save_model_config
+from ..models.convert import STATE_DICT_FILE
 from ..state import SimState
 
 STATE_FILE = "train_state.pt"
+
+
+def _save(obj, path):
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
 
 
 def save_train_checkpoint(model_dir: str, ts, epoch: int, best_perf: float,
@@ -31,9 +44,11 @@ def save_train_checkpoint(model_dir: str, ts, epoch: int, best_perf: float,
     for name in ("last_epoch", "best") if is_best else ("last_epoch",):
         d = os.path.join(model_dir, name)
         os.makedirs(d, exist_ok=True)
-        tmp = os.path.join(d, f"{STATE_FILE}.{os.getpid()}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(d, STATE_FILE))
+        _save(payload, os.path.join(d, STATE_FILE))
+    if is_best:
+        _save({k: v.detach().float().cpu()
+               for k, v in payload["params"].items()},
+              os.path.join(model_dir, STATE_DICT_FILE))
     save_model_config(model_dir, model_cfg)
 
 

@@ -25,7 +25,19 @@ JacobiPolish``); the LT rollout's velocity advection is kernel E at the
 drawn dt, the synthetic labels kernel F, the plume frames' steps kernels
 A and F. ``check_trainable`` refuses on the card what has no backward
 there: the "fused" and "mg" polish tails (JAX does not differentiate them
-either) and a bfloat16 net; on the CPU the plain versions run.
+either), a bfloat16 2-D net and a float32 PUNet3; on the CPU the plain
+versions run.
+
+3-D training (``scripts/train3d.py``'s, ``make_train_step3``):
+``loss3``, the mean squared divergence of FluidNet3's projection (the
+masked mean on rollout frames), plain Adam, batches of
+``data/synthetic3.py``, optionally mixed with ``collect_rollout_frames3``'s
+plume frames. On a CUDA tensor every conv runs on kernel N's flax route,
+its backward on ``fn_conv3d_dgrad`` and ``fn_conv3d_wgrad``
+(``ops/kernels/punet3.py::ConvNDHWC``), the damped polish on kernel I
+forward and ``fn_jacobi3_adjoint`` backward (``ops/kernels/jacobi3.py::
+JacobiPolish3``), the labels on kernel I and the frames' steps on kernels
+L and I.
 """
 import dataclasses
 from typing import NamedTuple, Optional
@@ -35,13 +47,19 @@ import torch
 
 from ..config import ModelConfig, SimConfig, TrainConfig
 from ..data.synthetic import generate_batch
+from ..data.synthetic3 import generate_batch3
 from ..models.convert import flax_to_state_dict, random_flax_params
 from ..models.fluidnet import FluidNet
 from ..ops.kernels.jacobi import solve_jacobi
+from ..ops.kernels.jacobi3 import solve_jacobi3
 from ..ops.kernels.punet import pack_weights
+from ..ops.kernels.punet3 import pack_weights3
+from ..ops.ops3d import (set_wall_bcs3, velocity_divergence3,
+                         velocity_update3)
 from ..ops.stencils import (set_wall_bcs, set_wall_bcs_stick,
                             velocity_divergence, velocity_update)
 from ..sim.step import DynParams, simulate_step
+from ..sim.step3d import simulate_step3
 from ..state import SimState
 from .losses import LossTerms, long_term_loss, short_term_losses
 
@@ -177,9 +195,11 @@ def init_train_state(model: FluidNet, cfg: TrainConfig, seed: int = 0,
 def check_trainable(mcfg: ModelConfig, device):
     """Raise NotImplementedError for a model whose backward has no kernel
     on the card: the "fused" or "mg" polish tail (``jax.grad`` does not
-    run through their Pallas kernels either) and a bfloat16 net (kernel
-    B's bfloat16 route runs inference only). Every net in float32 with no
-    polish or the "xla"/"pallas" one trains there."""
+    run through their Pallas kernels either), a bfloat16 2-D net (kernel
+    B's bfloat16 route runs inference only, ROADMAP A.5.3) and a float32
+    PUNet3 (N's gradient kernels run the flax route's bfloat16, ROADMAP
+    A.5.5). Every 2-D net in float32 with no polish or the "xla"/"pallas"
+    one, and PUNet3 in bfloat16 with those, train there."""
     if torch.device(device).type != "cuda":
         return
     if mcfg.polish_sweeps > 0 and mcfg.polish_impl in ("fused", "mg"):
@@ -187,10 +207,17 @@ def check_trainable(mcfg: ModelConfig, device):
             f"no gradient of the {mcfg.polish_impl!r} polish tail on the "
             "card: JAX does not differentiate it either; train with "
             "polish_impl 'xla'")
-    if mcfg.compute_dtype != "float32":
+    if mcfg.model == "PUNet3":
+        if mcfg.compute_dtype != "bfloat16":
+            raise NotImplementedError(
+                f"training PUNet3 in {mcfg.compute_dtype} on the card: its "
+                "conv gradients run kernel N's flax route in bfloat16, as "
+                "scripts/train3d.py trains (ROADMAP A.5.5)")
+    elif mcfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"training in {mcfg.compute_dtype}: kernel B's bfloat16 route "
-            "has no backward; the nets train in float32")
+            "has no backward; the 2-D nets train in float32 (ROADMAP "
+            "A.5.3)")
 
 
 def _sample_dyn(gen: torch.Generator, sim_cfg: SimConfig, cfg: TrainConfig):
@@ -380,3 +407,106 @@ def make_mixed_train_step(model: FluidNet, sim_cfg: SimConfig,
         return train_step(ts, batch, host_gen)
 
     return step
+
+
+def loss3(model, packed, U_div, flags, mask=None):
+    """``scripts/train3d.py``'s loss: FluidNet3's projection of ``U_div``
+    (p and density zero), then the mean of div^2 over every cell, or with
+    ``mask`` (1, d, h, w) sum(div^2 mask) / sum(mask) / batch (the rollout
+    frames' loss outside the inlet). ``packed`` is
+    ``pack_weights3(model.net)``."""
+    zero = torch.zeros_like(U_div[:, 0])
+    _, U_out = model(zero, U_div, flags, zero, packed)
+    div = velocity_divergence3(U_out, flags)
+    if mask is not None:
+        return torch.sum(div * div * mask) / torch.sum(mask) / div.shape[0]
+    return torch.mean(div * div)
+
+
+def make_train_step3(model, lr: float, batch_size: int, res: int,
+                     label_iters: int = 400, frames=None, frame_flags=None,
+                     frame_mask=None, synth_frac: float = 0.5,
+                     device="cuda"):
+    """``(step, optimizer)`` of ``scripts/train3d.py``: ``step(gen) ->
+    loss`` draws a synthetic batch (``generate_batch3``, ``label_iters``
+    sweeps) at ``res``^3 from ``gen`` (a generator on ``device``), takes
+    ``loss3`` (with ``frames``, (n, 3, d, h, w) of
+    ``collect_rollout_frames3``: ``synth_frac`` times the synthetic loss
+    plus the rest times the masked loss of ``batch_size`` frames drawn
+    from ``gen``) and one plain Adam update (optax's defaults) of
+    ``model``'s parameters, packed anew each call. Returns the loss,
+    detached."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+    if frames is not None:
+        maskf = frame_mask.float()[None]
+        f_flags = frame_flags.expand(batch_size,
+                                     *frame_flags.shape[1:]).contiguous()
+
+    def step(gen):
+        with torch.no_grad():
+            U_div, flags, _, _ = generate_batch3(gen, batch_size, res, res,
+                                                 res, label_iters, device)
+            if frames is not None:
+                idx = torch.randint(0, frames.shape[0], (batch_size,),
+                                    generator=gen, device=device)
+                U_f = frames[idx]
+        packed = pack_weights3(model.net)
+        loss = loss3(model, packed, U_div, flags)
+        if frames is not None:
+            loss = (synth_frac * loss + (1.0 - synth_frac)
+                    * loss3(model, packed, U_f, f_flags, maskf))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step, opt
+
+
+def _project_frame3(sim_cfg: SimConfig, s_div: SimState):
+    """JAX's ``collect_rollout_frames3.project``: (the state continued by
+    the Jacobi step's tail, U_in), U_in the divergent velocity as the
+    convnet step hands it to the learned projection (const BCs, no walls).
+    """
+    bc = s_div.U_bc
+    U_in = s_div.U if bc is None else s_div.U * s_div.U_bc_inv_mask + bc
+    flags = s_div.flags
+    U = set_wall_bcs3(s_div.U, flags)
+    if bc is not None:
+        U = U * s_div.U_bc_inv_mask + bc
+    p = solve_jacobi3(flags, velocity_divergence3(U, flags),
+                      sim_cfg.jacobi_iter)
+    U = set_wall_bcs3(velocity_update3(p, U, flags), flags)
+    if bc is not None:
+        U = U * s_div.U_bc_inv_mask + bc
+    return s_div._replace(p=p, U=U), U_in
+
+
+@torch.no_grad()
+def collect_rollout_frames3(sim_cfg: SimConfig, state0: SimState,
+                            n_frames: int, stride: int = 4,
+                            warmup: int = 40):
+    """The 3-D twin of ``collect_rollout_frames`` (JAX ``train/trainer.py::
+    collect_rollout_frames3``): ``warmup`` full steps of the classical
+    (Jacobi) step, then per frame one step to its divergent state, its
+    classical finish and ``stride - 1`` full steps; JAX's ``fori_loop`` and
+    ``scan`` are Python loops. Returns (frames (n, 3, d, h, w), the
+    scene's flags, the inlet mask (d, h, w): True where the divergence
+    loss counts, outside the BC-clamped inlet)."""
+    state = state0
+    for _ in range(warmup):
+        state = simulate_step3(sim_cfg, state)
+    frames = []
+    for _ in range(n_frames):
+        s_div = simulate_step3(sim_cfg, state, output_div=True)
+        state, U_in = _project_frame3(sim_cfg, s_div)
+        for _ in range(stride - 1):
+            state = simulate_step3(sim_cfg, state)
+        frames.append(U_in[0])
+    if state0.U_bc_inv_mask is not None:
+        mask = torch.amin(state0.U_bc_inv_mask[0], dim=0) > 0.5
+    else:
+        mask = torch.ones(state0.flags.shape[1:], dtype=torch.bool,
+                          device=state0.flags.device)
+    return torch.stack(frames), state0.flags, mask
