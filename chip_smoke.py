@@ -212,6 +212,22 @@ Phases (each prints its elapsed seconds):
      ms/step, the held-out loss before and after, a profiler window;
      the twin CLI for 10 steps, then run_plume3d from its model dir; the
      kernels line's six rows (phase_train3d);
+  8c. bfloat16 2-D training (ROADMAP A.5.3, A.4.3): on every conv call of
+     MGCoarseNet (128^2 cut, batch 16) and of PUNetD2_128's architecture,
+     the tower and ScaleNet in bfloat16 (128^2, batch 64), B's bfloat16
+     forward within one bf16 ulp at each rounding point (5x5 taps and
+     thin layers among them), and fn_conv2d_bf16_dgrad,
+     fn_conv2d_bf16_wgrad and fn_bias_grad_bf16 against their plain
+     versions (bit for bit on dyadic inputs; one bf16 ulp on the layer's
+     own inputs, against the exact sum where the plain float32 sum over a
+     million cells is itself that far off; the bias bit for bit;
+     bit-equal repeats), each timed beside cuDNN's bf16 conv2d_input /
+     conv2d_weight (and torch's sum) and its bound; one bf16 step of each
+     net card against CPU; the train_mg_coarse twin at --res 512 for 20
+     steps (launches held, the loss must fall), run_plume --simMethod
+     mg_learned from its model dir; the three nets' bf16 trainer main
+     paths (no float32 gradient launch); the kernels line's twelve rows
+     (phase_train_bf16);
   9. the scene drivers' twins (`python -m fluidnet_cxx_tpu_torch.scripts.
      run_plume`, `run_rayleigh_taylor`, `run_cylinder`) as users run them,
      from the shipped YAMLs with realTimePlot false: the 128^2 plume under
@@ -239,7 +255,9 @@ of its five rows (train_only), `python3 chip_smoke.py --dgrad-only` the
 input gradient of phase 8 alone, every route on every layer
 (dgrad_only), `python3 chip_smoke.py --drivers-only` phase 9 alone
 (phase_drivers), `python3 chip_smoke.py --train3d-only` phase 8b alone
-and the kernels line of its six rows (train3d_only).
+and the kernels line of its six rows (train3d_only), `python3
+chip_smoke.py --mg-coarse-only` phase 8c alone and the kernels line of
+its twelve rows (mg_coarse_only).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -2085,6 +2103,19 @@ def check_bf16(name, got, want, off_share=BF16_OFF_SHARE, presum=None):
     the neighbouring bfloat16 into the output, several output ulps where
     the bias cancels most of the sum. Returns the largest absolute
     error."""
+    err, excess, off = bf16_gap(got, want, presum)
+    print(f"{name}: max_abs_err {err:.3e}; largest excess over max(1 ulp"
+          f"{' at each rounding point' if presum is not None else ''}, "
+          f"1e-5 of the largest output) {excess:.3e}; {off} of {got.numel()} "
+          "values off", flush=True)
+    if not excess <= 0 or off > off_share * got.numel():
+        raise SystemExit(f"{name} disagrees with its plain version")
+    return err
+
+
+def bf16_gap(got, want, presum=None):
+    """(largest absolute error, largest excess over check_bf16's
+    tolerance, values off) of ``got`` against ``want``."""
     def ulp(a):
         a = a.abs()
         return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(a)) - 7),
@@ -2096,15 +2127,7 @@ def check_bf16(name, got, want, off_share=BF16_OFF_SHARE, presum=None):
            ulp(torch.maximum(got.float().abs(), w.abs()))
            + ulp(1.01 * presum.float()))
     tol = torch.clamp(tol, min=1e-5 * float(w.abs().max()))
-    excess, err = float((d - tol).max()), float(d.max())
-    off = int((d > 0).sum())
-    print(f"{name}: max_abs_err {err:.3e}; largest excess over max(1 ulp"
-          f"{' at each rounding point' if presum is not None else ''}, "
-          f"1e-5 of the largest output) {excess:.3e}; {off} of {d.numel()} "
-          "values off", flush=True)
-    if not excess <= 0 or off > off_share * d.numel():
-        raise SystemExit(f"{name} disagrees with its plain version")
-    return err
+    return float(d.max()), float((d - tol).max()), int((d > 0).sum())
 
 
 # (kernel, stride, dilation, relu, c1, c2, co) of the bfloat16 route's
@@ -4520,6 +4543,566 @@ def train3d_only(dev):
     print(json.dumps({"kernels": train3d_rows(results, launches)}))
 
 
+# Training in bfloat16 on kernel B's bfloat16 route (ROADMAP A.5.3 and
+# A.4.3): the nets whose every layer the bfloat16 gradient kernels are held
+# on, label -> (model, side, batch): MGCoarseNet's PUNet on the 128^2 cut
+# at batch 16 (scripts/train_mg_coarse.py's), and PUNetD2_128's
+# architecture, the tower and ScaleNet in bfloat16 at training's 128^2,
+# batch 64.
+BF16_TRAIN_NETS = {"mg_coarse": ("MGCoarseNet", 128, 16),
+                   "punet": ("PUNet", TRAIN_RES, TRAIN_BSZ),
+                   "tower": ("FluidNet", TRAIN_RES, TRAIN_BSZ),
+                   "scalenet": ("ScaleNet", TRAIN_RES, TRAIN_BSZ)}
+# Steps of the bfloat16 trainer's main paths (make_on_device_train_step).
+BF16_TRAIN_STEPS = {"PUNet": 5, "FluidNet": 5, "ScaleNet": 3}
+# What the kernels stand in for: the JAX script's jax.value_and_grad of
+# its loss (XLA's backward of flax nn.Conv(dtype="bfloat16")).
+MGC_REPLACES = "scripts/train_mg_coarse.py:191"
+# The twin at --res 512 (its default), a few frames and 20 steps.
+MGC_ARGS = ["--res", "512", "--frames", "24", "--warmup", "20", "--steps",
+            "20", "--evalEvery", "10"]
+
+
+def bf16_counters():
+    """{key: wrapper} of the kernels a bfloat16 2-D train step launches:
+    B, the three bfloat16 gradient kernels, the float32 ones (which it
+    must not launch), G (the twin's labels and eval), E and F (the
+    trainer's rollout and labels)."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import (advect, conv_grad, jacobi,
+                                                    mg, punet)
+    return {"B": punet.conv2d_nhwc, "dgrad16": conv_grad.conv2d_dgrad_bf16,
+            "wgrad16": conv_grad.conv2d_wgrad_bf16,
+            "bias16": conv_grad.bias_grad, "dgrad": conv_grad.conv2d_dgrad,
+            "wgrad": conv_grad.conv2d_wgrad, "G": mg.solve_mg,
+            "E": advect.advect_velocity, "F": jacobi.solve_jacobi}
+
+
+def bf16_cfg(model):
+    """The ModelConfig of ``model`` trained in bfloat16 (PUNet:
+    PUNetD2_128's architecture)."""
+    from fluidnet_cxx_tpu_torch.config import ModelConfig
+
+    return ModelConfig(model=model, compute_dtype="bfloat16",
+                       **TRAIN_CFG.get(model, {}))
+
+
+def bf16_net_and_input(label, dev, seed=1):
+    """(the bfloat16 2-D net of ``label`` with flax's initialisation from
+    ``seed``, its NHWC input at BF16_TRAIN_NETS' shape): MGCoarseNet's
+    PUNet on a cut problem's normalised RHS and mask; the others on the
+    trainer's assembled input of a synthetic batch."""
+    from fluidnet_cxx_tpu_torch.models import mg_coarse
+    from fluidnet_cxx_tpu_torch.models.convert import (flax_to_state_dict,
+                                                       random_flax_params)
+    from fluidnet_cxx_tpu_torch.models.fluidnet import make_net
+
+    model, side, bsz = BF16_TRAIN_NETS[label]
+    if model != "MGCoarseNet":
+        net = make_net(bf16_cfg(model))
+        net.load_state_dict(flax_to_state_dict(random_flax_params(net.table,
+                                                                  seed)))
+        x = train_input(model, dev, bsz, side).contiguous()
+        return net.to(dev), x
+    net = mg_coarse.init_mg_coarse_params(mg_coarse.MGCoarseNet(),
+                                          seed).punet.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    flags = torch.ones((bsz, side, side), dtype=torch.int32, device=dev)
+    flags[torch.rand(flags.shape, generator=gen, device=dev) < 0.05] = 2
+    cont = mg_coarse._cont(flags)
+    rhs = torch.randn(flags.shape, generator=gen, device=dev) * cont
+    s = rhs.square().mean(dim=(1, 2), keepdim=True).sqrt() + 1e-8
+    return net, torch.stack([rhs / s, cont], dim=-1)
+
+
+def record_bf16_layers(net, x, dev):
+    """Each conv call of one forward and backward of the bfloat16 ``net``
+    on ``x`` through the autograd route (ConvNHWC on packed weights, the
+    padded activations): (name, x, x2, packed weight and bias, stride,
+    dilation, relu, the output, the output's gradient from a random
+    upstream gradient at the net's output)."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import punet
+
+    packed = punet.pack_weights(net)
+    calls, grads = [], {}
+    bf = torch.bfloat16
+
+    def conv(name, h, x2=None, relu=True, in_scale=None, scale_mod=1):
+        w, b = packed[name]
+        _, stride, dil = net.geometry[name]
+        h = h.to(bf)
+        x2 = None if x2 is None else x2.to(bf)
+        y = punet.conv2d_nhwc_autograd(h, w, b, stride, dil, relu, x2)
+        y.register_hook(lambda g, i=len(calls): grads.__setitem__(i, g))
+        calls.append((name, h.detach(), None if x2 is None else x2.detach(),
+                      w.detach(), b.detach(), stride, dil, relu,
+                      y.detach()))
+        return y
+
+    out = net(x.to(bf), conv=conv, width=punet.STAGE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    (out * torch.randn(out.shape, generator=gen, device=dev)).sum().backward()
+    return [c + (grads[i],) for i, c in enumerate(calls)]
+
+
+def cudnn_grad2(x, w_hwio, gy, stride, dil):
+    """(input gradient, weight gradient and bias sum) of one layer by
+    cuDNN's ``conv2d_input`` / ``conv2d_weight`` in bfloat16
+    (channels_last) on the SAME-padded input, and torch's sum of dy, as
+    closures: the library yardsticks."""
+    from fluidnet_cxx_tpu_torch.ops.kernels.conv_grad import same_pads
+
+    k = w_hwio.shape[0]
+    lo, hi = same_pads(x.shape[1], k, stride, dil)
+    cl = torch.channels_last
+    w = w_hwio.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+    g = gy.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+    xn = torch.nn.functional.pad(x.permute(0, 3, 1, 2),
+                                 (lo, hi, lo, hi)).contiguous(
+                                     memory_format=cl)
+    size = tuple(xn.shape)
+
+    def dgrad():
+        return torch.nn.grad.conv2d_input(size, w, g, stride=stride,
+                                          dilation=dil)
+
+    def wgrad():
+        return (torch.nn.grad.conv2d_weight(xn, tuple(w.shape), g,
+                                            stride=stride, dilation=dil),
+                gy.sum(dim=(0, 1, 2)))
+
+    def bias():
+        return gy.sum(dim=(0, 1, 2))
+    return dgrad, wgrad, bias
+
+
+def plain_ms(fn):
+    """(result, device ms) of one call of a plain version (its bias chain
+    takes one launch a cell of a window: one call, timed with CUDA
+    events), with cuDNN off (``no_cudnn``)."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = no_cudnn(fn)
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def no_cudnn(fn):
+    """``fn()`` with cuDNN off: the plain versions' float32 sums then run
+    PyTorch's own direct convolutions, each a sum of the exact products
+    (cuDNN may pick an algorithm whose float32 result is no such sum:
+    with it on an H100, 84 of the 36,864 values of MGCoarseNet's enc0_0
+    weight gradient missed the exact sum rounded to bf16, against 9 for
+    the kernel, and its dyadic sums were not exact)."""
+    with torch.backends.cudnn.flags(enabled=False):
+        return fn()
+
+
+def check_bf16_sum(name, got, want, exact):
+    """A bfloat16 gradient (a float32 sum rounded once) against its plain
+    version: within one bf16 ulp of it (check_bf16's tolerance) with at
+    most BF16_OFF_SHARE of its values off; or, where a long float32 sum
+    lands more values on the other side of a rounding point (the plain
+    version's float32 sum over a million cells is itself that far from
+    the exact one), within one bf16 ulp of the exact sum rounded once
+    (``exact()``: the plain version in float64) and with no more values
+    off it than twice the plain float32 version's. Returns the largest
+    absolute error against the plain version."""
+    err, excess, off = bf16_gap(got, want)
+    n = got.numel()
+    print(f"{name}: max_abs_err {err:.3e}; largest excess over max(1 ulp, "
+          f"1e-5 of the largest output) {excess:.3e}; {off} of {n} values "
+          "off", flush=True)
+    if excess <= 0 and off <= BF16_OFF_SHARE * n:
+        return err
+    ref = no_cudnn(exact).to(torch.bfloat16)
+    _, mine_excess, mine = bf16_gap(got, ref)
+    plain = int((want != ref).sum())
+    print(f"{name}: against the exact sum rounded once: excess "
+          f"{mine_excess:.3e}, the kernel {mine} values off, the plain "
+          f"float32 version {plain}", flush=True)
+    if not mine_excess <= 0 or mine > max(2 * plain, BF16_OFF_SHARE * n):
+        raise SystemExit(f"{name} is further from the exact sum than its "
+                         "plain version")
+    return err
+
+
+def check_bf16_grad_layers(label, net, rows, dev):
+    """The bfloat16 gradient kernels on each recorded layer against their
+    plain versions: fn_conv2d_bf16_dgrad (every layer whose input takes a
+    gradient) and fn_conv2d_bf16_wgrad within one bf16 ulp
+    (check_bf16_sum) on the layer's own inputs, fn_bias_grad_bf16 bit for
+    bit; all three
+    bit for bit on dyadic inputs whose sums are exact; repeats bit-equal;
+    each timed (graph_ms) beside its plain version and cuDNN's bf16
+    gradients, with its bound on the layer's real channels; and the
+    layer's forward on B's bfloat16 route (5x5 taps and thin layers among
+    them) within one bf16 ulp at each rounding point of its plain
+    version. Returns per-layer dicts."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import conv_grad, punet
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 55)
+    out = []
+    first = rows[0][0]
+    for name, x1, x2, w, b, stride, dil, relu, y, gy in rows:
+        k = w.shape[0]
+        co_r, ci_r = net.convs[name].weight.shape[:2]
+        xin = x1 if x2 is None else torch.cat([x1, x2], dim=-1).contiguous()
+        hw = tuple(xin.shape[1:3])
+        pads = conv_grad.same_pads(hw[0], k, stride, dil)
+        tag = (f"{label} {name} {tuple(xin.shape)}->{w.shape[-1]} "
+               f"({ci_r}->{co_r} real) k{k} s{stride} d{dil}")
+        presum = punet.conv2d_nhwc_plain(
+            xin.float(), w.float().permute(3, 2, 0, 1), torch.zeros_like(b),
+            stride, dil)
+        check_bf16(f"B bf16 forward {tag}", y, punet.conv2d_nhwc_plain(
+            x1, w.permute(3, 2, 0, 1), b, stride, dil, relu, x2),
+            presum=presum)
+        gy = (torch.where(y > 0, gy, 0.0) if relu else gy).contiguous()
+        dgrad = lambda g=gy, w=w: conv_grad.conv2d_dgrad_bf16(g, w, dil,
+                                                              stride, hw)
+        wgrad = lambda x=xin, g=gy: conv_grad.conv2d_wgrad_bf16(
+            x, g, k, stride, dil, pads)
+        bias = lambda g=gy: conv_grad.bias_grad(g)
+        r = dict(name=name, first=name == first)
+        lib_d, lib_w, lib_b = cudnn_grad2(xin, w, gy, stride, dil)
+        cells_in, cells_out = xin[..., 0].numel(), gy[..., 0].numel()
+        if name != first:
+            dx = dgrad()
+            torch.cuda.synchronize()
+            pdx, r["d_plain"] = plain_ms(lambda: conv_grad.
+                                         conv2d_dgrad_bf16_plain(
+                                             gy, w, dil, stride, hw))
+            r["d_err"] = check_bf16_sum(
+                f"bf16 dgrad {tag}", dx, pdx,
+                lambda: conv_grad.conv2d_dgrad_plain(gy.double(), w.double(),
+                                                     dil, stride, hw))
+            check_repeat(f"bf16 dgrad {tag}", dgrad)
+            macs = sum(len(c.taps) * x1.shape[0] * c.hq * c.wq for c in
+                       conv_grad.dgrad_classes(*hw, k, stride, dil))
+            r["d_bound"] = bound(2 * (cells_out * co_r + cells_in * ci_r
+                                      + k * k * ci_r * co_r),
+                                 2.0 * macs * ci_r * co_r, BF16_OPS_PER_S)
+            r["d_ms"], r["d_lib"] = graph_ms(dgrad), graph_ms(lib_d)
+        dw, db = wgrad()
+        torch.cuda.synchronize()
+        (pdw, pdb), r["w_plain"] = plain_ms(
+            lambda: conv_grad.conv2d_wgrad_bf16_plain(xin, gy, k, stride,
+                                                      dil, pads))
+        r["w_err"] = check_bf16_sum(
+            f"bf16 wgrad {tag}", dw, pdw,
+            lambda: conv_grad.conv2d_wgrad_plain(xin.double(), gy.double(),
+                                                 k, stride, dil, pads)[0])
+        check(f"bf16 bias {tag}", max_err([db], [pdb]), 0.0)
+        r["b_err"] = 0.0
+        _, r["b_plain"] = plain_ms(lambda: conv_grad.bias_grad_plain(gy))
+        check_repeat(f"bf16 wgrad {tag}", lambda: torch.cat(
+            [t.float().flatten() for t in wgrad()]))
+        dx_, w_, g_ = (dyadic3(gen, t.shape, 16, d, dev) for t, d in
+                       ((xin, 8), (w, 64), (gy, 8)))
+        if name != first:
+            check(f"bf16 dgrad exact sums {tag}", max_err(
+                [conv_grad.conv2d_dgrad_bf16(g_, w_, dil, stride,
+                                             hw).float()],
+                [no_cudnn(lambda: conv_grad.conv2d_dgrad_bf16_plain(
+                    g_, w_, dil, stride, hw)).float()]), 0.0)
+        kw, kb = conv_grad.conv2d_wgrad_bf16(dx_, g_, k, stride, dil, pads)
+        pw, pb = no_cudnn(lambda: conv_grad.conv2d_wgrad_bf16_plain(
+            dx_, g_, k, stride, dil, pads))
+        check(f"bf16 wgrad and bias exact sums {tag}",
+              max_err([kw.float(), kb], [pw.float(), pb]), 0.0)
+        r["w_bound"] = bound(2 * (cells_in * ci_r + cells_out * co_r
+                                  + k * k * ci_r * co_r),
+                             2.0 * cells_out * k * k * ci_r * co_r,
+                             BF16_OPS_PER_S)
+        r["b_bound"] = bound(2 * cells_out * co_r + 4 * co_r,
+                             float(cells_out * co_r), BF16_OPS_PER_S)
+        r["w_ms"], r["w_lib"] = graph_ms(wgrad), graph_ms(lib_w)
+        r["b_ms"], r["b_lib"] = graph_ms(bias), graph_ms(lib_b)
+        print(f"{tag}: dgrad "
+              + (f"{r['d_ms']:.4f} ms (cuDNN {r['d_lib']:.4f}, plain "
+                 f"{r['d_plain']:.3f}, bound {r['d_bound'][0]:.4f} "
+                 f"{r['d_bound'][1]})" if name != first else "- (no input "
+                 "gradient)")
+              + f", wgrad+bias {r['w_ms']:.4f} ms (cuDNN {r['w_lib']:.4f}, "
+              f"plain {r['w_plain']:.3f}, bound {r['w_bound'][0]:.4f} "
+              f"{r['w_bound'][1]}), of it bias {r['b_ms']:.4f} ms (torch sum "
+              f"{r['b_lib']:.4f}, plain {r['b_plain']:.3f}, windows "
+              f"{conv_grad.bias_windows(tuple(gy.shape[:-1]))})",
+              flush=True)
+        out.append(r)
+    return out
+
+
+def bf16_grad_results(label, layers):
+    """The kernels-line numbers of the three bfloat16 gradient kernels
+    summed over one backward's calls (dgrad: every layer but the first,
+    whose input takes no gradient)."""
+    res = {}
+    for key, pre in (("dgrad16", "d"), ("wgrad16", "w"), ("bias16", "b")):
+        rs = [r for r in layers if key != "dgrad16" or not r["first"]]
+        b_ms = sum(r[f"{pre}_bound"][0] for r in rs)
+        by = max(rs, key=lambda r: r[f"{pre}_bound"][0])[f"{pre}_bound"][1]
+        res[f"{key} {label}"] = dict(
+            err=max(r[f"{pre}_err"] for r in rs),
+            ms=sum(r[f"{pre}_ms"] for r in rs),
+            plain_ms=sum(r[f"{pre}_plain"] for r in rs), bound_ms=b_ms,
+            bound_by=by, library_ms=sum(r[f"{pre}_lib"] for r in rs))
+        v = res[f"{key} {label}"]
+        print(f"{key} {label}, one backward's {len(rs)} calls: kernel "
+              f"{v['ms']:.4f} ms, library {v['library_ms']:.4f}, plain "
+              f"{v['plain_ms']:.3f}, bound {b_ms:.4f} ({by})", flush=True)
+    return res
+
+
+def bf16_step_grads(model, dev, moved=False):
+    """(loss, {name: gradient}) of one bfloat16 step on ``dev`` at 64^2,
+    batch 4 (the others' loss with LT on and a fixed draw of 4 steps;
+    MGCoarseNet's the twin's loss on 64^2 cut problems), seed weights;
+    ``moved``: one value of the batch's input moved by one bf16 ulp."""
+    from fluidnet_cxx_tpu_torch.config import SimConfig, TrainConfig
+    from fluidnet_cxx_tpu_torch.data.synthetic import generate_batch
+    from fluidnet_cxx_tpu_torch.models import mg_coarse
+    from fluidnet_cxx_tpu_torch.models.convert import (flax_to_state_dict,
+                                                       random_flax_params)
+    from fluidnet_cxx_tpu_torch.models.fluidnet import FluidNet, make_net
+    from fluidnet_cxx_tpu_torch.ops.kernels.punet import pack_weights
+    from fluidnet_cxx_tpu_torch.scripts import train_mg_coarse as tmc
+    from fluidnet_cxx_tpu_torch.train.trainer import (Batch, _sample_dyn,
+                                                      make_loss_fn)
+
+    cpu = torch.Generator().manual_seed(SEED)
+    if model == "MGCoarseNet":
+        net = mg_coarse.init_mg_coarse_params(mg_coarse.MGCoarseNet(), 1)
+        flags = torch.ones((4, 64, 64), dtype=torch.int32)
+        flags[torch.rand(flags.shape, generator=cpu) < 0.05] = 2
+        rhs, e_star = torch.randn((2, 4, 64, 64), generator=cpu)
+        if moved:
+            rhs[0, 20, 30] *= 1 + 2.0 ** -7
+        net = net.to(dev)
+        loss = tmc.coarse_loss(net, pack_weights(net.punet), flags.to(dev),
+                               rhs.to(dev), e_star.to(dev))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.cpu() for n, p in
+                                      net.named_parameters()}
+    tc, sc = TrainConfig(batch_size=4), SimConfig()
+    with torch.no_grad():
+        batch = Batch(*generate_batch(cpu, 4, 64, 64, 200, "cpu"))
+    if moved:
+        batch.U_div[0, 0, 20, 30] *= 1 + 2.0 ** -7
+    dyn, _ = _sample_dyn(torch.Generator().manual_seed(SEED), sc, tc)
+    net = make_net(bf16_cfg(model))
+    net.load_state_dict(flax_to_state_dict(random_flax_params(net.table, 1)))
+    net = net.to(dev)
+    loss_fn = make_loss_fn(FluidNet(bf16_cfg(model), net), sc, tc)
+    total, _ = loss_fn(Batch(*(t.to(dev) for t in batch[:7])),
+                       draw=(dyn, 4))
+    total.backward()
+    return float(total.detach()), {n: p.grad.cpu() for n, p in
+                                   net.named_parameters()}
+
+
+def check_bf16_step_card_vs_cpu(model, dev):
+    """One bfloat16 step's loss and gradients on the card (kernels)
+    against the CPU's plain step (bf16_step_grads): the loss within
+    TRAIN3D_LOSS_TOL of its value; the gradient (all parameters, relative
+    L2) within TRAIN3D_GRAD_TOL of the CPU's, or within twice what the
+    CPU's gradient moves when one input value moves by one bf16 ulp (ReLU
+    masks that flip in bfloat16: ScaleNet's branches move 5-19% a tensor
+    so in JAX itself, tests/test_torch_bf16_grad.py)."""
+    (lc, gc), (lp, gp), (_, gm) = (bf16_step_grads(model, dev),
+                                   bf16_step_grads(model, "cpu"),
+                                   bf16_step_grads(model, "cpu", True))
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    def whole(g):
+        return torch.cat([g[n].flatten() for n in gp])
+
+    check(f"bf16 {model} step loss card {lc:.7g} vs CPU {lp:.7g} "
+          "(relative)", abs(lc - lp) / abs(lp), TRAIN3D_LOSS_TOL)
+    pairs = {n: (round(rel(gc[n], gp[n]), 4), round(rel(gm[n], gp[n]), 4))
+             for n in gp}
+    print(f"bf16 {model} step gradients card vs CPU (relative L2) | CPU "
+          f"moved by one ulp, per tensor: {pairs}", flush=True)
+    check(f"bf16 {model} step gradient card vs CPU (relative L2 over all "
+          "parameters)", rel(whole(gc), whole(gp)),
+          max(TRAIN3D_GRAD_TOL, 2 * rel(whole(gm), whole(gp))))
+
+
+def bf16_train_main_path(model, dev):
+    """make_on_device_train_step on ``model`` in bfloat16 (TrainConfig():
+    batch 64 at 128^2, LT on, 600 label sweeps): one warm-up step, then
+    the counters set to 0 and BF16_TRAIN_STEPS - 1 steps timed; finite
+    loss terms; the bfloat16 gradient kernels launched as TRAIN_BACKWARD
+    says (the bias gradient with every weight gradient) and the float32
+    ones never. Returns the launches."""
+    from fluidnet_cxx_tpu_torch.config import SimConfig, TrainConfig
+    from fluidnet_cxx_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_cxx_tpu_torch.train.trainer import (
+        check_trainable, init_train_state, make_on_device_train_step)
+
+    n = BF16_TRAIN_STEPS[model] - 1
+    name = (f"train {model} bf16 {TRAIN_RES}^2 batch {TRAIN_BSZ}, {n + 1} "
+            "steps")
+    done = phase(f"main path ({name})")
+    tc, sc = TrainConfig(batch_size=TRAIN_BSZ), SimConfig()
+    check_trainable(bf16_cfg(model), dev)
+    fnet = FluidNet(bf16_cfg(model)).to(dev)
+    ts = init_train_state(fnet, tc, seed=0, steps_per_epoch=50)
+    step = make_on_device_train_step(fnet, sc, tc, TRAIN_RES, TRAIN_RES,
+                                     tc.batch_size, 600, dev)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    host_gen = torch.Generator().manual_seed(4321)
+    ts, _ = step(ts, gen, host_gen)
+    torch.cuda.synchronize()
+    counters = bf16_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    terms = [step(ts, gen, host_gen)[1] for _ in range(n)]
+    e1.record()
+    e1.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    vals = torch.stack([torch.stack(list(t)) for t in terms]).cpu()
+    if not bool(torch.isfinite(vals).all()):
+        raise SystemExit(f"{name}: a loss term is not finite: {vals}")
+    per = TRAIN_BACKWARD[model]
+    want = {"wgrad16": per["wgrad"], "bias16": per["wgrad"],
+            "dgrad16": per["dgrad"], "wgrad": 0, "dgrad": 0}
+    if any(launches[k] != v * n for k, v in want.items()):
+        raise SystemExit(f"{name}: launches {launches}, not {want} a step")
+    print(f"{name}: ms/step {e0.elapsed_time(e1) / n:.2f} ({n} steps after "
+          f"one warm-up), launches {launches}; loss terms per step (total, "
+          f"pL2, divL2, pL1, divL1, divLT): "
+          f"{[[round(v, 5) for v in row] for row in vals.tolist()]}",
+          flush=True)
+    done()
+    return launches
+
+
+def mg_coarse_main_path(dev):
+    """The twin (python -m fluidnet_cxx_tpu_torch.scripts.train_mg_coarse,
+    its main) with MGC_ARGS into a model dir under build/, the counters
+    set to 0 just before: every step launches the bfloat16 gradient
+    kernels on MGCoarseNet's 10 convs (9 input gradients), finite losses
+    that fall (the mean of the last 5 under that of the first 5); then the
+    run_plume twin under --simMethod mg_learned on that dir for 10 steps
+    at 512^2: finite. The dir is removed after. Returns the launches."""
+    import math
+    import shutil
+    from pathlib import Path
+
+    from fluidnet_cxx_tpu_torch.scripts import run_plume as twin_plume
+    from fluidnet_cxx_tpu_torch.scripts import train_mg_coarse as tmc
+
+    work = Path(__file__).resolve().parent / "build" / "mg_coarse_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        done = phase("main path (train_mg_coarse twin --res 512, 20 steps)")
+        counters = bf16_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        res = tmc.main(MGC_ARGS + ["--modelDir", str(work / "model")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        steps, losses = res["steps"], res["losses"]
+        want = {"wgrad16": 10, "bias16": 10, "dgrad16": 9, "wgrad": 0,
+                "dgrad": 0}
+        if any(launches[k] != v * steps for k, v in want.items()):
+            raise SystemExit(f"train_mg_coarse: launches {launches}, not "
+                             f"{want} a step")
+        if launches["G"] < 1:
+            raise SystemExit("train_mg_coarse: no G launch")
+        first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+        print(f"train_mg_coarse twin: {wall:.1f} s in all, ms/step "
+              f"{res['ms_per_step']:.2f}, launches {launches}; loss mean of "
+              f"the first 5 steps {first:.5f}, of the last 5 {last:.5f}; "
+              f"every step {[round(v, 5) for v in losses]}; evals "
+              f"{res['evals']}", flush=True)
+        if not all(math.isfinite(v) for v in losses) or not last < first:
+            raise SystemExit("train_mg_coarse: the loss did not fall")
+        done()
+        done = phase("run_plume twin --simMethod mg_learned from its dir")
+        conf = work / "plume.yaml"
+        conf.write_text("realTimePlot: false\nstatIter: 10\n")
+        run = twin_plume.main(["--simConf", str(conf), "--simMethod",
+                               "mg_learned", "--modelDir",
+                               str(work / "model"), "--resX", "512", "--resY",
+                               "512", "--maxIter", "10", "--outputFolder",
+                               str(work / "out")])
+        run.pop("state")
+        print(f"run_plume from the trained dir: {run}", flush=True)
+        if not run["finite"]:
+            raise SystemExit("run_plume on the trained MGCoarseNet failed")
+        done()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def phase_train_bf16(dev, results):
+    """bfloat16 training (A.5.3, A.4.3): the bfloat16 gradient kernels on
+    every layer of BF16_TRAIN_NETS; one step of each net card against
+    CPU; the three nets' bfloat16 trainer main paths; the twin and
+    run_plume from its dir. Returns each main path's launches."""
+    for label in BF16_TRAIN_NETS:
+        model, side, bsz = BF16_TRAIN_NETS[label]
+        done = phase(f"bfloat16 gradient kernels, {label} at {side}^2, "
+                     f"batch {bsz}")
+        net, x = bf16_net_and_input(label, dev)
+        rows = record_bf16_layers(net, x, dev)
+        results.update(bf16_grad_results(
+            label, check_bf16_grad_layers(label, net, rows, dev)))
+        del net, x, rows
+        torch.cuda.empty_cache()
+        done()
+    done = phase("one bfloat16 train step, card vs CPU (64^2, batch 4)")
+    for model, _, _ in BF16_TRAIN_NETS.values():
+        check_bf16_step_card_vs_cpu(model, dev)
+    done()
+    launches = {"mg_coarse": mg_coarse_main_path(dev)}
+    for label, (model, _, _) in BF16_TRAIN_NETS.items():
+        if label != "mg_coarse":
+            launches[label] = bf16_train_main_path(model, dev)
+    return launches
+
+
+def train_bf16_rows(results, launches):
+    """The kernels-line rows of the bfloat16 gradient kernels: each net's
+    launches from its own main path (the twin's for MGCoarseNet)."""
+    src = "fluidnet_cxx_tpu_torch/csrc/conv2d_bf16_grad.cu"
+    out = []
+    for label, (_, side, bsz) in BF16_TRAIN_NETS.items():
+        replaces = MGC_REPLACES if label == "mg_coarse" else TRAIN_REPLACES
+        for key, kind in (("dgrad16", "conv2d_bf16_dgrad"),
+                          ("wgrad16", "conv2d_bf16_wgrad"),
+                          ("bias16", "bias_grad_bf16")):
+            r = results[f"{key} {label}"]
+            out.append({"name": f"{kind}_{label}_{side}_b{bsz}",
+                        "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": launches[label][key],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    return out
+
+
+def mg_coarse_only(dev):
+    """`python3 chip_smoke.py --mg-coarse-only`: phase_train_bf16 alone,
+    then the kernels line of its rows."""
+    results = {}
+    launches = phase_train_bf16(dev, results)
+    print(json.dumps({"kernels": train_bf16_rows(results, launches)}))
+
+
 # The scene drivers' twins (python -m fluidnet_cxx_tpu_torch.scripts.*,
 # ROADMAP A.3 and A.9) at the shipped configs' sizes. Each case: (twin,
 # its flags, the changes to its shipped YAML (None: the cylinder, which
@@ -4813,6 +5396,9 @@ def main():
     if sys.argv[1:] == ["--train3d-only"]:
         train3d_only(dev)
         return
+    if sys.argv[1:] == ["--mg-coarse-only"]:
+        mg_coarse_only(dev)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -4833,6 +5419,7 @@ def main():
     phase_bench()
     train_launches = phase_train(dev, results)
     train3d_launches = phase_train3d(dev, results)
+    bf16_launches = phase_train_bf16(dev, results)
     phase_drivers()
 
     # Launches of each kernel on the first main path that must launch it.
@@ -4903,6 +5490,7 @@ def main():
                         "library_ms": r["library_ms"]})
     kernels += train_rows(results, train_launches)
     kernels += train3d_rows(results, train3d_launches)
+    kernels += train_bf16_rows(results, bf16_launches)
     print(json.dumps({"kernels": kernels}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

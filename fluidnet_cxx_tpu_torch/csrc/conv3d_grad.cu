@@ -1,6 +1,6 @@
 // The gradients of kernel N's convolution on the flax route, for training
-// FluidNet3: the input gradient fn_conv3d_dgrad and the weight and bias
-// gradients fn_conv3d_wgrad of one NDHWC 3-D conv (kernel 1 or 3, stride 1
+// FluidNet3: the input gradient fn_conv3d_dgrad and the weight gradient
+// fn_conv3d_wgrad of one NDHWC 3-D conv (kernel 1 or 3, stride 1
 // or 2, flax SAME padding), from the bfloat16 gradient of its output (the
 // ReLU mask already applied by the wrapper, ops/kernels/conv_grad3.py).
 //
@@ -10,11 +10,12 @@
 // custom_vjp. The port needs them because every conv of FluidNet3 on the
 // card runs on kernel N (csrc/conv3d.cu). Rounding, as XLA's on the CPU:
 // bfloat16 operands, every product exact in float32, the input and weight
-// gradients summed in float32 and rounded to bfloat16 once; the bias
-// gradient accumulated in bfloat16 over the cells in order, each add
-// rounded (XLA's reduce of the bfloat16 cotangent of the bias's
-// broadcast). Plain versions: conv3d_dgrad_plain and conv3d_wgrad_plain in
-// conv_grad3.py.
+// gradients summed in float32 and rounded to bfloat16 once. The bias
+// gradient (XLA's reduce of the bfloat16 cotangent of the bias's
+// broadcast, each add rounded, in the order of XLA's tree reduction) is
+// conv2d_bf16_grad.cu's fn_bias_grad_bf16, which the 2-D and 3-D
+// wrappers share. Plain versions: conv3d_dgrad_plain and
+// conv3d_wgrad_plain in conv_grad3.py.
 //
 // What bounds them on an H100: at 3-D training's shapes (8^3 and 4^3
 // latent maps at batch 4, 96-1024 channels) a layer's gradient moves at
@@ -41,10 +42,7 @@
 //  * wgrad: per tap, M = input channels, N = output channels, K = output
 //    cells. A chunk stages x at 32 output cells' tap-shifted input cells
 //    (rows of channels) and dy at those cells; both operands reach the
-//    MMA through ldmatrix.trans. The bias gradient is a third launch, a
-//    lane a column walking the cells in order from tiles its block stages
-//    in shared memory (its rounding after each add makes the sum a serial
-//    chain: 2048 dependent adds at training's 8^3 maps).
+//    MMA through ldmatrix.trans.
 #include <cuda_bf16.h>
 
 #include "conv_mma.cuh"
@@ -354,35 +352,6 @@ __global__ void __launch_bounds__(256)
   store_pair(out + i + 2, s.z, s.w);
 }
 
-// The bias gradient: db[c] = s, s accumulated in bfloat16 over the cells
-// in order (s = bf16(s + dy[m][c]), m = 0, 1, ...). A block owns 32
-// columns: all its warps stage kBiasTile cells of them in shared memory
-// (many loads in flight), then one warp runs the serial chain a column a
-// lane from there.
-constexpr int kBiasThreads = 256, kBiasTile = 256;
-__global__ void __launch_bounds__(kBiasThreads)
-    bias_grad(const bf16* __restrict__ dy, float* __restrict__ db, int cells,
-              int co) {
-  __shared__ bf16 tile[kBiasTile][32];
-  const int lane = threadIdx.x % 32, c0 = blockIdx.x * 32;
-  float s = 0.f;
-  for (int base = 0; base < cells; base += kBiasTile) {
-    const int n = min(kBiasTile, cells - base);
-    for (int i = threadIdx.x; i < n * 32; i += kBiasThreads) {
-      const int m = i / 32, c = c0 + i % 32;
-      tile[m][i % 32] = c < co ? dy[(size_t)(base + m) * co + c]
-                               : __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();
-    if (threadIdx.x < 32)
-      for (int m = 0; m < n; ++m)
-        s = __bfloat162float(
-            __float2bfloat16_rn(s + __bfloat162float(tile[m][lane])));
-    __syncthreads();
-  }
-  if (threadIdx.x < 32 && c0 + lane < co) db[c0 + lane] = s;
-}
-
 int launch_reduce(const float* ws, bf16* out, long long total, int splits,
                   cudaStream_t s) {
   const long long blocks = (total / 4 + 255) / 256;
@@ -452,17 +421,18 @@ extern "C" int fn_conv3d_dgrad(const void* dy, const void* wt, void* dx,
                        s);
 }
 
-// Weight gradient dw (k^3, ci, co) bf16 (DHWIO) and bias gradient db (co)
-// float32 (bf16 values) of a SAME conv of NDHWC x (n, di, hi, wi, ci) bf16
-// with stride `stride` and low pad `pad`, from dy (n, dout, ho, wo, co)
-// bf16; `ws` a (splits, k^3*ci, co) float32 workspace when splits > 1,
-// else null. Issues 2 launches, 3 with splits, on `stream`; returns the
-// first launch error, or cudaErrorInvalidValue for bad arguments.
+// Weight gradient dw (k^3, ci, co) bf16 (DHWIO) of a SAME conv of NDHWC x
+// (n, di, hi, wi, ci) bf16 with stride `stride` and low pad `pad`, from dy
+// (n, dout, ho, wo, co) bf16; `ws` a (splits, k^3*ci, co) float32
+// workspace when splits > 1, else null. Issues 1 launch, 2 with splits, on
+// `stream`; returns the first launch error, or cudaErrorInvalidValue for
+// bad arguments. The bias gradient is conv2d_bf16_grad.cu's
+// fn_bias_grad_bf16.
 extern "C" int fn_conv3d_wgrad(const void* x, const void* dy, void* dw,
-                               float* db, float* ws, int n, int di, int hi,
-                               int wi, int ci, int dout, int ho, int wo,
-                               int co, int k, int stride, int pad,
-                               int splits, void* stream) {
+                               float* ws, int n, int di, int hi, int wi,
+                               int ci, int dout, int ho, int wo, int co,
+                               int k, int stride, int pad, int splits,
+                               void* stream) {
   if ((k != 1 && k != 3) || (stride != 1 && stride != 2) || n < 1 ||
       ci < 8 || ci % 8 || co < 8 || co % 8 || pad < 0 || splits < 1 ||
       splits > kMaxSplits || (splits > 1) != (ws != nullptr) ||
@@ -477,13 +447,6 @@ extern "C" int fn_conv3d_wgrad(const void* x, const void* dy, void* dw,
             k * k * k * splits);
   conv3d_wgrad_tc<<<grid, kWThreads, 0, s>>>(A);
   int status = fnk::launch_status();
-  if (status) return status;
-  if (splits > 1) {
-    status = launch_reduce(ws, A.dw, (long long)k * k * k * ci * co, splits,
-                           s);
-    if (status) return status;
-  }
-  const int cells = n * dout * ho * wo;
-  bias_grad<<<(co + 31) / 32, kBiasThreads, 0, s>>>(A.dy, db, cells, co);
-  return fnk::launch_status();
+  if (status || splits == 1) return status;
+  return launch_reduce(ws, A.dw, (long long)k * k * k * ci * co, splits, s);
 }

@@ -83,9 +83,18 @@ def tower_table(in_ch: int):
 
 def avg_pool(x, k: int):
     """k x k average pool of NHWC ``x``, stride k (flax ``avg_pool``,
-    VALID; the sides are multiples of k)."""
+    VALID; the sides are multiples of k): the window's sum, then a divide
+    by k*k. In bfloat16 the sum is XLA's reduce_window on the CPU, a chain
+    over the window in row-major order with each add rounded."""
     b, h, w, c = x.shape
-    return x.reshape(b, h // k, k, w // k, k, c).mean(dim=(2, 4))
+    t = x.reshape(b, h // k, k, w // k, k, c)
+    if x.dtype != torch.bfloat16:
+        return t.mean(dim=(2, 4))
+    acc = torch.zeros_like(t[:, :, 0, :, 0])
+    for i in range(k):
+        for j in range(k):
+            acc = acc + t[:, :, i, :, j]
+    return acc / (k * k)
 
 
 def upsample(x, k: int):
@@ -100,11 +109,14 @@ class FluidNetTower(ConvNet):
     and ReLU; one shared bank (two 3x3 convs, each with ReLU) at scales 1,
     1/2 and 1/4 (average pools), nearest upsample and sum; 1x1 conv2 and
     conv3 with ReLU, 1x1 convOut to one channel. Like JAX, conv2 runs once
-    (the reference applies it twice). h and w must be multiples of 4."""
+    (the reference applies it twice). h and w must be multiples of 4.
+    ``dtype`` is flax's: in bfloat16 the pools, the repeats and the
+    three-bank sum (each add rounded, left to right) stay bfloat16, as
+    between flax's bfloat16 convs."""
     outputs = ("convOut",)
 
-    def __init__(self, in_ch: int = 2):
-        super().__init__(tower_table(in_ch))
+    def __init__(self, in_ch: int = 2, dtype: str = "float32"):
+        super().__init__(tower_table(in_ch), dtype)
         self.in_ch = in_ch
 
     def forward(self, x, conv=None, width=None):
@@ -122,24 +134,19 @@ class FluidNetTower(ConvNet):
         x = (bank(x) + upsample(bank(avg_pool(x, 2)), 2)
              + upsample(bank(avg_pool(x, 4)), 4))
         x = conv("conv3", conv("conv2", x))
-        return conv("convOut", x, relu=False)[..., :1]
+        return conv("convOut", x, relu=False)[..., :1].float()
 
 
 def make_net(cfg) -> ConvNet:
     """The network of a ``ModelConfig``: PUNet (with or without its
     refinement stack), MultiScaleNet for "ScaleNet", else FluidNetTower,
-    as the JAX ``FluidNet`` picks it; PUNet in float32 or bfloat16, the
-    others float32 only."""
+    as the JAX ``FluidNet`` picks it, each in ``cfg.compute_dtype``
+    (float32 or bfloat16)."""
     if cfg.model == "PUNet":
         return PUNet.from_config(cfg)
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"not ported yet: compute_dtype {cfg.compute_dtype!r} for "
-            f"{cfg.model}; its convs run float32 (bfloat16 for the tower "
-            "and ScaleNet, ROADMAP A.4.3)")
     if cfg.model == "ScaleNet":
-        return MultiScaleNet(cfg.in_dims)
-    return FluidNetTower(cfg.in_dims)
+        return MultiScaleNet(cfg.in_dims, cfg.compute_dtype)
+    return FluidNetTower(cfg.in_dims, cfg.compute_dtype)
 
 
 class FluidNet(torch.nn.Module):

@@ -12,9 +12,16 @@ gauge-fixed (zero mean over continuation cells) and masked.
 On the card the V-cycle is kernel G split at the cut (ops/kernels/mg.py::
 ``solve_mg_learned``) and the PUNet's convolutions are kernel B's
 bfloat16 route (ops/kernels/punet.py; flax's rounding points, as JAX
-runs the net); the RMS, the input stack and the gauge are torch glue. A CPU tensor runs the plain versions. The projection has no
-``handles_const_vals``: the step runs it in its unfused branch with
-``sim_method="convnet"``, as the JAX ``scripts/run_plume.py`` does.
+runs the net, and in training its backward kernels); the RMS, the input
+stack and the gauge are torch glue. A CPU tensor runs the plain versions.
+The projection has no ``handles_const_vals``: the step runs it in its
+unfused branch with ``sim_method="convnet"``, as the JAX
+``scripts/run_plume.py`` does.
+
+Training (``scripts/train_mg_coarse.py``): ``init_mg_coarse_params``
+(flax's initialisation from a numpy seed) and ``save_mg_coarse``, whose
+model dir ``load_mg_coarse`` and ``run_plume --simMethod mg_learned
+--modelDir DIR`` read.
 """
 import dataclasses
 import json
@@ -28,10 +35,13 @@ from ..ops.common import border_mask
 from ..ops.kernels.mg import solve_mg
 from ..ops.kernels.punet import pack_weights, net_forward
 from ..ops.stencils import set_wall_bcs, velocity_divergence, velocity_update
-from .convert import load_state_dict_file
+from ..train.checkpoint import _save
+from .convert import (STATE_DICT_FILE, flax_to_state_dict,
+                      load_state_dict_file, random_flax_params)
 from .punet import PUNet
 
 CONFIG_FILE = "mg_coarse_config.json"
+STATE_FILE = "train_state.pt"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +128,43 @@ def make_project_fn_mg_learned(model, n_vcycles: int = 1, pre: int = 4,
         return p_new, set_wall_bcs(velocity_update(p_new, U, flags), flags)
 
     return project
+
+
+def init_mg_coarse_params(model: MGCoarseNet, seed: int = 0) -> MGCoarseNet:
+    """flax's initialisation of ``model``'s PUNet from a numpy seed
+    (lecun-normal kernels, zero biases; ``models/convert.py``), in place
+    on the model's device; returns the model. JAX draws it from a PRNG
+    key, so the two packages' weights from one seed differ."""
+    dev = next(model.parameters()).device
+    sd = flax_to_state_dict(random_flax_params(model.punet.table, seed))
+    model.punet.load_state_dict({k: v.to(dev) for k, v in sd.items()})
+    return model
+
+
+def save_mg_coarse(model_dir, cfg: MGCoarseConfig, model, opt, step: int,
+                   best: float, is_best: bool = False):
+    """The training checkpoint, where JAX writes orbax ``last/`` (and
+    ``best/``): ``<model_dir>/last/train_state.pt`` (and ``best/``) holds,
+    by ``torch.save``, the model's parameters, the optimizer's state,
+    ``step`` and ``best``; on best also ``<model_dir>/torch_state_dict.pt``
+    (the parameters as float32 CPU tensors, the file ``load_mg_coarse``
+    reads); and ``mg_coarse_config.json``. Every file is written under a
+    temporary name and renamed into place."""
+    os.makedirs(model_dir, exist_ok=True)
+    params = model.state_dict()
+    payload = {"params": params, "optimizer": opt.state_dict(),
+               "step": int(step), "best": float(best)}
+    for name in ("last", "best") if is_best else ("last",):
+        d = os.path.join(model_dir, name)
+        os.makedirs(d, exist_ok=True)
+        _save(payload, os.path.join(d, STATE_FILE))
+    if is_best:
+        _save({k: v.detach().float().cpu() for k, v in params.items()},
+              os.path.join(model_dir, STATE_DICT_FILE))
+    tmp = os.path.join(model_dir, f"{CONFIG_FILE}.{os.getpid()}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2)
+    os.replace(tmp, os.path.join(model_dir, CONFIG_FILE))
 
 
 def load_mg_coarse_config(model_dir) -> MGCoarseConfig:

@@ -33,22 +33,59 @@ def multiscale_table(in_ch: int):
     return t
 
 
+def resize_weights(m: int, n: int):
+    """(m, n) float32 weights of a linear resize of an axis of m cells to
+    n, as ``jax.image``'s ``compute_weight_mat`` makes them for the
+    triangle kernel (antialiased: widened by the scale where it
+    downsamples; each column normalised to sum 1)."""
+    inv = m / n
+    sample = (torch.arange(n, dtype=torch.float32) + 0.5) * inv - 0.5
+    d = (sample[None, :] - torch.arange(m, dtype=torch.float32)[:, None])
+    w = torch.clamp(1.0 - d.abs() / max(inv, 1.0), min=0.0)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= m - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
 def resize(x, hw):
     """Bilinear resize of NHWC ``x`` to ``hw`` as ``jax.image.resize(...,
     "linear")`` computes it: half-pixel centres and, where it downsamples,
     the triangle filter widened by the scale (torch's antialias=True;
-    without it a 4x downsample differs by O(1))."""
-    return F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
-                         mode="bilinear", align_corners=False,
-                         antialias=True).permute(0, 2, 3, 1)
+    without it a 4x downsample differs by O(1)). A bfloat16 ``x`` is JAX's
+    einsum of it with the two axes' weights cast to bfloat16: one axis,
+    rounded to bfloat16, then the other, rounded again, the axis first that
+    the einsum's path takes first (the fewer operations; rows on a tie)."""
+    if x.dtype != torch.bfloat16:
+        return F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
+                             mode="bilinear", align_corners=False,
+                             antialias=True).permute(0, 2, 3, 1)
+    _, h, w, _ = x.shape
+    big, wide = hw
+
+    def rows(t):
+        wt = resize_weights(h, big).to(t.device, torch.bfloat16).float()
+        return torch.einsum("bhwc,hH->bHwc", t.float(), wt).to(x.dtype)
+
+    def cols(t):
+        wt = resize_weights(w, wide).to(t.device, torch.bfloat16).float()
+        return torch.einsum("bhwc,wW->bhWc", t.float(), wt).to(x.dtype)
+
+    if h * big * w + big * w * wide <= w * wide * h + h * wide * big:
+        return cols(rows(x))
+    return rows(cols(x))
 
 
 class MultiScaleNet(ConvNet):
-    """NHWC (b, h, w, in_ch) -> (b, h, w, 1) (JAX ``MultiScaleNet``)."""
+    """NHWC (b, h, w, in_ch) -> (b, h, w, 1) (JAX ``MultiScaleNet``).
+    ``dtype`` is flax's: in bfloat16 the branches' outputs stay bfloat16
+    through their resizes (``resize``), and the concats with the float32
+    input's resizes are float32, as in flax."""
     outputs = ("convN_4/Conv_3", "convN_2/Conv_5", "final")
 
-    def __init__(self, in_ch: int = 2):
-        super().__init__(multiscale_table(in_ch))
+    def __init__(self, in_ch: int = 2, dtype: str = "float32"):
+        super().__init__(multiscale_table(in_ch), dtype)
         self.in_ch = in_ch
 
     def _branch(self, name, x, conv):
@@ -70,4 +107,4 @@ class MultiScaleNet(ConvNet):
             conv)[..., :1]
         f = self._branch("convN_1", widen(torch.cat(
             [x, resize(hf, (h, w))], dim=-1), width), conv)
-        return conv("final", f, relu=False)[..., :1]
+        return conv("final", f, relu=False)[..., :1].float()

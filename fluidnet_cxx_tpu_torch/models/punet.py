@@ -82,13 +82,17 @@ class ConvNet(nn.Module):
     ops/kernels/punet.py::pack_weights): every layer by default.
     ``outputs`` are the layers whose output the forward slices to its
     real channels. ``compute_dtype`` is flax's ``dtype`` of the convs
-    (float32 here; PUNet also takes bfloat16): the parameters stay float32
-    and each conv casts its input, weight and bias to it."""
+    (``dtype``: "float32" or "bfloat16"): the parameters stay float32 and
+    each conv casts its input, weight and bias to it, and the forward
+    returns float32, as the flax nets do."""
     outputs = ()
-    compute_dtype = torch.float32
 
-    def __init__(self, table):
+    def __init__(self, table, dtype: str = "float32"):
         super().__init__()
+        if dtype not in DTYPES:
+            raise ValueError(f"{type(self).__name__} dtype {dtype!r}: the "
+                             f"port's 2-D nets take {sorted(DTYPES)}")
+        self.compute_dtype = DTYPES[dtype]
         self.table = table
         self.geometry = {name: (k, s, d) for name, _, _, k, s, d in table}
         self.convs = nn.ModuleDict({
@@ -130,11 +134,7 @@ class PUNet(ConvNet):
                  dtype: str = "float32"):
         super().__init__(layer_table(in_ch, patch, widths, level_convs,
                                      bottleneck_convs, bottleneck_dilation,
-                                     refine_ch, refine_convs))
-        if dtype not in DTYPES:
-            raise ValueError(f"PUNet dtype {dtype!r}: the port's 2-D PUNet "
-                             f"takes {sorted(DTYPES)}")
-        self.compute_dtype = DTYPES[dtype]
+                                     refine_ch, refine_convs), dtype)
         self.in_ch = in_ch
         self.patch = patch
         self.widths = tuple(widths)
@@ -186,4 +186,4 @@ class PUNet(ConvNet):
             for j in range(self.refine_convs):
                 r = conv(f"ref{j}", r)
             p = p + conv("ref_out", r, relu=False)[..., :1]
-        return p.float() if self.compute_dtype == torch.bfloat16 else p
+        return p.float()

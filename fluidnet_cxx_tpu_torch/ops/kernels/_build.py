@@ -15,8 +15,10 @@ and ``fn_mg_learned_up``: the two halves of a learned V-cycle;
 ``fn_conv2d_wgrad``: the partial tiles and their reduce;
 ``fn_conv2d_dgrad``: its one launch and, with splits, their reduce;
 ``fn_jacobi3_adjoint``: the mask launch and the transposed sweeps;
-``fn_conv3d_dgrad`` and ``fn_conv3d_wgrad``: the tiles, the reduce of
-their splits, wgrad's bias gradient) on the stream it is given,
+``fn_conv3d_dgrad``, ``fn_conv3d_wgrad``, ``fn_conv2d_bf16_dgrad`` and
+``fn_conv2d_bf16_wgrad``: the tiles and the reduce of their splits;
+``fn_bias_grad_bf16``: the windows' chains and the chain over them) on
+the stream it is given,
 returns the first ``cudaError_t`` as an int, does not synchronise and
 allocates nothing; ``call`` raises if the status is not 0. The entries in
 ``QUERIES`` launch nothing: they answer a question of the kernels' own
@@ -76,7 +78,10 @@ SIGNATURES = {
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
     "fn_conv3d_ndhwc": [VP] * 6 + [I] * 20 + [VP, VP],
     "fn_conv3d_dgrad": [VP] * 5 + [I] * 12 + [VP],
-    "fn_conv3d_wgrad": [VP] * 5 + [I] * 13 + [VP],
+    "fn_conv3d_wgrad": [VP] * 4 + [I] * 13 + [VP],
+    "fn_conv2d_bf16_dgrad": [VP] * 5 + [I] * 11 + [VP],
+    "fn_conv2d_bf16_wgrad": [VP] * 4 + [I] * 12 + [VP],
+    "fn_bias_grad_bf16": [VP] * 4 + [I, VP],
     "fn_jacobi3_adjoint": [VP] * 5 + [I] * 6 + [F, F, VP],
     "fn_advect3_forward": [I] + [VP] * 5 + [I, I, I, I, F, F, F, F, F, I,
                                              I, VP],

@@ -23,15 +23,33 @@ patch, with the weight's tf32 halves made here (``tf32_split``).
 Plain versions: ``torch.nn.grad.conv2d_weight`` on the padded input and a
 sum of dy, over the real channels; F.conv_transpose2d cut to the SAME
 window. A CPU tensor runs them, a CUDA tensor the kernels.
+
+Kernel B's bfloat16 route has its own pair (``csrc/conv2d_bf16_grad.cu``,
+the 3-D pair's design in two dimensions with dilation): the input gradient
+``fn_conv2d_bf16_dgrad`` (``conv2d_dgrad_bf16``, over the same parity
+classes) and the weight gradient ``fn_conv2d_bf16_wgrad``
+(``conv2d_wgrad_bf16``), bf16 ``mma.sync`` with float32 sums over the
+stored channels (the padded ones carry exact zeros), and the bias gradient
+``fn_bias_grad_bf16`` (``bias_grad``, which the 3-D wrapper shares).
+Rounding points, flax ``nn.Conv(dtype="bfloat16")``'s gradients on JAX's
+CPU: every product exact in float32, dx and dW summed in float32 and
+rounded to bfloat16 once; db a reduction of the bfloat16 upstream gradient
+that XLA accumulates in bfloat16, each add rounded, in the order of its
+tree reduction (``bias_windows``). Their plain versions are the float32
+ones on the bfloat16 values, then those roundings (``*_bf16_plain``,
+``bias_grad_plain``).
 """
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .conv_plan import CHUNK as _CHUNKS
+from .conv_plan import MAX_SPLITS
 
 
 def same_pads(size: int, k: int, stride: int, dil: int):
@@ -309,3 +327,211 @@ def conv2d_dgrad(dy, w_hwio, dil=1, stride=1, in_hw=None, ci=None, co=None,
 
 
 conv2d_dgrad.launches = 0
+
+
+# ---- kernel B's bfloat16 route ----
+
+# The bf16 kernels' staged chunk (dgrad: of dy's channels; wgrad: of
+# output cells), csrc/conv_mma.cuh::kChunk.
+BF16_CHUNK = _CHUNKS["bf16"]
+# Blocks the splits aim for: two waves of the H100's 132 SMs.
+TARGET_BLOCKS = 264
+# (dx cells, input channels) of a dgrad block; (input, output channels) of
+# a wgrad block (csrc/conv2d_bf16_grad.cu, csrc/conv3d_grad.cu).
+DGRAD_TILE, WGRAD_TILE = (64, 32), (64, 64)
+# The window of XLA's tree reduction on the CPU (TreeReductionRewriter).
+TREE_WINDOW = 32
+
+
+def grad_splits(tiles: int, chunks: int) -> int:
+    """Splits of a reduction of ``chunks`` chunks over ``tiles`` blocks:
+    enough for TARGET_BLOCKS blocks, at least 2 chunks a split, at most
+    MAX_SPLITS."""
+    return max(1, min(-(-TARGET_BLOCKS // tiles), chunks // 2, MAX_SPLITS))
+
+
+@functools.lru_cache(maxsize=None)
+def bias_windows(dims: tuple) -> tuple:
+    """The order in which XLA on the CPU sums a bfloat16 reduction over the
+    axes ``dims`` (the bias gradient's cells): ((window, low pad,
+    windows), ...) per axis. While every axis is at most TREE_WINDOW long,
+    one window of all the cells: a chain in row-major order. Otherwise
+    (XLA's TreeReductionRewriter) windows of TREE_WINDOW along each longer
+    axis, padded evenly on both sides to a multiple of it (an axis of at
+    most TREE_WINDOW is one window): a chain over each window's cells in
+    row-major order, then a chain over the windows' sums in row-major
+    order. A grid of windows with an axis above TREE_WINDOW (which XLA
+    would reduce as a tree again) raises ValueError."""
+    if max(dims) <= TREE_WINDOW:
+        return tuple((d, 0, 1) for d in dims)
+    out = []
+    for d in dims:
+        if d <= TREE_WINDOW:
+            out.append((d, 0, 1))
+            continue
+        g = -(-d // TREE_WINDOW)
+        out.append((TREE_WINDOW, (g * TREE_WINDOW - d) // 2, g))
+    if max(g for _, _, g in out) > TREE_WINDOW:
+        raise ValueError(f"the bias gradient over {dims} cells has more "
+                         f"than {TREE_WINDOW} windows on an axis")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def bias_table(dims: tuple):
+    """``bias_windows(dims)`` as ``fn_bias_grad_bf16`` reads it, a ctypes
+    int array over four axes (leading axes of 1): the lengths, the window
+    sizes, the low pads and the window counts."""
+    wins = ((1, 0, 1),) * (4 - len(dims)) + bias_windows(dims)
+    dims = (1,) * (4 - len(dims)) + tuple(dims)
+    flat = [*dims, *(w for w, _, _ in wins), *(lo for _, lo, _ in wins),
+            *(g for _, _, g in wins)]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def bias_grad_plain(dy):
+    """The bias gradient (co,) float32 of channels-last ``dy``: in float32
+    its sum over the cells; in bfloat16 XLA's sum on the CPU, accumulated
+    in bfloat16 with each add rounded, in ``bias_windows``' order (a
+    window's cells, then the windows)."""
+    co = dy.shape[-1]
+    if dy.dtype == torch.float32:
+        return dy.reshape(-1, co).sum(dim=0)
+    dims = tuple(dy.shape[:-1])
+    wins = bias_windows(dims)
+    z = dy.new_zeros(tuple(w * g for w, _, g in wins) + (co,))
+    z[tuple(slice(lo, lo + d) for (_, lo, _), d in zip(wins, dims))] = dy
+    r = len(dims)
+    z = z.reshape(tuple(v for w, _, g in wins for v in (g, w)) + (co,))
+    z = z.permute(*range(0, 2 * r, 2), *range(1, 2 * r, 2), 2 * r)
+    z = z.reshape(-1, math.prod(w for w, _, _ in wins), co)
+    acc = torch.zeros_like(z[:, 0])
+    for i in range(z.shape[1]):
+        acc = acc + z[:, i]
+    s = torch.zeros_like(acc[0])
+    for part in acc:
+        s = s + part
+    return s.float()
+
+
+def bias_grad(dy):
+    """The bias gradient (co,) float32 (bfloat16 values) of a bfloat16 conv
+    from its channels-last output gradient ``dy``: ``fn_bias_grad_bf16``,
+    a chain a window and column, then a chain over the windows
+    (``bias_windows``). Bit-equal to ``bias_grad_plain``."""
+    if not _build.on_cuda(dy):
+        return bias_grad_plain(dy)
+    dims, co = tuple(dy.shape[:-1]), dy.shape[-1]
+    _build.check(dy, "dy", torch.bfloat16, dy.shape, dy.device)
+    if co % 8 or len(dims) > 4:
+        raise ValueError(f"bias_grad needs co a multiple of 8 and at most "
+                         f"4 reduced axes, got {tuple(dy.shape)}")
+    nwin = math.prod(g for _, _, g in bias_windows(dims))
+    db = torch.empty((co,), dtype=torch.float32, device=dy.device)
+    part = (torch.empty((nwin, co), dtype=torch.float32, device=dy.device)
+            if nwin > 1 else None)
+    _build.call("fn_bias_grad_bf16", dy.data_ptr(), db.data_ptr(),
+                _build.ptr(part), ctypes.addressof(bias_table(dims)), co,
+                _build.stream())
+    bias_grad.launches += 1
+    return db
+
+
+bias_grad.launches = 0
+
+
+def conv2d_dgrad_bf16_plain(dy, w_hwio, dil=1, stride=1, in_hw=None):
+    """Plain version of ``conv2d_dgrad_bf16``: ``conv2d_dgrad_plain`` in
+    float32 on the bfloat16 values (every product exact), rounded to
+    bfloat16 once."""
+    return conv2d_dgrad_plain(dy.float(), w_hwio.float(), dil, stride,
+                              in_hw).to(torch.bfloat16)
+
+
+def conv2d_wgrad_bf16_plain(x, dy, k, stride=1, dil=1, pads=(0, 0)):
+    """Plain version of ``conv2d_wgrad_bf16``: (dW (k, k, xs, ys) bfloat16
+    from a float32 sum rounded once, db (ys,) float32 from
+    ``bias_grad_plain``)."""
+    dw, _ = conv2d_wgrad_plain(x.float(), dy.float(), k, stride, dil, pads)
+    return dw.to(torch.bfloat16), bias_grad_plain(dy)
+
+
+def conv2d_dgrad_bf16(dy, w_hwio, dil=1, stride=1, in_hw=None):
+    """Input gradient (n, *in_hw, xs) bfloat16 of a SAME conv on kernel B's
+    bfloat16 route (stride 1 or 2, dilation 1 or 2, kernel 1, 3 or 5) with
+    the bfloat16 HWIO weight ``w_hwio`` (k, k, xs, ys) from the bfloat16
+    gradient ``dy`` (n, ho, wo, ys) of its output (``in_hw`` defaults to
+    dy's map): ``fn_conv2d_bf16_dgrad`` over the output-parity classes
+    (``class_table``), on all stored channels, its reduction split as
+    ``grad_splits`` says. Bit-equal on a repeat."""
+    n, ho, wo, ys = dy.shape
+    k, _, xs, _ = w_hwio.shape
+    if not _build.on_cuda(dy):
+        return conv2d_dgrad_bf16_plain(dy, w_hwio, dil, stride, in_hw)
+    dev = dy.device
+    _build.check(dy, "dy", torch.bfloat16, (n, ho, wo, ys), dev)
+    _build.check(w_hwio, "weight", torch.bfloat16, (k, k, xs, ys), dev)
+    if xs % 8 or ys % 8:
+        raise ValueError(f"conv2d_dgrad_bf16 needs channels multiples of 8, "
+                         f"got {xs} -> {ys}")
+    hi, wi = (ho, wo) if in_hw is None else in_hw
+    if (-(-hi // stride), -(-wi // stride)) != (ho, wo):
+        raise ValueError(f"dy {ho}x{wo} is not the output of a stride-"
+                         f"{stride} SAME conv of {hi}x{wi}")
+    cop = -(-ys // BF16_CHUNK) * BF16_CHUNK
+    wt = F.pad(w_hwio.transpose(2, 3), (0, 0, 0, cop - ys)).reshape(
+        k * k, cop, xs).contiguous()
+    classes = dgrad_classes(hi, wi, k, stride, dil)
+    bm, bn = DGRAD_TILE
+    tiles = sum(-(-n * c.hq * c.wq // bm) for c in classes) * -(-xs // bn)
+    s = grad_splits(tiles, min(len(c.taps) for c in classes)
+                    * (cop // BF16_CHUNK))
+    dx = torch.empty((n, hi, wi, xs), dtype=torch.bfloat16, device=dev)
+    ws = (torch.empty((s, dx.numel()), dtype=torch.float32, device=dev)
+          if s > 1 else None)
+    _build.call("fn_conv2d_bf16_dgrad", dy.data_ptr(), wt.data_ptr(),
+                dx.data_ptr(), _build.ptr(ws),
+                ctypes.addressof(class_table(hi, wi, k, stride, dil)), n, hi,
+                wi, xs, ho, wo, ys, cop, k, stride, s, _build.stream())
+    conv2d_dgrad_bf16.launches += 1
+    return dx
+
+
+conv2d_dgrad_bf16.launches = 0
+
+
+def conv2d_wgrad_bf16(x, dy, k, stride=1, dil=1, pads=(0, 0)):
+    """(dW (k, k, xs, ys) HWIO bfloat16, db (ys,) float32 of bfloat16
+    values) of a SAME conv on kernel B's bfloat16 route of NHWC ``x`` (n,
+    hi, wi, xs) from the gradient ``dy`` (n, ho, wo, ys) of its output, on
+    all stored channels; ``pads`` = (before, after) on both axes (the
+    kernel reads the first): ``fn_conv2d_bf16_wgrad``, its reduction over
+    the output cells split as ``grad_splits`` says, and ``bias_grad``.
+    Bit-equal on a repeat."""
+    if not _build.on_cuda(x):
+        return conv2d_wgrad_bf16_plain(x, dy, k, stride, dil, pads)
+    n, hi, wi, xs = x.shape
+    _, ho, wo, ys = dy.shape
+    dev = x.device
+    _build.check(x, "x", torch.bfloat16, (n, hi, wi, xs), dev)
+    _build.check(dy, "dy", torch.bfloat16, (n, ho, wo, ys), dev)
+    if xs % 8 or ys % 8:
+        raise ValueError(f"conv2d_wgrad_bf16 needs channels multiples of 8, "
+                         f"got {xs} -> {ys}")
+    if (-(-hi // stride), -(-wi // stride)) != (ho, wo):
+        raise ValueError(f"dy {ho}x{wo} is not the output of a stride-"
+                         f"{stride} SAME conv of {hi}x{wi}")
+    bm, bn = WGRAD_TILE
+    s = grad_splits(k * k * -(-xs // bm) * -(-ys // bn),
+                    -(-(n * ho * wo) // BF16_CHUNK))
+    dw = torch.empty((k, k, xs, ys), dtype=torch.bfloat16, device=dev)
+    ws = (torch.empty((s, dw.numel()), dtype=torch.float32, device=dev)
+          if s > 1 else None)
+    _build.call("fn_conv2d_bf16_wgrad", x.data_ptr(), dy.data_ptr(),
+                dw.data_ptr(), _build.ptr(ws), n, hi, wi, xs, ho, wo, ys, k,
+                stride, dil, pads[0], s, _build.stream())
+    conv2d_wgrad_bf16.launches += 1
+    return dw, bias_grad(dy)
+
+
+conv2d_wgrad_bf16.launches = 0

@@ -1,7 +1,8 @@
 """The gradients of kernel N's convolution on the flax route, both hand
 kernels in ``csrc/conv3d_grad.cu``: the input gradient ``fn_conv3d_dgrad``
-(``conv3d_dgrad``) and the weight and bias gradients ``fn_conv3d_wgrad``
-(``conv3d_wgrad``) of one SAME NDHWC 3-D conv (kernel 1 or 3, stride 1 or
+(``conv3d_dgrad``) and the weight gradient ``fn_conv3d_wgrad``
+(``conv3d_wgrad``, with the bias gradient of ``conv_grad.py::bias_grad``)
+of one SAME NDHWC 3-D conv (kernel 1 or 3, stride 1 or
 2) from the gradient of its output. They replace no TPU kernel: JAX lets
 XLA differentiate flax ``nn.Conv(dtype="bfloat16")``; the port needs them
 because every conv of FluidNet3 on the card runs on kernel N. The autograd
@@ -12,9 +13,11 @@ Rounding points, flax's on JAX's CPU: the upstream gradient is bfloat16
 input and weight gradients summed in float32 and rounded to bfloat16 once;
 the bias gradient is the transpose of the bias's broadcast, a reduction of
 the bfloat16 upstream gradient that XLA on the CPU accumulates in
-bfloat16, over the cells in order, each add rounded (``bias_grad_plain``;
-a float32 sum rounded once misses it by up to hundreds of ulps), kept in
-float32. In float32 nothing is rounded.
+bfloat16, each add rounded, in the order of its tree reduction
+(``conv_grad.py::bias_windows``: the cells in order while every reduced
+axis is at most 32 long; ``bias_grad_plain``; a float32 sum rounded once
+misses it by up to hundreds of ulps), kept in float32. In float32 nothing
+is rounded.
 
 Kernels: bf16 ``mma.sync`` with float32 sums, as N's forward body. The
 input gradient runs over dx's output-parity classes (``dgrad_table3``: at
@@ -36,18 +39,9 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_grad import _axis_classes, same_pads
-from .conv_plan import CHUNK as _CHUNKS
-from .conv_plan import MAX_SPLITS
-
-# The kernels' staged chunk (dgrad: of dy's channels; wgrad: of output
-# cells), csrc/conv_mma.cuh::kChunk.
-CHUNK = _CHUNKS["bf16"]
-# Blocks the splits aim for: two waves of the H100's 132 SMs.
-TARGET_BLOCKS = 264
-# (dx cells, input channels) of a dgrad block; (input, output channels) of
-# a wgrad block (csrc/conv3d_grad.cu).
-DGRAD_TILE, WGRAD_TILE = (64, 32), (64, 64)
+from .conv_grad import BF16_CHUNK as CHUNK
+from .conv_grad import (DGRAD_TILE, WGRAD_TILE, _axis_classes, bias_grad,
+                        bias_grad_plain, grad_splits, same_pads)
 
 
 def _pads3(shape, k, stride):
@@ -84,27 +78,6 @@ def conv3d_wgrad_plain(x, dy, k, stride):
         dy.float().permute(0, 4, 1, 2, 3), stride=stride)
     return (dw.permute(2, 3, 4, 1, 0).to(x.dtype).contiguous(),
             bias_grad_plain(dy))
-
-
-def bias_grad_plain(dy):
-    """The bias gradient (co,) float32 of NDHWC ``dy``: in float32 its sum;
-    in bfloat16 the sum over the cells in row-major order accumulated in
-    bfloat16, each add rounded (JAX's reduction of a bfloat16 cotangent on
-    the CPU)."""
-    rows = dy.reshape(-1, dy.shape[-1])
-    if dy.dtype == torch.float32:
-        return rows.sum(dim=0)
-    acc = torch.zeros_like(rows[0])
-    for row in rows:
-        acc = acc + row
-    return acc.float()
-
-
-def grad_splits(tiles: int, chunks: int) -> int:
-    """Splits of a reduction of ``chunks`` chunks over ``tiles`` blocks:
-    enough for TARGET_BLOCKS blocks, at least 2 chunks a split, at most
-    MAX_SPLITS."""
-    return max(1, min(-(-TARGET_BLOCKS // tiles), chunks // 2, MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,15 +194,13 @@ def conv3d_wgrad(x, dy, k, stride):
                          f"channels multiples of 8, got {ci}, {co}")
     s = _wgrad_splits(n * do * ho * wo, k, ci, co)
     dw = torch.empty((k, k, k, ci, co), dtype=torch.bfloat16, device=dev)
-    db = torch.empty((co,), dtype=torch.float32, device=dev)
     ws = (torch.empty((s, dw.numel()), dtype=torch.float32, device=dev)
           if s > 1 else None)
     _build.call("fn_conv3d_wgrad", x.data_ptr(), dy.data_ptr(),
-                dw.data_ptr(), db.data_ptr(), _build.ptr(ws), n, di, hi, wi,
-                ci, do, ho, wo, co, k, stride, pads[0][0], s,
-                _build.stream())
+                dw.data_ptr(), _build.ptr(ws), n, di, hi, wi, ci, do, ho, wo,
+                co, k, stride, pads[0][0], s, _build.stream())
     conv3d_wgrad.launches += 1
-    return dw, db
+    return dw, bias_grad(dy)
 
 
 conv3d_wgrad.launches = 0

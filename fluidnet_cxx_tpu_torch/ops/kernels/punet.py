@@ -25,8 +25,10 @@ activations carry them from layer to layer with no pad pass between.
 bfloat16 route (MGCoarse_128, as flax runs it): ``fn_conv2d_bf16`` in the
 same source, bf16 ``mma.sync`` with float32 sums, the sum rounded to
 bfloat16, then the bias add rounded again (flax ``nn.Conv(dtype=
-"bfloat16")`` on JAX's CPU); a bfloat16 net's weights are cast once at
-pack time. Inference only.
+"bfloat16")`` on JAX's CPU); a bfloat16 net's weights are cast at pack
+time. Its backward (``ConvNHWC`` on bfloat16 tensors) is
+``fn_conv2d_bf16_dgrad``, ``fn_conv2d_bf16_wgrad`` and
+``fn_bias_grad_bf16`` (``conv_grad.py``), with flax's rounding points.
 
 Training (``ConvNHWC``, through ``net_forward`` whenever autograd records):
 a conv's backward is hand kernels (``conv_grad.py``), both over the layer's
@@ -42,7 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .conv_grad import conv2d_dgrad, conv2d_wgrad, same_pads
+from .conv_grad import (conv2d_dgrad, conv2d_dgrad_bf16, conv2d_wgrad,
+                        conv2d_wgrad_bf16, same_pads)
 from .conv_plan import CHUNK, plan_conv
 
 # Input channels a stage of the 3xTF32 route: every layer's input is
@@ -185,7 +188,11 @@ class ConvNHWC(torch.autograd.Function):
     input the kernel saw: [x * in_scale | x2], assembled in torch. The
     input and ``in_scale`` of a scaled conv take no gradient (JAX's scale
     comes from data or from the rollout's stop-gradient state): asserted
-    by ``conv2d_nhwc_autograd``. Saves the inputs and the output."""
+    by ``conv2d_nhwc_autograd``. On bfloat16 tensors (kernel B's bfloat16
+    route) the backward is ``conv2d_dgrad_bf16`` and ``conv2d_wgrad_bf16``
+    over the stored channels (the padded ones carry exact zeros): a
+    bfloat16 input and weight gradient, a float32 bias gradient of
+    bfloat16 values. Saves the inputs and the output."""
 
     @staticmethod
     def forward(ctx, x, x2, w_hwio, bias, in_scale, stride, dil, relu,
@@ -202,9 +209,11 @@ class ConvNHWC(torch.autograd.Function):
         stride, dil, relu, scale_mod, ci, co = ctx.geom
         gy = (torch.where(y > 0, gy, 0.0) if relu else gy).contiguous()
         dx = dx2 = dw = db = None
+        low = gy.dtype == torch.bfloat16
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            g = conv2d_dgrad(gy, w_hwio, dil, stride, x.shape[1:3], ci,
-                             co)
+            g = (conv2d_dgrad_bf16(gy, w_hwio, dil, stride, x.shape[1:3])
+                 if low else conv2d_dgrad(gy, w_hwio, dil, stride,
+                                          x.shape[1:3], ci, co))
             c1 = x.shape[-1]
             dx = g if x2 is None else g[..., :c1]
             dx2 = None if x2 is None else g[..., c1:]
@@ -213,9 +222,11 @@ class ConvNHWC(torch.autograd.Function):
             if x2 is not None:
                 xin = torch.cat([xin, x2], dim=-1)
             k = w_hwio.shape[0]
-            dw, db = conv2d_wgrad(xin.contiguous(), gy, k, stride, dil,
-                                  same_pads(x.shape[1], k, stride, dil), ci,
-                                  co)
+            pads = same_pads(x.shape[1], k, stride, dil)
+            dw, db = (conv2d_wgrad_bf16(xin.contiguous(), gy, k, stride, dil,
+                                        pads) if low else
+                      conv2d_wgrad(xin.contiguous(), gy, k, stride, dil,
+                                   pads, ci, co))
         return dx, dx2, dw, db, None, None, None, None, None, None, None
 
 
@@ -224,8 +235,8 @@ def conv2d_nhwc_autograd(x, w_hwio, bias, stride=1, dil=1, relu=False,
     """``conv2d_nhwc`` that autograd follows: while it records and a
     tensor needs a gradient, ``ConvNHWC`` (stride 1 or 2, with ``x2`` and
     ``in_scale``), its weight gradient over ``real`` = (the layer's real
-    c_in, c_out) of the packed weight's (all of it by default). Raises for
-    a bfloat16 conv (kernel B's bfloat16 route has no backward) and for a
+    c_in, c_out) of the packed weight's (all of it by default; the
+    bfloat16 route's gradients run over the stored channels). Raises for a
     gradient of a scaled conv's input or ``in_scale``. Otherwise
     ``conv2d_nhwc``."""
     tensors = (x, w_hwio, bias, x2, in_scale)
@@ -233,9 +244,6 @@ def conv2d_nhwc_autograd(x, w_hwio, bias, stride=1, dil=1, relu=False,
             and any(t is not None and t.requires_grad for t in tensors)):
         return conv2d_nhwc(x, w_hwio, bias, stride, dil, relu, x2, in_scale,
                            scale_mod)
-    if x.dtype != torch.float32:
-        raise ValueError(f"no gradient of a {x.dtype} conv: kernel B's "
-                         "bfloat16 route runs inference only")
     if in_scale is not None and (x.requires_grad or in_scale.requires_grad):
         raise ValueError("a scaled conv's input and in_scale take no "
                          "gradient (the scale comes from data)")

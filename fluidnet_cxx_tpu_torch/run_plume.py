@@ -59,8 +59,8 @@ from .models.convert import (flax_to_state_dict, load_state_dict_file,
                              random_flax_params)
 from .models.fluidnet import (make_net, make_project_fn,
                               make_project_fn_fused_forward)
-from .models.mg_coarse import (MGCoarseNet, load_mg_coarse,
-                               load_mg_coarse_config,
+from .models.mg_coarse import (MGCoarseNet, init_mg_coarse_params,
+                               load_mg_coarse, load_mg_coarse_config,
                                make_project_fn_mg_learned)
 from .models.punet import ConvNet
 from .scripts import finite
@@ -110,9 +110,7 @@ def build_mg_coarse(weight_seed=None, device="cpu",
     if weight_seed is None:
         return load_mg_coarse(model_dir, device, dtype)
     net = MGCoarseNet(load_mg_coarse_config(model_dir), dtype)
-    net.punet.load_state_dict(flax_to_state_dict(
-        random_flax_params(net.punet.table, weight_seed)))
-    return net.to(device).eval()
+    return init_mg_coarse_params(net, weight_seed).to(device).eval()
 
 
 def learned_projection(model_dir, weight_seed=None, device="cpu",

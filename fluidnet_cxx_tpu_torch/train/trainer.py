@@ -18,15 +18,16 @@ no device sync.
 
 On a CUDA tensor every conv of the loss runs on kernel B, its backward on
 ``fn_conv2d_dgrad`` (input gradient, stride 1 or 2, split at PUNet's skip
-concat) and ``fn_conv2d_wgrad`` (weights)
+concat) and ``fn_conv2d_wgrad`` (weights), or for a bfloat16 net
+(``computeDtype: bfloat16``) on ``fn_conv2d_bf16_dgrad``,
+``fn_conv2d_bf16_wgrad`` and ``fn_bias_grad_bf16``
 (``ops/kernels/punet.py::ConvNHWC``); the damped polish is kernel F
 forward and ``fn_jacobi_adjoint`` backward (``ops/kernels/jacobi.py::
 JacobiPolish``); the LT rollout's velocity advection is kernel E at the
 drawn dt, the synthetic labels kernel F, the plume frames' steps kernels
 A and F. ``check_trainable`` refuses on the card what has no backward
 there: the "fused" and "mg" polish tails (JAX does not differentiate them
-either), a bfloat16 2-D net and a float32 PUNet3; on the CPU the plain
-versions run.
+either) and a float32 PUNet3; on the CPU the plain versions run.
 
 3-D training (``scripts/train3d.py``'s, ``make_train_step3``):
 ``loss3``, the mean squared divergence of FluidNet3's projection (the
@@ -195,11 +196,11 @@ def init_train_state(model: FluidNet, cfg: TrainConfig, seed: int = 0,
 def check_trainable(mcfg: ModelConfig, device):
     """Raise NotImplementedError for a model whose backward has no kernel
     on the card: the "fused" or "mg" polish tail (``jax.grad`` does not
-    run through their Pallas kernels either), a bfloat16 2-D net (kernel
-    B's bfloat16 route runs inference only, ROADMAP A.5.3) and a float32
-    PUNet3 (N's gradient kernels run the flax route's bfloat16, ROADMAP
-    A.5.5). Every 2-D net in float32 with no polish or the "xla"/"pallas"
-    one, and PUNet3 in bfloat16 with those, train there."""
+    run through their Pallas kernels either) and a float32 PUNet3 (N's
+    gradient kernels run the flax route's bfloat16, ROADMAP A.5.5). Every
+    2-D net in float32 or bfloat16 (kernel B's two routes, each with its
+    backward kernels) with no polish or the "xla"/"pallas" one, and PUNet3
+    in bfloat16 with those, train there."""
     if torch.device(device).type != "cuda":
         return
     if mcfg.polish_sweeps > 0 and mcfg.polish_impl in ("fused", "mg"):
@@ -207,17 +208,11 @@ def check_trainable(mcfg: ModelConfig, device):
             f"no gradient of the {mcfg.polish_impl!r} polish tail on the "
             "card: JAX does not differentiate it either; train with "
             "polish_impl 'xla'")
-    if mcfg.model == "PUNet3":
-        if mcfg.compute_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"training PUNet3 in {mcfg.compute_dtype} on the card: its "
-                "conv gradients run kernel N's flax route in bfloat16, as "
-                "scripts/train3d.py trains (ROADMAP A.5.5)")
-    elif mcfg.compute_dtype != "float32":
+    if mcfg.model == "PUNet3" and mcfg.compute_dtype != "bfloat16":
         raise NotImplementedError(
-            f"training in {mcfg.compute_dtype}: kernel B's bfloat16 route "
-            "has no backward; the 2-D nets train in float32 (ROADMAP "
-            "A.5.3)")
+            f"training PUNet3 in {mcfg.compute_dtype} on the card: its "
+            "conv gradients run kernel N's flax route in bfloat16, as "
+            "scripts/train3d.py trains (ROADMAP A.5.5)")
 
 
 def _sample_dyn(gen: torch.Generator, sim_cfg: SimConfig, cfg: TrainConfig):

@@ -160,14 +160,16 @@ def test_unported_knobs_raise(knob):
     the JAX step would run as Jacobi) raises naming the projection to pass
     with sim_method "convnet"."""
     if knob == "compute_dtype":
-        # PUNet takes bfloat16 (kernel B's bfloat16 route); the tower and
-        # ScaleNet do not yet.
+        # Every 2-D net takes bfloat16 (kernel B's bfloat16 route; the
+        # tower and ScaleNet since ROADMAP A.4.3); another dtype raises.
         net = PUNet.from_config(ModelConfig(model="PUNet",
                                             compute_dtype="bfloat16"))
         assert net.compute_dtype == torch.bfloat16
         for model in ("FluidNet", "ScaleNet"):
-            with pytest.raises(NotImplementedError, match="ROADMAP A.4.3"):
-                make_net(ModelConfig(model=model, compute_dtype="bfloat16"))
+            net = make_net(ModelConfig(model=model, compute_dtype="bfloat16"))
+            assert net.compute_dtype == torch.bfloat16
+            with pytest.raises(ValueError, match="float16"):
+                make_net(ModelConfig(model=model, compute_dtype="float16"))
         return
     cfg, state, _ = plume_case(16, device="cpu", sim_method="jacobi",
                                jacobi_iter=2)

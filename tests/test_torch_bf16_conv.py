@@ -172,7 +172,10 @@ def test_trained_layers_match_flax_on_their_inputs(rng, p_obstacle):
 def test_packed_route_equals_the_module_forward(rng):
     """pack_weights casts the weights once (bfloat16 weights, biases
     rounded to bfloat16 in float32) and net_forward the input; on the CPU
-    the result equals the module's own bfloat16 forward bit for bit."""
+    the result equals the module's own bfloat16 forward bit for bit. A
+    bfloat16 conv that autograd follows runs ConvNHWC (its gradients:
+    tests/test_torch_bf16_grad.py): a bfloat16 output, a bfloat16 weight
+    gradient."""
     model = build_mg_coarse()
     x = _coarse_input(rng, 0.08)
     with torch.no_grad():
@@ -184,9 +187,11 @@ def test_packed_route_equals_the_module_forward(rng):
         want = model.punet(x)
     assert got.dtype == torch.float32
     assert torch.equal(got, want)
-    with pytest.raises(ValueError, match="bfloat16"):
-        k_punet.conv2d_nhwc_autograd(
-            x[..., :1].repeat(1, 1, 1, 32).to(BF16), w.requires_grad_(), b, 1)
+    y = k_punet.conv2d_nhwc_autograd(
+        x[..., :1].repeat(1, 1, 1, 64).to(BF16), w.requires_grad_(), b, 1)
+    assert y.dtype == BF16 and y.requires_grad
+    y.float().sum().backward()
+    assert w.grad.dtype == BF16 and float(w.grad.abs().max()) > 0
 
 
 def _flax_params(model):

@@ -27,7 +27,8 @@ for mod in ('train.trainer', 'train.losses', 'train.checkpoint',
             'data.synthetic', 'utils.diagnostics', 'ops.kernels.conv_grad',
             'utils.vtk_export', 'utils.plotting', 'scripts',
             'scripts.run_plume', 'scripts.run_rayleigh_taylor',
-            'scripts.run_cylinder'):
+            'scripts.run_cylinder', 'scripts.train_mg_coarse',
+            'ops.kernels.conv_grad3'):
     assert 'fluidnet_cxx_tpu_torch.' + mod in names, (mod, names)
 # PyYAML and matplotlib are not imported with the port, and the YAML
 # reader runs with PyYAML made unimportable.
@@ -78,13 +79,17 @@ ENTRY_POINTS = {
     "twin_cylinder": "main(['--resX', '256', '--resY', '64', '--radius', "
                      "'8', '--centerX', '40', '--maxIter', '1', "
                      "'--outputFolder', 'unused'])",
+    "twin_train_mg_coarse": "main(['--res', '64', '--coarseSize', '32', "
+                            "'--frames', '2', '--steps', '1', "
+                            "'--modelDir', 'unused'])",
 }
 # The training entry point is run as ``python -m fluidnet_cxx_tpu_torch.
 # train``: its main() lives in train/__main__.py; the scene drivers' twins
 # as ``python -m fluidnet_cxx_tpu_torch.scripts.<name>``.
 MODULES = {"train": "train.__main__", "twin_plume": "scripts.run_plume",
            "twin_rayleigh_taylor": "scripts.run_rayleigh_taylor",
-           "twin_cylinder": "scripts.run_cylinder"}
+           "twin_cylinder": "scripts.run_cylinder",
+           "twin_train_mg_coarse": "scripts.train_mg_coarse"}
 
 RUN_WITHOUT_CARD = """
 import torch

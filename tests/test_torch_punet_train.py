@@ -256,6 +256,7 @@ def test_entry_point_punet_flags_and_check_trainable():
                            match="JAX does not differentiate"):
             check_trainable(bad, "cuda")
         check_trainable(bad, "cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_trainable(ModelConfig(**dict(PUNET, compute_dtype="bfloat16")),
-                        "cuda")
+    # bfloat16 trains on the card too: kernel B's bfloat16 route has its
+    # backward kernels (ROADMAP A.5.3).
+    check_trainable(ModelConfig(**dict(PUNET, compute_dtype="bfloat16")),
+                    "cuda")

@@ -375,15 +375,17 @@ def test_dgrad_classes3_cover_every_cell_and_tap(shape, k, stride):
 
 def test_check_trainable_and_the_wrappers_refusals():
     """check_trainable passes a bfloat16 PUNet3 on the card and refuses a
-    float32 one there (A.5.5), a bfloat16 2-D net (A.5.3) and the fused
-    tail; the gradient wrappers and the adjoint run their plain versions
+    float32 one there (A.5.5) and the fused tail; it passes every 2-D net
+    in bfloat16 (kernel B's bfloat16 route has its backward kernels since
+    A.5.3); the gradient wrappers and the adjoint run their plain versions
     only on CPU tensors and raise for other devices; the fused route has
     no backward."""
     check_trainable(_small_cfg("bfloat16"), "cuda")
     with pytest.raises(NotImplementedError, match="A.5.5"):
         check_trainable(_small_cfg("float32"), "cuda")
-    with pytest.raises(NotImplementedError, match="A.5.3"):
-        check_trainable(ModelConfig(compute_dtype="bfloat16"), "cuda")
+    for model in ("PUNet", "FluidNet", "ScaleNet"):
+        check_trainable(ModelConfig(model=model, compute_dtype="bfloat16",
+                                    polish_impl="xla"), "cuda")
     with pytest.raises(NotImplementedError, match="polish tail"):
         check_trainable(dataclasses.replace(_small_cfg("bfloat16"),
                                             polish_impl="fused"), "cuda")
