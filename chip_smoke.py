@@ -238,7 +238,23 @@ Phases (each prints its elapsed seconds):
      the final p, U and density bit-equal to the straight run's, with
      ms/step, launches per step and mean/max|div|; then `python -m
      fluidnet_cxx_tpu_torch.train --trainConfig configs/train.yaml
-     --onDevice 2 --bsz 8` to a finite loss.
+     --onDevice 2 --bsz 8` to a finite loss;
+  10. the advection engines of the JAX step's XLA path (ROADMAP A.6) and
+     the drivers that run on them (phase_engines): the 512^2 plume with a
+     disc in its way under plume_config's defaults (use_pallas off: the
+     march trace on the window engine for the density, E for the
+     velocity), Euler and the gather engine, Jacobi-200 on F, 20 steps
+     each with ms/step, mean/max|div| and launches by kernel, then a
+     profiler window's device busy and idle share; each engine 3 steps
+     at 64^2 and the blob's config 2 steps at 48^3, card against CPU
+     within 1e-5 of each field's largest value; the twins `run_blob3d`
+     (48^3, --maxIter 50 --statIter 25: I and M), bench3d's "window
+     (XLA)" and "gather" rows at 128^3, `eval_parity` (--res 128 --iters
+     200 --statIter 50 with PUNetD2_128: E, F, B), `quality_per_ms`
+     (--res 512 --iters 100 --statIter 50 --jacobi 28,200 --mg 2 --polish
+     32: A, F, H, B and G), `make_dataset` (2+1 scenes at 128^2, 16
+     frames: A and H) and `preprocess_data` over them, each with its
+     launches by kernel and finite output.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L, phase_new3d, the
 new 3-D small checks and the 3-D paths with J, M or multigrid
@@ -257,7 +273,8 @@ input gradient of phase 8 alone, every route on every layer
 (phase_drivers), `python3 chip_smoke.py --train3d-only` phase 8b alone
 and the kernels line of its six rows (train3d_only), `python3
 chip_smoke.py --mg-coarse-only` phase 8c alone and the kernels line of
-its twelve rows (mg_coarse_only).
+its twelve rows (mg_coarse_only), `python3 chip_smoke.py --engines-only`
+phase 10 alone (phase_engines).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -5302,6 +5319,200 @@ def phase_drivers():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# The step's advection engines on the torch side (ROADMAP A.6): name ->
+# plume_config changes (use_pallas stays off, as in the JAX defaults) and
+# the kernels a 512^2 path of it must launch (Jacobi-200 on F; the march
+# advects the velocity on E, Euler and gather both fields on the torch
+# engines).
+ENGINES = {"march": ({}, "EF"),
+           "euler": (dict(advection_method="eulerFluidNet"), "F"),
+           "gather": (dict(advection_impl="gather"), "F")}
+ENGINES_TOL = 1e-5
+
+
+def engine_scene(res, device):
+    """run_plume.plume_case's plume at ``res`` (the inlet at 0.8 cells a
+    step at 512^2) with a disc of radius res/12 a third of the way up in
+    its way, so the march and the clamps meet an obstacle."""
+    from fluidnet_cxx_tpu_torch.sim.scenes import (add_cylinder,
+                                                   create_plume_scene)
+    state = create_plume_scene(res, res, density_val=0.1,
+                               u_scale=2.0 * res / 128.0, rad=0.145,
+                               device=device)
+    return state._replace(flags=add_cylinder(state.flags, res / 2.0,
+                                             res / 3.0, res / 12.0))
+
+
+def drive_counted(counters, run):
+    """``run()`` with every launch counter set to 0 just before and read
+    just after; returns (its result, {kernel: launches})."""
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+
+def need(name, launches, kernels):
+    missed = [k for k in kernels if k not in launches]
+    if missed:
+        raise SystemExit(f"{name} missed kernels {missed}: {launches}")
+
+
+def phase_engines(counters):
+    """Phase 10: the torch advection engines on the 512^2 plume, card
+    against CPU, and the drivers that run on them (see the module's
+    note)."""
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from fluidnet_cxx_tpu_torch import bench3d
+    from fluidnet_cxx_tpu_torch.run_plume import quality
+    from fluidnet_cxx_tpu_torch.scripts import (eval_parity, make_dataset,
+                                                preprocess_data,
+                                                quality_per_ms, run_blob3d)
+    from fluidnet_cxx_tpu_torch.sim.scenes import plume_config
+    from fluidnet_cxx_tpu_torch.sim.step import simulate_step
+    from fluidnet_cxx_tpu_torch.sim.step3d import simulate_step3
+
+    dev = torch.device("cuda")
+    for name, (kw, kernels) in ENGINES.items():
+        label = f"plume {RES}^2 {name}"
+        done = phase(f"engine path ({label}, {STEPS} steps)")
+        cfg = plume_config(**kw)
+
+        def run(cfg=cfg):
+            state = engine_scene(RES, dev)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+            with torch.no_grad():
+                e0.record()
+                for _ in range(STEPS):
+                    state = simulate_step(cfg, state)
+                e1.record()
+            e1.synchronize()
+            return state, e0.elapsed_time(e1) / STEPS
+
+        (state, ms), launches = drive_counted(counters, run)
+        need(label, launches, kernels)
+        if not all(bool(torch.isfinite(getattr(state, f)).all())
+                   for f in ("U", "density", "p")):
+            raise SystemExit(f"{label}: a field is not finite")
+        print(f"{label}: ms/step {ms:.4f}; {quality(state)}; launches per "
+              f"step {({k: v / STEPS for k, v in launches.items()})}",
+              flush=True)
+        done()
+        phase_profile(label, lambda cfg=cfg: (cfg, engine_scene(RES, dev),
+                                              None))
+
+    done = phase("engines card vs CPU (64^2, 3 steps; blob 48^3, 2 steps)")
+    blob_cfg = run_blob3d.blob_config(run_blob3d.parse_args([]))
+    cases = {f"64^2 {name}": (lambda d: engine_scene(64, d),
+                              plume_config(**kw), simulate_step, 3)
+             for name, (kw, _) in ENGINES.items()}
+    cases["48^3 blob"] = (lambda d: run_blob3d.blob_state(48, d), blob_cfg,
+                          simulate_step3, 2)
+    with torch.no_grad():
+        for name, (scene, cfg, step, n) in cases.items():
+            gpu, cpu = scene(dev), scene("cpu")
+            for _ in range(n):
+                gpu, cpu = step(cfg, gpu), step(cfg, cpu)
+            for field in ("U", "density", "p"):
+                g, c = getattr(gpu, field).cpu(), getattr(cpu, field)
+                e = max_err([g], [c])
+                check(f"{name} {field} card vs CPU ({e / scale_of([c]):.2e} "
+                      "of its largest value)", e, ENGINES_TOL * scale_of([c]))
+    done()
+
+    work = Path(__file__).resolve().parent / "build" / "engines_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        done = phase("run_blob3d twin (48^3, --maxIter 50 --statIter 25)")
+        out, launches = drive_counted(counters, lambda: run_blob3d.main([
+            "--res", "48", "--maxIter", "50", "--statIter", "25",
+            "--outputFolder", str(work / "blob")]))
+        need("run_blob3d", launches, "IM")
+        if not out["finite"]:
+            raise SystemExit("run_blob3d: a field is not finite")
+        print(f"run_blob3d: ms/step {out['ms_per_step']:.4f}, launches per "
+              f"step {({k: v / out['steps'] for k, v in launches.items()})}",
+              flush=True)
+        done()
+
+        done = phase(f"bench3d window (XLA) and gather rows ({RES3}^3)")
+        args = bench3d.parse(["--res", str(RES3), "--steps", "5", "--reps",
+                              "1", "--xla"])
+        rows = bench3d.rows_of(args, dev)
+        for case, kernels in (("window_xla", "KMI"), ("gather", "I")):
+            rec = bench3d.run_row(case, *rows[case], dev, args)
+            need(f"bench3d {case}", rec["launches_per_step"], kernels)
+            if not np.isfinite([rec[c] for c in bench3d.LIMITS3]).all():
+                raise SystemExit(f"bench3d {case}: {rec}")
+            print(f"bench3d {case}: graph ms/step {rec['ms_per_step']}, "
+                  f"eager ms/step {rec['eager_ms_per_step']:.4f}, launches "
+                  f"per step {rec['launches_per_step']}", flush=True)
+        del rows
+        done()
+
+        done = phase("eval_parity twin (--res 128 --iters 200 --statIter 50, "
+                     "PUNetD2_128)")
+        (summary, results), launches = drive_counted(
+            counters, lambda: eval_parity.main([
+                "--res", "128", "--iters", "200", "--statIter", "50",
+                "--modelDir", "trained_models/PUNetD2_128",
+                "--out", str(work / "parity")]))
+        need("eval_parity", launches, "EFB")
+        values = [v for r in summary.values() if isinstance(r, dict)
+                  for v in r.values()]
+        if len(summary) != 5 or not np.isfinite(values).all():
+            raise SystemExit(f"eval_parity: {summary}")
+        print("eval_parity: ms/step " + ", ".join(
+            f"{r['name']} {r['ms_per_step']:.4f}" for r in results)
+            + f"; launches {launches}", flush=True)
+        del results
+        done()
+
+        done = phase("quality_per_ms twin (--res 512 --iters 100 --statIter "
+                     "50 --jacobi 28,200 --mg 2 --polish 32)")
+        recs, launches = drive_counted(counters, lambda: quality_per_ms.main([
+            "--modelDir", "trained_models/PUNetD2_128", "--res", "512",
+            "--iters", "100", "--statIter", "50", "--jacobi", "28,200",
+            "--mg", "2", "--polish", "32", "--out",
+            str(work / "qpm.json")]))
+        need("quality_per_ms", launches, "AFHBG")
+        if len(recs) != 4 or not np.isfinite(
+                [r[k] for r in recs for k in r if k != "name"]).all():
+            raise SystemExit(f"quality_per_ms: {recs}")
+        print(f"quality_per_ms: launches {launches}", flush=True)
+        done()
+
+        done = phase("make_dataset twin (2+1 scenes at 128^2, 16 frames) "
+                     "and preprocess_data")
+        seconds, launches = drive_counted(counters, lambda: make_dataset.main([
+            "--out", str(work / "ds"), "--scenesTr", "2", "--scenesTe", "1",
+            "--res", "128", "--framesPerScene", "16"]))
+        need("make_dataset", launches, "AH")
+        preprocess_data.main(["--dataDir", str(work / "ds"), "--dataset",
+                              "plume_mg", "--out", str(work / "pre"),
+                              "--stepsPerScene", "16"])
+        frames = sorted((work / "pre").rglob("*.npz"))
+        if len(seconds) != 3 or len(frames) != 3 * 16:
+            raise SystemExit(f"make_dataset: {len(seconds)} scenes, "
+                             f"{len(frames)} frames")
+        for f in frames:
+            with np.load(f) as z:
+                if not all(np.isfinite(z[k]).all() for k in z.files):
+                    raise SystemExit(f"preprocess_data: {f} not finite")
+        print(f"make_dataset: {len(seconds)} scenes in "
+              f"{sum(seconds):.1f} s, launches {launches}; preprocess_data: "
+              f"{len(frames)} frames, finite", flush=True)
+        done()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def dgrad_only(dev):
     """`python3 chip_smoke.py --dgrad-only`: the input gradient alone on
     every conv call of the tower, ScaleNet and PUNetD2_128's architecture
@@ -5399,6 +5610,9 @@ def main():
     if sys.argv[1:] == ["--mg-coarse-only"]:
         mg_coarse_only(dev)
         return
+    if sys.argv[1:] == ["--engines-only"]:
+        phase_engines(launch_counters())
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -5421,6 +5635,7 @@ def main():
     train3d_launches = phase_train3d(dev, results)
     bf16_launches = phase_train_bf16(dev, results)
     phase_drivers()
+    phase_engines(counters)
 
     # Launches of each kernel on the first main path that must launch it.
     path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)

@@ -227,15 +227,17 @@ def settings(case, steps, chunk, max_disp, line_trace):
             "weights": "trained" if case == "cnn" else None}
 
 
-def time_both(step, state, device, n_graph, n_eager, reps, longer=4):
-    """{"graph": marginal of the captured step (None off the card),
-    "eager": marginal of the Python step}."""
+def time_both(step, state, device, n_graph, n_eager, reps, longer=4,
+              graph=True):
+    """{"graph": marginal of the captured step (None off the card, or
+    without ``graph``), "eager": marginal of the Python step}."""
     clock = Clock(device)
-    graph = None
-    if device.type == "cuda":
+    if graph and device.type == "cuda":
         g = GraphRun(step, state)
         graph = marginal(clock, g.run, n_graph, reps, longer)
         del g
+    else:
+        graph = None
     eager = marginal(clock, EagerRun(step, state).run, n_eager, reps, longer)
     return {"graph": graph, "eager": eager}
 

@@ -2,7 +2,8 @@
 through the hand-written kernels.
 
     python -m fluidnet_cxx_tpu_torch.bench3d [--res 128] [--steps 10] \\
-        [--jacobiIter 60] [--fuseAdvection] [--lineTrace] [--multigrid]
+        [--jacobiIter 60] [--fuseAdvection] [--lineTrace] [--multigrid] \\
+        [--xla]
     python -m fluidnet_cxx_tpu_torch.bench3d \\
         --modelDir trained_models/PUNet3p8_64 --onlyModel
     python -m fluidnet_cxx_tpu_torch.bench3d \\
@@ -20,8 +21,17 @@ sweeps, its sweeps on kernel I, after the same advection); and with
 (``torch_state_dict.pt``) and polish sweeps on bench3d's fused forward,
 kernels N and J after the advection (``--computeDtype float32`` runs the
 network in float32, the variant the JAX reference can be held to).
-``--onlyModel`` skips the classical and multigrid rows. bench3d's "window
-(XLA)" and "gather" rows are not ported (ROADMAP A.6).
+``--onlyModel`` skips the classical and multigrid rows. ``--xla`` adds
+bench3d's "window (XLA)" and "gather" rows (``window_xla``, ``gather``):
+JAX's configs with ``use_pallas`` off, Jacobi-``--jacobiIter``. The
+window row computes what kernels K and M (L with ``--fuseAdvection``)
+compute and runs them; with ``--lineTrace`` its density takes the march
+trace on the torch engine (ops/ops3d.py) and M the velocity; the gather
+row advects both fields on the torch engine. The launches column shows
+each row's kernels; ``bench_reference.json`` has no rows for these two,
+so ``--reference`` fails them. A row whose density takes the trace on
+the torch engines has no graph time: the march tests for live rays on
+the host.
 
 Speed: bench3d's marginal steps/s, n / (t(2n) - t(n)) with n =
 ``--steps``, the median of ``--reps`` runs (5) with spread and MAD, by CUDA
@@ -49,7 +59,8 @@ from .bench import (OUT_DIR, card_info, check_reference, compact,
                     rounded, time_both, write_table)
 from .run_plume import resolve_device
 from .run_plume3d import KERNELS, learned3d_case, plume3d_case, quality3
-from .sim.step3d import simulate_step3
+from .sim.scenes import plume_config
+from .sim.step3d import simulate_step3, torch_advection3
 
 LIMITS3 = {col: ("relative", 0.01)
            for col in ("max_div", "mean_div", "density_sum", "max_U")}
@@ -75,7 +86,10 @@ def run_row(case, cfg, state0, project, device, args):
     for _ in range(6 * n):
         state = step(state)
     launches = launches_per_step(step, state, KERNELS)
-    times = time_both(step, state0, device, n, n, args.reps, longer=2)
+    traced_on_torch = (cfg.advect_density and cfg.line_trace
+                       and torch_advection3(cfg)[0])
+    times = time_both(step, state0, device, n, n, args.reps, longer=2,
+                      graph=not traced_on_torch)
     g, e = times["graph"], times["eager"]
     rec = {**quality3(state), "settings": settings3(6 * n, args.lineTrace),
            "sps": g and g["sps"], "sps_spread": g and g["spread"],
@@ -106,6 +120,15 @@ def rows_of(args, device):
                                       line_trace=args.lineTrace,
                                       sim_method="multigrid", mg_vcycles=2)
             rows["mg2v"] = (cfg, state, None)
+        if args.xla:
+            for case, impl in (("window_xla", "window"),
+                               ("gather", "gather")):
+                xcfg = plume_config(
+                    dt=0.25, jacobi_iter=args.jacobiIter,
+                    buoyancy_scale=0.5, gravity_vec=(0.0, -1.0, 0.0),
+                    line_trace=args.lineTrace, max_disp=2,
+                    fuse_advection=args.fuseAdvection, advection_impl=impl)
+                rows[case] = (xcfg, state, None)
     if args.modelDir:
         case = Path(args.modelDir).name
         if args.computeDtype:
@@ -132,6 +155,8 @@ def parse(argv):
     ap.add_argument("--lineTrace", action="store_true")
     ap.add_argument("--multigrid", action="store_true",
                     help="add bench3d's pallas + multigrid row (mg2v)")
+    ap.add_argument("--xla", action="store_true",
+                    help="add bench3d's window (XLA) and gather rows")
     ap.add_argument("--reference", default=None)
     ap.add_argument("--out-dir", default=str(OUT_DIR))
     return ap.parse_args(argv)

@@ -25,6 +25,19 @@ def border_mask(h: int, w: int, bnd: int = 1, device="cpu"):
     return (xx < bnd) | (xx > w - 1 - bnd) | (yy < bnd) | (yy > h - 1 - bnd)
 
 
+def interior_mask(h: int, w: int, bnd: int = 1, device="cpu"):
+    """Boolean (h, w) mask, True inside the ``bnd``-wide border ring."""
+    return ~border_mask(h, w, bnd, device)
+
+
+def gather2d(src, yi, xi):
+    """Batched gather: out[b, y, x] = src[b, yi[b, y, x], xi[b, y, x]] for
+    in-range integer index grids (b, h, w)."""
+    b, h, w = src.shape
+    idx = (yi.long() * w + xi.long()).reshape(b, h * w)
+    return torch.gather(src.reshape(b, h * w), 1, idx).reshape(b, h, w)
+
+
 def cell_index_grid(b: int, h: int, w: int, device="cpu"):
     """Integer (x, y) index grids, each (b, h, w)."""
     xx = torch.arange(w, dtype=I32, device=device)[None, None, :].expand(

@@ -1,9 +1,13 @@
-"""MAC-grid face/centre resampling and the centred curl (the subset of the
-JAX package's ``ops/grid.py`` that the window advection engine and the
-vorticity confinement use)."""
+"""MAC-grid face/centre resampling, bilinear sampling by gathers and the
+centred curl (twin of the JAX package's ``ops/grid.py``). ``interpol``,
+``interpol_with_fluid`` and ``interpol_component`` are the gather
+engine's samplers: they read the four corners at any distance, where the
+window engine (ops/window.py) clamps the position to the cell's own
+centre +- ``max_disp`` first."""
 import torch
 
-from .common import border_mask, nb, where0
+from ..celltype import FLUID
+from .common import F32, I32, border_mask, gather2d, nb, where0
 
 
 def get_centered(U):
@@ -32,6 +36,57 @@ def get_at_mac_y(U):
     ux = 0.25 * (u + nb(u, -1, 0) + nb(u, 0, 1) + nb(u, -1, 1))
     keep = ~border_mask(h, w, 1, U.device)
     return torch.stack([where0(keep, ux), where0(keep, v)], dim=1)
+
+
+def _corner_setup(shape_hw, pos):
+    """Lower bilinear corner (x0, y0) of ``pos`` (b, 2, h, w), clamped to
+    [0, dim-2], and the lerp weights (s0, s1, t0, t1) of the unclamped
+    corner, clamped to [0, 1]: pos - 0.5 truncated toward zero."""
+    h, w = shape_hw
+    p = pos - 0.5
+    pos0 = torch.trunc(p).to(I32)
+    s1 = torch.clamp(p[:, 0] - pos0[:, 0].to(F32), 0.0, 1.0)
+    t1 = torch.clamp(p[:, 1] - pos0[:, 1].to(F32), 0.0, 1.0)
+    x0 = torch.clamp(pos0[:, 0], 0, w - 2)
+    y0 = torch.clamp(pos0[:, 1], 0, h - 2)
+    return x0, y0, 1.0 - s1, s1, 1.0 - t1, t1
+
+
+def interpol(src, pos):
+    """Plain bilinear sample of ``src`` (b, h, w) at ``pos`` (b, 2, h, w):
+    a lerp along y, then along x."""
+    _, h, w = src.shape
+    x0, y0, s0, s1, t0, t1 = _corner_setup((h, w), pos)
+    Ia = gather2d(src, y0, x0)
+    Ib = gather2d(src, y0 + 1, x0)
+    Ic = gather2d(src, y0, x0 + 1)
+    Id = gather2d(src, y0 + 1, x0 + 1)
+    return (Ia * t0 + Ib * t1) * s0 + (Ic * t0 + Id * t1) * s1
+
+
+def interpol_with_fluid(src, flags, pos):
+    """Bilinear sample that drops non-fluid corners; all four non-fluid
+    falls back to the plain bilinear value."""
+    _, h, w = src.shape
+    x0, y0, s0, s1, t0, t1 = _corner_setup((h, w), pos)
+
+    def at(yi, xi):
+        return gather2d(src, yi, xi), gather2d(flags, yi, xi) == FLUID
+
+    Ia, fa = at(y0, x0)
+    Ib, fb = at(y0 + 1, x0)
+    Ic, fc = at(y0, x0 + 1)
+    Id, fd = at(y0 + 1, x0 + 1)
+    Iab, fab = interp1d_with_fluid(Ia, fa, Ib, fb, t0, t1)
+    Icd, fcd = interp1d_with_fluid(Ic, fc, Id, fd, t0, t1)
+    Ival, fval = interp1d_with_fluid(Iab, fab, Icd, fcd, s0, s1)
+    plain = (Ia * t0 + Ib * t1) * s0 + (Ic * t0 + Id * t1) * s1
+    return torch.where(fval, Ival, plain)
+
+
+def interpol_component(U, pos, c: int):
+    """Bilinear sample of velocity component ``c`` at ``pos``."""
+    return interpol(U[:, c], pos)
 
 
 def interp1d_with_fluid(va, fa, vb, fb, ta, tb):

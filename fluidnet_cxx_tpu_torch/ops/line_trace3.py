@@ -1,12 +1,13 @@
-"""Continuous first-hit obstacle trace in 3-D (twin of the JAX package's
-``ops/line_trace3.py::line_trace_firsthit3``).
+"""Obstacle-aware back-traces in 3-D (twin of the JAX package's
+``ops/line_trace3.py``): the iterative march ``calc_line_trace3`` (the 2-D
+march of ops/line_trace.py on three axes) and the continuous first-hit
+trace ``line_trace_firsthit3``.
 
-The stopping point of a ray from a cell centre is the first intersection
-of the segment [pos, pos+delta] with a blocked (non-fluid) cell's
-HIT_MARGIN-expanded box inside the (2D+1)^3 window, or with the domain's
-margin planes. Positions in non-fluid cells, and zero-length rays, return
-``pos`` unchanged. The iterative march (``calc_line_trace3``) is not
-ported (ROADMAP A.6).
+The first-hit stopping point of a ray from a cell centre is the first
+intersection of the segment [pos, pos+delta] with a blocked (non-fluid)
+cell's HIT_MARGIN-expanded box inside the (2D+1)^3 window, or with the
+domain's margin planes. Positions in non-fluid cells, and zero-length
+rays, return ``pos`` unchanged.
 
 Kernels K and L (``csrc/advect3.cu``) trace from cell centres and walk
 only the pruned box of ``firsthit_box3`` instead of the whole window; the
@@ -16,10 +17,11 @@ the same to the bit (the proof is in the kernel's note).
 import torch
 
 from ..celltype import FLUID
-from .common import F32
+from .common import F32, I32
 from .line_trace import (EPSILON, HIT_MARGIN, firsthit_axis_slabs,
-                         firsthit_border_t, firsthit_box, firsthit_slack2)
-from .ops3d import index_grids3, nb3
+                         firsthit_border_t, firsthit_box, firsthit_slack2,
+                         march)
+from .ops3d import gather3, index_grids3, nb3
 
 # The slab's extent: float32(1 + 2 * HIT_MARGIN), added to its lower face.
 EXTENT = 1.0 + 2.0 * HIT_MARGIN
@@ -38,6 +40,38 @@ def firsthit_box3(delta, D: int, slack: float):
     """``line_trace.firsthit_box`` of 3-D rays ``delta`` (b, 3, d, h, w):
     the x, y and z offset ranges that kernels K and L walk."""
     return firsthit_box(delta, D, slack)
+
+
+def _is_out_of_domain3(pos, d, h, w):
+    """True where ``pos`` (b, 3, d, h, w) lies on or beyond a wall."""
+    x, y, z = pos[:, 0], pos[:, 1], pos[:, 2]
+    return (x <= 0) | (x >= w) | (y <= 0) | (y >= h) | (z <= 0) | (z >= d)
+
+
+def _is_blocked_cell3(pos, flags):
+    """True where ``pos`` falls in a non-fluid cell; False outside the
+    domain."""
+    _, d, h, w = flags.shape
+    out = _is_out_of_domain3(pos, d, h, w)
+    zero = torch.zeros((), dtype=I32, device=pos.device)
+    zi, yi, xi = (torch.where(out, zero, torch.trunc(pos)[:, c].to(I32))
+                  for c in (2, 1, 0))
+    return (gather3(flags, zi, yi, xi) != FLUID) & (~out)
+
+
+def calc_line_trace3(pos, delta, flags, do_line_trace: bool = True,
+                     blocked_lookup=None):
+    """March from ``pos`` (b, 3, d, h, w) along ``delta`` in 3-D, stopping
+    at walls and obstacles (the contract of ``line_trace.
+    calc_line_trace``); ``pos + delta`` when ``do_line_trace`` is off."""
+    if not do_line_trace:
+        return pos + delta
+    if blocked_lookup is None:
+        def blocked_lookup(q):
+            return _is_blocked_cell3(q, flags)
+    _, d, h, w = flags.shape
+    return march(pos, delta, (w, h, d), blocked_lookup,
+                 lambda q: _is_out_of_domain3(q, d, h, w))
 
 
 def line_trace_firsthit3(pos, delta, flags, D: int = 2):

@@ -6,10 +6,12 @@ channels (u, v, w) on the x/y/z faces, x first; flags ``(b, d, h, w)``
 int32; cell centres at ``idx + 0.5``. ``nb3`` is a circular roll, as in
 the JAX package: every caller masks the wrapped border ring.
 
-Advection is the window engine only (MacCormack, the first-hit trace):
-the plain versions of kernels K (``advect_scalar3``) and M
-(``advect_velocity3``), which sample their corners with direct gathers
-(``ops/window3.py``). ``solve_jacobi_fixed3`` is the plain version of
+Advection runs Euler or MacCormack on the window engine (``ops/window3.py``:
+positions clamped to the cell's centre +- ``max_disp``) or the gather
+engine (``interpol3``), with the first-hit or the march trace; on the
+window engine with MacCormack and the first-hit trace (the defaults) it
+is the plain version of kernels K (``advect_scalar3``) and M
+(``advect_velocity3``). ``solve_jacobi_fixed3`` is the plain version of
 kernel I, ``jacobi_adjoint_fixed3`` of its adjoint. ``add_viscosity3``,
 ``set_wall_bcs_stick3``, ``curl3`` and ``add_vorticity_confinement3`` are
 torch code, as they are XLA in the JAX package; ``advect_velocity3(...,
@@ -257,52 +259,143 @@ def mac_vectors3(U):
             for f in (x_face, y_face, z_face)]
 
 
-def _unsupported_advection(impl, method, line_trace_impl, line_trace):
-    if impl != "window" or method != "maccormackFluidNet":
-        raise NotImplementedError(
-            "not ported yet: 3-D gather or Euler advection (ROADMAP A.6)")
-    if line_trace and line_trace_impl != "firsthit":
-        raise NotImplementedError(
-            "not ported yet: the 3-D march line trace (ROADMAP A.6)")
+def gather3(src, zi, yi, xi):
+    """src[b, zi, yi, xi] for in-range integer index grids (b, d, h, w)."""
+    b, d, h, w = src.shape
+    idx = ((zi.long() * h + yi.long()) * w + xi.long()).reshape(b, -1)
+    return torch.gather(src.reshape(b, -1), 1, idx).reshape(src.shape)
+
+
+def interpol3(src, pos):
+    """Trilinear sample of ``src`` (b, d, h, w) at ``pos`` (b, 3, d, h, w)
+    by gathers, at any distance (the gather engine's sampler): pos - 0.5
+    truncated toward zero, weights clamped to [0, 1], lower corner
+    clamped to [0, dim-2]; a lerp along y, then x, then z."""
+    _, d, h, w = src.shape
+    p = pos - 0.5
+    p0 = torch.trunc(p).to(I32)
+    s1, t1, f1 = (torch.clamp(p[:, c] - p0[:, c].to(F32), 0.0, 1.0)
+                  for c in range(3))
+    s0, t0, f0 = 1.0 - s1, 1.0 - t1, 1.0 - f1
+    x0 = torch.clamp(p0[:, 0], 0, w - 2)
+    y0 = torch.clamp(p0[:, 1], 0, h - 2)
+    z0 = torch.clamp(p0[:, 2], 0, d - 2)
+
+    def plane(z):
+        return ((gather3(src, z, y0, x0) * t0
+                 + gather3(src, z, y0 + 1, x0) * t1) * s0
+                + (gather3(src, z, y0, x0 + 1) * t0
+                   + gather3(src, z, y0 + 1, x0 + 1) * t1) * s1)
+
+    return plane(z0) * f0 + plane(z0 + 1) * f1
+
+
+def neighbourhood_bounds3(src, pos, flags):
+    """Min/max of ``src`` over the fluid cells of the 3x3x3 neighbourhood
+    of the cell holding ``pos``, its index clamped to the grid. Returns
+    (has_fluid, minv, maxv): the gather engine's clamp bounds, and the
+    window engine's after the window clamp."""
+    _, d, h, w = src.shape
+    i0 = torch.clamp(torch.trunc(pos)[:, 0].to(I32), 0, w - 1)
+    j0 = torch.clamp(torch.trunc(pos)[:, 1].to(I32), 0, h - 1)
+    k0 = torch.clamp(torch.trunc(pos)[:, 2].to(I32), 0, d - 1)
+    zero = torch.zeros((), dtype=I32, device=src.device)
+    minv = torch.full_like(src, float("inf"))
+    maxv = torch.full_like(src, float("-inf"))
+    found = torch.zeros(src.shape, dtype=torch.bool, device=src.device)
+    for dk in (-1, 0, 1):
+        for dj in (-1, 0, 1):
+            for di in (-1, 0, 1):
+                ii, jj, kk = i0 + di, j0 + dj, k0 + dk
+                oob = ((ii < 0) | (ii >= w) | (jj < 0) | (jj >= h)
+                       | (kk < 0) | (kk >= d))
+                zi, yi, xi = (torch.where(oob, zero, a)
+                              for a in (kk, jj, ii))
+                ok = (~oob) & (gather3(flags, zi, yi, xi) == FLUID)
+                s = gather3(src, zi, yi, xi)
+                minv = torch.where(ok, torch.minimum(minv, s), minv)
+                maxv = torch.where(ok, torch.maximum(maxv, s), maxv)
+                found = found | ok
+    return found, minv, maxv
+
+
+def corner_clamp3(dst_c, orig_c, vel_mac_dt):
+    """Selle clamp: ``dst_c`` clamped to the min/max of ``orig_c`` over the
+    8 trilinear corners of each integer position idx -/+ vel_mac*dt
+    (truncated toward zero, lower corner clamped to [0, dim-2])."""
+    b, d, h, w = orig_c.shape
+    zz, yy, xx = index_grids3(b, d, h, w, orig_c.device)
+    pos = torch.stack([xx, yy, zz], dim=1).to(F32)
+    minv = torch.full_like(orig_c, float("inf"))
+    maxv = torch.full_like(orig_c, float("-inf"))
+    for sign in (-1.0, 1.0):
+        cp = (pos + sign * vel_mac_dt).to(I32)
+        i0 = torch.clamp(cp[:, 0], 0, w - 2)
+        j0 = torch.clamp(cp[:, 1], 0, h - 2)
+        k0 = torch.clamp(cp[:, 2], 0, d - 2)
+        for dk in (0, 1):
+            for dj in (0, 1):
+                for di in (0, 1):
+                    s = gather3(orig_c, k0 + dk, j0 + dj, i0 + di)
+                    minv = torch.minimum(minv, s)
+                    maxv = torch.maximum(maxv, s)
+    return torch.maximum(torch.minimum(dst_c, maxv), minv)
 
 
 def advect_scalar3(dt, src, U, flags, maccormack_strength=0.75,
                    method="maccormackFluidNet", impl="window", max_disp=2,
                    line_trace=False, line_trace_impl="firsthit"):
-    """MacCormack advection of scalar ``src`` (b, d, h, w) by ``U`` on the
-    window engine: back-trace from the cell centre (the first-hit
-    obstacle trace when ``line_trace``), trilinear samples of the position
-    clamped to the centre +- ``max_disp``, the MacCormack correction and
-    the clamp to the 3^3 fluid neighbourhood of the forward landing cell
-    (interior only; no fluid there keeps the forward value). Solid cells
-    keep their value; the border shell keeps the corrected value."""
-    from .line_trace3 import line_trace_firsthit3
-    from .window3 import clamp_bounds_scalar_window3, interpol_window3
+    """Semi-Lagrangian advection of scalar ``src`` (b, d, h, w) by ``U``:
+    back-trace from the cell centre (with ``line_trace`` the first-hit
+    trace of the displacement clamped to +-``max_disp`` on the window
+    engine, else the march of the unclamped one), trilinear samples (the
+    window engine clamps the position to the centre +- ``max_disp``, the
+    gather engine reads any distance). Euler returns the forward sample
+    with the border shell zeroed; MacCormack adds the correction and the
+    clamp to the 3^3 fluid neighbourhood of the forward landing cell
+    (interior only; no fluid there keeps the forward value), and its
+    border shell keeps the corrected value. Solid cells keep their
+    value. The defaults are the plain version of kernels K and L."""
+    from .line_trace3 import calc_line_trace3, line_trace_firsthit3
+    from .window3 import (clamp_bounds_scalar_window3, interpol_window3,
+                          make_blocked_lookup_window3)
 
-    _unsupported_advection(impl, method, line_trace_impl, line_trace)
     D = max_disp
+    window = impl == "window"
     b, d, h, w = src.shape
     fluid = flags == FLUID
     border = border_mask3(d, h, w, 1, src.device)
     start = centers3(b, d, h, w, src.device)
     cc = where0(~border[None, None], get_centered3(U))
+    lookup = (make_blocked_lookup_window3(flags, D)
+              if window and line_trace else None)
 
     def trace(sdt):
         if not line_trace:
             return start - sdt * cc
-        disp = torch.clamp(-sdt * cc, -D, D)
-        return line_trace_firsthit3(start, disp, flags, D)
+        if window and line_trace_impl == "firsthit":
+            disp = torch.clamp(-sdt * cc, -D, D)
+            return line_trace_firsthit3(start, disp, flags, D)
+        return calc_line_trace3(start, -sdt * cc, flags,
+                                blocked_lookup=lookup)
 
     def sl(field, back):
-        return torch.where(fluid, interpol_window3(field, back, D), field)
+        val = (interpol_window3(field, back, D) if window
+               else interpol3(field, back))
+        return torch.where(fluid, val, field)
 
     fwd_back = trace(dt)
     fwd = where0(~border, sl(src, fwd_back))
+    if method == "eulerFluidNet":
+        return fwd
     bwd = where0(~border, sl(fwd, trace(-dt)))
     dst = torch.where(fluid, fwd + maccormack_strength * 0.5 * (src - bwd),
                       fwd)
     pos = torch.where(fluid[:, None], fwd_back, start)
-    ok, minv, maxv = clamp_bounds_scalar_window3(src, pos, flags, D)
+    if window:
+        ok, minv, maxv = clamp_bounds_scalar_window3(src, pos, flags, D)
+    else:
+        ok, minv, maxv = neighbourhood_bounds3(src, pos, flags)
     clamped = torch.where(ok, torch.maximum(minv, torch.minimum(maxv, dst)),
                           fwd)
     return torch.where(border, dst, clamped)
@@ -311,35 +404,42 @@ def advect_scalar3(dt, src, U, flags, maccormack_strength=0.75,
 def advect_velocity3(dt, U, flags, maccormack_strength=0.75,
                      method="maccormackFluidNet", impl="window", max_disp=2,
                      orig=None):
-    """MacCormack advection of the MAC velocity ``orig`` (U itself when
-    None; the step passes the viscous field) by ``U`` on the window
-    engine: each component of ``orig`` is sampled from the cell-centre
-    position ``idx + 0.5`` along its face's full velocity vector of U (the
-    JAX package's semantics), corrected where the face lies between fluid
-    cells (the ``skip`` rule) and clamped to the extrema of ``orig`` over
-    the 8 trilinear corners of the integer positions idx -/+ vel*dt (the
-    Selle clamp). Non-fluid cells keep ``orig``'s value in each sample.
-    The output's border shell is 0."""
+    """Semi-Lagrangian advection of the MAC velocity ``orig`` (U itself
+    when None; the step passes the viscous field) by ``U``: each component
+    of ``orig`` is sampled from the cell-centre position ``idx + 0.5``
+    along its face's full velocity vector of U (the JAX package's
+    semantics), on the window or the gather engine; Euler returns that
+    with the border shell zeroed. MacCormack corrects where the face lies
+    between fluid cells (the ``skip`` rule) and clamps to the extrema of
+    ``orig`` over the 8 trilinear corners of the integer positions
+    idx -/+ vel*dt (the Selle clamp). Non-fluid cells keep ``orig``'s value
+    in each sample. The output's border shell is 0. The defaults are the
+    plain version of kernel M."""
     from .window3 import clamp_component_mac_window3, interpol_window3
 
-    _unsupported_advection(impl, method, "firsthit", False)
     if orig is None:
         orig = U
     D = max_disp
+    window = impl == "window"
     b, _, d, h, w = U.shape
     fluid = flags == FLUID
     border = border_mask3(d, h, w, 1, U.device)
     start = centers3(b, d, h, w, U.device)
     mac = mac_vectors3(U)
 
+    def sample(field_c, pos):
+        return (interpol_window3(field_c, pos, D) if window
+                else interpol3(field_c, pos))
+
     def sl(field, sdt):
-        val = torch.stack([interpol_window3(field[:, c],
-                                            start - sdt * mac[c], D)
+        val = torch.stack([sample(field[:, c], start - sdt * mac[c])
                            for c in range(3)], dim=1)
         return torch.where(fluid[:, None], val, field)
 
     ring = border[None, None]
     fwd = where0(~ring, sl(orig, dt))
+    if method == "eulerFluidNet":
+        return fwd
     bwd = where0(~ring, sl(fwd, -dt))
     zz, yy, xx = index_grids3(b, d, h, w, U.device)
     outs = []
@@ -349,7 +449,11 @@ def advect_velocity3(dt, U, flags, maccormack_strength=0.75,
         dst = torch.where(
             skip, fwd[:, c],
             fwd[:, c] + maccormack_strength * 0.5 * (orig[:, c] - bwd[:, c]))
-        out = clamp_component_mac_window3(dst, orig[:, c], mac[c] * dt, D)
+        if window:
+            out = clamp_component_mac_window3(dst, orig[:, c], mac[c] * dt,
+                                              D)
+        else:
+            out = corner_clamp3(dst, orig[:, c], mac[c] * dt)
         outs.append(where0(~border, out))
     return torch.stack(outs, dim=1)
 

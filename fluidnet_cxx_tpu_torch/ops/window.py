@@ -2,17 +2,24 @@
 
 A back-traced position is clamped to its own cell centre +- D
 (``max_disp``) before it is sampled — that clamp is part of the
-semantics (PARITY item 7) and every function here keeps it. Each sample is
-written as the same masked sum over the (2D+2)^2 statically shifted
-copies as the JAX package, so the two agree bit for bit where float32
-arithmetic allows; on the card the advection kernel (ops/kernels/advect.py)
-computes the same values with direct loads.
+semantics (PARITY item 7) and every function here keeps it. The JAX
+package writes each sample as a masked sum over the (2D+2)^2 statically
+shifted copies (a TPU device to avoid gathers); here each corner is read
+with one gather at the same clamped index, as ops/window3.py does in
+3-D. The values are the same: the masked sum adds only zero terms
+besides the corners', in the order kept here, and the extrema are taken
+over the same cells. So the fluid-aware sample and the clamps are the
+gather engine's (ops/grid.py, ``neighbourhood_bounds``, ``corner_clamp``)
+at the clamped position or displacement; the plain sample lerps along x
+first, where the gather engine's lerps along y first. On the card the
+advection kernels (ops/kernels/advect.py) compute these values with
+direct loads.
 """
 import torch
 
 from ..celltype import FLUID
-from .common import F32, I32, cell_index_grid, nb, where0
-from .grid import get_centered, interp1d_with_fluid
+from .common import F32, I32, cell_index_grid, gather2d
+from .grid import _corner_setup, get_centered, interpol_with_fluid
 
 
 def _clip(a, lo, hi):
@@ -29,141 +36,106 @@ def clamp_pos_to_window(pos, D: int):
                         _clip(pos[:, 1], cy - D, cy + D)], dim=1)
 
 
-def _corner_offsets(pos, h: int, w: int):
-    """Lower bilinear corner as offsets from the cell's own index, and the
-    clamped lerp weights (pos-0.5, trunc, clamp to [0, dim-2])."""
-    b = pos.shape[0]
-    xx, yy = cell_index_grid(b, h, w, pos.device)
-    p = pos - 0.5
-    pos0 = torch.trunc(p).to(I32)
-    s1 = torch.clamp(p[:, 0] - pos0[:, 0].to(F32), 0.0, 1.0)
-    t1 = torch.clamp(p[:, 1] - pos0[:, 1].to(F32), 0.0, 1.0)
-    x0 = torch.clamp(pos0[:, 0], 0, w - 2)
-    y0 = torch.clamp(pos0[:, 1], 0, h - 2)
-    return x0 - xx, y0 - yy, s1, t1
-
-
 def interpol_window(src, pos, D: int = 4):
     """Plain bilinear sample of ``src`` (b, h, w) at ``pos`` (b, 2, h, w),
-    window form."""
-    _, h, w = src.shape
-    pos = clamp_pos_to_window(pos, D)
-    ox0, oy0, s1, t1 = _corner_offsets(pos, h, w)
-    s0, t0 = 1.0 - s1, 1.0 - t1
-    wx = {ox: s0 * (ox0 == ox) + s1 * (ox0 == ox - 1)
-          for ox in range(-D, D + 2)}
-    out = torch.zeros_like(src)
-    for oy in range(-D, D + 2):
-        wy = t0 * (oy0 == oy) + t1 * (oy0 == oy - 1)
-        row = torch.zeros_like(src)
-        for ox in range(-D, D + 2):
-            row = row + wx[ox] * nb(src, oy, ox)
-        out = out + wy * row
-    return out
-
-
-def _extract_corners(src, flags, pos, D: int):
-    """Corner values and fluid masks a=(y0,x0), b=(y0+1,x0), c=(y0,x0+1),
-    d=(y0+1,x0+1), plus the lerp weights."""
-    _, h, w = src.shape
-    ox0, oy0, s1, t1 = _corner_offsets(pos, h, w)
-    zero = torch.zeros_like(src)
-    Va = Vb = Vc = Vd = zero
-    Fa = Fb = Fc = Fd = zero
-    fl = (flags == FLUID).to(F32)
-    mx0 = {ox: ox0 == ox for ox in range(-D, D + 2)}
-    mx1 = {ox: ox0 == ox - 1 for ox in range(-D, D + 2)}
-    for oy in range(-D, D + 2):
-        my0 = oy0 == oy
-        my1 = oy0 == oy - 1
-        rV0 = rV1 = rF0 = rF1 = zero
-        for ox in range(-D, D + 2):
-            s = nb(src, oy, ox)
-            f = nb(fl, oy, ox)
-            rV0 = rV0 + where0(mx0[ox], s)
-            rV1 = rV1 + where0(mx1[ox], s)
-            rF0 = rF0 + where0(mx0[ox], f)
-            rF1 = rF1 + where0(mx1[ox], f)
-        Va = Va + where0(my0, rV0)
-        Vb = Vb + where0(my1, rV0)
-        Vc = Vc + where0(my0, rV1)
-        Vd = Vd + where0(my1, rV1)
-        Fa = Fa + where0(my0, rF0)
-        Fb = Fb + where0(my1, rF0)
-        Fc = Fc + where0(my0, rF1)
-        Fd = Fd + where0(my1, rF1)
-    return Va, Vb, Vc, Vd, Fa > 0.5, Fb > 0.5, Fc > 0.5, Fd > 0.5, s1, t1
+    window form: a lerp along x, then along y."""
+    x0, y0, s0, s1, t0, t1 = _corner_setup(src.shape[1:],
+                                           clamp_pos_to_window(pos, D))
+    row0 = s0 * gather2d(src, y0, x0) + s1 * gather2d(src, y0, x0 + 1)
+    row1 = (s0 * gather2d(src, y0 + 1, x0)
+            + s1 * gather2d(src, y0 + 1, x0 + 1))
+    return t0 * row0 + t1 * row1
 
 
 def interpol_with_fluid_window(src, flags, pos, D: int = 4):
-    """Fluid-aware bilinear sample, window form: non-fluid corners are
-    dropped; all four non-fluid falls back to the plain bilinear value."""
-    pos = clamp_pos_to_window(pos, D)
-    Va, Vb, Vc, Vd, Fa, Fb, Fc, Fd, s1, t1 = _extract_corners(
-        src, flags, pos, D)
-    s0, t0 = 1.0 - s1, 1.0 - t1
-    Iab, fab = interp1d_with_fluid(Va, Fa, Vb, Fb, t0, t1)
-    Icd, fcd = interp1d_with_fluid(Vc, Fc, Vd, Fd, t0, t1)
-    Ival, fval = interp1d_with_fluid(Iab, fab, Icd, fcd, s0, s1)
-    plain = (Va * t0 + Vb * t1) * s0 + (Vc * t0 + Vd * t1) * s1
-    return torch.where(fval, Ival, plain)
+    """Fluid-aware bilinear sample, window form: ``grid.
+    interpol_with_fluid`` of the position clamped to the window."""
+    return interpol_with_fluid(src, flags, clamp_pos_to_window(pos, D))
+
+
+def neighbourhood_bounds(src, pos, flags, sample_outside):
+    """Min/max of ``src`` over the fluid cells (every cell with
+    ``sample_outside``) of the 3x3 neighbourhood of the cell holding
+    ``pos``, its index clamped to the grid. Returns (found, minv, maxv):
+    the gather engine's clamp bounds, and the window engine's after the
+    window clamp."""
+    _, h, w = src.shape
+    cell = torch.trunc(pos).to(I32)
+    i0 = torch.clamp(cell[:, 0], 0, w - 1)
+    j0 = torch.clamp(cell[:, 1], 0, h - 1)
+    zero = torch.zeros((), dtype=I32, device=src.device)
+    minv = torch.full_like(src, float("inf"))
+    maxv = torch.full_like(src, float("-inf"))
+    found = torch.zeros(src.shape, dtype=torch.bool, device=src.device)
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            ii, jj = i0 + di, j0 + dj
+            ok = (ii >= 0) & (ii < w) & (jj >= 0) & (jj < h)
+            ii = torch.where(ok, ii, zero)
+            jj = torch.where(ok, jj, zero)
+            if not sample_outside:
+                ok = ok & (gather2d(flags, jj, ii) == FLUID)
+            s = gather2d(src, jj, ii)
+            minv = torch.where(ok, torch.minimum(minv, s), minv)
+            maxv = torch.where(ok, torch.maximum(maxv, s), maxv)
+            found = found | ok
+    return found, minv, maxv
 
 
 def clamp_bounds_scalar_window(src, pos, flags, sample_outside, D: int = 4):
-    """Min/max/count of ``src`` over the fluid cells in the 3x3
-    neighbourhood of the cell containing ``pos``.
+    """``neighbourhood_bounds`` of the position clamped to the window.
     Returns (do_clamp, minv, maxv)."""
-    b, h, w = src.shape
-    pos = clamp_pos_to_window(pos, D)
-    xx, yy = cell_index_grid(b, h, w, src.device)
-    i0 = torch.clamp(torch.trunc(pos[:, 0]).to(I32), 0, w - 1)
-    j0 = torch.clamp(torch.trunc(pos[:, 1]).to(I32), 0, h - 1)
-    oi0 = i0 - xx
-    oj0 = j0 - yy
-    fl_ok = (flags == FLUID) | bool(sample_outside)
-    minv = torch.full_like(src, float("inf"))
-    maxv = torch.full_like(src, float("-inf"))
-    ncells = torch.zeros(src.shape, dtype=I32, device=src.device)
-    for oy in range(-D - 1, D + 2):
-        my = (oj0 - oy).abs() <= 1
-        row_ok = (yy + oy >= 0) & (yy + oy < h)
-        for ox in range(-D - 1, D + 2):
-            m = (my & ((oi0 - ox).abs() <= 1) & row_ok
-                 & (xx + ox >= 0) & (xx + ox < w) & nb(fl_ok, oy, ox))
-            s = nb(src, oy, ox)
-            minv = torch.where(m, torch.minimum(minv, s), minv)
-            maxv = torch.where(m, torch.maximum(maxv, s), maxv)
-            ncells = ncells + m.to(I32)
-    return ncells >= 1, minv, maxv
+    return neighbourhood_bounds(src, clamp_pos_to_window(pos, D), flags,
+                                sample_outside)
+
+
+def corner_clamp(dst_c, orig_c, vel_mac_dt):
+    """Selle clamp: ``dst_c`` clamped to the min/max of ``orig_c`` over the
+    bilinear corners of the integer positions idx -/+ vel_mac*dt
+    (truncated toward zero, lower corner clamped to [0, dim-2])."""
+    b, h, w = orig_c.shape
+    xx, yy = cell_index_grid(b, h, w, orig_c.device)
+    pos = torch.stack([xx.to(F32), yy.to(F32)], dim=1)
+    minv = torch.full_like(orig_c, float("inf"))
+    maxv = torch.full_like(orig_c, float("-inf"))
+    for sign in (-1.0, 1.0):
+        cp = (pos + sign * vel_mac_dt).to(I32)
+        i0 = torch.clamp(cp[:, 0], 0, w - 2)
+        j0 = torch.clamp(cp[:, 1], 0, h - 2)
+        for dj in (0, 1):
+            for di in (0, 1):
+                s = gather2d(orig_c, j0 + dj, i0 + di)
+                minv = torch.minimum(minv, s)
+                maxv = torch.maximum(maxv, s)
+    return torch.maximum(torch.minimum(dst_c, maxv), minv)
 
 
 def clamp_component_mac_window(dst_c, orig_c, vel_mac_dt, D: int = 4):
-    """Selle clamp: clamp ``dst_c`` to the min/max of ``orig_c`` over the
-    bilinear corners of the integer positions pos -/+ vel_mac*dt."""
-    b, h, w = orig_c.shape
-    xx, yy = cell_index_grid(b, h, w, orig_c.device)
-    vx = torch.clamp(vel_mac_dt[:, 0], -D, D)
-    vy = torch.clamp(vel_mac_dt[:, 1], -D, D)
+    """``corner_clamp`` with vel_mac*dt clamped to +-D a component."""
+    return corner_clamp(dst_c, orig_c, torch.clamp(vel_mac_dt, -D, D))
 
-    def offsets(sign):
-        cx = (xx.to(F32) + sign * vx).to(I32)   # trunc toward zero
-        cy = (yy.to(F32) + sign * vy).to(I32)
-        return torch.clamp(cx, 0, w - 2) - xx, torch.clamp(cy, 0, h - 2) - yy
 
-    oiM, ojM = offsets(-1.0)
-    oiP, ojP = offsets(1.0)
-    minv = torch.full_like(orig_c, float("inf"))
-    maxv = torch.full_like(orig_c, float("-inf"))
-    for oy in range(-D, D + 2):
-        myM = (ojM == oy) | (ojM == oy - 1)
-        myP = (ojP == oy) | (ojP == oy - 1)
-        for ox in range(-D, D + 2):
-            m = ((myM & ((oiM == ox) | (oiM == ox - 1)))
-                 | (myP & ((oiP == ox) | (oiP == ox - 1))))
-            s = nb(orig_c, oy, ox)
-            minv = torch.where(m, torch.minimum(minv, s), minv)
-            maxv = torch.where(m, torch.maximum(maxv, s), maxv)
-    return torch.maximum(torch.minimum(dst_c, maxv), minv)
+def make_blocked_lookup_window(flags, D: int = 4):
+    """The march's point lookup on the window engine: is the cell holding
+    ``pos`` (b, 2, h, w) non-fluid? False outside the domain and for a
+    cell more than D from the querying cell on an axis. The JAX package
+    sums 81 (at D 4) masked shifted copies, of which one offset can match;
+    here that cell is read with one gather, the same function."""
+    b, h, w = flags.shape
+    xx, yy = cell_index_grid(b, h, w, flags.device)
+    blocked = flags != FLUID
+
+    def lookup(pos):
+        ix = torch.trunc(pos)[:, 0].to(I32)
+        iy = torch.trunc(pos)[:, 1].to(I32)
+        out = ((pos[:, 0] <= 0) | (pos[:, 0] >= w) | (pos[:, 1] <= 0)
+               | (pos[:, 1] >= h))
+        ok = ((ix - xx).abs() <= D) & ((iy - yy).abs() <= D) & ~out
+        zero = torch.zeros((), dtype=I32, device=pos.device)
+        return ok & gather2d(blocked, torch.where(ok, iy, zero),
+                             torch.where(ok, ix, zero))
+
+    return lookup
 
 
 def max_displacement(U, dt):

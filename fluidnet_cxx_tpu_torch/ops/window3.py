@@ -14,7 +14,7 @@ import torch
 
 from ..celltype import FLUID
 from .common import F32, I32
-from .ops3d import index_grids3
+from .ops3d import corner_clamp3, gather3, index_grids3, neighbourhood_bounds3
 
 
 def _clip(a, lo, hi):
@@ -31,13 +31,6 @@ def clamp_pos_to_window3(pos, D: int):
         ctr = ii.to(F32) + 0.5
         out.append(_clip(pos[:, c], ctr - D, ctr + D))
     return torch.stack(out, dim=1)
-
-
-def gather3(src, zi, yi, xi):
-    """src[b, zi, yi, xi] for in-range integer index grids (b, d, h, w)."""
-    b, d, h, w = src.shape
-    idx = ((zi.long() * h + yi.long()) * w + xi.long()).reshape(b, -1)
-    return torch.gather(src.reshape(b, -1), 1, idx).reshape(src.shape)
 
 
 def interpol_window3(src, pos, D: int = 2):
@@ -66,54 +59,15 @@ def interpol_window3(src, pos, D: int = 2):
 
 
 def clamp_bounds_scalar_window3(src, pos, flags, D: int = 2):
-    """Min/max/count of ``src`` over the fluid cells in the 3x3x3
-    neighbourhood of the cell containing ``pos`` (after the window clamp).
-    Returns (has_fluid, minv, maxv)."""
-    _, d, h, w = src.shape
-    pos = clamp_pos_to_window3(pos, D)
-    i0 = torch.clamp(torch.trunc(pos[:, 0]).to(I32), 0, w - 1)
-    j0 = torch.clamp(torch.trunc(pos[:, 1]).to(I32), 0, h - 1)
-    k0 = torch.clamp(torch.trunc(pos[:, 2]).to(I32), 0, d - 1)
-    minv = torch.full_like(src, float("inf"))
-    maxv = torch.full_like(src, float("-inf"))
-    found = torch.zeros(src.shape, dtype=torch.bool, device=src.device)
-    for dk in (-1, 0, 1):
-        kk = k0 + dk
-        for dj in (-1, 0, 1):
-            jj = j0 + dj
-            for di in (-1, 0, 1):
-                ii = i0 + di
-                inb = ((ii >= 0) & (ii < w) & (jj >= 0) & (jj < h)
-                       & (kk >= 0) & (kk < d))
-                zi, yi, xi = (torch.where(inb, a, 0) for a in (kk, jj, ii))
-                m = inb & (gather3(flags, zi, yi, xi) == FLUID)
-                s = gather3(src, zi, yi, xi)
-                minv = torch.where(m, torch.minimum(minv, s), minv)
-                maxv = torch.where(m, torch.maximum(maxv, s), maxv)
-                found = found | m
-    return found, minv, maxv
+    """``ops3d.neighbourhood_bounds3`` of the position clamped to the
+    window. Returns (has_fluid, minv, maxv)."""
+    return neighbourhood_bounds3(src, clamp_pos_to_window3(pos, D), flags)
 
 
 def clamp_component_mac_window3(dst_c, orig_c, vel_mac_dt, D: int = 2):
-    """Selle clamp: clamp ``dst_c`` to the min/max of ``orig_c`` over the 8
-    trilinear corners of each of the two integer positions
-    idx -/+ vel_mac*dt (per axis clamped to +-D, truncated toward zero,
-    lower corner clamped to [0, dim-2])."""
-    b, d, h, w = orig_c.shape
-    idx = index_grids3(b, d, h, w, orig_c.device)[::-1]   # (x, y, z)
-    vel = [torch.clamp(vel_mac_dt[:, c], -D, D) for c in range(3)]
-    minv = torch.full_like(orig_c, float("inf"))
-    maxv = torch.full_like(orig_c, float("-inf"))
-    for sign in (-1.0, 1.0):
-        lo = [torch.clamp((ii.to(F32) + sign * v).to(I32), 0, dim - 2)
-              for ii, v, dim in zip(idx, vel, (w, h, d))]
-        for dk in (0, 1):
-            for dj in (0, 1):
-                for di in (0, 1):
-                    s = gather3(orig_c, lo[2] + dk, lo[1] + dj, lo[0] + di)
-                    minv = torch.minimum(minv, s)
-                    maxv = torch.maximum(maxv, s)
-    return torch.maximum(torch.minimum(dst_c, maxv), minv)
+    """``ops3d.corner_clamp3`` with vel_mac*dt clamped to +-D a
+    component."""
+    return corner_clamp3(dst_c, orig_c, torch.clamp(vel_mac_dt, -D, D))
 
 
 def make_blocked_lookup_window3(flags, D: int = 2):
@@ -125,7 +79,7 @@ def make_blocked_lookup_window3(flags, D: int = 2):
     blocked = flags != FLUID
 
     def lookup(pos):
-        cell = [torch.trunc(pos[:, c]).to(I32) for c in range(3)]
+        cell = [torch.trunc(pos)[:, c].to(I32) for c in range(3)]
         near = torch.ones(flags.shape, dtype=torch.bool, device=flags.device)
         for ci, ii in zip(cell, (xx, yy, zz)):
             near = near & ((ci - ii).abs() <= D)

@@ -1,12 +1,17 @@
-"""Twins of the JAX package's scene drivers (``scripts/run_plume.py``,
-``scripts/run_rayleigh_taylor.py``, ``scripts/run_cylinder.py``), run as
-``python -m fluidnet_cxx_tpu_torch.scripts.<name>`` with the same flags,
-plus ``--device`` (cuda by default).
+"""Twins of the JAX package's scripts, run as ``python -m
+fluidnet_cxx_tpu_torch.scripts.<name>`` with the same flags, plus
+``--device`` (cuda by default): the scene drivers (``run_plume``,
+``run_rayleigh_taylor``, ``run_cylinder``, ``run_blob3d``), the
+evaluations (``eval_parity``, ``quality_per_ms``), the data tools
+(``make_dataset``, ``preprocess_data``, which runs no device work and
+takes no ``--device``) and the trainers (``train3d``,
+``train_mg_coarse``).
 
-They differ from the JAX scripts in two ways. The port always runs as the
-JAX scripts' ``--fast`` does (``use_pallas=True``: the hand-written
-kernels and the first-hit line trace); ``--fast`` is accepted and changes
-nothing. And all three honour ``realTimePlot`` (true by default), where
+The 2-D scene drivers differ from the JAX scripts in two ways. They
+always run as the JAX scripts' ``--fast`` does (``use_pallas=True``: the
+hand-written kernels and the first-hit line trace); ``--fast`` is
+accepted and changes nothing, where JAX's scripts without it run the
+march trace. And all three honour ``realTimePlot`` (true by default), where
 the JAX RT and cylinder scripts plot unconditionally: the plume and RT
 twins read it from their YAML, the cylinder twin, which reads none, from
 ``--realTimePlot``. Where matplotlib is not installed, run them with it

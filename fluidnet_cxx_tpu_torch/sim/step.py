@@ -1,12 +1,8 @@
 """One simulation step (the port of the JAX package's ``sim/step.py::
 simulate_step``), in the JAX step's order:
 
-viscosity (the viscous field ``orig`` that U advects) -> MacCormack
-advection on the window engine (ops/kernels/advect.py; first-hit trace —
-what the JAX step runs with ``use_pallas=True``), either merged (kernel A,
-``fuse_advection`` with ``advect_density``) or separate (kernel D for the
-density when ``advect_density``, then kernel E for the velocity) -> scalar
-correction -> inlet/const BCs -> buoyancy -> gravity -> vorticity
+viscosity (the viscous field ``orig`` that U advects) -> advection ->
+scalar correction -> inlet/const BCs -> buoyancy -> gravity -> vorticity
 confinement -> pressure projection, one of:
 
 * ``convnet`` with a projection that folds in the inlet BCs
@@ -22,6 +18,20 @@ confinement -> pressure projection, one of:
   project_mg: RHS, V-cycles, velocity update and wall BCs) or, with a
   periodic axis, divergence -> kernel G (``solve_mg``) -> velocity update.
 
+Advection follows the JAX step's dispatch. With ``use_pallas`` (and no
+``dyn``) the JAX step runs its Pallas kernels, MacCormack on the window
+engine with the first-hit trace: here kernels A (merged,
+``fuse_advection`` with ``advect_density``) or D (the density) and E (the
+velocity), ops/kernels/advect.py, at every shape (ROADMAP C.1's residue).
+Otherwise, and always for Euler, the JAX step runs its XLA engines with
+the config's ``advection_method``, ``advection_impl`` and
+``line_trace_impl``. Of those the kernels compute MacCormack on the window
+engine with the first-hit trace or none (ROADMAP C.3), and run them here;
+Euler and the gather engine run both fields, and the march trace the
+density, on the torch engines of ops/advection.py (the velocity's
+straight back-trace on the window engine stays on E). A config runs the
+torch engines only because it asks for an engine no kernel computes.
+
 The wall BCs are free-slip with the periodic overrides (in the jacobi and
 multigrid projections), then the stick walls where the scene has
 ``flags_stick`` (in every projection), as in the JAX package (PARITY.md).
@@ -32,14 +42,14 @@ included: the JAX step takes its XLA branch under ``dyn``, where dt is
 ``dyn.dt`` throughout) and the buoyancy and gravity are applied whatever
 their scale, from ``dyn``'s gravity vector. ``output_div`` stops the step
 before the projection (after vorticity confinement) and returns the
-divergent state. Every other branch raises ``NotImplementedError``
-naming its ROADMAP item; a ``sim_method`` the step does not know raises
-too, where the JAX step would quietly run Jacobi.
+divergent state. A ``sim_method`` the step does not know raises, where
+the JAX step would quietly run Jacobi.
 """
 from typing import NamedTuple, Tuple
 
 import numpy as np
 
+from ..ops import advection as engines
 from ..ops.jacobi import solve_jacobi as solve_jacobi_tol
 from ..ops.kernels.advect import advect_all, advect_scalar, advect_velocity
 from ..ops.kernels.jacobi import solve_jacobi
@@ -69,15 +79,6 @@ def apply_const_vals(state, U, density):
 
 
 def _unsupported(cfg):
-    if cfg.advection_method != "maccormackFluidNet" or \
-            cfg.advection_impl != "window":
-        return "not ported yet: Euler or gather advection (ROADMAP A.6)"
-    if (cfg.advect_density and cfg.line_trace
-            and cfg.line_trace_impl == "march" and not cfg.use_pallas):
-        # What the JAX step runs on its XLA path; the kernels run the
-        # first-hit trace, which the JAX step runs with use_pallas=True.
-        return ("not ported yet: the march line trace of the XLA path "
-                "(ROADMAP A.6)")
     if cfg.sim_method not in ("convnet", "jacobi", "multigrid"):
         # The JAX step would run Jacobi for it (its else branch).
         return (f"sim_method {cfg.sim_method!r}: the step runs convnet, "
@@ -85,6 +86,21 @@ def _unsupported(cfg):
                 "of models/mg_coarse.py::make_project_fn_mg_learned with "
                 'sim_method="convnet", as the JAX scripts/run_plume.py does')
     return None
+
+
+def torch_advection(cfg, dyn=None):
+    """(density, velocity): whether each field's advection runs on the
+    torch engines (ops/advection.py) rather than kernels A, D and E. The
+    kernels compute MacCormack on the window engine with the first-hit
+    trace or none: what the JAX step runs with ``use_pallas`` outside
+    ``dyn`` (except for Euler), and on its XLA path with those choices."""
+    if cfg.advection_method == engines.EULER:
+        return True, True
+    if cfg.use_pallas and dyn is None:
+        return False, False
+    if cfg.advection_impl != "window":
+        return True, True
+    return cfg.line_trace and cfg.line_trace_impl != "firsthit", False
 
 
 def _fused_projection(cfg, state, project_fn):
@@ -121,20 +137,32 @@ def _wall_bcs(cfg, state, U):
     return U
 
 
-def _advect(cfg, state, orig, dt):
+def _advect(cfg, state, orig, dt, dyn):
     """Advected (rho, U) over ``dt``: kernel A, or D (when the density is
-    advected) and E."""
+    advected) and E, or the torch engines where ``torch_advection`` says
+    so."""
     flags, U, rho = state.flags, state.U, state.density
+    on_torch_rho, on_torch_U = torch_advection(cfg, dyn)
     kw = dict(maccormack_strength=cfg.maccormack_strength,
               max_disp=cfg.max_disp)
     scalar_kw = dict(kw, sample_outside_fluid=cfg.sample_outside_fluid,
                      line_trace=cfg.line_trace)
-    if cfg.advect_density and cfg.fuse_advection:
+    engine = dict(method=cfg.advection_method, impl=cfg.advection_impl)
+    if (cfg.advect_density and cfg.fuse_advection
+            and not (on_torch_rho or on_torch_U)):
         rho, U_new = advect_all(dt, rho, U, flags, orig=orig, **scalar_kw)
     else:
-        if cfg.advect_density:
+        if cfg.advect_density and on_torch_rho:
+            rho = engines.advect_scalar(
+                dt, rho, U, flags, line_trace_impl=cfg.line_trace_impl,
+                **scalar_kw, **engine)
+        elif cfg.advect_density:
             rho = advect_scalar(dt, rho, U, flags, **scalar_kw)
-        U_new = advect_velocity(dt, U, flags, orig=orig, **kw)
+        if on_torch_U:
+            U_new = engines.advect_velocity(
+                dt, U if orig is None else orig, U, flags, **kw, **engine)
+        else:
+            U_new = advect_velocity(dt, U, flags, orig=orig, **kw)
     if cfg.advect_density and cfg.correct_scalar:
         # The correction's divergence is the pre-advection U's.
         rho = correct_scalar(dt, rho, velocity_divergence(U, flags), flags)
@@ -174,7 +202,7 @@ def simulate_step(cfg, state, project_fn=None, output_div=False, dyn=None):
     dt = cfg.dt if dyn is None else dyn.dt
     orig = (add_viscosity(dt, state.U, flags, cfg.viscosity)
             if cfg.viscosity > 0 else None)
-    rho, U = _advect(cfg, state, orig, dt)
+    rho, U = _advect(cfg, state, orig, dt, dyn)
     U, rho = apply_const_vals(state, U, rho)
     if dyn is not None:
         U = add_buoyancy(U, flags, rho, _scaled_gravity(

@@ -2,12 +2,8 @@
 ``sim/step3d.py::simulate_step3``), in the JAX step's order:
 
 viscosity (``add_viscosity3`` of the pre-advection U: the field the
-velocity advection carries) -> MacCormack advection on the window engine
-with the per-axis displacement bound ``min(max_disp, 2)``: merged (kernel
-L, ``fuse_advection`` with ``advect_density`` and no viscosity) or
-separate (kernel K for the density when ``advect_density``, then kernel M
-for the velocity, with the viscous field as its ``orig``), all in
-ops/kernels/advect3.py -> scalar correction -> inlet/const BCs ->
+velocity advection carries) -> advection with ``max_disp`` cut to
+``min(max_disp, 2)`` -> scalar correction -> inlet/const BCs ->
 buoyancy -> gravity -> vorticity confinement -> (``output_div`` returns
 here) -> wall BCs (free-slip with the periodic overrides, then the stick
 walls of ``flags_stick``) -> const BCs -> projection -> wall BCs -> const
@@ -20,10 +16,17 @@ velocity update, or for ``convnet`` the caller's ``project_fn``
 itself: under convnet the step's own free-slip walls are skipped, as the
 JAX step skips them; the stick walls still apply.
 
-The kernels run the first-hit trace at every shape (what the JAX step runs
-with ``use_pallas=True`` on its TPU-aligned shapes). Euler and gather
-advection and the march trace raise ``NotImplementedError`` naming
-ROADMAP A.6.
+Advection follows the JAX step's dispatch. With ``use_pallas``, the
+window engine, MacCormack and no viscosity, the JAX step runs its Pallas
+kernels (the first-hit trace): here kernels L (merged, ``fuse_advection``
+with ``advect_density``) or K (the density) and M (the velocity),
+ops/kernels/advect3.py, at every shape. Otherwise it runs its XLA engines
+with the config's method, engine and trace; of those the kernels compute
+MacCormack on the window engine with the first-hit trace or none, K and M
+(M with the viscous field as its ``orig``), and run them here. Euler and
+the gather engine run both fields, and the march trace the density, on
+the torch engines of ops/ops3d.py; the march traces the unclamped
+displacement, as JAX's does.
 """
 import warnings
 from typing import NamedTuple, Optional
@@ -33,6 +36,7 @@ import torch
 from ..ops.kernels.advect3 import (advect_all3, advect_scalar3,
                                    advect_velocity3)
 from ..ops.kernels.jacobi3 import solve_jacobi3
+from ..ops import ops3d
 from ..ops.multigrid import solve_mg3
 from ..ops.ops3d import (add_buoyancy3, add_gravity3, add_viscosity3,
                          add_vorticity_confinement3, correct_scalar3,
@@ -92,18 +96,17 @@ def _wall_bcs3(cfg, state, U):
     return U
 
 
-def _unsupported(cfg):
-    if cfg.advection_method != "maccormackFluidNet" or \
-            cfg.advection_impl != "window":
-        return "3-D Euler or gather advection (ROADMAP A.6)"
-    if (cfg.advect_density and cfg.line_trace
-            and cfg.line_trace_impl == "march"
-            and (not cfg.use_pallas or cfg.viscosity > 0)):
-        # What the JAX step runs on its XLA path (which it also takes with
-        # viscosity); the kernels run the first-hit trace, which the JAX
-        # step runs with use_pallas=True.
-        return "the 3-D march line trace of the XLA path (ROADMAP A.6)"
-    return None
+def torch_advection3(cfg):
+    """(density, velocity): whether each field's advection runs on the
+    torch engines (ops/ops3d.py) rather than kernels K, L and M, by the
+    JAX step's dispatch (see the module's note)."""
+    if cfg.advection_method == "eulerFluidNet":
+        return True, True
+    if cfg.advection_impl != "window":
+        return True, True
+    if cfg.use_pallas and cfg.viscosity == 0:
+        return False, False
+    return cfg.line_trace and cfg.line_trace_impl != "firsthit", False
 
 
 def _warn_max_disp(cfg):
@@ -111,29 +114,43 @@ def _warn_max_disp(cfg):
     engine clamps per-axis displacements to 2 cells when ``max_disp`` asks
     for more."""
     global _warned_max_disp
-    if cfg.max_disp > MAX_DISP3 and not _warned_max_disp:
+    if (cfg.advection_impl == "window" and cfg.max_disp > MAX_DISP3
+            and not _warned_max_disp):
         warnings.warn(
             f"3-D window advection bounds per-axis displacements to "
             f"{MAX_DISP3} cells (configured max_disp={cfg.max_disp}); "
             f"trajectories moving faster are clamped. Set max_disp="
-            f"{MAX_DISP3} to silence.", stacklevel=3)
+            f"{MAX_DISP3} to silence, or advection_impl='gather' for "
+            "unbounded displacements.", stacklevel=3)
         _warned_max_disp = True
 
 
 def _advect3(cfg, state, orig):
     """Advected (rho, U): kernel L, or K (when the density is advected)
-    and M (advecting ``orig``, the viscous field, when given)."""
+    and M (advecting ``orig``, the viscous field, when given), or the
+    torch engines where ``torch_advection3`` says so."""
     flags, U, rho = state.flags, state.U, state.density
+    on_torch_rho, on_torch_U = torch_advection3(cfg)
     kw = dict(maccormack_strength=cfg.maccormack_strength,
               max_disp=min(cfg.max_disp, MAX_DISP3))
-    if cfg.advect_density and cfg.fuse_advection and orig is None:
+    engine = dict(method=cfg.advection_method, impl=cfg.advection_impl)
+    if (cfg.advect_density and cfg.fuse_advection and orig is None
+            and not (on_torch_rho or on_torch_U)):
         rho, U_new = advect_all3(cfg.dt, rho, U, flags,
                                  line_trace=cfg.line_trace, **kw)
     else:
-        if cfg.advect_density:
+        if cfg.advect_density and on_torch_rho:
+            rho = ops3d.advect_scalar3(
+                cfg.dt, rho, U, flags, line_trace=cfg.line_trace,
+                line_trace_impl=cfg.line_trace_impl, **kw, **engine)
+        elif cfg.advect_density:
             rho = advect_scalar3(cfg.dt, rho, U, flags,
                                  line_trace=cfg.line_trace, **kw)
-        U_new = advect_velocity3(cfg.dt, U, flags, orig=orig, **kw)
+        if on_torch_U:
+            U_new = ops3d.advect_velocity3(cfg.dt, U, flags, orig=orig,
+                                           **kw, **engine)
+        else:
+            U_new = advect_velocity3(cfg.dt, U, flags, orig=orig, **kw)
     if cfg.advect_density and cfg.correct_scalar:
         # The correction's divergence is the pre-advection U's.
         rho = correct_scalar3(cfg.dt, rho, velocity_divergence3(U, flags),
@@ -146,9 +163,6 @@ def simulate_step3(cfg, state, project_fn=None, output_div: bool = False):
     density) -> (p, U)`` is the convnet projection (ignored by the other
     methods, as in the JAX step). ``output_div`` returns the divergent
     state before the wall BCs and the projection (the training input)."""
-    why = _unsupported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"not ported yet: {why}")
     _warn_max_disp(cfg)
     flags = state.flags
     orig = (add_viscosity3(cfg.dt, state.U, flags, cfg.viscosity)

@@ -3,8 +3,10 @@ kernels D (scalar) and E (velocity, with and without a viscous ``orig``)
 and A with ``orig``, each as its plain PyTorch version against the TPU
 kernel it replaces run in interpret mode (as tests/test_pallas.py runs
 them, block 16), then three steps of the 64^2 plume with unfused
-advection against ``simulate_step``; and the knobs the port does not
-implement, which raise.
+advection against ``simulate_step``; the knobs that raised before the
+port took their branches (the march trace and the gather engine, stepped
+against the JAX step); and the sim_method the step does not know, which
+raises.
 
 On the CPU the kernel wrappers run their plain versions (the tensors lie
 on the CPU), so these tests pin the semantics the CUDA kernels are held to
@@ -154,11 +156,15 @@ def test_unfused_plume_steps_match_jax():
 @pytest.mark.parametrize("knob", ["march", "compute_dtype", "gather",
                                   "mg_learned"])
 def test_unported_knobs_raise(knob):
-    """A knob whose JAX branch the port does not implement raises
-    NotImplementedError naming its ROADMAP item, instead of running
-    another branch; a sim_method the step does not know (mg_learned, which
-    the JAX step would run as Jacobi) raises naming the projection to pass
-    with sim_method "convnet"."""
+    """The knobs that raised before the port took their branches: the
+    march trace of the XLA path (use_pallas off) and the gather engine
+    now step as the JAX step does (two steps of the 16^2 plume against
+    ``simulate_step`` at 1e-5 of each field's largest value; JAX at
+    max_disp 1, which gives the same fields while no back-trace reaches a
+    cell away: the inlet moves 0.025 cells a step); every 2-D net takes
+    bfloat16 and another dtype raises; a sim_method the step does not
+    know (mg_learned, which the JAX step would run as Jacobi) raises
+    naming the projection to pass with sim_method "convnet"."""
     if knob == "compute_dtype":
         # Every 2-D net takes bfloat16 (kernel B's bfloat16 route; the
         # tower and ScaleNet since ROADMAP A.4.3); another dtype raises.
@@ -174,13 +180,30 @@ def test_unported_knobs_raise(knob):
     cfg, state, _ = plume_case(16, device="cpu", sim_method="jacobi",
                                jacobi_iter=2)
     assert cfg.use_pallas and simulate_step(cfg, state) is not None
+    if knob == "mg_learned":
+        with pytest.raises(NotImplementedError,
+                           match="make_project_fn_mg_learned"):
+            simulate_step(dataclasses.replace(cfg, sim_method="mg_learned"),
+                          state)
+        return
     bad = {"march": dict(use_pallas=False),
-           "gather": dict(advection_impl="gather"),
-           "mg_learned": dict(sim_method="mg_learned")}[knob]
-    match = {"march": "ROADMAP A.6", "gather": "ROADMAP A.6",
-             "mg_learned": "make_project_fn_mg_learned"}[knob]
-    with pytest.raises(NotImplementedError, match=match):
-        simulate_step(dataclasses.replace(cfg, **bad), state)
+           "gather": dict(use_pallas=False, advection_impl="gather")}[knob]
+    cfg = dataclasses.replace(cfg, **bad)
+    jcfg = j_config(**{f.name: getattr(cfg, f.name)
+                       for f in dataclasses.fields(cfg)})
+    jcfg = dataclasses.replace(jcfg, max_disp=1)
+    jstate = j_scene(16, 16, density_val=0.1, u_scale=0.25, rad=0.145)
+    jax_step = jax.jit(lambda s: j_step(jcfg, s))
+    with torch.no_grad():
+        for _ in range(2):
+            jstate = jax_step(jstate)
+            state = simulate_step(cfg, state)
+            assert cfg.dt * float(jnp.abs(jstate.U).max()) < 1.0
+            for field in ("U", "density", "p"):
+                want = np.asarray(getattr(jstate, field))
+                np.testing.assert_allclose(
+                    getattr(state, field).numpy(), want, rtol=0,
+                    atol=1e-5 * max(np.abs(want).max(), 1e-6))
 
 
 def test_march_without_density_runs():

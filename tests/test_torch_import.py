@@ -28,7 +28,11 @@ for mod in ('train.trainer', 'train.losses', 'train.checkpoint',
             'utils.vtk_export', 'utils.plotting', 'scripts',
             'scripts.run_plume', 'scripts.run_rayleigh_taylor',
             'scripts.run_cylinder', 'scripts.train_mg_coarse',
-            'ops.kernels.conv_grad3'):
+            'ops.kernels.conv_grad3', 'scripts.run_blob3d',
+            'scripts.eval_parity', 'scripts.quality_per_ms',
+            'scripts.make_dataset', 'scripts.preprocess_data',
+            'ops.advection', 'ops.grid', 'ops.line_trace',
+            'ops.line_trace3', 'ops.window', 'ops.window3'):
     assert 'fluidnet_cxx_tpu_torch.' + mod in names, (mod, names)
 # PyYAML and matplotlib are not imported with the port, and the YAML
 # reader runs with PyYAML made unimportable.
@@ -82,6 +86,18 @@ ENTRY_POINTS = {
     "twin_train_mg_coarse": "main(['--res', '64', '--coarseSize', '32', "
                             "'--frames', '2', '--steps', '1', "
                             "'--modelDir', 'unused'])",
+    "twin_run_blob3d": "main(['--res', '16', '--maxIter', '1', "
+                       "'--statIter', '1', '--outputFolder', 'unused'])",
+    "twin_eval_parity": "main(['--res', '32', '--iters', '2', "
+                        "'--statIter', '1', '--out', 'unused'])",
+    "twin_quality_per_ms": "main(['--modelDir', "
+                           "'trained_models/PUNetD2_128', '--res', '32', "
+                           "'--iters', '2', '--statIter', '1', "
+                           "'--out', 'unused/qpm.json'])",
+    "twin_make_dataset": "main(['--res', '32', '--scenesTr', '1', "
+                         "'--scenesTe', '0', '--out', 'unused'])",
+    "bench3d.xla": "main(['--res', '16', '--steps', '1', '--reps', '1', "
+                   "'--xla'])",
 }
 # The training entry point is run as ``python -m fluidnet_cxx_tpu_torch.
 # train``: its main() lives in train/__main__.py; the scene drivers' twins
@@ -89,7 +105,11 @@ ENTRY_POINTS = {
 MODULES = {"train": "train.__main__", "twin_plume": "scripts.run_plume",
            "twin_rayleigh_taylor": "scripts.run_rayleigh_taylor",
            "twin_cylinder": "scripts.run_cylinder",
-           "twin_train_mg_coarse": "scripts.train_mg_coarse"}
+           "twin_train_mg_coarse": "scripts.train_mg_coarse",
+           "twin_run_blob3d": "scripts.run_blob3d",
+           "twin_eval_parity": "scripts.eval_parity",
+           "twin_quality_per_ms": "scripts.quality_per_ms",
+           "twin_make_dataset": "scripts.make_dataset"}
 
 RUN_WITHOUT_CARD = """
 import torch

@@ -1,6 +1,7 @@
 """The 3-D ops of the classical step, port against the JAX package on the
 CPU from the same numpy inputs: each ported ``ops3d`` function, the window
-samplers of ``window3``, the first-hit trace of ``line_trace3``, the wall
+samplers of ``window3``, the first-hit trace of ``line_trace3``, the
+gather and Euler engines and the march trace of ``advect_scalar3``, the wall
 BCs of the step with each periodic override, and the plume scene.
 
 Inputs: 8x16x12 grids, two samples, the border shell plus 8% random
@@ -200,11 +201,18 @@ def test_line_trace_firsthit3_matches_jax(fields, positions):
 
 
 def test_unported_advection_raises(fields):
-    """Gather, Euler and the march trace raise, naming ROADMAP A.6."""
-    tf, tU, trho = T(fields["flags"]), T(fields["U"]), T(fields["rho"])
+    """The engines that raised before the port took them (ROADMAP A.6):
+    gather, Euler and the march trace (with the window lookup at D=1),
+    against the JAX package's advect_scalar3 and advect_velocity3."""
+    f, U, rho = fields["flags"], fields["U"], fields["rho"]
+    tf, tU, trho = T(f), T(U), T(rho)
     for kw in (dict(impl="gather"), dict(method="eulerFluidNet"),
                dict(line_trace=True, line_trace_impl="march")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            ops3d.advect_scalar3(0.1, trho, tU, tf, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-        ops3d.advect_velocity3(0.1, tU, tf, impl="gather")
+        kw = dict(kw, max_disp=1)
+        want = jax.jit(lambda r, u, fl: j_ops3d.advect_scalar3(
+            0.1, r, u, fl, **kw))(rho, U, f)
+        close(ops3d.advect_scalar3(0.1, trho, tU, tf, **kw), want)
+    for kw in (dict(impl="gather"), dict(method="eulerFluidNet")):
+        want = jax.jit(lambda u, fl: j_ops3d.advect_velocity3(
+            0.1, u, fl, max_disp=1, **kw))(U, f)
+        close(ops3d.advect_velocity3(0.1, tU, tf, max_disp=1, **kw), want)

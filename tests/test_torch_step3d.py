@@ -4,7 +4,8 @@ merged advection with the first-hit trace and separate advection without
 it; the entry point ``run_plume3d``; the branches the port took in its
 last 3-D slice (the flax-path projection, multigrid, viscosity, stick
 walls, vorticity confinement, output_div), each against the JAX step; and
-the branches the port does not implement, which raise.
+the gather and Euler engines and the march trace (ROADMAP A.6), each
+against the JAX step.
 
 The port runs ``run_plume3d.plume3d_case`` (bench3d's configuration,
 max_disp 2). JAX runs the same configuration on its XLA path
@@ -101,19 +102,36 @@ def test_run_plume3d_on_cpu():
 
 @pytest.mark.parametrize("branch", ["gather", "euler", "march"])
 def test_unported_branches_raise(branch):
-    """The branches of the JAX step that the port does not implement (the
-    gather and Euler advection and the march trace of the XLA path) raise
-    NotImplementedError naming ROADMAP A.6; the march trace also where the
-    JAX step leaves its Pallas path for viscosity."""
+    """The branches that raised before the port took them (the gather and
+    Euler advection and the march trace of the XLA path, the march also
+    where the JAX step leaves its Pallas path for viscosity) now step as
+    the JAX step does: two steps of the 6^3 plume each, against
+    ``simulate_step3`` at 1e-5 of each field's largest value (JAX at
+    max_disp 1, as the module's other cases)."""
     cfg, state = plume3d_case(6, device="cpu", jacobi_iter=2)
     assert simulate_step3(cfg, state) is not None
-    bad = {"gather": [dict(advection_impl="gather")],
-           "euler": [dict(advection_method="eulerFluidNet")],
-           "march": [dict(use_pallas=False, line_trace=True),
-                     dict(viscosity=0.1, line_trace=True)]}[branch]
-    for kw in bad:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-            simulate_step3(dataclasses.replace(cfg, **kw), state)
+    changes = {"gather": [dict(advection_impl="gather")],
+               "euler": [dict(advection_method="eulerFluidNet")],
+               "march": [dict(use_pallas=False, line_trace=True),
+                         dict(viscosity=0.1, line_trace=True)]}[branch]
+    jstate0 = j_scene3(6, 6, 6, density_val=0.1, u_scale=0.6 * 6 / 64.0)
+    for kw in changes:
+        bad = dataclasses.replace(cfg, **kw)
+        jcfg = dataclasses.replace(
+            j_config(**{f.name: getattr(bad, f.name)
+                        for f in dataclasses.fields(bad)}), max_disp=1)
+        jstate, st = jstate0, state
+        jax_step = jax.jit(lambda s: j_step3(jcfg, s))
+        with torch.no_grad():
+            for _ in range(2):
+                jstate = jax_step(jstate)
+                st = simulate_step3(bad, st)
+                assert bad.dt * float(jnp.abs(jstate.U).max()) < 1.0
+                for field in ("U", "density", "p"):
+                    want = np.asarray(getattr(jstate, field))
+                    np.testing.assert_allclose(
+                        getattr(st, field).numpy(), want, rtol=0,
+                        atol=1e-5 * max(np.abs(want).max(), 1e-6))
 
 
 # The branches that raised before the port took them: each a case of the
