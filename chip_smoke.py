@@ -254,7 +254,25 @@ Phases (each prints its elapsed seconds):
      (--res 512 --iters 100 --statIter 50 --jacobi 28,200 --mg 2 --polish
      32: A, F, H, B and G), `make_dataset` (2+1 scenes at 128^2, 16
      frames: A and H) and `preprocess_data` over them, each with its
-     launches by kernel and finite output.
+     launches by kernel and finite output;
+  11. multi-device (ROADMAP A.8, phase_multidevice): one NCCL rank on the
+     card (an all_reduce, the sharded Jacobi at dp = sx = 1 bit for bit),
+     then two gloo ranks sharing it (NCCL refuses two ranks on one
+     device): the sharded Jacobi-34 at sx = 2 on the 8000x800
+     cylinder's flags bit for bit against F on the whole grid, the
+     cylinder, the 512^2 plume under use_pallas and the 128^3 plume
+     merged and unfused, each sharded at sx = 2 against the
+     single-process steps (within about three times the difference
+     measured: the slabs trace in their own coordinates), the same four
+     cases from a velocity in multiples of 1/8 at dt 1/4 without the line
+     trace (every back-traced position exact in any coordinates) bit for
+     bit, which holds the halo's reach on A, E, K, L and M; the tower's DP train
+     step at 128^2, batch 64, dp = 2 (loss terms within 1e-5, the
+     gradient within 1e-4 relative L2, parameters bit-equal on both
+     ranks), with launches a sharded step; `parallel.dryrun --nproc 2
+     --backend gloo`; the plume twin without --fast at 128^2. Every time
+     beside the card's name and power limit; two ranks on one card
+     measure no scaling.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L, phase_new3d, the
 new 3-D small checks and the 3-D paths with J, M or multigrid
@@ -274,7 +292,8 @@ input gradient of phase 8 alone, every route on every layer
 and the kernels line of its six rows (train3d_only), `python3
 chip_smoke.py --mg-coarse-only` phase 8c alone and the kernels line of
 its twelve rows (mg_coarse_only), `python3 chip_smoke.py --engines-only`
-phase 10 alone (phase_engines).
+phase 10 alone (phase_engines), `python3 chip_smoke.py --multi-only`
+phase 11 alone (phase_multidevice).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -5177,7 +5196,10 @@ def twin_argv(twin, flags, changes, work, run, out, restart=False):
     from fluidnet_cxx_tpu_torch.config import dump_yaml, load_yaml
 
     max_iter, stat_iter = run
-    argv = flags + ["--maxIter", str(max_iter), "--outputFolder", str(out)]
+    # --fast: the kernels' path (A, D, E with the first-hit trace), which
+    # each case's kernels name.
+    argv = flags + ["--fast", "--maxIter", str(max_iter), "--outputFolder",
+                    str(out)]
     argv += ["--restartSim"] if restart else []
     if changes is None:
         return argv + ["--statIter", str(stat_iter), "--realTimePlot",
@@ -5533,6 +5555,425 @@ def train_only(dev):
     print(json.dumps({"kernels": train_rows(results, launches)}))
 
 
+# The multi-device phase (ROADMAP A.8): its sizes.
+MULTI = dict(cyl=(CYL_W, CYL_H), cyl_steps=5, res2=RES, res3=RES3,
+             steps3=3, train_res=TRAIN_RES, train_bsz=TRAIN_BSZ,
+             train_steps=3, plume_res=128, plume_steps=20)
+# Sharded against single-process steps on the scenes, as a share of each
+# field's largest value (at least 1). Each slab traces in its own
+# coordinates (fluidnet_cxx_tpu_torch/parallel/step.py), so a back-traced
+# position may round apart from the whole grid's, and the sample with it.
+# The differences are deterministic: on an H100 this phase measures
+# 3.219e-5 of the largest value on the cylinder, 2.146e-6 on the 512^2
+# plume and 3.471e-6 on the 128^3 plume; each tolerance is about three
+# times that.
+MULTI_STEP_TOL = dict(cylinder=1e-4, plume=7e-6, plume3d=1e-5)
+# The DP train step against the single-process step on the whole batch:
+# the loss terms (share of each term) and the gradient (relative L2 over
+# every parameter).
+MULTI_LOSS_TOL, MULTI_GRAD_TOL = 1e-5, 1e-4
+MULTI_TIMEOUT_S, MULTI_JOIN_S = 180.0, 420.0
+
+
+def _multi_timed(fn, dev):
+    """(result, ms) of ``fn()`` by CUDA events."""
+    torch.cuda.synchronize(dev)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _multi_held(name, got, want, tol):
+    """Raise unless ``got`` and ``want`` (tuples of tensors) are equal to
+    the bit (``tol`` None) or agree within ``tol`` of each one's largest
+    value (at least 1); returns (max error, max error as that share,
+    whether every field is equal to the bit, the share of values that
+    differ)."""
+    err, rel, equal, differ, total = 0.0, 0.0, True, 0, 0
+    for g, w in zip(got, want):
+        g = g.to(w.device)
+        e = float((g - w).abs().max())
+        r = e / max(float(w.abs().max()), 1.0)
+        same = bool(torch.equal(g, w))
+        if (not bool(torch.isfinite(g).all())
+                or (not same if tol is None else r > tol)):
+            raise SystemExit(
+                f"{name}: {e:.3e} ({r:.3e} of its largest value) from the "
+                "single-process run (" + ("bit for bit" if tol is None
+                                          else f"tolerance {tol}") + ")")
+        err, rel = max(err, e), max(rel, r)
+        equal = equal and same
+        differ += int((g != w).sum())
+        total += w.numel()
+    return err, rel, equal, differ / total
+
+
+def multi_dyadic(state, seed, scale, obstacles=False):
+    """``state`` with a random U of std ``scale`` in multiples of 1/8 and
+    a random density in [0, 1) (at dt 1/4 without the line trace, every
+    back-traced position is exact in any coordinates), and with 8% random
+    obstacles inside the border when ``obstacles``."""
+    from fluidnet_cxx_tpu_torch.celltype import OBSTACLE
+
+    g = torch.Generator().manual_seed(seed)
+    dev = state.U.device
+    U = torch.round(torch.randn(state.U.shape, generator=g) * scale * 8) / 8
+    rho = torch.rand(state.density.shape, generator=g)
+    out = state._replace(U=U.to(dev), density=rho.to(dev))
+    if obstacles:
+        flags = state.flags.clone()
+        inner = flags[:, 1:-1, 1:-1]
+        hit = torch.rand(inner.shape, generator=g) < 0.08
+        inner[hit.to(dev)] = OBSTACLE
+        out = out._replace(flags=flags)
+    return out
+
+
+def multidevice_nccl_rank(card):
+    """One rank under NCCL on the card: an all_reduce and the sharded
+    Jacobi solve at dp = sx = 1, held to kernel F bit for bit."""
+    import torch.distributed as dist
+
+    from fluidnet_cxx_tpu_torch.ops.kernels.jacobi import solve_jacobi
+    from fluidnet_cxx_tpu_torch.parallel import (make_mesh,
+                                                 solve_jacobi_sharded)
+
+    mesh = make_mesh(1, backend="nccl", device="cuda")
+    t = torch.arange(8, dtype=torch.float32, device=mesh.device)
+    dist.all_reduce(t)
+    if not torch.equal(t, torch.arange(8, dtype=torch.float32,
+                                       device=mesh.device)):
+        raise SystemExit(f"one-rank NCCL all_reduce gave {t}")
+    flags, _, _ = stress_inputs(torch.Generator().manual_seed(SEED),
+                                mesh.device, RES)
+    div = torch.randn(flags.shape, generator=torch.Generator().manual_seed(
+        SEED + 1)).to(mesh.device)
+    got = solve_jacobi_sharded(flags, div, 34, mesh)
+    if not torch.equal(got, solve_jacobi(flags, div, 34)):
+        raise SystemExit("NCCL dp = sx = 1 Jacobi differs from kernel F")
+    print(f"multi [1/7] NCCL one rank on {mesh.device}: all_reduce exact, "
+          f"solve_jacobi_sharded at dp = sx = 1 bit-equal to F ({RES}^2, "
+          f"34 sweeps); {card}", flush=True)
+
+
+def multidevice_ranks(card):
+    """Two gloo ranks on one card: the sharded Jacobi at sx = 2 on the
+    cylinder's flags, the sharded cylinder and plume steps (on the scenes
+    and from dyadic velocities), and the DP train step, each held to the
+    single-process run in the same call. Rank 0 prints."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from fluidnet_cxx_tpu_torch.config import SimConfig, TrainConfig
+    from fluidnet_cxx_tpu_torch.data.synthetic import generate_batch
+    from fluidnet_cxx_tpu_torch.models.fluidnet import FluidNet
+    from fluidnet_cxx_tpu_torch.ops.kernels.jacobi import solve_jacobi
+    from fluidnet_cxx_tpu_torch.ops.stencils import velocity_divergence
+    from fluidnet_cxx_tpu_torch.parallel import (
+        batch_sharding, gather_state, make_mesh, simulate_step3_sharded,
+        simulate_step_sharded, solve_jacobi_sharded, state_sharding)
+    from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case
+    from fluidnet_cxx_tpu_torch.run_plume import plume_case
+    from fluidnet_cxx_tpu_torch.run_plume3d import plume3d_case
+    from fluidnet_cxx_tpu_torch.sim.step import simulate_step
+    from fluidnet_cxx_tpu_torch.sim.step3d import simulate_step3
+    from fluidnet_cxx_tpu_torch.train.trainer import (
+        Batch, init_train_state, make_loss_fn, make_train_step)
+
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    sx_mesh = make_mesh(2, dp=1, sx=2, backend="gloo", device="cuda")
+    dev = sx_mesh.device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = launch_counters()
+
+    def say(line):
+        if rank == 0:
+            print(f"multi {line}; {card}", flush=True)
+
+    def launches_of_run(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        return out, {k: c.launches for k, c in counters.items()
+                     if c.launches}
+
+    # [2/7] The sharded Jacobi on the cylinder's flags.
+    w, h = MULTI["cyl"]
+    cfg, state, _ = cylinder_case(w, h, dev)
+    flags = state.flags
+    div = velocity_divergence(state.U, flags)
+    reps = 5
+
+    def single_solve():
+        for _ in range(reps):
+            p = solve_jacobi(flags, div, 34)
+        return p
+    want, want_ms = None, 0.0
+    if rank == 0:
+        single_solve()
+        want, want_ms = _multi_timed(single_solve, dev)
+    dist.barrier()
+    f_s, d_s = state_sharding(sx_mesh, flags), state_sharding(sx_mesh, div)
+    solve_jacobi_sharded(f_s, d_s, 34, sx_mesh)
+    sx_mesh.exchanges = sx_mesh.solver_calls = 0
+
+    def sharded_solve():
+        for _ in range(reps):
+            p = solve_jacobi_sharded(f_s, d_s, 34, sx_mesh)
+        return p
+    p, ms = _multi_timed(sharded_solve, dev)
+    counts = (sx_mesh.exchanges // reps, sx_mesh.solver_calls // reps)
+    got = gather_state(sx_mesh, p)
+    if rank == 0 and not torch.equal(got, want):
+        raise SystemExit("solve_jacobi_sharded at sx = 2 differs from F on "
+                         "the whole grid")
+    say(f"[2/7] solve_jacobi_sharded sx = 2 on the {w}x{h} cylinder's "
+        f"flags, 34 sweeps: bit-equal to F on the whole grid; "
+        f"{counts[0]} exchanges and {counts[1]} F calls a solve; "
+        f"{ms / reps:.3f} ms a solve (rank 0, both ranks on one card; "
+        f"mean of {reps} after one) against F's {want_ms / reps:.3f} ms")
+
+    def step_pair(label, n, step, sharded, cfg, state, fields, kernels,
+                  tol):
+        """n steps from ``state``, single-process on rank 0 and sharded,
+        each timed after one warm-up step whose result is dropped, held
+        within ``tol`` (None: bit for bit)."""
+        ref, ref_ms = None, 0.0
+        if rank == 0:
+            def single():
+                s = state
+                for _ in range(n):
+                    s = step(cfg, s)
+                return s
+            step(cfg, state)
+            ref, ref_ms = _multi_timed(single, dev)
+        dist.barrier()
+        start = state_sharding(sx_mesh, state)
+
+        def run():
+            s = start
+            for _ in range(n):
+                s = sharded(cfg, s, sx_mesh)
+            return s
+        sharded(cfg, start, sx_mesh)
+        (out, ms), launches = launches_of_run(lambda: _multi_timed(run, dev))
+        missed = [k for k in kernels if k not in launches]
+        if missed:
+            raise SystemExit(f"{label}: the sharded step missed kernels "
+                             f"{missed}: {launches}")
+        got = gather_state(sx_mesh, out)
+        if rank == 0:
+            err, rel, equal, share = _multi_held(
+                label, [getattr(got, f) for f in fields],
+                [getattr(ref, f) for f in fields], tol)
+            held = ("held bit for bit" if tol is None
+                    else f"tolerance {tol:.3g} of the largest value")
+            say(f"{label}: sx = 2, {n} steps, {ms / n:.3f} ms/step sharded "
+                f"(rank 0) against {ref_ms / n:.3f} single-process; max "
+                f"|sharded - single| {err:.3e}, {rel:.3e} of the largest "
+                f"value ({'bit-equal' if equal else f'{share:.2e} of values differ'}"
+                f"; {held}); launches a step on rank 0 "
+                f"{ {k: v / n for k, v in launches.items()} }")
+
+    # Each case on its scene (within MULTI_STEP_TOL), then one step from
+    # a dyadic velocity at dt 1/4 without the line trace (bit for bit).
+    dyadic = dict(dt=0.25, line_trace=False)
+    with torch.no_grad():
+        step_pair(f"[3/7] cylinder {w}x{h} jacobi-34", MULTI["cyl_steps"],
+                  simulate_step, simulate_step_sharded, cfg, state,
+                  ("p", "U"), "EF", MULTI_STEP_TOL["cylinder"])
+        step_pair(f"[3/7] cylinder {w}x{h} jacobi-34, dyadic", 1,
+                  simulate_step, simulate_step_sharded,
+                  dataclasses.replace(cfg, **dyadic),
+                  multi_dyadic(state, SEED + 6, 12.0),
+                  ("p", "U"), "EF", None)
+        del state, flags, div, f_s, d_s, p, got, want
+        r2 = MULTI["res2"]
+        cfg2, state2, _ = plume_case(r2, dev, sim_method="jacobi")
+        step_pair(f"[3/7] plume {r2}^2 jacobi-200 (use_pallas: A, F)",
+                  MULTI["cyl_steps"], simulate_step, simulate_step_sharded,
+                  cfg2, state2, ("p", "U", "density"), "AF",
+                  MULTI_STEP_TOL["plume"])
+        step_pair(f"[3/7] plume {r2}^2 jacobi-200 (use_pallas: A, F), "
+                  "dyadic with 8% obstacles and vorticity confinement", 1,
+                  simulate_step, simulate_step_sharded,
+                  dataclasses.replace(cfg2, vorticity_confinement=0.2,
+                                      **dyadic),
+                  multi_dyadic(state2, SEED + 4, 20.0, obstacles=True),
+                  ("p", "U", "density"), "AF", None)
+        del state2
+        r3 = MULTI["res3"]
+        for fused, kernels in ((True, "LI"), (False, "KMI")):
+            cfg3, state3 = plume3d_case(r3, dev, fuse_advection=fused,
+                                        line_trace=fused)
+            label = (f"[4/7] plume3d {r3}^3 jacobi-60 "
+                     f"{'merged with the trace' if fused else 'unfused'}"
+                     f" ({', '.join(kernels)})")
+            step_pair(label, MULTI["steps3"], simulate_step3,
+                      simulate_step3_sharded, cfg3, state3,
+                      ("p", "U", "density"), kernels,
+                      MULTI_STEP_TOL["plume3d"])
+            step_pair(label.replace(" with the trace", "") + ", dyadic "
+                      "with vorticity confinement", 1, simulate_step3,
+                      simulate_step3_sharded,
+                      dataclasses.replace(cfg3, vorticity_confinement=0.2,
+                                          **dyadic),
+                      multi_dyadic(state3, SEED + 8, 6.0),
+                      ("p", "U", "density"), kernels, None)
+            del state3
+
+    # [5/7] The DP train step: the tower at train_res^2, batch train_bsz.
+    dp_mesh = make_mesh(2, dp=2, sx=1, backend="gloo", device="cuda")
+    res, bsz = MULTI["train_res"], MULTI["train_bsz"]
+    tc, sc = TrainConfig(), SimConfig()
+    model = FluidNet(train_cfg("FluidNet")).to(dev)
+    ts = init_train_state(model, tc, seed=0)
+    train_step, _ = make_train_step(model, sc, tc, mesh=dp_mesh)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    with torch.no_grad():
+        batch = Batch(*generate_batch(gen, bsz, res, res, 600, dev))
+    shard = batch_sharding(dp_mesh, batch)
+    host_gen = torch.Generator().manual_seed(4321)
+    ref_model = FluidNet(train_cfg("FluidNet")).to(dev)
+    ref_loss = make_loss_fn(ref_model, sc, tc)
+    worst_loss = worst_grad = 0.0
+    dp_ms = ref_ms = 0.0
+    tcounters = train_counters()
+    dp_launches = dict.fromkeys(tcounters, 0)
+    for it in range(MULTI["train_steps"]):
+        for c in tcounters.values():
+            c.launches = 0
+        before = {k: v.detach().clone()
+                  for k, v in model.net.state_dict().items()}
+        (_, terms), ms = _multi_timed(
+            lambda: train_step(ts, shard, host_gen), dev)
+        dp_ms += ms
+        for k, c in tcounters.items():
+            dp_launches[k] += c.launches
+        grads = [p.grad.detach().clone() for p in model.net.parameters()]
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in model.net.parameters()])
+        both = gather_state(dp_mesh, flat[None])
+        if not torch.equal(both[0], both[1]):
+            raise SystemExit(f"DP step {it}: the ranks' parameters differ")
+        if rank == 0:
+            ref_model.net.load_state_dict(before)
+            ref_model.net.zero_grad(set_to_none=True)
+
+            def single():
+                total, t = ref_loss(batch, draw=train_step.last_draw)
+                total.backward()
+                return t
+            want_terms, ms = _multi_timed(single, dev)
+            ref_ms += ms
+            for g, w_ in zip(terms, want_terms):
+                w_ = w_.detach()
+                e = float((g - w_).abs()) / max(float(w_.abs()), 1e-12)
+                worst_loss = max(worst_loss, e if float(w_.abs()) > 0
+                                 else float(g.abs()))
+            # Over the whole gradient: some are rounding noise about 0
+            # (convOut's bias), where a per-tensor ratio means nothing.
+            g_dp = torch.cat([g.reshape(-1) for g in grads])
+            g_ref = torch.cat([p.grad.reshape(-1)
+                               for p in ref_model.net.parameters()])
+            worst_grad = max(worst_grad, float(
+                torch.linalg.vector_norm(g_dp - g_ref)
+                / torch.linalg.vector_norm(g_ref)))
+            if worst_loss > MULTI_LOSS_TOL or worst_grad > MULTI_GRAD_TOL:
+                raise SystemExit(
+                    f"DP step {it}: loss terms {worst_loss:.3e} (tolerance "
+                    f"{MULTI_LOSS_TOL}), gradients {worst_grad:.3e} relative "
+                    f"L2 (tolerance {MULTI_GRAD_TOL}) from the "
+                    "single-process step on the whole batch")
+        dist.barrier()
+    n = MULTI["train_steps"]
+    say(f"[5/7] DP train step, FluidNetTower {res}^2 batch {bsz} (dp = 2, "
+        f"{bsz // 2} a rank), LT on, {n} steps: loss terms within "
+        f"{worst_loss:.2e} of each term and gradients within "
+        f"{worst_grad:.2e} relative L2 of the single-process step on the "
+        f"whole batch, parameters bit-equal on both ranks; "
+        f"{dp_ms / n:.2f} ms/step DP (rank 0, both ranks on one card) "
+        f"against {ref_ms / n:.2f} ms for the single-process loss and "
+        f"backward; launches a DP step on rank 0 "
+        f"{ {k: v / n for k, v in dp_launches.items()} }")
+
+
+def phase_multidevice(card):
+    """Multi-device (ROADMAP A.8): [1/7] one NCCL rank on the card;
+    [2/7]-[5/7] two gloo ranks sharing cuda:0 (NCCL refuses two ranks on
+    one device; they load the built library, never rebuild):
+    solve_jacobi_sharded at sx = 2 on the cylinder's flags bit for bit,
+    the 8000x800 cylinder (E, F), the 512^2 plume under use_pallas (A, F)
+    and the 128^3 plume3d merged (L, I) and unfused (K, M, I) sharded at
+    sx = 2 against the single-process steps (on the scenes within
+    MULTI_STEP_TOL, from dyadic velocities bit for bit), the DP train
+    step against
+    the single-process one; [6/7] the parallel.dryrun twin with --nproc 2 --backend gloo;
+    [7/7] the plume twin without --fast (the march trace) at 128^2. Two
+    ranks on one card measure no scaling: the times show the overhead of
+    the exchanges, not a speed-up."""
+    import tempfile
+    from pathlib import Path
+
+    from fluidnet_cxx_tpu_torch.parallel.launch import spawn
+
+    done = phase("multi-device (A.8)")
+    print(f"multi: two ranks share one card here, so no time below "
+          f"measures scaling; {card}", flush=True)
+    spawn(multidevice_nccl_rank, 1, (card,), backend="nccl",
+          timeout_s=MULTI_TIMEOUT_S, join_s=MULTI_JOIN_S)
+    spawn(multidevice_ranks, 2, (card,), backend="gloo",
+          timeout_s=MULTI_TIMEOUT_S, join_s=MULTI_JOIN_S)
+
+    cmd = [sys.executable, "-m", "fluidnet_cxx_tpu_torch.parallel.dryrun",
+           "--nproc", "2", "--backend", "gloo", "--device", "cuda",
+           "--timeout", str(MULTI_TIMEOUT_S)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True,
+                         timeout=MULTI_JOIN_S)
+    if out.returncode != 0 or "dryrun_multichip OK" not in out.stdout:
+        raise SystemExit(f"parallel.dryrun failed ({out.returncode}):\n"
+                         f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    print(out.stdout.strip(), flush=True)
+    print(f"multi [6/7] parallel.dryrun --nproc 2 --backend gloo OK in "
+          f"{time.perf_counter() - t0:.1f} s (spawn included); {card}",
+          flush=True)
+
+    from fluidnet_cxx_tpu_torch.config import dump_yaml, load_yaml
+    from fluidnet_cxx_tpu_torch.scripts import run_plume as twin
+
+    counters = launch_counters()
+    with tempfile.TemporaryDirectory() as work:
+        res, n = MULTI["plume_res"], MULTI["plume_steps"]
+        conf = dict(load_yaml("configs/plume.yaml"), realTimePlot=False,
+                    statIter=n)
+        path = str(Path(work) / "plume.yaml")
+        dump_yaml(conf, path)
+        for c in counters.values():
+            c.launches = 0
+        r = twin.main(["--simConf", path, "--resX", str(res), "--resY",
+                       str(res), "--maxIter", str(n), "--outputFolder",
+                       str(Path(work) / "out"), "--device", "cuda"])
+        launches = {k: c.launches / n for k, c in counters.items()
+                    if c.launches}
+    if not r["finite"] or "A" in launches or "E" not in launches:
+        raise SystemExit(f"plume twin without --fast: finite {r['finite']},"
+                         f" launches a step {launches}")
+    print(f"multi [7/7] scripts.run_plume without --fast (the march trace "
+          f"on the torch engines, the velocity on E), {res}^2, {n} steps: "
+          f"{r['ms_per_step']:.3f} ms/step with outputs, mean|div| "
+          f"{r['mean_div']:.4g}; launches a step {launches}; {card}",
+          flush=True)
+    done()
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     if not torch.cuda.is_available():
@@ -5543,7 +5984,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     print(sys.version.split()[0], torch.__version__, torch.version.cuda,
           flush=True)
     done()
@@ -5613,6 +6055,9 @@ def main():
     if sys.argv[1:] == ["--engines-only"]:
         phase_engines(launch_counters())
         return
+    if sys.argv[1:] == ["--multi-only"]:
+        phase_multidevice(card)
+        return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
@@ -5636,6 +6081,7 @@ def main():
     bf16_launches = phase_train_bf16(dev, results)
     phase_drivers()
     phase_engines(counters)
+    phase_multidevice(card)
 
     # Launches of each kernel on the first main path that must launch it.
     path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)

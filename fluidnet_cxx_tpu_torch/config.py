@@ -139,6 +139,20 @@ def load_model_config(model_dir: str) -> ModelConfig:
     return ModelConfig(**d)
 
 
+def save_config(conf, path: str):
+    """Write a config dict as JSON (indent 2; what JSON cannot hold as
+    its string)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(conf, f, indent=2, default=str)
+
+
+def load_config(path: str):
+    """A config dict from a ``save_config`` JSON file."""
+    with open(path) as f:
+        return json.load(f)
+
+
 def _g(d: Dict[str, Any], key: str, default):
     return d[key] if key in d and d[key] is not None else default
 

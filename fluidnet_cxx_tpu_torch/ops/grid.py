@@ -10,6 +10,11 @@ from ..celltype import FLUID
 from .common import F32, I32, border_mask, gather2d, nb, where0
 
 
+def get_dx(h: int, w: int, d: int = 1) -> float:
+    """dx = 1 / max(dims)."""
+    return 1.0 / float(max(d, h, w))
+
+
 def get_centered(U):
     """MAC -> cell-centre velocity, zero on the 1-ring border."""
     _, _, h, w = U.shape

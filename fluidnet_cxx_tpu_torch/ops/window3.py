@@ -14,7 +14,8 @@ import torch
 
 from ..celltype import FLUID
 from .common import F32, I32
-from .ops3d import corner_clamp3, gather3, index_grids3, neighbourhood_bounds3
+from .ops3d import (corner_clamp3, gather3, get_centered3, index_grids3,
+                    neighbourhood_bounds3)
 
 
 def _clip(a, lo, hi):
@@ -90,3 +91,9 @@ def make_blocked_lookup_window3(flags, D: int = 2):
         return ok & gather3(blocked, zi, yi, xi)
 
     return lookup
+
+
+def max_displacement3(U, dt):
+    """The 3-D twin of ``window.max_displacement``: dt * max|centred
+    velocity| of U (b, 3, d, h, w), a 0-d tensor."""
+    return dt * get_centered3(U).abs().max()

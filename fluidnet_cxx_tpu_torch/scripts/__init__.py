@@ -7,15 +7,15 @@ evaluations (``eval_parity``, ``quality_per_ms``), the data tools
 takes no ``--device``) and the trainers (``train3d``,
 ``train_mg_coarse``).
 
-The 2-D scene drivers differ from the JAX scripts in two ways. They
-always run as the JAX scripts' ``--fast`` does (``use_pallas=True``: the
-hand-written kernels and the first-hit line trace); ``--fast`` is
-accepted and changes nothing, where JAX's scripts without it run the
-march trace. And all three honour ``realTimePlot`` (true by default), where
-the JAX RT and cylinder scripts plot unconditionally: the plume and RT
-twins read it from their YAML, the cylinder twin, which reads none, from
-``--realTimePlot``. Where matplotlib is not installed, run them with it
-false.
+The 2-D scene drivers take ``--fast`` as the JAX scripts do: it sets
+``use_pallas`` (kernels A, D and E with the first-hit line trace);
+without it the step runs the config's engine and trace (the march trace
+of the density on the torch engines, the velocity on kernel E), as JAX's
+scripts run their XLA path. They differ from the JAX scripts in one way:
+all three honour ``realTimePlot`` (true by default), where the JAX RT and
+cylinder scripts plot unconditionally: the plume and RT twins read it from
+their YAML, the cylinder twin, which reads none, from ``--realTimePlot``.
+Where matplotlib is not installed, run them with it false.
 
 This module holds what the drivers share: the restart or the scene, the
 timed run and the finite check.

@@ -5,11 +5,12 @@
         [--resY 800] [--re 100] [--radius 80.5] [--centerX 500]
         [--inletVel 1] [--maxIter 5000] [--statIter 50] [--jacobiIter 34]
         [--outputFolder DIR] [--restartSim] [--simMethod X] [--modelDir DIR]
-        [--realTimePlot false] [--device cpu]
+        [--realTimePlot false] [--fast] [--device cpu]
 
 A no-slip (stick) disc in a channel with a left-wall inlet, viscosity
 from Re (nu = |u| * 2 radius / Re), ``cylinder_config`` with
-``--jacobiIter`` sweeps: the case of ``run_cylinder.py::cylinder_case``.
+``--jacobiIter`` sweeps: the case of ``run_cylinder.py::cylinder_case``,
+with ``use_pallas`` only under ``--fast``, as in the JAX script.
 ``--simMethod`` jacobi (kernel F), multigrid (kernel H) or convnet (the
 network of ``--modelDir``, default ``trained_models/PUNetD2_128``, on the
 flax path ``models/fluidnet.py::make_project_fn``, as the JAX script runs
@@ -26,6 +27,7 @@ time, mean|div| and max|div| over fluid cells, max|U| and the last
 ``it``.
 """
 import argparse
+import dataclasses
 import json
 import os
 
@@ -62,8 +64,8 @@ def parse_args(argv=None):
     ap.add_argument("--outputFolder", default="out/cylinder")
     ap.add_argument("--restartSim", action="store_true")
     ap.add_argument("--fast", action="store_true",
-                    help="accepted for the JAX script's sake: the port "
-                         "always runs its kernels with the first-hit trace")
+                    help="use_pallas: the advection kernels with the "
+                         "first-hit trace")
     ap.add_argument("--simMethod", default="jacobi",
                     choices=["jacobi", "convnet", "multigrid"])
     ap.add_argument("--modelDir", default=str(MODEL_DIR),
@@ -87,6 +89,7 @@ def main(argv=None):
         args.resX, args.resY, dev, args.re, args.radius, args.centerX,
         args.inletVel, args.jacobiIter, args.simMethod, args.modelDir,
         flax_path=True)
+    cfg = dataclasses.replace(cfg, use_pallas=args.fast)
     print(f"cylinder {args.resX}x{args.resY}, Re={args.re}, "
           f"nu={cfg.viscosity:.3f}", flush=True)
     state, it0 = initial_state(out, args.restartSim, scene, dev)

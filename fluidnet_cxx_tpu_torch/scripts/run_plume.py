@@ -4,7 +4,7 @@
     python -m fluidnet_cxx_tpu_torch.scripts.run_plume \\
         --simConf configs/plume.yaml [--modelDir DIR] [--outputFolder DIR]
         [--restartSim] [--simMethod X] [--resX N] [--resY N] [--maxIter N]
-        [--device cpu]
+        [--fast] [--device cpu]
 
 Reads a plumeConfig-style YAML (``config.py::load_yaml``), lets the flags
 override it, builds the ``SimConfig`` with ``sim_config_from_mconf`` and
@@ -19,9 +19,10 @@ The projections: "jacobi" (kernel F), "multigrid" (kernel H), "convnet"
 make_project_fn``: its convs on kernel B, its polish, the step's unfused
 branch; the weights are ``<modelDir>/torch_state_dict.pt``, converted from
 the orbax checkpoint) and "mg_learned" (``modelDir``'s MGCoarseNet as the
-coarse solve of one V-cycle of kernel G, run as "convnet"). The step runs
-as the JAX script's ``--fast`` does, whether ``--fast`` is given or not
-(see ``scripts/__init__.py``); ``--device`` is the port's own flag. The
+coarse solve of one V-cycle of kernel G, run as "convnet"). ``--fast``
+sets ``use_pallas`` (kernels A, D and E with the first-hit trace), as in
+the JAX script; without it the step runs the config's engine and trace
+(see ``scripts/__init__.py``). ``--device`` is the port's own flag. The
 last line is a JSON object: ms/step over the run loop (CUDA events on the
 card), the output time, mean|div| and max|div| over the fluid cells
 outside the inlet rows, the plume height and the last ``it``.
@@ -56,8 +57,8 @@ def parse_args(argv=None):
     ap.add_argument("--outputFolder", default="out/plume")
     ap.add_argument("--restartSim", action="store_true")
     ap.add_argument("--fast", action="store_true",
-                    help="accepted for the JAX script's sake: the port "
-                         "always runs its kernels with the first-hit trace")
+                    help="use_pallas: the advection kernels with the "
+                         "first-hit trace")
     ap.add_argument("--simMethod", default=None,
                     choices=[None, "convnet", "jacobi", "multigrid",
                              "mg_learned"])
@@ -106,7 +107,7 @@ def main(argv=None):
     dump_yaml(conf, os.path.join(out, "sim_config.yaml"))
 
     cfg = dataclasses.replace(sim_config_from_mconf(conf), sim_method=method,
-                              use_pallas=True)
+                              use_pallas=args.fast)
     cfg, project = projection(method, conf, cfg, dev)
     scene = create_plume_scene(
         res_x, res_y, density_val=float(conf.get("injectionDensity", 1.0)),

@@ -3,7 +3,7 @@
 
     python -m fluidnet_cxx_tpu_torch.scripts.run_rayleigh_taylor \\
         --simConf configs/rayleighTaylor.yaml [--outputFolder DIR]
-        [--restartSim] [--maxIter N] [--device cpu]
+        [--restartSim] [--maxIter N] [--fast] [--device cpu]
 
 Reads a rayleighTaylorConfig-style YAML and builds the case from it with
 ``run_rayleigh_taylor.py::rt_case_from_conf``: the RT defaults the JAX
@@ -11,7 +11,8 @@ script sets (``periodic-y`` true, ``periodic-x`` false, ``dt`` 0.5,
 ``buoyancyScale`` 1, ``gravityVec`` +y) filled in, the tanh interface from
 ``rho1``, ``rho2``, ``perturbThickness``, ``perturbAmplitude`` and
 ``height``, and the YAML's ``simMethod``: "jacobi" (kernel F) or
-"multigrid" (kernel G, periodic in y). At every ``statIter`` steps it
+"multigrid" (kernel G, periodic in y); ``use_pallas`` only under
+``--fast``, as in the JAX script. At every ``statIter`` steps it
 appends (time, interface distance) to ``distance.npy`` and (time, mean
 density) to ``avg_density.npy``, writes ``restart.npz`` (``--restartSim``
 resumes from it; the two histories start afresh, as in JAX) and, under
@@ -22,6 +23,7 @@ max|div| over fluid cells, the interface distance, the mean density and
 the last ``it``.
 """
 import argparse
+import dataclasses
 import json
 import os
 
@@ -45,8 +47,8 @@ def parse_args(argv=None):
     ap.add_argument("--outputFolder", default="out/rt")
     ap.add_argument("--restartSim", action="store_true")
     ap.add_argument("--fast", action="store_true",
-                    help="accepted for the JAX script's sake: the port "
-                         "always runs its kernels with the first-hit trace")
+                    help="use_pallas: the advection kernels with the "
+                         "first-hit trace")
     ap.add_argument("--maxIter", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -66,6 +68,7 @@ def main(argv=None):
     stat_iter = int(conf.get("statIter", 10))
     out = args.outputFolder
     cfg, scene = rt_case_from_conf(conf, dev)
+    cfg = dataclasses.replace(cfg, use_pallas=args.fast)
     save_png = bool(conf.get("realTimePlot", True))
     if save_png:
         require_matplotlib()

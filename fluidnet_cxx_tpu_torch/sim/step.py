@@ -117,19 +117,23 @@ def _scaled_gravity(gravity_vec, scale):
     return tuple(float(x) for x in g)
 
 
-def _wall_bcs(cfg, state, U):
+def _wall_bcs(cfg, state, U, x0: int = 0, last=None):
     """Free-slip walls, except under the convnet projection (the JAX step
     skips them there: the learned projection applies its own after its
     velocity update); the periodic overrides of the Rayleigh-Taylor
     scene: the first interior column's v (periodic_x) or row's u
     (periodic_y) takes the last column's or row's value from before the
     wall BCs; then the stick walls where the scene has them (every
-    projection)."""
+    projection). On a slab of a width-sharded grid (``parallel/step.py``)
+    whose first column is the grid's column ``x0``, periodic_x writes the
+    grid's column 1 where the slab holds it, from ``last``, the grid's
+    last column of v (by default the array's own)."""
     if cfg.sim_method != "convnet":
         U_before = U
         U = set_wall_bcs(U, state.flags)
-        if cfg.periodic_x:
-            U[:, 1, :, 1] = U_before[:, 1, :, -1]
+        if cfg.periodic_x and 0 <= 1 - x0 < U.shape[-1]:
+            U[:, 1, :, 1 - x0] = (U_before[:, 1, :, -1] if last is None
+                                  else last)
         if cfg.periodic_y:
             U[:, 0, 1, :] = U_before[:, 0, -1, :]
     if state.flags_stick is not None:

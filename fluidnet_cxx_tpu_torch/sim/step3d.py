@@ -74,18 +74,21 @@ def create_state3(b: int, d: int, h: int, w: int, device="cpu") -> SimState3:
 apply_const_vals3 = apply_const_vals
 
 
-def _wall_bcs3(cfg, state, U):
+def _wall_bcs3(cfg, state, U, x0: int = 0, last=None):
     """Free-slip walls, then the periodic overrides: at the first interior
     layer of a periodic axis both tangential components take the last
     layer's values from before the wall BCs; then the stick walls when the
     state has ``flags_stick``. No free-slip walls under convnet (the
     projection's tail applies them); the stick walls apply under every
-    method."""
+    method. ``x0`` and ``last`` as in ``sim/step.py::_wall_bcs``: on a
+    slab along w, periodic_x writes the grid's layer 1 from ``last``, the
+    grid's last layer of (v, w)."""
     if cfg.sim_method != "convnet":
         U_before = U
         U = set_wall_bcs3(U, state.flags)
-        if cfg.periodic_x:
-            U[:, 1:3, :, :, 1] = U_before[:, 1:3, :, :, -1]
+        if cfg.periodic_x and 0 <= 1 - x0 < U.shape[-1]:
+            U[:, 1:3, :, :, 1 - x0] = (U_before[:, 1:3, :, :, -1]
+                                       if last is None else last)
         if cfg.periodic_y:
             for c in (0, 2):
                 U[:, c, :, 1, :] = U_before[:, c, :, -1, :]

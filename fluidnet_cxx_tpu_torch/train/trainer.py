@@ -29,6 +29,21 @@ A and F. ``check_trainable`` refuses on the card what has no backward
 there: the "fused" and "mg" polish tails (JAX does not differentiate them
 either) and a float32 PUNet3; on the CPU the plain versions run.
 
+Data-parallel training (the twin of the JAX package's train step over a
+dp mesh, ``tests/test_parallel.py:62-93``): ``make_train_step(...,
+mesh=mesh)`` broadcasts the parameters from the dp group's first rank;
+each rank passes its shard of the batch (``parallel/mesh.py::
+batch_sharding``); after the backward the gradients are all-reduced over
+dp (one call on the flattened gradients) and divided by dp, so each
+rank's Adam takes the same step and the parameters stay equal to the bit
+across ranks; the loss terms are all-reduced to the global means, and the
+total is what the plateau sees on every rank; the long-term rollout's draw
+is the first rank's, broadcast. The mean of the ranks' means is the
+single-device mean over the whole batch: the shards are equal, and a
+``div_mask`` (whose masked means do not average so) raises. Width-sharded
+training (sx > 1) raises ``NotImplementedError``; it and the on-device
+and mixed steps under a mesh are ROADMAP A.8.2.
+
 3-D training (``scripts/train3d.py``'s, ``make_train_step3``):
 ``loss3``, the mean squared divergence of FluidNet3's projection (the
 masked mean on rollout frames), plain Adam, batches of
@@ -45,6 +60,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig, SimConfig, TrainConfig
 from ..data.synthetic import generate_batch
@@ -278,25 +294,91 @@ def _detached(terms: LossTerms) -> LossTerms:
     return LossTerms(*(t.detach() for t in terms))
 
 
-def make_train_step(model: FluidNet, sim_cfg: SimConfig, cfg: TrainConfig):
+def _dp_sum(t, mesh):
+    """``t`` summed over the mesh's dp group, divided by dp."""
+    dist.all_reduce(t, group=mesh.col)
+    return t / mesh.dp
+
+
+def _dp_first(mesh) -> int:
+    """The global rank of this rank's dp group's first member."""
+    return mesh.rank_of(0, mesh.sx_index)
+
+
+def broadcast_params(model, mesh):
+    """The dp group's first rank's parameters on every rank of it."""
+    with torch.no_grad():
+        for p in model.parameters():
+            dist.broadcast(p.data, src=_dp_first(mesh), group=mesh.col)
+
+
+def _shared_draw(draw, mesh):
+    """The dp group's first rank's ``(DynParams, n_steps)`` on every rank
+    (float32 values, carried exactly in float64)."""
+    dyn, n = draw
+    t = torch.tensor([dyn.dt, dyn.buoyancy_scale, dyn.gravity_scale,
+                      *dyn.gravity_vec, n], dtype=torch.float64,
+                     device=mesh.device)
+    dist.broadcast(t, src=_dp_first(mesh), group=mesh.col)
+    v = t.tolist()
+    return DynParams(v[0], v[1], v[2], tuple(v[3:6])), int(v[6])
+
+
+def make_train_step(model: FluidNet, sim_cfg: SimConfig, cfg: TrainConfig,
+                    mesh=None):
     """``(train_step, eval_step)``: ``train_step(ts, batch, host_gen=None,
     draw=None) -> (ts, LossTerms)`` updates ``ts`` (whose model is
     ``model``) in place; ``eval_step`` returns the terms without
-    gradient."""
+    gradient. Under a dp ``mesh`` (sx = 1) ``batch`` is this rank's shard,
+    the returned terms are the global means and ``train_step.last_draw``
+    the rollout's shared draw (see the module's note)."""
     loss_fn = make_loss_fn(model, sim_cfg, cfg)
+    if mesh is not None:
+        if mesh.sx > 1:
+            raise NotImplementedError(
+                f"make_train_step under a {mesh.dp}x{mesh.sx} mesh: "
+                "width-sharded training (conv halos per layer, the s2d patch "
+                "alignment) is ROADMAP A.8.2; it runs data-parallel (sx = 1)")
+        broadcast_params(model, mesh)
+
+    def run(batch, host_gen, draw):
+        if mesh is not None:
+            if batch.div_mask is not None:
+                raise NotImplementedError(
+                    "a div_mask under data parallelism: the ranks' masked "
+                    "means do not average to the whole batch's")
+            if cfg.div_lt_lambda > 0:
+                draw = _shared_draw(draw if draw is not None else
+                                    _sample_dyn(host_gen, sim_cfg, cfg), mesh)
+        train_step.last_draw = draw
+        return loss_fn(batch, host_gen, draw)
+
+    def global_terms(terms):
+        if mesh is None:
+            return _detached(terms)
+        t = _dp_sum(torch.stack([x.detach() for x in terms]), mesh)
+        return LossTerms(*t.unbind())
 
     def train_step(ts: TrainState, batch: Batch, host_gen=None, draw=None):
         ts.optimizer.adam.zero_grad(set_to_none=True)
-        total, terms = loss_fn(batch, host_gen, draw)
+        total, terms = run(batch, host_gen, draw)
         total.backward()
-        ts.optimizer.step(total)
+        if mesh is not None:
+            params = list(model.parameters())
+            flat = _dp_sum(torch.cat([p.grad.reshape(-1) for p in params]),
+                           mesh)
+            for p, g in zip(params, flat.split([p.numel() for p in params])):
+                p.grad.copy_(g.view_as(p))
+        terms = global_terms(terms)
+        ts.optimizer.step(terms.total)
         ts.step += 1
-        return ts, _detached(terms)
+        return ts, terms
 
     def eval_step(ts: TrainState, batch: Batch, host_gen=None, draw=None):
         with torch.no_grad():
-            return loss_fn(batch, host_gen, draw)[1]
+            return global_terms(run(batch, host_gen, draw)[1])
 
+    train_step.last_draw = None
     return train_step, eval_step
 
 

@@ -1,8 +1,11 @@
 """Physics and training diagnostics (the port of the JAX package's
 ``utils/diagnostics.py``): the Rayleigh-Taylor interface and mean density,
-``divergence_norms``, the drivers' ``div_stats`` and ``LossLogger``.
+``divergence_norms``, the drivers' ``div_stats``, ``StepTimer``,
+``profile_trace`` and ``LossLogger``.
 """
+import contextlib
 import os
+import time
 
 import numpy as np
 import torch
@@ -43,6 +46,54 @@ def div_stats(U, flags):
     div = velocity_divergence(U, flags).abs() * fluid
     return {"mean_div": float(div.sum() / fluid.sum()),
             "max_div": float(div.max())}
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree if x is not None for t in _tensors(x)]
+    return []
+
+
+class StepTimer:
+    """Steps a second since ``start``; ``rate(pending)`` first waits for
+    the devices that ``pending`` (a tensor, or a NamedTuple or list of
+    them) lives on, since CUDA launches return before the work is done."""
+
+    def __init__(self):
+        self.t0 = None
+        self.steps = 0
+
+    def start(self):
+        self.t0 = time.perf_counter()
+        self.steps = 0
+
+    def tick(self, n: int = 1):
+        self.steps += n
+
+    def rate(self, pending=None):
+        for dev in {t.device for t in _tensors(pending)}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - self.t0
+        return self.steps / dt if dt > 0 else float("inf")
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """``torch.profiler`` over the block (the CPU, and CUDA where there is
+    a card); writes ``<logdir>/trace.json``, a Chrome trace (chrome://
+    tracing, Perfetto)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 class LossLogger:

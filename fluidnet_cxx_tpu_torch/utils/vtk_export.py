@@ -1,7 +1,7 @@
 """VTK structured-points export for ParaView (the port of the JAX
 package's ``utils/vtk_export.py``): density, pressure, divergence, flags,
-cell-centred velocity and the gradients of p and density, as legacy ASCII
-VTK.
+cell-centred velocity and the gradients of p and density, and any extra
+scalar fields, as legacy ASCII VTK.
 """
 import os
 
@@ -19,10 +19,11 @@ def _grad_centered(f):
     return gx, gy
 
 
-def write_vtk(path: str, state):
+def write_vtk(path: str, state, extra_fields=None):
     """Write batch 0 of ``state`` (a SimState) as legacy VTK
     STRUCTURED_POINTS; the fields are computed on the state's device and
-    copied to the host in one transfer."""
+    copied to the host in one transfer. ``extra_fields`` ({name: (h, w)
+    tensor or array}) are written after them as scalars."""
     with torch.no_grad():
         cc = get_centered(state.U)[0]
         div = velocity_divergence(state.U, state.flags)[0]
@@ -59,3 +60,7 @@ def write_vtk(path: str, state):
         vec("velocity", u, v)
         vec("grad_p", gpx, gpy)
         vec("grad_rho", grx, gry)
+        for name, a in (extra_fields or {}).items():
+            if isinstance(a, torch.Tensor):
+                a = a.detach().cpu().numpy()
+            scal(name, np.asarray(a))

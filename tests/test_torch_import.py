@@ -32,7 +32,10 @@ for mod in ('train.trainer', 'train.losses', 'train.checkpoint',
             'scripts.eval_parity', 'scripts.quality_per_ms',
             'scripts.make_dataset', 'scripts.preprocess_data',
             'ops.advection', 'ops.grid', 'ops.line_trace',
-            'ops.line_trace3', 'ops.window', 'ops.window3'):
+            'ops.line_trace3', 'ops.window', 'ops.window3',
+            'parallel.mesh', 'parallel.halo', 'parallel.step',
+            'parallel.dryrun', 'parallel.launch', 'scripts.print_output',
+            'scripts.plot_loss'):
     assert 'fluidnet_cxx_tpu_torch.' + mod in names, (mod, names)
 # PyYAML and matplotlib are not imported with the port, and the YAML
 # reader runs with PyYAML made unimportable.
@@ -98,10 +101,18 @@ ENTRY_POINTS = {
                          "'--scenesTe', '0', '--out', 'unused'])",
     "bench3d.xla": "main(['--res', '16', '--steps', '1', '--reps', '1', "
                    "'--xla'])",
+    "dryrun": "dryrun_multichip(2)",
+    "dryrun.gloo": "dryrun_multichip(2, backend='gloo')",
+    "dryrun.cli": "main(['--nproc', '2', '--backend', 'gloo'])",
+    "twin_print_output": "main(['--modelDir', 'unused', '--dataDir', "
+                         "'unused'])",
 }
 # The training entry point is run as ``python -m fluidnet_cxx_tpu_torch.
 # train``: its main() lives in train/__main__.py; the scene drivers' twins
-# as ``python -m fluidnet_cxx_tpu_torch.scripts.<name>``.
+# as ``python -m fluidnet_cxx_tpu_torch.scripts.<name>``; the multi-device
+# dry run as ``python -m fluidnet_cxx_tpu_torch.parallel.dryrun``.
+# ``scripts.plot_loss`` (like ``scripts.preprocess_data``) runs no device
+# work, so it has no card to refuse.
 MODULES = {"train": "train.__main__", "twin_plume": "scripts.run_plume",
            "twin_rayleigh_taylor": "scripts.run_rayleigh_taylor",
            "twin_cylinder": "scripts.run_cylinder",
@@ -109,7 +120,9 @@ MODULES = {"train": "train.__main__", "twin_plume": "scripts.run_plume",
            "twin_run_blob3d": "scripts.run_blob3d",
            "twin_eval_parity": "scripts.eval_parity",
            "twin_quality_per_ms": "scripts.quality_per_ms",
-           "twin_make_dataset": "scripts.make_dataset"}
+           "twin_make_dataset": "scripts.make_dataset",
+           "dryrun": "parallel.dryrun",
+           "twin_print_output": "scripts.print_output"}
 
 RUN_WITHOUT_CARD = """
 import torch

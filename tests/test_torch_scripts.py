@@ -297,3 +297,62 @@ def test_train_configs_without_yaml_are_the_defaults():
     assert (mcfg, tc, scfg) == (t_config.ModelConfig(),
                                 t_config.TrainConfig(), t_config.SimConfig())
     assert scfg == t_config.sim_config_from_mconf({})
+
+
+# The three scene twins without --fast against JAX's scripts without it:
+# (twin, JAX script, YAML (None: the cylinder's flags), flags, changes).
+NO_FAST = {
+    "plume": (run_plume, "run_plume", "plume.yaml",
+              ["--resX", "32", "--resY", "32"], dict(jacobiIter=8)),
+    "rayleigh_taylor": (run_rt, "run_rayleigh_taylor",
+                        "rayleighTaylor.yaml", [],
+                        dict(resX=32, resY=32, jacobiIter=8,
+                             simMethod="jacobi")),
+    "cylinder": (run_cylinder, "run_cylinder", None,
+                 ["--resX", "64", "--resY", "32", "--radius", "4",
+                  "--centerX", "16", "--jacobiIter", "8", "--statIter",
+                  "4"], None),
+}
+
+
+@pytest.mark.parametrize("name", list(NO_FAST))
+def test_twin_without_fast_matches_jax_script(name, tmp_path, monkeypatch):
+    """Four steps of each twin without ``--fast`` (the config's engine and
+    the march trace, ``use_pallas`` off) against JAX's script without it:
+    the restart files' p, U and density within 1e-5 of each field's
+    largest value, the tolerance of the step tests (four steps summed in
+    another order). JAX runs at max_disp 1 (its windows compile faster)
+    and the port at the config's 4: every displacement of these runs is
+    below one cell (asserted), so both windows sample the same cells."""
+    from torch_jax_scripts import run_jax_script
+
+    import fluidnet_cxx_tpu.config as jc
+    import fluidnet_cxx_tpu.sim as js
+
+    twin, script, yaml_name, flags, changes = NO_FAST[name]
+    build = jc.sim_config_from_mconf
+    monkeypatch.setattr(jc, "sim_config_from_mconf",
+                        lambda conf: build(conf).replace(max_disp=1))
+    cyl = js.cylinder_config
+    monkeypatch.setattr(js, "cylinder_config",
+                        lambda *a, **k: cyl(*a, **k).replace(max_disp=1))
+    argv = flags + ["--maxIter", "4"]
+    if yaml_name is not None:
+        argv += ["--simConf", _conf(tmp_path, yaml_name, statIter=4,
+                                    realTimePlot=False, **changes)[0]]
+    jout, tout = tmp_path / "jax", tmp_path / "port"
+    run_jax_script(script, argv + ["--outputFolder", str(jout)])
+    plots = ["--realTimePlot", "false"] if yaml_name is None else []
+    res = twin.main(argv + plots + ["--outputFolder", str(tout), "--device",
+                                    "cpu"])
+    assert res["it"] == 4 and res["finite"]
+    dt = 0.5 if name == "rayleigh_taylor" else 0.1
+    assert dt * float(res["state"].U.abs().max()) < 1.0
+    with np.load(jout / "restart.npz") as j, \
+            np.load(tout / "restart.npz") as t:
+        assert int(j["it"]) == int(t["it"]) == 4
+        for field in ("p", "U", "density"):
+            want = j[field]
+            np.testing.assert_allclose(
+                t[field], want, rtol=0, err_msg=field,
+                atol=1e-5 * max(float(np.abs(want).max()), 1e-6))
