@@ -270,9 +270,21 @@ Phases (each prints its elapsed seconds):
      step at 128^2, batch 64, dp = 2 (loss terms within 1e-5, the
      gradient within 1e-4 relative L2, parameters bit-equal on both
      ranks), with launches a sharded step; `parallel.dryrun --nproc 2
-     --backend gloo`; the plume twin without --fast at 128^2. Every time
-     beside the card's name and power limit; two ranks on one card
-     measure no scaling.
+     --backend gloo`; the plume twin without --fast at 128^2; then
+     (ROADMAP A.8.1, multidevice_a81_ranks) two more gloo ranks at sx = 2
+     with trained weights: the 8000x800 cylinder under multigrid (E and
+     the slab entries of csrc/mg.cu) and PUNetD2_128 (E, B, C), the 512^2
+     plume under mg_learned (A, B's bf16 route, the slab entries),
+     PUNetD2_128 fused (A, B, C), DataTrain_128 on the flax path (A, B)
+     and the gather engine (F), the 128x512 Rayleigh-Taylor box under
+     multigrid (A, the slab entries), the 128^3 plume under solve_mg3 (L,
+     I) and PUNet3p8_64 fused (K, M, N, J), each against the
+     single-process step within MULTI_A81_TOL, with its halo, exchanges
+     and launches a step. Before it (phase_slab_kernels, after phase 3's
+     G and H) each slab entry on a slab of the cylinder's flags against
+     its plain version within SLAB_TOL, bit-equal on a repeat, timed
+     beside the plain version and its bound. Every time beside the card's
+     name and power limit; two ranks on one card measure no scaling.
 `python3 chip_smoke.py --mg-only` times kernels G and H alone (mg_only),
 `python3 chip_smoke.py --3d-only` kernels J, M, K and L, phase_new3d, the
 new 3-D small checks and the 3-D paths with J, M or multigrid
@@ -293,7 +305,7 @@ and the kernels line of its six rows (train3d_only), `python3
 chip_smoke.py --mg-coarse-only` phase 8c alone and the kernels line of
 its twelve rows (mg_coarse_only), `python3 chip_smoke.py --engines-only`
 phase 10 alone (phase_engines), `python3 chip_smoke.py --multi-only`
-phase 11 alone (phase_multidevice).
+phase_slab_kernels and phase 11 alone (phase_multidevice).
 The last line is {"ok": true, "device": {...}}. Any failure exits non-zero
 without it; a watchdog turns a phase that hangs for 600 s into a non-zero
 exit with a traceback. Imports nothing of JAX.
@@ -1830,6 +1842,131 @@ def phase_mg(dev, results):
                           library_ms=None)
         print(f"{k} ({name}): plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by})", flush=True)
+    done()
+
+
+# The width-sharded V-cycle's slab entries (csrc/mg.cu, ROADMAP A.8.1):
+# the result key, the kernel row's name and the TPU kernel the path's
+# V-cycle stands for (H for the per-level launches, G for the tail).
+SLAB_ROWS = (("Gs setup", "mg_slab_setup", "Gs", "H"),
+             ("Gs down", "mg_slab_down", "Gd", "H"),
+             ("Gs up", "mg_slab_up", "Gu", "H"),
+             ("Gs epilogue", "mg_slab_epilogue", "Ge", "H"),
+             ("Gs tail", "mg_tail_solve", "Gt", "G"))
+# Each slab entry against its plain version on the same inputs, as a
+# share of the output's largest value: the per-cell operators keep the
+# plain float32 order; the child sums, the partial sums and the tail's
+# means add in another order.
+SLAB_TOL = 1e-5
+
+
+def slab_counters():
+    """{key: wrapper} of the slab entries' launch counters."""
+    from fluidnet_cxx_tpu_torch.ops.kernels import mg
+
+    return {"Gs": mg.slab, "Gd": mg.slab_down, "Gu": mg.slab_up,
+            "Ge": mg.slab_epilogue, "Gt": mg.tail_solve}
+
+
+def phase_slab_kernels(dev, results):
+    """The width-sharded V-cycle's new entries of csrc/mg.cu, each on a
+    slab of the 8000x800 cylinder's flags as rank 0 of sx = 2 holds it
+    (level 0: columns -16 .. 4015 taken around the grid; level 1 under it:
+    -8 .. 2007; the tail on the 25x250 gathered level), against its plain
+    version (ops/multigrid.py) on the same inputs on the card; device ms
+    of each beside the plain version's and its bound."""
+    from fluidnet_cxx_tpu_torch.ops import multigrid as mgp
+    from fluidnet_cxx_tpu_torch.ops.kernels import mg
+    from fluidnet_cxx_tpu_torch.ops.multigrid import level_shapes
+    from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case
+
+    done = phase("slab entries of the sharded V-cycle (A.8.1)")
+    _, state, _ = cylinder_case(CYL_W, CYL_H, dev)
+    flags = state.flags
+    gen = torch.Generator().manual_seed(SEED + 9)
+    h, W = CYL_H, CYL_W
+    rhs = torch.randn((1, h, W), generator=gen).to(dev)
+    p = torch.randn((1, h, W), generator=gen).to(dev)
+    e = torch.randn((1, h // 2, W // 2), generator=gen).to(dev)
+    U = torch.randn((1, 2, h, W), generator=gen).to(dev)
+    x0, halo, wl = -16, 16, W // 2
+    cols = torch.remainder(torch.arange(x0, x0 + wl + 2 * halo), W).to(dev)
+    ccols = torch.remainder(torch.arange(x0 // 2, x0 // 2 + wl // 2 + halo),
+                            W // 2).to(dev)
+    sl = lambda t: t.index_select(-1, cols).contiguous()  # noqa: E731
+    fs, rs, ps = sl(flags), sl(rhs), sl(p)
+    cf = mgp._coarsen_flags(flags)
+    cfs = cf.index_select(-1, ccols).contiguous()
+    es = e.index_select(-1, ccols).contiguous()
+    s = mg.slab(fs, x0, W)
+    s_c = mg.slab(cfs, x0 // 2, W // 2)
+    lo, hi = halo, halo + wl
+    sums = mg.slab_sums(s, rs, lo, hi)
+    n = h * wl
+    shapes = level_shapes(h, W)
+    tail_lvl = mg.tail_first_level(shapes)
+    th, tw = shapes[tail_lvl]
+    tail_flags = flags
+    for _ in range(tail_lvl):
+        tail_flags = mgp._coarsen_flags(tail_flags)
+    tail_rhs = torch.randn((1, th, tw), generator=gen).to(dev)
+    cases = {
+        "Gs setup": (lambda: [mg.slab_coarsen(s).flags.float(),
+                              mg.slab_sums(s, rs, lo, hi)],
+                     lambda: [mgp.slab_coarsen(fs, x0, W).float(),
+                              mgp.slab_sums(rs, fs, x0, W, lo, hi)],
+                     5 * n, 20 * n),
+        "Gs down": (lambda: list(mg.slab_down(s, s_c, ps, rs, sums, 4, lo,
+                                              hi, True)),
+                    lambda: list(mgp.slab_down(fs, x0, W, ps, rs, sums, 4,
+                                               lo, hi, True)),
+                    14 * n, (4 * 13 + 12 + 3 + 4) * n),
+        "Gs up": (lambda: [mg.slab_up(s, s_c, ps, rs, sums, es, 4, lo, hi)],
+                  lambda: [mgp.slab_up(fs, x0, W, cfs, x0 // 2, ps, rs,
+                                       sums, es, 4, lo, hi)],
+                  14 * n, (4 * 13 + 3 + 10) * n + 2 * 14 * n // 4),
+        "Gs epilogue": (lambda: list(mg.slab_epilogue(
+            mg.Slab(fs, x0, W), ps, sums, lo, hi, sl(U))),
+                        lambda: list(mgp.slab_epilogue(fs, x0, W, ps, sums,
+                                                       lo, hi, sl(U))),
+                        28 * n, 20 * n),
+        "Gs tail": (lambda: [mg.tail_solve(tail_flags, tail_rhs)],
+                    lambda: [mgp.tail_solve(tail_flags, tail_rhs)],
+                    12 * th * tw, mg_ops(shapes[tail_lvl:], 1)),
+    }
+    # A Slab of CUDA tensors made by hand, without its mask bytes, still
+    # launches the kernels (the wrapper makes the mask): one mask launch
+    # for each of the two slabs and one down launch, bit-equal to the
+    # masked slabs' result.
+    before = (mg.slab.launches, mg.slab_down.launches)
+    bare = mg.slab_down(mg.Slab(fs, x0, W), mg.Slab(cfs, x0 // 2, W // 2),
+                        ps, rs, sums, 4, lo, hi, True)
+    counted = (mg.slab.launches - before[0], mg.slab_down.launches
+               - before[1])
+    if counted != (2, 1):
+        raise SystemExit(f"Gs down from a Slab without its mask launched "
+                         f"(mask, down) {counted}, not (2, 1)")
+    check("Gs down from a Slab without its mask (against the masked)",
+          max_err(list(bare), list(mg.slab_down(s, s_c, ps, rs, sums, 4,
+                                                lo, hi, True))), 0.0)
+    for key, (run, plain, nbytes, nops) in cases.items():
+        got, want = run(), plain()
+        err = max_err(got, want)
+        rel = max(max_err([g], [w_]) / scale_of([w_])
+                  for g, w_ in zip(got, want))
+        check(f"{key} against its plain version ({rel:.3e} of its largest "
+              "value)", rel, SLAB_TOL)
+        check(f"{key} (repeat)", max_err(run(), got), 0.0)
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(plain, 5, warmup=1)
+        b_ms, b_by = bound(nbytes, nops)
+        results[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=None)
+        print(f"{key}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), max |kernel - plain| {err:.3e}",
+              flush=True)
+    print(f"Gs tail: the gathered level {shapes[tail_lvl]} of {h}x{W} "
+          f"(levels {shapes[tail_lvl:]})", flush=True)
     done()
 
 
@@ -5905,6 +6042,238 @@ def multidevice_ranks(card):
         f"{ {k: v / n for k, v in dp_launches.items()} }")
 
 
+# The sharded A.8.1 cases against the single-process step, as a share of
+# each field's largest value (at least 1). The V-cycle's means and the
+# learned projections' input scale sum in another order than one device's
+# (the bfloat16 nets, MGCoarse_128 and PUNet3p8_64, round that difference
+# up to a bf16 ulp here and there); the gather engine's slabs trace in
+# their own coordinates, as the window engine's do. On an H100 this phase
+# measures the readings beside each case; each tolerance is about three
+# times its own case's reading.
+MULTI_A81_TOL = dict(
+    cyl_mg=1e-4,        # 3.405e-5
+    cyl_punet=8e-5,     # 2.588e-5
+    rt_mg=4e-5,         # 1.174e-5
+    mg_learned=5e-3,    # 1.594e-3
+    plume_punet=1e-5,   # 3.368e-6
+    tower=5e-6,         # 1.553e-6
+    gather=1e-5,        # 2.980e-6
+    mg3=1e-5,           # 3.166e-6
+    punet3=1e-3)        # 3.584e-4
+MULTI_A81_STEPS = dict(two_d=3, three_d=2)
+
+
+def reach_held(project, state):
+    """The reach of a learned projection, held directly: the projection
+    on rank 0's slab of sx = 2 with its halo and ``align`` more columns
+    each side (taken around the grid), run again with every input column
+    beyond the halo perturbed (p, U, density and 10% of the fluid cells
+    made obstacles). Returns the largest change of the owned columns' p
+    and of U's owned columns and OUT_HALO more: 0.0 when the halo covers
+    what the owned outputs read. The scale is fixed at 1 (the sharded
+    step hands in the global one); before the sharded "mg" polish the
+    net's own output is compared."""
+    from fluidnet_cxx_tpu_torch.parallel.project import (OUT_HALO,
+                                                         sharding_of)
+
+    sh = sharding_of(project)
+    W = state.flags.shape[-1]
+    wl, e, g = W // 2, sh.align, sh.halo
+    dev = state.flags.device
+    cols = torch.remainder(torch.arange(-g - e, wl + g + e), W).to(dev)
+    sl = lambda t: t.index_select(-1, cols).contiguous()  # noqa: E731
+    p, U, flags, density = (sl(t) for t in (state.p, state.U, state.flags,
+                                            state.density))
+    kw = dict(scale=torch.ones(p.shape[0], device=dev))
+    if sh.kind == "fused3":
+        kw["grid"] = tuple(state.flags.shape[1:])
+    if sh.polish == "mg":
+        kw["net_only"] = True
+    gen = torch.Generator().manual_seed(SEED + 29)
+    far = torch.ones(cols.numel(), dtype=torch.bool)
+    far[e:e + 2 * g + wl] = False
+    far = far.to(dev)
+
+    def noise(t):
+        return torch.randn(t.shape, generator=gen).to(dev)
+
+    flip = (noise(flags) > 1.28) & (flags == 1) & far
+    moved = (p + far * noise(p),
+             U + far * noise(U) * max(float(U.abs().max()), 1.0),
+             flags.masked_fill(flip, 2), density + far * noise(density))
+    a, b = e + g, e + g + wl
+    outs = [project(*args, **kw) for args in ((p, U, flags, density), moved)]
+    if sh.polish == "mg":
+        return float((outs[0] - outs[1])[..., a:b].abs().max())
+    (p0, U0), (p1, U1) = outs
+    return max(float((p0 - p1)[..., a:b].abs().max()),
+               float((U0 - U1)[..., a - OUT_HALO:b + OUT_HALO].abs().max()))
+
+
+def multidevice_a81_ranks(card, out_path):
+    """Two gloo ranks on one card at sx = 2 (ROADMAP A.8.1): the 8000x800
+    cylinder under multigrid (E, H's slab entries) and PUNetD2_128 (E, B,
+    C); the 512^2 plume under mg_learned with MGCoarse_128 (A, G's slab
+    entries, B's bfloat16 route), PUNetD2_128 fused (A, B, C) and
+    DataTrain_128 on the flax path (A, B), and on the gather engine (F);
+    the 128x512 Rayleigh-Taylor box under multigrid (A, G's slab entries);
+    the 128^3 plume under solve_mg3 (L, I) and PUNet3p8_64 fused (K, M, N,
+    J); each against the single-process step in the same call, with
+    trained weights. Rank 0 prints, and writes the slab entries' launches
+    in the run of the cylinder's sharded multigrid steps to
+    ``out_path``."""
+    import dataclasses
+    import json
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from fluidnet_cxx_tpu_torch.parallel import (
+        gather_state, make_mesh, simulate_step3_sharded,
+        simulate_step_sharded, state_sharding, step_halo)
+    from fluidnet_cxx_tpu_torch.parallel.project import (receptive_halo,
+                                                         sharding_of)
+    from fluidnet_cxx_tpu_torch.parallel.step import gather_disp
+    from fluidnet_cxx_tpu_torch.run_cylinder import cylinder_case
+    from fluidnet_cxx_tpu_torch.run_plume import plume_case
+    from fluidnet_cxx_tpu_torch.run_plume3d import (learned3d_case,
+                                                    plume3d_case)
+    from fluidnet_cxx_tpu_torch.run_rayleigh_taylor import rt_case
+    from fluidnet_cxx_tpu_torch.sim.step import simulate_step
+    from fluidnet_cxx_tpu_torch.sim.step3d import simulate_step3
+
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    mesh = make_mesh(2, dp=1, sx=2, backend="gloo", device="cuda")
+    dev = mesh.device
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = {**launch_counters(), **slab_counters()}
+    slab_launches = {}
+
+    def say(line):
+        if rank == 0:
+            print(f"multi A.8.1 {line}; {card}", flush=True)
+
+    def pair(label, n, three_d, cfg, state, project, kernels, tol):
+        step = simulate_step3 if three_d else simulate_step
+        sharded = simulate_step3_sharded if three_d else \
+            simulate_step_sharded
+        ref, ref_ms, moved = None, 0.0, None
+        learned = project is not None and project.kind != "mg_learned"
+        if rank == 0:
+            if learned:
+                moved = reach_held(project, state)
+                if moved != 0.0:
+                    raise SystemExit(
+                        f"{label}: the owned columns moved by {moved:.3e} "
+                        "when the inputs beyond the projection's halo "
+                        "changed: the halo is short of its reach")
+            def single():
+                s = state
+                for _ in range(n):
+                    s = step(cfg, s, project)
+                return s
+            step(cfg, state, project)
+            ref, ref_ms = _multi_timed(single, dev)
+        dist.barrier()
+        start = state_sharding(mesh, state)
+
+        def run():
+            s = start
+            for _ in range(n):
+                s = sharded(cfg, s, mesh, project)
+            return s
+        sharded(cfg, start, mesh, project)
+        for c in counters.values():
+            c.launches = 0
+        mesh.exchanges = 0
+        out, ms = _multi_timed(run, dev)
+        totals = {k: c.launches for k, c in counters.items() if c.launches}
+        launches = {k: v // n for k, v in totals.items()}
+        exchanges = mesh.exchanges / n
+        missed = [k for k in kernels if k not in launches]
+        if missed:
+            raise SystemExit(f"{label}: the sharded step missed kernels "
+                             f"{missed}: {launches}")
+        got = gather_state(mesh, out)
+        if "Gd" in kernels and not slab_launches:
+            slab_launches.update(totals)
+        # Every rank: the gather engine's halo takes an all_reduce.
+        halo = (step_halo(cfg, three_d, gather_disp(mesh, state.U, cfg.dt))
+                if cfg.advection_impl == "gather"
+                else step_halo(cfg, three_d))
+        if rank == 0:
+            fields = ("p", "U", "density") if cfg.advect_density else (
+                "p", "U")
+            err, rel, equal, share = _multi_held(
+                label, [getattr(got, f) for f in fields],
+                [getattr(ref, f) for f in fields], tol)
+            extra = ""
+            if project is not None:
+                sh = sharding_of(project)
+                extra = (f", mg_learned exchange {sh.halo}" if not learned
+                         else f", projection halo {sh.halo} (reach "
+                         f"{receptive_halo(project.net.table, getattr(project.net, 'patch', None))[0]}, "
+                         f"alignment {sh.align}; inputs beyond it perturbed"
+                         f": owned outputs moved {moved})")
+            say(f"{label}: sx = 2, {n} steps, {ms / n:.3f} ms/step sharded "
+                f"(rank 0, two ranks on one card: no scaling) against "
+                f"{ref_ms / n:.3f} single-process; step halo {halo}"
+                f"{' (the first step: D from its U)' if cfg.advection_impl == 'gather' else ''}"
+                f"{extra}; "
+                f"{exchanges:.0f} exchanges a step; max |sharded - single| "
+                f"{err:.3e}, {rel:.3e} of the largest value "
+                f"({'bit-equal' if equal else f'{share:.2e} of values differ'}"
+                f"; tolerance {tol}); launches a step on rank 0 {launches}")
+
+    n2, n3 = MULTI_A81_STEPS["two_d"], MULTI_A81_STEPS["three_d"]
+    tol = MULTI_A81_TOL
+    w, h = MULTI["cyl"]
+    r2 = MULTI["res2"]
+    with torch.no_grad():
+        cfg, state, _ = cylinder_case(w, h, dev, sim_method="multigrid")
+        pair(f"cylinder {w}x{h} multigrid (E, H's slab entries)", n2,
+             False, cfg, state, None, ("E", "Gd", "Gu", "Ge", "Gt", "Gs"),
+             tol["cyl_mg"])
+        cfg, state, project = cylinder_case(w, h, dev, sim_method="convnet")
+        pair(f"cylinder {w}x{h} PUNetD2_128 (E, B, C)", n2, False, cfg,
+             state, project, "EBC", tol["cyl_punet"])
+        del state
+        cfg, state = rt_case(RT_W, RT_H, dev, sim_method="multigrid")
+        pair(f"RT {RT_W}x{RT_H} multigrid (A, G's slab entries)", n2, False,
+             cfg, state, None, ("A", "Gd", "Gu", "Ge", "Gt"),
+             tol["rt_mg"])
+        cfg, state, project = plume_case(r2, dev, sim_method="mg_learned")
+        pair(f"plume {r2}^2 mg_learned MGCoarse_128 (A, G's slab entries, "
+             "B bf16)", n2, False, cfg, state, project,
+             ("A", "B", "Gd", "Gu", "Ge"), tol["mg_learned"])
+        cfg, state, project = plume_case(r2, dev, sim_method="convnet")
+        pair(f"plume {r2}^2 PUNetD2_128 fused (A, B, C)", n2, False, cfg,
+             state, project, "ABC", tol["plume_punet"])
+        cfg, state, project = plume_case(
+            r2, dev, model_dir=Path("trained_models/DataTrain_128"))
+        pair(f"plume {r2}^2 DataTrain_128 flax path (A, B)", n2, False, cfg,
+             state, project, "AB", tol["tower"])
+        cfg, state, _ = plume_case(r2, dev, sim_method="jacobi")
+        cfg = dataclasses.replace(cfg, use_pallas=False,
+                                  advection_impl="gather")
+        pair(f"plume {r2}^2 gather engine jacobi-200 (F)", n2, False, cfg,
+             state, None, "F", tol["gather"])
+        del state
+        r3 = MULTI["res3"]
+        cfg, state = plume3d_case(r3, dev, fuse_advection=True,
+                                  line_trace=True, sim_method="multigrid")
+        pair(f"plume3d {r3}^3 solve_mg3 merged (L, I)", n3, True, cfg,
+             state, None, "LI", tol["mg3"])
+        cfg, state, project = learned3d_case(r3, dev, model_dir=MODEL_P8)
+        pair(f"plume3d {r3}^3 PUNet3p8_64 fused (K, M, N, J)", n3, True,
+             cfg, state, project, "KMNJ", tol["punet3"])
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(slab_launches, f)
+
+
 def phase_multidevice(card):
     """Multi-device (ROADMAP A.8): [1/7] one NCCL rank on the card;
     [2/7]-[5/7] two gloo ranks sharing cuda:0 (NCCL refuses two ranks on
@@ -5931,6 +6300,12 @@ def phase_multidevice(card):
           timeout_s=MULTI_TIMEOUT_S, join_s=MULTI_JOIN_S)
     spawn(multidevice_ranks, 2, (card,), backend="gloo",
           timeout_s=MULTI_TIMEOUT_S, join_s=MULTI_JOIN_S)
+    with tempfile.TemporaryDirectory() as work:
+        out_path = str(Path(work) / "slab_launches.json")
+        spawn(multidevice_a81_ranks, 2, (card, out_path), backend="gloo",
+              timeout_s=MULTI_TIMEOUT_S, join_s=MULTI_JOIN_S)
+        with open(out_path) as f:
+            slab_launches = json.load(f)
 
     cmd = [sys.executable, "-m", "fluidnet_cxx_tpu_torch.parallel.dryrun",
            "--nproc", "2", "--backend", "gloo", "--device", "cuda",
@@ -5972,6 +6347,7 @@ def phase_multidevice(card):
           f"{r['mean_div']:.4g}; launches a step {launches}; {card}",
           flush=True)
     done()
+    return slab_launches
 
 
 def main():
@@ -6056,12 +6432,14 @@ def main():
         phase_engines(launch_counters())
         return
     if sys.argv[1:] == ["--multi-only"]:
+        phase_slab_kernels(dev, {})
         phase_multidevice(card)
         return
     results = {}
     phase_kernels(dev, results)
     phase_solvers(dev, results)
     phase_mg(dev, results)
+    phase_slab_kernels(dev, results)
     phase_mg_learned(dev, results)
     phase_nets(dev, results)
     phase_cylinder_kernels(dev, results)
@@ -6081,7 +6459,7 @@ def main():
     bf16_launches = phase_train_bf16(dev, results)
     phase_drivers()
     phase_engines(counters)
-    phase_multidevice(card)
+    slab_launches = phase_multidevice(card)
 
     # Launches of each kernel on the first main path that must launch it.
     path_of = {k: next(name for name, (_, _, ks) in paths.items() if k in ks)
@@ -6145,6 +6523,15 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": seen[path][counter],
+                        "max_abs_err": r["err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    for key, name, counter, row in SLAB_ROWS:
+        r = results[key]
+        kernels.append({"name": name, "route": "cuda",
+                        "source": meta[row][1], "replaces": meta[row][2],
+                        "launches": slab_launches[counter],
                         "max_abs_err": r["err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

@@ -394,7 +394,24 @@ struct LevelArgs {
   // Restriction: the coarse RHS's partials; else the partials of p * cont
   // over the output (the gauge's), or null.
   float* parts_out;
+  // The output window: columns [lo, hi) of the level's arrays, written
+  // into rows (hi - lo) wide (p_out; rhs_c half as wide). gx0, gw: the
+  // level's first column is column gx0 of a grid gw wide (the border fold
+  // reads global columns). The coarse arrays the launch reads (mask_c,
+  // e_c) are wcp wide, the coarse cell of column x at column x / 2 +
+  // offc. A whole grid: lo 0, hi w, gx0 0, gw w, wcp w / 2, offc 0.
+  int lo, hi, gx0, gw, wcp, offc;
 };
+
+// A launch on a whole grid: its window and coarse arrays are the level's.
+inline void whole_grid(LevelArgs& a) {
+  a.lo = 0;
+  a.hi = a.w;
+  a.gx0 = 0;
+  a.gw = a.w;
+  a.wcp = a.w / 2;
+  a.offc = 0;
+}
 
 // The strip of a thread: p (null: zeros) and the RHS of rows gy0 .. gy0 +
 // kRY - 1 of column gx, with the mask bytes four to a word. Cells off the
@@ -473,17 +490,19 @@ __device__ __forceinline__ void sweep_strips(Strip& S, float*& src,
 // p * cont over it (every thread calls it).
 template <int T>
 __device__ __forceinline__ void store_output(const Strip& S,
-                                             const LevelArgs& L, size_t base,
-                                             int lx, int ly0, int gx, int gy0,
+                                             const LevelArgs& L, int lx,
+                                             int ly0, int gx, int gy0,
                                              float2* slots) {
   float a = 0.f, c = 0.f;
-  const bool col_out = gx >= 0 && gx < L.w && lx >= L.halo &&
+  const int wo = L.hi - L.lo;
+  const size_t base_o = blockIdx.z * (size_t)L.h * wo;
+  const bool col_out = gx >= L.lo && gx < L.hi && lx >= L.halo &&
                        lx < T - L.halo;
 #pragma unroll
   for (int r = 0; r < kRY; ++r) {
     const int ly = ly0 + r, gy = gy0 + r;
     if (col_out && ly >= L.halo && ly < T - L.halo && gy >= 0 && gy < L.h) {
-      L.p_out[base + (size_t)gy * L.w + gx] = S.cur[r];
+      L.p_out[base_o + (size_t)gy * wo + gx - L.lo] = S.cur[r];
       const float cf = cont_f(S.m(r));
       a = a + S.cur[r] * cf;
       c = c + cf;
@@ -509,14 +528,17 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
   const int lx = threadIdx.x, ly0 = threadIdx.y * kRY;
   const int li0 = ly0 * T + lx;
   const int out = T - 2 * L.halo;
-  const int gx = blockIdx.x * out - L.halo + lx;
+  const int gx = L.lo + blockIdx.x * out - L.halo + lx;
   const int gy0 = blockIdx.y * out - L.halo + ly0;
   const size_t base = blockIdx.z * (size_t)L.h * L.w;
   const bool restrict_ = L.rhs_c != nullptr;
-  const int hc = L.h / 2, wc = L.w / 2;
-  const size_t base_c = blockIdx.z * (size_t)hc * wc;
-  const bool col_out = gx >= 0 && gx < L.w && lx >= L.halo &&
+  const int hc = L.h / 2, wo = L.hi - L.lo, wco = wo / 2;
+  const size_t base_c = blockIdx.z * (size_t)hc * wco;
+  const size_t base_mc = blockIdx.z * (size_t)hc * L.wcp;
+  const bool col_out = gx >= L.lo && gx < L.hi && lx >= L.halo &&
                        lx < T - L.halo;
+  // The column's place in the grid (the fold's rows and columns).
+  const int gxg = wrap(gx + L.gx0, L.gw);
 
   Strip S;
   load_strip(S, L, base, gx, gy0);
@@ -528,7 +550,8 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
     const int ly = ly0 + 2 * q, gy = gy0 + 2 * q;
     const bool out_c = restrict_ && col_out && !(lx & 1) && ly >= L.halo &&
                        ly < T - L.halo && gy >= 0 && gy < L.h;
-    mc[q] = out_c ? L.mask_c[base_c + (size_t)(gy >> 1) * wc + (gx >> 1)]
+    mc[q] = out_c ? L.mask_c[base_mc + (size_t)(gy >> 1) * L.wcp +
+                             (gx >> 1) + L.offc]
                   : 0;
   }
   const float mean =
@@ -540,7 +563,7 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
   sweep_strips<T, kDamped>(S, src, dst, li0, L.k, restrict_, keep, damping);
 
   if (!restrict_) {
-    store_output<T>(S, L, base, lx, ly0, gx, gy0, slots);
+    store_output<T>(S, L, lx, ly0, gx, gy0, slots);
     return;
   }
   // The residual of every strip cell into dst (src holds p).
@@ -579,15 +602,16 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
 #pragma unroll
   for (int r = 0; r < kRY; r += 2) {
     const int li = li0 + r * T, gy = gy0 + r;
-    const float f00 = fold(dst, li, T, gx, gy, L.h, L.w);
-    const float f01 = fold(dst, li + T, T, gx, gy + 1, L.h, L.w);
+    const float f00 = fold(dst, li, T, gxg, gy, L.h, L.gw);
+    const float f01 = fold(dst, li + T, T, gxg, gy + 1, L.h, L.gw);
     const float f10 = __shfl_down_sync(0xffffffffu, f00, 1);
     const float f11 = __shfl_down_sync(0xffffffffu, f01, 1);
     const int ly = ly0 + r;
     if (col_out && !(lx & 1) && ly >= L.halo && ly < T - L.halo &&
         gy >= 0 && gy < L.h) {
       const float v = (f00 + f10) + (f01 + f11);
-      const size_t jc = base_c + (size_t)(gy >> 1) * wc + (gx >> 1);
+      const size_t jc = base_c + (size_t)(gy >> 1) * wco +
+                        ((gx - L.lo) >> 1);
       L.rhs_c[jc] = v;
       const float cf = cont_f(mc[r / 2]);
       a = a + v * cf;
@@ -595,11 +619,12 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
     }
   }
   // The output tile's p.
+  const size_t base_o = blockIdx.z * (size_t)L.h * wo;
 #pragma unroll
   for (int r = 0; r < kRY; ++r) {
     const int ly = ly0 + r, gy = gy0 + r;
     if (col_out && ly >= L.halo && ly < T - L.halo && gy >= 0 && gy < L.h)
-      L.p_out[base + (size_t)gy * L.w + gx] = S.cur[r];
+      L.p_out[base_o + (size_t)gy * wo + gx - L.lo] = S.cur[r];
   }
   store_partial(a, c, L.parts_out, slots);
 }
@@ -671,11 +696,12 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
   const int lx = threadIdx.x, ly0 = threadIdx.y * kRY;
   const int li0 = ly0 * T + lx;
   const int out = T - 2 * L.halo;
-  const int ox = blockIdx.x * out - L.halo, oy = blockIdx.y * out - L.halo;
+  const int ox = L.lo + blockIdx.x * out - L.halo;
+  const int oy = blockIdx.y * out - L.halo;
   const int gx = ox + lx, gy0 = oy + ly0;
   const size_t base = blockIdx.z * (size_t)L.h * L.w;
-  const int hc = L.h / 2, wc = L.w / 2;
-  const size_t base_c = blockIdx.z * (size_t)hc * wc;
+  const int hc = L.h / 2;
+  const size_t base_c = blockIdx.z * (size_t)hc * L.wcp;
   const int cx0 = ox / 2 - kExtHalo, cy0 = oy / 2 - kExtHalo;
   const int ny = blockDim.y;
 
@@ -687,13 +713,13 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
   {
     float ev[kRows];
     uint8_t lv[kRows];
-    const int cxw = wrap(cx0 + lx, wc);
+    const int cxw = wrap(cx0 + lx + L.offc, L.wcp);
 #pragma unroll
     for (int q = 0; q < kRows; ++q) {
       const int cy = threadIdx.y + q * ny;
       const bool in = lx < kCR && cy < kCR;
-      const size_t j = base_c + (size_t)wrap(cy0 + (in ? cy : 0), hc) * wc +
-                       cxw;
+      const size_t j = base_c +
+                       (size_t)wrap(cy0 + (in ? cy : 0), hc) * L.wcp + cxw;
       lv[q] = in ? (mask_c_all[j] & kCont) : 0;
       ev[q] = in ? e_c_all[j] : 0.f;
     }
@@ -733,7 +759,7 @@ __global__ void __launch_bounds__(Tile<T>::kThreads)
   }
   __syncthreads();
   sweep_strips<T, kDamped>(S, src, dst, li0, L.k, false, keep, damping);
-  store_output<T>(S, L, base, lx, ly0, gx, gy0, slots);
+  store_output<T>(S, L, lx, ly0, gx, gy0, slots);
 }
 
 // ---- the single-block rest of the V-cycle ----
@@ -1140,6 +1166,149 @@ __global__ void __launch_bounds__(256)
   U_out[vb + i] = vn;
 }
 
+// ---- the width-sharded levels (parallel/multigrid.py) ----
+//
+// A slab of a level is its columns gx0 .. gx0 + w - 1 of a grid gw wide,
+// taken mod gw: a halo past a domain edge holds the other edge's columns,
+// as the plain version's rolls wrap there. The set-up kernels below build
+// a slab's flags and mask bytes with the border ring at the grid's
+// columns; mg_down and mg_up run one level's launch on a slab with their
+// window and fold at the grid's columns (LevelArgs); the epilogue runs
+// the gauge (and H's velocity update and walls) on a window.
+
+// Coarse flags of a slab (hf, wf) whose first coarse column is the coarse
+// grid's column gx0c of gwc: _coarsen_flags with the ring at the grid's
+// columns.
+__global__ void mg_slab_coarsen(const int* __restrict__ flags_f_all,
+                                int* __restrict__ flags_c_all, int hf, int wf,
+                                int gx0c, int gwc) {
+  const int X = blockIdx.x * blockDim.x + threadIdx.x;
+  const int Y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int hc = hf / 2, wc = wf / 2;
+  if (X >= wc || Y >= hc) return;
+  const size_t b = blockIdx.z;
+  flags_c_all[b * hc * wc + Y * wc + X] =
+      coarse_flag(flags_f_all + b * hf * wf, wf, wrap(gx0c + X, gwc), Y,
+                  2 * X, 2 * Y, hc, gwc);
+}
+
+// Mask bytes of a slab: continuation by the grid's border ring, obstacle
+// neighbours within the slab (none read past its first or last column).
+__global__ void mg_slab_mask(const int* __restrict__ flags_all,
+                             uint8_t* __restrict__ mask_all, int h, int w,
+                             int gx0, int gw) {
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= w || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int* f = flags_all + blockIdx.z * n;
+  const int i = y * w + x;
+  uint8_t m = 0;
+  if (interior(wrap(gx0 + x, gw), y, h, gw) && f[i] != kObstacle) {
+    m = kCont;
+    if (x > 0 && f[i - 1] == kObstacle) m |= kObXm;
+    if (x < w - 1 && f[i + 1] == kObstacle) m |= kObXp;
+    if (f[i - w] == kObstacle) m |= kObYm;
+    if (f[i + w] == kObstacle) m |= kObYp;
+  }
+  mask_all[blockIdx.z * n + i] = m;
+}
+
+// Per-block partial sums (x * cont, cont) over the window's columns
+// [lo, hi) of a slab (h, w): 32 x 8 cells a block.
+__global__ void __launch_bounds__(256)
+    mg_slab_partials(const float* __restrict__ x_all,
+                     const uint8_t* __restrict__ mask_all,
+                     float* __restrict__ parts_all, int h, int w, int lo,
+                     int hi) {
+  __shared__ float2 slots[8];
+  const int x = lo + blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  float a = 0.f, c = 0.f;
+  if (x < hi && y < h) {
+    const size_t j = blockIdx.z * (size_t)h * w + y * w + x;
+    c = cont_f(mask_all[j]);
+    a = x_all[j] * c;
+  }
+  store_partial(a, c, parts_all, slots);
+}
+
+// update_and_walls of cell i of a slab: `inner` says whether the cell is
+// inside the grid's border ring; the walls' left neighbour is clamped at
+// the slab's first column (a slab that starts inside the grid holds the
+// cell to the left of every cell it writes).
+template <class P>
+__device__ __forceinline__ void slab_update_walls(const int* flags, P pv,
+                                                  float u, float v, int i,
+                                                  int x, int y, bool inner,
+                                                  int w, float* u_out,
+                                                  float* v_out) {
+  const int f = flags[i];
+  const bool fl = f == kFluid, em = f == kEmpty, ob = f == kObstacle;
+  float un = u, vn = v;
+  if (inner) {
+    const int fx = flags[i - 1], fy = flags[i - w];
+    const bool flx = fx == kFluid, emx = fx == kEmpty;
+    const bool fly = fy == kFluid, emy = fy == kEmpty;
+    const float pc = pv(i, x), px = pv(i - 1, x - 1), py = pv(i - w, x);
+    un = (fl && flx) ? u - (pc - px)
+         : (fl && emx) ? u - pc
+         : (em && flx) ? u + px : 0.f;
+    vn = (fl && fly) ? v - (pc - py)
+         : (fl && emy) ? v - pc
+         : (em && fly) ? v + py : 0.f;
+  }
+  const int fxc = x > 0 ? flags[i - 1] : f;
+  const int fyc = y > 0 ? flags[i - w] : f;
+  const bool contw = fl || ob;
+  const bool kill_u = contw && (fxc == kObstacle || (ob && fxc == kFluid));
+  const bool kill_v = contw && (fyc == kObstacle || (ob && fyc == kFluid));
+  *u_out = kill_u ? 0.f : un;
+  *v_out = kill_v ? 0.f : vn;
+}
+
+// The gauge of a slab's window, (p - mean) * cont with the mean of the
+// grid's sums (sum, count) a sample, into p_out (rows hi - lo wide); with
+// U also H's velocity update and free-slip walls into U_out. cont is the
+// grid's: the border ring at columns gx0 + x.
+__global__ void __launch_bounds__(256)
+    mg_slab_epilogue(const int* __restrict__ flags_all,
+                     const float* __restrict__ U,
+                     const float* __restrict__ p_all,
+                     const float* __restrict__ sums,
+                     float* __restrict__ p_out_all, float* __restrict__ U_out,
+                     int h, int w, int gx0, int gw, int lo, int hi) {
+  const int b = blockIdx.z;
+  const float mean = sums[2 * b] / fmaxf(sums[2 * b + 1], 1.f);
+  const int x = lo + blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= hi || y >= h) return;
+  const size_t n = (size_t)h * w;
+  const int wo = hi - lo;
+  const size_t no = (size_t)h * wo;
+  const int i = y * w + x;
+  const int* flags = flags_all + b * n;
+  const float* p = p_all + b * n;
+  auto cont = [flags, h, gx0, gw, w](int j, int xj) {
+    return (interior(wrap(gx0 + xj, gw), j / w, h, gw) &&
+            flags[j] != kObstacle)
+               ? 1.f : 0.f;
+  };
+  auto pg = [p, mean, cont](int j, int xj) {
+    return cont(j, xj) * (p[j] - mean);
+  };
+  p_out_all[b * no + (size_t)y * wo + x - lo] = pg(i, x);
+  if (!U) return;
+  const size_t ub = (size_t)b * 2 * n, vb = ub + n;
+  const size_t uo = (size_t)b * 2 * no, vo = uo + no;
+  const bool inner = x > 0 && interior(wrap(gx0 + x, gw), y, h, gw);
+  float un, vn;
+  slab_update_walls(flags, pg, U[ub + i], U[vb + i], i, x, y, inner, w, &un,
+                    &vn);
+  U_out[uo + (size_t)y * wo + x - lo] = un;
+  U_out[vo + (size_t)y * wo + x - lo] = vn;
+}
+
 // ---- the plan of one call, computed on the host ----
 
 // Levels of (h, w) (ops/multigrid.py::level_shapes): halve while both
@@ -1346,6 +1515,16 @@ class Solve {
     if (last) epilogue(q, out, nullptr);
   }
 
+  // The whole V-cycle from a zero start, without the gauge, when the
+  // whole hierarchy fits the single-block tail: the set-up and one tail
+  // launch a sample into out (the gathered coarse levels of a
+  // width-sharded solve).
+  bool tail_whole() const { return cut_ == 0; }
+  void tail_only(float* out) {
+    setup(true);
+    tail(0, nullptr, out, false);
+  }
+
  private:
   float* f(size_t off) { return reinterpret_cast<float*>(work_ + off); }
 
@@ -1424,6 +1603,7 @@ class Solve {
     a.w = L_.w[j];
     a.k = k;
     a.halo = halo;
+    whole_grid(a);
     return a;
   }
 
@@ -1589,6 +1769,55 @@ class Solve {
 
 int clamp_int(size_t v) { return v > (size_t)INT_MAX ? -1 : (int)v; }
 
+// A launch on a slab's window: kind 0 a smoothing launch, 1 a down
+// launch with the restriction, 2 an up launch; k sweeps. Its tile side
+// (64 where its blocks fill the card, else 32), halo and grid.
+struct SlabPlan {
+  int t, halo;
+  dim3 grid;
+};
+
+bool slab_plan(int kind, int b, int h, int lo, int hi, int k,
+               SlabPlan* out) {
+  if (kind < 0 || kind > 2 || b < 1 || h < 3 || lo < 0 || hi <= lo ||
+      k < 0 || k > kMaxSweeps || (kind > 0 && (lo % 2 || hi % 2)))
+    return false;
+  const int halo = kind == 0 ? k
+                   : kind == 1 ? ((k + kResidHalo + 1) & ~1)
+                               : ((k + 1) & ~1);
+  const int wide = 64 - 2 * halo;
+  const int t =
+      b * tiles(hi - lo, wide) * tiles(h, wide) >= kWideBlocks ? 64 : 32;
+  out->t = t;
+  out->halo = halo;
+  out->grid = dim3(tiles(hi - lo, t - 2 * halo), tiles(h, t - 2 * halo), b);
+  return true;
+}
+
+LevelArgs slab_args(const float* p_in, const float* rhs, const uint8_t* mask,
+                    const float* sums, float* p_out, int h, int w, int gx0,
+                    int gw, int lo, int hi, int wcp, int offc, int k,
+                    int halo) {
+  LevelArgs a{};
+  a.p_in = p_in;
+  a.rhs = rhs;
+  a.parts = sums;
+  a.nparts = 1;
+  a.mask = mask;
+  a.p_out = p_out;
+  a.h = h;
+  a.w = w;
+  a.k = k;
+  a.halo = halo;
+  a.lo = lo;
+  a.hi = hi;
+  a.gx0 = gx0;
+  a.gw = gw;
+  a.wcp = wcp;
+  a.offc = offc;
+  return a;
+}
+
 }  // namespace
 
 // Bytes of device workspace fn_mg_solve (project 0) or fn_mg_project
@@ -1718,5 +1947,173 @@ extern "C" int fn_mg_learned_up(const int* flags, const float* div,
       !out)
     return static_cast<int>(cudaErrorInvalidValue);
   S.learned_up(cut, e, rhs_c, out, last != 0);
+  return S.status();
+}
+
+// ---- the width-sharded V-cycle's entries (parallel/multigrid.py) ----
+//
+// Each runs one launch on a slab of a level (b, h, w): columns gx0 .. of a
+// grid gw wide, mod gw. Its window is the columns [lo, hi) it writes;
+// outputs are rows hi - lo wide. `sums` (b, 2) holds the grid's sums
+// (sum, count) a sample of the level's RHS over continuation cells (the
+// ranks' partials, all-reduced): the launch subtracts their mean.
+
+// Per-sample partial sums a launch of fn_mg_slab_down (kind 1) or of
+// fn_mg_slab_partials (kind 3) writes, (sum, count) each; -1 for
+// arguments it refuses. Launches nothing.
+extern "C" int fn_mg_slab_parts(int kind, int b, int h, int lo, int hi,
+                                int k) {
+  if (kind == 3)
+    return (b < 1 || hi <= lo) ? -1 : tiles(hi - lo, 32) * tiles(h, 8);
+  SlabPlan pl;
+  if (!slab_plan(kind, b, h, lo, hi, k, &pl)) return -1;
+  return pl.grid.x * pl.grid.y;
+}
+
+// The coarse flags (b, hf / 2, wf / 2) of a slab of fine flags whose
+// first column is the grid's column gx0 of gw (both even).
+extern "C" int fn_mg_slab_coarsen(const int* flags_f, int* flags_c, int b,
+                                  int hf, int wf, int gx0, int gw,
+                                  void* stream) {
+  if (b < 1 || hf % 2 || wf % 2 || gx0 % 2 || gw % 2 || !flags_f ||
+      !flags_c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 block(32, 8);
+  mg_slab_coarsen<<<fnk::grid2d(b, hf / 2, wf / 2, block), block, 0,
+                    (cudaStream_t)stream>>>(flags_f, flags_c, hf, wf,
+                                            gx0 / 2, gw / 2);
+  return fnk::launch_status();
+}
+
+// The mask bytes (b, h, w) of a slab of flags.
+extern "C" int fn_mg_slab_mask(const int* flags, uint8_t* mask, int b,
+                               int h, int w, int gx0, int gw, void* stream) {
+  if (b < 1 || h < 3 || w < 1 || gw < 3 || !flags || !mask)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 block(32, 8);
+  mg_slab_mask<<<fnk::grid2d(b, h, w, block), block, 0, (cudaStream_t)stream>>>(
+      flags, mask, h, w, gx0, gw);
+  return fnk::launch_status();
+}
+
+// Per-block partials (x * cont, cont) of the window into parts,
+// fn_mg_slab_parts(3, ...) pairs a sample.
+extern "C" int fn_mg_slab_partials(const float* x, const uint8_t* mask,
+                                   float* parts, int b, int h, int w, int lo,
+                                   int hi, void* stream) {
+  if (b < 1 || lo < 0 || hi > w || hi <= lo || !x || !mask || !parts)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 block(32, 8);
+  dim3 grid(tiles(hi - lo, 32), tiles(h, 8), b);
+  mg_slab_partials<<<grid, block, 0, (cudaStream_t)stream>>>(x, mask, parts,
+                                                             h, w, lo, hi);
+  return fnk::launch_status();
+}
+
+// One down launch on a slab: the compatibility projection of rhs by the
+// mean of `sums`, k <= kMaxSweeps sweeps from p_in (null: zeros), p of
+// the window into p_out; with restrict_ also the residual, the border fold
+// at the grid's columns and the child sums into rhs_c (b, h / 2, (hi - lo)
+// / 2) with their per-block partials (fn_mg_slab_parts(1, ...) a sample)
+// into parts, the coarse cells' mask bytes read from mask_c (wcp wide,
+// the coarse cell of column x at x / 2 + offc). Exact in the window where
+// the slab's columns hold the grid's within k + 2 of it (halo even).
+extern "C" int fn_mg_slab_down(const float* p_in, const float* rhs,
+                               const uint8_t* mask, const float* sums,
+                               const uint8_t* mask_c, float* p_out,
+                               float* rhs_c, float* parts, int b, int h,
+                               int w, int gx0, int gw, int lo, int hi,
+                               int wcp, int offc, int k, int restrict_,
+                               int damped, float keep, float damping,
+                               void* stream) {
+  SlabPlan pl;
+  if (!slab_plan(restrict_ ? 1 : 0, b, h, lo, hi, k, &pl) || hi > w ||
+      !rhs || !mask || !sums || !p_out ||
+      (restrict_ && (!mask_c || !rhs_c || !parts || h % 2)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  LevelArgs a = slab_args(p_in, rhs, mask, sums, p_out, h, w, gx0, gw, lo,
+                          hi, wcp, offc, k, pl.halo);
+  if (restrict_) {
+    a.rhs_c = rhs_c;
+    a.mask_c = mask_c;
+    a.parts_out = parts;
+  }
+  Problem P{b, h, w, 0, 1, 0, 0, 0, damped, keep, damping};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int st = pl.t == 64 ? launch_down<64>(pl.grid, a, P, s)
+                            : launch_down<32>(pl.grid, a, P, s);
+  return st ? st : fnk::launch_status();
+}
+
+// One up launch on a slab: both Neumann-extension passes of the coarse
+// correction e_c (wcp wide, as mask_c), its prolongation added onto p_in
+// on the continuation cells, k post-sweeps on rhs projected by the mean of
+// `sums`, p of the window into p_out. Exact in the window where the fine
+// columns within k and the coarse columns within k / 2 + 4 of it hold the
+// grid's.
+extern "C" int fn_mg_slab_up(const float* p_in, const float* rhs,
+                             const uint8_t* mask, const float* sums,
+                             const float* e_c, const uint8_t* mask_c,
+                             float* p_out, int b, int h, int w, int gx0,
+                             int gw, int lo, int hi, int wcp, int offc, int k,
+                             int damped, float keep, float damping,
+                             void* stream) {
+  SlabPlan pl;
+  if (!slab_plan(2, b, h, lo, hi, k, &pl) || hi > w || h % 2 || !p_in ||
+      !rhs || !mask || !sums || !e_c || !mask_c || !p_out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  LevelArgs a = slab_args(p_in, rhs, mask, sums, p_out, h, w, gx0, gw, lo,
+                          hi, wcp, offc, k, pl.halo);
+  Problem P{b, h, w, 0, 1, 0, 0, 0, damped, keep, damping};
+  cudaStream_t s = (cudaStream_t)stream;
+  const int st = pl.t == 64 ? launch_up<64>(pl.grid, a, e_c, mask_c, P, s)
+                            : launch_up<32>(pl.grid, a, e_c, mask_c, P, s);
+  return st ? st : fnk::launch_status();
+}
+
+// The gauge of a slab's window by the mean of `sums` into p_out, and with
+// U (b, 2, h, w) H's velocity update and free-slip walls into U_out (b,
+// 2, h, hi - lo).
+extern "C" int fn_mg_slab_epilogue(const int* flags, const float* U,
+                                   const float* p, const float* sums,
+                                   float* p_out, float* U_out, int b, int h,
+                                   int w, int gx0, int gw, int lo, int hi,
+                                   void* stream) {
+  if (b < 1 || h < 3 || lo < 0 || hi > w || hi <= lo || gw < 3 || !flags ||
+      !p || !sums || !p_out || (U && !U_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 block(32, 8);
+  dim3 grid(tiles(hi - lo, 32), tiles(h, 8), b);
+  mg_slab_epilogue<<<grid, block, 0, (cudaStream_t)stream>>>(
+      flags, U, p, sums, p_out, U_out, h, w, gx0, gw, lo, hi);
+  return fnk::launch_status();
+}
+
+// Launches of fn_mg_tail_solve on (b, h, w); -1 if the whole hierarchy
+// does not fit the single-block tail. Launches nothing.
+extern "C" int fn_mg_tail_launches(int b, int h, int w, int min_size,
+                                   int pre, int post, int coarse) {
+  Problem P{b, h, w, min_size, 1, pre, post, coarse, 0, 0.f, 0.f};
+  Solve S(P, false, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+          false);
+  if (!S.ok() || !S.tail_whole()) return -1;
+  S.tail_only(nullptr);
+  return S.launches();
+}
+
+// Kernel G's V-cycle from a zero start on a grid whose whole hierarchy fits
+// the single-block tail, without the gauge: the set-up, then one tail
+// launch a sample into out. `work` holds fn_mg_workspace(..., 0) bytes.
+extern "C" int fn_mg_tail_solve(const int* flags, const float* rhs,
+                                float* out, void* work, int b, int h, int w,
+                                int min_size, int pre, int post, int coarse,
+                                int damped, float keep, float damping,
+                                void* stream) {
+  Problem P{b, h, w, min_size, 1, pre, post, coarse, damped, keep, damping};
+  Solve S(P, false, static_cast<char*>(work), flags, rhs, nullptr, nullptr,
+          (cudaStream_t)stream, true);
+  if (!S.ok() || !S.tail_whole() || !work || !out)
+    return static_cast<int>(cudaErrorInvalidValue);
+  S.tail_only(out);
   return S.status();
 }

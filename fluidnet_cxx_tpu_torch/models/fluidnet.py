@@ -45,9 +45,12 @@ def scale_std(x, threshold: float):
     return torch.clamp(torch.std(y, dim=1, correction=1), min=threshold)
 
 
-def input_scale(cfg, p, U, div):
+def input_scale(cfg, p, U, div, scale=None):
     """(b,) scale s of the configured channel (``normalize_input_chan``),
-    or ones without ``normalize_input``."""
+    or ones without ``normalize_input``; ``scale`` if given (the
+    width-sharded step's std over the whole grid, parallel/project.py)."""
+    if scale is not None and cfg.normalize_input:
+        return scale
     if not cfg.normalize_input:
         return torch.ones((p.shape[0],), dtype=torch.float32,
                           device=p.device)
@@ -55,12 +58,12 @@ def input_scale(cfg, p, U, div):
     return scale_std(chan, cfg.normalize_input_threshold)
 
 
-def assemble_inputs(cfg, p, U, flags, density):
+def assemble_inputs(cfg, p, U, flags, density, scale=None):
     """(NHWC input, scale s (b,), div) of the network: the reference's
     priority chain pDiv, else UDiv (2 channels), else div, each divided by
-    s, then occupancy."""
+    s, then occupancy. ``scale``: see ``input_scale``."""
     div = velocity_divergence(U, flags)
-    s3 = input_scale(cfg, p, U, div)[:, None, None]
+    s3 = input_scale(cfg, p, U, div, scale)[:, None, None]
     if cfg.input_p_div:
         feats = [p / s3]
     elif cfg.input_u_div:
@@ -159,7 +162,8 @@ class FluidNet(torch.nn.Module):
         self.cfg = cfg
         self.net = make_net(cfg) if net is None else net
 
-    def forward(self, p, U, flags, density, packed=None):
+    def forward(self, p, U, flags, density, packed=None, scale=None,
+                net_only=False):
         """``packed`` (``pack_weights(self.net)``) runs the network's
         convolutions through kernel B's wrapper; without it the network's
         plain forward. The polish and the tail follow the tensors'
@@ -167,12 +171,16 @@ class FluidNet(torch.nn.Module):
         ``ops/kernels/jacobi.py::JacobiPolish`` (kernel F forward, its
         transposed sweeps backward); the "fused" and "mg" tails raise on
         the card, as ``jax.grad`` does not run through their Pallas
-        kernels either."""
+        kernels either. ``scale``: see ``input_scale``; ``net_only``
+        returns the network's un-normalised pressure before any polish
+        (the width-sharded "mg" polish runs its V-cycle after it)."""
         cfg = self.cfg
-        x, s, div = assemble_inputs(cfg, p, U, flags, density)
+        x, s, div = assemble_inputs(cfg, p, U, flags, density, scale)
         out = self.net(x) if packed is None else net_forward(self.net,
                                                              packed, x)
         p_hat = out[..., 0].contiguous()
+        if net_only:
+            return p_hat * s[:, None, None]
         if (cfg.polish_sweeps > 0 and cfg.polish_impl in ("fused", "mg")
                 and p_hat.requires_grad and p_hat.is_cuda):
             raise NotImplementedError(
@@ -205,9 +213,11 @@ def make_project_fn(cfg, net):
         packed = pack_weights(net)
 
     @torch.no_grad()
-    def project(p, U, flags, density):
-        return model(p, U, flags, density, packed)
+    def project(p, U, flags, density, scale=None, net_only=False):
+        return model(p, U, flags, density, packed, scale, net_only)
 
+    # What the width-sharded step reads (parallel/project.py::sharding_of).
+    project.kind, project.cfg, project.net = "flax", cfg, net
     return project
 
 
@@ -232,13 +242,16 @@ def make_project_fn_fused_forward(cfg, net):
         packed = pack_weights(net)
 
     @torch.no_grad()
-    def project(p, U, flags, density, U_bc=None, U_bc_inv_mask=None):
+    def project(p, U, flags, density, U_bc=None, U_bc_inv_mask=None,
+                scale=None, net_only=False):
         U_in = U * U_bc_inv_mask + U_bc if U_bc is not None else U
         div = velocity_divergence(U_in, flags)
-        s = input_scale(cfg, p, U_in, div)
+        s = input_scale(cfg, p, U_in, div, scale)
         feat0 = p if cfg.input_p_div else div
         x = torch.stack([feat0, flags_to_occupancy(flags)], dim=-1)
         p_hat = net_forward(net, packed, x, inv_scale=1.0 / s)[..., 0]
+        if net_only:
+            return p_hat * s[:, None, None]
         if cfg.polish_impl == "mg":
             p, U = project_mg(flags, U_in, p0=p_hat * s[:, None, None],
                               n_vcycles=1)
@@ -250,6 +263,7 @@ def make_project_fn_fused_forward(cfg, net):
                             U_bc_inv_mask=U_bc_inv_mask)
 
     project.handles_const_vals = True
+    project.kind, project.cfg, project.net = "fused", cfg, net
     return project
 
 

@@ -127,6 +127,10 @@ def make_project_fn_mg_learned(model, n_vcycles: int = 1, pre: int = 4,
                          coarse_size=coarse_size)
         return p_new, set_wall_bcs(velocity_update(p_new, U, flags), flags)
 
+    # What the width-sharded step reads (parallel/project.py::sharding_of).
+    project.kind = "mg_learned"
+    project.mg = dict(coarse_fn=coarse_fn, n_vcycles=n_vcycles, pre=pre,
+                      post=post, coarse_size=coarse_size)
     return project
 
 

@@ -174,8 +174,12 @@ class PUNet3(nn.Module):
         return depth_to_space3(x, self.patch).float()
 
 
-def _scale4(cfg, p, U, div):
-    """(b, 1, 1, 1) std scale of the configured channel, or ones."""
+def _scale4(cfg, p, U, div, scale=None):
+    """(b, 1, 1, 1) std scale of the configured channel, or ones;
+    ``scale`` (b,) if given (the width-sharded step's std over the whole
+    grid, parallel/project.py)."""
+    if scale is not None and cfg.normalize_input:
+        return scale[:, None, None, None]
     if cfg.normalize_input:
         chan = {"pDiv": p, "UDiv": U, "div": div}[cfg.normalize_input_chan]
         s = scale_std(chan, cfg.normalize_input_threshold)
@@ -209,13 +213,14 @@ class FluidNet3(nn.Module):
         self.cfg = cfg
         self.net = net
 
-    def forward(self, p, U, flags, density, packed=None):
+    def forward(self, p, U, flags, density, packed=None, scale=None):
         """``packed`` (``pack_weights3(self.net)``) runs the convolutions
         through kernel N's wrapper; without it the network's plain
-        forward. The polish and the tail follow the tensors' device."""
+        forward. The polish and the tail follow the tensors' device.
+        ``scale``: see ``_scale4``."""
         cfg = self.cfg
         div = velocity_divergence3(U, flags)
-        s4 = _scale4(cfg, p, U, div)
+        s4 = _scale4(cfg, p, U, div, scale)
         x = torch.stack([div / s4, flags_to_occupancy(flags)], dim=-1)
         out = (self.net(x) if packed is None
                else punet3_forward(self.net, packed, x))
@@ -261,9 +266,11 @@ def make_project_fn3(cfg, net=None):
         packed = pack_weights3(model.net)
 
     @torch.no_grad()
-    def project(p, U, flags, density):
-        return model(p, U, flags, density, packed)
+    def project(p, U, flags, density, scale=None):
+        return model(p, U, flags, density, packed, scale)
 
+    # What the width-sharded step reads (parallel/project.py::sharding_of).
+    project.kind, project.cfg, project.net = "flax3", cfg, model.net
     return project
 
 
@@ -294,15 +301,20 @@ def make_project_fn3_fused_forward(cfg, net):
         packed = pack_weights3(net)
 
     @torch.no_grad()
-    def project(p, U, flags, density):
-        if len(set(flags.shape[1:])) != 1:
-            raise ValueError("fused 3-D forward needs a cubic grid, got "
-                             f"{tuple(flags.shape[1:])}")
+    def project(p, U, flags, density, scale=None, grid=None):
+        """``scale`` and ``grid``, the whole grid's (d, h, w) for the cube
+        check: the width-sharded step's, which runs the projection on a
+        slab (parallel/project.py)."""
+        grid = tuple(flags.shape[1:]) if grid is None else tuple(grid)
+        if len(set(grid)) != 1:
+            raise ValueError(f"fused 3-D forward needs a cubic grid, got "
+                             f"{grid}")
         div = velocity_divergence3(U, flags)
-        s4 = _scale4(cfg, p, U, div)
+        s4 = _scale4(cfg, p, U, div, scale)
         x = torch.stack([div / s4, flags_to_occupancy(flags)], dim=-1)
         p_hat = punet3_forward(net, packed, x)[..., 0]
         return project_tail3(flags, U, p_hat * s4,
                              cfg.polish_sweeps, damping=cfg.polish_damping)
 
+    project.kind, project.cfg, project.net = "fused3", cfg, net
     return project

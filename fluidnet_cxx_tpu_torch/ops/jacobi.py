@@ -17,10 +17,14 @@ from ..celltype import OBSTACLE
 from .common import border_mask, nb, where0
 
 
-def _sweep_maker(flags, div, damping: float = 1.0):
+def _sweep_maker(flags, div, damping: float = 1.0, border=None):
+    """One sweep's function; ``border`` (h, w) replaces the array's own
+    border ring (a slab of a width-sharded grid pins the grid's)."""
     _, h, w = flags.shape
     obstacle = flags == OBSTACLE
-    cont = ~(border_mask(h, w, 1, div.device)[None] | obstacle)
+    if border is None:
+        border = border_mask(h, w, 1, div.device)
+    cont = ~(border[None] | obstacle)
     ob_xm, ob_xp = nb(obstacle, 0, -1), nb(obstacle, 0, 1)
     ob_ym, ob_yp = nb(obstacle, -1, 0), nb(obstacle, 1, 0)
     w_ = float(damping)
@@ -44,11 +48,11 @@ def _residual(p_new, p_old):
 
 
 def solve_jacobi_fixed(flags, div, iters: int, with_residual: bool = False,
-                       p0=None, damping: float = 1.0):
+                       p0=None, damping: float = 1.0, border=None):
     """Run exactly ``iters`` sweeps from ``p0`` (default 0). With
     ``with_residual`` returns ``(p, residual of the last sweep)`` (inf
-    after no sweep)."""
-    sweep = _sweep_maker(flags, div, damping)
+    after no sweep). ``border``: see ``_sweep_maker``."""
+    sweep = _sweep_maker(flags, div, damping, border)
     p = torch.zeros_like(div) if p0 is None else p0
     res = torch.tensor(float("inf"), dtype=torch.float32, device=div.device)
     for _ in range(iters):

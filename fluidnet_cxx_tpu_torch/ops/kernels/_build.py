@@ -74,6 +74,13 @@ SIGNATURES = {
     "fn_mg_project": [VP] * 6 + [I] * 9 + [F, F, VP],
     "fn_mg_learned_down": [VP] * 6 + [I] * 10 + [F, F, VP],
     "fn_mg_learned_up": [VP] * 6 + [I] * 10 + [F, F, VP],
+    "fn_mg_slab_coarsen": [VP, VP] + [I] * 5 + [VP],
+    "fn_mg_slab_mask": [VP, VP] + [I] * 5 + [VP],
+    "fn_mg_slab_partials": [VP] * 3 + [I] * 5 + [VP],
+    "fn_mg_slab_down": [VP] * 8 + [I] * 12 + [F, F, VP],
+    "fn_mg_slab_up": [VP] * 7 + [I] * 11 + [F, F, VP],
+    "fn_mg_slab_epilogue": [VP] * 6 + [I] * 7 + [VP],
+    "fn_mg_tail_solve": [VP] * 4 + [I] * 8 + [F, F, VP],
     "fn_jacobi3_solve": [VP, VP, VP, VP, VP, VP, I, I, I, I, I, I, F, F, VP],
     "fn_tail3": [VP] * 8 + [I] * 6 + [F, F, VP],
     "fn_conv3d_ndhwc": [VP] * 6 + [I] * 20 + [VP, VP],
@@ -97,6 +104,8 @@ QUERIES = {
     "fn_mg_launches": [I] * 9,
     "fn_mg_cut_level": [I] * 3,
     "fn_mg_learned_launches": [I] * 10,
+    "fn_mg_slab_parts": [I] * 6,
+    "fn_mg_tail_launches": [I] * 7,
     "fn_advect_max_disp": [],
     "fn_advect_tile_smem": [I] * 3,
     "fn_advect3_velocity_max_disp": [I],

@@ -30,6 +30,9 @@ import functools
 
 import torch
 
+from typing import NamedTuple, Optional
+
+from .. import multigrid as plain
 from ..multigrid import cut_level, level_shapes
 from ..multigrid import solve_mg as solve_mg_plain
 from ..stencils import set_wall_bcs, velocity_divergence, velocity_update
@@ -223,6 +226,225 @@ def project_mg(flags, U, p0=None, n_vcycles: int = 1, pre: int = 4,
     return p_out, U_out
 
 
+# ------------------------------------------- the width-sharded V-cycle
+#
+# One launch each on a slab of a level (parallel/multigrid.py): the
+# entries fn_mg_slab_* and fn_mg_tail_solve of csrc/mg.cu, their plain
+# versions ops/multigrid.py's slab_* and tail_solve. A slab is a level's
+# columns x0 .. of a grid W wide taken mod W; a window [lo, hi) is the
+# columns a launch writes.
+
+
+class Slab(NamedTuple):
+    """A slab of a level: its flags (b, h, w) int32, the grid's column of
+    its first column, the grid's width, and on the card its mask bytes
+    (``fn_mg_slab_mask``; None on the CPU)."""
+    flags: torch.Tensor
+    x0: int
+    W: int
+    mask: Optional[torch.Tensor] = None
+
+
+def slab(flags, x0: int, W: int) -> Slab:
+    """The ``Slab`` of ``flags``: on a CUDA tensor with its mask bytes
+    (one launch, counted in ``slab.launches``)."""
+    if not _build.on_cuda(flags):
+        return Slab(flags, x0, W)
+    b, h, w = flags.shape
+    _build.check(flags, "flags", torch.int32, (b, h, w), flags.device)
+    mask = torch.empty((b, h, w), dtype=torch.uint8, device=flags.device)
+    _build.call("fn_mg_slab_mask", flags.data_ptr(), mask.data_ptr(), b, h,
+                w, x0, W, _build.stream())
+    slab.launches += 1
+    return Slab(flags, x0, W, mask)
+
+
+def _masked(s: Slab) -> Slab:
+    """``s`` with its mask bytes: a slab of CUDA tensors made without
+    them (a ``Slab`` built by hand) gets them here (``slab``)."""
+    return s if s.mask is not None else slab(s.flags, s.x0, s.W)
+
+
+def slab_coarsen(s: Slab) -> Slab:
+    """The next level's slab of the same columns (``_coarsen_flags`` with
+    the ring at the grid's columns; x0 and the width even)."""
+    if not _build.on_cuda(s.flags):
+        return Slab(plain.slab_coarsen(s.flags, s.x0, s.W), s.x0 // 2,
+                    s.W // 2)
+    b, h, w = s.flags.shape
+    out = torch.empty((b, h // 2, w // 2), dtype=torch.int32,
+                      device=s.flags.device)
+    _build.call("fn_mg_slab_coarsen", s.flags.data_ptr(), out.data_ptr(), b,
+                h, w, s.x0, s.W, _build.stream())
+    slab.launches += 1
+    return slab(out, s.x0 // 2, s.W // 2)
+
+
+def slab_crop(s: Slab, a: int, b: int) -> Slab:
+    """Columns [a, b) of a slab."""
+    return Slab(s.flags[..., a:b].contiguous(), s.x0 + a, s.W,
+                None if s.mask is None else s.mask[..., a:b].contiguous())
+
+
+@functools.lru_cache(maxsize=256)
+def _slab_parts(kind, b, h, lo, hi, k):
+    n = _build.query("fn_mg_slab_parts", kind, b, h, lo, hi, k)
+    if n < 0:
+        raise ValueError(f"multigrid: the slab kernels refuse a window "
+                         f"[{lo}, {hi}) of {h} rows with {k} sweeps")
+    return n
+
+
+def _summed(parts, b):
+    return parts.view(b, -1, 2).sum(dim=1)
+
+
+def slab_sums(s: Slab, x, lo: int, hi: int):
+    """(b, 2) sums (x * cont, cont) over the window: per-block partials
+    (one launch, ``slab.launches``), added up here."""
+    if not _build.on_cuda(s.flags):
+        return plain.slab_sums(x, s.flags, s.x0, s.W, lo, hi)
+    s = _masked(s)
+    b, h, w = s.flags.shape
+    _build.check(x, "x", torch.float32, (b, h, w), x.device)
+    parts = torch.empty((b, _slab_parts(3, b, h, lo, hi, 0), 2),
+                        dtype=torch.float32, device=x.device)
+    _build.call("fn_mg_slab_partials", x.data_ptr(), s.mask.data_ptr(),
+                parts.data_ptr(), b, h, w, lo, hi, _build.stream())
+    slab.launches += 1
+    return _summed(parts, b)
+
+
+def _coarse_geometry(s: Slab, s_c: Slab):
+    """(width, offset) of the coarse slab: the coarse cell of column x of
+    ``s`` is its column x / 2 + offset."""
+    return s_c.flags.shape[-1], s.x0 // 2 - s_c.x0
+
+
+def slab_down(s: Slab, s_c: Slab, p, rhs, sums, k: int, lo: int, hi: int,
+              restrict: bool, damping: float = 2.0 / 3.0):
+    """One down launch (with ``restrict``) or smoothing launch on a slab
+    (``fn_mg_slab_down``, counted in ``slab_down.launches``): ``k`` <= 8
+    sweeps. ``s_c`` is the next level's slab (its mask bytes for the
+    coarse RHS's sums). Returns (p, coarse RHS, its sums) of the
+    window."""
+    if not _build.on_cuda(s.flags):
+        return plain.slab_down(s.flags, s.x0, s.W, p, rhs, sums, k, lo, hi,
+                               restrict, damping)
+    s, s_c = _masked(s), _masked(s_c) if restrict else s_c
+    b, h, w = s.flags.shape
+    dev = rhs.device
+    _build.check(rhs, "rhs", torch.float32, (b, h, w), dev)
+    if p is not None:
+        _build.check(p, "p", torch.float32, (b, h, w), dev)
+    sums = sums.contiguous()
+    p_out = torch.empty((b, h, hi - lo), dtype=torch.float32, device=dev)
+    rhs_c = parts = None
+    wcp, offc = 0, 0
+    if restrict:
+        wcp, offc = _coarse_geometry(s, s_c)
+        rhs_c = torch.empty((b, h // 2, (hi - lo) // 2), dtype=torch.float32,
+                            device=dev)
+        parts = torch.empty((b, _slab_parts(1, b, h, lo, hi, k), 2),
+                            dtype=torch.float32, device=dev)
+    _build.call("fn_mg_slab_down", _build.ptr(p), rhs.data_ptr(),
+                s.mask.data_ptr(), sums.data_ptr(),
+                _build.ptr(s_c.mask if restrict else None), p_out.data_ptr(),
+                _build.ptr(rhs_c), _build.ptr(parts), b, h, w, s.x0, s.W, lo,
+                hi, wcp, offc, k, int(restrict), *sweep_args(damping),
+                _build.stream())
+    slab_down.launches += 1
+    return p_out, rhs_c, None if parts is None else _summed(parts, b)
+
+
+def slab_up(s: Slab, s_c: Slab, p, rhs, sums, e_c, k: int, lo: int,
+            hi: int, damping: float = 2.0 / 3.0):
+    """One up launch on a slab (``fn_mg_slab_up``, counted in
+    ``slab_up.launches``): the coarse correction ``e_c`` on the coarse
+    slab ``s_c``'s columns, its extension and prolongation onto ``p``,
+    ``k`` <= 8 post-sweeps. Returns p of the window."""
+    if not _build.on_cuda(s.flags):
+        return plain.slab_up(s.flags, s.x0, s.W, s_c.flags, s_c.x0, p, rhs,
+                             sums, e_c, k, lo, hi, damping)
+    s, s_c = _masked(s), _masked(s_c)
+    b, h, w = s.flags.shape
+    dev = rhs.device
+    for t, name in ((p, "p"), (rhs, "rhs")):
+        _build.check(t, name, torch.float32, (b, h, w), dev)
+    _build.check(e_c, "e_c", torch.float32, tuple(s_c.flags.shape), dev)
+    wcp, offc = _coarse_geometry(s, s_c)
+    p_out = torch.empty((b, h, hi - lo), dtype=torch.float32, device=dev)
+    _build.call("fn_mg_slab_up", p.data_ptr(), rhs.data_ptr(),
+                s.mask.data_ptr(), sums.contiguous().data_ptr(),
+                e_c.data_ptr(), s_c.mask.data_ptr(), p_out.data_ptr(), b, h,
+                w, s.x0, s.W, lo, hi, wcp, offc, k, *sweep_args(damping),
+                _build.stream())
+    slab_up.launches += 1
+    return p_out
+
+
+def slab_epilogue(s: Slab, p, sums, lo: int, hi: int, U=None):
+    """The gauge of the window (``fn_mg_slab_epilogue``, counted in
+    ``slab_epilogue.launches``) and with ``U`` H's velocity update and
+    walls: the window leaves out the slab's first and last columns unless
+    they are the grid's. Returns (p, U or None) of the window."""
+    if not _build.on_cuda(p):
+        return plain.slab_epilogue(s.flags, s.x0, s.W, p, sums, lo, hi, U)
+    b, h, w = s.flags.shape
+    dev = p.device
+    _build.check(p, "p", torch.float32, (b, h, w), dev)
+    p_out = torch.empty((b, h, hi - lo), dtype=torch.float32, device=dev)
+    U_out = None
+    if U is not None:
+        _build.check(U, "U", torch.float32, (b, 2, h, w), dev)
+        U_out = torch.empty((b, 2, h, hi - lo), dtype=torch.float32,
+                            device=dev)
+    _build.call("fn_mg_slab_epilogue", s.flags.data_ptr(), _build.ptr(U),
+                p.data_ptr(), sums.contiguous().data_ptr(), p_out.data_ptr(),
+                _build.ptr(U_out), b, h, w, s.x0, s.W, lo, hi,
+                _build.stream())
+    slab_epilogue.launches += 1
+    return p_out, U_out
+
+
+@functools.lru_cache(maxsize=64)
+def _tail_plan(b, h, w, min_size, pre, post, coarse):
+    launches = _build.query("fn_mg_tail_launches", b, h, w, min_size, pre,
+                            post, coarse)
+    if launches < 0:
+        raise ValueError(f"multigrid: the hierarchy of {h}x{w} does not fit "
+                         "the single-block tail")
+    return _plan(b, h, w, min_size, 1, pre, post, coarse, 0)[0], launches
+
+
+def tail_solve(flags, rhs, pre: int = 4, post: int = 4,
+               coarse_iters: int = 32, damping: float = 2.0 / 3.0,
+               min_size: int = 8):
+    """One V-cycle from zero on a whole grid whose hierarchy fits the
+    single-block tail, without the gauge (``fn_mg_tail_solve``: the set-up
+    and the tail, counted in ``tail_solve.launches``). Returns p."""
+    if not _build.on_cuda(rhs):
+        return plain.tail_solve(flags, rhs, pre, post, coarse_iters, damping,
+                                min_size)
+    b, h, w = flags.shape
+    _build.check(flags, "flags", torch.int32, (b, h, w), rhs.device)
+    _build.check(rhs, "rhs", torch.float32, (b, h, w), rhs.device)
+    nbytes, launches = _tail_plan(b, h, w, min_size, pre, post,
+                                  coarse_iters)
+    work = torch.empty(nbytes, dtype=torch.uint8, device=rhs.device)
+    out = torch.empty_like(rhs)
+    _build.call("fn_mg_tail_solve", flags.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), work.data_ptr(), b, h, w, min_size, pre, post,
+                coarse_iters, *sweep_args(damping), _build.stream())
+    tail_solve.launches += launches
+    return out
+
+
 solve_mg.launches = 0
 solve_mg_learned.launches = 0
 project_mg.launches = 0
+slab.launches = 0
+slab_down.launches = 0
+slab_up.launches = 0
+slab_epilogue.launches = 0
+tail_solve.launches = 0

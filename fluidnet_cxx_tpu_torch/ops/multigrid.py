@@ -32,61 +32,89 @@ from ..celltype import OBSTACLE
 from . import ops3d
 from .common import border_mask, nb, where0
 from .jacobi import solve_jacobi_fixed
+from .stencils import set_wall_bcs, velocity_update
 from .kernels.jacobi3 import solve_jacobi3
 
 _NEIGHBOURS = ((0, -1), (0, 1), (-1, 0), (1, 0))
 
 
-def _cont(flags):
+def slab_columns(w: int, x0: int, W: int, device="cpu"):
+    """The grid's column of each column of a slab ``w`` wide whose first
+    column is the grid's column ``x0`` of ``W``, mod ``W`` (a halo past a
+    domain edge holds the other edge's columns, as the rolls wrap)."""
+    return torch.remainder(x0 + torch.arange(w, device=device), W)
+
+
+def slab_border(h: int, w: int, x0: int, W: int, device="cpu"):
+    """(h, w) border ring of such a slab: the grid's first and last
+    columns and the first and last rows."""
+    X = slab_columns(w, x0, W, device)[None, :]
+    yy = torch.arange(h, device=device)[:, None]
+    return (X == 0) | (X == W - 1) | (yy == 0) | (yy == h - 1)
+
+
+def _cont(flags, border=None):
+    """Continuation cells; ``border`` (h, w) replaces the array's own
+    ring (``slab_border``)."""
     _, h, w = flags.shape
-    return ~(border_mask(h, w, 1, flags.device)[None] | (flags == OBSTACLE))
+    if border is None:
+        border = border_mask(h, w, 1, flags.device)
+    return ~(border[None] | (flags == OBSTACLE))
 
 
-def apply_A(flags, p):
+def apply_A(flags, p, border=None):
     """A p on continuation cells, 0 elsewhere. The fixed point of the
     Jacobi sweep satisfies A p = rhs."""
     ob = flags == OBSTACLE
     acc = torch.zeros_like(p)
     for dy, dx in _NEIGHBOURS:
         acc = acc + torch.where(nb(ob, dy, dx), p, nb(p, dy, dx))
-    return where0(_cont(flags), 4.0 * p - acc)
+    return where0(_cont(flags, border), 4.0 * p - acc)
 
 
-def residual(flags, rhs, p):
-    return where0(_cont(flags), rhs - apply_A(flags, p))
+def residual(flags, rhs, p, border=None):
+    return where0(_cont(flags, border), rhs - apply_A(flags, p, border))
 
 
-def _coarsen_flags(flags):
+def _coarsen_flags(flags, border=None):
     """OBSTACLE iff all four children are; otherwise the least cell-type id
-    of the non-obstacle children; an OBSTACLE border ring on every level."""
+    of the non-obstacle children; an OBSTACLE border ring on every level
+    (``border``, the coarse level's ring of a slab, or the array's)."""
     b, h, w = flags.shape
     f = flags.reshape(b, h // 2, 2, w // 2, 2)
     all_ob = (f == OBSTACLE).all(dim=4).all(dim=2)
     big = torch.iinfo(torch.int32).max
     rep = torch.where(f == OBSTACLE, big, f).amin(dim=(2, 4))
     out = torch.where(all_ob, OBSTACLE, rep).to(torch.int32)
-    border = border_mask(h // 2, w // 2, 1, flags.device)[None]
-    return torch.where(border, OBSTACLE, out).to(torch.int32)
+    if border is None:
+        border = border_mask(h // 2, w // 2, 1, flags.device)
+    return torch.where(border[None], OBSTACLE, out).to(torch.int32)
 
 
-def _fold_border(r):
+def _fold_border(r, X=None, W=None):
     """Move the residual of the border-layer rows and columns (1 and -2)
-    one cell inward; rows first, then columns."""
+    one cell inward; rows first, then columns. On a slab, ``X`` holds the
+    grid's column of each column (``slab_columns``) of a grid ``W``
+    wide."""
     r = r.clone()
     r[:, 2, :] += r[:, 1, :]
     r[:, -3, :] += r[:, -2, :]
     r[:, 1, :] = 0.0
     r[:, -2, :] = 0.0
-    r[:, :, 2] += r[:, :, 1]
-    r[:, :, -3] += r[:, :, -2]
-    r[:, :, 1] = 0.0
-    r[:, :, -2] = 0.0
-    return r
+    if X is None:
+        r[:, :, 2] += r[:, :, 1]
+        r[:, :, -3] += r[:, :, -2]
+        r[:, :, 1] = 0.0
+        r[:, :, -2] = 0.0
+        return r
+    r = torch.where(X == 2, r + nb(r, 0, -1), r)
+    r = torch.where(X == W - 3, r + nb(r, 0, 1), r)
+    return where0(~((X == 1) | (X == W - 2)), r)
 
 
-def _restrict_sum(r):
+def _restrict_sum(r, X=None, W=None):
     b, h, w = r.shape
-    r = _fold_border(r)
+    r = _fold_border(r, X, W)
     return r.reshape(b, h // 2, 2, w // 2, 2).sum(dim=(2, 4))
 
 
@@ -103,11 +131,11 @@ def _prolong(e):
     return torch.stack([ex0, ex1], dim=3).reshape(b, 2 * hc, 2 * wc)
 
 
-def _cont_mask(flags):
+def _cont_mask(flags, border=None):
     """Continuation cells (interior, not obstacle) as float32; 2-D or
     3-D flags."""
-    return (_cont(flags) if flags.dim() == 3 else _cont3(flags)).to(
-        torch.float32)
+    return (_cont(flags, border) if flags.dim() == 3
+            else _cont3(flags, border)).to(torch.float32)
 
 
 def _remove_incompatible(flags, rhs):
@@ -120,9 +148,9 @@ def _remove_incompatible(flags, rhs):
     return (rhs - mean) * m
 
 
-def _neumann_extend(flags, e):
+def _neumann_extend(flags, e, border=None):
     """Fill dead cells with the mean of their live neighbours, two passes."""
-    live = _cont_mask(flags)
+    live = _cont_mask(flags, border)
     e = e * live
     for _ in range(2):
         num = torch.zeros_like(e)
@@ -241,13 +269,115 @@ def mg_cut_rhs(flags, div, coarse_size: int = 128, pre: int = 4,
     return lvls[cut], _remove_incompatible(lvls[cut], rhs)
 
 
+# ------------------------------------------- width-sharded levels, 2-D
+#
+# The plain versions of csrc/mg.cu's slab entries (parallel/multigrid.py):
+# each runs one level's step on a slab of it, columns ``x0`` .. of a grid
+# ``W`` wide taken mod ``W`` (``slab_columns``), with the border ring and
+# the fold at the grid's columns, and returns the window of columns [lo,
+# hi). ``sums`` (b, 2) are the grid's sums (sum, count) of the level's
+# RHS over continuation cells; the step subtracts their mean. A window is
+# exact where the slab holds the grid's columns far enough around it
+# (parallel/multigrid.py says how far). On the whole grid (x0 0, W w, the
+# window all of it) each is the per-level step of ``_vcycle``.
+
+
+def slab_coarsen(flags, x0: int, W: int):
+    """Coarse flags of a slab of flags (fn_mg_slab_coarsen)."""
+    _, h, w = flags.shape
+    return _coarsen_flags(flags, slab_border(h // 2, w // 2, x0 // 2,
+                                             W // 2, flags.device))
+
+
+def slab_sums(x, flags, x0: int, W: int, lo: int, hi: int):
+    """(b, 2) sums (x * cont, cont) over the window (fn_mg_slab_partials,
+    its partials summed)."""
+    _, h, w = flags.shape
+    m = _cont_mask(flags, slab_border(h, w, x0, W, flags.device))
+    m = m[..., lo:hi]
+    return torch.stack([torch.sum(x[..., lo:hi] * m, dim=(1, 2)),
+                        torch.sum(m, dim=(1, 2))], dim=1)
+
+
+def _mean_of(sums):
+    return (sums[:, 0] / torch.clamp(sums[:, 1], min=1.0))[:, None, None]
+
+
+def slab_down(flags, x0: int, W: int, p, rhs, sums, k: int, lo: int,
+              hi: int, restrict: bool, damping: float = 2.0 / 3.0):
+    """The compatibility projection of ``rhs``, ``k`` damped sweeps from
+    ``p`` (None: zeros) and, with ``restrict``, the residual, the fold
+    and the child sums (fn_mg_slab_down). Returns (p, coarse RHS, its sums
+    (b, 2)) of the window (None, None without ``restrict``)."""
+    _, h, w = flags.shape
+    border = slab_border(h, w, x0, W, flags.device)
+    rhs = (rhs - _mean_of(sums)) * _cont_mask(flags, border)
+    p = solve_jacobi_fixed(flags, rhs, k, p0=p, damping=damping,
+                           border=border)
+    if not restrict:
+        return p[..., lo:hi], None, None
+    X = slab_columns(w, x0, W, flags.device)
+    rc = _restrict_sum(residual(flags, rhs, p, border), X, W)
+    return (p[..., lo:hi], rc[..., lo // 2:hi // 2],
+            slab_sums(rc, slab_coarsen(flags, x0, W), x0 // 2, W // 2,
+                      lo // 2, hi // 2))
+
+
+def slab_up(flags, x0: int, W: int, flags_c, x0c: int, p, rhs, sums, e_c,
+            k: int, lo: int, hi: int, damping: float = 2.0 / 3.0):
+    """The Neumann extension of the coarse correction ``e_c`` (a slab of
+    the coarse level, flags ``flags_c``, first column the coarse grid's
+    ``x0c``), its prolongation onto ``p`` on the continuation cells and
+    ``k`` damped sweeps on the projected ``rhs`` (fn_mg_slab_up). Returns
+    p of the window."""
+    _, h, w = flags.shape
+    border = slab_border(h, w, x0, W, flags.device)
+    m = _cont(flags, border)
+    rhs = (rhs - _mean_of(sums)) * m.to(torch.float32)
+    hc, wc = flags_c.shape[1:]
+    e = _neumann_extend(flags_c, e_c, slab_border(hc, wc, x0c, W // 2,
+                                                  flags.device))
+    off = 2 * (x0 // 2 - x0c)
+    p = p + where0(m, _prolong(e)[..., off:off + w])
+    p = solve_jacobi_fixed(flags, rhs, k, p0=p, damping=damping,
+                           border=border)
+    return p[..., lo:hi]
+
+
+def slab_epilogue(flags, x0: int, W: int, p, sums, lo: int, hi: int,
+                  U=None):
+    """The gauge (p - mean) * cont of the window (fn_mg_slab_epilogue);
+    with ``U`` also the velocity update and the free-slip walls, whose
+    own border and clamp are the array's: the window leaves out the
+    slab's first and last columns unless they are the grid's. Returns (p,
+    U or None) of the window."""
+    _, h, w = flags.shape
+    pg = _cont_mask(flags, slab_border(h, w, x0, W, flags.device)) * (
+        p - _mean_of(sums))
+    if U is None:
+        return pg[..., lo:hi], None
+    U = set_wall_bcs(velocity_update(pg, U, flags), flags)
+    return pg[..., lo:hi], U[..., lo:hi]
+
+
+def tail_solve(flags, rhs, pre: int = 4, post: int = 4,
+               coarse_iters: int = 32, damping: float = 2.0 / 3.0,
+               min_size: int = 8):
+    """One V-cycle from zero on the whole grid, without the gauge
+    (fn_mg_tail_solve): the gathered coarse levels of a width-sharded
+    solve."""
+    return _vcycle(_levels(flags, min_size), rhs, torch.zeros_like(rhs), 0,
+                   pre, post, coarse_iters, damping)
+
+
 # ---------------------------------------------------------------- 3-D
 
 
-def _cont3(flags):
+def _cont3(flags, border=None):
     _, d, h, w = flags.shape
-    return ~(ops3d.border_mask3(d, h, w, 1, flags.device)[None]
-             | (flags == OBSTACLE))
+    if border is None:
+        border = ops3d.border_mask3(d, h, w, 1, flags.device)
+    return ~(border[None] | (flags == OBSTACLE))
 
 
 def apply_A3(flags, p):
@@ -263,38 +393,46 @@ def _residual3(flags, rhs, p):
     return where0(_cont3(flags), rhs - apply_A3(flags, p))
 
 
-def _coarsen_flags3(flags):
+def _coarsen_flags3(flags, border=None):
     """OBSTACLE iff all eight children are; otherwise the least cell-type
-    id of the non-obstacle children; an OBSTACLE border shell."""
+    id of the non-obstacle children; an OBSTACLE border shell (``border``,
+    the coarse level's shell of a slab, or the array's)."""
     b, d, h, w = flags.shape
     f = flags.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2)
     all_ob = (f == OBSTACLE).all(dim=6).all(dim=4).all(dim=2)
     big = torch.iinfo(torch.int32).max
     rep = torch.where(f == OBSTACLE, big, f).amin(dim=(2, 4, 6))
     out = torch.where(all_ob, OBSTACLE, rep).to(torch.int32)
-    border = ops3d.border_mask3(d // 2, h // 2, w // 2, 1, flags.device)
+    if border is None:
+        border = ops3d.border_mask3(d // 2, h // 2, w // 2, 1, flags.device)
     return torch.where(border[None], OBSTACLE, out).to(torch.int32)
 
 
-def _fold_border3(r):
+def _fold_border3(r, X=None, W=None):
     """Move the residual of the border-layer planes (1 and -2) one cell
-    inward, z, then y, then x (edges and corners travel once per axis)."""
+    inward, z, then y, then x (edges and corners travel once per axis).
+    On a slab along x, ``X`` holds the grid's column of each column of a
+    grid ``W`` wide (``slab_columns``)."""
     r = r.clone()
-    for ax in (1, 2, 3):
+    for ax in (1, 2, 3) if X is None else (1, 2):
         lo_src, lo_dst = r.select(ax, 1), r.select(ax, 2)
         hi_src, hi_dst = r.select(ax, -2), r.select(ax, -3)
         lo_dst += lo_src
         hi_dst += hi_src
         lo_src.zero_()
         hi_src.zero_()
+    if X is not None:
+        r = torch.where(X == 2, r + torch.roll(r, 1, dims=3), r)
+        r = torch.where(X == W - 3, r + torch.roll(r, -1, dims=3), r)
+        r = where0(~((X == 1) | (X == W - 2)), r)
     return r
 
 
-def _restrict_sum3(r):
+def _restrict_sum3(r, X=None, W=None):
     """Border fold, then the sum of each cell's 8 children halved (the
     unit-spacing stencil at every level)."""
     b, d, h, w = r.shape
-    r = _fold_border3(r)
+    r = _fold_border3(r, X, W)
     return r.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2).sum(
         dim=(2, 4, 6)) * 0.5
 
@@ -313,10 +451,10 @@ def _prolong3(e):
     return interleave(interleave(interleave(e, 1), 2), 3)
 
 
-def _neumann_extend3(flags, e):
+def _neumann_extend3(flags, e, border=None):
     """Fill dead cells with the mean of their live 6-neighbours, three
     passes (cube corners fill through edges and faces)."""
-    live = _cont_mask(flags)
+    live = _cont_mask(flags, border)
     e = e * live
     for _ in range(3):
         num = torch.zeros_like(e)

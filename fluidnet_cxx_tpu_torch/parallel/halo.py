@@ -92,11 +92,14 @@ def _p2p(mesh, sends, recvs):
     return [t.to(mesh.device) if staged else t for t, _ in bufs]
 
 
-def pad_columns(mesh, tensors, g: int):
+def pad_columns(mesh, tensors, g: int, periodic: bool = False):
     """Each of ``tensors`` (this rank's slabs, the same width w in the last
     axis) with up to ``g`` neighbouring columns on each side, fewer at a
-    global domain edge; one message a direction and hop. Returns (padded
-    tensors, left width, right width)."""
+    global domain edge; one message a direction and hop. ``periodic``:
+    the sx ranks form a ring, and every rank gets ``g`` columns on each
+    side, those past a domain edge from the other edge (the multigrid
+    levels, whose rolls wrap there). Returns (padded tensors, left width,
+    right width)."""
     n, i = mesh.sx, mesh.sx_index
     wl = tensors[0].shape[-1]
     if n == 1 or g == 0:
@@ -106,26 +109,30 @@ def pad_columns(mesh, tensors, g: int):
     rows = x.shape[0]
     left = x[:, :0]
     right = x[:, :0]
-    left_peer, right_peer = mesh.rank - 1, mesh.rank + 1
-    for k in range(1, min(math.ceil(g / wl), n - 1) + 1):
+    has_left, has_right = periodic or i > 0, periodic or i < n - 1
+    left_peer = mesh.rank_of(mesh.dp_index, (i - 1) % n)
+    right_peer = mesh.rank_of(mesh.dp_index, (i + 1) % n)
+    hops = math.ceil(g / wl) if periodic else min(math.ceil(g / wl), n - 1)
+    for k in range(1, hops + 1):
         sends, recvs = [], []
-        if i < n - 1:
+        if has_right:
             ext = torch.cat([left, x], 1)
             sends.append((ext[:, -min(g, ext.shape[1]):].contiguous(),
                           right_peer))
-        if i > 0:
+        if has_left:
             ext = torch.cat([x, right], 1)
             sends.append((ext[:, :min(g, ext.shape[1])].contiguous(),
                           left_peer))
-        if i > 0:
-            recvs.append(((rows, min(g, min(i, k) * wl)), left_peer))
-        if i < n - 1:
-            recvs.append(((rows, min(g, min(n - 1 - i, k) * wl)),
-                          right_peer))
+        reach_l = k if periodic else min(i, k)
+        reach_r = k if periodic else min(n - 1 - i, k)
+        if has_left:
+            recvs.append(((rows, min(g, reach_l * wl)), left_peer))
+        if has_right:
+            recvs.append(((rows, min(g, reach_r * wl)), right_peer))
         got = _p2p(mesh, sends, recvs)
-        if i > 0:
+        if has_left:
             left = got.pop(0)
-        if i < n - 1:
+        if has_right:
             right = got.pop(0)
     padded = torch.cat([left, x, right], 1)
     return _unpack(padded, tensors), left.shape[1], right.shape[1]
@@ -137,24 +144,27 @@ def crop(t, left: int, wl: int):
     return t[..., left:left + wl].contiguous()
 
 
-def _solve_sharded(solve, flags, div, iters, mesh, sweeps):
+def _solve_sharded(solve, flags, div, iters, mesh, sweeps, p0=None,
+                   damping: float = 1.0):
     """``iters`` sweeps of ``solve`` (kernel F or I) on the ghost-zone
-    slabs, ``sweeps`` between exchanges of p."""
+    slabs from ``p0`` (this rank's slab; default 0), ``sweeps`` between
+    exchanges of p."""
     if mesh.sx == 1:
         mesh.solver_calls += 1
-        return solve(flags, div, iters)
+        return solve(flags, div, iters, p0=p0, damping=damping)
     if iters < 0:
         raise ValueError("the Jacobi solve needs iters >= 0")
     wl = div.shape[-1]
     g = sweeps + 1
     (flags_p, div_p), lw, _ = pad_columns(mesh, [flags, div], g)
-    p = torch.zeros_like(div)
+    p = torch.zeros_like(div) if p0 is None else p0
     done = 0
     while done < iters:
         k = min(sweeps, iters - done)
-        p0 = None if done == 0 else pad_columns(mesh, [p], g)[0][0]
+        start = (None if done == 0 and p0 is None
+                 else pad_columns(mesh, [p], g)[0][0])
         mesh.solver_calls += 1
-        p = crop(solve(flags_p, div_p, k, p0=p0), lw, wl)
+        p = crop(solve(flags_p, div_p, k, p0=start, damping=damping), lw, wl)
         done += k
     return p
 
@@ -168,10 +178,13 @@ def solve_jacobi_sharded(flags, div, iters: int, mesh):
     return _solve_sharded(solve_jacobi, flags, div, iters, mesh, SWEEPS)
 
 
-def solve_jacobi3_sharded(flags, div, iters: int, mesh):
+def solve_jacobi3_sharded(flags, div, iters: int, mesh, p0=None,
+                          damping: float = 1.0):
     """The 3-D twin: ``flags`` and ``div`` (b, d, h, w) this rank's slabs
-    along w; ``SWEEPS3`` sweeps of kernel I between two exchanges of p."""
-    return _solve_sharded(solve_jacobi3, flags, div, iters, mesh, SWEEPS3)
+    along w; ``SWEEPS3`` sweeps of kernel I between two exchanges of p,
+    from ``p0`` (default 0) with ``damping`` (``solve_mg3``'s smoother)."""
+    return _solve_sharded(solve_jacobi3, flags, div, iters, mesh, SWEEPS3,
+                          p0, damping)
 
 
 def _global_residual(mesh, p_new, p_old, lw, wl):

@@ -23,8 +23,9 @@ port's single-device step on the whole state and to the JAX package's:
   Rayleigh-Taylor config made periodic in x (the first interior column
   reads the last rank's last column) and the 3-D plume with vorticity
   confinement (8-column slabs, two hops);
-* the refusals: multigrid and convnet under sx > 1 (ROADMAP A.8.1), the
-  gather engine; and the multigrid step under dp = 4 alone, equal to the
+* what the step refused under sx > 1 before ROADMAP A.8.1 (multigrid,
+  the learned projection, the gather engine) against the single-device
+  step; and the multigrid step under dp = 4 alone, equal to the
   single-device step of the whole batch to the bit.
 
 Tolerances. Against JAX 1e-5, as ``tests/test_parallel.py``. Against the
@@ -143,12 +144,21 @@ def test_sharded_step_matches_jax(run, name):
     assert float(jnp.abs(want.U).max()) > 0.5
 
 
-def test_sharded_step_refuses_what_it_does_not_run(run):
+@pytest.mark.parametrize("name", ["multigrid", "convnet", "gather"])
+def test_sharded_step_refuses_what_it_does_not_run(run, name):
+    """What the step refused under sx > 1 before ROADMAP A.8.1 (multigrid,
+    the learned projection, the gather engine) now runs: the plume case
+    at dp = 2 x sx = 2, within 1e-5 of the single-device step's largest
+    value."""
+    _, _, _, cfg, state = CASES["plume"]
+    kw, project = ranks.former_refusals()[name]
+    with torch.no_grad():
+        want = simulate_step(dataclasses.replace(cfg, **kw), state, project)
     for out in run:
-        for method in ("multigrid", "convnet"):
-            msg = str(out[f"refuse_{method}"])
-            assert "A.8.1" in msg and method in msg
-        assert "window engine" in str(out["refuse_gather"])
+        for field in ("U", "p"):
+            w = getattr(want, field).numpy()
+            _close(out[f"former_{name}_{field}"], w,
+                   TOL * max(float(np.abs(w).max()), 1.0))
 
 
 def test_dp_only_multigrid_step_is_the_single_device_step(run):

@@ -179,6 +179,23 @@ def step_cases():
     }
 
 
+def former_refusals():
+    """name -> (config changes, project_fn) of the cases the sharded step
+    refused before ROADMAP A.8.1, on the plume case."""
+    from fluidnet_cxx_tpu_torch.config import ModelConfig
+    from fluidnet_cxx_tpu_torch.models.convert import (flax_to_state_dict,
+                                                       random_flax_params)
+    from fluidnet_cxx_tpu_torch.models.fluidnet import (make_net,
+                                                        make_project_fn)
+
+    net = make_net(ModelConfig())
+    net.load_state_dict(flax_to_state_dict(random_flax_params(net.table, 1)))
+    return {"multigrid": (dict(sim_method="multigrid"), None),
+            "convnet": (dict(sim_method="convnet"),
+                        make_project_fn(ModelConfig(), net.eval())),
+            "gather": (dict(advection_impl="gather"), None)}
+
+
 def step_ranks(d):
     """Every case of ``step_cases`` on its mesh; the refusals."""
     torch.set_num_threads(1)
@@ -199,13 +216,13 @@ def step_ranks(d):
         state = step_cases()["plume"][4]
         mesh = meshes[(2, 2)]
         s = state_sharding(mesh, state)
-        for method in ("multigrid", "convnet"):
-            out[f"refuse_{method}"] = np.array(_raises(
-                NotImplementedError, lambda: simulate_step_sharded(
-                    dataclasses.replace(cfg, sim_method=method), s, mesh)))
-        out["refuse_gather"] = np.array(_raises(
-            NotImplementedError, lambda: simulate_step_sharded(
-                dataclasses.replace(cfg, advection_impl="gather"), s, mesh)))
+        # What the step refused before ROADMAP A.8.1: multigrid, convnet
+        # (the tower's projection) and the gather engine under sx > 1.
+        for name, (kw, project) in former_refusals().items():
+            got = simulate_step_sharded(dataclasses.replace(cfg, **kw), s,
+                                        mesh, project)
+            out[f"former_{name}_U"] = gather_state(mesh, got.U)
+            out[f"former_{name}_p"] = gather_state(mesh, got.p)
         # Under dp alone the multigrid step runs: each rank its batch.
         dp_mesh = meshes[(4, 1)]
         mg = dataclasses.replace(cfg, sim_method="multigrid")
